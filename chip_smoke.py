@@ -9,14 +9,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power
    limit line.
-2. build: compiles every hand-written kernel from ``mxnet_tpu_torch/csrc``
-   with ``nvcc`` into ``build/`` and prints the seconds and ``ptxas -v``.
+2. build: compiles every hand-written kernel library from
+   ``mxnet_tpu_torch/csrc`` with ``nvcc`` into ``build/`` (one ``nvcc`` per
+   source, all started together) and prints the seconds and ``ptxas -v``.
 3. kernel: holds each kernel against its plain PyTorch version on the card
    at the main path's shapes (and ragged, cross-attention, causal and
    low-precision cases), then times kernel, plain version and the PyTorch
    library call that computes the same function (a yardstick only; the port
    never calls it) with CUDA events, beside the least time the card could
-   take for the work.
+   take for the work. The flash-attention forward (K1) and backward (dQ K2,
+   dK/dV K3); the fused SGD/Adam updates (K4, K5) on a small ragged list
+   here, on BERT-base's parameters in phase 7.
 4. serve: BERT-base at T=1024 (full published width, 12 layers, random
    weights from a seed loaded through ``convert.load_jax_params``) on
    ``gpu(0)`` in f32 with TF32 off answers requests of batch 1, 2, 4 and 8;
@@ -25,6 +28,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    batch-8 request runs under ``torch.profiler`` for the device time by
    kernel and the device's busy share. The batch-1 request is then answered
    on the CPU by the plain versions and the logits compared.
+5. train: BERT-base at T=1024, batch 8, f32 with TF32 off, trained through
+   Gluon (``autograd.record()``, ``SoftmaxCrossEntropyLoss`` over the MLM
+   logits of every token, ``loss.backward()``, ``Trainer("adam", lr
+   1e-4).step(8)``) on one batch for a warm-up and 4 timed steps; each step
+   must launch K1, K2 and K3 once per layer (counters set to 0 just before
+   the steps) and give a finite loss. Step time, tokens/s, loss, peak device
+   memory, and one more step under ``torch.profiler``.
+6. train check: one step of a 2-layer model of BERT-base width at T=1024,
+   batch 1, same weights, on ``gpu(0)`` and on the CPU (plain versions):
+   loss, every gradient and every weight after the Adam step compared.
+7. fused update: ``fused_adam_apply`` and ``fused_sgd_apply`` on the
+   trained BERT-base's 157 weights and last gradients with fresh zero
+   states, t=1 then t=2 (counters set to 0 just before: one launch per
+   call), against their plain versions; timed beside ``torch.optim``'s
+   fused Adam and SGD and the bound.
 
 It prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the rest of the repository beside it, it
@@ -56,6 +74,27 @@ TOL_LSE = 1e-4
 # GPU against CPU logits, both f32 with TF32 off: only summation order
 # differs, through 12 layers; logits are O(1).
 TOL_LOGITS = 1e-3
+# Backward kernels against their plain version, relative to the largest
+# |gradient| of the tensor: both accumulate in f32 and differ in the order
+# of summation over up to 1024 keys (f32); in bf16/f16 dS and P are rounded
+# to the input dtype before each product, where a 1-ulp difference in S flips
+# a rounding, and the results are rounded once more (bf16 ulp 2^-8).
+TOL_BWD = {"float32": 1e-4, "bfloat16": 3e-2, "float16": 1e-2}
+# Fused updates against their plain version, relative to each tensor's
+# largest |value|: the same f32 formulas, apart from the compiler's fused
+# multiply-adds (a few ulps).
+TOL_FUSED = 1e-5
+# One training step, GPU against CPU, f32 with TF32 off on both, the same
+# weights and batch: only the order of summation differs (cuBLAS against
+# the CPU's GEMMs, the kernels against their plain versions), through 2
+# layers and a 30522-way decoder. Loss relative; each gradient relative to
+# its tensor's largest |g|. Weights after one Adam step: Adam's first step
+# moves each element by lr * g / (|g| + 3.2e-7), about lr, whatever the size
+# of g, so an element whose gradient lies within the gradient tolerance of 0
+# can step either way; those may differ by 2 lr, all others by f32 rounding.
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_GRAD = 1e-3
+TOL_TRAIN_W = 1e-6
 
 
 def log(msg):
@@ -74,18 +113,66 @@ def phase_device(torch):
 
 
 def phase_build():
+    """Every kernel library, one nvcc each, all started together."""
+    import threading
     from mxnet_tpu_torch.ops import cuda as cuda_ops
     from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from mxnet_tpu_torch.ops.cuda import fused_optimizer as fo
+    loaders = {"flash_attention_fwd": fa._library,
+               "flash_attention_bwd": fa._bwd_library,
+               "fused_optimizer": fo._library}
+    errors = []
+
+    def load(fn):
+        try:
+            fn()
+        except BaseException as e:  # re-raised below, in the main thread
+            errors.append(e)
     t0 = time.perf_counter()
-    fa._library()
+    threads = [threading.Thread(target=load, args=(fn,)) for fn in loaders.values()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     seconds = time.perf_counter() - t0
-    info = cuda_ops.build_info.get("flash_attention_fwd", {})
-    log(f"[build] flash_attention_fwd: {seconds:.2f} s "
-        f"(nvcc {info.get('seconds', float('nan')):.2f} s)")
-    for line in info.get("ptxas", "").splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"  ptxas {line.strip()}")
-    return {"flash_attention_fwd": seconds}
+    if errors:
+        raise errors[0]
+    log(f"[build] {len(loaders)} libraries in {seconds:.2f} s (wall, in parallel)")
+    out = {"wall_s": seconds}
+    for name in loaders:
+        info = cuda_ops.build_info.get(name, {})
+        out[name] = info.get("seconds")
+        log(f"[build] {name}: nvcc {info.get('seconds', float('nan')):.2f} s")
+        kernel = None
+        for line in info.get("ptxas", "").splitlines():
+            if "Compiling entry function" in line:
+                kernel = _short_kernel_name(line)
+            elif "Used" in line or "spill" in line:
+                log(f"  ptxas {kernel}: {line.strip().replace('ptxas info    : ', '')}")
+    return out
+
+
+def _short_kernel_name(line):
+    """'flash_bwd_dq_kernel<f32, 64>' out of a ptxas 'Compiling entry' line."""
+    import re
+    mangled = line.split("'")[1] if "'" in line else line
+    m = re.search(r"\d+(flash_\w+?_kernel|multi_tensor_update)I", mangled)
+    if not m:
+        return mangled[-60:]
+    rest, args = mangled[m.end():], []
+    tokens = [(r"13__nv_bfloat16", "bf16"), (r"6__half", "f16"), (r"f", "f32"),
+              (r"S\d*_", None), (r"Lb1E", "adam"), (r"Lb0E", "sgd"),
+              (r"Li(\d+)E", "")]
+    while rest and not rest.startswith("E"):
+        for pat, name in tokens:
+            t = re.match(pat, rest)
+            if t:
+                args.append(args[-1] if name is None else (name or t.group(1)))
+                rest = rest[t.end():]
+                break
+        else:
+            break
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def _time_ms(torch, fn, iters):
@@ -172,6 +259,159 @@ def phase_kernel(torch):
     return {"cases": results, "max_abs_err_f32": worst, "timings": timings}
 
 
+def _bwd_bound_ms(kind, BH, T, Tk, D, dtype_name, elem):
+    """Least time for one backward kernel: its operations (dq: S, dP, dQ;
+    dkv: S, dP, dV, dK, 2*BH*T*Tk*D each) or its bytes (q, k, v, dO, LSE and
+    delta read once, its outputs written once), whichever is larger."""
+    products = 3 if kind == "dq" else 4
+    flops = 2.0 * products * BH * T * Tk * D
+    reads = elem * (2 * BH * T * D + 2 * BH * Tk * D) + 8 * BH * T
+    writes = elem * (BH * T * D if kind == "dq" else 2 * BH * Tk * D)
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = (reads + writes) / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernel_bwd(torch):
+    """K2 and K3 against the plain backward, then timed."""
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16}
+    cases = [("bert-base", 8, 12, 1024, 1024, 64, "float32", False),
+             ("bert-base", 8, 12, 1024, 1024, 64, "float32", True),
+             ("bert-base", 8, 12, 1024, 1024, 64, "bfloat16", False),
+             ("bert-base", 8, 12, 1024, 1024, 64, "bfloat16", True),
+             ("ragged", 2, 4, 1000, 1000, 64, "float32", False),
+             ("ragged", 2, 4, 1000, 1000, 64, "float32", True),
+             ("cross", 2, 2, 96, 224, 32, "float32", False),
+             ("head128", 1, 4, 300, 300, 128, "float16", True)]
+    results, worst = [], {"dq": 0.0, "dkv": 0.0}
+    with torch.no_grad():
+        for label, B, H, T, Tk, D, dname, causal in cases:
+            q, k, v = _attention_inputs(torch, gen, B * H, T, Tk, D, dtypes[dname])
+            do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+            o, lse = fa.flash_attention_fwd(q, k, v, causal)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            torch.cuda.synchronize()
+            expect = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+            errs = {}
+            for name, g, e in zip(("dq", "dk", "dv"), got, expect):
+                rel = ((g.float() - e.float()).abs().max()
+                       / e.float().abs().max().clamp_min(1e-30)).item()
+                errs[name] = {"max_abs": (g.float() - e.float()).abs().max().item(),
+                              "rel": rel}
+            ok = all(e["rel"] <= TOL_BWD[dname] for e in errs.values())
+            log(f"[kernel] flash_attention_bwd {label} B={B} H={H} T={T} Tk={Tk} "
+                f"D={D} {dname} causal={causal}: "
+                + " ".join(f"max|d{n[1:]}|={e['max_abs']:.3e} ({e['rel']:.1e} of max)"
+                           for n, e in errs.items())
+                + f" (tol {TOL_BWD[dname]:.0e} of max) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_attention_bwd disagrees with its plain "
+                                     f"version ({label}, {dname}, causal={causal})")
+            if dname == "float32":
+                worst["dq"] = max(worst["dq"], errs["dq"]["max_abs"])
+                worst["dkv"] = max(worst["dkv"], errs["dk"]["max_abs"],
+                                   errs["dv"]["max_abs"])
+            results.append({"case": label, "B": B, "H": H, "T": T, "Tk": Tk, "D": D,
+                            "dtype": dname, "causal": causal, "errors": errs})
+
+    timings = {}
+    for dname in ("float32", "bfloat16"):
+        B, H, T, D = 8, 12, 1024, 64
+        BH = B * H
+        q, k, v = _attention_inputs(torch, gen, BH, T, T, D, dtypes[dname])
+        do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+        with torch.no_grad():
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            delta = (do.float() * o.float()).sum(-1)
+            dq_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta), 20)
+            dkv_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta), 20)
+            plain_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do), 5)
+        q4, k4, v4 = (t.view(B, H, T, D).clone().requires_grad_() for t in (q, k, v))
+        do4 = do.view(B, H, T, D)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(q4, k4, v4)
+            torch.autograd.grad(out, (q4, k4, v4), do4)
+        with torch.no_grad():
+            sdpa_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4), 20)
+        sdpa_both = _time_ms(torch, sdpa_fwd_bwd, 20)
+        entry = {"plain_ms": plain_ms,
+                 "library_ms": sdpa_both - sdpa_fwd,
+                 "library_fwd_bwd_ms": sdpa_both, "library_fwd_ms": sdpa_fwd}
+        for kind, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+            bound, by = _bwd_bound_ms(kind, BH, T, T, D, dname, q.element_size())
+            entry[kind] = {"ms": ms, "bound_ms": bound, "bound_by": by}
+        timings[dname] = entry
+        log(f"[kernel] flash_attention_bwd B={B} H={H} T={T} D={D} {dname}: "
+            f"dQ kernel {dq_ms:.4f} ms (bound {entry['dq']['bound_ms']:.4f}, "
+            f"{entry['dq']['bound_by']}), dK/dV kernel {dkv_ms:.4f} ms (bound "
+            f"{entry['dkv']['bound_ms']:.4f}, {entry['dkv']['bound_by']}), plain "
+            f"(both) {plain_ms:.4f} ms, SDPA backward {sdpa_both - sdpa_fwd:.4f} ms "
+            f"(forward+backward through torch.autograd.grad {sdpa_both:.4f} less "
+            f"forward {sdpa_fwd:.4f})")
+    return {"cases": results, "max_abs_err_f32": worst, "timings": timings}
+
+
+def _ragged_list(torch, gen, dtype, shapes):
+    dev = torch.device("cuda", 0)
+    return [torch.randn(s, generator=gen, device=dev).to(dtype) for s in shapes]
+
+
+def _fused_errors(torch, got, expect):
+    """Largest |kernel - plain| relative to each tensor's largest |plain|."""
+    worst_rel, worst_abs = 0.0, 0.0
+    for a, b in zip(sum(map(list, got), []), sum(map(list, expect), [])):
+        if b.numel() == 0:
+            continue
+        d = (a.float() - b.float()).abs().max().item()
+        worst_abs = max(worst_abs, d)
+        worst_rel = max(worst_rel, d / max(b.float().abs().max().item(), 1e-30))
+    return worst_rel, worst_abs
+
+
+def phase_kernel_fused_ragged(torch):
+    """K4 and K5 against their plain versions on a small ragged list: odd
+    sizes, a chunk boundary, an empty and a misaligned tensor, three dtypes."""
+    from mxnet_tpu_torch.ops.cuda import fused_optimizer as fo
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = [(1000, 77), (3,), (16384,), (16385,), (0,), (5, 1)]
+    out = []
+    for wname, sname in (("float32", "float32"), ("bfloat16", "float32"),
+                         ("float16", "float16")):
+        wd_t, sd_t = getattr(torch, wname), getattr(torch, sname)
+        w = _ragged_list(torch, gen, wd_t, shapes)
+        w.append(torch.randn(1001, generator=gen, device="cuda").to(wd_t)[1:])
+        g = _ragged_list(torch, gen, wd_t, shapes + [(1000,)])
+        m = [0.1 * t for t in _ragged_list(torch, gen, sd_t, shapes + [(1000,)])]
+        v = [0.01 * t.abs() for t in _ragged_list(torch, gen, sd_t, shapes + [(1000,)])]
+        tol = TOL_FUSED if wname == "float32" else 1e-2
+        for name, fn, plain, args, kw in (
+                ("fused_adam", fo.fused_adam_apply, fo.fused_adam_apply_plain,
+                 (w, g, m, v), {"lr": 1e-2, "wd": 0.01, "t": 3}),
+                ("fused_sgd", fo.fused_sgd_apply, fo.fused_sgd_apply_plain,
+                 (w, g, m), {"lr": 1e-2, "momentum": 0.9, "wd": 0.01})):
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rel, _ = _fused_errors(torch, got, plain(*args, **kw))
+            ok = rel <= tol
+            log(f"[kernel] {name} ragged list of {len(w)} ({wname} weights, "
+                f"{sname} states): max|d| {rel:.2e} of max (tol {tol:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version")
+            out.append({"kernel": name, "weights": wname, "states": sname,
+                        "rel_err": rel})
+    return out
+
+
 def phase_serve(torch):
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.convert import load_jax_params, seeded_params
@@ -225,8 +465,8 @@ def phase_serve(torch):
     launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches}
     peak = torch.cuda.max_memory_allocated()
     log(f"[serve] launches {launches}; peak device memory {peak / 2**30:.3f} GiB")
-    profile = _profile_request(torch, net, mx.nd.array(requests[-1], ctx=mx.gpu(0),
-                                                       dtype="int32"))
+    last = mx.nd.array(requests[-1], ctx=mx.gpu(0), dtype="int32")
+    profile = _profile(torch, "batch=8 request", lambda: net(last))
 
     t0 = time.perf_counter()
     net_cpu = bert_base(max_length=T)
@@ -247,18 +487,24 @@ def _kernel_group(name):
     low = name.lower()
     if "flash_fwd_kernel" in low:
         return "flash_attention_fwd"
+    if "flash_bwd_dq_kernel" in low:
+        return "flash_attention_bwd_dq"
+    if "flash_bwd_dkv_kernel" in low:
+        return "flash_attention_bwd_dkv"
+    if "multi_tensor_update" in low:
+        return "fused_optimizer"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas")):
         return "matmul (cuBLAS)"
     return "other (elementwise, norms, copies)"
 
 
-def _profile_request(torch, net, tokens):
-    """One more batch-8 request under torch.profiler: device time by kernel
-    and the device's busy share of the request's wall time."""
+def _profile(torch, label, fn):
+    """``fn()`` once under torch.profiler: device time by kernel group and
+    the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        net(tokens)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [(e.key, e.self_device_time_total, e.count)
@@ -269,18 +515,247 @@ def _profile_request(torch, net, tokens):
         log("[profile] no device events recorded: device time not measured")
         return {"wall_us": wall_us, "device_us": None}
     device_us = sum(k[1] for k in kernels)
-    groups = {}
-    for name, us, _ in kernels:
-        groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + us
-    log(f"[profile] batch=8 request: wall {wall_us / 1e3:.2f} ms, device busy "
+    groups, counts = {}, {}
+    for name, us, n in kernels:
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + us
+        counts[g] = counts.get(g, 0) + n
+    log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{device_us / 1e3:.2f} ms ({100 * device_us / wall_us:.1f}%)")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"[profile]   {g}: {us / 1e3:.2f} ms ({100 * us / device_us:.1f}% of device time)")
+        log(f"[profile]   {g}: {us / 1e3:.2f} ms in {counts[g]} launches "
+            f"({100 * us / device_us:.1f}% of device time)")
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     for name, us, n in top:
         log(f"[profile]   {us / 1e3:8.3f} ms x{n:<4d} {name[:90]}")
     return {"wall_us": wall_us, "device_us": device_us, "groups_us": groups,
+            "group_launches": counts,
             "top": [{"kernel": k, "us": us, "count": n} for k, us, n in top]}
+
+
+def _bert_trainer(mx, net, lr):
+    return (mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+            mx.gluon.Trainer(net.collect_params(), "adam", {"learning_rate": lr}))
+
+
+def _train_step(mx, net, loss_fn, trainer, x, y):
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def phase_train(torch):
+    """BERT-base training at T=1024, batch 8, through Gluon on gpu(0)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_jax_params, seeded_params
+    from mxnet_tpu_torch.models import bert_base
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, T, n_layers, V = 8, 1024, 12, 30522
+    t0 = time.perf_counter()
+    net = bert_base(max_length=T)
+    params = seeded_params(net, seed=0)
+    net.initialize(ctx=mx.gpu(0))
+    load_jax_params(net, params)
+    loss_fn, trainer = _bert_trainer(mx, net, 1e-4)
+    rs = np.random.RandomState(2)
+    x = mx.nd.array(rs.randint(0, V, size=(B, T)).astype(np.int32), ctx=mx.gpu(0),
+                    dtype="int32")
+    y = mx.nd.array(rs.randint(0, V, size=(B, T)).astype(np.int32), ctx=mx.gpu(0),
+                    dtype="int32")
+    torch.cuda.synchronize()
+    log(f"[train] bert_base(max_length={T}) f32, TF32 off "
+        f"(matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}), "
+        f"{sum(p.size for p in params.values())} parameters in {len(params)} "
+        f"tensors, Trainer adam lr 1e-4, batch {B}x{T}; ready in "
+        f"{time.perf_counter() - t0:.2f} s")
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    for c in counters:           # every kernel's count, just before the path
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(5):           # step 0 is the warm-up
+        before = [c.launches for c in counters]
+        t_start = time.perf_counter()
+        loss = _train_step(mx, net, loss_fn, trainer, x, y)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_start) * 1e3
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        value = float(loss.mean().asscalar())
+        log(f"[train] step {i}: {ms:.2f} ms, {B * T / ms * 1e3:.0f} tokens/s, "
+            f"loss {value:.6f}, launches fwd/dQ/dKV {launched}"
+            + (" (warm-up)" if i == 0 else ""))
+        if launched != [n_layers] * 3:
+            raise AssertionError(f"expected {n_layers} launches of each flash "
+                                 f"kernel per step, got {launched}")
+        if not np.isfinite(value):
+            raise AssertionError("training loss is not finite")
+        steps.append({"ms": ms, "tokens_per_s": B * T / ms * 1e3, "loss": value,
+                      "warmup": i == 0})
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train] launches {launches}; peak device memory {peak / 2**30:.3f} GiB; "
+        f"loss {steps[0]['loss']:.6f} -> {steps[-1]['loss']:.6f}")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError("the loss did not fall on a repeated batch")
+    profile = _profile(torch, "training step, batch 8",
+                       lambda: _train_step(mx, net, loss_fn, trainer, x, y))
+    weights = [p.data()._data for p in net.collect_params().values()]
+    grads = [p.grad()._data for p in net.collect_params().values()]
+    return {"steps": steps, "launches": launches, "peak_bytes": peak,
+            "profile": profile}, weights, grads
+
+
+def _tiny_bert_step(mx, ctx, params, x, y):
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import BertModel
+    net = BertModel(num_layers=2, max_length=1024)
+    net.initialize(ctx=ctx)
+    load_jax_params(net, params)
+    loss_fn, trainer = _bert_trainer(mx, net, 1e-4)
+    xs, ys = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in (x, y))
+    with mx.autograd.record():
+        loss = loss_fn(net(xs), ys)
+    loss.backward()
+    grads = {k: p.grad().asnumpy() for k, p in net._collect_params_with_prefix().items()}
+    trainer.step(1)
+    weights = {k: p.data().asnumpy() for k, p in net._collect_params_with_prefix().items()}
+    return float(loss.asnumpy()[0]), grads, weights
+
+
+def phase_train_check(torch):
+    """One step of a 2-layer model of BERT-base width, GPU against CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import seeded_params
+    from mxnet_tpu_torch.models import BertModel
+    t0 = time.perf_counter()
+    params = seeded_params(BertModel(num_layers=2, max_length=1024), seed=5)
+    rs = np.random.RandomState(6)
+    x = rs.randint(0, 30522, size=(1, 1024)).astype(np.int32)
+    y = rs.randint(0, 30522, size=(1, 1024)).astype(np.int32)
+    gpu = _tiny_bert_step(mx, mx.gpu(0), params, x, y)
+    cpu = _tiny_bert_step(mx, mx.cpu(), params, x, y)
+    loss_rel = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+    grad_rel = max(float(np.abs(gpu[1][k] - g).max()) / max(float(np.abs(g).max()), 1e-30)
+                   for k, g in cpu[1].items())
+    w_strict, loose, n_loose = 0.0, 0.0, 0
+    for k, w in cpu[2].items():
+        g = cpu[1][k]
+        d = np.abs(gpu[2][k] - w)
+        near0 = np.abs(g) <= TOL_TRAIN_GRAD * max(np.abs(g).max(), 1e-30)
+        w_strict = max(w_strict, float(d[~near0].max()) if (~near0).any() else 0.0)
+        if near0.any():
+            loose = max(loose, float(d[near0].max()))
+            n_loose += int((near0 & (g != 0)).sum())   # exact zeros do not move
+    ok = (loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_TRAIN_GRAD
+          and w_strict <= TOL_TRAIN_W and loose <= 2.0 * 1e-4 * 1.001)
+    log(f"[train-check] 2 layers of BERT-base width, T=1024, batch 1, one Adam "
+        f"step, GPU vs CPU: loss {gpu[0]:.6f} vs {cpu[0]:.6f} (rel {loss_rel:.2e}, "
+        f"tol {TOL_TRAIN_LOSS:.0e}); gradients max|d| {grad_rel:.2e} of the "
+        f"tensor's max (tol {TOL_TRAIN_GRAD:.0e}); weights max|d| {w_strict:.2e} "
+        f"(tol {TOL_TRAIN_W:.0e}), {n_loose} elements with a nonzero |g| within "
+        f"the gradient tolerance of 0 up to {loose:.2e} (tol 2 lr = 2e-4); "
+        f"{'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        raise AssertionError("GPU training step disagrees with the CPU run")
+    return {"loss_gpu": gpu[0], "loss_cpu": cpu[0], "loss_rel": loss_rel,
+            "grad_rel": grad_rel, "weight_max_abs": w_strict,
+            "near_zero_grad_elements": n_loose, "near_zero_weight_max_abs": loose}
+
+
+def phase_fused(torch, weights, grads):
+    """K4 and K5 on the trained BERT-base's weights and last gradients."""
+    from mxnet_tpu_torch.ops.cuda import fused_optimizer as fo
+    n = sum(w.numel() for w in weights)
+    log(f"[fused] BERT-base: {len(weights)} tensors, {n} f32 parameters")
+    w0 = [w.detach().clone() for w in weights]
+    g0 = [g.detach().clone() for g in grads]
+
+    def zeros():
+        return [torch.zeros_like(w) for w in w0]
+
+    adam_kw = {"lr": 1e-4, "wd": 0.01}
+    sgd_kw = {"lr": 1e-2, "momentum": 0.9, "wd": 0.01}
+    m0, v0, mom0 = zeros(), zeros(), zeros()
+
+    fo.fused_adam_apply.launches = 0      # every kernel's count, just before
+    fo.fused_sgd_apply.launches = 0
+    adam1 = fo.fused_adam_apply(w0, g0, m0, v0, t=1, **adam_kw)
+    adam2 = fo.fused_adam_apply(adam1[0], g0, adam1[1], adam1[2], t=2, **adam_kw)
+    sgd1 = fo.fused_sgd_apply(w0, g0, mom0, **sgd_kw)
+    sgd2 = fo.fused_sgd_apply(sgd1[0], g0, sgd1[1], **sgd_kw)
+    torch.cuda.synchronize()
+    launches = {"fused_adam": fo.fused_adam_apply.launches,
+                "fused_sgd": fo.fused_sgd_apply.launches}
+    log(f"[fused] launches {launches} for 2 calls each")
+    if launches != {"fused_adam": 2, "fused_sgd": 2}:
+        raise AssertionError("expected exactly one launch per fused call")
+
+    errs = {}
+    for name, got, expect in (
+            ("fused_adam", adam1, fo.fused_adam_apply_plain(w0, g0, m0, v0, t=1, **adam_kw)),
+            ("fused_adam", adam2, fo.fused_adam_apply_plain(
+                adam1[0], g0, adam1[1], adam1[2], t=2, **adam_kw)),
+            ("fused_sgd", sgd1, fo.fused_sgd_apply_plain(w0, g0, mom0, **sgd_kw)),
+            ("fused_sgd", sgd2, fo.fused_sgd_apply_plain(sgd1[0], g0, sgd1[1], **sgd_kw))):
+        rel, abs_ = _fused_errors(torch, got, expect)
+        prev = errs.get(name, (0.0, 0.0))
+        errs[name] = (max(prev[0], rel), max(prev[1], abs_))
+    for name, (rel, abs_) in errs.items():
+        ok = rel <= TOL_FUSED
+        log(f"[fused] {name} vs plain, t=1 and t=2: max|d| {abs_:.3e} "
+            f"({rel:.2e} of the tensor's max, tol {TOL_FUSED:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+
+    # the torch fused optimizers compute the same first step
+    pw = [torch.nn.Parameter(w.clone()) for w in w0]
+    for p, g in zip(pw, g0):
+        p.grad = g.clone()
+    lib_adam = torch.optim.Adam(pw, lr=adam_kw["lr"], weight_decay=adam_kw["wd"],
+                                fused=True)
+    lib_adam.step()
+    d_adam = max((p.detach() - w).abs().max().item() for p, w in zip(pw, adam1[0]))
+    ps = [torch.nn.Parameter(w.clone()) for w in w0]
+    for p, g in zip(ps, g0):
+        p.grad = g.clone()
+    lib_sgd = torch.optim.SGD(ps, lr=sgd_kw["lr"], momentum=sgd_kw["momentum"],
+                              weight_decay=sgd_kw["wd"], fused=True)
+    lib_sgd.step()
+    d_sgd = max((p.detach() - w).abs().max().item() for p, w in zip(ps, sgd1[0]))
+    log(f"[fused] first step against torch.optim (fused=True): Adam max|dw| "
+        f"{d_adam:.3e}, SGD max|dw| {d_sgd:.3e}")
+
+    # timing: in place (out= the inputs), so the pointer table is cached
+    wa, ma, va = [w.clone() for w in w0], zeros(), zeros()
+    ws, ms = [w.clone() for w in w0], zeros()
+    adam_ms = _time_ms(torch, lambda: fo.fused_adam_apply(
+        wa, g0, ma, va, t=2, out=(wa, ma, va), **adam_kw), 10)
+    sgd_ms = _time_ms(torch, lambda: fo.fused_sgd_apply(
+        ws, g0, ms, out=(ws, ms), **sgd_kw), 10)
+    adam_plain = _time_ms(torch, lambda: fo.fused_adam_apply_plain(
+        w0, g0, m0, v0, t=2, **adam_kw), 3)
+    sgd_plain = _time_ms(torch, lambda: fo.fused_sgd_apply_plain(w0, g0, mom0, **sgd_kw), 3)
+    adam_lib = _time_ms(torch, lib_adam.step, 10)
+    sgd_lib = _time_ms(torch, lib_sgd.step, 10)
+    out = {"parameters": n, "tensors": len(w0), "launches": launches,
+           "first_step_vs_torch": {"adam": d_adam, "sgd": d_sgd}}
+    for name, ms, plain, lib, per in (("fused_adam", adam_ms, adam_plain, adam_lib, 28),
+                                      ("fused_sgd", sgd_ms, sgd_plain, sgd_lib, 20)):
+        bound = per * n / PEAK_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                     "bound_by": "bytes", "max_abs_err": errs[name][1],
+                     "rel_err": errs[name][0]}
+        log(f"[fused] {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.optim "
+            f"fused {lib:.4f} ms, bound {bound:.4f} ms (bytes: {per} B x {n}), "
+            f"{per * n / ms / 1e9:.3f} TB/s")
+    return out
 
 
 def main() -> int:
@@ -298,23 +773,55 @@ def main() -> int:
     device = phase_device(torch)
     build = phase_build()
     kernel = phase_kernel(torch)
+    kernel_bwd = phase_kernel_bwd(torch)
+    kernel_fused = phase_kernel_fused_ragged(torch)
     serve = phase_serve(torch)
+    train, weights, grads = phase_train(torch)
+    train_check = phase_train_check(torch)
+    fused = phase_fused(torch, weights, grads)
+    del weights, grads
     f32 = kernel["timings"]["float32"]
-    line = {"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:86",
-        "launches": serve["launches"]["flash_attention_fwd"],
-        "max_abs_err": kernel["max_abs_err_f32"],
-        "max_err": kernel["max_abs_err_f32"],
-        "ms": f32["ms"], "kernel_ms": f32["ms"], "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-        "library_ms": f32["library_ms"]}]}
+    b32 = kernel_bwd["timings"]["float32"]
+    src = "mxnet_tpu_torch/csrc/"
+    ref = "mxnet_tpu/ops/pallas/"
+    fwd_by_path = {"serve": serve["launches"]["flash_attention_fwd"],
+                   "train": train["launches"]["flash_attention_fwd"]}
+    entries = [
+        ("flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:86",
+         sum(fwd_by_path.values()), kernel["max_abs_err_f32"], f32["ms"],
+         f32["plain_ms"], f32["bound_ms"], f32["bound_by"], f32["library_ms"],
+         {"launches_by_path": fwd_by_path}),
+        ("flash_attention_bwd_dq", "flash_attention_bwd.cu", "flash_attention.py:181",
+         train["launches"]["flash_attention_bwd_dq"], kernel_bwd["max_abs_err_f32"]["dq"],
+         b32["dq"]["ms"], b32["plain_ms"], b32["dq"]["bound_ms"], b32["dq"]["bound_by"],
+         b32["library_ms"], {"plain_and_library_cover": "dQ and dK/dV together"}),
+        ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", "flash_attention.py:229",
+         train["launches"]["flash_attention_bwd_dkv"], kernel_bwd["max_abs_err_f32"]["dkv"],
+         b32["dkv"]["ms"], b32["plain_ms"], b32["dkv"]["bound_ms"], b32["dkv"]["bound_by"],
+         b32["library_ms"], {"plain_and_library_cover": "dQ and dK/dV together"}),
+        ("fused_sgd", "fused_optimizer.cu", "fused_optimizer.py:66",
+         fused["launches"]["fused_sgd"], fused["fused_sgd"]["max_abs_err"],
+         fused["fused_sgd"]["ms"], fused["fused_sgd"]["plain_ms"],
+         fused["fused_sgd"]["bound_ms"], "bytes", fused["fused_sgd"]["library_ms"], {}),
+        ("fused_adam", "fused_optimizer.cu", "fused_optimizer.py:116",
+         fused["launches"]["fused_adam"], fused["fused_adam"]["max_abs_err"],
+         fused["fused_adam"]["ms"], fused["fused_adam"]["plain_ms"],
+         fused["fused_adam"]["bound_ms"], "bytes", fused["fused_adam"]["library_ms"], {}),
+    ]
+    line = {"kernels": [dict({
+        "name": name, "route": "cuda", "source": src + source,
+        "replaces": ref + replaces, "launches": launches, "max_abs_err": err,
+        "max_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
+        "bound_ms": bound, "bound_by": by, "library_ms": lib}, **extra)
+        for name, source, replaces, launches, err, ms, plain, bound, by, lib, extra
+        in entries]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": device, "build_s": build, "kernel": kernel,
-                   "serve": serve, "kernels": line["kernels"],
-                   "seconds": time.perf_counter() - t0}, f, indent=1)
+                   "kernel_bwd": kernel_bwd, "kernel_fused": kernel_fused,
+                   "serve": serve, "train": train, "train_check": train_check,
+                   "fused": fused, "kernels": line["kernels"],
+                   "seconds": time.perf_counter() - t0}, f, indent=1, default=float)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,9 +13,11 @@ aliases the TPU). The default context is ``gpu(0)``; with no CUDA device it
 raises ``MXNetError`` instead of running on the CPU, so host runs say
 ``ctx=mx.cpu()`` or ``with mx.cpu():``.
 
-Ported so far: BERT inference through Gluon (``models.bert_base(...)``,
-``net.initialize(ctx=mx.gpu())``, ``net(tokens)``), with the flash-attention
-forward as a CUDA kernel. ROADMAP.md lists what comes next.
+Ported so far: BERT inference and training through Gluon
+(``models.bert_base(...)``, ``net.initialize(ctx=mx.gpu())``, ``net(tokens)``;
+``autograd.record()``, ``loss.backward()``, ``gluon.Trainer(...).step(n)``),
+with the flash-attention forward and backward and the fused SGD/Adam
+updates as CUDA kernels. ROADMAP.md lists what comes next.
 
 Quick start::
 
@@ -26,6 +28,14 @@ Quick start::
     net = bert_base(max_length=1024)
     net.initialize(ctx=mx.gpu(0))
     logits = net(nd.array(token_ids, ctx=mx.gpu(0), dtype="int32"))
+
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-4})
+    with mx.autograd.record():
+        loss = loss_fn(net(tokens), labels)
+    loss.backward()
+    trainer.step(batch_size)
 """
 from . import base
 from .base import MXNetError
@@ -36,9 +46,10 @@ from . import ndarray as nd
 from . import autograd
 from . import random
 from . import initializer
+from . import optimizer
 from . import gluon
 from .ndarray import NDArray
 
 __all__ = ["base", "MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "ops", "ndarray", "nd", "autograd", "random",
-           "initializer", "gluon", "NDArray"]
+           "initializer", "optimizer", "gluon", "NDArray"]

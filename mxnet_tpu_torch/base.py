@@ -54,6 +54,8 @@ env = _EnvRegistry()
 env.declare("MXNET_DEFAULT_DTYPE", "float32", str, "Default dtype for new arrays")
 env.declare("MXNET_FLASH_ATTENTION_MIN_SEQ", 1024, int,
             "Sequence length from which BERT attention takes the flash kernel")
+env.declare("MXNET_SAFE_ACCUMULATION", True, bool,
+            "Accumulate reductions in float32 even for bf16/f16 inputs")
 
 
 _TORCH_DTYPES = {

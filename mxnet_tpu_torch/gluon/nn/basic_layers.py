@@ -93,7 +93,8 @@ class Dropout(HybridBlock):
 
 class Embedding(HybridBlock):
     """Ids must lie in [0, input_dim): see ``ops/nn.py`` on out-of-range ids.
-    ``sparse_grad`` is accepted; row-sparse gradients wait for training."""
+    ``sparse_grad`` is accepted; the gradient is dense (row-sparse storage
+    is not ported)."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, prefix=None, params=None):

@@ -9,12 +9,20 @@ so ``state_dict()`` keys equal the reference's structural paths
 identity for the life of the ``Parameter``: ``set_data`` copies into it and
 ``cast`` swaps its ``.data``, as ``torch.nn.Module.to`` does.
 
-``requires_grad`` follows ``grad_req``; gradients, ``zero_grad`` and the
-tape come with the training slice. Deferred initialization (a shape with a
-0 dim resolved at the first forward) is not ported yet: initializing a
-parameter whose shape is incomplete raises ``MXNetError``. Every BERT layer
-gives its input width, so the slice needs none. ``ParameterDict.save/load``
-and ``Constant`` wait for later slices.
+Gradients (reference :104-179): a parameter whose ``grad_req`` is not
+``"null"`` gets its gradient buffer when it is initialized (or first given
+data), a tensor of its shape and dtype on its device, and its
+``nn.Parameter`` becomes an autograd variable with that buffer
+(``autograd.mark_variables``): ``autograd.backward`` writes or adds into
+it, never into torch's ``.grad``. ``grad()`` and ``list_grad()`` return it,
+``zero_grad()`` zeroes it, and setting ``grad_req`` allocates or drops it.
+Optimizer updates write into the ``nn.Parameter`` in place.
+
+Deferred initialization (a shape with a 0 dim resolved at the first
+forward) is not ported yet: initializing a parameter whose shape is
+incomplete raises ``MXNetError``. Every BERT layer gives its input width,
+so the slice needs none. ``ParameterDict.save/load`` and ``Constant`` wait
+for later slices.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError, torch_dtype
-from ..context import current_context
+from ..context import Context, current_context
 from ..ndarray import NDArray
 from .. import initializer as init_mod
 from ..initializer import InitDesc
@@ -52,12 +60,21 @@ class Parameter:
         self.grad_stype = grad_stype
         self.attrs: Dict[str, str] = {}
         self._param: Optional[torch.nn.Parameter] = None
+        self._grad: Optional[torch.Tensor] = None
         # (block, attribute name) pairs whose _parameters entry is this value
         self._owners: List[tuple] = []
 
     @property
     def grad_req(self):
         return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise MXNetError(f"invalid grad_req {req}")
+        self._grad_req = req
+        if self._param is not None:
+            self._init_grad()
 
     def _shape_complete(self):
         return self.shape is not None and all(s > 0 for s in self.shape)
@@ -75,6 +92,18 @@ class Parameter:
             block = ref()
             if block is not None:
                 block._parameters[name] = self._param
+        self._init_grad()
+
+    def _init_grad(self):
+        """Allocate (or drop, for ``"null"``) the gradient buffer and make the
+        ``nn.Parameter`` a variable with it (reference :118-127)."""
+        from .. import autograd
+        if self._grad_req == "null":
+            self._grad = None
+        elif self._grad is None or self._grad.shape != self._param.shape \
+                or self._grad.dtype != self._param.dtype:
+            self._grad = torch.zeros_like(self._param, requires_grad=False)
+        autograd._mark(self._param, self._grad, self._grad_req)
 
     # -- init ----------------------------------------------------------------
     def initialize(self, init=None, ctx=None, default_init=None,
@@ -116,6 +145,23 @@ class Parameter:
         self._check_initialized()
         return NDArray(self._param)
 
+    def grad(self, ctx=None) -> NDArray:
+        self._check_initialized()
+        if self._grad is None:
+            raise MXNetError(f"parameter '{self.name}' has grad_req='null'")
+        return NDArray(self._grad)
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def list_ctx(self):
+        self._check_initialized()
+        return [Context.from_device(self._param.device)]
+
+    def zero_grad(self):
+        if self._grad is not None:
+            self._grad.zero_()
+
     def set_data(self, data):
         """Copy ``data`` (NDArray, torch.Tensor or numpy array) in, cast to
         this parameter's dtype and moved to its device."""
@@ -139,6 +185,7 @@ class Parameter:
         self.dtype = dtype
         if self._param is not None:
             self._param.data = self._param.data.to(torch_dtype(dtype))
+            self._init_grad()
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self.shape}, dtype={self.dtype})"
@@ -196,6 +243,10 @@ class ParameterDict:
             p.initialize(init=None, ctx=ctx,
                          default_init=init or init_mod.Uniform(),
                          force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for p in self._params.values():
+            p.zero_grad()
 
     def __repr__(self):
         lines = [f"  {p}" for p in self._params.values()]

@@ -5,13 +5,18 @@ holds an immutable ``jax.Array`` in ``_data`` (:78-103); here ``_data`` is
 a ``torch.Tensor`` on the NDArray's context. Every operator call goes through
 ``invoke`` (:495): tensors in, the registered torch function, NDArrays out.
 
-``invoke`` runs its op under ``torch.no_grad()``: this slice serves
-inference, and the autograd tape (``record``/``backward``) comes with the
-training slice. ``dtype`` is a ``torch.dtype``; ``asnumpy()`` returns a
-float32 array for bfloat16 data, which numpy cannot hold.
+Autograd: while ``autograd.is_recording()``, ``invoke`` runs a
+differentiable op with grad enabled, so torch records it; otherwise, and
+always for an op registered ``differentiable=False``, under
+``torch.no_grad()``. ``attach_grad`` (:228) makes the array a variable with
+its own gradient buffer, read back by ``.grad`` (:141); ``backward``
+(:234) fills the buffers of the variables the array reaches
+(``autograd.backward``), and ``detach`` cuts the array from the graph.
+``dtype`` is a ``torch.dtype``; ``asnumpy()`` returns a float32 array for
+bfloat16 data, which numpy cannot hold.
 
 Left for later slices: indexing, in-place operators and ``__setitem__``,
-sparse storage, the reductions and the rest of the op-backed methods,
+sparse storage, the rest of the op-backed methods,
 ``ones``/``full``/``empty`` and the other creation functions, dlpack.
 """
 from __future__ import annotations
@@ -126,6 +131,19 @@ class NDArray:
         return invoke("Reshape", [self], {"shape": shape,
                                           "reverse": kwargs.get("reverse", False)})
 
+    def sum(self, axis=None, keepdims=False, exclude=False):
+        return invoke("sum", [self], {"axis": axis, "keepdims": keepdims,
+                                      "exclude": exclude})
+
+    def mean(self, axis=None, keepdims=False, exclude=False):
+        return invoke("mean", [self], {"axis": axis, "keepdims": keepdims,
+                                       "exclude": exclude})
+
+    def asscalar(self):
+        if self.size != 1:
+            raise MXNetError("The current array is not a scalar")
+        return self.asnumpy().reshape(()).item()
+
     def expand_dims(self, axis):
         return invoke("expand_dims", [self], {"axis": axis})
 
@@ -134,6 +152,24 @@ class NDArray:
             axes = tuple(axes[0])
         return invoke("transpose", [self], {"axes": axes or None})
 
+    # -- autograd ------------------------------------------------------------
+    @property
+    def grad(self) -> Optional["NDArray"]:
+        g = getattr(self._data, "_mx_grad", None)
+        return NDArray(g, self._ctx) if g is not None else None
+
+    def attach_grad(self, grad_req: str = "write", stype=None):
+        from .. import autograd
+        autograd.mark_variables([self], grad_reqs=grad_req)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        from .. import autograd
+        autograd.backward([self], [out_grad] if out_grad is not None else None,
+                          retain_graph=retain_graph, train_mode=train_mode)
+
+    def detach(self) -> "NDArray":
+        return NDArray(self._data.detach(), self._ctx)
+
 
 # ---------------------------------------------------------------------------
 # Eager dispatch
@@ -141,13 +177,23 @@ class NDArray:
 
 def invoke(op: Union[str, Op], inputs: Sequence[NDArray], params: Dict[str, Any]):
     """The imperative path (reference MXImperativeInvokeEx -> here a call of
-    the registered torch function, under no_grad in this inference slice)."""
+    the registered torch function, recorded by torch while autograd records)."""
+    from .. import autograd
     if isinstance(op, str):
         op = get_op(op)
     if None in params.values():
         params = {k: v for k, v in params.items() if v is not None}
-    with torch.no_grad():
-        outs = op(*[x._data for x in inputs], **params)
+    raw = [x._data for x in inputs]
+    with torch.set_grad_enabled(op.differentiable and autograd.is_recording()):
+        outs = op(*raw, **params)
+    if op.state_inputs:
+        with torch.no_grad():
+            for i, o in op.state_inputs:
+                raw[i].copy_(outs[o])
+        dropped = {o for _, o in op.state_inputs}
+        outs = tuple(t for j, t in enumerate(outs) if j not in dropped)
+        if len(outs) == 1:
+            outs = outs[0]
     ctx = inputs[0]._ctx if inputs else None
     if isinstance(outs, tuple):
         return [NDArray(o, ctx) for o in outs]
@@ -174,13 +220,15 @@ def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
     ctx = ctx or current_context()
     if isinstance(source, NDArray):
         source = source._data
+    # always a copy, as in the reference: an array never shares memory with
+    # its source, which an in-place gradient or optimizer write would change
     if isinstance(source, torch.Tensor):
-        t = source.to(ctx.torch_device,
-                      dtype=torch_dtype(dtype) if dtype else source.dtype)
+        t = source.detach().to(ctx.torch_device, copy=True,
+                               dtype=torch_dtype(dtype) if dtype else source.dtype)
         return NDArray(t, ctx)
     src = _np.asarray(source)
     t = torch.from_numpy(_np.ascontiguousarray(src)).to(
-        ctx.torch_device, dtype=_dtype_of(src, dtype))
+        ctx.torch_device, dtype=_dtype_of(src, dtype), copy=True)
     return NDArray(t, ctx)
 
 

@@ -5,8 +5,11 @@ Counterpart of ``mxnet_tpu/ops/attention.py:26-92``: ``blockwise_attention``
 masking by the finite ``_NEG = -1e30``, and the registered op
 ``_contrib_flash_attention`` (:85). ``blockwise_attention_lse`` is the same
 loop returning the LSE too; it is the plain PyTorch version of the CUDA
-kernel (``ops/cuda/flash_attention.py``), on the CPU its only path and on
-the card what ``chip_smoke.py`` holds the kernel against.
+forward kernel (``ops/cuda/flash_attention.py``), on the CPU its only path
+and on the card what ``chip_smoke.py`` holds the kernel against.
+``blockwise_attention_bwd`` is the plain version of the two backward
+kernels (``_bwd_dq_kernel``/``_bwd_dkv_kernel``, reference
+``ops/pallas/flash_attention.py:181-355``) in the same roles.
 
 The ring and Ulysses sequence-parallel variants (:95-149) wait for the slice
 that ports ``parallel/``.
@@ -23,11 +26,17 @@ _NEG = -1e30  # finite mask: -inf makes exp(-inf - -inf) = nan on fully
               # masked (q-row, k-block) pairs under causal blocking
 
 
+def _acc_dtype(q):
+    """f32 accumulation, as the kernels; f64 inputs stay f64 (gradcheck)."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
 def blockwise_attention_lse(q, k, v, block_size: int = 512,
                             causal: bool = False,
                             scale: Optional[float] = None,
                             round_p: bool = False):
     """Attention over (..., T, D) by key blocks -> (O in q's dtype, LSE f32).
+    Accumulates in f32 (f64, with an f64 LSE, for f64 inputs).
 
     ``round_p`` rounds the probabilities to V's dtype before the PV
     product, as the Pallas kernel does (``flash_attention.py:124-126``); the
@@ -38,17 +47,17 @@ def blockwise_attention_lse(q, k, v, block_size: int = 512,
     Tk = k.shape[-2]
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     block_size = max(1, min(block_size, Tk))
-    qf = q.float()
+    f = _acc_dtype(q)
+    qf = q.to(f)
     q_pos = torch.arange(T, device=q.device)[:, None]
     lead = q.shape[:-2]
-    acc = torch.zeros(lead + (T, v.shape[-1]), dtype=torch.float32,
-                      device=q.device)
-    l = torch.zeros(lead + (T, 1), dtype=torch.float32, device=q.device)
-    m = torch.full(lead + (T, 1), _NEG, dtype=torch.float32, device=q.device)
+    acc = torch.zeros(lead + (T, v.shape[-1]), dtype=f, device=q.device)
+    l = torch.zeros(lead + (T, 1), dtype=f, device=q.device)
+    m = torch.full(lead + (T, 1), _NEG, dtype=f, device=q.device)
     for start in range(0, Tk, block_size):
         kb = k[..., start:start + block_size, :]
         vb = v[..., start:start + block_size, :]
-        s = torch.matmul(qf, kb.float().transpose(-1, -2)) * scale
+        s = torch.matmul(qf, kb.to(f).transpose(-1, -2)) * scale
         k_pos = start + torch.arange(kb.shape[-2], device=q.device)[None, :]
         if causal:
             s = torch.where(q_pos >= k_pos, s, _NEG)
@@ -57,11 +66,53 @@ def blockwise_attention_lse(q, k, v, block_size: int = 512,
         p = torch.exp(s - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         if round_p:
-            p = p.to(v.dtype).float()
-        acc = acc * alpha + torch.matmul(p, vb.float())
+            p = p.to(v.dtype).to(f)
+        acc = acc * alpha + torch.matmul(p, vb.to(f))
         m = m_new
     l = torch.clamp_min(l, 1e-30)
     return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def blockwise_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
+                            scale: Optional[float] = None,
+                            block_size: int = 256):
+    """Gradients of attention over (..., T, D) from the forward's O and LSE
+    -> (dq, dk, dv) in the inputs' dtypes, by key blocks.
+
+    The arithmetic of the backward kernels: delta = rowsum(dO * O) in f32;
+    for each key block, P = exp(S - LSE) with S = q k^T * scale masked to
+    -1e30, dP = dO v^T, dS = P * (dP - delta); dq += (dS in k's dtype) k *
+    scale, dv = (P in dO's dtype)^T dO, dk = (dS in q's dtype)^T q * scale.
+    Products accumulate in f32 (f64 for f64 inputs), and the casts round
+    where the kernels round.
+    """
+    T, D = q.shape[-2], q.shape[-1]
+    Tk = k.shape[-2]
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    block_size = max(1, min(block_size, Tk))
+    f = _acc_dtype(q)
+    qf, dof = q.to(f), do.to(f)
+    delta = (dof * o.to(f)).sum(dim=-1, keepdim=True)
+    lse = lse.to(f)[..., None]
+    q_pos = torch.arange(T, device=q.device)[:, None]
+    dq = torch.zeros(qf.shape, dtype=f, device=q.device)
+    dks, dvs = [], []
+    for start in range(0, Tk, block_size):
+        kb = k[..., start:start + block_size, :].to(f)
+        vb = v[..., start:start + block_size, :].to(f)
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        if causal:
+            k_pos = start + torch.arange(kb.shape[-2], device=q.device)[None, :]
+            s = torch.where(q_pos >= k_pos, s, _NEG)
+        p = torch.exp(s - lse)
+        dp = torch.matmul(dof, vb.transpose(-1, -2))
+        ds = p * (dp - delta)
+        dq = dq + torch.matmul(ds.to(k.dtype).to(f), kb) * scale
+        dvs.append(torch.matmul(p.to(do.dtype).to(f).transpose(-1, -2), dof))
+        dks.append(torch.matmul(ds.to(q.dtype).to(f).transpose(-1, -2), qf)
+                   * scale)
+    return (dq.to(q.dtype), torch.cat(dks, dim=-2).to(k.dtype),
+            torch.cat(dvs, dim=-2).to(v.dtype))
 
 
 def blockwise_attention(q, k, v, block_size: int = 512, causal: bool = False,

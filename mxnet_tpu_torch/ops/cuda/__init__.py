@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 build_info: Dict[str, dict] = {}
 
@@ -66,8 +67,11 @@ def build(name: str, sources: Sequence[str]) -> Path:
 
 
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """The loaded library ``name``, built from ``sources`` at first use."""
+    """The loaded library ``name``, built from ``sources`` at first use.
+    Different libraries build concurrently when loaded from several threads."""
     with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name, sources)))

@@ -1,0 +1,266 @@
+"""Fused multi-tensor SGD and Adam: CUDA kernels, wrappers, plain versions.
+
+Counterpart of ``mxnet_tpu/ops/pallas/fused_optimizer.py``: the Pallas
+kernels ``_sgd_kernel`` (:66, launched by ``fused_sgd_apply`` at :90) and
+``_adam_kernel`` (:116, launched by ``fused_adam_apply`` at :153) become the
+hand-written Hopper kernels of ``csrc/fused_optimizer.cu``, one launch per
+call over the whole list of tensors, with no flatten copy.
+
+- ``fused_sgd_apply(weights, grads, moms, lr, momentum, wd, out=None)`` ->
+  ``(new_weights, new_moms)``: g = grad + wd*w; m = momentum*m + g;
+  w = w - lr*m.
+- ``fused_adam_apply(weights, grads, ms, vs, lr, beta1, beta2, eps, wd, t,
+  out=None)`` -> ``(new_weights, new_ms, new_vs)``: the Adam step with the
+  bias correction inside, w = w - lr*(m/c1) / (sqrt(v/c2) + eps),
+  c1 = 1 - beta1**t, c2 = 1 - beta2**t.
+
+Both take the reference's signatures and, like it, return new lists. The
+keyword ``out`` (a tuple of lists in the order of the result) names the
+tensors to write instead: ``out=(weights, moms)`` updates in place. For CUDA
+tensors the wrapper launches the kernel or raises, and counts launches in
+``fused_sgd_apply.launches`` / ``fused_adam_apply.launches``; for CPU tensors
+it runs the plain version (``fused_sgd_apply_plain``,
+``fused_adam_apply_plain``), the same f32 arithmetic in PyTorch.
+
+Semantics to keep apart (ROADMAP B5, B6): this momentum rule is not
+``sgd_mom_update``'s (which folds lr into the momentum), and this Adam
+applies the bias correction itself, so eps lands elsewhere than in
+``adam_update`` with a bias-corrected lr. ``gluon.Trainer`` never calls
+these functions, as in the reference.
+
+Each list holds contiguous tensors of one device; weights and grads share
+one dtype, and the states (moms, or ms and vs) one dtype, each float32,
+bfloat16 or float16; anything else raises. The device table of pointers is
+cached by the tensors' data pointers, sizes and dtypes, so repeated calls on
+the same tensors (an in-place update loop) copy nothing to the device beyond
+the launch and skip the per-tensor checks, which cost more host time than
+the kernel takes on the card: a call whose tensors have the pointers, sizes
+and dtypes of an earlier checked call, and are contiguous, is taken to be
+that call's tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+from collections import OrderedDict
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ...base import MXNetError
+from . import load_library
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_CHUNK = 16384          # elements per thread block (csrc kChunk)
+_TABLE_CACHE_SIZE = 16
+_tables: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
+def _library() -> ctypes.CDLL:
+    lib = load_library("fused_optimizer", ["fused_optimizer.cu"])
+    if lib.mxt_fused_sgd.argtypes is None:
+        head = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int]
+        lib.mxt_fused_sgd.argtypes = head + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+        lib.mxt_fused_adam.argtypes = head + [ctypes.c_float] * 7 + [ctypes.c_void_p]
+        lib.mxt_fused_sgd.restype = ctypes.c_int
+        lib.mxt_fused_adam.restype = ctypes.c_int
+        lib.mxt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mxt_cuda_error_string.restype = ctypes.c_char_p
+        if lib.mxt_fused_chunk_elems() != _CHUNK:
+            raise MXNetError("fused_optimizer: chunk size of the library differs")
+    return lib
+
+
+def _f32(x) -> np.float32:
+    return np.float32(x)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _write_out(results, out):
+    if out is None:
+        return results
+    with torch.no_grad():
+        for dsts, srcs in zip(out, results):
+            for d, s in zip(dsts, srcs):
+                d.copy_(s)
+    return tuple(list(dsts) for dsts in out)
+
+
+def fused_sgd_apply_plain(weights, grads, moms, lr, momentum=0.0, wd=0.0,
+                          out=None):
+    """The SGD kernel's arithmetic in PyTorch, f32 inside."""
+    lr, mom, wd = float(_f32(lr)), float(_f32(momentum)), float(_f32(wd))
+    new_w, new_m = [], []
+    for w, g, m in zip(weights, grads, moms):
+        wf = w.float()
+        gf = g.float() + wd * wf
+        mf = mom * m.float() + gf
+        new_w.append((wf - lr * mf).to(w.dtype))
+        new_m.append(mf.to(m.dtype))
+    return _write_out((new_w, new_m), out)
+
+
+def _adam_scalars(lr, beta1, beta2, eps, wd, t):
+    b1, b2 = _f32(beta1), _f32(beta2)
+    return dict(lr=_f32(lr), b1=b1, b2=b2, eps=_f32(eps), wd=_f32(wd),
+                omb1=np.float32(1) - b1, omb2=np.float32(1) - b2,
+                c1=_f32(1.0 - float(beta1) ** t), c2=_f32(1.0 - float(beta2) ** t))
+
+
+def fused_adam_apply_plain(weights, grads, ms, vs, lr, beta1=0.9, beta2=0.999,
+                           eps=1e-8, wd=0.0, t: int = 1, out=None):
+    """The Adam kernel's arithmetic in PyTorch, f32 inside."""
+    s = {k: float(v) for k, v in _adam_scalars(lr, beta1, beta2, eps, wd, t).items()}
+    new_w, new_m, new_v = [], [], []
+    for w, g, m, v in zip(weights, grads, ms, vs):
+        wf = w.float()
+        gf = g.float() + s["wd"] * wf
+        mf = s["b1"] * m.float() + s["omb1"] * gf
+        vf = s["b2"] * v.float() + s["omb2"] * gf * gf
+        w2 = wf - s["lr"] * (mf / s["c1"]) / (torch.sqrt(vf / s["c2"]) + s["eps"])
+        new_w.append(w2.to(w.dtype))
+        new_m.append(mf.to(m.dtype))
+        new_v.append(vf.to(v.dtype))
+    return _write_out((new_w, new_m, new_v), out)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(name, lists: Sequence[Sequence[torch.Tensor]], names, device):
+    n = len(lists[0])
+    for lst, lname in zip(lists, names):
+        if len(lst) != n:
+            raise MXNetError(f"{name}: {lname} has {len(lst)} tensors, "
+                             f"weights {n}")
+        dtypes = {t.dtype for t in lst}
+        if len(dtypes) != 1:
+            raise MXNetError(f"{name}: {lname} mixes dtypes {sorted(map(str, dtypes))}")
+        if next(iter(dtypes)) not in _DTYPE_CODES:
+            raise MXNetError(f"{name}: {lname} dtype {next(iter(dtypes))} not "
+                             f"supported (float32, bfloat16, float16)")
+        for i, t in enumerate(lst):
+            if t.device != device:
+                raise MXNetError(f"{name}: {lname}[{i}] on {t.device}, weights "
+                                 f"on {device}")
+            if not t.is_contiguous():
+                raise MXNetError(f"{name}: {lname}[{i}] is not contiguous")
+            if t.shape != lists[0][i].shape:
+                raise MXNetError(f"{name}: {lname}[{i}] shape {tuple(t.shape)} "
+                                 f"!= weight {tuple(lists[0][i].shape)}")
+
+
+def _table(who, device, operands: List[Optional[Sequence[torch.Tensor]]], names):
+    """The device table of rows (7 pointers, numel, first chunk) for the
+    operand lists, the number of rows and of chunks. Checked and built at
+    the first call on these tensors, then taken from the cache."""
+    lists = [op for op in operands if op is not None]
+    if any(len(op) != len(lists[0]) for op in lists):
+        _check(who, lists, names, device)          # raises: lengths differ
+    ptrs = tuple(tuple(map(torch.Tensor.data_ptr, op)) if op is not None else None
+                 for op in operands)
+    numels = tuple(map(torch.Tensor.numel, operands[0]))
+    key = (device.index, numels, ptrs, tuple(op[0].dtype for op in lists))
+    hit = _tables.get(key)
+    if hit is not None and all(all(map(torch.Tensor.is_contiguous, op)) for op in lists):
+        _tables.move_to_end(key)
+        return hit
+    _check(who, lists, names, device)
+    rows, first = [], 0
+    for i, numel in enumerate(numels):
+        if numel == 0:
+            continue
+        rows.append([c[i] if c is not None else 0 for c in ptrs] + [numel, first])
+        first += -(-numel // _CHUNK)
+    table = torch.tensor(rows, dtype=torch.int64).to(device) if rows else None
+    _tables[key] = (table, len(rows), first)
+    if len(_tables) > _TABLE_CACHE_SIZE:
+        _tables.popitem(last=False)
+    return _tables[key]
+
+
+def _launch(who, fn, table, n_rows, n_chunks, codes, scalars, device):
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(table.data_ptr(), n_rows, n_chunks, *codes,
+                               *scalars, stream)
+    if err != 0:
+        raise MXNetError(f"{who} kernel launch failed: "
+                         f"{lib.mxt_cuda_error_string(err).decode()}")
+
+
+def _new_lists(out, groups):
+    if out is not None:
+        if len(out) != len(groups):
+            raise MXNetError(f"out must hold {len(groups)} lists")
+        return tuple(list(o) for o in out)
+    return tuple([torch.empty_like(t) for t in g] for g in groups)
+
+
+def fused_sgd_apply(weights: List, grads: List, moms: List, lr: float,
+                    momentum: float = 0.0, wd: float = 0.0, out=None):
+    """One-launch SGD (+momentum, +wd) over a list of tensors ->
+    ``(new_weights, new_moms)``."""
+    if not weights:
+        return [], []
+    device = weights[0].device
+    if device.type == "cpu":
+        return fused_sgd_apply_plain(weights, grads, moms, lr, momentum, wd, out)
+    if device.type != "cuda":
+        raise MXNetError(f"fused_sgd_apply: unsupported device {device}")
+    res = _new_lists(out, (weights, moms))
+    if grads[0].dtype != weights[0].dtype or res[0][0].dtype != weights[0].dtype \
+            or res[1][0].dtype != moms[0].dtype:
+        raise MXNetError("fused_sgd_apply: grads and out weights take the "
+                         "weights' dtype, out moms the moms'")
+    table, n_rows, n_chunks = _table(
+        "fused_sgd_apply", device, [weights, grads, moms, None, res[0], res[1], None],
+        ["weights", "grads", "moms", "out weights", "out moms"])
+    if n_rows:
+        _launch("fused_sgd_apply", "mxt_fused_sgd", table, n_rows, n_chunks,
+                (_DTYPE_CODES[weights[0].dtype], _DTYPE_CODES[moms[0].dtype]),
+                (float(_f32(lr)), float(_f32(momentum)), float(_f32(wd))), device)
+        fused_sgd_apply.launches += 1
+    return res
+
+
+def fused_adam_apply(weights: List, grads: List, ms: List, vs: List, lr: float,
+                     beta1=0.9, beta2=0.999, eps=1e-8, wd=0.0, t: int = 1,
+                     out=None):
+    """One-launch Adam over a list of tensors, bias correction inside ->
+    ``(new_weights, new_ms, new_vs)``."""
+    if not weights:
+        return [], [], []
+    device = weights[0].device
+    if device.type == "cpu":
+        return fused_adam_apply_plain(weights, grads, ms, vs, lr, beta1, beta2,
+                                      eps, wd, t, out)
+    if device.type != "cuda":
+        raise MXNetError(f"fused_adam_apply: unsupported device {device}")
+    res = _new_lists(out, (weights, ms, vs))
+    if grads[0].dtype != weights[0].dtype or vs[0].dtype != ms[0].dtype \
+            or res[0][0].dtype != weights[0].dtype \
+            or {res[1][0].dtype, res[2][0].dtype} != {ms[0].dtype}:
+        raise MXNetError("fused_adam_apply: grads and out weights take the "
+                         "weights' dtype, vs and the out states the ms'")
+    table, n_rows, n_chunks = _table(
+        "fused_adam_apply", device, [weights, grads, ms, vs, *res],
+        ["weights", "grads", "ms", "vs", "out weights", "out ms", "out vs"])
+    s = _adam_scalars(lr, beta1, beta2, eps, wd, t)
+    if n_rows:
+        _launch("fused_adam_apply", "mxt_fused_adam", table, n_rows, n_chunks,
+                (_DTYPE_CODES[weights[0].dtype], _DTYPE_CODES[ms[0].dtype]),
+                tuple(float(s[k]) for k in ("lr", "b1", "b2", "eps", "wd", "c1", "c2")),
+                device)
+        fused_adam_apply.launches += 1
+    return res
+
+
+fused_sgd_apply.launches = 0
+fused_adam_apply.launches = 0

@@ -3,9 +3,10 @@
 Counterpart of ``mxnet_tpu/ops/matrix.py``. Ported: ``Reshape`` with the
 MXNet codes 0/-1/-2/-3/-4 (``matrix.py:23-73``; ``infer_reshape`` is a copy,
 the port imports nothing of the reference package), ``transpose`` (:81),
-``expand_dims`` (:88), ``slice_axis`` (:138), ``batch_dot`` (:409) and
-``_arange`` (``mxnet_tpu/ops/extra.py:42``). Slicing beyond ``slice_axis``,
-indexing, ordering and the other layout ops wait for later slices.
+``expand_dims`` (:88), ``slice_axis`` (:138), ``pick`` (:266),
+``batch_dot`` (:409) and ``_arange`` (``mxnet_tpu/ops/extra.py:42``). Slicing
+beyond ``slice_axis``, the other indexing ops, ordering and the other layout
+ops wait for later slices.
 """
 from __future__ import annotations
 
@@ -91,6 +92,18 @@ def slice_axis(x, *, axis, begin, end):
     # the end, out-of-range bounds clamp)
     begin, end, _ = slice(begin, end).indices(n)
     return x.narrow(axis, begin, max(end - begin, 0))
+
+
+@register("pick")
+def pick(x, index, *, axis=-1, keepdims=False, mode="clip"):
+    """Elements of ``x`` at ``index`` along ``axis`` (reference matrix.py:266):
+    ``mode="clip"`` clamps out-of-range indices, ``"wrap"`` wraps them."""
+    ax = axis % x.ndim
+    n = x.shape[ax]
+    idx = index.to(torch.int64)
+    idx = torch.remainder(idx, n) if mode == "wrap" else idx.clamp(0, n - 1)
+    out = torch.gather(x, ax, idx.unsqueeze(ax))
+    return out if keepdims else out.squeeze(ax)
 
 
 @register("batch_dot")

@@ -1,8 +1,8 @@
 """Neural-network operators.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``. Ported: ``FullyConnected`` (:39),
-``LayerNorm`` (:277), ``Activation`` (:340), ``softmax`` (:359), ``Dropout``
-(:470) and ``Embedding`` (:490). Convolution, pooling, the other norms, RNN
+``LayerNorm`` (:277), ``Activation`` (:340), ``softmax`` (:359),
+``log_softmax`` (:380), ``Dropout`` (:470) and ``Embedding`` (:490). Convolution, pooling, the other norms, RNN
 and CTC wait for the slices whose models use them.
 
 ``Embedding`` and out-of-range ids: the reference's ``jnp.take`` never
@@ -80,6 +80,16 @@ def softmax(data, length=None, *, axis=-1, temperature=None, use_length=False,
         out = out.masked_fill(~mask, 0.0)
     else:
         out = torch.softmax(x, dim=axis)
+    return out.to(torch_dtype(dtype) if dtype else data.dtype)
+
+
+@register("log_softmax")
+def log_softmax(data, *, axis=-1, temperature=None, dtype=None):
+    """Log-softmax in f32, cast to ``dtype`` or the input's (reference nn.py:380)."""
+    x = data.float()
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    out = torch.log_softmax(x, dim=axis)
     return out.to(torch_dtype(dtype) if dtype else data.dtype)
 
 

@@ -10,6 +10,13 @@ Shape inference, where a later slice needs it, runs the same function on
 Each ``Op`` counts its calls (``Op.calls``, a plain integer): a test or a
 run can read how often the main path reached an operator, for example the
 flash-attention op once per BERT layer.
+
+``differentiable=False`` marks an op that ``invoke`` always runs under
+``torch.no_grad()``, recording or not (the optimizer updates, reference
+``ops/optimizer_ops.py:106``). ``state_inputs`` pairs ``(input index,
+output index)``: ``invoke`` copies those outputs into the input tensors in
+place and returns the rest, as the reference's nd wrappers write an
+optimizer op's updated states back (reference ``ndarray.py:531-543``).
 """
 from __future__ import annotations
 
@@ -23,13 +30,17 @@ _OP_REGISTRY: Dict[str, "Op"] = {}
 class Op:
     """A registered operator: one plain torch function + metadata."""
 
-    __slots__ = ("name", "fn", "aliases", "doc", "calls")
+    __slots__ = ("name", "fn", "aliases", "doc", "calls", "differentiable",
+                 "state_inputs")
 
     def __init__(self, name: str, fn: Callable, aliases: Tuple[str, ...] = (),
-                 doc: str = ""):
+                 doc: str = "", differentiable: bool = True,
+                 state_inputs: Tuple[Tuple[int, int], ...] = ()):
         self.name = name
         self.fn = fn
         self.aliases = aliases
+        self.differentiable = differentiable
+        self.state_inputs = tuple(state_inputs)
         self.doc = doc or (fn.__doc__ or "")
         self.calls = 0
 
@@ -41,10 +52,13 @@ class Op:
         return f"<Op {self.name}>"
 
 
-def register(name: str, aliases: Tuple[str, ...] = ()):
+def register(name: str, aliases: Tuple[str, ...] = (),
+             differentiable: bool = True,
+             state_inputs: Tuple[Tuple[int, int], ...] = ()):
     """Decorator: register a plain torch function as an operator."""
     def deco(fn: Callable) -> Callable:
-        op = Op(name, fn, aliases=tuple(aliases))
+        op = Op(name, fn, aliases=tuple(aliases), differentiable=differentiable,
+                state_inputs=state_inputs)
         _OP_REGISTRY[name] = op
         for a in aliases:
             _OP_REGISTRY[a] = op

@@ -1,0 +1,230 @@
+"""Optimizers: the base class, ``Updater``, ``SGD`` and ``Adam``.
+
+Counterpart of ``mxnet_tpu/optimizer/optimizer.py:27-215`` (``Optimizer``,
+``Updater``, ``create``/``register``), ``SGD`` (:493) and ``Adam``
+(:695-719). Each update calls the registered op's function from
+``ops/optimizer_ops.py`` with the hyper-parameters rounded to float32, as
+the reference's jitted kernels take them (``_k_sgd``, ``_k_sgd_mom``,
+``_k_adam``, :295-347); ``Adam`` folds the bias correction into the
+learning rate, ``lr * sqrt(1 - beta2**t) / (1 - beta1**t)``, exactly as
+``_k_adam`` does, and ``adam_update`` itself has none.
+
+Memory: updates write the new weight and states into the existing tensors
+in place, under ``torch.no_grad()``, so a ``Parameter``'s ``nn.Parameter``
+keeps its identity and no second copy of the weights or states stays
+alive. This is the counterpart of the reference's buffer donation
+(``_UpdateKernel``, :229-273).
+
+Waiting for later slices: ``lr_scheduler`` (passing one raises
+``MXNetError``), ``multi_precision=True`` (raises), the lazy row-sparse
+updates, ``aggregate_num`` and the other optimizers; ``Updater.get_states``
+/ ``set_states`` come with ``Trainer.save_states``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from ..ops import optimizer_ops as _oo
+
+_OPT_REGISTRY: Dict[str, type] = {}
+
+
+def register(cls):
+    _OPT_REGISTRY[cls.__name__.lower()] = cls
+    return cls
+
+
+def create(name, **kwargs) -> "Optimizer":
+    if isinstance(name, Optimizer):
+        return name
+    try:
+        cls = _OPT_REGISTRY[name.lower()]
+    except KeyError:
+        raise MXNetError(f"unknown optimizer {name!r} (ported: "
+                         f"{sorted(_OPT_REGISTRY)})") from None
+    return cls(**kwargs)
+
+
+def _f(x) -> float:
+    """``x`` rounded to float32, as the reference's kernels receive it."""
+    return float(np.float32(x))
+
+
+class Optimizer:
+    """Base optimizer (reference optimizer.py:45)."""
+
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 multi_precision=False, param_dict=None, begin_num_update=0,
+                 aggregate_num=0, **kwargs):
+        if lr_scheduler is not None:
+            raise MXNetError("lr_scheduler is not ported yet")
+        if multi_precision:
+            raise MXNetError("multi_precision is not ported yet")
+        if kwargs:
+            raise MXNetError(f"unknown optimizer arguments {sorted(kwargs)}")
+        self.rescale_grad = rescale_grad
+        self.lr = learning_rate
+        self.wd = wd
+        self.clip_gradient = clip_gradient
+        self.param_idx2name = dict(param_idx2name or {})
+        self.idx2name = self.param_idx2name
+        self.param_dict = dict(param_dict or {})
+        self.num_update = begin_num_update
+        self.begin_num_update = begin_num_update
+        self._index_update_count: Dict[Any, int] = {}
+        self.lr_mult: Dict[str, float] = {}
+        self.wd_mult: Dict[str, float] = {}
+
+    # -- bookkeeping --------------------------------------------------------
+    def _update_count(self, index):
+        if not isinstance(index, (list, tuple)):
+            index = [index]
+        for i in index:
+            self._index_update_count.setdefault(i, self.begin_num_update)
+            self._index_update_count[i] += 1
+            self.num_update = max(self._index_update_count[i], self.num_update)
+
+    def _get_lr(self, index):
+        lr = self.lr
+        if index in self.param_dict:
+            lr *= self.param_dict[index].lr_mult
+        elif index in self.lr_mult:
+            lr *= self.lr_mult[index]
+        elif index in self.idx2name:
+            lr *= self.lr_mult.get(self.idx2name[index], 1.0)
+        return lr
+
+    def _get_wd(self, index):
+        wd = self.wd
+        if index in self.param_dict:
+            wd *= self.param_dict[index].wd_mult
+        elif index in self.wd_mult:
+            wd *= self.wd_mult[index]
+        elif index in self.idx2name:
+            wd *= self.wd_mult.get(self.idx2name[index], 1.0)
+        return wd
+
+    def _clip_arg(self):
+        return self.clip_gradient if self.clip_gradient is not None else -1.0
+
+    def set_learning_rate(self, lr):
+        self.lr = lr
+
+    @property
+    def learning_rate(self):
+        return self.lr
+
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        self.wd_mult = dict(args_wd_mult)
+
+    # -- state and update ---------------------------------------------------
+    def create_state(self, index, weight):
+        return None
+
+    def create_state_multi_precision(self, index, weight):
+        return self.create_state(index, weight)
+
+    def update(self, index, weight, grad, state):
+        raise NotImplementedError
+
+    def update_multi_precision(self, index, weight, grad, state):
+        self.update(index, weight, grad, state)
+
+
+class Updater:
+    """Holds the per-index states and applies an optimizer (reference
+    optimizer.py:160)."""
+
+    def __init__(self, optimizer: Optimizer):
+        self.optimizer = optimizer
+        self.states: Dict[Any, Any] = {}
+
+    def __call__(self, index, grad, weight):
+        if not isinstance(index, (list, tuple)):
+            index, grad, weight = [index], [grad], [weight]
+        for i, g, w in zip(index, grad, weight):
+            if i not in self.states:
+                self.states[i] = self.optimizer.create_state_multi_precision(i, w)
+            self.optimizer.update_multi_precision(i, w, g, self.states[i])
+
+
+def get_updater(optimizer: Optimizer) -> Updater:
+    return Updater(optimizer)
+
+
+def _write(targets, values):
+    """Copy each new value into its tensor in place (no autograd)."""
+    with torch.no_grad():
+        for t, v in zip(targets, values):
+            t._data.copy_(v)
+
+
+@register
+class SGD(Optimizer):
+    """SGD with optional momentum (reference optimizer.py:493)."""
+
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        if self.momentum != 0.0:
+            from ..ndarray import zeros
+            return zeros(weight.shape, ctx=weight.ctx, dtype=weight.dtype)
+        return None
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = _f(self._get_lr(index)), _f(self._get_wd(index))
+        args = dict(wd=wd, rescale_grad=_f(self.rescale_grad),
+                    clip_gradient=_f(self._clip_arg()))
+        with torch.no_grad():
+            if self.momentum == 0.0:
+                new = (_oo.sgd_update(weight._data, grad._data, lr, **args),)
+                _write([weight], new)
+            else:
+                new = _oo.sgd_mom_update(weight._data, grad._data, state._data,
+                                         lr, momentum=_f(self.momentum), **args)
+                _write([weight, state], new)
+
+
+@register
+class Adam(Optimizer):
+    """Adam with the bias correction folded into the learning rate
+    (reference optimizer.py:695-719)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        from ..ndarray import zeros
+        return (zeros(weight.shape, ctx=weight.ctx, dtype=weight.dtype),
+                zeros(weight.shape, ctx=weight.ctx, dtype=weight.dtype))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        coef1 = np.float32(1 - self.beta1 ** t)
+        coef2 = np.float32(1 - self.beta2 ** t)
+        lr_t = float(np.float32(self._get_lr(index)) * np.sqrt(coef2) / coef1)
+        m, v = state
+        with torch.no_grad():
+            new = _oo.adam_update(
+                weight._data, grad._data, m._data, v._data, lr_t,
+                beta1=_f(self.beta1), beta2=_f(self.beta2),
+                epsilon=_f(self.epsilon), wd=_f(self._get_wd(index)),
+                rescale_grad=_f(self.rescale_grad),
+                clip_gradient=_f(self._clip_arg()))
+        _write([weight, m, v], new)

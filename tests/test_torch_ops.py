@@ -104,6 +104,27 @@ CASES = [
     ("flash-causal", "_contrib_flash_attention",
      [_f(1, 2, 64, 32), _f(1, 2, 64, 32), _f(1, 2, 64, 32)],
      {"causal": True, "block_size": 32}),
+    ("sum-axis", "sum", [_X4], {"axis": 1}),
+    ("sum-all", "sum", [_X4], {}),
+    ("sum-exclude-keepdims", "sum", [_X4], {"axis": (0, 2), "exclude": True,
+                                             "keepdims": True}),
+    ("sum-int", "sum", [np.arange(12, dtype=np.int32).reshape(3, 4)], {"axis": 0}),
+    ("mean-exclude", "mean", [_f(4, 3, 1)], {"axis": 0, "exclude": True}),
+    ("mean-keepdims", "mean", [_X4], {"axis": -1, "keepdims": True}),
+    ("log_softmax", "log_softmax", [_f(2, 3, 7) * 4], {"axis": -1}),
+    ("log_softmax-axis1", "log_softmax", [_f(2, 3, 7)], {"axis": 1,
+                                                         "temperature": 2.0}),
+    ("pick-clip", "pick", [_f(3, 5), np.array([0, 4, 7], np.float32)], {}),
+    ("pick-keepdims-axis0", "pick", [_f(3, 5), np.array([2, 0, 1, 1, 2], np.int32)],
+     {"axis": 0, "keepdims": True}),
+    ("pick-wrap", "pick", [_f(2, 3, 4), np.array([[5, -1, 2], [0, 3, 9]], np.int32)],
+     {"mode": "wrap"}),
+    ("sgd_update", "sgd_update", [_f(3, 4), _f(3, 4)],
+     {"lr": 0.1, "wd": 0.01, "rescale_grad": 0.5, "clip_gradient": 0.3}),
+    ("sgd_mom_update", "sgd_mom_update", [_f(3, 4), _f(3, 4), _f(3, 4)],
+     {"lr": 0.1, "momentum": 0.9, "wd": 0.01, "rescale_grad": 2.0}),
+    ("adam_update", "adam_update", [_f(3, 4), _f(3, 4), _f(3, 4), _f(3, 4) ** 2],
+     {"lr": 0.01, "wd": 0.1, "rescale_grad": 0.5, "clip_gradient": 0.2}),
 ]
 # Dropout outside training, or at p=0, is the identity. The reference op
 # takes an RNG key as a second input; the port draws from its generator.
@@ -121,6 +142,8 @@ def ref_op():
 
 def _port(name, arrays, params):
     out = get_op(name)(*(torch.from_numpy(a) for a in arrays), **params)
+    if isinstance(out, tuple):  # stacked, as np.asarray stacks the reference's
+        out = torch.stack(out)
     return out.float().numpy() if out.dtype == torch.bfloat16 else out.numpy()
 
 
