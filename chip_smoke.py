@@ -116,11 +116,13 @@ def phase_build():
     """Every kernel library, one nvcc each, all started together."""
     import threading
     from mxnet_tpu_torch.ops import cuda as cuda_ops
+    from mxnet_tpu_torch.ops.cuda import blocked_matmul as bm
     from mxnet_tpu_torch.ops.cuda import flash_attention as fa
     from mxnet_tpu_torch.ops.cuda import fused_optimizer as fo
     loaders = {"flash_attention_fwd": fa._library,
                "flash_attention_bwd": fa._bwd_library,
-               "fused_optimizer": fo._library}
+               "fused_optimizer": fo._library,
+               "blocked_matmul": bm._library}
     errors = []
 
     def load(fn):
@@ -156,7 +158,8 @@ def _short_kernel_name(line):
     """'flash_bwd_dq_kernel<f32, 64>' out of a ptxas 'Compiling entry' line."""
     import re
     mangled = line.split("'")[1] if "'" in line else line
-    m = re.search(r"\d+(flash_\w+?_kernel|multi_tensor_update)I", mangled)
+    m = re.search(r"\d+(flash_\w+?_kernel|multi_tensor_update|blocked_matmul_kernel)I",
+                  mangled)
     if not m:
         return mangled[-60:]
     rest, args = mangled[m.end():], []
@@ -493,8 +496,17 @@ def _kernel_group(name):
         return "flash_attention_bwd_dkv"
     if "multi_tensor_update" in low:
         return "fused_optimizer"
+    if "blocked_matmul_kernel" in low:
+        return "blocked_matmul"
+    if any(s in low for s in ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")):
+        return "batchnorm"
+    if any(s in low for s in ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",
+                              "cudnn")):
+        return "convolution (cuDNN)"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas")):
         return "matmul (cuBLAS)"
+    if "pool" in low:
+        return "pooling"
     return "other (elementwise, norms, copies)"
 
 
@@ -758,6 +770,405 @@ def phase_fused(torch, weights, grads):
     return out
 
 
+# --- K6 (mx.rtc), K7 (blocked matmul probe), ResNet-50 ----------------------
+
+def phase_rtc(torch):
+    """K6: the example kernels compiled with NVRTC and launched through
+    ``mx.rtc``, each against its plain version; axpy timed on 2^26 f32."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+    t0 = time.perf_counter()
+    module = rtc.CudaModule(rtc.EXAMPLES_SOURCE, exports=rtc.EXAMPLES_EXPORTS)
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    n = 1 << 26
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x, y = (mx.nd.NDArray(torch.randn(n, generator=gen, device="cuda")) for _ in range(2))
+    rows, cols = 1000, 777
+    m = mx.nd.NDArray(torch.randn((rows, cols), generator=gen, device="cuda"))
+    s_in = mx.nd.NDArray(torch.randn(4096, generator=gen, device="cuda"))
+    s_out = mx.nd.zeros((4096,), ctx=mx.gpu(0))
+    axpy = module.get_kernel("axpy", rtc.AXPY_SIGNATURE, out_shapes=[((n,), "float32")])
+    scale3 = module.get_kernel("scale3<float>", rtc.SCALE3_SIGNATURE)
+    transpose = module.get_kernel("transpose", rtc.TRANSPOSE_SIGNATURE,
+                                  out_shapes=[((cols, rows), "float32")])
+    empty = module.get_kernel("empty")
+    grid_t = (-(-cols // 32), -(-rows // 32), 1)
+
+    rtc.CudaKernel.launches = 0          # the rtc path: counts set to 0 just before
+    (z,) = axpy.launch([x, y, n], mx.gpu(0), (1024, 1, 1), (256, 1, 1))
+    scale3.launch([s_in, s_out, 4096], mx.gpu(0), (16, 1, 1), (256, 1, 1))
+    (t,) = transpose.launch([m, rows, cols], mx.gpu(0), grid_t, (32, 32, 1),
+                            shared_mem=32 * 33 * 4)
+    (t64,) = transpose.launch([m, rows, cols], mx.gpu(0), grid_t, (32, 32, 1),
+                              shared_mem=64 * 1024)     # above the 48 KiB default
+    empty.launch([], mx.gpu(0), (1,), (1,))
+    torch.cuda.synchronize()
+    launches = rtc.CudaKernel.launches
+    log(f"[rtc] NVRTC compile of the examples {compile_ms:.1f} ms; launches {launches}")
+    if launches != 5:
+        raise AssertionError(f"expected 5 rtc launches, got {launches}")
+    errs = {"axpy": (z._data - rtc.axpy_plain(x._data, y._data)).abs().max().item(),
+            "scale3": (s_out._data - rtc.scale3_plain(s_in._data)).abs().max().item(),
+            "transpose": (t._data - rtc.transpose_plain(m._data)).abs().max().item(),
+            "transpose_64KiB": (t64._data - rtc.transpose_plain(m._data)).abs().max().item()}
+    log(f"[rtc] against the plain versions (exact: the same f32 arithmetic): {errs}")
+    if any(v != 0.0 for v in errs.values()):
+        raise AssertionError("an rtc kernel disagrees with its plain version")
+
+    def run_axpy():
+        axpy.launch([x, y, n], mx.gpu(0), (1024, 1, 1), (256, 1, 1))
+    ms = _time_ms(torch, run_axpy, 20)
+    plain_ms = _time_ms(torch, lambda: rtc.axpy_plain(x._data, y._data), 20)
+    lib_ms = _time_ms(torch, lambda: torch.add(y._data, x._data, alpha=2.0), 20)
+    bound = 12.0 * n / PEAK_BYTES_PER_S * 1e3
+    empty_launch = lambda: empty.launch([], mx.gpu(0), (1,), (1,))   # noqa: E731
+    for _ in range(10):
+        empty_launch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        empty_launch()
+    torch.cuda.synchronize()
+    empty_host_us = (time.perf_counter() - t0) * 1e3
+    empty_device_us = _time_ms(torch, empty_launch, 1000) * 1e3
+    log(f"[rtc] axpy on 2^26 f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.add {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes: 12 B x 2^26), "
+        f"{12.0 * n / ms / 1e9:.3f} TB/s; empty launch {empty_host_us:.2f} us "
+        f"(host clock per launch over 1000, synced), {empty_device_us:.2f} us "
+        f"(CUDA events per launch)")
+    return {"compile_ms": compile_ms, "launches": launches, "errors": errs,
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "empty_launch_host_us": empty_host_us,
+            "empty_launch_device_us": empty_device_us}
+
+
+# ResNet-50 batch-32 convolutions the TPU probe timed (conv_kernel_probe.py
+# CONVS): (N, Cin, H, W, Cout, k, stride), and the im2col product of each
+# padded to 512 / 512 / 256 as the probe pads it.
+PROBE_CONVS = [(32, 256, 14, 14, 256, 3, 1), (32, 512, 7, 7, 512, 3, 1),
+               (32, 1024, 14, 14, 256, 1, 1)]
+TOL_PROBE = 1e-2   # bf16: one rounding of an f32 sum, relative to the output's max
+
+
+def _ceil_to(x, m):
+    return (x + m - 1) // m * m
+
+
+def _probe_shape(n, cin, h, w, cout, k, stride):
+    m = n * (h // stride) * (w // stride)
+    return _ceil_to(m, 512), _ceil_to(cin * k * k, 512), _ceil_to(cout, 256)
+
+
+def _rel_err(got, expect):
+    d = (got.float() - expect.float()).abs().max().item()
+    return d, d / max(expect.float().abs().max().item(), 1e-30)
+
+
+def _im2col_check(torch, activations, weights):
+    """K7 on the im2col form of real ResNet-50 activations against the port's
+    Convolution op (cuDNN), in bf16."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.cuda import blocked_matmul as bm
+    from mxnet_tpu_torch.ops.nn import convolution
+    out = {}
+    for name, x in activations.items():
+        x, w = x.to(torch.bfloat16), weights[name].to(torch.bfloat16)
+        n, cin, h, wd = x.shape
+        cout, _, k, _ = w.shape
+        if k == 1:
+            cols = x.permute(0, 2, 3, 1).reshape(n * h * wd, cin)
+        else:
+            cols = F.unfold(x, k, padding=k // 2).transpose(1, 2).reshape(n * h * wd, cin * k * k)
+        y = bm.blocked_matmul(cols.contiguous(), w.reshape(cout, -1).t().contiguous())
+        y = y.reshape(n, h, wd, cout).permute(0, 3, 1, 2)
+        ref = convolution(x, w, None, kernel=(k, k), num_filter=cout, pad=(k // 2, k // 2),
+                          no_bias=True)
+        d, rel = _rel_err(y, ref)
+        out[name] = {"shape": list(x.shape), "weight": list(w.shape), "max_abs": d, "rel": rel}
+        log(f"[probe] real data, {name}: im2col {tuple(cols.shape)} x "
+            f"({cols.shape[1]}, {cout}) through K7 vs Convolution (cuDNN), bf16: "
+            f"max|d| {d:.3e} ({rel:.1e} of max, tol {TOL_PROBE:.0e}) "
+            f"{'ok' if rel <= TOL_PROBE else 'FAIL'}")
+        if rel > TOL_PROBE:
+            raise AssertionError(f"K7 on real im2col data disagrees with the convolution ({name})")
+    return out
+
+
+def phase_probe(torch, activations, weights):
+    """K7, the port's counterpart of ``conv_kernel_probe.main``: the blocked
+    matmul over the im2col forms of ResNet-50's batch-32 convolutions in
+    bf16, against its plain version, torch.matmul and the convolution."""
+    from mxnet_tpu_torch.ops.cuda import blocked_matmul as bm
+    from mxnet_tpu_torch.ops.nn import convolution
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = []
+    for conv in PROBE_CONVS:
+        M, K, N = _probe_shape(*conv)
+        a = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        b = (0.05 * torch.randn((K, N), generator=gen, device="cuda")).to(torch.bfloat16)
+        cases.append((conv, (M, K, N), a, b))
+
+    bm.blocked_matmul.launches = 0        # the probe path: counts set to 0 just before
+    outs = [bm.blocked_matmul(a, b) for _, _, a, b in cases]
+    real = _im2col_check(torch, activations, weights)
+    torch.cuda.synchronize()
+    launches = bm.blocked_matmul.launches
+    log(f"[probe] K7 launches on the probe path: {launches}")
+    if launches != len(cases) + len(activations):
+        raise AssertionError(f"expected {len(cases) + len(activations)} K7 launches, "
+                             f"got {launches}")
+    results = []
+    for (conv, (M, K, N), a, b), out in zip(cases, outs):
+        d, rel = _rel_err(out, bm.blocked_matmul_plain(a, b))
+        if rel > TOL_PROBE:
+            raise AssertionError(f"K7 disagrees with its plain version at {(M, K, N)}")
+        n, cin, h, w, cout, k, stride = conv
+        x = torch.randn((n, cin, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+        wt = (0.05 * torch.randn((cout, cin, k, k), generator=gen, device="cuda")).to(torch.bfloat16)
+        ms = _time_ms(torch, lambda: bm.blocked_matmul(a, b), 20)
+        plain_ms = _time_ms(torch, lambda: bm.blocked_matmul_plain(a, b), 5)
+        mm_ms = _time_ms(torch, lambda: torch.matmul(a, b), 20)
+        conv_ms = _time_ms(torch, lambda: convolution(
+            x, wt, None, kernel=(k, k), num_filter=cout, stride=(stride, stride),
+            pad=(k // 2, k // 2), no_bias=True), 20)
+        flops = 2.0 * M * K * N
+        nbytes = 2.0 * (M * K + K * N + M * N)
+        t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        fma_floor = flops / PEAK_FLOPS["float32"] * 1e3
+        r = {"conv": list(conv), "mkn": [M, K, N], "max_abs_err": d, "rel_err": rel,
+             "ms": ms, "plain_ms": plain_ms, "library_ms": mm_ms, "conv_ms": conv_ms,
+             "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "fma_floor_ms": fma_floor, "tflops": flops / ms / 1e9}
+        results.append(r)
+        log(f"[probe] ({M},{K})x({K},{N}) bf16 from conv{k}x{k} {cin}->{cout} {h}x{w} bs{n}: "
+            f"K7 {ms:.4f} ms ({r['tflops']:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"torch.matmul {mm_ms:.4f} ms, Convolution (cuDNN) {conv_ms:.4f} ms; bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), FMA-only floor "
+            f"{fma_floor * 1e3:.1f} us; max|d| vs plain {d:.3e} ({rel:.1e} of max, tol "
+            f"{TOL_PROBE:.0e}) ok")
+    total = {key: sum(r[key] for r in results)
+             for key in ("ms", "plain_ms", "library_ms", "conv_ms", "bound_ms", "fma_floor_ms")}
+    by_bytes = sum(r["bound_ms"] for r in results if r["bound_by"] == "bytes")
+    total["bound_by"] = "bytes" if 2 * by_bytes >= total["bound_ms"] else "operations"
+    return {"launches": launches, "shapes": results, "real_data": real, "total": total,
+            "max_abs_err": max(r["max_abs_err"] for r in results)}
+
+
+TOL_RESNET_LOGITS = 1e-3     # GPU against CPU, relative to the logits' max
+RESNET_TRAIN_GFLOP = 3 * 7.64   # per 224x224 image (bench.py:39-51, port's own copy)
+TOL_TRAIN_RUNNING = 1e-5
+
+
+def _resnet50(mx, ctx, params):
+    """ResNet-50 v1 on ``ctx``: one batch-1 shape pass, then the seeded weights."""
+    from mxnet_tpu_torch.convert import load_jax_params, seeded_params
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    net = resnet50_v1()
+    net.initialize(ctx=ctx)
+    net(mx.nd.zeros((1, 3, 224, 224), ctx=ctx))
+    if params is None:
+        params = seeded_params(net, seed=0)
+    load_jax_params(net, params)
+    return net, params
+
+
+def phase_resnet_serve(torch):
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    net, params = _resnet50(mx, mx.gpu(0), None)
+    torch.cuda.synchronize()
+    log(f"[resnet-serve] resnet50_v1 f32, TF32 off (matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}), {sum(p.size for p in params.values())} "
+        f"parameters in {len(params)} tensors; ready in {time.perf_counter() - t0:.2f} s")
+    rs = np.random.RandomState(7)
+    torch.cuda.reset_peak_memory_stats()
+    served = []
+    for batch in (1, 8, 32):
+        images = rs.uniform(-1, 1, (batch, 3, 224, 224)).astype(np.float32)
+        for i in range(4):          # the first of each batch size is its warm-up
+            t_start = time.perf_counter()
+            logits = net(mx.nd.array(images, ctx=mx.gpu(0)))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t_start) * 1e3
+            ok = logits.shape == (batch, 1000) and bool(torch.isfinite(logits._data).all())
+            log(f"[resnet-serve] batch={batch} request {i}: {ms:.2f} ms, "
+                f"{batch / ms * 1e3:.1f} img/s, logits {logits.shape} finite={ok}"
+                + (" (warm-up)" if i == 0 else ""))
+            if not ok:
+                raise AssertionError("bad ResNet-50 logits")
+            served.append({"batch": batch, "ms": ms, "img_per_s": batch / ms * 1e3,
+                           "warmup": i == 0})
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[resnet-serve] peak device memory {peak / 2**30:.3f} GiB")
+    x32 = mx.nd.array(rs.uniform(-1, 1, (32, 3, 224, 224)).astype(np.float32), ctx=mx.gpu(0))
+    profile = _profile(torch, "resnet50 batch=32 request", lambda: net(x32))
+
+    # the probe's real data: inputs of a 3x3 and a 1x1 convolution of stage 3
+    acts, weights, hooks = {}, {}, []
+    for name, conv in (("stage3 3x3 256->256", net.features[6][1].body[3]),
+                       ("stage3 1x1 1024->256", net.features[6][1].body[0])):
+        hooks.append(conv.register_forward_pre_hook(
+            lambda blk, args, name=name: acts.__setitem__(name, args[0]._data.detach())))
+        weights[name] = conv.weight.data()._data.detach()
+    net(x32)
+    for h in hooks:
+        h.detach()
+
+    images = rs.uniform(-1, 1, (2, 3, 224, 224)).astype(np.float32)
+    gpu_logits = net(mx.nd.array(images, ctx=mx.gpu(0))).asnumpy()
+    t0 = time.perf_counter()
+    net_cpu, _ = _resnet50(mx, mx.cpu(), params)
+    ref = net_cpu(mx.nd.array(images, ctx=mx.cpu())).asnumpy()
+    diff = float(np.abs(ref - gpu_logits).max())
+    scale = float(np.abs(ref).max())
+    log(f"[resnet-serve] batch-2 logits, GPU vs CPU: max|d| {diff:.3e} ({diff / scale:.1e} "
+        f"of max|logit| {scale:.3f}, tol {TOL_RESNET_LOGITS:.0e}); logits std "
+        f"{ref.std():.4f}, mean {ref.mean():.4f} (CPU run {time.perf_counter() - t0:.1f} s)")
+    if not diff <= TOL_RESNET_LOGITS * scale or not ref.std() > 0.1:
+        raise AssertionError("ResNet-50 GPU logits disagree with the CPU run, or are trivial")
+    return ({"requests": served, "peak_bytes": peak, "profile": profile,
+             "cpu_max_abs_diff": diff, "cpu_rel_diff": diff / scale,
+             "logits_std": float(ref.std())}, params, acts, weights)
+
+
+def _sgd_trainer(mx, net):
+    return (mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+            mx.gluon.Trainer(net.collect_params(), "sgd",
+                             {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}))
+
+
+def _zero_last_gamma(params):
+    """The seeded weights with the γ of each bottleneck's last BatchNorm set
+    to 0, so that every block starts as the identity (Goyal et al. 2017,
+    GluonCV's ``last_gamma``). From the plain seeded weights, SGD at lr 0.05
+    and momentum 0.9 without warm-up drives the loss up after its first step."""
+    return {k: np.zeros_like(v) if k.endswith("body.7.gamma") else v
+            for k, v in params.items()}
+
+
+def phase_resnet_train(torch, params):
+    """ResNet-50 v1 training at batch 32, 224x224, f32, through Gluon, from
+    the seeded weights with zero-γ residual branches."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B = 32
+    net, _ = _resnet50(mx, mx.gpu(0), _zero_last_gamma(params))
+    loss_fn, trainer = _sgd_trainer(mx, net)
+    rs = np.random.RandomState(8)
+    x = mx.nd.array(rs.uniform(-1, 1, (B, 3, 224, 224)).astype(np.float32), ctx=mx.gpu(0))
+    y = mx.nd.array(rs.randint(0, 1000, (B,)).astype(np.int32), ctx=mx.gpu(0), dtype="int32")
+    stem_mean = net.features[1].running_mean.data()._data.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(6):           # step 0 is the warm-up
+        t_start = time.perf_counter()
+        loss = _train_step(mx, net, loss_fn, trainer, x, y)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_start) * 1e3
+        value = float(loss.mean().asscalar())
+        img_s = B / ms * 1e3
+        log(f"[resnet-train] step {i}: {ms:.2f} ms, {img_s:.1f} img/s, "
+            f"{img_s * RESNET_TRAIN_GFLOP / 1e3:.2f} TFLOP/s, loss {value:.6f}"
+            + (" (warm-up)" if i == 0 else ""))
+        if not np.isfinite(value):
+            raise AssertionError("training loss is not finite")
+        steps.append({"ms": ms, "img_per_s": img_s,
+                      "tflops": img_s * RESNET_TRAIN_GFLOP / 1e3, "loss": value,
+                      "warmup": i == 0})
+    peak = torch.cuda.max_memory_allocated()
+    moved = (net.features[1].running_mean.data()._data - stem_mean).abs().max().item()
+    log(f"[resnet-train] peak device memory {peak / 2**30:.3f} GiB; loss "
+        f"{steps[0]['loss']:.6f} -> {steps[-1]['loss']:.6f}; stem running_mean "
+        f"moved by up to {moved:.3e}")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError("the loss did not fall on a repeated batch")
+    if not moved > 0:
+        raise AssertionError("the running stats did not change")
+    profile = _profile(torch, "resnet50 training step, batch 32",
+                       lambda: _train_step(mx, net, loss_fn, trainer, x, y))
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    sgd = _profile(torch, "resnet50 Trainer.step (SGD momentum, per parameter)",
+                   lambda: trainer.step(B))
+    return {"steps": steps, "peak_bytes": peak, "profile": profile, "sgd_profile": sgd,
+            "running_mean_moved": moved}
+
+
+def _narrow_resnet_step(mx, ctx, params, x, y):
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo.vision import BottleneckV1, ResNetV1
+    net = ResNetV1(BottleneckV1, [1, 1, 1, 1], [16, 32, 64, 128, 256])
+    net.initialize(ctx=ctx)
+    net(mx.nd.zeros((1,) + x.shape[1:], ctx=ctx))
+    if params is None:
+        from mxnet_tpu_torch.convert import seeded_params
+        params = seeded_params(net, seed=9)
+    load_jax_params(net, params)
+    loss_fn, trainer = _sgd_trainer(mx, net)
+    xs, ys = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx, dtype="int32")
+    with mx.autograd.record():
+        loss = loss_fn(net(xs), ys)
+    loss.backward()
+    keys = net._collect_params_with_prefix()
+    grads = {k: p.grad().asnumpy() for k, p in keys.items() if p.grad_req != "null"}
+    trainer.step(x.shape[0])
+    state = {k: p.data().asnumpy() for k, p in keys.items()}
+    return float(loss.asnumpy().mean()), grads, state, params
+
+
+def phase_resnet_train_check(torch):
+    """One SGD step of a narrow ResNet-50-style net, GPU against CPU.
+    The biases of the 1x1 convolutions that feed a training-mode BatchNorm
+    have a gradient of 0 in exact arithmetic (the BatchNorm subtracts the
+    batch mean); what is left is rounding noise, held to 1e-5 of the net's
+    largest gradient instead of its own max."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rs = np.random.RandomState(10)
+    x = rs.uniform(-1, 1, (4, 3, 64, 64)).astype(np.float32)
+    y = rs.randint(0, 1000, (4,)).astype(np.int32)
+    gpu = _narrow_resnet_step(mx, mx.gpu(0), None, x, y)
+    cpu = _narrow_resnet_step(mx, mx.cpu(), gpu[3], x, y)
+    loss_rel = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+    gmax = max(float(np.abs(g).max()) for g in cpu[1].values())
+    grad_rel, noise = 0.0, 0.0
+    for k, g in cpu[1].items():
+        d = float(np.abs(gpu[1][k] - g).max())
+        if k.endswith("body.0.bias") or k.endswith("body.6.bias"):
+            noise = max(noise, d / gmax)
+        else:
+            grad_rel = max(grad_rel, d / max(float(np.abs(g).max()), 1e-30))
+    w_abs, run_rel = 0.0, 0.0
+    for k, w in cpu[2].items():
+        d = float(np.abs(gpu[2][k] - w).max())
+        if "running" in k:
+            run_rel = max(run_rel, d / max(float(np.abs(w).max()), 1e-30))
+        else:
+            w_abs = max(w_abs, d)
+    ok = (loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_TRAIN_GRAD and noise <= 1e-5
+          and w_abs <= TOL_TRAIN_W and run_rel <= TOL_TRAIN_RUNNING)
+    log(f"[resnet-train-check] ResNetV1 bottleneck, 1 block a stage, channels "
+        f"[16, 32, 64, 128, 256], 64x64, batch 4, one SGD step, GPU vs CPU: loss "
+        f"{gpu[0]:.6f} vs {cpu[0]:.6f} (rel {loss_rel:.2e}, tol {TOL_TRAIN_LOSS:.0e}); "
+        f"gradients {grad_rel:.2e} of the tensor's max (tol {TOL_TRAIN_GRAD:.0e}), "
+        f"pre-BatchNorm biases {noise:.2e} of the largest gradient (tol 1e-05); weights "
+        f"max|d| {w_abs:.2e} (tol {TOL_TRAIN_W:.0e}); running mean/var {run_rel:.2e} "
+        f"of max (tol {TOL_TRAIN_RUNNING:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("GPU ResNet training step disagrees with the CPU run")
+    return {"loss_gpu": gpu[0], "loss_cpu": cpu[0], "loss_rel": loss_rel,
+            "grad_rel": grad_rel, "pre_bn_bias_noise": noise, "weight_max_abs": w_abs,
+            "running_rel": run_rel}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -780,6 +1191,12 @@ def main() -> int:
     train_check = phase_train_check(torch)
     fused = phase_fused(torch, weights, grads)
     del weights, grads
+    rtc = phase_rtc(torch)
+    resnet_serve, resnet_params, acts, conv_weights = phase_resnet_serve(torch)
+    probe = phase_probe(torch, acts, conv_weights)
+    del acts, conv_weights
+    resnet_train = phase_resnet_train(torch, resnet_params)
+    resnet_train_check = phase_resnet_train_check(torch)
     f32 = kernel["timings"]["float32"]
     b32 = kernel_bwd["timings"]["float32"]
     src = "mxnet_tpu_torch/csrc/"
@@ -808,9 +1225,28 @@ def main() -> int:
          fused["fused_adam"]["ms"], fused["fused_adam"]["plain_ms"],
          fused["fused_adam"]["bound_ms"], "bytes", fused["fused_adam"]["library_ms"], {}),
     ]
+    pt = probe["total"]
+    pr3 = [
+        ("rtc_cuda_module", "mxnet_tpu_torch/rtc.py", "mxnet_tpu/rtc.py:61",
+         rtc["launches"], rtc["max_abs_err"], rtc["ms"], rtc["plain_ms"], rtc["bound_ms"],
+         "bytes", rtc["library_ms"],
+         {"timed": "axpy (2x+y) on 2^26 f32 through CudaModule/launch",
+          "library": "torch.add(y, x, alpha=2.0)", "nvrtc_compile_ms": rtc["compile_ms"],
+          "empty_launch_host_us": rtc["empty_launch_host_us"]}),
+        ("blocked_matmul", "mxnet_tpu_torch/csrc/blocked_matmul.cu",
+         "benchmark/conv_kernel_probe.py:59", probe["launches"], probe["max_abs_err"],
+         pt["ms"], pt["plain_ms"], pt["bound_ms"], pt["bound_by"], pt["library_ms"],
+         {"timed": "sum over the three bf16 probe shapes",
+          "library": "torch.matmul (bf16)", "conv_ms": pt["conv_ms"],
+          "fma_floor_ms": pt["fma_floor_ms"],
+          "shapes": [{k: r[k] for k in ("mkn", "ms", "plain_ms", "library_ms", "conv_ms",
+                                        "bound_ms", "bound_by")} for r in probe["shapes"]]}),
+    ]
+    entries = [(name, src + source, ref + replaces, *rest)
+               for name, source, replaces, *rest in entries] + pr3
     line = {"kernels": [dict({
-        "name": name, "route": "cuda", "source": src + source,
-        "replaces": ref + replaces, "launches": launches, "max_abs_err": err,
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
         "max_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain,
         "bound_ms": bound, "bound_by": by, "library_ms": lib}, **extra)
         for name, source, replaces, launches, err, ms, plain, bound, by, lib, extra
@@ -820,7 +1256,9 @@ def main() -> int:
         json.dump({"device": device, "build_s": build, "kernel": kernel,
                    "kernel_bwd": kernel_bwd, "kernel_fused": kernel_fused,
                    "serve": serve, "train": train, "train_check": train_check,
-                   "fused": fused, "kernels": line["kernels"],
+                   "fused": fused, "rtc": rtc, "resnet_serve": resnet_serve,
+                   "probe": probe, "resnet_train": resnet_train,
+                   "resnet_train_check": resnet_train_check, "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1, default=float)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))

@@ -17,7 +17,11 @@ Ported so far: BERT inference and training through Gluon
 (``models.bert_base(...)``, ``net.initialize(ctx=mx.gpu())``, ``net(tokens)``;
 ``autograd.record()``, ``loss.backward()``, ``gluon.Trainer(...).step(n)``),
 with the flash-attention forward and backward and the fused SGD/Adam
-updates as CUDA kernels. ROADMAP.md lists what comes next.
+updates as CUDA kernels; ResNet v1/v2 through the Gluon model zoo
+(``gluon.model_zoo.vision.resnet50_v1()``) for inference and SGD training,
+with deferred shape inference; the blocked conv-as-matmul probe kernel
+(``ops.cuda.blocked_matmul``); and ``rtc.CudaModule``, CUDA C compiled at
+run time with NVRTC. ROADMAP.md lists what comes next.
 
 Quick start::
 
@@ -48,8 +52,9 @@ from . import random
 from . import initializer
 from . import optimizer
 from . import gluon
+from . import rtc
 from .ndarray import NDArray
 
 __all__ = ["base", "MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "ops", "ndarray", "nd", "autograd", "random",
-           "initializer", "optimizer", "gluon", "NDArray"]
+           "initializer", "optimizer", "gluon", "rtc", "NDArray"]

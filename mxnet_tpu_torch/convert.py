@@ -38,8 +38,20 @@ def load_jax_params(net, arrays: Dict[str, np.ndarray]) -> None:
 
 
 def seeded_params(net, seed: int) -> Dict[str, np.ndarray]:
-    """Random f32 weights for every structural path of ``net``: N(0, 0.02)
-    for weights and biases, LayerNorm gamma 1 + N(0, 0.1), beta N(0, 0.1)."""
+    """Random f32 weights for every structural path of ``net``, drawn in
+    path order from one ``RandomState(seed)``:
+
+    - 4-D (convolution) weights: N(0, sqrt(2 / fan_in)), fan_in = in
+      channels x kernel area, so activations keep their scale through a
+      deep convolutional stack;
+    - norm gamma 1 + N(0, 0.1), beta N(0, 0.1);
+    - BatchNorm running_mean 0.1 N, running_var 1 + 0.1 |N| (positive, so
+      inference never takes the root of a negative variance);
+    - every other tensor (dense weights, biases): N(0, 0.02).
+
+    A net without convolutions or BatchNorm (BERT) gets what the same seed
+    gave before the first two rules existed. A net with deferred shapes
+    needs one forward first."""
     rs = np.random.RandomState(seed)
     out = {}
     for key, p in net._collect_params_with_prefix().items():
@@ -49,6 +61,13 @@ def seeded_params(net, seed: int) -> Dict[str, np.ndarray]:
             a = 1.0 + 0.1 * rs.standard_normal(p.shape)
         elif key.endswith("beta"):
             a = 0.1 * rs.standard_normal(p.shape)
+        elif key.endswith("running_mean"):
+            a = 0.1 * rs.standard_normal(p.shape)
+        elif key.endswith("running_var"):
+            a = 1.0 + 0.1 * np.abs(rs.standard_normal(p.shape))
+        elif len(p.shape) == 4:
+            fan_in = int(np.prod(p.shape[1:]))
+            a = np.sqrt(2.0 / fan_in) * rs.standard_normal(p.shape)
         else:
             a = 0.02 * rs.standard_normal(p.shape)
         out[key] = a.astype(np.float32)

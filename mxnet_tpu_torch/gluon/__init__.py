@@ -2,15 +2,16 @@
 ``mxnet_tpu/gluon``).
 
 Ported so far: ``Block``, ``HybridBlock``, ``Parameter``, ``ParameterDict``,
-the layers BERT uses, ``loss.SoftmaxCrossEntropyLoss`` and ``Trainer`` on
-one device. The other losses, data, the model zoo and the contrib layers
-wait for later slices.
+the layers BERT and ResNet use, ``loss.SoftmaxCrossEntropyLoss``, the
+model zoo's ResNet family and ``Trainer`` on one device. The other losses,
+data, the other zoo families and the contrib layers wait for later slices.
 """
 from . import nn
 from . import loss
+from . import model_zoo
 from .block import Block, HybridBlock
 from .parameter import Parameter, ParameterDict
 from .trainer import Trainer
 
-__all__ = ["nn", "loss", "Block", "HybridBlock", "Parameter", "ParameterDict",
+__all__ = ["nn", "loss", "model_zoo", "Block", "HybridBlock", "Parameter", "ParameterDict",
            "Trainer"]

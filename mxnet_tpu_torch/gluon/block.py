@@ -15,9 +15,21 @@ Counterpart of ``mxnet_tpu/gluon/block.py``. ``Block`` is a
 ``HybridBlock.forward`` calls ``hybrid_forward(F, *args, **params)`` with
 ``F`` the port's ``nd`` (``block.py:417-449``). ``hybridize()`` is accepted
 and runs eagerly: no ``torch.compile`` and no CUDA graphs yet (ROADMAP A4).
+
+Deferred shape inference (reference :377-447): a layer whose parameter
+still waits for its shape resolves it at its first forward, eagerly and
+block by block: ``infer_shape(*args)`` sets the shapes from the input, the
+parameters initialize as ``initialize()`` asked, and the forward runs. The
+reference's abstract shape probe of the whole tree has no counterpart:
+the first forward is a real one.
+
+``defer_aux_update(param, value)`` (reference :57-64) writes a new value
+into a parameter that is state, not weight (BatchNorm's running stats): in
+place, under ``torch.no_grad()``.
+
 Left for later slices: symbolic tracing and ``export``, ``SymbolBlock``,
-deferred shape inference, ``name_scope`` prefixes nested under a parent
-(each block takes a process-wide ``<class><n>_`` prefix), ``summary``.
+``name_scope`` prefixes nested under a parent (each block takes a
+process-wide ``<class><n>_`` prefix), ``summary``.
 
 ``save_parameters`` writes ``{structural name: tensor}`` with
 ``torch.save``; files in the reference's MXNet ``.params`` format wait for
@@ -36,7 +48,13 @@ import torch
 from ..base import MXNetError
 from ..ndarray import NDArray
 from .. import ndarray as nd
-from .parameter import Parameter, ParameterDict
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
+
+
+def defer_aux_update(param: Parameter, new_value: torch.Tensor) -> None:
+    """Write ``new_value`` into ``param``'s tensor in place, outside autograd."""
+    with torch.no_grad():
+        param.data()._data.copy_(new_value)
 
 
 class _NameManager:
@@ -204,12 +222,21 @@ class HybridBlock(Block):
         self._active = active
         super().hybridize(active, **kwargs)
 
+    def infer_shape(self, *args):
+        """Layers override this to set deferred parameter shapes from the
+        inputs of their first forward."""
+
     def forward(self, *args, **kwargs):
         if not args or not isinstance(args[0], NDArray):
             raise MXNetError(f"{type(self).__name__}.forward expects NDArray "
                              f"input (symbolic tracing is not ported yet)")
         for name, p in self._reg_params.items():
-            kwargs[name] = p.data()
+            try:
+                kwargs[name] = p.data()
+            except DeferredInitializationError:
+                self.infer_shape(*args)
+                p._finish_deferred_init()
+                kwargs[name] = p.data()
         return self.hybrid_forward(nd, *args, **kwargs)
 
     def hybrid_forward(self, F, x, *args, **kwargs):

@@ -2,15 +2,20 @@
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py:13-278``: ``Sequential``,
 ``HybridSequential``, ``Dense`` (with ``activation``, e.g. ``"gelu"``),
-``Dropout`` (identity at p=0 or outside training), ``Embedding`` and
-``LayerNorm``. Every layer needs its input width (``in_units``,
-``in_channels``): deferred shape inference is not ported yet, and
-initializing a layer without it raises ``MXNetError``. BatchNorm, the other
-norms and activations wait for the slices whose models use them.
+``Dropout`` (identity at p=0 or outside training), ``BatchNorm``,
+``Embedding``, ``Flatten``, ``Activation`` and ``LayerNorm``. A layer built
+without its input width (``in_units``, ``in_channels``) takes it from its
+first input (deferred shape inference, ``gluon/block.py``). The other norms
+and activation layers wait for the slices whose models use them.
 """
 from __future__ import annotations
 
-from ..block import Block, HybridBlock
+import math
+
+import torch
+
+from ...base import torch_dtype
+from ..block import Block, HybridBlock, defer_aux_update
 
 
 class Sequential(Block):
@@ -64,12 +69,18 @@ class Dense(HybridBlock):
         self._flatten = flatten
         self._activation = activation
         self.weight = self.params.get("weight", shape=(units, in_units),
-                                      dtype=dtype, init=weight_initializer)
+                                      dtype=dtype, init=weight_initializer,
+                                      allow_deferred_init=True)
         if use_bias:
             self.bias = self.params.get("bias", shape=(units,), dtype=dtype,
-                                        init=bias_initializer)
+                                        init=bias_initializer,
+                                        allow_deferred_init=True)
         else:
             self.bias = None
+
+    def infer_shape(self, x, *args):
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        self.weight.shape = (self._units, in_units)
 
     def hybrid_forward(self, F, x, weight, bias=None):
         out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
@@ -89,6 +100,70 @@ class Dropout(HybridBlock):
         from ... import autograd
         return F.Dropout(x, p=self._rate, axes=self._axes,
                          training=autograd.is_training() or autograd.is_recording())
+
+
+class BatchNorm(HybridBlock):
+    """reference basic_layers.py:98-156. In training (``autograd.record()``
+    or ``train_mode``) it normalises by the batch's statistics and blends
+    them into the running ones, m * running + (1 - m) * batch with the
+    batch's biased variance; otherwise, and always under
+    ``use_global_stats``, it normalises by the running stats. The running
+    stats are parameters with ``grad_req="null"``: the Trainer skips them."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                     init=gamma_initializer, allow_deferred_init=True,
+                                     grad_req="write" if scale else "null")
+        self.beta = self.params.get("beta", shape=(in_channels,),
+                                    init=beta_initializer, allow_deferred_init=True,
+                                    grad_req="write" if center else "null")
+        self.running_mean = self.params.get("running_mean", shape=(in_channels,),
+                                            init=running_mean_initializer,
+                                            allow_deferred_init=True,
+                                            grad_req="null", differentiable=False)
+        self.running_var = self.params.get("running_var", shape=(in_channels,),
+                                           init=running_variance_initializer,
+                                           allow_deferred_init=True,
+                                           grad_req="null", differentiable=False)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p.shape = (c,)
+
+    def cast(self, dtype):
+        """The statistics stay in f32 for bf16/f16 (reference :139-144)."""
+        if torch_dtype(dtype) in (torch.float16, torch.bfloat16):
+            dtype = "float32"
+        super().cast(dtype)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        from ... import autograd
+        training = (autograd.is_training() or autograd.is_recording()) \
+            and not self._use_global_stats
+        out, mean, var = F.BatchNorm(
+            x, gamma, beta, running_mean, running_var, eps=self._epsilon,
+            momentum=self._momentum, fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, axis=self._axis,
+            training=training)
+        if training:
+            m = self._momentum
+            with torch.no_grad():
+                defer_aux_update(self.running_mean,
+                                 m * running_mean._data + (1 - m) * mean._data)
+                defer_aux_update(self.running_var,
+                                 m * running_var._data + (1 - m) * var._data)
+        return out
 
 
 class Embedding(HybridBlock):
@@ -111,6 +186,24 @@ class Embedding(HybridBlock):
                            output_dim=self._output_dim)
 
 
+class Flatten(HybridBlock):
+    """(N, ...) -> (N, prod(...)) (reference basic_layers.py:188)."""
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
+
+
+class Activation(HybridBlock):
+    """reference basic_layers.py:193."""
+
+    def __init__(self, activation, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._act_type = activation
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
+
+
 class LayerNorm(HybridBlock):
     """reference basic_layers.py:546."""
 
@@ -121,11 +214,16 @@ class LayerNorm(HybridBlock):
         self._axis = axis
         self._epsilon = epsilon
         self.gamma = self.params.get("gamma", shape=(in_channels,),
-                                     init=gamma_initializer,
+                                     init=gamma_initializer, allow_deferred_init=True,
                                      grad_req="write" if scale else "null")
         self.beta = self.params.get("beta", shape=(in_channels,),
-                                    init=beta_initializer,
+                                    init=beta_initializer, allow_deferred_init=True,
                                     grad_req="write" if center else "null")
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
 
     def hybrid_forward(self, F, x, gamma, beta):
         return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)

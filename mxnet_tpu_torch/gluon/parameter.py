@@ -18,11 +18,15 @@ it, never into torch's ``.grad``. ``grad()`` and ``list_grad()`` return it,
 ``zero_grad()`` zeroes it, and setting ``grad_req`` allocates or drops it.
 Optimizer updates write into the ``nn.Parameter`` in place.
 
-Deferred initialization (a shape with a 0 dim resolved at the first
-forward) is not ported yet: initializing a parameter whose shape is
-incomplete raises ``MXNetError``. Every BERT layer gives its input width,
-so the slice needs none. ``ParameterDict.save/load`` and ``Constant`` wait
-for later slices.
+Deferred initialization (reference :48, :83-94): ``initialize()`` on a
+parameter whose shape has a 0 dim and that allows it
+(``allow_deferred_init=True``, as every layer's parameters do) records the
+initializer and context and returns; ``data()`` then raises
+``DeferredInitializationError``, and the layer's first forward sets the
+shape from its input (``HybridBlock.infer_shape``) and calls
+``_finish_deferred_init``. An incomplete shape without
+``allow_deferred_init`` still raises at ``initialize()``.
+``ParameterDict.save/load`` and ``Constant`` wait for later slices.
 """
 from __future__ import annotations
 
@@ -38,6 +42,11 @@ from ..context import Context, current_context
 from ..ndarray import NDArray
 from .. import initializer as init_mod
 from ..initializer import InitDesc
+
+
+class DeferredInitializationError(MXNetError):
+    """A parameter's shape waits for the first forward (reference
+    gluon/parameter.py DeferredInitializationError)."""
 
 
 class Parameter:
@@ -61,6 +70,7 @@ class Parameter:
         self.attrs: Dict[str, str] = {}
         self._param: Optional[torch.nn.Parameter] = None
         self._grad: Optional[torch.Tensor] = None
+        self._deferred_init = None   # (init, ctx, default_init) until the shape is known
         # (block, attribute name) pairs whose _parameters entry is this value
         self._owners: List[tuple] = []
 
@@ -118,10 +128,15 @@ class Parameter:
             ctx = ctx[0]
         ctx = ctx or current_context()
         if not self._shape_complete():
+            if self.allow_deferred_init:
+                ctx.torch_device   # an unusable context raises now, not at the forward
+                self._deferred_init = (init, ctx, default_init)
+                return
             raise MXNetError(
                 f"cannot initialize parameter '{self.name}' with incomplete "
-                f"shape {self.shape}: deferred shape inference is not ported "
-                f"yet, give the layer its input width (in_units/in_channels)")
+                f"shape {self.shape}: give the layer its input width "
+                f"(in_units/in_channels) or allow_deferred_init")
+        self._deferred_init = None
         data = NDArray(torch.zeros(self.shape, dtype=torch_dtype(self.dtype),
                                    device=ctx.torch_device), ctx)
         initializer = init_mod.create(
@@ -135,8 +150,24 @@ class Parameter:
             with torch.no_grad():
                 self._param.copy_(data._data)
 
+    def _finish_deferred_init(self):
+        """Initialize with the initializer and context recorded by
+        ``initialize()``, now that the first forward has set the shape."""
+        if self._deferred_init is None:
+            return
+        init, ctx, default_init = self._deferred_init
+        if not self._shape_complete():
+            raise MXNetError(f"parameter '{self.name}': shape {self.shape} is "
+                             f"still incomplete after shape inference")
+        self.initialize(init, ctx, default_init)
+
     # -- access --------------------------------------------------------------
     def _check_initialized(self):
+        if self._param is None and self._deferred_init is not None:
+            raise DeferredInitializationError(
+                f"parameter '{self.name}' has shape {self.shape}, deferred "
+                f"until the first forward; call the block on an input or give "
+                f"the layer its input width (in_units/in_channels)")
         if self._param is None:
             raise MXNetError(f"parameter '{self.name}' has not been "
                              f"initialized; call .initialize() first")
@@ -173,6 +204,8 @@ class Parameter:
             raise MXNetError(f"shape mismatch for '{self.name}': "
                              f"{tuple(data.shape)} vs {self.shape}")
         self.shape = tuple(data.shape)
+        if self._param is None and self._deferred_init is not None:
+            self._finish_deferred_init()
         if self._param is None:
             device = data.device if data.device.type != "cpu" \
                 else current_context().torch_device

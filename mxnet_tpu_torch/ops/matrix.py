@@ -3,12 +3,14 @@
 Counterpart of ``mxnet_tpu/ops/matrix.py``. Ported: ``Reshape`` with the
 MXNet codes 0/-1/-2/-3/-4 (``matrix.py:23-73``; ``infer_reshape`` is a copy,
 the port imports nothing of the reference package), ``transpose`` (:81),
-``expand_dims`` (:88), ``slice_axis`` (:138), ``pick`` (:266),
-``batch_dot`` (:409) and ``_arange`` (``mxnet_tpu/ops/extra.py:42``). Slicing
+``Flatten`` (:76), ``expand_dims`` (:88), ``slice_axis`` (:138), ``pick``
+(:266), ``batch_dot`` (:409) and ``_arange`` (``mxnet_tpu/ops/extra.py:42``). Slicing
 beyond ``slice_axis``, the other indexing ops, ordering and the other layout
 ops wait for later slices.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -68,6 +70,13 @@ def reshape(x, *, shape=None, reverse=False):
     if reverse:
         tgt = tgt[::-1]
     return x.reshape(tgt)
+
+
+@register("Flatten", aliases=("flatten",))
+def flatten(x):
+    """(N, ...) -> (N, prod(...)); the product is explicit, so a zero-size
+    batch flattens too."""
+    return x.reshape(x.shape[0], math.prod(x.shape[1:]))
 
 
 @register("transpose")

@@ -146,9 +146,14 @@ def test_embedding_ids_in_range_and_out_of_range():
 
 
 def test_layer_without_input_width_raises():
+    """Without ``in_units`` the weight's shape waits for the first forward:
+    reading it before then raises, and naming the input width is the way out."""
     dense = mt.gluon.nn.Dense(4)
+    dense.initialize(ctx=mt.cpu())
     with pytest.raises(MXNetError, match="in_units"):
-        dense.initialize(ctx=mt.cpu())
+        dense.weight.data()
+    assert dense(mt.nd.zeros((2, 3), ctx=mt.cpu())).shape == (2, 4)
+    assert dense.weight.shape == (4, 3)
 
 
 def test_save_load_parameters_round_trip(tmp_path):

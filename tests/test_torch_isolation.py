@@ -67,7 +67,9 @@ def test_no_reference_or_jax_imports(path):
 
 def test_fresh_interpreter_loads_neither_jax_nor_reference():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.models, "
-            "mxnet_tpu_torch.convert, mxnet_tpu_torch.ops.cuda.flash_attention\n"
+            "mxnet_tpu_torch.convert, mxnet_tpu_torch.ops.cuda.flash_attention, "
+            "mxnet_tpu_torch.ops.cuda.blocked_matmul, mxnet_tpu_torch.rtc, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -125,6 +125,15 @@ CASES = [
      {"lr": 0.1, "momentum": 0.9, "wd": 0.01, "rescale_grad": 2.0}),
     ("adam_update", "adam_update", [_f(3, 4), _f(3, 4), _f(3, 4), _f(3, 4) ** 2],
      {"lr": 0.01, "wd": 0.1, "rescale_grad": 0.5, "clip_gradient": 0.2}),
+    ("flatten", "Flatten", [_X4], {}),
+    ("conv2d", "Convolution", [_f(2, 3, 7, 7), _f(4, 3, 3, 3), _f(4)],
+     {"kernel": (3, 3), "num_filter": 4, "stride": (2, 2), "pad": (1, 1)}),
+    ("pool-max-full", "Pooling", [_f(2, 3, 5, 5)],
+     {"kernel": (3, 3), "stride": (3, 3), "pad": (1, 1), "pooling_convention": "full"}),
+    ("pool-avg", "Pooling", [_f(2, 3, 6, 6)],
+     {"kernel": (2, 2), "stride": (2, 2), "pool_type": "avg"}),
+    ("batchnorm", "BatchNorm", [_X4, _f(3), _f(3), _f(3), _f(3) ** 2 + 0.5],
+     {"fix_gamma": False}),
 ]
 # Dropout outside training, or at p=0, is the identity. The reference op
 # takes an RNG key as a second input; the port draws from its generator.
@@ -136,14 +145,20 @@ DROPOUT = [("dropout-predict", {"p": 0.5, "training": False}),
 def ref_op():
     import jax.numpy as jnp
     from mxnet_tpu.ops.registry import get_op as ref_get_op
-    return lambda name, *arrays, **params: np.asarray(
-        ref_get_op(name)(*(jnp.asarray(a) for a in arrays), **params))
+    def run(name, *arrays, **params):
+        out = ref_get_op(name)(*(jnp.asarray(a) for a in arrays), **params)
+        return [np.asarray(o) for o in out] if isinstance(out, tuple) else np.asarray(out)
+    return run
 
 
 def _port(name, arrays, params):
     out = get_op(name)(*(torch.from_numpy(a) for a in arrays), **params)
-    if isinstance(out, tuple):  # stacked, as np.asarray stacks the reference's
-        out = torch.stack(out)
+    if isinstance(out, tuple):  # one array per output, as for the reference
+        return [_port_array(o) for o in out]
+    return _port_array(out)
+
+
+def _port_array(out):
     return out.float().numpy() if out.dtype == torch.bfloat16 else out.numpy()
 
 
@@ -152,9 +167,11 @@ def _port(name, arrays, params):
 def test_op_matches_reference(ref_op, name, arrays, params):
     expect = ref_op(name, *arrays, **params)
     got = _port(name, arrays, params)
-    assert got.shape == expect.shape
-    assert got.dtype == expect.dtype, (got.dtype, expect.dtype)
-    np.testing.assert_allclose(got, expect, rtol=TOL, atol=TOL)
+    assert isinstance(got, list) == isinstance(expect, list)
+    for g, e in zip(*((got, expect) if isinstance(got, list) else ([got], [expect]))):
+        assert g.shape == e.shape
+        assert g.dtype == e.dtype, (g.dtype, e.dtype)
+        np.testing.assert_allclose(g, e, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("params", [d[1] for d in DROPOUT],
