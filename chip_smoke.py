@@ -19,7 +19,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    never calls it) with CUDA events, beside the least time the card could
    take for the work. The flash-attention forward (K1) and backward (dQ K2,
    dK/dV K3); the fused SGD/Adam updates (K4, K5) on a small ragged list
-   here, on BERT-base's parameters in phase 7.
+   here, on BERT-base's parameters in phase 7. For K2/K3 also the HMMA
+   instructions of every instantiation in the built library (``cuobjdump
+   -sass``; none, or local memory at D=64, fails the phase), their registers,
+   stack, local and shared memory (``cuobjdump -res-usage``), the f32 bound
+   of the 3xTF32 tensor-core route beside the FMA one, and the port's and
+   SDPA's whole backward replayed from captured CUDA graphs.
 4. serve: BERT-base at T=1024 (full published width, 12 layers, random
    weights from a seed loaded through ``convert.load_jax_params``) on
    ``gpu(0)`` in f32 with TF32 off answers requests of batch 1, 2, 4 and 8;
@@ -64,6 +69,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+PEAK_TF32_FLOPS = 495e12  # tensor cores; an f32-accurate product by 3xTF32 takes 3
 
 # Tolerances of the kernel against its plain version, same inputs on the
 # card: both accumulate in f32 and differ only in the order of summation
@@ -265,14 +271,103 @@ def phase_kernel(torch):
 def _bwd_bound_ms(kind, BH, T, Tk, D, dtype_name, elem):
     """Least time for one backward kernel: its operations (dq: S, dP, dQ;
     dkv: S, dP, dV, dK, 2*BH*T*Tk*D each) or its bytes (q, k, v, dO, LSE and
-    delta read once, its outputs written once), whichever is larger."""
+    delta read once, its outputs written once), whichever is larger. In f32
+    the operations are held to the 3xTF32 tensor-core route, three TF32
+    products each at 495 TFLOP/s (``bound_ms``), with the 67 TFLOP/s FMA
+    bound of the earlier kernels beside it (``fma_bound_ms``)."""
     products = 3 if kind == "dq" else 4
     flops = 2.0 * products * BH * T * Tk * D
     reads = elem * (2 * BH * T * D + 2 * BH * Tk * D) + 8 * BH * T
     writes = elem * (BH * T * D if kind == "dq" else 2 * BH * Tk * D)
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = (reads + writes) / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    out = {}
+    if dtype_name == "float32":
+        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        out["fma_bound_ms"] = max(flops / PEAK_FLOPS["float32"] * 1e3, t_bytes)
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    out["bound_ms"] = max(t_ops, t_bytes)
+    out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return out
+
+
+def _bwd_resources(fa):
+    """For every instantiation of the two backward kernels in the built
+    library: its HMMA instructions (``cuobjdump -sass``), registers, stack
+    and local memory (``cuobjdump -res-usage``; spills live in local memory)
+    and dynamic shared memory a block. Read from the library itself, so the
+    same whether or not this process built it. Fails if a kernel has no
+    HMMA or no resource line, or uses local memory at D=64."""
+    import re
+    import shutil
+    from mxnet_tpu_torch.ops import cuda as cuda_ops
+    lib = fa._bwd_library()
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    path = str(cuda_ops.BUILD_DIR / "libflash_attention_bwd.so")
+
+    def dump(flag):
+        return subprocess.run([tool, flag, path], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+    kernels, name = {}, None
+    for line in dump("-sass").splitlines():
+        if "Function :" in line:
+            name = _short_kernel_name(line.split("Function :", 1)[1].strip())
+            kernels[name] = {"hmma": 0}
+        elif name and re.search(r"\bHMMA\b", line):
+            kernels[name]["hmma"] += 1
+    name = None
+    for line in dump("-res-usage").splitlines():
+        if line.strip().startswith("Function "):
+            name = _short_kernel_name(line.strip()[len("Function "):].rstrip(":"))
+        elif name and "REG:" in line:
+            usage = {k: int(v) for k, v in re.findall(r"([A-Z]+):(\d+)", line)}
+            kernels.setdefault(name, {"hmma": 0}).update(
+                registers=usage.get("REG"), stack_bytes=usage.get("STACK", 0),
+                local_bytes=usage.get("LOCAL", 0))
+            name = None
+    codes = {"f32": 0, "bf16": 1, "f16": 2}
+    failures = []
+    for name, info in sorted(kernels.items()):
+        m = re.match(r"flash_bwd_(dq|dkv)_kernel<(\w+), (\d+)>", name)
+        if not m:
+            continue
+        info["smem_bytes"] = lib.mxt_flash_attention_bwd_smem_bytes(
+            int(m.group(1) == "dkv"), int(m.group(3)), codes[m.group(2)])
+        log(f"[kernel] {name}: {info['hmma']} HMMA, {info.get('registers')} registers, "
+            f"{info.get('stack_bytes')} B stack, {info.get('local_bytes')} B local "
+            f"memory, {info['smem_bytes']} B dynamic shared memory a block")
+        if info["hmma"] == 0:
+            failures.append(f"{name} has no HMMA instruction")
+        if info.get("registers") is None:
+            failures.append(f"{name} has no resource line in cuobjdump -res-usage")
+        elif m.group(3) == "64" and info["stack_bytes"] + info["local_bytes"] > 0:
+            failures.append(f"{name} uses {info['stack_bytes']} B stack and "
+                            f"{info['local_bytes']} B local memory at D=64")
+    for kind in ("dq", "dkv"):
+        if not any(n.startswith(f"flash_bwd_{kind}_kernel<") for n in kernels):
+            failures.append(f"flash_bwd_{kind}_kernel not found in the SASS")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return kernels
+
+
+def _graph_ms(torch, fn, iters=20):
+    """Device time of one call of ``fn``: the call captured once in a CUDA
+    graph, then replayed back to back between CUDA events, so the host's
+    launches and allocations are out of the way. (``torch.profiler`` read
+    the same times but, started many times in one process, once returned
+    every kernel's time scaled down and once no device record at all.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _time_ms(torch, graph.replay, iters)
 
 
 def phase_kernel_bwd(torch):
@@ -321,6 +416,7 @@ def phase_kernel_bwd(torch):
             results.append({"case": label, "B": B, "H": H, "T": T, "Tk": Tk, "D": D,
                             "dtype": dname, "causal": causal, "errors": errs})
 
+    resources = _bwd_resources(fa)
     timings = {}
     for dname in ("float32", "bfloat16"):
         B, H, T, D = 8, 12, 1024, 64
@@ -339,28 +435,49 @@ def phase_kernel_bwd(torch):
         q4, k4, v4 = (t.view(B, H, T, D).clone().requires_grad_() for t in (q, k, v))
         do4 = do.view(B, H, T, D)
 
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(q4, k4, v4)
+
         def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(q4, k4, v4)
-            torch.autograd.grad(out, (q4, k4, v4), do4)
+            torch.autograd.grad(sdpa_fwd(), (q4, k4, v4), do4)
         with torch.no_grad():
-            sdpa_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4), 20)
+            sdpa_fwd_ms = _time_ms(torch, sdpa_fwd, 20)
+            # the port's whole backward, delta's torch ops included, read as
+            # SDPA's is below
+            port_ms = _graph_ms(torch, lambda: fa.flash_attention_bwd(
+                q, k, v, o, lse, do))
         sdpa_both = _time_ms(torch, sdpa_fwd_bwd, 20)
+        # SDPA's whole backward, its preprocessing of dO and O included:
+        # forward+backward less the same forward, both replayed from graphs
+        sdpa_graph_both = _graph_ms(torch, sdpa_fwd_bwd)
+        sdpa_graph_fwd = _graph_ms(torch, sdpa_fwd)
         entry = {"plain_ms": plain_ms,
-                 "library_ms": sdpa_both - sdpa_fwd,
-                 "library_fwd_bwd_ms": sdpa_both, "library_fwd_ms": sdpa_fwd}
+                 "library_ms": sdpa_graph_both - sdpa_graph_fwd,
+                 "library_graph_fwd_bwd_ms": sdpa_graph_both,
+                 "library_graph_fwd_ms": sdpa_graph_fwd,
+                 "port_bwd_ms": port_ms,
+                 "library_fwd_bwd_less_fwd_ms": sdpa_both - sdpa_fwd_ms,
+                 "library_fwd_bwd_ms": sdpa_both, "library_fwd_ms": sdpa_fwd_ms}
         for kind, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
-            bound, by = _bwd_bound_ms(kind, BH, T, T, D, dname, q.element_size())
-            entry[kind] = {"ms": ms, "bound_ms": bound, "bound_by": by}
+            entry[kind] = dict(ms=ms, **_bwd_bound_ms(kind, BH, T, T, D, dname,
+                                                      q.element_size()))
         timings[dname] = entry
+        fma = (f", FMA bound {entry['dq']['fma_bound_ms']:.4f} / "
+               f"{entry['dkv']['fma_bound_ms']:.4f}" if dname == "float32" else "")
         log(f"[kernel] flash_attention_bwd B={B} H={H} T={T} D={D} {dname}: "
             f"dQ kernel {dq_ms:.4f} ms (bound {entry['dq']['bound_ms']:.4f}, "
             f"{entry['dq']['bound_by']}), dK/dV kernel {dkv_ms:.4f} ms (bound "
-            f"{entry['dkv']['bound_ms']:.4f}, {entry['dkv']['bound_by']}), plain "
-            f"(both) {plain_ms:.4f} ms, SDPA backward {sdpa_both - sdpa_fwd:.4f} ms "
-            f"(forward+backward through torch.autograd.grad {sdpa_both:.4f} less "
-            f"forward {sdpa_fwd:.4f})")
-    return {"cases": results, "max_abs_err_f32": worst, "timings": timings}
+            f"{entry['dkv']['bound_ms']:.4f}, {entry['dkv']['bound_by']}){fma}; "
+            f"together {dq_ms + dkv_ms:.4f} ms; plain (both) {plain_ms:.4f} ms")
+        log(f"[kernel]   whole backward, replayed from a CUDA graph: port "
+            f"{port_ms:.4f} ms (delta's torch ops included), SDPA "
+            f"{entry['library_ms']:.4f} ms (forward+backward {sdpa_graph_both:.4f} "
+            f"less forward {sdpa_graph_fwd:.4f}); SDPA forward+backward less "
+            f"forward by CUDA events around host-paced calls "
+            f"{entry['library_fwd_bwd_less_fwd_ms']:.4f} ({sdpa_both:.4f} less "
+            f"{sdpa_fwd_ms:.4f})")
+    return {"cases": results, "max_abs_err_f32": worst, "timings": timings,
+            "resources": resources}
 
 
 def _ragged_list(torch, gen, dtype, shapes):
@@ -1208,14 +1325,18 @@ def main() -> int:
          sum(fwd_by_path.values()), kernel["max_abs_err_f32"], f32["ms"],
          f32["plain_ms"], f32["bound_ms"], f32["bound_by"], f32["library_ms"],
          {"launches_by_path": fwd_by_path}),
-        ("flash_attention_bwd_dq", "flash_attention_bwd.cu", "flash_attention.py:181",
-         train["launches"]["flash_attention_bwd_dq"], kernel_bwd["max_abs_err_f32"]["dq"],
-         b32["dq"]["ms"], b32["plain_ms"], b32["dq"]["bound_ms"], b32["dq"]["bound_by"],
-         b32["library_ms"], {"plain_and_library_cover": "dQ and dK/dV together"}),
-        ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", "flash_attention.py:229",
-         train["launches"]["flash_attention_bwd_dkv"], kernel_bwd["max_abs_err_f32"]["dkv"],
-         b32["dkv"]["ms"], b32["plain_ms"], b32["dkv"]["bound_ms"], b32["dkv"]["bound_by"],
-         b32["library_ms"], {"plain_and_library_cover": "dQ and dK/dV together"}),
+        *[(f"flash_attention_bwd_{kind}", "flash_attention_bwd.cu",
+           f"flash_attention.py:{line}", train["launches"][f"flash_attention_bwd_{kind}"],
+           kernel_bwd["max_abs_err_f32"][kind], b32[kind]["ms"], b32["plain_ms"],
+           b32[kind]["bound_ms"], b32[kind]["bound_by"], b32["library_ms"],
+           {"plain_and_library_cover": "dQ and dK/dV together",
+            "bound": "3xTF32 on the tensor cores (3 TF32 products at 495 TFLOP/s)",
+            "fma_bound_ms": b32[kind]["fma_bound_ms"],
+            "port_bwd_ms": b32["port_bwd_ms"],
+            "library_fwd_bwd_less_fwd_ms": b32["library_fwd_bwd_less_fwd_ms"],
+            "hmma": {n: r["hmma"] for n, r in kernel_bwd["resources"].items()
+                     if n.startswith(f"flash_bwd_{kind}_kernel<")}})
+          for kind, line in (("dq", 181), ("dkv", 229))],
         ("fused_sgd", "fused_optimizer.cu", "fused_optimizer.py:66",
          fused["launches"]["fused_sgd"], fused["fused_sgd"]["max_abs_err"],
          fused["fused_sgd"]["ms"], fused["fused_sgd"]["plain_ms"],

@@ -21,12 +21,12 @@ take their plain versions (``flash_attention_fwd_plain``,
 ``FlashAttentionFunction`` (a ``torch.autograd.Function``) is the
 counterpart of ``_flash``'s ``custom_vjp`` (:362-379): its forward runs
 ``flash_attention_fwd`` and saves q, k, v, O and the LSE; its backward makes
-dO contiguous, computes delta = rowsum(dO * O) with torch ops (the reference
+dO contiguous and aligned, computes delta = rowsum(dO * O) with torch ops (the reference
 leaves it to XLA, :283) and launches the two backward kernels, or, for CPU
 tensors, runs the plain backward. ``flash_attention(q, k, v, causal, scale,
 block_q, block_k)`` is the public (B, H, T, D) entry point with the
 reference's signature (:382-412); its reshape to (BH, T, D) and the
-``.contiguous()`` copies stay outside the Function, so torch differentiates
+contiguous, aligned copies stay outside the Function, so torch differentiates
 them. ``block_q`` and ``block_k`` are accepted for that signature and change
 nothing: the kernels' tiles are their own, and the plain versions take keys
 in blocks of 256.
@@ -39,7 +39,11 @@ forward autograd is off, so the differentiable path is ``flash_attention``.
 Strides: q, k and v reach this module as (B, H, T, D) views out of a
 ``transpose``, not contiguous, and so does dO; the wrappers take contiguous
 tensors (one copy each), and kernels that take strides are left for a
-later PR.
+later PR. The backward kernels copy rows into shared memory 16 bytes at a
+time (``cp.async``), so their wrappers also refuse a tensor whose data does
+not start on a 16-byte boundary, as a contiguous view at a storage offset
+may; ``flash_attention`` and the Function's backward pass such inputs on as
+aligned copies (``_aligned``).
 """
 from __future__ import annotations
 
@@ -79,6 +83,9 @@ def _bwd_library() -> ctypes.CDLL:
             [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         lib.mxt_flash_attention_bwd_dq.restype = ctypes.c_int
         lib.mxt_flash_attention_bwd_dkv.restype = ctypes.c_int
+        # (dkv, d, dtype code) -> dynamic shared memory of a block, bytes
+        lib.mxt_flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.mxt_flash_attention_bwd_smem_bytes.restype = ctypes.c_int
         lib.mxt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mxt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -108,6 +115,10 @@ def _check(q3, k3, v3, do3=None, lse=None, delta=None,
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise MXNetError(f"{who}: {name} is not contiguous")
+        if do3 is not None and t.data_ptr() % 16:
+            raise MXNetError(f"{who}: {name} does not start on a 16-byte "
+                             f"boundary (storage offset {t.storage_offset()}); "
+                             f"the backward kernels copy rows 16 B at a time")
     if q3.dtype not in _DTYPE_CODES:
         raise MXNetError(f"{who}: dtype {q3.dtype} not supported "
                          f"(float32, bfloat16, float16)")
@@ -244,6 +255,12 @@ def flash_attention_bwd(q3, k3, v3, o, lse, do3, causal: bool = False,
     return dq, dk, dv
 
 
+def _aligned(t):
+    """``t`` contiguous and starting on a 16-byte boundary (a copy if not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable flash attention on (BH, T, D) tensors (reference
     ``_flash`` custom_vjp :362-379). ``backward_calls`` counts backward
@@ -263,7 +280,7 @@ class FlashAttentionFunction(torch.autograd.Function):
     def backward(ctx, do):
         FlashAttentionFunction.backward_calls += 1
         q3, k3, v3, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q3, k3, v3, o, lse, do.contiguous(),
+        dq, dk, dv = flash_attention_bwd(q3, k3, v3, o, lse, _aligned(do),
                                          ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 
@@ -274,8 +291,8 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
     B, H, T, D = q.shape
     Tk = k.shape[2]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    o = FlashAttentionFunction.apply(q.reshape(B * H, T, D).contiguous(),
-                                     k.reshape(B * H, Tk, D).contiguous(),
-                                     v.reshape(B * H, Tk, D).contiguous(),
+    o = FlashAttentionFunction.apply(_aligned(q.reshape(B * H, T, D)),
+                                     _aligned(k.reshape(B * H, Tk, D)),
+                                     _aligned(v.reshape(B * H, Tk, D)),
                                      bool(causal), scale)
     return o.reshape(B, H, T, D)

@@ -20,8 +20,12 @@ same places in both, and a one-ulp difference can flip a rounding.
 ``gradcheck`` runs the Function in f64 on the CPU (the plain version takes
 f64), with its default tolerances.
 
-The CUDA kernels run only on the card: ``test_kernels_match_plain`` is
-marked ``gpu`` and skips here.
+The CUDA kernels run only on the card: the ``gpu``-marked tests skip
+here. Their f32 route multiplies on the tensor cores by the 3xTF32 split
+(a = hi + lo, each rounded to TF32, a*b = lo*hi + hi*lo + hi*hi);
+``test_3xtf32_emulation_within_f32_tolerance`` emulates that product in
+plain torch and holds the backward computed with it to the kernels' f32
+tolerance against the plain version, before any run on the card.
 """
 from types import SimpleNamespace
 
@@ -160,35 +164,131 @@ def test_backward_wrappers_refuse_non_cuda_tensors():
         fa.flash_attention_bwd(m, m, m, m, lse, m)
 
 
-@pytest.mark.parametrize("bad", ["do-shape", "lse-dtype", "delta-shape"])
+def _offset_view(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary: a view at storage offset 1 of a larger buffer."""
+    flat = torch.zeros(t.numel() + 4, dtype=t.dtype)
+    base = (-flat.data_ptr() % 16) // t.element_size()
+    view = flat[base + 1:base + 1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("bad", ["do-shape", "lse-dtype", "delta-shape",
+                                 "k-misaligned"])
 def test_backward_argument_checks(bad):
-    q = torch.zeros(2, 16, 64)
+    q = k = torch.zeros(2, 16, 64)
     do, lse, delta = torch.zeros(2, 16, 64), torch.zeros(2, 16), torch.zeros(2, 16)
     if bad == "do-shape":
         do = torch.zeros(2, 8, 64)
     elif bad == "lse-dtype":
         lse = lse.double()
-    else:
+    elif bad == "delta-shape":
         delta = torch.zeros(2, 8)
-    with pytest.raises(MXNetError):
-        fa._check(q, q, q, do, lse, delta, who="flash_attention_bwd_dq")
+    else:
+        k = _offset_view(k)
+        assert k.is_contiguous() and k.data_ptr() % 16 == 4
+        # the forward kernel takes it; the backward kernels' copies do not
+        fa._check(q, k, k)
+    with pytest.raises(MXNetError, match=None if bad != "k-misaligned" else "16-byte"):
+        fa._check(q, k, k, do, lse, delta, who="flash_attention_bwd_dq")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 3e-2),
-                                       (torch.float16, 1e-2)])
-@pytest.mark.parametrize("T,Tk,D,causal", [(160, 160, 64, False),
-                                           (160, 160, 64, True),
-                                           (96, 224, 32, False),
-                                           (100, 150, 128, True)])
-def test_kernels_match_plain(dtype, tol, T, Tk, D, causal):
+def test_aligned_copies_only_misaligned_inputs():
+    t = torch.arange(2 * 16 * 32, dtype=torch.float32).view(2, 16, 32)
+    assert fa._aligned(t) is t
+    off = _offset_view(t)
+    got = fa._aligned(off)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, t)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as cvt.rna.tf32.f32 rounds: add half an ulp of the 13 dropped
+    bits to the bit pattern, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b in f32 from TF32 pieces: the two small terms, then the big one."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _bwd_emulated(mm, q, k, v, o, lse, do, causal, scale):
+    """The kernels' arithmetic on (BH, T, D) f32 tensors with every product
+    taken by ``mm``: S, dP, then dQ, dV, dK from P and dS."""
+    T, Tk = q.shape[1], k.shape[1]
+    delta = (do * o).sum(-1, keepdim=True)
+    s = mm(q, k.transpose(1, 2)) * scale
+    if causal:
+        keep = torch.arange(T)[:, None] >= torch.arange(Tk)[None, :]
+        s = torch.where(keep, s, torch.tensor(-1e30))
+    p = torch.exp(s - lse[..., None])
+    ds = p * (mm(do, v.transpose(1, 2)) - delta)
+    return (mm(ds, k) * scale, mm(ds.transpose(1, 2), q) * scale,
+            mm(p.transpose(1, 2), do))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_emulation_within_f32_tolerance(causal):
+    """The f32 kernels' 3xTF32 products hold TOL_BWD["float32"] = 1e-4 of
+    each gradient's max against the plain backward (chip_smoke.py's f32
+    check, the kernels' GPU test); 1xTF32 (one product of the rounded
+    operands) does not, which is why the kernels split."""
+    tol = 1e-4
+    q, k, v, do = (torch.from_numpy(a.reshape(6, 160, 64))
+                   for a in _inputs(19 + int(causal), 2, 3, 160, 160, 64))
+    scale = 1.0 / 8.0
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, causal, scale)
+    expect = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    worst_1x = 0.0
+    for mm in (_mm_3xtf32, _mm_1xtf32):
+        got = _bwd_emulated(mm, q, k, v, o, lse, do, causal, scale)
+        for g, e in zip(got, expect):
+            rel = ((g - e).abs().max() / e.abs().max()).item()
+            if mm is _mm_3xtf32:
+                assert rel <= tol
+            else:
+                worst_1x = max(worst_1x, rel)
+    assert worst_1x > tol
+
+
+TOL_KERNEL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 1e-2}
+# (T, Tk, D, causal) at the tiles' edges: a block keeps 128 resident rows
+# (64 at D=128) and streams 32 rows a tile (16 in the f32 dK/dV kernel).
+# 129 and 1000 cross the 128-row blocks, 65 the 64-row ones at D=128, 17 a
+# streamed tile; also single rows, T < Tk and T > Tk, causal with T != Tk,
+# and every head dim in every dtype
+KERNEL_CASES = [(160, 160, 64, False), (160, 160, 64, True), (96, 224, 32, False),
+                (100, 150, 128, True), (1, 1, 64, False), (1, 17, 32, True),
+                (17, 1, 128, False), (17, 65, 64, True), (65, 17, 32, True),
+                (129, 1000, 64, False), (1000, 129, 128, True),
+                (65, 129, 128, False), (1000, 1000, 64, True)]
+
+
+def _cuda_inputs(dtype, T, Tk, D, seed=3):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the card")
-    q, k, v, do = _inputs(3, 2, 3, T, Tk, D)
+    q, k, v, do = _inputs(seed, 2, 3, T, Tk, D)
     q3, k3, v3 = (torch.from_numpy(a.reshape(6, -1, D)).to("cuda", dtype)
                   for a in (q, k, v))
     do3 = torch.from_numpy(do.reshape(6, -1, D)).to("cuda", dtype)
+    return q3, k3, v3, do3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(TOL_KERNEL))
+@pytest.mark.parametrize("T,Tk,D,causal", KERNEL_CASES)
+def test_kernels_match_plain(dtype, T, Tk, D, causal):
+    q3, k3, v3, do3 = _cuda_inputs(dtype, T, Tk, D)
+    tol = TOL_KERNEL[dtype]
     o, lse = fa.flash_attention_fwd(q3, k3, v3, causal)
     before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
     got = fa.flash_attention_bwd(q3, k3, v3, o, lse, do3, causal)
@@ -197,6 +297,46 @@ def test_kernels_match_plain(dtype, tol, T, Tk, D, causal):
             fa.flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
     expect = fa.flash_attention_bwd_plain(q3, k3, v3, o, lse, do3, causal)
     for g, e in zip(got, expect):
-        assert g.dtype == dtype
+        assert g.dtype == dtype and g.shape == e.shape
         scale = max(e.float().abs().max().item(), 1.0)
         assert (g.float() - e.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(TOL_KERNEL))
+def test_kernels_bit_identical_across_runs(dtype):
+    """No block writes another's output: two launches on the same inputs
+    give the same bits."""
+    q3, k3, v3, do3 = _cuda_inputs(dtype, 1000, 1000, 64, seed=5)
+    o, lse = fa.flash_attention_fwd(q3, k3, v3)
+    delta = (do3.float() * o.float()).sum(-1)
+    first = (fa.flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta),
+             *fa.flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta))
+    second = (fa.flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta),
+              *fa.flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+                           b.view(torch.int16 if b.element_size() == 2 else torch.int32))
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_misaligned_input():
+    """A contiguous view at a storage offset that is not 16-byte aligned:
+    the raw wrappers refuse it, flash_attention passes an aligned copy."""
+    q3, k3, v3, do3 = _cuda_inputs(torch.float32, 65, 65, 64)
+    flat = torch.empty(k3.numel() + 1, device="cuda")
+    k_off = flat[1:].view(k3.shape)
+    k_off.copy_(k3)
+    assert k_off.is_contiguous() and k_off.data_ptr() % 16 == 4
+    o, lse = fa.flash_attention_fwd(q3, k3, v3)
+    delta = (do3.float() * o.float()).sum(-1)
+    with pytest.raises(MXNetError, match="16-byte"):
+        fa.flash_attention_bwd_dq(q3, k_off, v3, do3, lse, delta)
+    with pytest.raises(MXNetError, match="16-byte"):
+        fa.flash_attention_bwd_dkv(q3, k_off, v3, do3, lse, delta)
+    q4, k4, v4 = (t.view(2, 3, 65, 64).clone().requires_grad_() for t in (q3, k3, v3))
+    k4_off = k_off.view(2, 3, 65, 64).detach().requires_grad_()
+    for kk in (k4, k4_off):
+        fa.flash_attention(q4, kk, v4).backward(do3.view(2, 3, 65, 64))
+    assert torch.equal(k4.grad, k4_off.grad)
