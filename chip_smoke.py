@@ -19,12 +19,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    never calls it) with CUDA events, beside the least time the card could
    take for the work. The flash-attention forward (K1) and backward (dQ K2,
    dK/dV K3); the fused SGD/Adam updates (K4, K5) on a small ragged list
-   here, on BERT-base's parameters in phase 7. For K2/K3 also the HMMA
+   here, on BERT-base's parameters in phase 7. For K1-K3 also the HMMA
    instructions of every instantiation in the built library (``cuobjdump
    -sass``; none, or local memory at D=64, fails the phase), their registers,
    stack, local and shared memory (``cuobjdump -res-usage``), the f32 bound
-   of the 3xTF32 tensor-core route beside the FMA one, and the port's and
-   SDPA's whole backward replayed from captured CUDA graphs.
+   of the 3xTF32 tensor-core route beside the FMA one, K1 and SDPA's forward
+   and the port's and SDPA's whole backward replayed from captured CUDA
+   graphs.
 4. serve: BERT-base at T=1024 (full published width, 12 layers, random
    weights from a seed loaded through ``convert.load_jax_params``) on
    ``gpu(0)`` in f32 with TF32 off answers requests of batch 1, 2, 4 and 8;
@@ -48,6 +49,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    states, t=1 then t=2 (counters set to 0 just before: one launch per
    call), against their plain versions; timed beside ``torch.optim``'s
    fused Adam and SGD and the bound.
+
+8. the rtc (K6), ResNet-50 serve, probe and ResNet-50 training phases. The
+   probe holds K7 against its plain version on three ResNet-50 im2col
+   shapes and on real im2col data, times it by CUDA events and by graph
+   replay beside ``torch.matmul`` and the cuDNN convolution, and fails if
+   its bf16 or f16 instantiation lacks HGMMA (``wgmma``) or UTMALDG (TMA).
 
 It prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the rest of the repository beside it, it
@@ -164,7 +171,8 @@ def _short_kernel_name(line):
     """'flash_bwd_dq_kernel<f32, 64>' out of a ptxas 'Compiling entry' line."""
     import re
     mangled = line.split("'")[1] if "'" in line else line
-    m = re.search(r"\d+(flash_\w+?_kernel|multi_tensor_update|blocked_matmul_kernel)I",
+    m = re.search(r"\d+(flash_\w+?_kernel|multi_tensor_update|blocked_matmul_kernel|"
+                  r"blocked_matmul_wgmma_kernel)I",
                   mangled)
     if not m:
         return mangled[-60:]
@@ -205,11 +213,23 @@ def _attention_inputs(torch, gen, BH, T, Tk, D, dtype):
 
 
 def _bound_ms(BH, T, Tk, D, dtype_name, elem):
+    """Least time for K1: its operations (S and PV, 2*BH*T*Tk*D each) or its
+    bytes (q, k, v read once, O and LSE written once), whichever is larger.
+    In f32 the operations are held to the 3xTF32 tensor-core route, three
+    TF32 products each at 495 TFLOP/s (``bound_ms``), with the 67 TFLOP/s FMA
+    bound of a kernel on the FMA units beside it (``fma_bound_ms``)."""
     flops = 4.0 * BH * T * Tk * D
     nbytes = elem * (2 * BH * T * D + 2 * BH * Tk * D) + 4 * BH * T
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    out = {}
+    if dtype_name == "float32":
+        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        out["fma_bound_ms"] = max(flops / PEAK_FLOPS["float32"] * 1e3, t_bytes)
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    out["bound_ms"] = max(t_ops, t_bytes)
+    out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return out
 
 
 def phase_kernel(torch):
@@ -251,21 +271,30 @@ def phase_kernel(torch):
                             "D": D, "dtype": dname, "causal": causal,
                             "err_o": err_o, "err_lse": err_lse})
 
+        resources = _fwd_resources(fa)
         timings = {}
         for dname in ("float32", "bfloat16"):
             B, H, T, D = 8, 12, 1024, 64
             q, k, v = _attention_inputs(torch, gen, B * H, T, T, D, dtypes[dname])
             q4, k4, v4 = (t.view(B, H, T, D) for t in (q, k, v))
+            flops = 4.0 * B * H * T * T * D
             ms = _time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v), 20)
+            graph_ms = _graph_ms(torch, lambda: fa.flash_attention_fwd(q, k, v))
             plain_ms = _time_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v), 5)
             lib_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
-            bound, by = _bound_ms(B * H, T, T, D, dname, q.element_size())
-            timings[dname] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                              "bound_ms": bound, "bound_by": by}
+            lib_graph_ms = _graph_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
+            bound = _bound_ms(B * H, T, T, D, dname, q.element_size())
+            timings[dname] = dict(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                                  library_ms=lib_ms, library_graph_ms=lib_graph_ms,
+                                  tflops=flops / graph_ms / 1e9, **bound)
+            fma = (f", FMA bound {bound['fma_bound_ms']:.4f}" if dname == "float32" else "")
             log(f"[kernel] flash_attention_fwd B={B} H={H} T={T} D={D} {dname}: "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-                f"bound {bound:.4f} ms ({by}), {4.0 * B * H * T * T * D / ms / 1e9:.2f} TFLOP/s")
-    return {"cases": results, "max_abs_err_f32": worst, "timings": timings}
+                f"kernel {ms:.4f} ms (graph replay {graph_ms:.4f}, "
+                f"{flops / graph_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
+                f"{lib_ms:.4f} ms (graph replay {lib_graph_ms:.4f}), bound "
+                f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}){fma}")
+    return {"cases": results, "max_abs_err_f32": worst, "timings": timings,
+            "resources": resources}
 
 
 def _bwd_bound_ms(kind, BH, T, Tk, D, dtype_name, elem):
@@ -291,20 +320,23 @@ def _bwd_bound_ms(kind, BH, T, Tk, D, dtype_name, elem):
     return out
 
 
-def _bwd_resources(fa):
-    """For every instantiation of the two backward kernels in the built
-    library: its HMMA instructions (``cuobjdump -sass``), registers, stack
-    and local memory (``cuobjdump -res-usage``; spills live in local memory)
-    and dynamic shared memory a block. Read from the library itself, so the
-    same whether or not this process built it. Fails if a kernel has no
-    HMMA or no resource line, or uses local memory at D=64."""
+def _sass_resources(lib_name, kernel_re, required, no_spill, smem_bytes=None):
+    """For every instantiation in ``build/lib<lib_name>.so`` whose short
+    name matches ``kernel_re``: its HMMA (``mma.sync``), HGMMA (``wgmma``)
+    and UTMALDG (TMA load) instructions (``cuobjdump -sass``), registers,
+    stack and local memory (``cuobjdump -res-usage``; spills live in local
+    memory) and, with ``smem_bytes(match)``, its dynamic shared memory a
+    block. Read from the library itself, so the same whether or not this
+    process built it. Fails if no kernel matches, or if an instantiation
+    lacks an instruction of ``required(match)``, has no resource line, or
+    uses stack or local memory where ``no_spill(match)``."""
     import re
     import shutil
     from mxnet_tpu_torch.ops import cuda as cuda_ops
-    lib = fa._bwd_library()
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    path = str(cuda_ops.BUILD_DIR / "libflash_attention_bwd.so")
+    path = str(cuda_ops.BUILD_DIR / f"lib{lib_name}.so")
+    counted = ("HMMA", "HGMMA", "UTMALDG")
 
     def dump(flag):
         return subprocess.run([tool, flag, path], capture_output=True, text=True,
@@ -313,43 +345,85 @@ def _bwd_resources(fa):
     for line in dump("-sass").splitlines():
         if "Function :" in line:
             name = _short_kernel_name(line.split("Function :", 1)[1].strip())
-            kernels[name] = {"hmma": 0}
-        elif name and re.search(r"\bHMMA\b", line):
-            kernels[name]["hmma"] += 1
+            kernels[name] = dict.fromkeys(counted, 0)
+        elif name:
+            for op in counted:
+                if re.search(rf"\b{op}\b", line):
+                    kernels[name][op] += 1
     name = None
     for line in dump("-res-usage").splitlines():
         if line.strip().startswith("Function "):
             name = _short_kernel_name(line.strip()[len("Function "):].rstrip(":"))
         elif name and "REG:" in line:
             usage = {k: int(v) for k, v in re.findall(r"([A-Z]+):(\d+)", line)}
-            kernels.setdefault(name, {"hmma": 0}).update(
+            kernels.setdefault(name, dict.fromkeys(counted, 0)).update(
                 registers=usage.get("REG"), stack_bytes=usage.get("STACK", 0),
                 local_bytes=usage.get("LOCAL", 0))
             name = None
-    codes = {"f32": 0, "bf16": 1, "f16": 2}
-    failures = []
+    out, failures = {}, []
     for name, info in sorted(kernels.items()):
-        m = re.match(r"flash_bwd_(dq|dkv)_kernel<(\w+), (\d+)>", name)
+        m = re.fullmatch(kernel_re, name)
         if not m:
             continue
-        info["smem_bytes"] = lib.mxt_flash_attention_bwd_smem_bytes(
-            int(m.group(1) == "dkv"), int(m.group(3)), codes[m.group(2)])
-        log(f"[kernel] {name}: {info['hmma']} HMMA, {info.get('registers')} registers, "
-            f"{info.get('stack_bytes')} B stack, {info.get('local_bytes')} B local "
-            f"memory, {info['smem_bytes']} B dynamic shared memory a block")
-        if info["hmma"] == 0:
-            failures.append(f"{name} has no HMMA instruction")
+        out[name] = info
+        if smem_bytes is not None:
+            info["smem_bytes"] = smem_bytes(m)
+        log(f"[kernel] {name}: " + ", ".join(f"{info[op]} {op}" for op in counted)
+            + f", {info.get('registers')} registers, {info.get('stack_bytes')} B stack, "
+            f"{info.get('local_bytes')} B local memory"
+            + (f", {info['smem_bytes']} B dynamic shared memory a block"
+               if smem_bytes is not None else ""))
+        failures += [f"{name} has no {op} instruction" for op in required(m) if not info[op]]
         if info.get("registers") is None:
             failures.append(f"{name} has no resource line in cuobjdump -res-usage")
-        elif m.group(3) == "64" and info["stack_bytes"] + info["local_bytes"] > 0:
+        elif no_spill(m) and info["stack_bytes"] + info["local_bytes"] > 0:
             failures.append(f"{name} uses {info['stack_bytes']} B stack and "
-                            f"{info['local_bytes']} B local memory at D=64")
-    for kind in ("dq", "dkv"):
-        if not any(n.startswith(f"flash_bwd_{kind}_kernel<") for n in kernels):
-            failures.append(f"flash_bwd_{kind}_kernel not found in the SASS")
+                            f"{info['local_bytes']} B local memory")
+    if not out:
+        failures.append(f"no kernel matching {kernel_re} in lib{lib_name}.so")
     if failures:
         raise AssertionError("; ".join(failures))
-    return kernels
+    return out
+
+
+_DTYPE_CODE = {"f32": 0, "bf16": 1, "f16": 2}
+
+
+def _bwd_resources(fa):
+    """K2/K3: HMMA in every instantiation, no stack or local memory at D=64."""
+    lib = fa._bwd_library()
+    res = _sass_resources(
+        "flash_attention_bwd", r"flash_bwd_(dq|dkv)_kernel<(\w+), (\d+)>",
+        required=lambda m: ("HMMA",), no_spill=lambda m: m.group(3) == "64",
+        smem_bytes=lambda m: lib.mxt_flash_attention_bwd_smem_bytes(
+            int(m.group(1) == "dkv"), int(m.group(3)), _DTYPE_CODE[m.group(2)]))
+    for kind in ("dq", "dkv"):
+        if not any(n.startswith(f"flash_bwd_{kind}_kernel<") for n in res):
+            raise AssertionError(f"flash_bwd_{kind}_kernel not found in the SASS")
+    return res
+
+
+def _fwd_resources(fa):
+    """K1: HMMA in every instantiation, no stack or local memory at D=64."""
+    lib = fa._library()
+    return _sass_resources(
+        "flash_attention_fwd", r"flash_fwd_kernel<(\w+), (\d+)>",
+        required=lambda m: ("HMMA",), no_spill=lambda m: m.group(2) == "64",
+        smem_bytes=lambda m: lib.mxt_flash_attention_fwd_smem_bytes(
+            int(m.group(2)), _DTYPE_CODE[m.group(1)]))
+
+
+def _matmul_resources():
+    """K7: HGMMA and UTMALDG in the bf16 and f16 (wgmma + TMA) instantiations;
+    f32 is the FMA kernel."""
+    res = _sass_resources(
+        "blocked_matmul", r"blocked_matmul(_wgmma)?_kernel<(\w+)>",
+        required=lambda m: ("HGMMA", "UTMALDG") if m.group(2) != "f32" else (),
+        no_spill=lambda m: False)
+    for dt in ("bf16", "f16"):
+        if f"blocked_matmul_wgmma_kernel<{dt}>" not in res:
+            raise AssertionError(f"blocked_matmul_wgmma_kernel<{dt}> not found in the SASS")
+    return res
 
 
 def _graph_ms(torch, fn, iters=20):
@@ -1043,8 +1117,10 @@ def phase_probe(torch, activations, weights):
         x = torch.randn((n, cin, h, w), generator=gen, device="cuda").to(torch.bfloat16)
         wt = (0.05 * torch.randn((cout, cin, k, k), generator=gen, device="cuda")).to(torch.bfloat16)
         ms = _time_ms(torch, lambda: bm.blocked_matmul(a, b), 20)
+        graph_ms = _graph_ms(torch, lambda: bm.blocked_matmul(a, b))
         plain_ms = _time_ms(torch, lambda: bm.blocked_matmul_plain(a, b), 5)
         mm_ms = _time_ms(torch, lambda: torch.matmul(a, b), 20)
+        mm_graph_ms = _graph_ms(torch, lambda: torch.matmul(a, b))
         conv_ms = _time_ms(torch, lambda: convolution(
             x, wt, None, kernel=(k, k), num_filter=cout, stride=(stride, stride),
             pad=(k // 2, k // 2), no_bias=True), 20)
@@ -1052,24 +1128,35 @@ def phase_probe(torch, activations, weights):
         nbytes = 2.0 * (M * K + K * N + M * N)
         t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         fma_floor = flops / PEAK_FLOPS["float32"] * 1e3
+        conv_graph_ms = _graph_ms(torch, lambda: convolution(
+            x, wt, None, kernel=(k, k), num_filter=cout, stride=(stride, stride),
+            pad=(k // 2, k // 2), no_bias=True))
         r = {"conv": list(conv), "mkn": [M, K, N], "max_abs_err": d, "rel_err": rel,
-             "ms": ms, "plain_ms": plain_ms, "library_ms": mm_ms, "conv_ms": conv_ms,
-             "bound_ms": max(t_ops, t_bytes),
+             "ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms, "library_ms": mm_ms,
+             "library_graph_ms": mm_graph_ms, "conv_ms": conv_ms,
+             "conv_graph_ms": conv_graph_ms, "bound_ms": max(t_ops, t_bytes),
              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-             "fma_floor_ms": fma_floor, "tflops": flops / ms / 1e9}
+             "fma_floor_ms": fma_floor, "tflops": flops / graph_ms / 1e9}
         results.append(r)
         log(f"[probe] ({M},{K})x({K},{N}) bf16 from conv{k}x{k} {cin}->{cout} {h}x{w} bs{n}: "
-            f"K7 {ms:.4f} ms ({r['tflops']:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
-            f"torch.matmul {mm_ms:.4f} ms, Convolution (cuDNN) {conv_ms:.4f} ms; bound "
-            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), FMA-only floor "
-            f"{fma_floor * 1e3:.1f} us; max|d| vs plain {d:.3e} ({rel:.1e} of max, tol "
-            f"{TOL_PROBE:.0e}) ok")
+            f"K7 {ms:.4f} ms (graph replay {graph_ms:.4f}, {r['tflops']:.1f} TFLOP/s), "
+            f"plain {plain_ms:.4f} ms, torch.matmul {mm_ms:.4f} ms (graph replay "
+            f"{mm_graph_ms:.4f}), Convolution (cuDNN) {conv_ms:.4f} ms (graph replay "
+            f"{conv_graph_ms:.4f}); bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
+            f"FMA-only floor {fma_floor * 1e3:.1f} us; max|d| vs plain {d:.3e} ({rel:.1e} "
+            f"of max, tol {TOL_PROBE:.0e}) ok")
     total = {key: sum(r[key] for r in results)
-             for key in ("ms", "plain_ms", "library_ms", "conv_ms", "bound_ms", "fma_floor_ms")}
+             for key in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
+                         "conv_ms", "conv_graph_ms", "bound_ms", "fma_floor_ms")}
+    log(f"[probe] three shapes summed, graph replay: K7 {total['graph_ms']:.4f} ms, "
+        f"torch.matmul {total['library_graph_ms']:.4f} ms "
+        f"({total['graph_ms'] / total['library_graph_ms']:.2f}x), cuDNN "
+        f"{total['conv_graph_ms']:.4f} ms; bound {total['bound_ms']:.4f} ms")
     by_bytes = sum(r["bound_ms"] for r in results if r["bound_by"] == "bytes")
     total["bound_by"] = "bytes" if 2 * by_bytes >= total["bound_ms"] else "operations"
     return {"launches": launches, "shapes": results, "real_data": real, "total": total,
-            "max_abs_err": max(r["max_abs_err"] for r in results)}
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "resources": _matmul_resources()}
 
 
 TOL_RESNET_LOGITS = 1e-3     # GPU against CPU, relative to the logits' max
@@ -1320,11 +1407,18 @@ def main() -> int:
     ref = "mxnet_tpu/ops/pallas/"
     fwd_by_path = {"serve": serve["launches"]["flash_attention_fwd"],
                    "train": train["launches"]["flash_attention_fwd"]}
+    bf16 = kernel["timings"]["bfloat16"]
     entries = [
         ("flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:86",
          sum(fwd_by_path.values()), kernel["max_abs_err_f32"], f32["ms"],
          f32["plain_ms"], f32["bound_ms"], f32["bound_by"], f32["library_ms"],
-         {"launches_by_path": fwd_by_path}),
+         {"launches_by_path": fwd_by_path,
+          "bound": "3xTF32 on the tensor cores (3 TF32 products at 495 TFLOP/s)",
+          "fma_bound_ms": f32["fma_bound_ms"], "graph_ms": f32["graph_ms"],
+          "library_graph_ms": f32["library_graph_ms"], "tflops": f32["tflops"],
+          "bfloat16": {k: bf16[k] for k in ("ms", "graph_ms", "plain_ms", "library_ms",
+                                            "library_graph_ms", "bound_ms", "tflops")},
+          "hmma": {n: r["HMMA"] for n, r in kernel["resources"].items()}}),
         *[(f"flash_attention_bwd_{kind}", "flash_attention_bwd.cu",
            f"flash_attention.py:{line}", train["launches"][f"flash_attention_bwd_{kind}"],
            kernel_bwd["max_abs_err_f32"][kind], b32[kind]["ms"], b32["plain_ms"],
@@ -1334,7 +1428,7 @@ def main() -> int:
             "fma_bound_ms": b32[kind]["fma_bound_ms"],
             "port_bwd_ms": b32["port_bwd_ms"],
             "library_fwd_bwd_less_fwd_ms": b32["library_fwd_bwd_less_fwd_ms"],
-            "hmma": {n: r["hmma"] for n, r in kernel_bwd["resources"].items()
+            "hmma": {n: r["HMMA"] for n, r in kernel_bwd["resources"].items()
                      if n.startswith(f"flash_bwd_{kind}_kernel<")}})
           for kind, line in (("dq", 181), ("dkv", 229))],
         ("fused_sgd", "fused_optimizer.cu", "fused_optimizer.py:66",
@@ -1359,9 +1453,14 @@ def main() -> int:
          pt["ms"], pt["plain_ms"], pt["bound_ms"], pt["bound_by"], pt["library_ms"],
          {"timed": "sum over the three bf16 probe shapes",
           "library": "torch.matmul (bf16)", "conv_ms": pt["conv_ms"],
-          "fma_floor_ms": pt["fma_floor_ms"],
-          "shapes": [{k: r[k] for k in ("mkn", "ms", "plain_ms", "library_ms", "conv_ms",
-                                        "bound_ms", "bound_by")} for r in probe["shapes"]]}),
+          "graph_ms": pt["graph_ms"], "library_graph_ms": pt["library_graph_ms"],
+          "conv_graph_ms": pt["conv_graph_ms"], "fma_floor_ms": pt["fma_floor_ms"],
+          "sass": {n: {op: r[op] for op in ("HMMA", "HGMMA", "UTMALDG")}
+                   for n, r in probe["resources"].items()},
+          "shapes": [{k: r[k] for k in ("mkn", "ms", "graph_ms", "plain_ms", "library_ms",
+                                        "library_graph_ms", "conv_ms", "conv_graph_ms",
+                                        "bound_ms", "bound_by", "tflops")}
+                     for r in probe["shapes"]]}),
     ]
     entries = [(name, src + source, ref + replaces, *rest)
                for name, source, replaces, *rest in entries] + pr3

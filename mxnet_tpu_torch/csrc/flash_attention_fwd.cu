@@ -1,84 +1,72 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel mxnet_tpu/ops/pallas/flash_attention.py
-// `_fwd_kernel` (line 86, launched by `_fwd` at line 136): blocked
+// `_fwd_kernel` (line 86, launched by `_fwd` (line 136) at line 145): blocked
 // softmax(Q K^T * scale) V with an online running max and sum in f32,
 // returning O in the input dtype and the row log-sum-exp (LSE) in f32.
 //
 // Semantics kept from the Pallas kernel:
-//   - keys at or beyond Tk are masked, and under `causal` so is q_pos < k_pos,
-//     with the finite value -1e30 (an -inf would make exp(-inf - -inf) = nan);
+//   - keys at or beyond Tk are masked, and under `causal` so is q_pos < k_pos
+//     (absolute positions, also when T != Tk), with the finite value -1e30
+//     (an -inf would make exp(-inf - -inf) = nan);
 //   - under `causal`, key tiles wholly above the diagonal are skipped;
 //   - for bf16/f16 inputs, p is rounded to the input dtype before the PV
-//     product (flash_attention.py:124-126); scores, statistics and the
-//     accumulator stay in f32.
+//     product (flash_attention.py:124-126) while l sums the unrounded f32 p;
+//     scores, statistics and the accumulator stay in f32.
 //
 // Design. The TPU kernel walks a 3-D grid (BH, q-block, k-block) whose last
 // axis runs in order on one core and carries the accumulators in VMEM. Here
-// blocks run in parallel in no order, so each thread block owns one
-// (bh, 64-row q tile) and loops over 64-key tiles itself. 128 threads: thread
-// (ty, tx) = (tid / 8, tid % 8) owns query rows 4*ty .. 4*ty+3; for the
-// scores it takes keys tx, tx+8, .., tx+56 of the tile, and for the output
-// the head dims tx, tx+8, ... So each thread keeps a 4x8 block of scores and
-// a 4x(D/8) block of the output in registers, and every shared-memory load
-// feeds 2.7 FMAs. The eight threads of a row group are eight neighbouring
-// lanes of one warp, so row max and row sum combine by three xor-shuffles.
-// Q, K and V tiles are converted to f32 on the way into shared memory; rows
-// are padded (D+1 floats, probabilities 66) so no two lanes of a warp hit one
-// bank. The products run on the FMA units, not the tensor cores (no mma/wgmma
-// yet): a first kernel that is right and simple.
+// blocks run in parallel in no order, so each block of 128 threads owns one
+// (bh, kBM-row q tile) and loops over key tiles itself. Every product runs
+// on the tensor cores through warp-level mma.sync, with the helpers that the
+// backward kernels use (tensor_core.cuh): bf16/f16 m16n8k16, f32 m16n8k8
+// TF32 with the 3xTF32 split (one TF32 product misses the f32 tolerance).
+//   - Each warp owns kMS slabs of 16 query rows; their Q fragments (for f32
+//     the TF32 hi and lo parts) are loaded once and stay in registers for
+//     the whole key loop.
+//   - K and V stream through a two-stage cp.async ring, kBN keys a tile,
+//     the next tile loading while the current one is in the tensor cores;
+//     rows past Tk are zero-filled by the copy's source size.
+//   - S = Q K^T (mma_nt_frags) lands in accumulator fragments. The online
+//     softmax runs on them: a row lives in the quad of lanes that share
+//     lane / 4, so its max and sum reduce by two xor-shuffles. Scores are
+//     kept in log2 units (scale * log2 e folded in), so p = exp2(s - m).
+//   - P goes from those fragments straight into the A operand of P V
+//     (mma_nn_step), never through shared memory: for bf16/f16 the packing
+//     is p's rounding; for f32 p is split into hi/lo, and V's k rows are
+//     read in the order the m16n8k8 accumulator holds P's columns.
+//   - O is rescaled by alpha = exp2(m_old - m_new) at each tile; at the end
+//     the kernel writes O / l and LSE = m ln 2 + log(l).
+// Tiles (`FwdTiles`): one slab a warp for f32 (Q hi/lo, S and O at D=64
+// are about 130 live registers) and at D=128, two for bf16/f16 at D<=64;
+// 64-key tiles, 32 for f32 at D=128. Grid (BH, ceil(T / kBM)): 1536 blocks
+// (f32) / 768 (bf16) at BERT-base for 132 SMs. Row starts must be 16-byte
+// aligned (cp.async; the wrapper checks).
 //
 // Bound at BERT-base shapes (B=8, H=12, T=Tk=1024, D=64): the work is
-// 4*B*H*T*Tk*D = 25.8 GFLOP, 0.39 ms at the H100's 67 TFLOP/s f32 rate
-// outside the tensor cores and 0.026 ms at its 989 TFLOP/s bf16 tensor-core
-// rate; the bytes (q, k, v read once, o written once: 100.7 MB in f32) take
-// 0.030 ms at 3.35 TB/s. So the kernel is bound by operations in both dtypes.
-// Tensor cores (mma.sync, then wgmma fed by TMA) are the way to the bf16
-// bound and are left for a later PR.
+// 4*B*H*T*Tk*D = 25.8 GFLOP. In f32 by 3xTF32 that is three TF32 products,
+// 0.156 ms at 495 TFLOP/s (0.385 ms at the 67 TFLOP/s rate of the FMA
+// units); bf16 0.026 ms at 989 TFLOP/s; the bytes (q, k, v read once, o
+// written once: 100.7 MB in f32) take 0.030 ms at 3.35 TB/s. So it is bound
+// by operations. Registers, stack and local memory (where spills go) of each
+// instantiation are read from the built library by chip_smoke.py.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stddef.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 128;
-constexpr int kColGroups = 8;                          // threads per row group
-constexpr int kRowsPerThread = kBlockQ / (kThreads / kColGroups);  // 4
-constexpr int kKeysPerThread = kBlockK / kColGroups;   // 8
-constexpr int kPStride = kBlockK + 2;                  // 66: conflict-free P rows
-constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_f32<__half>(__half x) {
-  return __half2float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-
-// p rounded to the input dtype, as the TPU kernel's p.astype(v.dtype)
-template <typename T> __device__ __forceinline__ float round_p(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
-
-template <int D> constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)((kBlockQ + 2 * kBlockK) * (D + 1) + kBlockQ * kPStride);
-}
+template <typename T, int D> struct FwdTiles {
+  static constexpr int kMS = kIsF32<T> || D >= 128 ? 1 : 2;  // 16-row slabs a warp
+  static constexpr int kBM = 16 * kMS * kWarps;                // query rows a block
+  static constexpr int kBN = kIsF32<T> && D >= 128 ? 32 : 64;  // keys a tile
+  static constexpr size_t kBytes =  // Q tile, then 2 stages of K and V
+      sizeof(T) * (size_t)kLd<T, D> * (kBM + 4 * kBN);
+};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -86,144 +74,137 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int t_q, int t_k, float scale,
                  int causal) {
-  constexpr int kStride = D + 1;
-  constexpr int kDims = D / kColGroups;  // output dims per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;                      // [kBlockQ][kStride]
-  float* sK = sQ + kBlockQ * kStride;    // [kBlockK][kStride]
-  float* sV = sK + kBlockK * kStride;    // [kBlockK][kStride]
-  float* sP = sV + kBlockK * kStride;    // [kBlockQ][kPStride]
+  using Cfg = FwdTiles<T, D>;
+  constexpr int ld = kLd<T, D>;
+  constexpr int kMS = Cfg::kMS, kBM = Cfg::kBM, kBN = Cfg::kBN, kNT = kBN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [kBM][ld]
+  T* sK = sQ + kBM * ld;                   // [2][kBN][ld]
+  T* sV = sK + 2 * kBN * ld;               // [2][kBN][ld]
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int tid = threadIdx.x;
-  const int tx = tid % kColGroups;
-  const int ty = tid / kColGroups;
-  const int row0 = ty * kRowsPerThread;
-  const T* qb = q + (size_t)bh * t_q * D;
-  const T* kb = k + (size_t)bh * t_k * D;
-  const T* vb = v + (size_t)bh * t_k * D;
+  const int q0 = blockIdx.y * kBM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qoff = (size_t)bh * t_q * D;
+  const size_t koff = (size_t)bh * t_k * D;
+  const float scale2 = scale * kLog2e;  // scores in log2 units
 
-  for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int qi = q0 + r;
-    sQ[r * kStride + c] = qi < t_q ? to_f32<T>(qb[(size_t)qi * D + c]) : 0.f;
-  }
-
-  float m[kRowsPerThread], l[kRowsPerThread], acc[kRowsPerThread][kDims];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int dd = 0; dd < kDims; ++dd) acc[i][dd] = 0.f;
-  }
-
-  int n_k = (t_k + kBlockK - 1) / kBlockK;
-  if (causal) {  // tiles wholly above the diagonal contribute nothing
-    const int last = (q0 + kBlockQ - 1) / kBlockK + 1;
+  int n_k = (t_k + kBN - 1) / kBN;
+  if (causal) {  // key tiles wholly above the diagonal contribute nothing
+    const int last = (q0 + kBM - 1) / kBN + 1;
     n_k = n_k < last ? n_k : last;
   }
 
+  load_rows<T, D, kBM>(sQ, q + qoff, q0, t_q);
+  cp_async_commit();
+  load_rows<T, D, kBN>(sK, k + koff, 0, t_k);
+  load_rows<T, D, kBN>(sV, v + koff, 0, t_k);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed; the first K/V tile may still be in flight
+  __syncthreads();
+
+  const int w0 = warp * 16 * kMS;  // the warp's first row in the block
+  uint32_t qh[kKSteps<T, D>][kMS][4], ql[kKSteps<T, D>][kMS][4];
+  load_a_frags<T, D, kMS>(qh, ql, sQ + w0 * ld, lane);
+
+  float acc[kMS][D / 8][4];
+  float m_i[kMS][2], l_i[kMS][2];  // this lane's rows g and g + 8 of each slab
+  zero(acc);
+#pragma unroll
+  for (int m = 0; m < kMS; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_i[m][h] = kNeg;
+      l_i[m][h] = 0.f;
+    }
+
   for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      const int kj = k0 + r;
-      const bool in = kj < t_k;
-      sK[r * kStride + c] = in ? to_f32<T>(kb[(size_t)kj * D + c]) : 0.f;
-      sV[r * kStride + c] = in ? to_f32<T>(vb[(size_t)kj * D + c]) : 0.f;
+    const int stage = kt & 1;
+    if (kt + 1 < n_k) {  // the next tile into the other stage
+      const int nxt = (kt + 1) * kBN;
+      load_rows<T, D, kBN>(sK + (stage ^ 1) * kBN * ld, k + koff, nxt, t_k);
+      load_rows<T, D, kBN>(sV + (stage ^ 1) * kBN * ld, v + koff, nxt, t_k);
     }
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the copy just issued have landed
     __syncthreads();
+    const T* cK = sK + stage * kBN * ld;
+    const T* cV = sV + stage * kBN * ld;
 
-    float s[kRowsPerThread][kKeysPerThread];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[kRowsPerThread], kv[kKeysPerThread];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) qv[i] = sQ[(row0 + i) * kStride + d];
-#pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j)
-        kv[j] = sK[(tx + kColGroups * j) * kStride + d];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int j = 0; j < kKeysPerThread; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+    float s[kMS][kNT][4];
+    zero(s);
+    mma_nt_frags<T, D, kNT, kMS>(s, qh, ql, cK, lane);
 
+    const int k0 = kt * kBN;
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int qi = q0 + row0 + i;
-      float mx = kNeg;
+    for (int m = 0; m < kMS; ++m)
 #pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) {
-        const int kj = k0 + tx + kColGroups * j;
-        const bool keep = kj < t_k && (!causal || qi >= kj);
-        s[i][j] = keep ? s[i][j] * scale : kNeg;
-        mx = fmaxf(mx, s[i][j]);
+      for (int h = 0; h < 2; ++h) {
+        const int qi = q0 + w0 + 16 * m + 8 * h + g;  // absolute query row
+        float mx = kNeg;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            const int kj = k0 + 8 * nt + 2 * t + (e & 1);
+            const bool keep = kj < t_k && (!causal || qi >= kj);
+            s[m][nt][e] = keep ? s[m][nt][e] * scale2 : kNeg;
+            mx = fmaxf(mx, s[m][nt][e]);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_i[m][h], mx);
+        const float alpha = exp2f(m_i[m][h] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            s[m][nt][e] = exp2f(s[m][nt][e] - m_new);  // p, unrounded
+            rs += s[m][nt][e];
+          }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l_i[m][h] = l_i[m][h] * alpha + rs;
+        m_i[m][h] = m_new;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          acc[m][nt][2 * h] *= alpha;
+          acc[m][nt][2 * h + 1] *= alpha;
+        }
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        sP[(row0 + i) * kPStride + tx + kColGroups * j] = round_p<T>(p);
-      }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int dd = 0; dd < kDims; ++dd) acc[i][dd] *= alpha;
-    }
-    __syncthreads();  // every row of P is in shared memory
-
-#pragma unroll 4
-    for (int j = 0; j < kBlockK; ++j) {
-      float pv[kRowsPerThread], vv[kDims];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) pv[i] = sP[(row0 + i) * kPStride + j];
-#pragma unroll
-      for (int dd = 0; dd < kDims; ++dd) vv[dd] = sV[j * kStride + tx + kColGroups * dd];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int dd = 0; dd < kDims; ++dd) acc[i][dd] = fmaf(pv[i], vv[dd], acc[i][dd]);
-    }
+    for (int j = 0; j < kNNSteps<T, kNT>; ++j)
+      mma_nn_step<T, D, kNT, kMS>(acc, s, cV, lane, j);
+    __syncthreads();  // this stage is refilled at the next iteration
   }
 
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int qi = q0 + row0 + i;
-    if (qi >= t_q) continue;
-    const float li = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((size_t)bh * t_q + qi) * D;
+  for (int m = 0; m < kMS; ++m)
 #pragma unroll
-    for (int dd = 0; dd < kDims; ++dd) orow[tx + kColGroups * dd] = from_f32<T>(acc[i][dd] / li);
-    if (tx == 0) lse[(size_t)bh * t_q + qi] = m[i] + logf(li);
-  }
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + w0 + 16 * m + 8 * h + g;
+      if (qi >= t_q) continue;
+      const float li = fmaxf(l_i[m][h], 1e-30f);
+      T* orow = o + qoff + (size_t)qi * D;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+        store2<T>(orow + 8 * nt + 2 * t, acc[m][nt][2 * h] / li, acc[m][nt][2 * h + 1] / li);
+      if (t == 0) lse[(size_t)bh * t_q + qi] = m_i[m][h] * kLn2 + logf(li);
+    }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int t_q, int t_k, int causal, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  using Cfg = FwdTiles<T, D>;
+  constexpr size_t smem = Cfg::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (t_q + kBlockQ - 1) / kBlockQ);
+  const dim3 grid(bh, (t_q + Cfg::kBM - 1) / Cfg::kBM);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), t_q, t_k, scale, causal);
@@ -242,10 +223,20 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+template <typename T> int smem_bytes(int d) {
+  switch (d) {
+    case 32: return (int)FwdTiles<T, 32>::kBytes;
+    case 64: return (int)FwdTiles<T, 64>::kBytes;
+    case 128: return (int)FwdTiles<T, 128>::kBytes;
+    default: return -1;
+  }
+}
+
 }  // namespace
 
-// q, k, v: (bh, t_q | t_k, d) contiguous; o like q; lse (bh, t_q) f32.
-// dtype: 0 float32, 1 bfloat16, 2 float16. Returns a cudaError_t.
+// q, k, v: (bh, t_q | t_k, d) contiguous, 16-byte aligned; o like q; lse
+// (bh, t_q) f32. dtype: 0 float32, 1 bfloat16, 2 float16. Returns a
+// cudaError_t.
 extern "C" int mxt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        void* o, void* lse, int bh, int t_q, int t_k,
                                        int d, int dtype, int causal, float scale,
@@ -256,6 +247,17 @@ extern "C" int mxt_flash_attention_fwd(const void* q, const void* k, const void*
     case 1: return launch_dim<__nv_bfloat16>(q, k, v, o, lse, bh, t_q, t_k, d, causal, scale, s);
     case 2: return launch_dim<__half>(q, k, v, o, lse, bh, t_q, t_k, d, causal, scale, s);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// dynamic shared memory a block takes; -1 for a dtype or head dim the
+// kernel does not take
+extern "C" int mxt_flash_attention_fwd_smem_bytes(int d, int dtype) {
+  switch (dtype) {
+    case 0: return smem_bytes<float>(d);
+    case 1: return smem_bytes<__nv_bfloat16>(d);
+    case 2: return smem_bytes<__half>(d);
+    default: return -1;
   }
 }
 

@@ -3,8 +3,9 @@
 Each kernel's source lives under ``mxnet_tpu_torch/csrc/``. At first use
 ``load_library`` compiles it with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface under ``build/`` at the root of the
-checkout, and loads it with ``ctypes``. A library is rebuilt when a source
-is newer than it. Nothing is compiled when a module is imported, so the
+checkout, and loads it with ``ctypes``. A library is rebuilt when one of its
+sources, or any header ``csrc/*.cuh`` (which the sources include), is newer
+than it. Nothing is compiled when a module is imported, so the
 CPU tests import every module on a host without ``nvcc``; there a kernel's
 wrapper only ever takes its plain PyTorch version, for CPU tensors.
 
@@ -48,10 +49,12 @@ def _nvcc() -> str:
 
 
 def build(name: str, sources: Sequence[str]) -> Path:
-    """Compile ``csrc/<sources>`` into ``build/lib<name>.so`` if stale."""
+    """Compile ``csrc/<sources>`` into ``build/lib<name>.so`` if stale: if a
+    source or any ``csrc/*.cuh`` header is newer than the library."""
     srcs = [CSRC_DIR / s for s in sources]
     so = BUILD_DIR / f"lib{name}.so"
-    if so.exists() and so.stat().st_mtime >= max(s.stat().st_mtime for s in srcs):
+    inputs = srcs + sorted(CSRC_DIR.glob("*.cuh"))
+    if so.exists() and so.stat().st_mtime >= max(f.stat().st_mtime for f in inputs):
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"

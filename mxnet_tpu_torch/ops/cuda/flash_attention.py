@@ -38,12 +38,12 @@ forward autograd is off, so the differentiable path is ``flash_attention``.
 
 Strides: q, k and v reach this module as (B, H, T, D) views out of a
 ``transpose``, not contiguous, and so does dO; the wrappers take contiguous
-tensors (one copy each), and kernels that take strides are left for a
-later PR. The backward kernels copy rows into shared memory 16 bytes at a
-time (``cp.async``), so their wrappers also refuse a tensor whose data does
-not start on a 16-byte boundary, as a contiguous view at a storage offset
-may; ``flash_attention`` and the Function's backward pass such inputs on as
-aligned copies (``_aligned``).
+tensors (one copy each); kernels that take strides are not written yet.
+All three kernels copy rows into shared memory 16 bytes at a time
+(``cp.async``), so their wrappers also refuse a CUDA tensor whose data
+does not start on a 16-byte boundary, as a contiguous view at a storage
+offset may; ``flash_attention`` and the Function's backward pass such
+inputs on as aligned copies (``_aligned``).
 """
 from __future__ import annotations
 
@@ -68,6 +68,9 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        # (d, dtype code) -> dynamic shared memory of a block, bytes
+        lib.mxt_flash_attention_fwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.mxt_flash_attention_fwd_smem_bytes.restype = ctypes.c_int
         lib.mxt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mxt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -115,10 +118,10 @@ def _check(q3, k3, v3, do3=None, lse=None, delta=None,
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise MXNetError(f"{who}: {name} is not contiguous")
-        if do3 is not None and t.data_ptr() % 16:
+        if t.data_ptr() % 16:
             raise MXNetError(f"{who}: {name} does not start on a 16-byte "
                              f"boundary (storage offset {t.storage_offset()}); "
-                             f"the backward kernels copy rows 16 B at a time")
+                             f"the kernels copy rows 16 B at a time")
     if q3.dtype not in _DTYPE_CODES:
         raise MXNetError(f"{who}: dtype {q3.dtype} not supported "
                          f"(float32, bfloat16, float16)")

@@ -188,8 +188,9 @@ def test_backward_argument_checks(bad):
     else:
         k = _offset_view(k)
         assert k.is_contiguous() and k.data_ptr() % 16 == 4
-        # the forward kernel takes it; the backward kernels' copies do not
-        fa._check(q, k, k)
+        # the forward kernel's row copies refuse it too, as the backward's do
+        with pytest.raises(MXNetError, match="16-byte"):
+            fa._check(q, k, k)
     with pytest.raises(MXNetError, match=None if bad != "k-misaligned" else "16-byte"):
         fa._check(q, k, k, do, lse, delta, who="flash_attention_bwd_dq")
 
