@@ -50,11 +50,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    call), against their plain versions; timed beside ``torch.optim``'s
    fused Adam and SGD and the bound.
 
-8. the rtc (K6), ResNet-50 serve, probe and ResNet-50 training phases. The
-   probe holds K7 against its plain version on three ResNet-50 im2col
-   shapes and on real im2col data, times it by CUDA events and by graph
-   replay beside ``torch.matmul`` and the cuDNN convolution, and fails if
-   its bf16 or f16 instantiation lacks HGMMA (``wgmma``) or UTMALDG (TMA).
+   Also the fused training step's rules (``sgd_mom_update``'s,
+   ``sgd_update``'s and ``adam_update``'s, ``fused_*_update``) against their
+   plain versions and timed in place.
+8. the rtc (K6), ResNet-50 serve, probe and ResNet-50 training phases. rtc:
+   the example kernels against their plain versions (``axpy`` also on views
+   off a 16-byte boundary, exact), ``axpy`` on 2^26 f32 on a grid sized to
+   the data and the SM count, timed by CUDA events and by CUDA-graph replay
+   beside ``torch.add``, NVRTC's compile split into loading ``libnvrtc``,
+   ``nvrtcCompileProgram`` and ``cuModuleLoadData``, and an empty launch's
+   host time over 1000 synced launches. The probe holds K7 against its
+   plain version on three ResNet-50 im2col shapes and on real im2col data,
+   times it by CUDA events and by graph replay beside ``torch.matmul`` and
+   the cuDNN convolution, and fails if its bf16 or f16 instantiation lacks
+   HGMMA (``wgmma``) or UTMALDG (TMA); its f32 route (FMA) is timed by graph
+   replay at the same shapes beside ``torch.matmul`` with TF32 off.
+9. the fused one-device training step (``parallel.DataParallelTrainer``):
+   BERT-base T=1024 batch 8 with Adam from the training phase's weights,
+   batch and lr, f32 with TF32 off (its 5 losses within 1e-4 relative of the
+   Gluon-Trainer phase's) and bf16, 5 steps each; ResNet-50 v1 batch 32
+   with bench.py's SGD recipe, f32 and bf16, 6 steps each. Every counter is
+   set to 0 just before each run; each step must launch the update kernel
+   (K5 with ``adam_update``'s rule, K4 with ``sgd_mom_update``'s) once, K1-K3
+   once a layer, call no registered ``adam_update`` and build the update's
+   pointer table at the first step only; the layers must run in the asked
+   dtype (the bf16 profile must show the flash kernels' bf16
+   instantiations); one more step of each runs under ``torch.profiler``
+   (device busy and idle share, launches a step, the update's device ms).
+   Then one step of each of the two small models of the train checks
+   through ``DataParallelTrainer``, GPU against CPU, same tolerances.
 
 It prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the rest of the repository beside it, it
@@ -694,7 +718,7 @@ def _kernel_group(name):
     if any(s in low for s in ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",
                               "cudnn")):
         return "convolution (cuDNN)"
-    if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas")):
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
         return "matmul (cuBLAS)"
     if "pool" in low:
         return "pooling"
@@ -732,8 +756,35 @@ def _profile(torch, label, fn):
     for name, us, n in top:
         log(f"[profile]   {us / 1e3:8.3f} ms x{n:<4d} {name[:90]}")
     return {"wall_us": wall_us, "device_us": device_us, "groups_us": groups,
-            "group_launches": counts,
+            "group_launches": counts, "idle_share": 1.0 - device_us / wall_us,
+            "flash_kernels": sorted({k for k, _, _ in kernels if "flash_" in k}),
             "top": [{"kernel": k, "us": us, "count": n} for k, us, n in top]}
+
+
+def _idle_from_steps(label, profile, steps):
+    """Add the device's idle share of an unprofiled step: 1 - busy / the
+    median unprofiled step after the warm-up. The profiled step's own wall
+    time (``idle_share``) holds the profiler's cost as well."""
+    if profile.get("device_us") is None:
+        return profile
+    ms = float(np.median([st["ms"] for st in steps if not st["warmup"]]))
+    profile["step_median_ms"] = ms
+    profile["idle_share_steps"] = 1.0 - profile["device_us"] / 1e3 / ms
+    log(f"[profile] {label}: busy {profile['device_us'] / 1e3:.2f} ms of the median "
+        f"unprofiled step's {ms:.2f} ms: idle {100 * profile['idle_share_steps']:.1f}% "
+        f"(of the profiled step's wall: {100 * profile['idle_share']:.1f}%)")
+    return profile
+
+
+def _step_profile(torch, label, fn, steps):
+    """``_profile`` of one more step, which must record device time (a
+    session that records none is tried twice more), with the idle share of
+    the unprofiled ``steps``."""
+    for _ in range(3):
+        profile = _profile(torch, label, fn)
+        if profile["device_us"] is not None:
+            return _idle_from_steps(label, profile, steps)
+    raise AssertionError(f"{label}: the profiler recorded no device time in 3 sessions")
 
 
 def _bert_trainer(mx, net, lr):
@@ -807,33 +858,50 @@ def phase_train(torch):
         f"loss {steps[0]['loss']:.6f} -> {steps[-1]['loss']:.6f}")
     if not steps[-1]["loss"] < steps[0]["loss"]:
         raise AssertionError("the loss did not fall on a repeated batch")
-    profile = _profile(torch, "training step, batch 8",
-                       lambda: _train_step(mx, net, loss_fn, trainer, x, y))
+    profile = _idle_from_steps("training step", _profile(
+        torch, "training step, batch 8",
+        lambda: _train_step(mx, net, loss_fn, trainer, x, y)), steps)
     weights = [p.data()._data for p in net.collect_params().values()]
     grads = [p.grad()._data for p in net.collect_params().values()]
+    batch = (x.asnumpy().astype(np.int32), y.asnumpy().astype(np.int32))
     return {"steps": steps, "launches": launches, "peak_bytes": peak,
-            "profile": profile}, weights, grads
+            "profile": profile}, weights, grads, params, batch
 
 
-def _tiny_bert_step(mx, ctx, params, x, y):
+def _dp_trainer(mx, net, ctx, optimizer, params, dtype=None):
+    """The fused one-device step on ``ctx`` (``parallel.DataParallelTrainer``)."""
+    return mx.parallel.DataParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), optimizer, params, dtype=dtype,
+        mesh=mx.parallel.make_mesh({"dp": 1}, devices=[ctx]))
+
+
+def _tiny_bert_step(mx, ctx, params, x, y, dp=False):
     from mxnet_tpu_torch.convert import load_jax_params
     from mxnet_tpu_torch.models import BertModel
     net = BertModel(num_layers=2, max_length=1024)
     net.initialize(ctx=ctx)
     load_jax_params(net, params)
-    loss_fn, trainer = _bert_trainer(mx, net, 1e-4)
     xs, ys = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in (x, y))
-    with mx.autograd.record():
-        loss = loss_fn(net(xs), ys)
-    loss.backward()
-    grads = {k: p.grad().asnumpy() for k, p in net._collect_params_with_prefix().items()}
-    trainer.step(1)
-    weights = {k: p.data().asnumpy() for k, p in net._collect_params_with_prefix().items()}
-    return float(loss.asnumpy()[0]), grads, weights
+    keys = net._collect_params_with_prefix()
+    if dp:
+        trainer = _dp_trainer(mx, net, ctx, "adam", {"learning_rate": 1e-4})
+        loss = float(trainer.step(xs, ys))
+        grads = {k: p.grad().asnumpy() for k, p in keys.items()}
+    else:
+        loss_fn, trainer = _bert_trainer(mx, net, 1e-4)
+        with mx.autograd.record():
+            out = loss_fn(net(xs), ys)
+        out.backward()
+        loss = float(out.asnumpy()[0])
+        grads = {k: p.grad().asnumpy() for k, p in keys.items()}
+        trainer.step(1)
+    weights = {k: p.data().asnumpy() for k, p in keys.items()}
+    return loss, grads, weights
 
 
-def phase_train_check(torch):
-    """One step of a 2-layer model of BERT-base width, GPU against CPU."""
+def phase_train_check(torch, dp=False):
+    """One step of a 2-layer model of BERT-base width, GPU against CPU,
+    through ``gluon.Trainer`` or (``dp``) ``DataParallelTrainer``."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.convert import seeded_params
     from mxnet_tpu_torch.models import BertModel
@@ -842,8 +910,8 @@ def phase_train_check(torch):
     rs = np.random.RandomState(6)
     x = rs.randint(0, 30522, size=(1, 1024)).astype(np.int32)
     y = rs.randint(0, 30522, size=(1, 1024)).astype(np.int32)
-    gpu = _tiny_bert_step(mx, mx.gpu(0), params, x, y)
-    cpu = _tiny_bert_step(mx, mx.cpu(), params, x, y)
+    gpu = _tiny_bert_step(mx, mx.gpu(0), params, x, y, dp)
+    cpu = _tiny_bert_step(mx, mx.cpu(), params, x, y, dp)
     loss_rel = abs(gpu[0] - cpu[0]) / abs(cpu[0])
     grad_rel = max(float(np.abs(gpu[1][k] - g).max()) / max(float(np.abs(g).max()), 1e-30)
                    for k, g in cpu[1].items())
@@ -858,8 +926,8 @@ def phase_train_check(torch):
             n_loose += int((near0 & (g != 0)).sum())   # exact zeros do not move
     ok = (loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_TRAIN_GRAD
           and w_strict <= TOL_TRAIN_W and loose <= 2.0 * 1e-4 * 1.001)
-    log(f"[train-check] 2 layers of BERT-base width, T=1024, batch 1, one Adam "
-        f"step, GPU vs CPU: loss {gpu[0]:.6f} vs {cpu[0]:.6f} (rel {loss_rel:.2e}, "
+    log(f"[{'dp-' if dp else ''}train-check] 2 layers of BERT-base width, T=1024, "
+        f"batch 1, one Adam step{' (DataParallelTrainer)' if dp else ''}, GPU vs CPU: loss {gpu[0]:.6f} vs {cpu[0]:.6f} (rel {loss_rel:.2e}, "
         f"tol {TOL_TRAIN_LOSS:.0e}); gradients max|d| {grad_rel:.2e} of the "
         f"tensor's max (tol {TOL_TRAIN_GRAD:.0e}); weights max|d| {w_strict:.2e} "
         f"(tol {TOL_TRAIN_W:.0e}), {n_loose} elements with a nonzero |g| within "
@@ -934,6 +1002,12 @@ def phase_fused(torch, weights, grads):
     d_sgd = max((p.detach() - w).abs().max().item() for p, w in zip(ps, sgd1[0]))
     log(f"[fused] first step against torch.optim (fused=True): Adam max|dw| "
         f"{d_adam:.3e}, SGD max|dw| {d_sgd:.3e}")
+    # sgd_update's rule (rescale 1, clip off) is torch's SGD without momentum
+    pn = [torch.nn.Parameter(w.clone()) for w in w0]
+    for p, g in zip(pn, g0):
+        p.grad = g.clone()
+    lib_sgd_nomom = torch.optim.SGD(pn, lr=1e-3, momentum=0.0, weight_decay=0.01,
+                                    fused=True)
 
     # timing: in place (out= the inputs), so the pointer table is cached
     wa, ma, va = [w.clone() for w in w0], zeros(), zeros()
@@ -947,17 +1021,51 @@ def phase_fused(torch, weights, grads):
     sgd_plain = _time_ms(torch, lambda: fo.fused_sgd_apply_plain(w0, g0, mom0, **sgd_kw), 3)
     adam_lib = _time_ms(torch, lib_adam.step, 10)
     sgd_lib = _time_ms(torch, lib_sgd.step, 10)
+    sgd_nomom_lib = _time_ms(torch, lib_sgd_nomom.step, 10)
+    del pn, lib_sgd_nomom
+    # the fused training step's rules (the registered ops' arithmetic), two
+    # calls each with lr changed between them, then timed in place
+    step_rules = {
+        "fused_adam_update": (lambda w, st, lr: fo.fused_adam_update(
+            w, g0, *st, lr, wd=0.01, clip_gradient=1.0, out=(w, *st)), 2, 28, adam_lib),
+        "fused_sgd_mom_update": (lambda w, st, lr: fo.fused_sgd_mom_update(
+            w, g0, *st, lr, momentum=0.9, wd=0.01, out=(w, *st)), 1, 20, sgd_lib),
+        "fused_sgd_update": (lambda w, st, lr: fo.fused_sgd_update(
+            w, g0, lr, wd=0.01, out=(w,)), 0, 12, sgd_nomom_lib)}
+    rule_ms = {}
+    for name, (call, n_states, per, lib) in step_rules.items():
+        plain = getattr(fo, name + "_plain")
+        w, st = [t.clone() for t in w0], [zeros() for _ in range(n_states)]
+        worst = (0.0, 0.0)
+        for lr in (1e-3, 3e-4):
+            expect = plain(w, g0, *st, lr, **({"momentum": 0.9} if n_states == 1 else {}),
+                           wd=0.01, **({"clip_gradient": 1.0} if n_states == 2 else {}))
+            got = call(w, st, lr)
+            rel, abs_ = _fused_errors(torch, got, expect)
+            worst = (max(worst[0], rel), max(worst[1], abs_))
+        ok = worst[0] <= TOL_FUSED
+        log(f"[fused] {name} (the fused step's rule) vs plain, two calls: max|d| "
+            f"{worst[1]:.3e} ({worst[0]:.2e} of the tensor's max, tol {TOL_FUSED:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        errs[name] = worst
+        ms = _time_ms(torch, lambda: call(w, st, 1e-3), 10)
+        st0 = [zeros() for _ in range(n_states)]
+        plain_ms = _time_ms(torch, lambda: plain(w0, g0, *st0, 1e-3), 3)
+        rule_ms[name] = (ms, plain_ms, lib, per)
     out = {"parameters": n, "tensors": len(w0), "launches": launches,
            "first_step_vs_torch": {"adam": d_adam, "sgd": d_sgd}}
     for name, ms, plain, lib, per in (("fused_adam", adam_ms, adam_plain, adam_lib, 28),
-                                      ("fused_sgd", sgd_ms, sgd_plain, sgd_lib, 20)):
+                                      ("fused_sgd", sgd_ms, sgd_plain, sgd_lib, 20),
+                                      *[(k, *v) for k, v in rule_ms.items()]):
         bound = per * n / PEAK_BYTES_PER_S * 1e3
         out[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
                      "bound_by": "bytes", "max_abs_err": errs[name][1],
                      "rel_err": errs[name][0]}
         log(f"[fused] {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.optim "
-            f"fused {lib:.4f} ms, bound {bound:.4f} ms (bytes: {per} B x {n}), "
-            f"{per * n / ms / 1e9:.3f} TB/s")
+            f"fused {lib if lib is None else round(lib, 4)} ms, bound {bound:.4f} ms "
+            f"(bytes: {per} B x {n}), {per * n / ms / 1e9:.3f} TB/s")
     return out
 
 
@@ -965,13 +1073,18 @@ def phase_fused(torch, weights, grads):
 
 def phase_rtc(torch):
     """K6: the example kernels compiled with NVRTC and launched through
-    ``mx.rtc``, each against its plain version; axpy timed on 2^26 f32."""
+    ``mx.rtc``, each against its plain version; axpy timed on 2^26 f32 by
+    CUDA events and by CUDA-graph replay beside ``torch.add``, on a grid
+    sized to the data and the card, and checked exactly on views off a
+    16-byte boundary; an empty launch's host time."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import rtc
     t0 = time.perf_counter()
     module = rtc.CudaModule(rtc.EXAMPLES_SOURCE, exports=rtc.EXAMPLES_EXPORTS)
     compile_ms = (time.perf_counter() - t0) * 1e3
     n = 1 << 26
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid, block = rtc.axpy_launch_dims(n, sms)
     gen = torch.Generator(device="cuda").manual_seed(3)
     x, y = (mx.nd.NDArray(torch.randn(n, generator=gen, device="cuda")) for _ in range(2))
     rows, cols = 1000, 777
@@ -986,7 +1099,7 @@ def phase_rtc(torch):
     grid_t = (-(-cols // 32), -(-rows // 32), 1)
 
     rtc.CudaKernel.launches = 0          # the rtc path: counts set to 0 just before
-    (z,) = axpy.launch([x, y, n], mx.gpu(0), (1024, 1, 1), (256, 1, 1))
+    (z,) = axpy.launch([x, y, n], mx.gpu(0), grid, block)
     scale3.launch([s_in, s_out, 4096], mx.gpu(0), (16, 1, 1), (256, 1, 1))
     (t,) = transpose.launch([m, rows, cols], mx.gpu(0), grid_t, (32, 32, 1),
                             shared_mem=32 * 33 * 4)
@@ -995,41 +1108,69 @@ def phase_rtc(torch):
     empty.launch([], mx.gpu(0), (1,), (1,))
     torch.cuda.synchronize()
     launches = rtc.CudaKernel.launches
-    log(f"[rtc] NVRTC compile of the examples {compile_ms:.1f} ms; launches {launches}")
+    split = {k: v * 1e3 for k, v in rtc.timings.items()}
+    log(f"[rtc] NVRTC compile of the examples {compile_ms:.1f} ms (libnvrtc load "
+        f"{split.get('nvrtc_load_s', float('nan')):.1f} ms, nvrtcCompileProgram "
+        f"{split.get('nvrtc_compile_s', float('nan')):.1f} ms; cuModuleLoadData at the "
+        f"first launch {split.get('module_load_s', float('nan')):.2f} ms); launches "
+        f"{launches}; axpy grid {grid[0]}x{block[0]} ({sms} SMs)")
     if launches != 5:
         raise AssertionError(f"expected 5 rtc launches, got {launches}")
     errs = {"axpy": (z._data - rtc.axpy_plain(x._data, y._data)).abs().max().item(),
             "scale3": (s_out._data - rtc.scale3_plain(s_in._data)).abs().max().item(),
             "transpose": (t._data - rtc.transpose_plain(m._data)).abs().max().item(),
             "transpose_64KiB": (t64._data - rtc.transpose_plain(m._data)).abs().max().item()}
+    # axpy off a 16-byte boundary: all three views on the same offset (the
+    # scalar head aligns them), and on different offsets (the scalar path)
+    inplace = module.get_kernel("axpy", rtc.AXPY_SIGNATURE)
+    for name, (xo, yo) in (("axpy_offset_4B", (1, 1)), ("axpy_offsets_4B_8B", (1, 2))):
+        k = n - 8
+        xv, yv = mx.nd.NDArray(x._data[xo:xo + k]), mx.nd.NDArray(y._data[yo:yo + k])
+        zv = mx.nd.NDArray(torch.empty(k + 1, device="cuda")[1:])
+        inplace.launch([xv, yv, zv, k], mx.gpu(0), *rtc.axpy_launch_dims(k, sms))
+        errs[name] = (zv._data - rtc.axpy_plain(xv._data, yv._data)).abs().max().item()
     log(f"[rtc] against the plain versions (exact: the same f32 arithmetic): {errs}")
     if any(v != 0.0 for v in errs.values()):
         raise AssertionError("an rtc kernel disagrees with its plain version")
 
     def run_axpy():
-        axpy.launch([x, y, n], mx.gpu(0), (1024, 1, 1), (256, 1, 1))
+        axpy.launch([x, y, n], mx.gpu(0), grid, block)
+
+    def run_add():
+        torch.add(y._data, x._data, alpha=2.0)
     ms = _time_ms(torch, run_axpy, 20)
+    lib_ms = _time_ms(torch, run_add, 20)
+    graph_ms = _graph_ms(torch, run_axpy)
+    lib_graph_ms = _graph_ms(torch, run_add)
     plain_ms = _time_ms(torch, lambda: rtc.axpy_plain(x._data, y._data), 20)
-    lib_ms = _time_ms(torch, lambda: torch.add(y._data, x._data, alpha=2.0), 20)
     bound = 12.0 * n / PEAK_BYTES_PER_S * 1e3
     empty_launch = lambda: empty.launch([], mx.gpu(0), (1,), (1,))   # noqa: E731
     for _ in range(10):
         empty_launch()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(1000):
-        empty_launch()
-    torch.cuda.synchronize()
-    empty_host_us = (time.perf_counter() - t0) * 1e3
+    readings = []                # 7 readings of 1000 launches, each synced once
+    for _ in range(7):
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            empty_launch()
+        torch.cuda.synchronize()
+        readings.append((time.perf_counter() - t0) * 1e3)
+    empty_host_us = float(np.median(readings))
     empty_device_us = _time_ms(torch, empty_launch, 1000) * 1e3
-    log(f"[rtc] axpy on 2^26 f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.add {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes: 12 B x 2^26), "
-        f"{12.0 * n / ms / 1e9:.3f} TB/s; empty launch {empty_host_us:.2f} us "
-        f"(host clock per launch over 1000, synced), {empty_device_us:.2f} us "
-        f"(CUDA events per launch)")
-    return {"compile_ms": compile_ms, "launches": launches, "errors": errs,
-            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound, "empty_launch_host_us": empty_host_us,
+    log(f"[rtc] axpy on 2^26 f32: kernel {ms:.4f} ms (graph replay {graph_ms:.4f}, "
+        f"{100 * bound / graph_ms:.1f}% of the bound), plain {plain_ms:.4f} ms, torch.add "
+        f"{lib_ms:.4f} ms (graph replay {lib_graph_ms:.4f}; kernel/torch.add "
+        f"{graph_ms / lib_graph_ms:.3f}x by graph), bound {bound:.4f} ms (bytes: 12 B x "
+        f"2^26), {12.0 * n / graph_ms / 1e9:.3f} TB/s; empty launch {empty_host_us:.2f} us "
+        f"(host clock per launch over 1000, synced; median of 7, "
+        f"{min(readings):.2f}-{max(readings):.2f}), {empty_device_us:.2f} us (CUDA "
+        f"events per launch)")
+    return {"compile_ms": compile_ms, "compile_split_ms": split, "launches": launches,
+            "errors": errs, "max_abs_err": max(errs.values()), "ms": ms,
+            "graph_ms": graph_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_graph_ms": lib_graph_ms, "bound_ms": bound, "grid": list(grid),
+            "sms": sms, "empty_launch_host_us": empty_host_us,
+            "empty_launch_host_us_readings": readings,
             "empty_launch_device_us": empty_device_us}
 
 
@@ -1156,7 +1297,42 @@ def phase_probe(torch, activations, weights):
     total["bound_by"] = "bytes" if 2 * by_bytes >= total["bound_ms"] else "operations"
     return {"launches": launches, "shapes": results, "real_data": real, "total": total,
             "max_abs_err": max(r["max_abs_err"] for r in results),
-            "resources": _matmul_resources()}
+            "f32": _probe_f32(torch, cases), "resources": _matmul_resources()}
+
+
+TOL_PROBE_F32 = 1e-5   # f32 FMA kernel against the plain f32 product: summation order
+
+
+def _probe_f32(torch, cases):
+    """K7's f32 route (its FMA kernel) at the probe shapes, by graph
+    replay, beside ``torch.matmul`` in f32 with TF32 off and the FMA bound
+    (67 TFLOP/s) and byte bound."""
+    from mxnet_tpu_torch.ops.cuda import blocked_matmul as bm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for _, (M, K, N), a16, b16 in cases:
+        a, b = a16.float(), b16.float()
+        d, rel = _rel_err(bm.blocked_matmul(a, b), bm.blocked_matmul_plain(a, b))
+        if rel > TOL_PROBE_F32:
+            raise AssertionError(f"K7 f32 disagrees with its plain version at {(M, K, N)}")
+        graph_ms = _graph_ms(torch, lambda: bm.blocked_matmul(a, b))
+        mm_graph_ms = _graph_ms(torch, lambda: torch.matmul(a, b))
+        flops = 2.0 * M * K * N
+        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        t_bytes = 4.0 * (M * K + K * N + M * N) / PEAK_BYTES_PER_S * 1e3
+        r = {"mkn": [M, K, N], "graph_ms": graph_ms, "library_graph_ms": mm_graph_ms,
+             "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "rel_err": rel, "tflops": flops / graph_ms / 1e9}
+        rows.append(r)
+        log(f"[probe] f32 ({M},{K})x({K},{N}): K7 (FMA) graph replay {graph_ms:.4f} ms "
+            f"({r['tflops']:.1f} TFLOP/s), torch.matmul f32 TF32 off {mm_graph_ms:.4f} ms; "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, 67 TFLOP/s FMA); vs plain "
+            f"{rel:.1e} of max (tol {TOL_PROBE_F32:.0e})")
+    total = {k: sum(r[k] for r in rows) for k in ("graph_ms", "library_graph_ms", "bound_ms")}
+    log(f"[probe] f32 three shapes summed, graph replay: K7 {total['graph_ms']:.4f} ms, "
+        f"torch.matmul {total['library_graph_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms")
+    return {"shapes": rows, "total": total}
 
 
 TOL_RESNET_LOGITS = 1e-3     # GPU against CPU, relative to the logits' max
@@ -1294,8 +1470,9 @@ def phase_resnet_train(torch, params):
         raise AssertionError("the loss did not fall on a repeated batch")
     if not moved > 0:
         raise AssertionError("the running stats did not change")
-    profile = _profile(torch, "resnet50 training step, batch 32",
-                       lambda: _train_step(mx, net, loss_fn, trainer, x, y))
+    profile = _idle_from_steps("resnet50 training step", _profile(
+        torch, "resnet50 training step, batch 32",
+        lambda: _train_step(mx, net, loss_fn, trainer, x, y)), steps)
     with mx.autograd.record():
         loss = loss_fn(net(x), y)
     loss.backward()
@@ -1305,7 +1482,7 @@ def phase_resnet_train(torch, params):
             "running_mean_moved": moved}
 
 
-def _narrow_resnet_step(mx, ctx, params, x, y):
+def _narrow_resnet_step(mx, ctx, params, x, y, dp=False):
     from mxnet_tpu_torch.convert import load_jax_params
     from mxnet_tpu_torch.gluon.model_zoo.vision import BottleneckV1, ResNetV1
     net = ResNetV1(BottleneckV1, [1, 1, 1, 1], [16, 32, 64, 128, 256])
@@ -1315,20 +1492,28 @@ def _narrow_resnet_step(mx, ctx, params, x, y):
         from mxnet_tpu_torch.convert import seeded_params
         params = seeded_params(net, seed=9)
     load_jax_params(net, params)
-    loss_fn, trainer = _sgd_trainer(mx, net)
     xs, ys = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx, dtype="int32")
-    with mx.autograd.record():
-        loss = loss_fn(net(xs), ys)
-    loss.backward()
     keys = net._collect_params_with_prefix()
-    grads = {k: p.grad().asnumpy() for k, p in keys.items() if p.grad_req != "null"}
-    trainer.step(x.shape[0])
+    if dp:
+        trainer = _dp_trainer(mx, net, ctx, "sgd",
+                              {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4})
+        loss = float(trainer.step(xs, ys))
+        grads = {k: p.grad().asnumpy() for k, p in keys.items() if p.grad_req != "null"}
+    else:
+        loss_fn, trainer = _sgd_trainer(mx, net)
+        with mx.autograd.record():
+            out = loss_fn(net(xs), ys)
+        out.backward()
+        loss = float(out.asnumpy().mean())
+        grads = {k: p.grad().asnumpy() for k, p in keys.items() if p.grad_req != "null"}
+        trainer.step(x.shape[0])
     state = {k: p.data().asnumpy() for k, p in keys.items()}
-    return float(loss.asnumpy().mean()), grads, state, params
+    return loss, grads, state, params
 
 
-def phase_resnet_train_check(torch):
-    """One SGD step of a narrow ResNet-50-style net, GPU against CPU.
+def phase_resnet_train_check(torch, dp=False):
+    """One SGD step of a narrow ResNet-50-style net, GPU against CPU, through
+    ``gluon.Trainer`` or (``dp``) ``DataParallelTrainer``.
     The biases of the 1x1 convolutions that feed a training-mode BatchNorm
     have a gradient of 0 in exact arithmetic (the BatchNorm subtracts the
     batch mean); what is left is rounding noise, held to 1e-5 of the net's
@@ -1339,8 +1524,8 @@ def phase_resnet_train_check(torch):
     rs = np.random.RandomState(10)
     x = rs.uniform(-1, 1, (4, 3, 64, 64)).astype(np.float32)
     y = rs.randint(0, 1000, (4,)).astype(np.int32)
-    gpu = _narrow_resnet_step(mx, mx.gpu(0), None, x, y)
-    cpu = _narrow_resnet_step(mx, mx.cpu(), gpu[3], x, y)
+    gpu = _narrow_resnet_step(mx, mx.gpu(0), None, x, y, dp)
+    cpu = _narrow_resnet_step(mx, mx.cpu(), gpu[3], x, y, dp)
     loss_rel = abs(gpu[0] - cpu[0]) / abs(cpu[0])
     gmax = max(float(np.abs(g).max()) for g in cpu[1].values())
     grad_rel, noise = 0.0, 0.0
@@ -1359,8 +1544,9 @@ def phase_resnet_train_check(torch):
             w_abs = max(w_abs, d)
     ok = (loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_TRAIN_GRAD and noise <= 1e-5
           and w_abs <= TOL_TRAIN_W and run_rel <= TOL_TRAIN_RUNNING)
-    log(f"[resnet-train-check] ResNetV1 bottleneck, 1 block a stage, channels "
-        f"[16, 32, 64, 128, 256], 64x64, batch 4, one SGD step, GPU vs CPU: loss "
+    log(f"[{'dp-' if dp else ''}resnet-train-check] ResNetV1 bottleneck, 1 block a "
+        f"stage, channels [16, 32, 64, 128, 256], 64x64, batch 4, one SGD step"
+        f"{' (DataParallelTrainer)' if dp else ''}, GPU vs CPU: loss "
         f"{gpu[0]:.6f} vs {cpu[0]:.6f} (rel {loss_rel:.2e}, tol {TOL_TRAIN_LOSS:.0e}); "
         f"gradients {grad_rel:.2e} of the tensor's max (tol {TOL_TRAIN_GRAD:.0e}), "
         f"pre-BatchNorm biases {noise:.2e} of the largest gradient (tol 1e-05); weights "
@@ -1371,6 +1557,247 @@ def phase_resnet_train_check(torch):
     return {"loss_gpu": gpu[0], "loss_cpu": cpu[0], "loss_rel": loss_rel,
             "grad_rel": grad_rel, "pre_bn_bias_noise": noise, "weight_max_abs": w_abs,
             "running_rel": run_rel}
+
+
+# --- the fused one-device training step (parallel.DataParallelTrainer) -------
+
+TOL_DP_GLUON = 1e-4   # DPT f32 loss trajectory against the Gluon-Trainer phase's
+
+
+def _fused_counters():
+    from mxnet_tpu_torch.ops.cuda import fused_optimizer as fo
+    return {c.__name__: c for c in (fo.fused_sgd_apply, fo.fused_adam_apply,
+                                    fo.fused_sgd_mom_update, fo.fused_sgd_update,
+                                    fo.fused_adam_update)}
+
+
+def _dp_steps(torch, label, trainer, x, y, n, per_step, units, counters):
+    """``n`` steps of ``trainer`` on one batch (the first a warm-up), every
+    counter in ``counters`` set to 0 just before; each step must launch
+    exactly ``per_step`` of them."""
+    for c in counters.values():
+        c.launches = 0
+        if hasattr(c, "launches_by_dtype"):
+            c.launches_by_dtype = {}
+    steps = []
+    for i in range(n):
+        before = {k: c.launches for k, c in counters.items()}
+        t_start = time.perf_counter()
+        pending = trainer.step(x, y)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_start) * 1e3
+        launched = {k: c.launches - before[k] for k, c in counters.items()}
+        value = float(pending)
+        log(f"[{label}] step {i}: {ms:.2f} ms, {units[0] / ms * 1e3:.1f} {units[1]}, loss "
+            f"{value:.6f}, launches {launched}" + (" (warm-up)" if i == 0 else ""))
+        if launched != per_step:
+            raise AssertionError(f"{label}: expected launches {per_step} a step, got "
+                                 f"{launched}")
+        if not np.isfinite(value):
+            raise AssertionError(f"{label}: the loss is not finite")
+        steps.append({"ms": ms, units[1]: units[0] / ms * 1e3, "loss": value,
+                      "warmup": i == 0})
+    return steps
+
+
+def phase_dp_bert(torch, params, batch, gluon_steps):
+    """BERT-base T=1024, batch 8, Adam lr 1e-4, through DataParallelTrainer on
+    gpu(0) from the Gluon-Trainer phase's weights and batch: f32 with TF32
+    off (its loss trajectory against the Gluon phase's) and bf16, 5 steps each
+    and one more under the profiler; K5 once a step with adam_update's rule,
+    K1-K3 once a layer, no registered ``adam_update`` called."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import bert_base
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from mxnet_tpu_torch.ops.cuda import fused_optimizer as fo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tokens, labels = batch
+    B, T = tokens.shape
+    n_layers = 12
+    adam_op = mx.ops.get_op("adam_update")
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        net = bert_base(max_length=T)
+        net.initialize(ctx=mx.gpu(0))
+        load_jax_params(net, params)
+        trainer = _dp_trainer(mx, net, mx.gpu(0), "adam", {"learning_rate": 1e-4},
+                              None if dtype == "float32" else dtype)
+        x = mx.nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
+        y = mx.nd.array(labels, ctx=mx.gpu(0), dtype="int32")
+        seen = set()
+        hook = net.encoder.layers[0].register_forward_hook(
+            lambda blk, args, o: seen.add(str(o._data.dtype)))
+        counters = dict(_fused_counters(), **{c.__name__: c for c in (
+            fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)})
+        per_step = {k: 0 for k in counters}
+        per_step.update(fused_adam_update=1, flash_attention_fwd=n_layers,
+                        flash_attention_bwd_dq=n_layers, flash_attention_bwd_dkv=n_layers)
+        adam_calls = adam_op.calls
+        built = fo.table_stats["built"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        label = f"dp-bert {dtype}"
+        steps = _dp_steps(torch, label, trainer, x, y, 5, per_step, (B * T, "tokens_per_s"),
+                          counters)
+        by_dtype = {c.__name__: c.launches_by_dtype for c in (
+            fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)}
+        hook.detach()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        tables = fo.table_stats["built"] - built
+        log(f"[{label}] launches {launches}; registered adam_update calls "
+            f"{adam_op.calls - adam_calls}; pointer tables built {tables}; flash launches "
+            f"by dtype {by_dtype}; layer output dtype {sorted(seen)}; peak device memory {peak / 2**30:.3f} GiB; loss "
+            f"{steps[0]['loss']:.6f} -> {steps[-1]['loss']:.6f}")
+        if adam_op.calls != adam_calls:
+            raise AssertionError("the fused step called the registered adam_update")
+        if tables != 1:
+            raise AssertionError(f"the update's pointer table was built {tables} times")
+        if seen != {f"torch.{dtype}"}:
+            raise AssertionError(f"the layers ran in {seen}, not {dtype}")
+        if any(counts != {dtype: 5 * n_layers} for counts in by_dtype.values()):
+            raise AssertionError(f"expected the {dtype} flash kernels only, "
+                                 f"{n_layers} a step: {by_dtype}")
+        if not steps[-1]["loss"] < steps[0]["loss"]:
+            raise AssertionError("the loss did not fall on a repeated batch")
+        r = {"steps": steps, "launches": launches, "peak_bytes": peak,
+             "flash_launches_by_dtype": by_dtype}
+        if dtype == "float32":
+            ref = [st["loss"] for st in gluon_steps]
+            rel = max(abs(a["loss"] - b) / abs(b) for a, b in zip(steps, ref))
+            log(f"[{label}] loss trajectory against the Gluon-Trainer phase's "
+                f"{[round(v, 6) for v in ref]}: max rel {rel:.2e} (tol {TOL_DP_GLUON:.0e}) "
+                f"{'ok' if rel <= TOL_DP_GLUON else 'FAIL'}")
+            if rel > TOL_DP_GLUON:
+                raise AssertionError("DPT f32 losses disagree with the Gluon-Trainer phase")
+            r["gluon_loss_rel"] = rel
+        r["profile"] = _step_profile(torch, f"{label} step, batch {B}",
+                                     lambda: trainer.step(x, y), steps)
+        r["update_ms"] = _group_ms(r["profile"], "fused_optimizer")
+        names = r["profile"]["flash_kernels"]
+        cname = {"float32": "float", "bfloat16": "__nv_bfloat16"}[dtype]
+        if len(names) != 3 or not all(f"_kernel<{cname}," in k for k in names):
+            raise AssertionError(f"the profiled {dtype} step launched {names}")
+        out[dtype] = r
+        del trainer, net
+        torch.cuda.empty_cache()
+    return out
+
+
+def _group_ms(profile, group):
+    us = (profile.get("groups_us") or {}).get(group)
+    return None if us is None else us / 1e3
+
+
+def _dp_sgd_check(torch, label, trainer):
+    """K4's ``sgd_mom_update`` rule on the trainer's own lists (clones of its
+    weights, gradient buffers and momenta after its steps) against the plain
+    version: the recipe's lr, momentum and wd, then with rescale and clip on.
+    Also the rule's time in place on those lists, by CUDA events (the
+    wrapper's host work on 193 tensors shows there) and by graph replay."""
+    from mxnet_tpu_torch.ops.cuda import fused_optimizer as fo
+    opt = trainer.optimizer
+    lr = float(opt.learning_rate)
+    worst, ms, graph_ms, sizes = (0.0, 0.0), 0.0, 0.0, []
+    for wd, idx in trainer._groups.items():
+        ws = [trainer._plist[i]._param.detach().clone() for i in idx]
+        gs = [trainer._plist[i]._grad.clone() for i in idx]
+        moms = [trainer._opt_state[i][0].clone() for i in idx]
+        sizes += [w.numel() for w in ws]
+        for rescale, clip in ((1.0, -1.0), (0.5, 1e-3)):
+            args = (ws, gs, moms, lr, opt.momentum, wd, rescale, clip)
+            rel, abs_ = _fused_errors(torch, fo.fused_sgd_mom_update(*args),
+                                      fo.fused_sgd_mom_update_plain(*args))
+            worst = (max(worst[0], rel), max(worst[1], abs_))
+        update = lambda: fo.fused_sgd_mom_update(                 # noqa: E731
+            ws, gs, moms, lr, opt.momentum, wd, out=(ws, moms))
+        ms += _time_ms(torch, update, 20)
+        graph_ms += _graph_ms(torch, update)
+    n = sum(sizes)
+    small = sum(1 for k in sizes if k < 16384)
+    bound = 20 * n / PEAK_BYTES_PER_S * 1e3
+    ok = worst[0] <= TOL_FUSED
+    log(f"[{label}] K4 sgd_mom_update rule on the trainer's {len(sizes)} tensors "
+        f"({n} parameters, {small} under one 16384-element chunk), lr {lr} momentum "
+        f"{opt.momentum} wd {list(trainer._groups)}, then rescale 0.5 and clip 1e-3, vs "
+        f"plain: max|d| {worst[1]:.3e} ({worst[0]:.2e} of the tensor's max, tol "
+        f"{TOL_FUSED:.0e}) {'ok' if ok else 'FAIL'}; in place {ms:.4f} ms (graph replay "
+        f"{graph_ms:.4f}; bound {bound:.4f} ms, bytes: 20 B x {n})")
+    if not ok:
+        raise AssertionError(f"{label}: K4's sgd_mom_update rule disagrees with its "
+                             f"plain version on the trainer's parameters")
+    return {"tensors": len(sizes), "parameters": n, "under_one_chunk": small,
+            "max_abs_err": worst[1], "rel_err": worst[0], "ms": ms, "graph_ms": graph_ms,
+            "bound_ms": bound}
+
+
+def phase_dp_resnet(torch, params, gluon_profile):
+    """ResNet-50 v1, batch 32, 224x224, bench.py's recipe (SGD lr 0.05,
+    momentum 0.9, wd 1e-4) through DataParallelTrainer, f32 with TF32 off and
+    bf16, from the seeded weights with zero-γ residual branches: 6 steps each
+    and one profiled; K4 once a step with sgd_mom_update's rule."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.cuda import fused_optimizer as fo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B = 32
+    rs = np.random.RandomState(8)
+    xs = rs.uniform(-1, 1, (B, 3, 224, 224)).astype(np.float32)
+    ys = rs.randint(0, 1000, (B,)).astype(np.int32)
+    gluon_launches = sum((gluon_profile.get("group_launches") or {}).values())
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        net, _ = _resnet50(mx, mx.gpu(0), _zero_last_gamma(params))
+        trainer = _dp_trainer(mx, net, mx.gpu(0), "sgd",
+                              {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4},
+                              None if dtype == "float32" else dtype)
+        x = mx.nd.array(xs, ctx=mx.gpu(0))
+        y = mx.nd.array(ys, ctx=mx.gpu(0), dtype="int32")
+        stem_mean = net.features[1].running_mean.data()._data.clone()
+        counters = _fused_counters()
+        per_step = dict({k: 0 for k in counters}, fused_sgd_mom_update=1)
+        built = fo.table_stats["built"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        label = f"dp-resnet {dtype}"
+        steps = _dp_steps(torch, label, trainer, x, y, 6, per_step, (B, "img_per_s"),
+                          counters)
+        peak = torch.cuda.max_memory_allocated()
+        moved = (net.features[1].running_mean.data()._data - stem_mean).abs().max().item()
+        tables = fo.table_stats["built"] - built
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        log(f"[{label}] peak device memory {peak / 2**30:.3f} GiB; loss "
+            f"{steps[0]['loss']:.6f} -> {steps[-1]['loss']:.6f}; stem running_mean moved "
+            f"by up to {moved:.3e}; pointer tables built {tables}")
+        if not moved > 0:
+            raise AssertionError("the running stats did not change")
+        if tables != 1:
+            raise AssertionError(f"the update's pointer table was built {tables} times")
+        update_check = _dp_sgd_check(torch, label, trainer)
+        profile = _step_profile(torch, f"{label} step, batch {B}",
+                                lambda: trainer.step(x, y), steps)
+        total = sum(profile["group_launches"].values())
+        log(f"[{label}] launches a step {total} (Gluon-Trainer step: {gluon_launches})")
+        out[dtype] = {"steps": steps, "peak_bytes": peak, "running_mean_moved": moved,
+                      "profile": profile, "launches_per_step": total,
+                      "gluon_launches_per_step": gluon_launches,
+                      "update_ms": _group_ms(profile, "fused_optimizer"),
+                      "update_check": update_check, "launches": launches}
+        del trainer, net
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dp_check(torch):
+    """One DataParallelTrainer step on the card against the CPU, f32 with
+    TF32 off: the 2-layer BERT-base-wide model with Adam and the narrow
+    ResNetV1 with SGD momentum, under the training checks' tolerances."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"bert": phase_train_check(torch, dp=True),
+            "resnet": phase_resnet_train_check(torch, dp=True)}
 
 
 def main() -> int:
@@ -1391,22 +1818,34 @@ def main() -> int:
     kernel_bwd = phase_kernel_bwd(torch)
     kernel_fused = phase_kernel_fused_ragged(torch)
     serve = phase_serve(torch)
-    train, weights, grads = phase_train(torch)
+    train, weights, grads, bert_params, bert_batch = phase_train(torch)
     train_check = phase_train_check(torch)
     fused = phase_fused(torch, weights, grads)
     del weights, grads
+    torch.cuda.empty_cache()
     rtc = phase_rtc(torch)
     resnet_serve, resnet_params, acts, conv_weights = phase_resnet_serve(torch)
     probe = phase_probe(torch, acts, conv_weights)
     del acts, conv_weights
     resnet_train = phase_resnet_train(torch, resnet_params)
     resnet_train_check = phase_resnet_train_check(torch)
+    dp_bert = phase_dp_bert(torch, bert_params, bert_batch, train["steps"])
+    del bert_params
+    dp_resnet = phase_dp_resnet(torch, resnet_params, resnet_train["profile"])
+    dp_check = phase_dp_check(torch)
     f32 = kernel["timings"]["float32"]
     b32 = kernel_bwd["timings"]["float32"]
     src = "mxnet_tpu_torch/csrc/"
     ref = "mxnet_tpu/ops/pallas/"
     fwd_by_path = {"serve": serve["launches"]["flash_attention_fwd"],
-                   "train": train["launches"]["flash_attention_fwd"]}
+                   "train": train["launches"]["flash_attention_fwd"],
+                   **{f"dp_bert_{dt}": dp_bert[dt]["launches"]["flash_attention_fwd"]
+                      for dt in dp_bert}}
+
+    def dp_launches(name):
+        """Launches of ``name`` on the fused-step paths, by path."""
+        return {f"{label}_{dt}": phase[dt]["launches"].get(name, 0) for label, phase in
+                (("dp_bert", dp_bert), ("dp_resnet", dp_resnet)) for dt in phase}
     bf16 = kernel["timings"]["bfloat16"]
     entries = [
         ("flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:86",
@@ -1420,7 +1859,9 @@ def main() -> int:
                                             "library_graph_ms", "bound_ms", "tflops")},
           "hmma": {n: r["HMMA"] for n, r in kernel["resources"].items()}}),
         *[(f"flash_attention_bwd_{kind}", "flash_attention_bwd.cu",
-           f"flash_attention.py:{line}", train["launches"][f"flash_attention_bwd_{kind}"],
+           f"flash_attention.py:{line}",
+           train["launches"][f"flash_attention_bwd_{kind}"]
+           + sum(dp_launches(f"flash_attention_bwd_{kind}").values()),
            kernel_bwd["max_abs_err_f32"][kind], b32[kind]["ms"], b32["plain_ms"],
            b32[kind]["bound_ms"], b32[kind]["bound_by"], b32["library_ms"],
            {"plain_and_library_cover": "dQ and dK/dV together",
@@ -1431,14 +1872,26 @@ def main() -> int:
             "hmma": {n: r["HMMA"] for n, r in kernel_bwd["resources"].items()
                      if n.startswith(f"flash_bwd_{kind}_kernel<")}})
           for kind, line in (("dq", 181), ("dkv", 229))],
-        ("fused_sgd", "fused_optimizer.cu", "fused_optimizer.py:66",
-         fused["launches"]["fused_sgd"], fused["fused_sgd"]["max_abs_err"],
-         fused["fused_sgd"]["ms"], fused["fused_sgd"]["plain_ms"],
-         fused["fused_sgd"]["bound_ms"], "bytes", fused["fused_sgd"]["library_ms"], {}),
-        ("fused_adam", "fused_optimizer.cu", "fused_optimizer.py:116",
-         fused["launches"]["fused_adam"], fused["fused_adam"]["max_abs_err"],
-         fused["fused_adam"]["ms"], fused["fused_adam"]["plain_ms"],
-         fused["fused_adam"]["bound_ms"], "bytes", fused["fused_adam"]["library_ms"], {}),
+        *[(name, "fused_optimizer.cu", f"fused_optimizer.py:{line}",
+           sum(dp_launches(rule).values()),
+           max([fused[rule]["max_abs_err"]] + [c["max_abs_err"] for c in dp_checks]),
+           fused[rule]["ms"],
+           fused[rule]["plain_ms"], fused[rule]["bound_ms"], "bytes",
+           fused[rule]["library_ms"],
+           {"rule": f"{rule} (the fused step's), BERT-base's parameters, in place",
+            "launches_by_path": dp_launches(rule),
+            "update_ms_in_step": {f"{label}_{dt}": phase[dt]["update_ms"]
+                                  for label, phase in (("dp_bert", dp_bert),
+                                                       ("dp_resnet", dp_resnet))
+                                  for dt in phase},
+            "pallas_rule": {k: fused[pallas][k] for k in
+                            ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+            **({"dp_resnet_check": {dt: dp_resnet[dt]["update_check"] for dt in dp_resnet}}
+               if dp_checks else {})})
+          for name, line, rule, pallas, dp_checks in (
+              ("fused_sgd", 66, "fused_sgd_mom_update", "fused_sgd",
+               [dp_resnet[dt]["update_check"] for dt in dp_resnet]),
+              ("fused_adam", 116, "fused_adam_update", "fused_adam", []))],
     ]
     pt = probe["total"]
     pr3 = [
@@ -1446,8 +1899,11 @@ def main() -> int:
          rtc["launches"], rtc["max_abs_err"], rtc["ms"], rtc["plain_ms"], rtc["bound_ms"],
          "bytes", rtc["library_ms"],
          {"timed": "axpy (2x+y) on 2^26 f32 through CudaModule/launch",
-          "library": "torch.add(y, x, alpha=2.0)", "nvrtc_compile_ms": rtc["compile_ms"],
-          "empty_launch_host_us": rtc["empty_launch_host_us"]}),
+          "library": "torch.add(y, x, alpha=2.0)", "graph_ms": rtc["graph_ms"],
+          "library_graph_ms": rtc["library_graph_ms"], "grid": rtc["grid"],
+          "nvrtc_compile_ms": rtc["compile_ms"], "compile_split_ms": rtc["compile_split_ms"],
+          "empty_launch_host_us": rtc["empty_launch_host_us"],
+          "empty_launch_device_us": rtc["empty_launch_device_us"]}),
         ("blocked_matmul", "mxnet_tpu_torch/csrc/blocked_matmul.cu",
          "benchmark/conv_kernel_probe.py:59", probe["launches"], probe["max_abs_err"],
          pt["ms"], pt["plain_ms"], pt["bound_ms"], pt["bound_by"], pt["library_ms"],
@@ -1455,6 +1911,7 @@ def main() -> int:
           "library": "torch.matmul (bf16)", "conv_ms": pt["conv_ms"],
           "graph_ms": pt["graph_ms"], "library_graph_ms": pt["library_graph_ms"],
           "conv_graph_ms": pt["conv_graph_ms"], "fma_floor_ms": pt["fma_floor_ms"],
+          "float32": probe["f32"],
           "sass": {n: {op: r[op] for op in ("HMMA", "HGMMA", "UTMALDG")}
                    for n, r in probe["resources"].items()},
           "shapes": [{k: r[k] for k in ("mkn", "ms", "graph_ms", "plain_ms", "library_ms",
@@ -1478,7 +1935,8 @@ def main() -> int:
                    "serve": serve, "train": train, "train_check": train_check,
                    "fused": fused, "rtc": rtc, "resnet_serve": resnet_serve,
                    "probe": probe, "resnet_train": resnet_train,
-                   "resnet_train_check": resnet_train_check, "kernels": line["kernels"],
+                   "resnet_train_check": resnet_train_check, "dp_bert": dp_bert,
+                   "dp_resnet": dp_resnet, "dp_check": dp_check, "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1, default=float)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))

@@ -20,8 +20,12 @@ with the flash-attention forward and backward and the fused SGD/Adam
 updates as CUDA kernels; ResNet v1/v2 through the Gluon model zoo
 (``gluon.model_zoo.vision.resnet50_v1()``) for inference and SGD training,
 with deferred shape inference; the blocked conv-as-matmul probe kernel
-(``ops.cuda.blocked_matmul``); and ``rtc.CudaModule``, CUDA C compiled at
-run time with NVRTC. ROADMAP.md lists what comes next.
+(``ops.cuda.blocked_matmul``); ``rtc.CudaModule``, CUDA C compiled at run
+time with NVRTC; and the fused training step on one device,
+``parallel.DataParallelTrainer`` in float32, bfloat16 or float16 over
+float32 parameters, whose update of every parameter is one launch of the
+fused SGD/Adam kernel, with ``lr_scheduler`` and ``contrib.amp.LossScaler``.
+ROADMAP.md lists what comes next.
 
 Quick start::
 
@@ -40,6 +44,11 @@ Quick start::
         loss = loss_fn(net(tokens), labels)
     loss.backward()
     trainer.step(batch_size)
+
+    dpt = mx.parallel.DataParallelTrainer(net, loss_fn, "adam",
+                                          {"learning_rate": 1e-4},
+                                          dtype="bfloat16")
+    loss = dpt.step(tokens, labels)     # float(loss) waits for the step
 """
 from . import base
 from .base import MXNetError
@@ -50,11 +59,15 @@ from . import ndarray as nd
 from . import autograd
 from . import random
 from . import initializer
+from . import lr_scheduler
 from . import optimizer
 from . import gluon
 from . import rtc
+from . import contrib
+from . import parallel
 from .ndarray import NDArray
 
 __all__ = ["base", "MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "ops", "ndarray", "nd", "autograd", "random",
-           "initializer", "optimizer", "gluon", "rtc", "NDArray"]
+           "initializer", "lr_scheduler", "optimizer", "gluon", "rtc", "contrib",
+           "parallel", "NDArray"]

@@ -7,6 +7,18 @@
 //   - `_adam_kernel` (line 116, launched by `fused_adam_apply` at line 153):
 //       g = grad + wd*w;  m = b1*m + (1-b1)*g;  v = b2*v + (1-b2)*g*g;
 //       w = w - lr*(m/c1) / (sqrt(v/c2) + eps),  c1 = 1-b1^t, c2 = 1-b2^t.
+// and carries the rules of the registered update ops that the reference's
+// fused training step applies (mxnet_tpu/parallel/data_parallel.py
+// `functional_optimizer` -> `_k_sgd`, `_k_sgd_mom`, `_k_adam`;
+// mxnet_tpu/ops/optimizer_ops.py), so that step's update is one launch:
+//   - sgd_mom_update: g = clip(rescale*grad) + wd*w;  m = momentum*m - lr*g;
+//       w = w + m   (equal to the first rule only while lr is constant);
+//   - sgd_update: w = w - lr*(clip(rescale*grad) + wd*w), no state;
+//   - adam_update: g = clip(rescale*grad + wd*w), then the Adam rule above
+//       with c1 = c2 = 1 and the bias correction folded into lr by the caller.
+// clip(x) clamps to [-clip, clip] when clip >= 0 and is off when clip < 0,
+// as in the reference (optimizer_ops.py `_clip`). The first two rules take
+// rescale = 1 and clip = -1, which leaves their arithmetic as it was.
 // The math is f32 inside; each buffer is loaded and stored in its own dtype
 // (weights and grads in one, the states m and v in one).
 //
@@ -20,17 +32,18 @@
 // chunk each thread takes 4 elements at a time with one vector load per
 // operand (16 bytes in f32, 8 in bf16/f16) when every pointer of the tensor
 // is aligned for it, element by element otherwise, and for the tail.
-// lr, momentum, wd, b1, b2, eps, c1 and c2 are kernel arguments by value, so
-// a change of learning rate costs nothing and a CUDA graph could capture the
-// launch. An output may alias its input (in-place update): each element is
-// read and then written by the same thread.
+// lr, momentum, wd, b1, b2, eps, c1, c2, rescale and clip are kernel
+// arguments by value, so a change of learning rate costs nothing and a CUDA
+// graph could capture the launch. An output may alias its input (in-place
+// update): each element is read and then written by the same thread.
 //
 // Bound at BERT-base (133,349,946 f32 parameters in 157 tensors): the update
 // is elementwise, about 10 (SGD) or 20 (Adam) f32 operations per parameter,
 // so it is bound by bytes. Adam reads w, g, m, v and writes w, m, v: 28 B a
-// parameter, 3.73 GB, 1.11 ms at 3.35 TB/s; SGD reads w, g, m and writes
-// w, m: 20 B, 2.67 GB, 0.80 ms. Wide coalesced loads and one pass over each
-// operand are what that bound asks for.
+// parameter, 3.73 GB, 1.11 ms at 3.35 TB/s; SGD with momentum reads w, g, m
+// and writes w, m: 20 B, 2.67 GB, 0.80 ms; plain SGD reads w, g and writes
+// w: 12 B. Wide coalesced loads and one pass over each operand are what
+// that bound asks for.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -88,27 +101,45 @@ template <typename T> __device__ __forceinline__ void store1(void* base, long lo
 }
 
 struct Hyper {
-  float lr, momentum, wd, b1, b2, eps, c1, c2;
+  float lr, momentum, wd, b1, b2, eps, c1, c2, rescale, clip;
 };
 
+// The update rules; kSgd keeps no state, kAdam two (m and v), the others one.
+enum Rule : int { kSgdPallas = 0, kSgdMom = 1, kSgd = 2, kAdam = 3 };
+
+__device__ __forceinline__ float clip_to(float g, float c) {
+  // NaN passes through, as jnp.clip / torch.clamp let it
+  return c < 0.f ? g : (g < -c ? -c : (g > c ? c : g));
+}
+
 // one element of the update, f32 in and out
-template <bool kAdam>
+template <int kRule>
 __device__ __forceinline__ void update(const Hyper& h, float& w, float g, float& m,
                                        float& v) {
-  g = g + h.wd * w;
-  if (kAdam) {
+  if (kRule == kAdam) {
+    g = clip_to(g * h.rescale + h.wd * w, h.clip);
     m = h.b1 * m + (1.f - h.b1) * g;
     v = h.b2 * v + (1.f - h.b2) * g * g;
     w = w - h.lr * (m / h.c1) / (sqrtf(v / h.c2) + h.eps);
-  } else {
+  } else if (kRule == kSgdPallas) {
+    g = g + h.wd * w;
     m = h.momentum * m + g;
     w = w - h.lr * m;
+  } else {
+    g = clip_to(g * h.rescale, h.clip) + h.wd * w;
+    if (kRule == kSgdMom) {
+      m = h.momentum * m - h.lr * g;
+      w = w + m;
+    } else {
+      w = w - h.lr * g;
+    }
   }
 }
 
-template <typename TW, typename TS, bool kAdam>
+template <typename TW, typename TS, int kRule>
 __global__ void __launch_bounds__(kThreads)
 multi_tensor_update(const long long* __restrict__ table, int n_tensors, Hyper h) {
+  constexpr bool kHasM = kRule != kSgd, kHasV = kRule == kAdam;
   const long long b = blockIdx.x;
   int lo = 0, hi = n_tensors - 1;  // the last row whose first chunk <= b
   while (lo < hi) {
@@ -129,64 +160,68 @@ multi_tensor_update(const long long* __restrict__ table, int n_tensors, Hyper h)
 
   constexpr uintptr_t aw = 4 * sizeof(TW) - 1, as = 4 * sizeof(TS) - 1;
   uintptr_t mis_w = (uintptr_t)w_in | (uintptr_t)g_in | (uintptr_t)w_out;
-  uintptr_t mis_s = (uintptr_t)m_in | (uintptr_t)m_out;
-  if (kAdam) mis_s |= (uintptr_t)v_in | (uintptr_t)v_out;
+  uintptr_t mis_s = kHasM ? (uintptr_t)m_in | (uintptr_t)m_out : 0;
+  if (kHasV) mis_s |= (uintptr_t)v_in | (uintptr_t)v_out;
   const bool vec = ((mis_w & aw) | (mis_s & as)) == 0;
 
   long long tail = start;
   if (vec) {
     const long long n4 = start + (end - start) / 4 * 4;
     for (long long i = start + 4 * (long long)threadIdx.x; i < n4; i += 4 * kThreads) {
-      float w[4], g[4], m[4], v[4] = {0.f, 0.f, 0.f, 0.f};
+      float w[4], g[4], m[4] = {0.f, 0.f, 0.f, 0.f}, v[4] = {0.f, 0.f, 0.f, 0.f};
       load4<TW>(w_in, i, w);
       load4<TW>(g_in, i, g);
-      load4<TS>(m_in, i, m);
-      if (kAdam) load4<TS>(v_in, i, v);
+      if (kHasM) load4<TS>(m_in, i, m);
+      if (kHasV) load4<TS>(v_in, i, v);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) update<kAdam>(h, w[j], g[j], m[j], v[j]);
+      for (int j = 0; j < 4; ++j) update<kRule>(h, w[j], g[j], m[j], v[j]);
       store4<TW>(w_out, i, w);
-      store4<TS>(m_out, i, m);
-      if (kAdam) store4<TS>(v_out, i, v);
+      if (kHasM) store4<TS>(m_out, i, m);
+      if (kHasV) store4<TS>(v_out, i, v);
     }
     tail = n4;
   }
   for (long long i = tail + threadIdx.x; i < end; i += kThreads) {
-    float w = load1<TW>(w_in, i), g = load1<TW>(g_in, i), m = load1<TS>(m_in, i);
-    float v = kAdam ? load1<TS>(v_in, i) : 0.f;
-    update<kAdam>(h, w, g, m, v);
+    float w = load1<TW>(w_in, i), g = load1<TW>(g_in, i);
+    float m = kHasM ? load1<TS>(m_in, i) : 0.f, v = kHasV ? load1<TS>(v_in, i) : 0.f;
+    update<kRule>(h, w, g, m, v);
     store1<TW>(w_out, i, w);
-    store1<TS>(m_out, i, m);
-    if (kAdam) store1<TS>(v_out, i, v);
+    if (kHasM) store1<TS>(m_out, i, m);
+    if (kHasV) store1<TS>(v_out, i, v);
   }
 }
 
-template <typename TW, typename TS, bool kAdam>
+template <typename TW, typename TS, int kRule>
 cudaError_t launch(const long long* table, int n_tensors, long long n_chunks,
                    const Hyper& h, cudaStream_t stream) {
-  multi_tensor_update<TW, TS, kAdam><<<(unsigned)n_chunks, kThreads, 0, stream>>>(
+  multi_tensor_update<TW, TS, kRule><<<(unsigned)n_chunks, kThreads, 0, stream>>>(
       table, n_tensors, h);
   return cudaGetLastError();
 }
 
-template <bool kAdam, typename TW>
+template <int kRule, typename TW>
 cudaError_t by_state(const long long* table, int n_tensors, long long n_chunks, int sdtype,
                      const Hyper& h, cudaStream_t s) {
-  switch (sdtype) {
-    case 0: return launch<TW, float, kAdam>(table, n_tensors, n_chunks, h, s);
-    case 1: return launch<TW, __nv_bfloat16, kAdam>(table, n_tensors, n_chunks, h, s);
-    case 2: return launch<TW, __half, kAdam>(table, n_tensors, n_chunks, h, s);
-    default: return cudaErrorInvalidValue;
+  if constexpr (kRule == kSgd) {  // no state: sdtype is not read
+    return launch<TW, float, kRule>(table, n_tensors, n_chunks, h, s);
+  } else {
+    switch (sdtype) {
+      case 0: return launch<TW, float, kRule>(table, n_tensors, n_chunks, h, s);
+      case 1: return launch<TW, __nv_bfloat16, kRule>(table, n_tensors, n_chunks, h, s);
+      case 2: return launch<TW, __half, kRule>(table, n_tensors, n_chunks, h, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
-template <bool kAdam>
+template <int kRule>
 cudaError_t dispatch(const long long* table, int n_tensors, long long n_chunks, int wdtype,
                      int sdtype, const Hyper& h, cudaStream_t s) {
   if (n_tensors <= 0 || n_chunks <= 0 || n_chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
   switch (wdtype) {
-    case 0: return by_state<kAdam, float>(table, n_tensors, n_chunks, sdtype, h, s);
-    case 1: return by_state<kAdam, __nv_bfloat16>(table, n_tensors, n_chunks, sdtype, h, s);
-    case 2: return by_state<kAdam, __half>(table, n_tensors, n_chunks, sdtype, h, s);
+    case 0: return by_state<kRule, float>(table, n_tensors, n_chunks, sdtype, h, s);
+    case 1: return by_state<kRule, __nv_bfloat16>(table, n_tensors, n_chunks, sdtype, h, s);
+    case 2: return by_state<kRule, __half>(table, n_tensors, n_chunks, sdtype, h, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -194,23 +229,33 @@ cudaError_t dispatch(const long long* table, int n_tensors, long long n_chunks, 
 }  // namespace
 
 // table: device array of n_tensors rows of 9 int64 (w, g, m, v, out_w, out_m,
-// out_v pointers, numel, first chunk; v and out_v 0 for SGD), rows in order of
-// first chunk, chunks of 16384 elements. wdtype (weights and grads) and
-// sdtype (states): 0 float32, 1 bfloat16, 2 float16. Returns a cudaError_t.
+// out_v pointers, numel, first chunk; v and out_v 0 for SGD, m and out_m 0
+// for plain SGD), rows in order of first chunk, chunks of 16384 elements.
+// wdtype (weights and grads) and sdtype (states): 0 float32, 1 bfloat16,
+// 2 float16. rule: 0 the Pallas kernel's momentum rule, 1 sgd_mom_update's,
+// 2 sgd_update's (no state). Returns a cudaError_t.
 extern "C" int mxt_fused_sgd(const long long* table, int n_tensors, long long n_chunks,
-                             int wdtype, int sdtype, float lr, float momentum, float wd,
-                             void* stream) {
-  const Hyper h{lr, momentum, wd, 0.f, 0.f, 0.f, 1.f, 1.f};
-  return dispatch<false>(table, n_tensors, n_chunks, wdtype, sdtype, h,
-                         static_cast<cudaStream_t>(stream));
+                             int wdtype, int sdtype, int rule, float lr, float momentum,
+                             float wd, float rescale, float clip, void* stream) {
+  const Hyper h{lr, momentum, wd, 0.f, 0.f, 0.f, 1.f, 1.f, rescale, clip};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rule) {
+    case kSgdPallas: return dispatch<kSgdPallas>(table, n_tensors, n_chunks, wdtype, sdtype, h, s);
+    case kSgdMom: return dispatch<kSgdMom>(table, n_tensors, n_chunks, wdtype, sdtype, h, s);
+    case kSgd: return dispatch<kSgd>(table, n_tensors, n_chunks, wdtype, sdtype, h, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
+// Adam with the corrections c1, c2 applied inside (c1 = c2 = 1: adam_update's
+// rule, the correction folded into lr), rescale and clip as above.
 extern "C" int mxt_fused_adam(const long long* table, int n_tensors, long long n_chunks,
                               int wdtype, int sdtype, float lr, float beta1, float beta2,
-                              float eps, float wd, float c1, float c2, void* stream) {
-  const Hyper h{lr, 0.f, wd, beta1, beta2, eps, c1, c2};
-  return dispatch<true>(table, n_tensors, n_chunks, wdtype, sdtype, h,
-                        static_cast<cudaStream_t>(stream));
+                              float eps, float wd, float c1, float c2, float rescale,
+                              float clip, void* stream) {
+  const Hyper h{lr, 0.f, wd, beta1, beta2, eps, c1, c2, rescale, clip};
+  return dispatch<kAdam>(table, n_tensors, n_chunks, wdtype, sdtype, h,
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mxt_fused_chunk_elems() { return (int)kChunk; }

@@ -25,7 +25,8 @@ the first forward is a real one.
 
 ``defer_aux_update(param, value)`` (reference :57-64) writes a new value
 into a parameter that is state, not weight (BatchNorm's running stats): in
-place, under ``torch.no_grad()``.
+place, under ``torch.no_grad()``, into the parameter's own tensor in its
+own dtype, also while a compute copy stands in for it.
 
 Left for later slices: symbolic tracing and ``export``, ``SymbolBlock``,
 ``name_scope`` prefixes nested under a parent (each block takes a
@@ -53,8 +54,9 @@ from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 def defer_aux_update(param: Parameter, new_value: torch.Tensor) -> None:
     """Write ``new_value`` into ``param``'s tensor in place, outside autograd."""
+    param._check_initialized()
     with torch.no_grad():
-        param.data()._data.copy_(new_value)
+        param._param.copy_(new_value)
 
 
 class _NameManager:

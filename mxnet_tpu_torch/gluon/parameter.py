@@ -27,6 +27,13 @@ shape from its input (``HybridBlock.infer_shape``) and calls
 ``_finish_deferred_init``. An incomplete shape without
 ``allow_deferred_init`` still raises at ``initialize()``.
 ``ParameterDict.save/load`` and ``Constant`` wait for later slices.
+
+A compute copy (``_compute``) stands in for the value while it is set:
+``data()`` returns it. ``parallel.DataParallelTrainer`` sets it to the
+parameter cast to its compute dtype (bfloat16, float16) for the forward of
+a step, so the layers compute in that dtype while autograd carries the
+gradient through the cast to the float32 value (the reference swaps the
+cast arrays into the parameters, ``_make_apply_fn``).
 """
 from __future__ import annotations
 
@@ -71,6 +78,7 @@ class Parameter:
         self._param: Optional[torch.nn.Parameter] = None
         self._grad: Optional[torch.Tensor] = None
         self._deferred_init = None   # (init, ctx, default_init) until the shape is known
+        self._compute: Optional[torch.Tensor] = None   # stands in for the value in data()
         # (block, attribute name) pairs whose _parameters entry is this value
         self._owners: List[tuple] = []
 
@@ -174,7 +182,7 @@ class Parameter:
 
     def data(self, ctx=None) -> NDArray:
         self._check_initialized()
-        return NDArray(self._param)
+        return NDArray(self._param if self._compute is None else self._compute)
 
     def grad(self, ctx=None) -> NDArray:
         self._check_initialized()

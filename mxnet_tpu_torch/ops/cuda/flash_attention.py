@@ -14,9 +14,11 @@ kernels become hand-written Hopper kernels, built at first use by
 
 Each wrapper works on (BH, T, D) tensors, launches its kernel for CUDA
 tensors, raises if the launch fails, and counts its launches in
-``<wrapper>.launches``. ``flash_attention_fwd`` and ``flash_attention_bwd``
-take their plain versions (``flash_attention_fwd_plain``,
-``flash_attention_bwd_plain``) for CPU tensors; there is no other branch.
+``<wrapper>.launches`` and, by the inputs' dtype (``"float32"``,
+``"bfloat16"``, ``"float16"``), in ``<wrapper>.launches_by_dtype``.
+``flash_attention_fwd`` and ``flash_attention_bwd`` take their plain versions
+(``flash_attention_fwd_plain``, ``flash_attention_bwd_plain``) for CPU
+tensors; there is no other branch.
 
 ``FlashAttentionFunction`` (a ``torch.autograd.Function``) is the
 counterpart of ``_flash``'s ``custom_vjp`` (:362-379): its forward runs
@@ -142,6 +144,13 @@ def _check(q3, k3, v3, do3=None, lse=None, delta=None,
         raise MXNetError(f"{who}: grid too large for {tuple(q3.shape)}")
 
 
+def _count(wrapper, dtype) -> None:
+    """One launch of ``wrapper``'s kernel on inputs of ``dtype``."""
+    wrapper.launches += 1
+    name = str(dtype).rpartition(".")[2]
+    wrapper.launches_by_dtype[name] = wrapper.launches_by_dtype.get(name, 0) + 1
+
+
 def flash_attention_fwd(q3, k3, v3, causal: bool = False,
                         scale: Optional[float] = None):
     """softmax(q k^T * scale) v on (BH, T, D) -> (O like q, LSE (BH, T) f32)."""
@@ -171,11 +180,12 @@ def flash_attention_fwd(q3, k3, v3, causal: bool = False,
     if err != 0:
         msg = lib.mxt_cuda_error_string(err).decode()
         raise MXNetError(f"flash_attention_fwd kernel launch failed: {msg}")
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, q3.dtype)
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_dtype = {}
 
 
 def flash_attention_bwd_plain(q3, k3, v3, o, lse, do3, causal: bool = False,
@@ -212,7 +222,7 @@ def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, causal: bool = False,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, T,
             k3.shape[1], D, _DTYPE_CODES[q3.dtype], int(bool(causal)), scale,
             stream))
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, q3.dtype)
     return dq
 
 
@@ -235,12 +245,14 @@ def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, causal: bool = False,
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
             T, k3.shape[1], D, _DTYPE_CODES[q3.dtype], int(bool(causal)),
             scale, stream))
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, q3.dtype)
     return dk, dv
 
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dq.launches_by_dtype = {}
+flash_attention_bwd_dkv.launches_by_dtype = {}
 
 
 def flash_attention_bwd(q3, k3, v3, o, lse, do3, causal: bool = False,

@@ -14,13 +14,31 @@ call over the whole list of tensors, with no flatten copy.
   bias correction inside, w = w - lr*(m/c1) / (sqrt(v/c2) + eps),
   c1 = 1 - beta1**t, c2 = 1 - beta2**t.
 
-Both take the reference's signatures and, like it, return new lists. The
+The reference's fused training step (``mxnet_tpu/parallel/data_parallel.py``
+``functional_optimizer``) does not use these rules but the registered update
+ops' (``mxnet_tpu/ops/optimizer_ops.py``), which the same kernels carry as
+other rules, each one launch over the list:
+
+- ``fused_sgd_mom_update(weights, grads, moms, lr, momentum, wd,
+  rescale_grad, clip_gradient, out=None)``: ``sgd_mom_update``'s rule,
+  g = clip(rescale*grad) + wd*w; m = momentum*m - lr*g; w = w + m.
+- ``fused_sgd_update(weights, grads, lr, wd, rescale_grad, clip_gradient,
+  out=None)`` -> ``(new_weights,)``: ``sgd_update``'s, no state.
+- ``fused_adam_update(weights, grads, ms, vs, lr, beta1, beta2, epsilon, wd,
+  rescale_grad, clip_gradient, out=None)``: ``adam_update``'s, g =
+  clip(rescale*grad + wd*w) and no bias correction (the caller folds it into
+  lr, as ``_k_adam`` does).
+
+clip is on when ``clip_gradient >= 0``, as in the reference's ``_clip``.
+All take the reference's signatures and, like it, return new lists. The
 keyword ``out`` (a tuple of lists in the order of the result) names the
 tensors to write instead: ``out=(weights, moms)`` updates in place. For CUDA
 tensors the wrapper launches the kernel or raises, and counts launches in
 ``fused_sgd_apply.launches`` / ``fused_adam_apply.launches``; for CPU tensors
 it runs the plain version (``fused_sgd_apply_plain``,
-``fused_adam_apply_plain``), the same f32 arithmetic in PyTorch.
+``fused_adam_apply_plain``, and ``<name>_plain`` for the other three), the
+same f32 arithmetic in PyTorch. ``table_stats`` counts the pointer tables
+built and found in the cache (below).
 
 Semantics to keep apart (ROADMAP B5, B6): this momentum rule is not
 ``sgd_mom_update``'s (which folds lr into the momentum), and this Adam
@@ -54,6 +72,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _CHUNK = 16384          # elements per thread block (csrc kChunk)
 _TABLE_CACHE_SIZE = 16
 _tables: "OrderedDict[tuple, tuple]" = OrderedDict()
+table_stats = {"built": 0, "hits": 0}
+# csrc Rule: the SGD rules of mxt_fused_sgd
+_RULE_SGD_PALLAS, _RULE_SGD_MOM, _RULE_SGD = 0, 1, 2
 
 
 def _library() -> ctypes.CDLL:
@@ -61,8 +82,9 @@ def _library() -> ctypes.CDLL:
     if lib.mxt_fused_sgd.argtypes is None:
         head = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_int]
-        lib.mxt_fused_sgd.argtypes = head + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-        lib.mxt_fused_adam.argtypes = head + [ctypes.c_float] * 7 + [ctypes.c_void_p]
+        lib.mxt_fused_sgd.argtypes = head + [ctypes.c_int] + [ctypes.c_float] * 5 \
+            + [ctypes.c_void_p]
+        lib.mxt_fused_adam.argtypes = head + [ctypes.c_float] * 9 + [ctypes.c_void_p]
         lib.mxt_fused_sgd.restype = ctypes.c_int
         lib.mxt_fused_adam.restype = ctypes.c_int
         lib.mxt_cuda_error_string.argtypes = [ctypes.c_int]
@@ -128,6 +150,54 @@ def fused_adam_apply_plain(weights, grads, ms, vs, lr, beta1=0.9, beta2=0.999,
     return _write_out((new_w, new_m, new_v), out)
 
 
+def _clip(g, clip):
+    return g if clip < 0 else torch.clamp(g, -clip, clip)
+
+
+def fused_sgd_mom_update_plain(weights, grads, moms, lr, momentum=0.0, wd=0.0,
+                               rescale_grad=1.0, clip_gradient=-1.0, out=None):
+    """``sgd_mom_update``'s arithmetic over the list, f32 inside."""
+    lr, mom, wd, rs, clip = map(lambda v: float(_f32(v)),
+                                (lr, momentum, wd, rescale_grad, clip_gradient))
+    new_w, new_m = [], []
+    for w, g, m in zip(weights, grads, moms):
+        wf = w.float()
+        gf = _clip(g.float() * rs, clip) + wd * wf
+        mf = mom * m.float() - lr * gf
+        new_w.append((wf + mf).to(w.dtype))
+        new_m.append(mf.to(m.dtype))
+    return _write_out((new_w, new_m), out)
+
+
+def fused_sgd_update_plain(weights, grads, lr, wd=0.0, rescale_grad=1.0,
+                           clip_gradient=-1.0, out=None):
+    """``sgd_update``'s arithmetic over the list, f32 inside."""
+    lr, wd, rs, clip = map(lambda v: float(_f32(v)), (lr, wd, rescale_grad, clip_gradient))
+    new_w = [(w.float() - lr * (_clip(g.float() * rs, clip) + wd * w.float())).to(w.dtype)
+             for w, g in zip(weights, grads)]
+    return _write_out((new_w,), out)
+
+
+def fused_adam_update_plain(weights, grads, ms, vs, lr, beta1=0.9, beta2=0.999,
+                            epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                            out=None):
+    """``adam_update``'s arithmetic over the list, f32 inside."""
+    lr, b1, b2, eps, wd, rs, clip = map(
+        lambda v: float(_f32(v)),
+        (lr, beta1, beta2, epsilon, wd, rescale_grad, clip_gradient))
+    omb1, omb2 = float(np.float32(1) - _f32(b1)), float(np.float32(1) - _f32(b2))
+    new_w, new_m, new_v = [], [], []
+    for w, g, m, v in zip(weights, grads, ms, vs):
+        wf = w.float()
+        gf = _clip(g.float() * rs + wd * wf, clip)
+        mf = b1 * m.float() + omb1 * gf
+        vf = b2 * v.float() + omb2 * gf * gf
+        new_w.append((wf - lr * mf / (torch.sqrt(vf) + eps)).to(w.dtype))
+        new_m.append(mf.to(m.dtype))
+        new_v.append(vf.to(v.dtype))
+    return _write_out((new_w, new_m, new_v), out)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -169,6 +239,7 @@ def _table(who, device, operands: List[Optional[Sequence[torch.Tensor]]], names)
     hit = _tables.get(key)
     if hit is not None and all(all(map(torch.Tensor.is_contiguous, op)) for op in lists):
         _tables.move_to_end(key)
+        table_stats["hits"] += 1
         return hit
     _check(who, lists, names, device)
     rows, first = [], 0
@@ -178,6 +249,7 @@ def _table(who, device, operands: List[Optional[Sequence[torch.Tensor]]], names)
         rows.append([c[i] if c is not None else 0 for c in ptrs] + [numel, first])
         first += -(-numel // _CHUNK)
     table = torch.tensor(rows, dtype=torch.int64).to(device) if rows else None
+    table_stats["built"] += 1
     _tables[key] = (table, len(rows), first)
     if len(_tables) > _TABLE_CACHE_SIZE:
         _tables.popitem(last=False)
@@ -203,30 +275,63 @@ def _new_lists(out, groups):
     return tuple([torch.empty_like(t) for t in g] for g in groups)
 
 
+def _sgd(who, rule, weights, grads, moms, scalars, out):
+    """One launch of an SGD ``rule`` over CUDA tensors (``moms`` None for
+    the stateless rule) -> (the new lists, whether it launched)."""
+    device = weights[0].device
+    if device.type != "cuda":
+        raise MXNetError(f"{who}: unsupported device {device}")
+    res = _new_lists(out, (weights, moms) if moms is not None else (weights,))
+    if grads[0].dtype != weights[0].dtype or res[0][0].dtype != weights[0].dtype \
+            or (moms is not None and res[1][0].dtype != moms[0].dtype):
+        raise MXNetError(f"{who}: grads and out weights take the weights' dtype, "
+                         f"out moms the moms'")
+    out_m = res[1] if moms is not None else None
+    names = ["weights", "grads", "moms", "out weights", "out moms"] if moms is not None \
+        else ["weights", "grads", "out weights"]
+    table, n_rows, n_chunks = _table(who, device,
+                                     [weights, grads, moms, None, res[0], out_m, None], names)
+    if n_rows:
+        _launch(who, "mxt_fused_sgd", table, n_rows, n_chunks,
+                (_DTYPE_CODES[weights[0].dtype],
+                 _DTYPE_CODES[moms[0].dtype] if moms is not None else 0, rule),
+                tuple(float(_f32(v)) for v in scalars), device)
+    return res, n_rows > 0
+
+
+def _adam(who, weights, grads, ms, vs, scalars, out):
+    """One Adam launch over CUDA tensors with ``scalars`` = (lr, b1, b2, eps,
+    wd, c1, c2, rescale, clip) -> (the new lists, whether it launched)."""
+    device = weights[0].device
+    if device.type != "cuda":
+        raise MXNetError(f"{who}: unsupported device {device}")
+    res = _new_lists(out, (weights, ms, vs))
+    if grads[0].dtype != weights[0].dtype or vs[0].dtype != ms[0].dtype \
+            or res[0][0].dtype != weights[0].dtype \
+            or {res[1][0].dtype, res[2][0].dtype} != {ms[0].dtype}:
+        raise MXNetError(f"{who}: grads and out weights take the weights' dtype, "
+                         f"vs and the out states the ms'")
+    table, n_rows, n_chunks = _table(
+        who, device, [weights, grads, ms, vs, *res],
+        ["weights", "grads", "ms", "vs", "out weights", "out ms", "out vs"])
+    if n_rows:
+        _launch(who, "mxt_fused_adam", table, n_rows, n_chunks,
+                (_DTYPE_CODES[weights[0].dtype], _DTYPE_CODES[ms[0].dtype]),
+                tuple(float(_f32(v)) for v in scalars), device)
+    return res, n_rows > 0
+
+
 def fused_sgd_apply(weights: List, grads: List, moms: List, lr: float,
                     momentum: float = 0.0, wd: float = 0.0, out=None):
     """One-launch SGD (+momentum, +wd) over a list of tensors ->
     ``(new_weights, new_moms)``."""
     if not weights:
         return [], []
-    device = weights[0].device
-    if device.type == "cpu":
+    if weights[0].device.type == "cpu":
         return fused_sgd_apply_plain(weights, grads, moms, lr, momentum, wd, out)
-    if device.type != "cuda":
-        raise MXNetError(f"fused_sgd_apply: unsupported device {device}")
-    res = _new_lists(out, (weights, moms))
-    if grads[0].dtype != weights[0].dtype or res[0][0].dtype != weights[0].dtype \
-            or res[1][0].dtype != moms[0].dtype:
-        raise MXNetError("fused_sgd_apply: grads and out weights take the "
-                         "weights' dtype, out moms the moms'")
-    table, n_rows, n_chunks = _table(
-        "fused_sgd_apply", device, [weights, grads, moms, None, res[0], res[1], None],
-        ["weights", "grads", "moms", "out weights", "out moms"])
-    if n_rows:
-        _launch("fused_sgd_apply", "mxt_fused_sgd", table, n_rows, n_chunks,
-                (_DTYPE_CODES[weights[0].dtype], _DTYPE_CODES[moms[0].dtype]),
-                (float(_f32(lr)), float(_f32(momentum)), float(_f32(wd))), device)
-        fused_sgd_apply.launches += 1
+    res, launched = _sgd("fused_sgd_apply", _RULE_SGD_PALLAS, weights, grads, moms,
+                         (lr, momentum, wd, 1.0, -1.0), out)
+    fused_sgd_apply.launches += launched
     return res
 
 
@@ -237,30 +342,65 @@ def fused_adam_apply(weights: List, grads: List, ms: List, vs: List, lr: float,
     ``(new_weights, new_ms, new_vs)``."""
     if not weights:
         return [], [], []
-    device = weights[0].device
-    if device.type == "cpu":
+    if weights[0].device.type == "cpu":
         return fused_adam_apply_plain(weights, grads, ms, vs, lr, beta1, beta2,
                                       eps, wd, t, out)
-    if device.type != "cuda":
-        raise MXNetError(f"fused_adam_apply: unsupported device {device}")
-    res = _new_lists(out, (weights, ms, vs))
-    if grads[0].dtype != weights[0].dtype or vs[0].dtype != ms[0].dtype \
-            or res[0][0].dtype != weights[0].dtype \
-            or {res[1][0].dtype, res[2][0].dtype} != {ms[0].dtype}:
-        raise MXNetError("fused_adam_apply: grads and out weights take the "
-                         "weights' dtype, vs and the out states the ms'")
-    table, n_rows, n_chunks = _table(
-        "fused_adam_apply", device, [weights, grads, ms, vs, *res],
-        ["weights", "grads", "ms", "vs", "out weights", "out ms", "out vs"])
     s = _adam_scalars(lr, beta1, beta2, eps, wd, t)
-    if n_rows:
-        _launch("fused_adam_apply", "mxt_fused_adam", table, n_rows, n_chunks,
-                (_DTYPE_CODES[weights[0].dtype], _DTYPE_CODES[ms[0].dtype]),
-                tuple(float(s[k]) for k in ("lr", "b1", "b2", "eps", "wd", "c1", "c2")),
-                device)
-        fused_adam_apply.launches += 1
+    res, launched = _adam("fused_adam_apply", weights, grads, ms, vs,
+                          tuple(s[k] for k in ("lr", "b1", "b2", "eps", "wd", "c1", "c2"))
+                          + (1.0, -1.0), out)
+    fused_adam_apply.launches += launched
+    return res
+
+
+def fused_sgd_mom_update(weights: List, grads: List, moms: List, lr: float,
+                         momentum: float = 0.0, wd: float = 0.0, rescale_grad=1.0,
+                         clip_gradient=-1.0, out=None):
+    """One-launch ``sgd_mom_update`` over a list -> ``(new_weights, new_moms)``."""
+    if not weights:
+        return [], []
+    if weights[0].device.type == "cpu":
+        return fused_sgd_mom_update_plain(weights, grads, moms, lr, momentum, wd,
+                                          rescale_grad, clip_gradient, out)
+    res, launched = _sgd("fused_sgd_mom_update", _RULE_SGD_MOM, weights, grads, moms,
+                         (lr, momentum, wd, rescale_grad, clip_gradient), out)
+    fused_sgd_mom_update.launches += launched
+    return res
+
+
+def fused_sgd_update(weights: List, grads: List, lr: float, wd: float = 0.0,
+                     rescale_grad=1.0, clip_gradient=-1.0, out=None):
+    """One-launch ``sgd_update`` over a list -> ``(new_weights,)``; no state."""
+    if not weights:
+        return ([],)
+    if weights[0].device.type == "cpu":
+        return fused_sgd_update_plain(weights, grads, lr, wd, rescale_grad,
+                                      clip_gradient, out)
+    res, launched = _sgd("fused_sgd_update", _RULE_SGD, weights, grads, None,
+                         (lr, 0.0, wd, rescale_grad, clip_gradient), out)
+    fused_sgd_update.launches += launched
+    return res
+
+
+def fused_adam_update(weights: List, grads: List, ms: List, vs: List, lr: float,
+                      beta1=0.9, beta2=0.999, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                      clip_gradient=-1.0, out=None):
+    """One-launch ``adam_update`` over a list (no bias correction: fold it
+    into ``lr``) -> ``(new_weights, new_ms, new_vs)``."""
+    if not weights:
+        return [], [], []
+    if weights[0].device.type == "cpu":
+        return fused_adam_update_plain(weights, grads, ms, vs, lr, beta1, beta2,
+                                       epsilon, wd, rescale_grad, clip_gradient, out)
+    res, launched = _adam("fused_adam_update", weights, grads, ms, vs,
+                          (lr, beta1, beta2, epsilon, wd, 1.0, 1.0, rescale_grad,
+                           clip_gradient), out)
+    fused_adam_update.launches += launched
     return res
 
 
 fused_sgd_apply.launches = 0
 fused_adam_apply.launches = 0
+fused_sgd_mom_update.launches = 0
+fused_sgd_update.launches = 0
+fused_adam_update.launches = 0

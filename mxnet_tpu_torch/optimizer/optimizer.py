@@ -9,16 +9,24 @@ the reference's jitted kernels take them (``_k_sgd``, ``_k_sgd_mom``,
 learning rate, ``lr * sqrt(1 - beta2**t) / (1 - beta1**t)``, exactly as
 ``_k_adam`` does, and ``adam_update`` itself has none.
 
+``lr_scheduler`` (reference :54-56, :91, :111-117): an ``LRScheduler``
+(``mxnet_tpu_torch.lr_scheduler``) whose ``base_lr`` becomes the
+optimizer's ``learning_rate``; the rate is then read through it at the
+optimizer's ``num_update``, and ``set_learning_rate`` raises while it is
+set. ``multi_precision=True`` (reference :129-147): a float16 or bfloat16
+weight gets a float32 master copy as the first part of its state; the
+update runs on the master with the gradient cast to float32, and the
+weight is the master cast back.
+
 Memory: updates write the new weight and states into the existing tensors
 in place, under ``torch.no_grad()``, so a ``Parameter``'s ``nn.Parameter``
 keeps its identity and no second copy of the weights or states stays
 alive. This is the counterpart of the reference's buffer donation
 (``_UpdateKernel``, :229-273).
 
-Waiting for later slices: ``lr_scheduler`` (passing one raises
-``MXNetError``), ``multi_precision=True`` (raises), the lazy row-sparse
-updates, ``aggregate_num`` and the other optimizers; ``Updater.get_states``
-/ ``set_states`` come with ``Trainer.save_states``.
+Waiting for later slices: the lazy row-sparse updates, ``aggregate_num``
+and the other optimizers; ``Updater.get_states`` / ``set_states`` come with
+``Trainer.save_states``.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..ndarray import NDArray
 from ..ops import optimizer_ops as _oo
 
 _OPT_REGISTRY: Dict[str, type] = {}
@@ -61,14 +70,17 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  multi_precision=False, param_dict=None, begin_num_update=0,
                  aggregate_num=0, **kwargs):
-        if lr_scheduler is not None:
-            raise MXNetError("lr_scheduler is not ported yet")
-        if multi_precision:
-            raise MXNetError("multi_precision is not ported yet")
         if kwargs:
             raise MXNetError(f"unknown optimizer arguments {sorted(kwargs)}")
+        if lr_scheduler is not None and not callable(lr_scheduler):
+            raise MXNetError(f"lr_scheduler must be an LRScheduler (called with "
+                             f"num_update), got {type(lr_scheduler).__name__}")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            lr_scheduler.base_lr = learning_rate
+        self.multi_precision = multi_precision
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.param_idx2name = dict(param_idx2name or {})
@@ -90,7 +102,7 @@ class Optimizer:
             self.num_update = max(self._index_update_count[i], self.num_update)
 
     def _get_lr(self, index):
-        lr = self.lr
+        lr = self.lr_scheduler(self.num_update) if self.lr_scheduler else self.lr
         if index in self.param_dict:
             lr *= self.param_dict[index].lr_mult
         elif index in self.lr_mult:
@@ -113,11 +125,13 @@ class Optimizer:
         return self.clip_gradient if self.clip_gradient is not None else -1.0
 
     def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise MXNetError("lr_scheduler is set; use the scheduler to change lr")
         self.lr = lr
 
     @property
     def learning_rate(self):
-        return self.lr
+        return self.lr_scheduler(self.num_update) if self.lr_scheduler else self.lr
 
     def set_lr_mult(self, args_lr_mult):
         self.lr_mult = dict(args_lr_mult)
@@ -129,14 +143,26 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    def _has_master(self, weight):
+        return self.multi_precision and weight.dtype in (torch.float16, torch.bfloat16)
+
     def create_state_multi_precision(self, index, weight):
+        if self._has_master(weight):
+            master = NDArray(weight._data.detach().float(), weight.ctx)
+            return (master, self.create_state(index, master))
         return self.create_state(index, weight)
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError
 
     def update_multi_precision(self, index, weight, grad, state):
-        self.update(index, weight, grad, state)
+        if self._has_master(weight):
+            master, base_state = state
+            self.update(index, master, NDArray(grad._data.float(), grad.ctx),
+                        base_state)
+            _write([weight], [master._data])
+        else:
+            self.update(index, weight, grad, state)
 
 
 class Updater:

@@ -1,0 +1,335 @@
+"""The fused training step on one device: ``DataParallelTrainer``.
+
+Counterpart of ``mxnet_tpu/parallel/data_parallel.py``: ``functional_optimizer``
+(:51) and ``DataParallelTrainer`` (:276) with its step body
+(``_make_apply_fn`` :237, ``_build_step`` :805), ``run_steps``, ``step``,
+``drain``, ``sync`` and ``num_update`` (:1373-1567). The reference compiles
+forward, backward and the update of every parameter into one jit. Here the
+step is eager PyTorch, and the update of every parameter is one launch of
+the fused multi-tensor kernel (``ops/cuda/fused_optimizer.py``, kernels K4
+and K5 of ``csrc/fused_optimizer.cu``) with the rules the reference's step
+applies: ``sgd_update``, ``sgd_mom_update`` and ``adam_update`` with the
+bias correction folded into lr (``_k_sgd``, ``_k_sgd_mom``, ``_k_adam``).
+
+::
+
+    trainer = mx.parallel.DataParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}, dtype="bfloat16")
+    loss = trainer.step(x, y)          # a PendingScalar: float(loss) syncs
+
+A step (reference :832-877):
+
+- sets the optimizer's ``rescale_grad`` to 1 and ``num_update`` to the step
+  count t, and reads the learning rate through its ``lr_scheduler``;
+- runs the net in training mode under ``autograd.record()``. With
+  ``dtype="bfloat16"`` or ``"float16"`` every floating parameter's compute
+  copy (``Parameter._compute``) is the parameter cast to that dtype, and so
+  is a floating input; labels and integer tokens are not cast. The cast is
+  differentiable, so the gradients reach the float32 parameters as float32.
+  BatchNorm's running statistics are computed from the cast copies and
+  written into the parameters in their own dtype (the reference's aux
+  carry, :869-876);
+- takes the mean of the loss (a Gluon ``Loss`` or a callable on the
+  prediction's and the label's tensors), and its gradients with respect to
+  every trainable parameter into the parameters' gradient buffers;
+- under float16, multiplies the gradients by 1/loss_scale and checks them
+  for inf and NaN; reading that flag is the step's one host sync. An
+  overflow skips the whole update, and ``LossScaler.update_from_step``
+  halves the scale (:1514-1518);
+- updates every trainable parameter and its state in place with one launch
+  (one per distinct weight decay, as wd is a scalar of the launch; one in
+  the models of this repository), through the cached pointer table: the
+  parameters, gradient buffers and states keep their storage from step to
+  step.
+
+``step`` returns a ``PendingScalar`` of the loss, which syncs only when read,
+so float32 and bfloat16 steps run without a host sync. The parameters are
+the ``Parameter``s' own tensors, so ``sync()`` only waits for the device.
+
+One device only: a mesh of more devices, ``compression``, ``zero_update``,
+``overlap_grads``, the options that tune them (``bucket_bytes``,
+``comm_dtype``, ``overlap_segments``), a ``data_spec`` other than the batch
+axis and sharded parameters raise ``MXNetError`` (ROADMAP A2). The reference's
+environment switches (``MXNET_TPU_ZERO``, ``MXNET_TPU_OVERLAP_GRADS``) are
+not read.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..base import MXNetError, torch_dtype
+from ..ndarray import NDArray
+from .. import autograd
+from .. import optimizer as opt_mod
+from ..gluon.loss import Loss as GluonLoss
+from ..ops.cuda import fused_optimizer as _fo
+from .mesh import MULTI_DEVICE, P, current_mesh
+
+_A2 = "not ported yet (ROADMAP A2: kvstore and DataParallelTrainer over more devices)"
+
+
+def _f32(x) -> np.float32:
+    return np.float32(x)
+
+
+def functional_optimizer(opt: "opt_mod.Optimizer"):
+    """``(init(weight) -> state tuple, update(weights, grads, states, t, lr,
+    wd))`` for an ``SGD`` or ``Adam``: ``update`` applies the optimizer's
+    rule to the lists in place, one launch for a list on the card."""
+    clip = opt.clip_gradient if opt.clip_gradient is not None else -1.0
+
+    if isinstance(opt, opt_mod.Adam):
+        def init(w):
+            return (torch.zeros_like(w), torch.zeros_like(w))
+
+        def update(ws, gs, states, t, lr, wd):
+            # _k_adam: lr_t = lr * sqrt(c2) / c1, all f32 (t an f32 step count)
+            c1 = np.float32(1) - _f32(opt.beta1) ** _f32(t)
+            c2 = np.float32(1) - _f32(opt.beta2) ** _f32(t)
+            lr_t = _f32(lr) * np.sqrt(c2) / c1
+            ms, vs = [s[0] for s in states], [s[1] for s in states]
+            _fo.fused_adam_update(ws, gs, ms, vs, lr_t, opt.beta1, opt.beta2,
+                                  opt.epsilon, wd, opt.rescale_grad, clip,
+                                  out=(ws, ms, vs))
+        return init, update
+
+    if isinstance(opt, opt_mod.SGD):
+        if opt.momentum == 0.0:
+            def init(w):
+                return ()
+
+            def update(ws, gs, states, t, lr, wd):
+                _fo.fused_sgd_update(ws, gs, lr, wd, opt.rescale_grad, clip, out=(ws,))
+            return init, update
+
+        def init(w):
+            return (torch.zeros_like(w),)
+
+        def update(ws, gs, states, t, lr, wd):
+            moms = [s[0] for s in states]
+            _fo.fused_sgd_mom_update(ws, gs, moms, lr, opt.momentum, wd,
+                                     opt.rescale_grad, clip, out=(ws, moms))
+        return init, update
+
+    raise MXNetError(f"no functional adapter for optimizer {type(opt).__name__}: "
+                     f"the fused step ports SGD and Adam; the other optimizers are "
+                     f"ROADMAP A5")
+
+
+class PendingScalar:
+    """A loss on the device that syncs only when read (reference
+    ``engine/async_feed.py`` ``PendingScalar``): ``float()``, ``item()``
+    and ``asnumpy()`` wait for it; holding it or ``repr()`` does not."""
+
+    __slots__ = ("_raw",)
+
+    def __init__(self, raw: torch.Tensor):
+        self._raw = raw
+
+    @property
+    def raw(self) -> torch.Tensor:
+        """The loss tensor on the device (no sync)."""
+        return self._raw
+
+    def __float__(self):
+        return float(self._raw.float().item())
+
+    def item(self):
+        return self.__float__()
+
+    def asnumpy(self):
+        return self._raw.detach().float().cpu().numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.asnumpy()
+        return out.astype(dtype) if dtype is not None else out
+
+    def __repr__(self):
+        return f"PendingScalar({self._raw.dtype}, {self._raw.device})"
+
+
+class DataParallelTrainer:
+    """The fused training step on one device; see the module docstring.
+    ``net`` is an initialized ``HybridBlock`` (run one forward first if its
+    shapes are deferred); ``loss`` a Gluon ``Loss`` or a callable
+    ``(pred, label) -> per-sample loss`` on tensors."""
+
+    def __init__(self, net, loss, optimizer="sgd", optimizer_params=None, mesh=None,
+                 batch_axis_name: str = "dp", dtype=None, data_spec=None,
+                 compression=None, zero_update=None, bucket_bytes=None,
+                 comm_dtype=None, overlap_grads=None, overlap_segments=None):
+        for name, value in (("compression", compression), ("zero_update", zero_update),
+                            ("overlap_grads", overlap_grads), ("bucket_bytes", bucket_bytes),
+                            ("comm_dtype", comm_dtype),
+                            ("overlap_segments", overlap_segments)):
+            if value is not None and value is not False:
+                raise MXNetError(f"DataParallelTrainer({name}={value!r}): {_A2}")
+        self.net = net
+        self.compute_dtype: Optional[torch.dtype] = None
+        if dtype is not None and torch_dtype(dtype) != torch.float32:
+            self.compute_dtype = torch_dtype(dtype)
+            if self.compute_dtype not in (torch.bfloat16, torch.float16):
+                raise MXNetError(f"dtype must be float32/bfloat16/float16, got {dtype!r}")
+        self._scaler = None
+        if self.compute_dtype == torch.float16:
+            from ..contrib.amp.loss_scaler import LossScaler
+            self._scaler = LossScaler()
+        self.mesh = mesh if mesh is not None else current_mesh()
+        if self.mesh.size != 1:
+            raise MXNetError(f"{self.mesh}: {MULTI_DEVICE}")
+        self.batch_axis = batch_axis_name
+        self.data_spec = data_spec if data_spec is not None else P(batch_axis_name)
+        if tuple(self.data_spec) != (batch_axis_name,):
+            raise MXNetError(f"data_spec {self.data_spec} shards more than the batch "
+                             f"axis {batch_axis_name!r}: {_A2}")
+        self.optimizer = optimizer if isinstance(optimizer, opt_mod.Optimizer) \
+            else opt_mod.create(optimizer, **(optimizer_params or {}))
+        self._init_fn, self._update_fn = functional_optimizer(self.optimizer)
+        self.loss = loss
+        params = list(net.collect_params().values())
+        deferred = [p.name for p in params
+                    if p._param is None and p._deferred_init is not None]
+        if deferred:
+            raise MXNetError(f"net has deferred-init parameters ({deferred[0]}...); "
+                             f"run one forward pass before constructing "
+                             f"DataParallelTrainer")
+        self._plist = [p for p in params if p._param is not None]
+        sharded = [p.name for p in self._plist if getattr(p, "sharding", None) is not None]
+        if sharded:
+            raise MXNetError(f"sharded parameters ({sharded[:3]}): {_A2}")
+        self.device = self.mesh.device
+        elsewhere = [p.name for p in self._plist if p.list_ctx()[0] != self.device]
+        if elsewhere:
+            raise MXNetError(f"parameters {elsewhere[:3]} are not on the mesh's device "
+                             f"{self.device}")
+        self._trainable = [p.grad_req != "null" for p in self._plist]
+        self._t = 0
+        wds = [self.optimizer._get_wd(i) for i in range(len(self._plist))]
+        self._opt_state = [self._init_fn(p._param.detach()) if t else ()
+                           for p, t in zip(self._plist, self._trainable)]
+        # one update launch for each distinct weight decay
+        self._groups = {}
+        for i, (t, wd) in enumerate(zip(self._trainable, wds)):
+            if t:
+                self._groups.setdefault(float(wd), []).append(i)
+
+    # -- the step --------------------------------------------------------------
+    def _raw(self, a) -> torch.Tensor:
+        t = a._data if isinstance(a, NDArray) else torch.as_tensor(np.asarray(a))
+        return t.to(self.device.torch_device)
+
+    def _loss_mean(self, pred: NDArray, label: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.loss, GluonLoss):
+            return self.loss(pred, NDArray(label, self.device))._data.mean()
+        return torch.mean(self.loss(pred._data, label))
+
+    def _forward_backward(self, x, y, scale) -> torch.Tensor:
+        """The loss mean, with the gradients of ``scale`` times it in the
+        trainable parameters' gradient buffers."""
+        cdt = self.compute_dtype
+        with torch.enable_grad(), autograd.record(train_mode=True):
+            if cdt is not None:
+                for p in self._plist:
+                    if p._param.is_floating_point():
+                        p._compute = p._param.to(cdt)
+                if x.is_floating_point():
+                    x = x.to(cdt)
+            try:
+                out = self.net(NDArray(x, self.device))
+            finally:
+                for p in self._plist:
+                    p._compute = None
+            pred = out[0] if isinstance(out, (tuple, list)) else out
+            lossv = self._loss_mean(pred, y)
+            head = lossv * scale if scale is not None else lossv
+            train = [p for p, t in zip(self._plist, self._trainable) if t]
+            grads = torch.autograd.grad(head, [p._param for p in train],
+                                        allow_unused=True)
+        with torch.no_grad():
+            got = [(p._grad, g) for p, g in zip(train, grads) if g is not None]
+            if got:
+                torch._foreach_copy_([b for b, _ in got], [g for _, g in got])
+            for p, g in zip(train, grads):
+                if g is None:          # not reached by the loss: a zero gradient
+                    p._grad.zero_()
+        return lossv.detach()
+
+    def _unscale_finite(self, scale) -> bool:
+        """Gradients times 1/scale in place; True if all are finite (syncs)."""
+        grads = [p._grad for p, t in zip(self._plist, self._trainable)
+                 if t and p._grad.is_floating_point()]
+        found = torch.zeros((), dtype=torch.float32, device=self.device.torch_device)
+        inv = torch.full((), 1.0 / scale, dtype=torch.float32,
+                         device=self.device.torch_device)
+        torch._amp_foreach_non_finite_check_and_unscale_(grads, found, inv)
+        return not bool(found.item())
+
+    def _update(self, lr):
+        with torch.no_grad():
+            for wd, idx in self._groups.items():
+                self._update_fn([self._plist[i]._param for i in idx],
+                                [self._plist[i]._grad for i in idx],
+                                [self._opt_state[i] for i in idx], self._t, lr, wd)
+
+    def _one_step(self, x, y, scale) -> tuple:
+        self._t += 1
+        self.optimizer.num_update = self._t
+        lr = _f32(self.optimizer.learning_rate)
+        lossv = self._forward_backward(x, y, scale)
+        finite = True
+        if scale is not None:
+            finite = self._unscale_finite(scale)
+        if finite:
+            self._update(lr)
+        return lossv, finite
+
+    def step(self, x, y, batch_size=None) -> PendingScalar:
+        """One fused training step on the batch ``x``, ``y``."""
+        self.optimizer.rescale_grad = 1.0
+        scale = self._scaler.loss_scale if self._scaler is not None else None
+        lossv, finite = self._one_step(self._raw(x), self._raw(y), scale)
+        if self._scaler is not None:
+            self._scaler.update_from_step(finite)
+        return PendingScalar(lossv)
+
+    def run_steps(self, x, y, n, stacked=False) -> NDArray:
+        """``n`` steps, one after another (the reference scans them in one
+        program): on one batch, or with ``stacked=True`` on ``x[i], y[i]``.
+        The learning rate follows the scheduler step by step; the float16
+        loss scale stays fixed for the call, as in the reference, and is
+        updated once at its end. Returns the losses."""
+        xr, yr = self._raw(x), self._raw(y)
+        if stacked and (xr.shape[0] != n or yr.shape[0] != n):
+            raise MXNetError(f"run_steps(stacked=True): leading dim must be n={n}, "
+                             f"got {xr.shape[0]}/{yr.shape[0]}")
+        self.optimizer.rescale_grad = 1.0
+        scale = self._scaler.loss_scale if self._scaler is not None else None
+        losses, all_finite = [], True
+        for i in range(n):
+            lossv, finite = self._one_step(xr[i] if stacked else xr,
+                                           yr[i] if stacked else yr, scale)
+            losses.append(lossv)
+            all_finite = all_finite and finite
+        if self._scaler is not None:
+            self._scaler.update_from_step(all_finite)
+        return NDArray(torch.stack(losses), self.device)
+
+    def drain(self):
+        """Wait until every step that was issued has finished on the device."""
+        if self.device.device_type == "gpu":
+            torch.cuda.synchronize(self.device.torch_device)
+
+    def sync(self):
+        """The parameters are the ``Parameter``s' own tensors: wait for them."""
+        self.drain()
+
+    @property
+    def num_update(self):
+        return self._t
+
+
+__all__ = ["DataParallelTrainer", "functional_optimizer", "PendingScalar"]

@@ -30,7 +30,8 @@ strings have no meaning on the card, so ``PallasModule`` is not carried::
   dtype on ``ctx``'s device, or a Python number for a scalar), then launches
   with the CUDA driver API (``cuModuleLoadData``, ``cuModuleGetFunction``,
   ``cuLaunchKernel``) on torch's current stream of that device, so it is
-  ordered with torch's work, and checks the result. With ``out_shapes``
+  ordered with torch's work and can be captured into a CUDA graph, and
+  checks the result. With ``out_shapes``
   the kernel's last pointer parameters are outputs: ``launch`` allocates
   them (uninitialised: the kernel writes every element), passes them last
   and returns them as a tuple of NDArrays, the reference's call shape;
@@ -41,15 +42,28 @@ strings have no meaning on the card, so ``PallasModule`` is not carried::
 
 Kernels run on CUDA devices only: without one, ``CudaModule`` raises
 ``MXNetError``, and so does a launch on ``cpu()``. The driver calls run on
-the device's primary context, the one torch uses; a thread without a
-current context gets it made current. Dynamic shared memory above 48 KiB
+the device's primary context, the one torch uses; a thread whose current
+context is another gets it made current. Dynamic shared memory above 48 KiB
 is allowed per function with ``cuFuncSetAttribute`` before the launch.
+
+The launch path (the counterpart of the reference's ``launch``, :41-69) is
+built for host time, which is what a launch costs beyond the kernel: the
+first launch of a kernel on a device builds a launch plan (``_Plan``): the
+``CUfunction``, the device's primary context, and one preallocated ctypes
+slot per argument with the argv array that points at them. Each launch then
+checks each argument with one comparison of its type and, for a tensor, of
+its dtype and device index, writes the slots in place, and calls
+``cuLaunchKernel``. The per-argument checks and their messages are those
+of the first launch. A plan belongs to one kernel and one device; its slots
+are written and launched under its lock, so threads do not share them
+unguarded. ``timings`` keeps the seconds of NVRTC's parts: loading
+``libnvrtc``, ``nvrtcCompileProgram``, and ``cuModuleLoadData``.
 
 Bound: a kernel's work is whatever its source says; ``chip_smoke.py``
 measures ``axpy`` (12 bytes an element, bound by bytes) and an empty
-launch's overhead. The example kernels at the end of this module, each
+launch's host time. The example kernels at the end of this module, each
 with a plain PyTorch version, are the ones the tests and ``chip_smoke.py``
-launch.
+launch; ``axpy`` streams 16-byte vectors (see its source).
 """
 from __future__ import annotations
 
@@ -57,6 +71,7 @@ import ctypes
 import os
 import re
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -79,8 +94,12 @@ _SCALAR_CTYPES = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double,
                   torch.int32: ctypes.c_int32, torch.int64: ctypes.c_int64,
                   torch.int8: ctypes.c_int8, torch.uint8: ctypes.c_uint8}
 _ARG = re.compile(r"^\s*(const)?\s*([A-Za-z_]\w*)\s*(\*)?\s*([A-Za-z_]\w*)?\s*$")
+# seconds of NVRTC's parts, at their last run: libnvrtc loaded (once),
+# nvrtcCompileProgram, cuModuleLoadData
+timings: Dict[str, float] = {}
 _EXTERN_C_KERNEL = re.compile(
-    r'extern\s+"C"\s+__global__\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?void\s+([A-Za-z_]\w*)')
+    r'extern\s+"C"\s+__global__\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?void\s+'
+    r'(?:__launch_bounds__\s*\([^)]*\)\s*)?([A-Za-z_]\w*)')
 
 
 class KernelArg(NamedTuple):
@@ -118,6 +137,7 @@ class _Nvrtc:
     """NVRTC through ctypes: source -> cubin and lowered export names."""
 
     def __init__(self):
+        t0 = time.perf_counter()
         lib = None
         for root in _cuda_lib_dirs():
             for cand in sorted((root / "lib64").glob("libnvrtc.so*")):
@@ -148,6 +168,7 @@ class _Nvrtc:
         lib.nvrtcGetErrorString.argtypes = [ctypes.c_int]
         lib.nvrtcGetErrorString.restype = ctypes.c_char_p
         self.lib = lib
+        timings["nvrtc_load_s"] = time.perf_counter() - t0
 
     def _check(self, res, what):
         if res != 0:
@@ -170,7 +191,9 @@ class _Nvrtc:
                 opts.append(f"-I{self.include}")
             opts += list(options)
             argv = (ctypes.c_char_p * len(opts))(*(o.encode() for o in opts))
+            t0 = time.perf_counter()
             res = lib.nvrtcCompileProgram(prog, len(opts), argv)
+            timings["nvrtc_compile_s"] = time.perf_counter() - t0
             size = ctypes.c_size_t()
             lib.nvrtcGetProgramLogSize(prog, ctypes.byref(size))
             log = ctypes.create_string_buffer(size.value)
@@ -218,6 +241,12 @@ class _Driver:
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, ctypes.c_int
         self.lib = lib
+        # The two calls of every launch, without argtypes: ctypes then
+        # converts nothing (a plan passes ctypes objects and small ints),
+        # which takes microseconds off each launch.
+        raw = ctypes.CDLL("libcuda.so.1")
+        self.launch_raw, self.ctx_get_raw = raw.cuLaunchKernel, raw.cuCtxGetCurrent
+        self.launch_raw.restype = self.ctx_get_raw.restype = ctypes.c_int
         self._primary: Dict[int, ctypes.c_void_p] = {}
         self.check(lib.cuInit(0), "cuInit")
 
@@ -228,8 +257,8 @@ class _Driver:
             raise MXNetError(f"{what} failed: "
                              f"{msg.value.decode() if msg.value else res} (CUresult {res})")
 
-    def make_current(self, index: int) -> None:
-        """The device's primary context (torch's) made current on this thread."""
+    def primary(self, index: int) -> ctypes.c_void_p:
+        """The device's primary context, the one torch uses."""
         primary = self._primary.get(index)
         if primary is None:
             dev = ctypes.c_int()
@@ -238,8 +267,15 @@ class _Driver:
             self.check(self.lib.cuDevicePrimaryCtxRetain(ctypes.byref(primary), dev),
                        "cuDevicePrimaryCtxRetain")
             self._primary[index] = primary
-        current = ctypes.c_void_p()
-        self.check(self.lib.cuCtxGetCurrent(ctypes.byref(current)), "cuCtxGetCurrent")
+        return primary
+
+    def make_current(self, primary: ctypes.c_void_p, current: ctypes.c_void_p,
+                     current_ref) -> None:
+        """``primary`` made current on this thread, if it is not already
+        (``current`` receives the query, ``current_ref`` is its byref)."""
+        res = self.ctx_get_raw(current_ref)
+        if res != 0:
+            self.check(res, "cuCtxGetCurrent")
         if current.value != primary.value:
             self.check(self.lib.cuCtxSetCurrent(primary), "cuCtxSetCurrent")
 
@@ -285,8 +321,10 @@ class _Compiled:
             module = self._modules.get(index)
             if module is None:
                 module = ctypes.c_void_p()
+                t0 = time.perf_counter()
                 driver.check(driver.lib.cuModuleLoadData(ctypes.byref(module), self.cubin),
                              "cuModuleLoadData")
+                timings["module_load_s"] = time.perf_counter() - t0
                 self._modules[index] = module
             fn = ctypes.c_void_p()
             driver.check(driver.lib.cuModuleGetFunction(ctypes.byref(fn), module,
@@ -343,6 +381,32 @@ def _base_name(expression: str) -> str:
     return expression.split("<")[0].split("::")[-1].strip().lstrip("&")
 
 
+class _Plan:
+    """What a launch of one kernel on one device reuses: the function, the
+    device's primary context, one ctypes slot per argument and the argv
+    array that points at them."""
+
+    def __init__(self, kernel: "CudaKernel", index: int):
+        driver = _get_driver()
+        torch.cuda.init()
+        with torch.cuda.device(index):
+            self.primary = driver.primary(index)
+            self.current = ctypes.c_void_p()
+            self.current_ref = ctypes.byref(self.current)
+            driver.make_current(self.primary, self.current, self.current_ref)
+            self.fn = kernel._compiled.function(driver, index, kernel._symbol)
+        self.driver = driver
+        self.ctx_get, self.launch_fn = driver.ctx_get_raw, driver.launch_raw
+        self.stream, self.stream_arg = None, None
+        self.device = torch.device("cuda", index)
+        self.slots = [ctypes.c_void_p() if a.is_pointer else _SCALAR_SLOT[a.dtype]()
+                      for a in kernel.args]
+        self.argv = (ctypes.c_void_p * max(len(self.slots), 1))(
+            *(ctypes.addressof(v) for v in self.slots))
+        self.smem_allowed = 0
+        self.lock = threading.Lock()
+
+
 class CudaKernel:
     """A launchable kernel of a ``CudaModule`` (reference ``PallasKernel``,
     MXNet ``CudaKernel``)."""
@@ -370,87 +434,127 @@ class CudaKernel:
                     raise MXNetError(f"kernel '{name}': output '{arg.name}' is "
                                      f"{arg.dtype}, out_shapes says {dtype}")
                 self._out_shapes.append((i, tuple(shape)))
-        self._smem_allowed = 0
+        outputs = {i for i, _ in self._out_shapes}
+        # (slot index, parameter) of each argument the caller gives, in order
+        self._inputs = [(i, a) for i, a in enumerate(args) if i not in outputs]
+        self._plans: Dict[int, _Plan] = {}
+        self._plans_lock = threading.Lock()
+
+    def _plan(self, index: int) -> _Plan:
+        plan = self._plans.get(index)
+        if plan is None:
+            with self._plans_lock:
+                plan = self._plans.get(index)
+                if plan is None:
+                    plan = self._plans[index] = _Plan(self, index)
+        return plan
+
+    def _refuse(self, p: KernelArg, value, index: int):
+        """The message for an argument that failed its check."""
+        if p.is_pointer:
+            if not isinstance(value, NDArray):
+                return f"'{p.name}' is a pointer and takes an NDArray, got {type(value)}"
+            if value.dtype != p.dtype:
+                return f"'{p.name}' is {p.dtype}, the array is {value.dtype}"
+            return (f"'{p.name}' lies on {value._data.device}, the launch is on "
+                    f"gpu({index})")
+        if not isinstance(value, (int, float, np.number)) or isinstance(value, bool):
+            return f"'{p.name}' is a scalar and takes a number, got {type(value)}"
+        return f"{value!r} given for an integer argument"
 
     def launch(self, args: Sequence, ctx: Context, grid_dims, block_dims,
                shared_mem: int = 0):
         """Run the kernel on ``ctx``'s stream; see the module docstring."""
-        outputs = {i for i, _ in self._out_shapes}
-        params = [a for i, a in enumerate(self.args) if i not in outputs]
-        if len(args) != len(params):
-            raise MXNetError(f"kernel '{self.name}' takes {len(params)} arguments "
-                             f"({', '.join(p.name for p in params)}), got {len(args)}")
-        given = []      # a tensor for each pointer, a ctypes value for each scalar
-        for p, value in zip(params, args):
-            if p.is_pointer:
-                if not isinstance(value, NDArray):
-                    raise MXNetError(f"kernel '{self.name}': '{p.name}' is a "
-                                     f"pointer and takes an NDArray, got {type(value)}")
-                if value.dtype != p.dtype:
-                    raise MXNetError(f"kernel '{self.name}': '{p.name}' is {p.dtype}, "
-                                     f"the array is {value.dtype}")
-                given.append(value._data)
-            elif not isinstance(value, (int, float, np.number)) or isinstance(value, bool):
-                raise MXNetError(f"kernel '{self.name}': '{p.name}' is a scalar "
-                                 f"and takes a number, got {type(value)}")
-            else:
-                given.append(_scalar(p.dtype, value))
+        inputs = self._inputs
+        if len(args) != len(inputs):
+            raise MXNetError(f"kernel '{self.name}' takes {len(inputs)} arguments "
+                             f"({', '.join(p.name for _, p in inputs)}), got {len(args)}")
+        for (_, p), value in zip(inputs, args):       # what needs no device
+            if not _kind_ok(p, value):
+                raise MXNetError(f"kernel '{self.name}': {self._refuse(p, value, -1)}")
         if not isinstance(ctx, Context) or ctx.device_type != "gpu":
             raise MXNetError(f"kernel '{self.name}': rtc kernels run on a CUDA "
                              f"device, ctx is {ctx}")
-        want = torch.device("cuda", ctx.device_id)
-        for p, value in zip(params, given):
-            if p.is_pointer and value.device != want:
-                raise MXNetError(f"kernel '{self.name}': '{p.name}' lies on "
-                                 f"{value.device}, the launch is on {ctx}")
+        index = ctx.device_id
+        plan = self._plans.get(index)
+        if plan is None:     # the first launch on this device: arguments first
+            for (_, p), value in zip(inputs, args):
+                if p.is_pointer and value._data.get_device() != index:
+                    raise MXNetError(f"kernel '{self.name}': "
+                                     f"{self._refuse(p, value, index)}")
+            plan = self._plan(index)
         grid, block = _dims(grid_dims, "grid_dims"), _dims(block_dims, "block_dims")
-        device = ctx.torch_device
-        outs = [torch.empty(shape, dtype=self.args[i].dtype, device=device)
-                for i, shape in self._out_shapes]
-        values, rest, made = [], iter(given), iter(outs)
-        for i, p in enumerate(self.args):
-            value = next(made) if i in outputs else next(rest)
-            values.append(ctypes.c_void_p(value.data_ptr()) if p.is_pointer else value)
-        driver = _get_driver()
-        torch.cuda.init()
-        with torch.cuda.device(device):
-            driver.make_current(device.index)
-            fn = self._compiled.function(driver, device.index, self._symbol)
-            if shared_mem > _MAX_STATIC_SMEM and shared_mem > self._smem_allowed:
-                driver.check(driver.lib.cuFuncSetAttribute(
-                    fn, _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES, int(shared_mem)),
-                    f"cuFuncSetAttribute({self.name}, {shared_mem} bytes)")
-                self._smem_allowed = int(shared_mem)
-            argv = (ctypes.c_void_p * max(len(values), 1))(
-                *(ctypes.addressof(v) for v in values))
-            stream = torch.cuda.current_stream(device).cuda_stream
-            driver.check(driver.lib.cuLaunchKernel(
-                fn, *grid, *block, int(shared_mem), ctypes.c_void_p(stream), argv, None),
-                f"cuLaunchKernel({self.name})")
+        if type(shared_mem) is not int:
+            shared_mem = int(shared_mem)
+        outs = [torch.empty(shape, dtype=self.args[i].dtype, device=plan.device)
+                for i, shape in self._out_shapes] if self._out_shapes else ()
+        slots = plan.slots
+        with plan.lock:
+            for (i, p), value in zip(inputs, args):
+                if p.is_pointer:
+                    t = value._data
+                    if t.get_device() != index:
+                        raise MXNetError(f"kernel '{self.name}': "
+                                         f"{self._refuse(p, value, index)}")
+                    slots[i].value = t.data_ptr()
+                else:
+                    _set_scalar(slots[i], p.dtype, value)
+            for (i, _), out in zip(self._out_shapes, outs):
+                slots[i].value = out.data_ptr()
+            if plan.ctx_get(plan.current_ref) != 0 \
+                    or plan.current.value != plan.primary.value:   # not current
+                plan.driver.make_current(plan.primary, plan.current, plan.current_ref)
+            if shared_mem > _MAX_STATIC_SMEM and shared_mem > plan.smem_allowed:
+                plan.driver.check(plan.driver.lib.cuFuncSetAttribute(
+                    plan.fn, _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES,
+                    shared_mem), f"cuFuncSetAttribute({self.name}, {shared_mem} bytes)")
+                plan.smem_allowed = shared_mem
+            stream = torch._C._cuda_getCurrentRawStream(index)
+            if stream != plan.stream:
+                plan.stream, plan.stream_arg = stream, ctypes.c_void_p(stream)
+            res = plan.launch_fn(plan.fn, grid[0], grid[1], grid[2], block[0], block[1],
+                                 block[2], shared_mem, plan.stream_arg, plan.argv, None)
+        if res != 0:
+            plan.driver.check(res, f"cuLaunchKernel({self.name})")
         CudaKernel.launches += 1
-        if self._out_shapes:
+        if outs:
             return tuple(NDArray(o, ctx) for o in outs)
         return None
 
 
+def _kind_ok(p: KernelArg, value) -> bool:
+    """One argument against its parameter, without the device: an NDArray of
+    the pointer's dtype, or a number (an integral one for an integer)."""
+    if p.is_pointer:
+        return isinstance(value, NDArray) and value._data.dtype == p.dtype
+    if isinstance(value, bool) or not isinstance(value, (int, float, np.number)):
+        return False
+    return p.dtype.is_floating_point or float(value) == int(value)
+
+
 def _dims(dims, what) -> Tuple[int, int, int]:
-    dims = (dims,) if isinstance(dims, int) else tuple(dims)
-    if not 1 <= len(dims) <= 3 or any(int(d) < 1 for d in dims):
+    dims = (dims,) if isinstance(dims, int) else tuple(map(int, dims))
+    if not 1 <= len(dims) <= 3 or min(dims) < 1:
         raise MXNetError(f"{what} must be 1 to 3 positive sizes, got {dims}")
-    return tuple(int(d) for d in dims) + (1,) * (3 - len(dims))
+    return dims + (1,) * (3 - len(dims))
 
 
-def _scalar(dtype: torch.dtype, value):
+# the ctypes slot of each scalar type (16-bit floats travel as their bits)
+_SCALAR_SLOT = {**_SCALAR_CTYPES, torch.float16: ctypes.c_uint16,
+                torch.bfloat16: ctypes.c_uint16}
+
+
+def _set_scalar(slot, dtype: torch.dtype, value) -> None:
+    """Write ``value`` into its argument slot, as the kernel's type holds it."""
     if not dtype.is_floating_point:
-        if float(value) != int(value):
-            raise MXNetError(f"{value!r} given for an integer argument")
-        return _SCALAR_CTYPES[dtype](int(value))
-    if dtype == torch.float16:
-        return ctypes.c_uint16(int(np.float16(value).view(np.uint16)))
-    if dtype == torch.bfloat16:
-        bits = torch.tensor(float(value), dtype=torch.bfloat16).view(torch.int16).item()
-        return ctypes.c_uint16(bits & 0xFFFF)
-    return _SCALAR_CTYPES[dtype](float(value))
+        slot.value = int(value)
+    elif dtype == torch.float16:
+        slot.value = int(np.float16(value).view(np.uint16))
+    elif dtype == torch.bfloat16:
+        slot.value = torch.tensor(float(value), dtype=torch.bfloat16) \
+            .view(torch.int16).item() & 0xFFFF
+    else:
+        slot.value = float(value)
 
 
 # ---------------------------------------------------------------------------
@@ -461,9 +565,52 @@ def _scalar(dtype: torch.dtype, value):
 # ---------------------------------------------------------------------------
 
 EXAMPLES_SOURCE = r"""
-extern "C" __global__ void axpy(const float* x, const float* y, float* z, int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
-    z[i] = 2.0f * x[i] + y[i];
+// z = 2x + y. Bound by bytes (12 B an element): 16-byte vector loads and
+// stores (float4, streaming: each byte is touched once). A block takes a
+// tile of 4 float4 a thread (16 KiB of each operand, contiguous: the four
+// vectors of a thread lie blockDim apart, so every warp-wide access is
+// coalesced), all four of x and of y in flight before the first store, and
+// walks the tiles grid-stride; the grid is sized to the data (one tile a
+// block), capped by the SM count. When x, y and z share their offset from a
+// 16-byte boundary, a scalar head of up to 3 elements aligns all three; a
+// scalar tail takes what is left after the last whole vector. When they do
+// not, the same arithmetic runs element by element. 2x is exact in f32, so
+// round(2x + y) is the result with or without a fused multiply-add.
+extern "C" __global__ void __launch_bounds__(256)
+axpy(const float* __restrict__ x, const float* __restrict__ y, float* __restrict__ z, int n) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long threads = (long long)gridDim.x * blockDim.x;
+  const unsigned off = (unsigned)((size_t)x & 15);
+  if (off != ((size_t)y & 15) || off != ((size_t)z & 15) || (off & 3)) {
+    for (long long i = tid; i < n; i += threads) z[i] = 2.0f * x[i] + y[i];
+    return;
+  }
+  const long long head = ((16 - off) & 15) / 4 < n ? ((16 - off) & 15) / 4 : n;
+  if (tid < head) z[tid] = 2.0f * x[tid] + y[tid];
+  const float4* __restrict__ x4 = reinterpret_cast<const float4*>(x + head);
+  const float4* __restrict__ y4 = reinterpret_cast<const float4*>(y + head);
+  float4* __restrict__ z4 = reinterpret_cast<float4*>(z + head);
+  const long long n4 = (n - head) / 4;
+  const long long tile = 4LL * blockDim.x;
+  for (long long base = blockIdx.x * tile + threadIdx.x; base < n4; base += gridDim.x * tile) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long i = base + k * (long long)blockDim.x;
+      if (i < n4) {
+        a[k] = __ldcs(x4 + i);
+        b[k] = __ldcs(y4 + i);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long i = base + k * (long long)blockDim.x;
+      if (i < n4)
+        __stcs(z4 + i, make_float4(2.0f * a[k].x + b[k].x, 2.0f * a[k].y + b[k].y,
+                                   2.0f * a[k].z + b[k].z, 2.0f * a[k].w + b[k].w));
+    }
+  }
+  for (long long j = head + 4 * n4 + tid; j < n; j += threads) z[j] = 2.0f * x[j] + y[j];
 }
 
 template <typename T>
@@ -496,6 +643,18 @@ def axpy_plain(x, y):
     return 2.0 * x + y
 
 
+AXPY_THREADS = 256
+
+
+def axpy_launch_dims(n: int, sm_count: int):
+    """``(grid, block)`` for ``axpy`` on ``n`` elements: one block a tile of
+    4096 elements (256 threads, 4 float4 each), at most 128 blocks an SM
+    (a tile a block up to 2^26 elements on 132 SMs; more tiles a block
+    beyond)."""
+    blocks = max(1, min(-(-n // (AXPY_THREADS * 16)), 128 * sm_count))
+    return (blocks, 1, 1), (AXPY_THREADS, 1, 1)
+
+
 def scale3_plain(x):
     return x * 3.0
 
@@ -506,5 +665,5 @@ def transpose_plain(x):
 
 __all__ = ["CudaModule", "CudaKernel", "KernelArg", "parse_signature", "ARCH",
            "EXAMPLES_SOURCE", "EXAMPLES_EXPORTS", "AXPY_SIGNATURE",
-           "SCALE3_SIGNATURE", "TRANSPOSE_SIGNATURE", "axpy_plain",
+           "SCALE3_SIGNATURE", "TRANSPOSE_SIGNATURE", "axpy_plain", "axpy_launch_dims",
            "scale3_plain", "transpose_plain"]

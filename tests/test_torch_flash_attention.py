@@ -243,9 +243,13 @@ KERNEL_CASES = [(160, 160, 64, False), (160, 160, 64, True), (96, 224, 32, False
 def test_kernel_matches_plain(dtype, tol, T, Tk, D, causal):
     q3, k3, v3 = _cuda_qkv(dtype, T, Tk, D)
     before = fa.flash_attention_fwd.launches
+    name = str(dtype).rpartition(".")[2]
+    by_dtype = dict(fa.flash_attention_fwd.launches_by_dtype)
     o, lse = fa.flash_attention_fwd(q3, k3, v3, causal)
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.launches == before + 1
+    by_dtype[name] = by_dtype.get(name, 0) + 1
+    assert fa.flash_attention_fwd.launches_by_dtype == by_dtype
     assert o.dtype == dtype and o.shape == q3.shape and lse.shape == (6, T)
     o_ref, lse_ref = fa.flash_attention_fwd_plain(q3, k3, v3, causal)
     assert (o.float() - o_ref.float()).abs().max().item() <= tol

@@ -292,10 +292,16 @@ def test_kernels_match_plain(dtype, T, Tk, D, causal):
     tol = TOL_KERNEL[dtype]
     o, lse = fa.flash_attention_fwd(q3, k3, v3, causal)
     before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+    name = str(dtype).rpartition(".")[2]
+    by_dtype = [dict(w.launches_by_dtype)
+                for w in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)]
     got = fa.flash_attention_bwd(q3, k3, v3, o, lse, do3, causal)
     torch.cuda.synchronize()
     assert (fa.flash_attention_bwd_dq.launches,
             fa.flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    for w, counts in zip((fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv), by_dtype):
+        counts[name] = counts.get(name, 0) + 1
+        assert w.launches_by_dtype == counts
     expect = fa.flash_attention_bwd_plain(q3, k3, v3, o, lse, do3, causal)
     for g, e in zip(got, expect):
         assert g.dtype == dtype and g.shape == e.shape

@@ -13,6 +13,18 @@ the reference package's, on the same numpy inputs.
   between calls. On the CPU the reference functions take their jnp fallback,
   which is the same math as its Pallas kernels (``_sgd_kernel``,
   ``_adam_kernel``).
+- ``multi_precision=True`` SGD (momentum) and Adam on float16 and bfloat16
+  weights through ``Updater`` for 5 steps against the reference's
+  ``update_multi_precision``: the low-precision weights and the float32
+  masters (1e-5 of each array's max after 5 steps; the low-precision weight
+  is the master rounded once, so they agree to its rounding: 1e-2), and an
+  ``lr_scheduler`` read at each update.
+- The fused step's rules over ragged lists (``fused_sgd_mom_update``,
+  ``fused_sgd_update``, ``fused_adam_update``: plain versions on the CPU)
+  against the reference's registered ``sgd_mom_update``, ``sgd_update`` and
+  ``adam_update`` tensor by tensor, with rescale, clip and wd, over 5 calls
+  with lr changed between them (1e-6 for one call, 1e-5 after 5; Adam 2e-5,
+  see ``TOL_ADAM_RULE``).
 - The traps that keep the semantics apart: the fused SGD's momentum rule is
   not ``sgd_mom_update``'s once lr changes, and the fused Adam's bias
   correction is not ``adam_update`` with a bias-corrected lr (eps lands
@@ -49,8 +61,9 @@ def ref():
     import jax.numpy as jnp
     import mxnet_tpu as mx
     from mxnet_tpu.ops.pallas import fused_optimizer as ref_fo
+    from mxnet_tpu.ops import optimizer_ops as ref_oo
     from mxnet_tpu.ops.registry import get_op as ref_get_op
-    return SimpleNamespace(jnp=jnp, mx=mx, fo=ref_fo, get_op=ref_get_op)
+    return SimpleNamespace(jnp=jnp, mx=mx, fo=ref_fo, get_op=ref_get_op, oo=ref_oo)
 
 
 OP_CASES = [
@@ -315,3 +328,138 @@ def test_fused_kernels_match_plain(wdtype, sdtype):
     torch.cuda.synchronize()
     assert (fo.fused_sgd_apply.launches, fo.fused_adam_apply.launches) == \
         (before[0] + 2, before[1] + 2)
+
+
+MP_CASES = [("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3}),
+            ("sgd", {"learning_rate": 0.05}),
+            ("adam", {"learning_rate": 0.01, "wd": 1e-2, "clip_gradient": 1.0})]
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("name,kw", MP_CASES,
+                         ids=[f"{n}-{i}" for i, (n, _) in enumerate(MP_CASES)])
+def test_multi_precision_matches_reference(ref, name, kw, dtype):
+    mx = ref.mx
+    weights = _arrays(61)
+    grads = [_arrays(62 + s) for s in range(5)]
+    sched = {"lr_scheduler": (mx.lr_scheduler.FactorScheduler(2, 0.5),
+                              mt.lr_scheduler.FactorScheduler(2, 0.5))}
+    ref_upd = mx.optimizer.get_updater(mx.optimizer.create(
+        name, multi_precision=True, lr_scheduler=sched["lr_scheduler"][0], **kw))
+    port_upd = mt.optimizer.get_updater(mt.optimizer.create(
+        name, multi_precision=True, lr_scheduler=sched["lr_scheduler"][1], **kw))
+    ref_w = [mx.nd.array(w, ctx=mx.cpu(), dtype=dtype) for w in weights]
+    port_w = [mt.nd.array(w, ctx=mt.cpu(), dtype=dtype) for w in weights]
+    for step in range(5):
+        for i in range(len(SHAPES)):
+            ref_upd(i, mx.nd.array(grads[step][i], ctx=mx.cpu(), dtype=dtype), ref_w[i])
+            port_upd(i, mt.nd.array(grads[step][i], ctx=mt.cpu(), dtype=dtype), port_w[i])
+    assert port_upd.optimizer.learning_rate == ref_upd.optimizer.learning_rate
+    for i, (p, r) in enumerate(zip(port_w, ref_w)):
+        assert str(p.dtype).endswith(dtype)
+        np.testing.assert_allclose(p.asnumpy().astype(np.float32),
+                                   r.asnumpy().astype(np.float32), rtol=1e-2, atol=1e-2)
+        master, base = port_upd.states[i]
+        ref_master, ref_base = ref_upd.states[i]
+        assert master.dtype == torch.float32
+        np.testing.assert_allclose(master.asnumpy(), ref_master.asnumpy(),
+                                   rtol=TOL_STEPS, atol=TOL_STEPS)
+        # the weight is the master rounded once
+        np.testing.assert_array_equal(p.asnumpy().astype(np.float32),
+                                      master._data.to(p.dtype).float().numpy())
+        base = [] if base is None else list(base) if isinstance(base, tuple) else [base]
+        ref_base = [] if ref_base is None else \
+            list(ref_base) if isinstance(ref_base, tuple) else [ref_base]
+        assert len(base) == len(ref_base)
+        for a, b in zip(base, ref_base):
+            np.testing.assert_allclose(a.asnumpy(), b.asnumpy(), rtol=TOL_STEPS,
+                                       atol=TOL_STEPS)
+
+
+RULE_CASES = [
+    ("sgd_mom_update", {"momentum": 0.9, "wd": 0.01, "rescale_grad": 0.5,
+                        "clip_gradient": 0.3}),
+    ("sgd_mom_update", {"momentum": 0.5}),
+    ("sgd_update", {"wd": 0.01, "rescale_grad": 2.0, "clip_gradient": 1.0}),
+    ("sgd_update", {}),
+    ("adam_update", {"beta1": 0.8, "wd": 0.1, "rescale_grad": 0.5, "clip_gradient": 0.2}),
+    ("adam_update", {"epsilon": 1e-3}),
+]
+# The reference's compiled CPU division and sqrt are not correctly rounded:
+# against IEEE f32 (numpy and the port agree to 6e-8) its Adam update of
+# weights of size ~1 by steps of up to 0.3 (lr 0.2, first calls) is off by up
+# to 5.7e-6, measured; 2e-5 of the weight is 7e-5 of such a step.
+TOL_ADAM_RULE = 2e-5
+_FUSED_OF = {"sgd_mom_update": "fused_sgd_mom_update", "sgd_update": "fused_sgd_update",
+             "adam_update": "fused_adam_update"}
+
+
+@pytest.mark.parametrize("name,kw", RULE_CASES,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(RULE_CASES)])
+def test_fused_step_rules_match_the_update_ops(ref, name, kw):
+    """The rules the fused training step launches, over a ragged list, against
+    the reference's registered op applied tensor by tensor."""
+    jnp = ref.jnp
+    ws, gs, ms, vs = _fused_inputs(70, True)
+    n_states = {"sgd_mom_update": 1, "sgd_update": 0, "adam_update": 2}[name]
+    port = [[torch.from_numpy(a) for a in lst] for lst in (ws, ms, vs)[:1 + n_states]]
+    expect = [[jnp.asarray(a) for a in lst] for lst in (ws, ms, vs)[:1 + n_states]]
+    fused = getattr(fo, _FUSED_OF[name])
+    launches = fused.launches
+    for step, lr in enumerate((0.1, 0.1, 0.03, 0.2, 0.05)):
+        g = [a * (step + 1) for a in gs]
+        port = fused(port[0], [torch.from_numpy(a) for a in g], *port[1:], lr=lr, **kw)
+        # f32 scalars, as the reference's step passes them (_k_adam & co.):
+        # 1 - beta is then an f32 subtraction, as in the kernel
+        f32 = {k: jnp.float32(v) for k, v in dict(kw, lr=lr).items()}
+        outs = [getattr(ref.oo, name)(w, jnp.asarray(gi), *st, **f32)
+                for w, gi, *st in zip(*expect[:1], g, *expect[1:])]
+        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+        expect = [[o[k] for o in outs] for k in range(1 + n_states)]
+        tol = TOL_ADAM_RULE if name == "adam_update" else TOL if step == 0 else TOL_STEPS
+        assert len(port) == len(expect)
+        for got_list, exp_list in zip(port, expect):
+            for got, e in zip(got_list, exp_list):
+                np.testing.assert_allclose(got.numpy(), np.asarray(e), rtol=tol, atol=tol)
+    assert fused.launches == launches                   # CPU: plain version
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdtype,sdtype", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.float32),
+                                           (torch.float16, torch.float16)])
+def test_fused_step_rules_kernels_match_plain(wdtype, sdtype):
+    """The three rules of the fused step on the card against their plain
+    versions, ragged list with an empty and a misaligned tensor, in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card")
+    shapes = [(1000, 77), (3,), (16384,), (16385,), (64, 64), (0,), (5, 1)]
+    ws, gs, ms, vs = (_arrays(s, shapes, 0.1) for s in (5, 6, 7, 8))
+    w, g = ([torch.from_numpy(a).to("cuda", wdtype) for a in lst] for lst in (ws, gs))
+    m, v = ([torch.from_numpy(a).to("cuda", sdtype) for a in lst] for lst in (ms, vs))
+    v = [t.abs() for t in v]
+    w.append(torch.randn(1001, device="cuda", dtype=wdtype)[1:])   # misaligned
+    g.append(torch.randn(1000, device="cuda", dtype=wdtype))
+    m.append(torch.zeros(1000, device="cuda", dtype=sdtype))
+    v.append(torch.zeros(1000, device="cuda", dtype=sdtype))
+    tol = 1e-6 if wdtype == torch.float32 else 1e-2
+    kw = {"wd": 0.01, "rescale_grad": 0.5, "clip_gradient": 0.04}
+    calls = [("fused_sgd_mom_update", (m,), {"momentum": 0.9}),
+             ("fused_sgd_update", (), {}),
+             ("fused_adam_update", (m, v), {"beta1": 0.8})]
+    before = {name: getattr(fo, name).launches for name, _, _ in calls}
+    for name, states, extra in calls:
+        fused, plain = getattr(fo, name), getattr(fo, name + "_plain")
+        for lr in (1e-2, 3e-3):
+            expect = plain(w, g, *states, lr=lr, **kw, **extra)
+            wc, sc = [t.clone() for t in w], [[t.clone() for t in s] for s in states]
+            got = fused(wc, g, *sc, lr=lr, **kw, **extra, out=(wc, *sc))
+            assert got[0][0] is wc[0]                           # in place
+            for a, b in zip(sum(got, []), sum(expect, [])):
+                assert a.dtype == b.dtype
+                if b.numel():
+                    assert (a.float() - b.float()).abs().max().item() <= tol * max(
+                        b.float().abs().max().item(), 1.0), name
+    torch.cuda.synchronize()
+    assert {name: getattr(fo, name).launches - before[name] for name, _, _ in calls} \
+        == {name: 2 for name, _, _ in calls}

@@ -10,8 +10,12 @@ since both compute 2x+y and 3x elementwise. The checks that need a module
 use a stand-in for the NVRTC compile, which this host cannot run.
 
 The ``gpu`` tests compile the example kernels with NVRTC, launch them and
-hold them against their plain versions (exact: the same f32 arithmetic),
-and skip here.
+hold them against their plain versions (exact: the same f32 arithmetic;
+``axpy`` also for n in {0, 1, 3, 4, 5, 2^20+3} and on views off a 16-byte
+boundary), check that a kernel's launch plan is built once a device and
+kept apart for another instantiation or device, and skip here. On the CPU:
+the launch grid of ``axpy``, the grid/block fast path and the scalar
+slots.
 """
 import numpy as np
 import pytest
@@ -124,6 +128,28 @@ def test_plain_scale3_matches_reference(ref_mx):
                                   out.asnumpy())
 
 
+def test_axpy_launch_dims():
+    assert rtc.axpy_launch_dims(0, 132) == ((1, 1, 1), (256, 1, 1))
+    assert rtc.axpy_launch_dims(4096, 132) == ((1, 1, 1), (256, 1, 1))
+    assert rtc.axpy_launch_dims(4097, 132) == ((2, 1, 1), (256, 1, 1))
+    assert rtc.axpy_launch_dims(1 << 26, 132) == ((1 << 14, 1, 1), (256, 1, 1))
+    assert rtc.axpy_launch_dims(1 << 28, 132) == ((128 * 132, 1, 1), (256, 1, 1))
+
+
+def test_dims_and_scalar_slots():
+    assert rtc._dims((4, 2, 1), "grid") == (4, 2, 1)
+    assert rtc._dims(7, "grid") == (7, 1, 1)
+    assert rtc._dims([3, 2], "grid") == (3, 2, 1)
+    for bad in ((0, 1, 1), (1, 2, 3, 4), ()):
+        with pytest.raises(MXNetError, match="grid"):
+            rtc._dims(bad, "grid")
+    for dtype, value, bits in ((torch.float16, 0.5, 0x3800), (torch.bfloat16, -2.0, 0xC000),
+                               (torch.int32, 7, 7), (torch.float32, 1.5, 1.5)):
+        slot = rtc._SCALAR_SLOT[dtype]()
+        rtc._set_scalar(slot, dtype, value)
+        assert slot.value == bits
+
+
 def test_plain_transpose():
     x = torch.arange(12.0).reshape(3, 4)
     np.testing.assert_array_equal(rtc.transpose_plain(x).numpy(), x.numpy().T)
@@ -196,3 +222,59 @@ extern "C" __global__ void scale_h(const __half* x, __half* y, __half s, int n) 
     np.testing.assert_array_equal(y.asnumpy(), (x._data * 0.5).cpu().numpy())
     with pytest.raises(MXNetError, match="could not compile"):
         rtc.CudaModule('extern "C" __global__ void broken() { undefined_call(); }')
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, (1 << 20) + 3])
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (3, 3, 3), (1, 2, 0), (0, 0, 2)],
+                         ids=["aligned", "same-4B", "same-12B", "mixed", "z-off"])
+def test_gpu_axpy_sizes_and_offsets(gpu_module, n, offsets):
+    """The float4 axpy against its plain version, exact, on every size class
+    (head, vectors, tail) and on views 4-12 bytes off a 16-byte boundary."""
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    base = [torch.randn(n + 4, generator=gen, device="cuda") for _ in range(3)]
+    x, y, z = (b[o:o + n] for b, o in zip(base, offsets))
+    before = base[2].clone()
+    kern = gpu_module.get_kernel("axpy", rtc.AXPY_SIGNATURE)
+    kern.launch([mt.nd.NDArray(x), mt.nd.NDArray(y), mt.nd.NDArray(z), n], mt.gpu(0),
+                *rtc.axpy_launch_dims(n, _sms()))
+    torch.cuda.synchronize()
+    assert torch.equal(z, rtc.axpy_plain(x, y))
+    o = offsets[2]          # nothing written before z or after it
+    assert torch.equal(base[2][:o], before[:o])
+    assert torch.equal(base[2][o + n:], before[o + n:])
+
+
+@pytest.mark.gpu
+def test_gpu_launch_plan_reused_and_kept_apart():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card")
+    mod = rtc.CudaModule(rtc.EXAMPLES_SOURCE, exports=("scale3<float>", "scale3<double>"))
+    f32 = mod.get_kernel("scale3<float>", rtc.SCALE3_SIGNATURE)
+    f64 = mod.get_kernel("scale3<double>", "const double *x, double *y, int n")
+    x32 = _nd(np.arange(100, dtype=np.float32))
+    y32 = _nd(np.zeros(100, np.float32))
+    f32.launch([x32, y32, 100], mt.gpu(0), (1,), (128,))
+    plan = f32._plans[0]
+    slots = [id(s) for s in plan.slots]
+    f32.launch([y32, x32, 100], mt.gpu(0), (1,), (128,))
+    assert f32._plans == {0: plan} and [id(s) for s in plan.slots] == slots
+    x64 = mt.nd.array(np.arange(100, dtype=np.float64), ctx=mt.gpu(0), dtype="float64")
+    y64 = mt.nd.array(np.zeros(100), ctx=mt.gpu(0), dtype="float64")
+    f64.launch([x64, y64, 100], mt.gpu(0), (1,), (128,))
+    assert f64._plans[0] is not plan and f64._plans[0].fn.value != plan.fn.value
+    with pytest.raises(MXNetError, match="the array is torch.float64"):
+        f32.launch([x64, y32, 100], mt.gpu(0), (1,), (128,))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(y64.asnumpy(), 3 * np.arange(100))
+    np.testing.assert_array_equal(x32.asnumpy(), 9 * np.arange(100, dtype=np.float32))
+    if torch.cuda.device_count() > 1:
+        x1 = mt.nd.array(np.ones(100, np.float32), ctx=mt.gpu(1))
+        y1 = mt.nd.array(np.zeros(100, np.float32), ctx=mt.gpu(1))
+        f32.launch([x1, y1, 100], mt.gpu(1), (1,), (128,))
+        assert set(f32._plans) == {0, 1} and f32._plans[1] is not plan
+        np.testing.assert_array_equal(y1.asnumpy(), np.full(100, 3, np.float32))
