@@ -25,7 +25,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    stack, local and shared memory (``cuobjdump -res-usage``), the f32 bound
    of the 3xTF32 tensor-core route beside the FMA one, K1 and SDPA's forward
    and the port's and SDPA's whole backward replayed from captured CUDA
-   graphs.
+   graphs. K1-K3 are also held and timed at each rank's shape of phase 11
+   (BH 24, Tq 512 against Tk 1024, D 64).
 4. serve: BERT-base at T=1024 (full published width, 12 layers, random
    weights from a seed loaded through ``convert.load_jax_params``) on
    ``gpu(0)`` in f32 with TF32 off answers requests of batch 1, 2, 4 and 8;
@@ -79,6 +80,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    (device busy and idle share, launches a step, the update's device ms).
    Then one step of each of the two small models of the train checks
    through ``DataParallelTrainer``, GPU against CPU, same tolerances.
+10. the distributed step at world size 1 (``phase_dist_bert_nccl``): one
+   rank on the card over NCCL (``_dist_util``'s backend rule), a mesh of
+   ranks ``{dp: 1, tp: 1, sp: 1}``, ``data_spec=P("dp", "sp")``, the bucketed
+   gradient all-reduce and the loss reduction; BERT-base T=1024 batch 8, Adam,
+   f32 and bf16, 5 steps and one profiled; its losses equal ``phase_dp_bert``'s
+   to 1e-6 relative, its step time beside that phase's.
+11. ``dryrun_multichip``'s step on 8 ranks (``phase_dist_bert_ranks``): the
+   layout dp2 x tp2 x sp2 as 8 processes sharing the card over gloo (NCCL
+   refuses two ranks on one device), launched by ``_dist_util.launch_local``:
+   BERT-base width, 12 layers, T=1024, global batch 8, Megatron specs
+   (``shard_params_megatron``), ``data_spec=P("dp", "sp")``, Adam, f32, 3
+   steps. Every rank launches K1-K3 once a layer a step at (24, 512, 1024,
+   64) and K5 once; the losses, the gathered gradients after step 1 and the
+   gathered weights after step 3 equal the one-rank fused step's on the same
+   global batch (1e-5 relative, 1e-3 of each tensor's max, 2e-5). Any rank's
+   failure or a hang past the join timeout fails the script. A correctness
+   run: gloo stages every collective through the host.
 
 It prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the rest of the repository beside it, it
@@ -89,6 +107,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -256,6 +275,17 @@ def _bound_ms(BH, T, Tk, D, dtype_name, elem):
     return out
 
 
+# Each rank's flash shapes in phase_dist_bert_ranks (dp2 x tp2 x sp2 on BERT-base,
+# global batch 8, T=1024): B/dp=4 sequences, H/tp=6 heads, T/sp=512 query rows
+# against the Tk=1024 gathered keys.
+SP_CASES = [("sp-shard", 4, 6, 512, 1024, 64, "float32", False),
+            ("sp-shard", 4, 6, 512, 1024, 64, "bfloat16", False)]
+# (timings key, dtype, B, H, T, Tk): the one-device step's shape and the sp shard's
+TIMED_SHAPES = [("float32", "float32", 8, 12, 1024, 1024),
+                ("bfloat16", "bfloat16", 8, 12, 1024, 1024),
+                ("sp_float32", "float32", 4, 6, 512, 1024)]
+
+
 def phase_kernel(torch):
     from mxnet_tpu_torch.ops.cuda import flash_attention as fa
     import torch.nn.functional as F
@@ -270,7 +300,8 @@ def phase_kernel(torch):
              ("ragged", 2, 4, 1000, 1000, 64, "float32", False),
              ("ragged", 2, 4, 1000, 1000, 64, "float32", True),
              ("cross", 2, 2, 96, 224, 32, "float32", False),
-             ("head128", 1, 4, 300, 300, 128, "float16", True)]
+             ("head128", 1, 4, 300, 300, 128, "float16", True),
+             *SP_CASES]
     worst = 0.0
     results = []
     with torch.no_grad():
@@ -297,22 +328,24 @@ def phase_kernel(torch):
 
         resources = _fwd_resources(fa)
         timings = {}
-        for dname in ("float32", "bfloat16"):
-            B, H, T, D = 8, 12, 1024, 64
-            q, k, v = _attention_inputs(torch, gen, B * H, T, T, D, dtypes[dname])
-            q4, k4, v4 = (t.view(B, H, T, D) for t in (q, k, v))
-            flops = 4.0 * B * H * T * T * D
+        for key, dname, B, H, T, Tk in TIMED_SHAPES:
+            D = 64
+            q, k, v = _attention_inputs(torch, gen, B * H, T, Tk, D, dtypes[dname])
+            q4 = q.view(B, H, T, D)
+            k4, v4 = (t.view(B, H, Tk, D) for t in (k, v))
+            flops = 4.0 * B * H * T * Tk * D
             ms = _time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v), 20)
             graph_ms = _graph_ms(torch, lambda: fa.flash_attention_fwd(q, k, v))
             plain_ms = _time_ms(torch, lambda: fa.flash_attention_fwd_plain(q, k, v), 5)
             lib_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
             lib_graph_ms = _graph_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4))
-            bound = _bound_ms(B * H, T, T, D, dname, q.element_size())
-            timings[dname] = dict(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+            bound = _bound_ms(B * H, T, Tk, D, dname, q.element_size())
+            timings[key] = dict(B=B, H=H, T=T, Tk=Tk, D=D, ms=ms, graph_ms=graph_ms,
+                                plain_ms=plain_ms,
                                   library_ms=lib_ms, library_graph_ms=lib_graph_ms,
                                   tflops=flops / graph_ms / 1e9, **bound)
             fma = (f", FMA bound {bound['fma_bound_ms']:.4f}" if dname == "float32" else "")
-            log(f"[kernel] flash_attention_fwd B={B} H={H} T={T} D={D} {dname}: "
+            log(f"[kernel] flash_attention_fwd B={B} H={H} T={T} Tk={Tk} D={D} {dname}: "
                 f"kernel {ms:.4f} ms (graph replay {graph_ms:.4f}, "
                 f"{flops / graph_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
                 f"{lib_ms:.4f} ms (graph replay {lib_graph_ms:.4f}), bound "
@@ -482,7 +515,8 @@ def phase_kernel_bwd(torch):
              ("ragged", 2, 4, 1000, 1000, 64, "float32", False),
              ("ragged", 2, 4, 1000, 1000, 64, "float32", True),
              ("cross", 2, 2, 96, 224, 32, "float32", False),
-             ("head128", 1, 4, 300, 300, 128, "float16", True)]
+             ("head128", 1, 4, 300, 300, 128, "float16", True),
+             *SP_CASES]
     results, worst = [], {"dq": 0.0, "dkv": 0.0}
     with torch.no_grad():
         for label, B, H, T, Tk, D, dname, causal in cases:
@@ -516,10 +550,10 @@ def phase_kernel_bwd(torch):
 
     resources = _bwd_resources(fa)
     timings = {}
-    for dname in ("float32", "bfloat16"):
-        B, H, T, D = 8, 12, 1024, 64
+    for key, dname, B, H, T, Tk in TIMED_SHAPES:
+        D = 64
         BH = B * H
-        q, k, v = _attention_inputs(torch, gen, BH, T, T, D, dtypes[dname])
+        q, k, v = _attention_inputs(torch, gen, BH, T, Tk, D, dtypes[dname])
         do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
         with torch.no_grad():
             o, lse = fa.flash_attention_fwd(q, k, v)
@@ -530,7 +564,8 @@ def phase_kernel_bwd(torch):
                 q, k, v, do, lse, delta), 20)
             plain_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_plain(
                 q, k, v, o, lse, do), 5)
-        q4, k4, v4 = (t.view(B, H, T, D).clone().requires_grad_() for t in (q, k, v))
+        q4 = q.view(B, H, T, D).clone().requires_grad_()
+        k4, v4 = (t.view(B, H, Tk, D).clone().requires_grad_() for t in (k, v))
         do4 = do.view(B, H, T, D)
 
         def sdpa_fwd():
@@ -549,7 +584,7 @@ def phase_kernel_bwd(torch):
         # forward+backward less the same forward, both replayed from graphs
         sdpa_graph_both = _graph_ms(torch, sdpa_fwd_bwd)
         sdpa_graph_fwd = _graph_ms(torch, sdpa_fwd)
-        entry = {"plain_ms": plain_ms,
+        entry = {"B": B, "H": H, "T": T, "Tk": Tk, "D": D, "plain_ms": plain_ms,
                  "library_ms": sdpa_graph_both - sdpa_graph_fwd,
                  "library_graph_fwd_bwd_ms": sdpa_graph_both,
                  "library_graph_fwd_ms": sdpa_graph_fwd,
@@ -557,12 +592,12 @@ def phase_kernel_bwd(torch):
                  "library_fwd_bwd_less_fwd_ms": sdpa_both - sdpa_fwd_ms,
                  "library_fwd_bwd_ms": sdpa_both, "library_fwd_ms": sdpa_fwd_ms}
         for kind, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
-            entry[kind] = dict(ms=ms, **_bwd_bound_ms(kind, BH, T, T, D, dname,
+            entry[kind] = dict(ms=ms, **_bwd_bound_ms(kind, BH, T, Tk, D, dname,
                                                       q.element_size()))
-        timings[dname] = entry
+        timings[key] = entry
         fma = (f", FMA bound {entry['dq']['fma_bound_ms']:.4f} / "
                f"{entry['dkv']['fma_bound_ms']:.4f}" if dname == "float32" else "")
-        log(f"[kernel] flash_attention_bwd B={B} H={H} T={T} D={D} {dname}: "
+        log(f"[kernel] flash_attention_bwd B={B} H={H} T={T} Tk={Tk} D={D} {dname}: "
             f"dQ kernel {dq_ms:.4f} ms (bound {entry['dq']['bound_ms']:.4f}, "
             f"{entry['dq']['bound_by']}), dK/dV kernel {dkv_ms:.4f} ms (bound "
             f"{entry['dkv']['bound_ms']:.4f}, {entry['dkv']['bound_by']}){fma}; "
@@ -1800,6 +1835,294 @@ def phase_dp_check(torch):
             "resnet": phase_resnet_train_check(torch, dp=True)}
 
 
+# --- the distributed step: DataParallelTrainer over torch.distributed --------
+
+TOL_DIST_NCCL = 1e-6   # world-1 losses against phase_dp_bert's, relative
+TOL_DIST_LOSS = 1e-5   # the ranks' losses against the one-rank fused step's, relative
+TOL_DIST_GRAD = 1e-3   # gathered gradients after step 1, of each tensor's max
+TOL_DIST_W = 2e-5      # gathered weights after the last step (tests' TOL_W)
+
+
+def _mesh_axes(n):
+    """Factor n into (dp, tp, sp), every axis used when n allows (the
+    layout of ``__graft_entry__._mesh_axes``)."""
+    tp = 2 if n % 2 == 0 else 1
+    sp = 2 if n % 4 == 0 else 1
+    return {"dp": n // (tp * sp), "tp": tp, "sp": sp}
+
+
+def _flash_counters():
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    return {c.__name__: c for c in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                                    fa.flash_attention_bwd_dkv)}
+
+
+def _zero_counters(counters):
+    for c in counters.values():
+        c.launches = 0
+        for attr in ("launches_by_dtype", "launches_by_shape"):
+            if hasattr(c, attr):
+                setattr(c, attr, {})
+
+
+def phase_dist_bert_nccl(torch, params, batch, dp_bert):
+    """World size 1 over NCCL (the backend rule's choice for one rank on one
+    card): the mesh of ranks, the bucketed gradient all-reduce and the loss
+    reduction on BERT-base T=1024 batch 8, Adam lr 1e-4, from phase_dp_bert's
+    weights and batch, f32 (TF32 off) and bf16, 5 steps and one profiled;
+    the losses equal phase_dp_bert's to TOL_DIST_NCCL."""
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import bert_base
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tokens, labels = batch
+    B, T = tokens.shape
+    n_layers = 12
+    backend = _dist_util.choose_backend("gpu", 1, torch.cuda.device_count())
+    log(f"[dist-nccl] backend rule: 1 rank on a host with {torch.cuda.device_count()} "
+        f"CUDA device(s) -> {backend}")
+    work = os.path.join(ROOT, "build", "dist")
+    os.makedirs(work, exist_ok=True)
+    rendezvous = os.path.join(work, f"nccl.{os.getpid()}.{time.time_ns()}")
+    _dist_util.init_process_group(device="gpu", rank=0, world_size=1,
+                                  init_method=f"file://{rendezvous}")
+    out = {"backend": dist.get_backend()}
+    try:
+        if out["backend"] != "nccl":
+            raise AssertionError(f"world 1 on one card runs {out['backend']}, not nccl")
+        mesh = mx.parallel.make_mesh({"dp": 1, "tp": 1, "sp": 1}, devices=[mx.gpu(0)])
+        log(f"[dist-nccl] {mesh}, process group {dist.get_backend()} world "
+            f"{dist.get_world_size()}")
+        for dtype in ("float32", "bfloat16"):
+            net = bert_base(max_length=T)
+            net.initialize(ctx=mx.gpu(0))
+            load_jax_params(net, params)
+            trainer = mx.parallel.DataParallelTrainer(
+                net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+                {"learning_rate": 1e-4}, mesh=mesh, data_spec=mx.parallel.P("dp", "sp"),
+                dtype=None if dtype == "float32" else dtype)
+            x = mx.nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
+            y = mx.nd.array(labels, ctx=mx.gpu(0), dtype="int32")
+            counters = dict(_fused_counters(), **_flash_counters())
+            per_step = dict({k: 0 for k in counters}, fused_adam_update=1,
+                            flash_attention_fwd=n_layers, flash_attention_bwd_dq=n_layers,
+                            flash_attention_bwd_dkv=n_layers)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            label = f"dist-nccl {dtype}"
+            steps = _dp_steps(torch, label, trainer, x, y, 5, per_step,
+                              (B * T, "tokens_per_s"), counters)
+            launches = {k: c.launches for k, c in counters.items() if c.launches}
+            peak = torch.cuda.max_memory_allocated()
+            ref = [st["loss"] for st in dp_bert[dtype]["steps"]]
+            rel = max(abs(a["loss"] - b) / abs(b) for a, b in zip(steps, ref))
+            med = float(np.median([st["ms"] for st in steps if not st["warmup"]]))
+            ref_med = float(np.median([st["ms"] for st in dp_bert[dtype]["steps"]
+                                       if not st["warmup"]]))
+            log(f"[{label}] {len(trainer._buckets)} gradient buckets, one all_reduce "
+                f"each; launches {launches}; peak {peak / 2**30:.3f} GiB; losses against "
+                f"phase_dp_bert's {[round(v, 6) for v in ref]}: max rel {rel:.2e} (tol "
+                f"{TOL_DIST_NCCL:.0e}) {'ok' if rel <= TOL_DIST_NCCL else 'FAIL'}; median "
+                f"step {med:.2f} ms against phase_dp_bert's {ref_med:.2f} ms")
+            if rel > TOL_DIST_NCCL:
+                raise AssertionError(f"{label}: losses disagree with phase_dp_bert")
+            profile = _step_profile(torch, f"{label} step, batch {B}",
+                                    lambda: trainer.step(x, y), steps)
+            out[dtype] = {"steps": steps, "launches": launches, "peak_bytes": peak,
+                          "loss_rel": rel, "step_median_ms": med,
+                          "dp_bert_step_median_ms": ref_med,
+                          "buckets": len(trainer._buckets), "profile": profile,
+                          "launches_per_step": sum(profile["group_launches"].values())}
+            log(f"[{label}] launches a step {out[dtype]['launches_per_step']} "
+                f"(phase_dp_bert: {sum(dp_bert[dtype]['profile']['group_launches'].values())})")
+            del trainer, net
+            torch.cuda.empty_cache()
+    finally:
+        _dist_util.destroy_process_group()
+    return out
+
+
+def rank_dist_bert(workdir, cfg, axes, steps, device, lr):
+    """One rank of phase_dist_bert_ranks: the dryrun's step (Megatron specs,
+    ``data_spec=P("dp", "sp")``, Adam) ``steps`` times on ``axes``, counting
+    every kernel launch by step and shape; rank 0 writes the gathered
+    gradients after the first step and the gathered weights after the last."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import gather_grads, gather_params, load_jax_params
+    from mxnet_tpu_torch.models import BertModel
+    ctx = _dist_util.rank_context(device)
+    gpu = ctx.device_type == "gpu"
+    if gpu:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    weights = dict(np.load(os.path.join(workdir, "weights.npz")))
+    data = np.load(os.path.join(workdir, "data.npz"))
+    mesh = mx.parallel.make_mesh(axes, devices=[ctx])
+    net = BertModel(**cfg, head_major_qkv=True)
+    net.initialize(ctx=ctx)
+    load_jax_params(net, weights)
+    del weights
+    n_sharded = mx.parallel.shard_params_megatron(net, axis="tp")
+    trainer = mx.parallel.DataParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": lr},
+        mesh=mesh, data_spec=mx.parallel.P("dp", "sp"))
+    x = mx.nd.array(data["x"], ctx=ctx, dtype="int32")
+    y = mx.nd.array(data["y"], ctx=ctx, dtype="int32")
+    counters = dict(_fused_counters(), **_flash_counters())
+    _zero_counters(counters)
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ready_s = time.perf_counter() - t0
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords), "sharded": n_sharded,
+           "buckets": len(trainer._buckets), "ready_s": ready_s, "steps": []}
+    for i in range(steps):
+        before = {k: c.launches for k, c in counters.items()}
+        shapes = {k: dict(c.launches_by_shape) for k, c in _flash_counters().items()}
+        t_step = time.perf_counter()
+        loss = float(trainer.step(x, y))
+        if gpu:
+            torch.cuda.synchronize()
+        launched = {k: c.launches - before[k] for k, c in counters.items()
+                    if c.launches - before[k]}
+        by_shape = {k: {s: n - shapes[k].get(s, 0) for s, n in c.launches_by_shape.items()
+                        if n - shapes[k].get(s, 0)}
+                    for k, c in _flash_counters().items()}
+        out["steps"].append({"loss": loss, "s": time.perf_counter() - t_step,
+                             "launches": launched, "flash_by_shape": by_shape})
+        if i == 0:
+            grads = gather_grads(net)
+            if mesh.rank == 0:
+                np.savez(os.path.join(workdir, "grads.npz"), **grads)
+            del grads
+    params = gather_params(net)
+    if mesh.rank == 0:
+        np.savez(os.path.join(workdir, "params.npz"), **params)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if gpu else None
+    out["device"] = str(ctx)
+    return out
+
+
+def phase_dist_bert_ranks(torch, params, batch, device="gpu", cfg=None, n=8, steps=3,
+                          timeout=900):
+    """``_mesh_axes(n)``'s layout (8: dp2 x tp2 x sp2) as n ranks of
+    torch.distributed on the one card over gloo (NCCL refuses two ranks on a
+    device), launched by ``_dist_util.launch_local``: BERT-base width
+    (``cfg``), T=1024, global batch 8, Adam lr 1e-4, f32 with TF32 off,
+    ``steps`` steps of the dryrun's step. Against the one-rank fused step
+    on the same global batch: the losses to TOL_DIST_LOSS, the gathered
+    gradients after step 1 to TOL_DIST_GRAD of each tensor's max, the
+    gathered weights after the last to TOL_DIST_W. Every rank must launch
+    K1, K2 and K3 once a layer a step at (B/dp * H/tp, T/sp, T, D) and K5
+    once a step. A correctness run: gloo stages every collective through the
+    host, so its times are not the card's speed."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import BertModel
+    cfg = cfg or dict(vocab_size=30522, num_layers=12, units=768, hidden_size=3072,
+                      num_heads=12, max_length=1024)
+    axes = _mesh_axes(n)
+    tokens, labels = batch
+    B, T = tokens.shape
+    n_layers = cfg["num_layers"]
+    backend = _dist_util.choose_backend(device, n, torch.cuda.device_count()
+                                        if device == "gpu" else 0)
+    shape = (f"{B // axes['dp'] * cfg['num_heads'] // axes['tp']}x{T // axes['sp']}x{T}x"
+             f"{cfg['units'] // cfg['num_heads']}")
+    log(f"[dist-ranks] {n} ranks {axes} on {device} (backend rule: {n} ranks, "
+        f"{torch.cuda.device_count() if device == 'gpu' else 0} device(s) -> {backend}); "
+        f"BertModel {cfg} head_major_qkv, batch {B}x{T}, {steps} Adam steps; flash "
+        f"shape a rank (BH x Tq x Tk x D) {shape}")
+    if backend != "gloo":
+        raise AssertionError(f"{n} ranks on one card must take gloo, the rule gave {backend}")
+    work = os.path.join(ROOT, "build", "dist_bert")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    np.savez(os.path.join(work, "weights.npz"), **params)
+    np.savez(os.path.join(work, "data.npz"), x=tokens, y=labels)
+    # the one-rank fused step on the same global batch
+    ctx = mx.gpu(0) if device == "gpu" else mx.cpu()
+    net = BertModel(**cfg, head_major_qkv=True)
+    net.initialize(ctx=ctx)
+    load_jax_params(net, params)
+    trainer = mx.parallel.DataParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": 1e-4},
+        mesh=mx.parallel.make_mesh({"dp": 1}, devices=[ctx]))
+    x = mx.nd.array(tokens, ctx=ctx, dtype="int32")
+    y = mx.nd.array(labels, ctx=ctx, dtype="int32")
+    keys = net._collect_params_with_prefix()
+    ref_losses = []
+    for i in range(steps):
+        ref_losses.append(float(trainer.step(x, y)))
+        if i == 0:
+            ref_grads = {k: p.grad().asnumpy() for k, p in keys.items()}
+    ref_weights = {k: p.data().asnumpy() for k, p in keys.items()}
+    del trainer, net, keys, x, y
+    if device == "gpu":
+        torch.cuda.empty_cache()
+    log(f"[dist-ranks] one-rank fused step: losses {[round(v, 6) for v in ref_losses]} "
+        f"({time.perf_counter() - t0:.1f} s with the weights written)")
+    t_launch = time.perf_counter()
+    ranks = _dist_util.launch_local(
+        "chip_smoke:rank_dist_bert", n,
+        {"workdir": work, "cfg": cfg, "axes": axes, "steps": steps, "device": device,
+         "lr": 1e-4},
+        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+    seconds = time.perf_counter() - t_launch
+    per_step = {"fused_adam_update": 1, "flash_attention_fwd": n_layers,
+                "flash_attention_bwd_dq": n_layers, "flash_attention_bwd_dkv": n_layers}
+    worst_loss = 0.0
+    for r in ranks:
+        losses = [st["loss"] for st in r["steps"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        worst_loss = max(worst_loss, rel)
+        peak = "not measured" if r["peak_bytes"] is None else \
+            f"{r['peak_bytes'] / 2**30:.3f} GiB"
+        log(f"[dist-ranks] rank {r['rank']} {r['coords']} on {r['device']}: ready in "
+            f"{r['ready_s']:.1f} s, steps {[round(st['s'], 2) for st in r['steps']]} s, "
+            f"losses {[round(v, 6) for v in losses]} (max rel {rel:.2e}), peak {peak}, "
+            f"{r['buckets']} buckets; launches a step {[st['launches'] for st in r['steps']]}")
+        for i, st in enumerate(r["steps"]):
+            if device == "cpu":     # a rehearsal: the plain versions count nothing
+                break
+            want = dict(per_step)
+            if st["launches"] != want:
+                raise AssertionError(f"rank {r['rank']} step {i}: launches {st['launches']}, "
+                                     f"expected {want}")
+            for k, shapes in st["flash_by_shape"].items():
+                if shapes != {shape: n_layers}:
+                    raise AssertionError(f"rank {r['rank']} step {i}: {k} launched at "
+                                         f"{shapes}, expected {shape} x {n_layers}")
+    grads = dict(np.load(os.path.join(work, "grads.npz")))
+    got_w = dict(np.load(os.path.join(work, "params.npz")))
+    shutil.rmtree(work, ignore_errors=True)       # 4 x 533 MB of arrays at BERT-base
+    worst_grad = max(float(np.abs(grads[k] - g).max()) / max(float(np.abs(g).max()), 1e-30)
+                     for k, g in ref_grads.items())
+    worst_w = max(float(np.abs(got_w[k] - w).max()) for k, w in ref_weights.items())
+    ok = (worst_loss <= TOL_DIST_LOSS and worst_grad <= TOL_DIST_GRAD
+          and worst_w <= TOL_DIST_W and set(grads) == set(ref_grads))
+    log(f"[dist-ranks] against the one-rank fused step: losses max rel {worst_loss:.2e} "
+        f"(tol {TOL_DIST_LOSS:.0e}), gradients after step 1 {worst_grad:.2e} of each "
+        f"tensor's max (tol {TOL_DIST_GRAD:.0e}), weights after step {steps} max|d| "
+        f"{worst_w:.2e} (tol {TOL_DIST_W:.0e}) {'ok' if ok else 'FAIL'}; {n} ranks ran "
+        f"in {seconds:.1f} s (a correctness run: gloo stages through the host)")
+    if not ok:
+        raise AssertionError("the ranks disagree with the one-rank fused step")
+    return {"axes": axes, "backend": backend, "cfg": cfg, "shape": shape, "seconds": seconds,
+            "ref_losses": ref_losses, "loss_rel": worst_loss, "grad_rel": worst_grad,
+            "weight_abs": worst_w, "ranks": ranks,
+            "launches": {k: sum(sum(st["launches"].get(k, 0) for st in r["steps"])
+                                for r in ranks) for k in per_step},
+            "launches_per_rank_step": per_step}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1830,22 +2153,30 @@ def main() -> int:
     resnet_train = phase_resnet_train(torch, resnet_params)
     resnet_train_check = phase_resnet_train_check(torch)
     dp_bert = phase_dp_bert(torch, bert_params, bert_batch, train["steps"])
-    del bert_params
+    dist_nccl = phase_dist_bert_nccl(torch, bert_params, bert_batch, dp_bert)
     dp_resnet = phase_dp_resnet(torch, resnet_params, resnet_train["profile"])
     dp_check = phase_dp_check(torch)
+    torch.cuda.empty_cache()
+    dist_ranks = phase_dist_bert_ranks(torch, bert_params, bert_batch)
+    del bert_params
     f32 = kernel["timings"]["float32"]
     b32 = kernel_bwd["timings"]["float32"]
     src = "mxnet_tpu_torch/csrc/"
     ref = "mxnet_tpu/ops/pallas/"
-    fwd_by_path = {"serve": serve["launches"]["flash_attention_fwd"],
-                   "train": train["launches"]["flash_attention_fwd"],
-                   **{f"dp_bert_{dt}": dp_bert[dt]["launches"]["flash_attention_fwd"]
-                      for dt in dp_bert}}
+    dist_by_dtype = {dt: dist_nccl[dt] for dt in ("float32", "bfloat16")}
 
     def dp_launches(name):
-        """Launches of ``name`` on the fused-step paths, by path."""
-        return {f"{label}_{dt}": phase[dt]["launches"].get(name, 0) for label, phase in
-                (("dp_bert", dp_bert), ("dp_resnet", dp_resnet)) for dt in phase}
+        """Launches of ``name`` on the fused-step paths, by path (the 8 ranks'
+        summed)."""
+        return {**{f"{label}_{dt}": phase[dt]["launches"].get(name, 0) for label, phase in
+                   (("dp_bert", dp_bert), ("dp_resnet", dp_resnet),
+                    ("dist_nccl", dist_by_dtype)) for dt in phase},
+                "dist_ranks": dist_ranks["launches"].get(name, 0)}
+    fwd_by_path = {"serve": serve["launches"]["flash_attention_fwd"],
+                   "train": train["launches"]["flash_attention_fwd"],
+                   **{k: v for k, v in dp_launches("flash_attention_fwd").items()
+                      if not k.startswith("dp_resnet")}}
+    sp_f, sp_b = kernel["timings"]["sp_float32"], kernel_bwd["timings"]["sp_float32"]
     bf16 = kernel["timings"]["bfloat16"]
     entries = [
         ("flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:86",
@@ -1857,7 +2188,12 @@ def main() -> int:
           "library_graph_ms": f32["library_graph_ms"], "tflops": f32["tflops"],
           "bfloat16": {k: bf16[k] for k in ("ms", "graph_ms", "plain_ms", "library_ms",
                                             "library_graph_ms", "bound_ms", "tflops")},
-          "hmma": {n: r["HMMA"] for n, r in kernel["resources"].items()}}),
+          "hmma": {n: r["HMMA"] for n, r in kernel["resources"].items()},
+          "sp_shard": {k: sp_f[k] for k in ("B", "H", "T", "Tk", "ms", "graph_ms",
+                                            "plain_ms", "library_ms", "bound_ms",
+                                            "bound_by")},
+          "launches_per_rank_step": {"shape": dist_ranks["shape"],
+                                     "n": dist_ranks["cfg"]["num_layers"]}}),
         *[(f"flash_attention_bwd_{kind}", "flash_attention_bwd.cu",
            f"flash_attention.py:{line}",
            train["launches"][f"flash_attention_bwd_{kind}"]
@@ -1869,6 +2205,10 @@ def main() -> int:
             "fma_bound_ms": b32[kind]["fma_bound_ms"],
             "port_bwd_ms": b32["port_bwd_ms"],
             "library_fwd_bwd_less_fwd_ms": b32["library_fwd_bwd_less_fwd_ms"],
+            "launches_by_path": dp_launches(f"flash_attention_bwd_{kind}"),
+            "sp_shard": dict({k: sp_b[k] for k in ("B", "H", "T", "Tk", "plain_ms",
+                                                   "library_ms", "port_bwd_ms")},
+                             **sp_b[kind]),
             "hmma": {n: r["HMMA"] for n, r in kernel_bwd["resources"].items()
                      if n.startswith(f"flash_bwd_{kind}_kernel<")}})
           for kind, line in (("dq", 181), ("dkv", 229))],
@@ -1936,7 +2276,8 @@ def main() -> int:
                    "fused": fused, "rtc": rtc, "resnet_serve": resnet_serve,
                    "probe": probe, "resnet_train": resnet_train,
                    "resnet_train_check": resnet_train_check, "dp_bert": dp_bert,
-                   "dp_resnet": dp_resnet, "dp_check": dp_check, "kernels": line["kernels"],
+                   "dp_resnet": dp_resnet, "dp_check": dp_check, "dist_nccl": dist_nccl,
+                   "dist_ranks": dist_ranks, "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1, default=float)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))

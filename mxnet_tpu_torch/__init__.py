@@ -24,8 +24,12 @@ with deferred shape inference; the blocked conv-as-matmul probe kernel
 time with NVRTC; and the fused training step on one device,
 ``parallel.DataParallelTrainer`` in float32, bfloat16 or float16 over
 float32 parameters, whose update of every parameter is one launch of the
-fused SGD/Adam kernel, with ``lr_scheduler`` and ``contrib.amp.LossScaler``.
-ROADMAP.md lists what comes next.
+fused SGD/Adam kernel, with ``lr_scheduler`` and ``contrib.amp.LossScaler``;
+the same step on a mesh of ``torch.distributed`` ranks (data, tensor and
+sequence parallel: ``parallel.make_mesh({"dp": 2, "tp": 2, "sp": 2})``,
+``parallel.shard_params_megatron``, ``data_spec=P("dp", "sp")``), and
+``kvstore`` under ``gluon.Trainer`` (``local``, ``device``, ``nccl``,
+``dist_sync``). ROADMAP.md lists what comes next.
 
 Quick start::
 
@@ -62,6 +66,8 @@ from . import initializer
 from . import lr_scheduler
 from . import optimizer
 from . import gluon
+from . import kvstore
+from . import kvstore as kv
 from . import rtc
 from . import contrib
 from . import parallel
@@ -69,5 +75,5 @@ from .ndarray import NDArray
 
 __all__ = ["base", "MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "ops", "ndarray", "nd", "autograd", "random",
-           "initializer", "lr_scheduler", "optimizer", "gluon", "rtc", "contrib",
+           "initializer", "lr_scheduler", "optimizer", "gluon", "kvstore", "kv", "rtc", "contrib",
            "parallel", "NDArray"]

@@ -11,14 +11,24 @@ a missing, extra or mis-shaped key raises ``MXNetError`` and loads nothing.
 ``seeded_params(net, seed)`` makes such a dict with numpy, the same for the
 same seed on every host, so a run on the card and the CPU tests load
 weights through the same function.
+
+The carrier for ranks: ``shard_arrays(arrays, specs, mesh)`` cuts one rank's
+shards out of full arrays by their ``PartitionSpec``s (the parameters'
+``sharding`` after ``parallel.shard_params_megatron``), and ``gather_params(net)`` /
+``gather_grads(net)`` gather every placed parameter's shards (or its
+gradient's) back into full numpy arrays by structural path, a collective
+that every rank of the mesh calls. The tests and ``chip_smoke.py`` compare
+the ranks with the reference through them.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+import torch
 
 from .base import MXNetError
+from .parallel.tensor_parallel import gather_tensor, shard_tensor
 
 
 def load_jax_params(net, arrays: Dict[str, np.ndarray]) -> None:
@@ -72,3 +82,26 @@ def seeded_params(net, seed: int) -> Dict[str, np.ndarray]:
             a = 0.02 * rs.standard_normal(p.shape)
         out[key] = a.astype(np.float32)
     return out
+
+
+def shard_arrays(arrays: Dict[str, np.ndarray], specs: Dict[str, object],
+                 mesh) -> Dict[str, np.ndarray]:
+    """One rank's shards of full arrays: each array cut by its spec at the
+    mesh's coordinates (an array without a spec is whole)."""
+    return {k: np.ascontiguousarray(
+        shard_tensor(torch.from_numpy(np.asarray(a)), specs.get(k), mesh).numpy())
+        for k, a in arrays.items()}
+
+
+def gather_params(net) -> Dict[str, np.ndarray]:
+    """Every parameter of ``net`` as a full numpy array by structural path,
+    its shards gathered from the ranks of the mesh it is placed on."""
+    return {k: gather_tensor(p._param.detach(), p.sharding, p._mesh).cpu().numpy()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
+def gather_grads(net) -> Dict[str, np.ndarray]:
+    """The gradient buffer of every parameter that has one, full, by path."""
+    return {k: gather_tensor(p._grad, p.sharding, p._mesh).cpu().numpy()
+            for k, p in net._collect_params_with_prefix().items()
+            if p._grad is not None}

@@ -7,6 +7,16 @@ Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py:13-278``: ``Sequential``,
 without its input width (``in_units``, ``in_channels``) takes it from its
 first input (deferred shape inference, ``gluon/block.py``). The other norms
 and activation layers wait for the slices whose models use them.
+
+Under tensor parallelism (a weight placed on a mesh of ranks with a spec
+over one axis, ``parallel.shard_params_megatron``), ``Dense`` and
+``Embedding`` compute their rank's part with the boundary collectives of
+``parallel/megatron.py``: a column-parallel ``Dense`` (weight ``P(tp,
+None)``) applies ``copy_to_tp`` and then the local product with its bias
+shard; a row-parallel one (``P(None, tp)``) the local product, then
+``reduce_from_tp``, then the replicated bias, added once; a vocab-sharded
+``Embedding`` (``P(tp, None)``) ``vocab_parallel_embedding`` and then
+``reduce_from_tp``. The product stays ``FullyConnected`` (``F.linear``).
 """
 from __future__ import annotations
 
@@ -14,8 +24,26 @@ import math
 
 import torch
 
-from ...base import torch_dtype
+from ...base import MXNetError, torch_dtype
+from ...ndarray import NDArray
 from ..block import Block, HybridBlock, defer_aux_update
+
+
+def _tp_layout(param):
+    """(sharded dim, axis, mesh) of a weight placed on a mesh with a spec,
+    or (None, None, None)."""
+    if param._mesh is None or param.sharding is None:
+        return None, None, None
+    from ...parallel.tensor_parallel import spec_axes, tp_shard_dim
+    sharded = spec_axes(param.sharding)
+    if not sharded:
+        return None, None, None
+    axis = sharded[0][1][0]
+    return tp_shard_dim(param.sharding, axis), axis, param._mesh
+
+
+def _wrap(t, like: NDArray) -> NDArray:
+    return NDArray(t, like.ctx)
 
 
 class Sequential(Block):
@@ -83,8 +111,22 @@ class Dense(HybridBlock):
         self.weight.shape = (self._units, in_units)
 
     def hybrid_forward(self, F, x, weight, bias=None):
-        out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
-                               no_bias=(bias is None), flatten=self._flatten)
+        dim, axis, mesh = _tp_layout(self.weight)
+        if dim is None:
+            out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                                   no_bias=(bias is None), flatten=self._flatten)
+        elif dim == 0:                  # column-parallel: the bias is sharded too
+            from ...parallel import megatron
+            x = _wrap(megatron.copy_to_tp(x._data, axis, mesh), x)
+            out = F.FullyConnected(x, weight, bias, num_hidden=weight.shape[0],
+                                   no_bias=(bias is None), flatten=self._flatten)
+        else:                           # row-parallel: the bias after the sum
+            from ...parallel import megatron
+            out = F.FullyConnected(x, weight, None, num_hidden=self._units,
+                                   no_bias=True, flatten=self._flatten)
+            out = _wrap(megatron.reduce_from_tp(out._data, axis, mesh), out)
+            if bias is not None:
+                out = out + bias
         if self._activation:
             out = F.Activation(out, act_type=self._activation)
         return out
@@ -182,8 +224,16 @@ class Embedding(HybridBlock):
             grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
-        return F.Embedding(x, weight, input_dim=self._input_dim,
-                           output_dim=self._output_dim)
+        dim, axis, mesh = _tp_layout(self.weight)
+        if dim is None:
+            return F.Embedding(x, weight, input_dim=self._input_dim,
+                               output_dim=self._output_dim)
+        if dim != 0:
+            raise MXNetError(f"Embedding weight {self.weight.name}: only the vocab "
+                             f"dim shards, got {self.weight.sharding}")
+        from ...parallel import megatron
+        part = megatron.vocab_parallel_embedding(x._data, weight._data, axis, mesh)
+        return _wrap(megatron.reduce_from_tp(part, axis, mesh), x)
 
 
 class Flatten(HybridBlock):

@@ -34,6 +34,14 @@ parameter cast to its compute dtype (bfloat16, float16) for the forward of
 a step, so the layers compute in that dtype while autograd carries the
 gradient through the cast to the float32 value (the reference swaps the
 cast arrays into the parameters, ``_make_apply_fn``).
+
+Sharding: ``sharding`` is a ``PartitionSpec`` (``parallel.P``), None for a
+replicated parameter; ``parallel.shard_params_megatron`` sets it and nothing
+else, as in the reference. A ``DataParallelTrainer`` on a mesh of ranks then
+places the parameter (``_place``): its value becomes this rank's shard, a
+contiguous tensor of its own (a row-parallel weight's slice of dim 1 is
+copied), with a gradient buffer of the shard's shape, and ``_mesh`` names
+the mesh. ``shape`` stays the full shape.
 """
 from __future__ import annotations
 
@@ -79,6 +87,8 @@ class Parameter:
         self._grad: Optional[torch.Tensor] = None
         self._deferred_init = None   # (init, ctx, default_init) until the shape is known
         self._compute: Optional[torch.Tensor] = None   # stands in for the value in data()
+        self.sharding = None     # PartitionSpec over mesh axes, None: replicated
+        self._mesh = None        # the mesh whose rank's shard the value is, once placed
         # (block, attribute name) pairs whose _parameters entry is this value
         self._owners: List[tuple] = []
 
@@ -122,6 +132,18 @@ class Parameter:
                 or self._grad.dtype != self._param.dtype:
             self._grad = torch.zeros_like(self._param, requires_grad=False)
         autograd._mark(self._param, self._grad, self._grad_req)
+
+    def _place(self, mesh) -> None:
+        """Keep this rank's shard of the value under ``sharding`` on ``mesh``,
+        in storage of its own, with a gradient buffer of its shape."""
+        from ..parallel.tensor_parallel import shard_tensor
+        self._check_initialized()
+        if self._mesh is not None:
+            raise MXNetError(f"parameter '{self.name}' is already placed on {self._mesh}")
+        shard = shard_tensor(self._param.detach(), self.sharding, mesh)
+        self._param.data = shard.clone(memory_format=torch.contiguous_format)
+        self._mesh = mesh
+        self._init_grad()
 
     # -- init ----------------------------------------------------------------
     def initialize(self, init=None, ctx=None, default_init=None,

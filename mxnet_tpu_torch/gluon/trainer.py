@@ -1,4 +1,4 @@
-"""gluon.Trainer on one device.
+"""gluon.Trainer, with or without a kvstore.
 
 Counterpart of ``mxnet_tpu/gluon/trainer.py:23-211``: applies an optimizer
 (``optimizer.create(name, **optimizer_params)`` or an ``Optimizer``) to a
@@ -7,21 +7,37 @@ batch_size`` (:114), reduces the gradients (``allreduce_grads``) and runs the
 ``Updater`` on every parameter whose ``grad_req`` is not ``"null"``, in
 order; the updates write into the weights in place.
 
-One device only, for now: ``kvstore`` ``"device"``, ``"local"`` or ``None``
-means no store, since one device's reduction is the identity. Any other
-kvstore, or parameters on more than one device, raises ``MXNetError``; the
-kvstore comes with the data-parallel slice. ``save_states``/``load_states``
-wait for a later slice and raise.
+The kvstore (``kvstore``: a name for ``kvstore.create``, a ``KVStore``, or
+None for none) is made at the first ``step``, ``update`` or
+``allreduce_grads`` (``_init_kvstore``, :66): every trainable parameter's
+value is its key's initial value (rank 0's, under ``dist_sync``), and
+``update_on_kvstore`` defaults to true for the ``dist*`` stores, as in the
+reference. Then:
+
+- with the update on the store, ``step`` pushes each gradient and pulls the
+  weight the store's updater made (``pushpull(i, grad, out=weight)``);
+- otherwise ``allreduce_grads`` reduces the gradients in place through the
+  store: for ``dist*`` stores one ``pushpull`` per bucket of
+  ``MXNET_TPU_BUCKET_BYTES``, the buckets in reverse declaration order (the
+  order the backward finishes them); an in-process store's reduction of one
+  value a key is the identity, so nothing is pushed to it (the reference
+  pushes each gradient, which changes nothing the trainer reads); and the
+  optimizer runs here.
+
+A name that waits for a later slice (``dist_async``, gradient compression)
+raises at construction; parameters on more than one device raise at the
+first step. ``save_states``/``load_states`` wait for a later slice and
+raise.
 """
 from __future__ import annotations
 
 from typing import List
 
-from ..base import MXNetError
+from ..base import MXNetError, env
 from .. import optimizer as opt_mod
+from .. import kvstore as kvs_mod
+from .. import _dist_util
 from .parameter import Parameter, ParameterDict
-
-_ONE_DEVICE_KVSTORES = ("device", "local", None)
 
 
 class Trainer:
@@ -32,13 +48,11 @@ class Trainer:
             params = list(params.values())
         if not isinstance(params, (list, tuple)):
             raise MXNetError("params must be a ParameterDict/dict/list of Parameter")
-        if kvstore not in _ONE_DEVICE_KVSTORES or update_on_kvstore \
-                or compression_params:
-            raise MXNetError(f"kvstore {kvstore!r} (update_on_kvstore="
-                             f"{update_on_kvstore}, compression "
-                             f"{compression_params}): only one device without "
-                             f"a store is ported; the kvstore comes with the "
-                             f"data-parallel slice")
+        if compression_params:
+            raise MXNetError(f"kvstore gradient compression {compression_params}: "
+                             f"not ported yet (ROADMAP A2)")
+        if isinstance(kvstore, str):
+            kvs_mod.kvstore.check_type(kvstore)
         self._params: List[Parameter] = []
         for p in params:
             if not isinstance(p, Parameter):
@@ -57,7 +71,10 @@ class Trainer:
             self._optimizer = opt_mod.create(optimizer, param_dict=param_dict,
                                              **optimizer_params)
         self._updater = opt_mod.get_updater(self._optimizer)
-        self._checked = False
+        self._kvstore_arg = kvstore
+        self._kvstore = None
+        self._update_on_kvstore = update_on_kvstore
+        self._kv_initialized = False
 
     @property
     def learning_rate(self):
@@ -70,33 +87,74 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
-    def _check_one_device(self):
-        if self._checked:
-            return
+    def _init_kvstore(self):
+        """The store and its keys (reference :66)."""
         devices = {p.list_ctx()[0] for p in self._params}
         if len(devices) > 1:
             raise MXNetError(f"parameters on {len(devices)} devices "
-                             f"({sorted(map(str, devices))}): one device only "
-                             f"until the data-parallel slice")
-        self._checked = True
+                             f"({sorted(map(str, devices))}): one device per "
+                             f"process (ROADMAP A2)")
+        arg = self._kvstore_arg
+        kv = kvs_mod.create(arg) if isinstance(arg, str) else arg
+        self._kvstore = kv
+        on_kv = False
+        if kv is not None:
+            on_kv = self._update_on_kvstore
+            if on_kv is None:
+                on_kv = kv.type.startswith("dist")
+            for i, p in enumerate(self._params):
+                if p.grad_req != "null":
+                    kv.init(i, p.data())
+            if on_kv:
+                kv.set_optimizer(self._optimizer)
+        self._update_on_kvstore_flag = bool(on_kv)
+        self._kv_initialized = True
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Rescale gradients by ``1 / batch_size``, reduce them and update
         (reference trainer.py:106)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
-        self.allreduce_grads()
+        self._allreduce_grads()
         self._update()
 
     def allreduce_grads(self):
-        """The identity on one device (no store)."""
-        self._check_one_device()
+        """Reduce the gradients in place through the store (none: identity)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        kv = self._kvstore
+        if kv is None:
+            return
+        live = [(i, p) for i, p in enumerate(self._params) if p.grad_req != "null"]
+        if self._update_on_kvstore_flag:
+            for i, p in live:
+                kv.pushpull(i, p.grad(), out=p.data())
+            return
+        if not kv.type.startswith("dist"):
+            return      # one process, one value a key: the reduction is the identity
+        grad_of = {i: p.grad() for i, p in live}
+        sizes = [(i, grad_of[i].size * 4) for i, _ in live]
+        buckets = _dist_util.plan_buckets(sizes, int(env.get("MXNET_TPU_BUCKET_BYTES")))
+        for keys in sorted(buckets, key=lambda b: -max(b)):
+            grads = [grad_of[i] for i in keys]
+            kv.pushpull(keys, grads, out=grads)
 
     def update(self, batch_size, ignore_stale_grad=False):
-        self._check_one_device()
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore_flag:
+            raise MXNetError("update() applies the optimizer here; this trainer "
+                             "updates on the kvstore (update_on_kvstore)")
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update()
 
     def _update(self):
+        if self._update_on_kvstore_flag:
+            return          # the store's updater made the weights in pushpull
         for i, p in enumerate(self._params):
             if p.grad_req != "null":
                 self._updater(i, p.grad(), p.data())

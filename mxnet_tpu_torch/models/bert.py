@@ -13,12 +13,26 @@ the same variable and default as the reference, so both packages take the
 same branch); otherwise the plain ``batch_dot``/``softmax`` path. The
 reference's symbolic-export branch (no concrete shape) and
 ``pipeline_split`` wait for later slices.
+
+On a mesh of ranks (``parallel.DataParallelTrainer``, the reference's
+GSPMD step with ``shard_params_megatron`` and ``data_spec=P("dp", "sp")``):
+
+- with the fused QKV projection column-parallel over ``tp``, each rank
+  computes its H/tp heads. That needs ``head_major_qkv=True``, whose
+  (H, 3, d) output layout puts whole (q, k, v) triples of heads in each
+  rank's slice of the projection (the reference's comment at
+  ``mxnet_tpu/models/bert.py:56-62``); the other layout raises;
+- when the step shards the sequence (``parallel.sequence_axis()``, an axis
+  of size > 1), each rank holds T/sp tokens: positions start at its first
+  token, and attention is ``ops.attention.sequence_parallel_attention``
+  (the flash kernels on the local query rows against the gathered keys).
 """
 from __future__ import annotations
 
 import math
 
-from ..base import env
+from ..base import MXNetError, env
+from ..ndarray import NDArray
 from ..gluon.block import HybridBlock
 from ..gluon import nn
 
@@ -26,10 +40,24 @@ __all__ = ["TransformerEncoderCell", "BertEncoder", "BertModel", "bert_base",
            "bert_large", "bert_tiny"]
 
 
+def _sequence_shard():
+    """(mesh, axis) when the running step shards the sequence over an axis
+    of size > 1, else None."""
+    from ..parallel.mesh import active_mesh, sequence_axis
+    axis = sequence_axis()
+    if axis is None or active_mesh().axis_size(axis) == 1:
+        return None
+    return active_mesh(), axis
+
+
 def _position_ids(token_ids):
-    """Position indices (T,) on the tokens' device."""
+    """Position indices (T,) on the tokens' device; under a sequence shard,
+    those of this rank's tokens."""
     from .. import ndarray as nd
-    return nd.arange(0, token_ids.shape[1], dtype="int32", ctx=token_ids.ctx)
+    T = token_ids.shape[1]
+    shard = _sequence_shard()
+    start = 0 if shard is None else shard[0].axis_index(shard[1]) * T
+    return nd.arange(start, start + T, dtype="int32", ctx=token_ids.ctx)
 
 
 class SelfAttention(HybridBlock):
@@ -53,11 +81,25 @@ class SelfAttention(HybridBlock):
         self.proj = nn.Dense(units, flatten=False, in_units=units)
         self.dropout = nn.Dropout(dropout) if dropout else None
 
+    def _local_heads(self) -> int:
+        """The heads this rank computes: H, or H/tp under a column-parallel
+        QKV projection."""
+        w = (self.qkv if self._fused_qkv else self.q_proj).weight
+        if w._mesh is None or w.sharding is None or w.sharding[0] is None:
+            return self._heads
+        tp = w._mesh.axis_size(w.sharding[0])
+        if self._heads % tp:
+            raise MXNetError(f"{self._heads} heads do not split over {tp} ranks")
+        if self._fused_qkv and not self._head_major and tp > 1:
+            raise MXNetError("a tensor-parallel fused QKV projection needs "
+                             "head_major_qkv=True (whole heads on each rank)")
+        return self._heads // tp
+
     def hybrid_forward(self, F, x, mask=None):
         # x: (B, T, C). Shapes go through MXNet reshape codes (0 copy,
         # -1 infer, -3 merge, -4 split), as in the reference.
-        H = self._heads
-        d = self._units // H
+        H = self._local_heads()
+        d = self._units // self._heads
         if self._fused_qkv:
             qkv = self.qkv(x)  # (B, T, 3C)
             if self._head_major:
@@ -80,7 +122,14 @@ class SelfAttention(HybridBlock):
                     axes=(0, 2, 1, 3))
                 for proj in (self.q_proj, self.k_proj, self.v_proj))
         min_t = env.get("MXNET_FLASH_ATTENTION_MIN_SEQ")
-        if self._use_blockwise and mask is None and x.shape[1] >= min_t:
+        shard = _sequence_shard()
+        if shard is not None:
+            if mask is not None:
+                raise MXNetError("a mask under a sequence shard is not ported")
+            from ..ops.attention import sequence_parallel_attention
+            out = NDArray(sequence_parallel_attention(q._data, k._data, v._data,
+                                                      shard[1], shard[0]), q.ctx)
+        elif self._use_blockwise and mask is None and x.shape[1] >= min_t:
             out = F._contrib_flash_attention(q, k, v, causal=False)
         else:
             q2 = F.reshape(q, shape=(-3, 0, 0))         # (B*H, T, d)

@@ -11,8 +11,14 @@ and on the card what ``chip_smoke.py`` holds the kernel against.
 kernels (``_bwd_dq_kernel``/``_bwd_dkv_kernel``, reference
 ``ops/pallas/flash_attention.py:181-355``) in the same roles.
 
-The ring and Ulysses sequence-parallel variants (:95-149) wait for the slice
-that ports ``parallel/``.
+``sequence_parallel_attention`` is the flash op on a sequence shard, what
+GSPMD computes for the reference's step under ``data_spec=P("dp", "sp")``:
+each rank keeps its T/sp query rows and gathers K and V over the sequence
+axis, so K1 runs with Tq = T/sp against Tk = T; in the backward K2 gives the
+local dQ and K3 dK/dV for all Tk keys from the local rows, which the gather's
+backward reduce-scatters over the axis. The reference's ring and Ulysses
+variants (:95-149), which serve ``recipes/long_context.py``, wait for that
+slice.
 """
 from __future__ import annotations
 
@@ -129,3 +135,12 @@ def flash_attention_op(q, k, v, *, causal=False, block_size=512):
     return flash_attention(q, k, v, causal=causal,
                            block_q=min(block_size, 256),
                            block_k=min(block_size, 256))
+
+
+def sequence_parallel_attention(q, k, v, axis: str = "sp", mesh=None):
+    """Non-causal flash attention of this rank's query rows (B, H, T/n, D)
+    against the keys and values of the whole sequence, gathered over
+    ``axis`` (``parallel.megatron.gather_from_sp``) -> (B, H, T/n, D)."""
+    from ..parallel.megatron import gather_from_sp
+    return flash_attention_op(q, gather_from_sp(k, axis, 2, mesh),
+                              gather_from_sp(v, axis, 2, mesh))

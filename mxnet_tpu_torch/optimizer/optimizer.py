@@ -30,6 +30,8 @@ and the other optimizers; ``Updater.get_states`` / ``set_states`` come with
 """
 from __future__ import annotations
 
+import pickle
+
 from typing import Any, Dict
 
 import numpy as np
@@ -180,6 +182,39 @@ class Updater:
             if i not in self.states:
                 self.states[i] = self.optimizer.create_state_multi_precision(i, w)
             self.optimizer.update_multi_precision(i, w, g, self.states[i])
+
+    def get_states(self, dump_optimizer=False) -> bytes:
+        """The states (and, with ``dump_optimizer``, the optimizer) as bytes
+        (reference optimizer.py:184): each state tensor as a numpy array with
+        its device."""
+        def conv(s):
+            if isinstance(s, NDArray):
+                return ("nd", s.asnumpy(), str(s.dtype).rpartition(".")[2],
+                        s.ctx.device_type, s.ctx.device_id)
+            if isinstance(s, (tuple, list)):
+                return ("tuple", [conv(x) for x in s])
+            return ("raw", s)
+        blob = {"states": {k: conv(v) for k, v in self.states.items()}}
+        if dump_optimizer:
+            blob["optimizer"] = self.optimizer
+        return pickle.dumps(blob)
+
+    def set_states(self, states_blob: bytes):
+        """Install states from ``get_states``' bytes. They are unpickled:
+        load only bytes this program wrote."""
+        from ..context import Context
+        from ..ndarray import array
+        blob = pickle.loads(states_blob)
+
+        def unconv(s):
+            if s[0] == "nd":
+                return array(s[1], ctx=Context(s[3], s[4]), dtype=s[2])
+            if s[0] == "tuple":
+                return tuple(unconv(x) for x in s[1])
+            return s[1]
+        self.states = {k: unconv(v) for k, v in blob["states"].items()}
+        if "optimizer" in blob:
+            self.optimizer = blob["optimizer"]
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -1,11 +1,22 @@
-"""Parallel training (counterpart of ``mxnet_tpu/parallel/``): the fused
-training step ``DataParallelTrainer`` with its ``functional_optimizer``, and
-the one-device ``mesh`` helpers. More devices, tensor, sequence and pipeline
-parallelism wait for later slices (ROADMAP A2)."""
+"""Parallel training (counterpart of ``mxnet_tpu/parallel/``): meshes over one
+device or the ranks of a ``torch.distributed`` job (``mesh``), the fused
+training step ``DataParallelTrainer`` with its ``functional_optimizer``, the
+tensor-parallel specs (``tensor_parallel``) and the Megatron boundary
+collectives (``megatron``). ZeRO, overlapped reduction, ring and Ulysses
+attention and pipelines wait for later slices (ROADMAP A2)."""
 from .mesh import (Mesh, PartitionSpec, P, make_mesh, local_mesh, current_mesh,
-                   set_default_mesh)
+                   set_default_mesh, require_axis, axis_size, axis_index, activate,
+                   active_mesh, sequence_axis)
 from .data_parallel import DataParallelTrainer, functional_optimizer, PendingScalar
+from .tensor_parallel import (column_parallel_spec, row_parallel_spec,
+                              shard_params_megatron, tp_shard_dim)
+from .megatron import (copy_to_tp, reduce_from_tp, gather_from_sp, scatter_to_sp,
+                       partial_grad, vocab_parallel_embedding)
 
 __all__ = ["Mesh", "PartitionSpec", "P", "make_mesh", "local_mesh", "current_mesh",
-           "set_default_mesh", "DataParallelTrainer", "functional_optimizer",
-           "PendingScalar"]
+           "set_default_mesh", "require_axis", "axis_size", "axis_index", "activate",
+           "active_mesh", "sequence_axis", "DataParallelTrainer",
+           "functional_optimizer", "PendingScalar", "column_parallel_spec",
+           "row_parallel_spec", "shard_params_megatron", "tp_shard_dim",
+           "copy_to_tp", "reduce_from_tp", "gather_from_sp", "scatter_to_sp",
+           "partial_grad", "vocab_parallel_embedding"]

@@ -47,29 +47,62 @@ A step (reference :832-877):
 so float32 and bfloat16 steps run without a host sync. The parameters are
 the ``Parameter``s' own tensors, so ``sync()`` only waits for the device.
 
-One device only: a mesh of more devices, ``compression``, ``zero_update``,
-``overlap_grads``, the options that tune them (``bucket_bytes``,
-``comm_dtype``, ``overlap_segments``), a ``data_spec`` other than the batch
-axis and sharded parameters raise ``MXNetError`` (ROADMAP A2). The reference's
+On a mesh of ``torch.distributed`` ranks (``make_mesh`` after
+``_dist_util.init_process_group``; each rank runs the same program), the
+step is the reference's GSPMD step made explicit:
+
+- ``data_spec`` (default ``P(batch_axis_name)``) names the mesh axes that
+  split the data's dimensions: with ``P("dp", "sp")`` each rank takes its
+  rows of the global batch it is given and its columns of the sequence
+  (``y`` by the spec's first ``y.ndim`` entries). The forward runs under
+  ``with activate(mesh, "sp")``, so the model sees its sequence shard;
+- parameters with a ``sharding`` spec (``shard_params_megatron``) are placed
+  at construction, the counterpart of ``_place_param`` (:645): each rank
+  keeps its shard in storage of its own, and the tensor-parallel layers
+  compute their part (``gluon/nn/basic_layers.py``, ``models/bert.py``);
+- the loss is the mean over the global batch: each rank's mean is weighted
+  by its share of the elements, and the returned ``PendingScalar`` is the
+  sum of those over the data axes, the global mean;
+- after the backward the gradients are summed over the data axes (the axes
+  of ``data_spec``), never over an axis that shards parameters: under the
+  convention of ``parallel/megatron.py`` every rank's gradients are full
+  for what it holds. The gradient buffers are views into flat buckets of at
+  most ``bucket_bytes`` (default ``MXNET_TPU_BUCKET_BYTES``), in reverse
+  declaration order, one ``all_reduce`` per bucket;
+- the update stays one launch of K4/K5 per weight decay over the rank's own
+  parameters and shards; under float16 the overflow flag is agreed over
+  every rank;
+- ``state_dict()`` gathers the shards into full tensors.
+
+A mesh of one device takes the one-device step unchanged. ``compression``,
+``zero_update``, ``overlap_grads`` and the options that tune them
+(``comm_dtype``, ``overlap_segments``) raise ``MXNetError`` naming
+``parallel/zero.py`` and ``overlap.py`` (ROADMAP A2). The reference's
 environment switches (``MXNET_TPU_ZERO``, ``MXNET_TPU_OVERLAP_GRADS``) are
 not read.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import math
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..base import MXNetError, torch_dtype
+from ..base import MXNetError, env, torch_dtype
 from ..ndarray import NDArray
 from .. import autograd
 from .. import optimizer as opt_mod
+from .. import _dist_util
 from ..gluon.loss import Loss as GluonLoss
 from ..ops.cuda import fused_optimizer as _fo
-from .mesh import MULTI_DEVICE, P, current_mesh
+from .mesh import P, activate, current_mesh, require_axis
+from .tensor_parallel import shard_tensor, spec_axes
 
-_A2 = "not ported yet (ROADMAP A2: kvstore and DataParallelTrainer over more devices)"
+_A2 = ("not ported yet (ROADMAP A2: the sharded update of parallel/zero.py and "
+       "the overlapped reduction of parallel/overlap.py)")
 
 
 def _f32(x) -> np.float32:
@@ -163,8 +196,7 @@ class DataParallelTrainer:
                  compression=None, zero_update=None, bucket_bytes=None,
                  comm_dtype=None, overlap_grads=None, overlap_segments=None):
         for name, value in (("compression", compression), ("zero_update", zero_update),
-                            ("overlap_grads", overlap_grads), ("bucket_bytes", bucket_bytes),
-                            ("comm_dtype", comm_dtype),
+                            ("overlap_grads", overlap_grads), ("comm_dtype", comm_dtype),
                             ("overlap_segments", overlap_segments)):
             if value is not None and value is not False:
                 raise MXNetError(f"DataParallelTrainer({name}={value!r}): {_A2}")
@@ -179,13 +211,20 @@ class DataParallelTrainer:
             from ..contrib.amp.loss_scaler import LossScaler
             self._scaler = LossScaler()
         self.mesh = mesh if mesh is not None else current_mesh()
-        if self.mesh.size != 1:
-            raise MXNetError(f"{self.mesh}: {MULTI_DEVICE}")
         self.batch_axis = batch_axis_name
         self.data_spec = data_spec if data_spec is not None else P(batch_axis_name)
-        if tuple(self.data_spec) != (batch_axis_name,):
-            raise MXNetError(f"data_spec {self.data_spec} shards more than the batch "
-                             f"axis {batch_axis_name!r}: {_A2}")
+        self._data_axes = []          # (dim, axis names) of the data's split dims
+        for d, axes in spec_axes(self.data_spec):
+            for a in axes:
+                require_axis(self.mesh, a, f"data_spec {self.data_spec}")
+            self._data_axes.append((d, axes))
+        reduce_axes = [a for _, axes in self._data_axes for a in axes]
+        self._reduce_axes = tuple(a for a in self.mesh.axis_names if a in reduce_axes)
+        seq = self.data_spec[1] if len(self.data_spec) > 1 else None
+        if isinstance(seq, tuple):
+            raise MXNetError(f"data_spec {self.data_spec}: the sequence dim splits "
+                             f"over one axis")
+        self._seq_axis = seq
         self.optimizer = optimizer if isinstance(optimizer, opt_mod.Optimizer) \
             else opt_mod.create(optimizer, **(optimizer_params or {}))
         self._init_fn, self._update_fn = functional_optimizer(self.optimizer)
@@ -198,16 +237,30 @@ class DataParallelTrainer:
                              f"run one forward pass before constructing "
                              f"DataParallelTrainer")
         self._plist = [p for p in params if p._param is not None]
-        sharded = [p.name for p in self._plist if getattr(p, "sharding", None) is not None]
-        if sharded:
-            raise MXNetError(f"sharded parameters ({sharded[:3]}): {_A2}")
         self.device = self.mesh.device
         elsewhere = [p.name for p in self._plist if p.list_ctx()[0] != self.device]
         if elsewhere:
             raise MXNetError(f"parameters {elsewhere[:3]} are not on the mesh's device "
                              f"{self.device}")
+        for p in self._plist:
+            for _, axes in spec_axes(p.sharding):
+                for a in axes:
+                    require_axis(self.mesh, a, f"the sharding of {p.name}")
+                    if a in self._reduce_axes:
+                        raise MXNetError(f"{p.name} is sharded over the data axis {a!r} "
+                                         f"({p.sharding}): {_A2}")
+            if self.mesh.distributed and spec_axes(p.sharding):
+                if p._mesh is None:
+                    p._place(self.mesh)       # reference _place_param (:645)
+                elif p._mesh is not self.mesh:
+                    raise MXNetError(f"{p.name} is placed on another mesh, {p._mesh}")
         self._trainable = [p.grad_req != "null" for p in self._plist]
         self._t = 0
+        self._buckets: List[torch.Tensor] = []     # flat gradient buckets
+        if self.mesh.distributed:
+            self._bucket_bytes = int(bucket_bytes if bucket_bytes is not None
+                                     else env.get("MXNET_TPU_BUCKET_BYTES"))
+            self._make_buckets()
         wds = [self.optimizer._get_wd(i) for i in range(len(self._plist))]
         self._opt_state = [self._init_fn(p._param.detach()) if t else ()
                            for p, t in zip(self._plist, self._trainable)]
@@ -217,10 +270,52 @@ class DataParallelTrainer:
             if t:
                 self._groups.setdefault(float(wd), []).append(i)
 
+    def _make_buckets(self):
+        """Flat gradient buckets, in reverse declaration order (the order the
+        backward finishes them), of at most ``bucket_bytes`` and one dtype
+        each; every trainable parameter's gradient buffer becomes a view
+        into its bucket, each view starting 64 elements apart."""
+        align = 64
+        live = [i for i in reversed(range(len(self._plist))) if self._trainable[i]]
+        by_dtype: Dict[torch.dtype, List[int]] = {}
+        for i in live:
+            by_dtype.setdefault(self._plist[i]._grad.dtype, []).append(i)
+        for dtype, idx in by_dtype.items():
+            elem = torch.empty((), dtype=dtype).element_size()
+            sizes = [(i, -(-self._plist[i]._grad.numel() // align) * align * elem)
+                     for i in idx]
+            for keys in _dist_util.plan_buckets(sizes, self._bucket_bytes):
+                counts = [-(-self._plist[i]._grad.numel() // align) * align for i in keys]
+                flat = torch.zeros(sum(counts), dtype=dtype,
+                                   device=self.device.torch_device)
+                off = 0
+                for i, n in zip(keys, counts):
+                    p = self._plist[i]
+                    p._grad = flat[off:off + p._grad.numel()].view(p._grad.shape)
+                    autograd._mark(p._param, p._grad, p.grad_req)
+                    off += n
+                self._buckets.append(flat)
+
     # -- the step --------------------------------------------------------------
     def _raw(self, a) -> torch.Tensor:
         t = a._data if isinstance(a, NDArray) else torch.as_tensor(np.asarray(a))
         return t.to(self.device.torch_device)
+
+    def _local(self, t: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+        """This rank's part of a global batch tensor under ``data_spec``
+        (dims shift by one for a stacked run)."""
+        if not self.mesh.distributed:
+            return t
+        for d, axes in self._data_axes:
+            d += int(stacked)
+            if d >= t.dim():
+                continue
+            t = shard_tensor(t, P(*([None] * d), axes), self.mesh)
+        return t
+
+    def _share(self) -> float:
+        """This rank's share of the global batch's elements."""
+        return 1.0 / math.prod(self.mesh.axis_size(a) for a in self._reduce_axes)
 
     def _loss_mean(self, pred: NDArray, label: torch.Tensor) -> torch.Tensor:
         if isinstance(self.loss, GluonLoss):
@@ -229,8 +324,12 @@ class DataParallelTrainer:
 
     def _forward_backward(self, x, y, scale) -> torch.Tensor:
         """The loss mean, with the gradients of ``scale`` times it in the
-        trainable parameters' gradient buffers."""
+        trainable parameters' gradient buffers (on a mesh of ranks: this
+        rank's part of the global mean, its gradients summed over the data
+        axes)."""
         cdt = self.compute_dtype
+        scope = activate(self.mesh, self._seq_axis) if self.mesh.distributed \
+            else contextlib.nullcontext()
         with torch.enable_grad(), autograd.record(train_mode=True):
             if cdt is not None:
                 for p in self._plist:
@@ -239,12 +338,15 @@ class DataParallelTrainer:
                 if x.is_floating_point():
                     x = x.to(cdt)
             try:
-                out = self.net(NDArray(x, self.device))
+                with scope:
+                    out = self.net(NDArray(x, self.device))
             finally:
                 for p in self._plist:
                     p._compute = None
             pred = out[0] if isinstance(out, (tuple, list)) else out
             lossv = self._loss_mean(pred, y)
+            if self.mesh.distributed:
+                lossv = lossv * self._share()
             head = lossv * scale if scale is not None else lossv
             train = [p for p, t in zip(self._plist, self._trainable) if t]
             grads = torch.autograd.grad(head, [p._param for p in train],
@@ -256,16 +358,27 @@ class DataParallelTrainer:
             for p, g in zip(train, grads):
                 if g is None:          # not reached by the loss: a zero gradient
                     p._grad.zero_()
-        return lossv.detach()
+            lossv = lossv.detach()
+            if self.mesh.distributed and self._reduce_axes:
+                group = self.mesh.group(self._reduce_axes)
+                for flat in self._buckets:
+                    dist.all_reduce(flat, group=group)
+                lossv = lossv.float().clone()
+                dist.all_reduce(lossv, group=group)
+        return lossv
 
     def _unscale_finite(self, scale) -> bool:
-        """Gradients times 1/scale in place; True if all are finite (syncs)."""
+        """Gradients times 1/scale in place; True if all are finite on every
+        rank (syncs)."""
         grads = [p._grad for p, t in zip(self._plist, self._trainable)
                  if t and p._grad.is_floating_point()]
         found = torch.zeros((), dtype=torch.float32, device=self.device.torch_device)
         inv = torch.full((), 1.0 / scale, dtype=torch.float32,
                          device=self.device.torch_device)
         torch._amp_foreach_non_finite_check_and_unscale_(grads, found, inv)
+        if self.mesh.distributed:
+            dist.all_reduce(found, op=dist.ReduceOp.MAX,
+                            group=self.mesh.group(self.mesh.axis_names))
         return not bool(found.item())
 
     def _update(self, lr):
@@ -291,7 +404,8 @@ class DataParallelTrainer:
         """One fused training step on the batch ``x``, ``y``."""
         self.optimizer.rescale_grad = 1.0
         scale = self._scaler.loss_scale if self._scaler is not None else None
-        lossv, finite = self._one_step(self._raw(x), self._raw(y), scale)
+        lossv, finite = self._one_step(self._local(self._raw(x)),
+                                       self._local(self._raw(y)), scale)
         if self._scaler is not None:
             self._scaler.update_from_step(finite)
         return PendingScalar(lossv)
@@ -302,7 +416,8 @@ class DataParallelTrainer:
         The learning rate follows the scheduler step by step; the float16
         loss scale stays fixed for the call, as in the reference, and is
         updated once at its end. Returns the losses."""
-        xr, yr = self._raw(x), self._raw(y)
+        xr = self._local(self._raw(x), stacked)
+        yr = self._local(self._raw(y), stacked)
         if stacked and (xr.shape[0] != n or yr.shape[0] != n):
             raise MXNetError(f"run_steps(stacked=True): leading dim must be n={n}, "
                              f"got {xr.shape[0]}/{yr.shape[0]}")
@@ -330,6 +445,20 @@ class DataParallelTrainer:
     @property
     def num_update(self):
         return self._t
+
+    def state_dict(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """``{"params": {path: tensor}, "opt_state": {path: (tensor, ...)}}``
+        by structural path, every sharded tensor gathered to its full shape
+        (a collective on a mesh of ranks: every rank calls it)."""
+        from .tensor_parallel import gather_tensor
+        paths = {id(p): k for k, p in self.net._collect_params_with_prefix().items()}
+        params, states = {}, {}
+        for p, st in zip(self._plist, self._opt_state):
+            key = paths.get(id(p), p.name)
+            params[key] = gather_tensor(p._param.detach(), p.sharding, p._mesh)
+            if st:
+                states[key] = tuple(gather_tensor(s, p.sharding, p._mesh) for s in st)
+        return {"params": params, "opt_state": states, "num_update": self._t}
 
 
 __all__ = ["DataParallelTrainer", "functional_optimizer", "PendingScalar"]

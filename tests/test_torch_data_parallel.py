@@ -18,9 +18,11 @@ batches from numpy:
 - float16 with the dynamic ``LossScaler``: BERT's loss times the initial
   scale 2^16 overflows float16, so the first steps are skipped and the
   scale halves until it fits, in both packages alike;
-- the refusals (a mesh of more devices, ``zero_update``, ``compression``,
-  ``overlap_grads`` and the options that tune them, a sharded ``data_spec``,
-  an optimizer not ported, deferred shapes), and the step's operands keeping their storage, so the
+- the refusals (a mesh of ranks without a process group, ``zero_update``,
+  ``compression``, ``overlap_grads`` and the options that tune them, a
+  ``data_spec`` axis the mesh lacks, an optimizer not ported, deferred
+  shapes); on a mesh of one device, Megatron specs, ``P("dp", "sp")`` and
+  ``bucket_bytes`` leave the step as it is, and the step's operands keeping their storage, so the
   fused update's pointer table is built once.
 
 Tolerances, measured here first: float32 (only the order of summation
@@ -270,14 +272,16 @@ class _Unported(mt.optimizer.Optimizer):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("mesh", "ROADMAP A2"), ("zero_update", "ROADMAP A2"),
+    ("mesh", "torch.distributed"), ("zero_update", "ROADMAP A2"),
     ("compression", "ROADMAP A2"), ("overlap_grads", "ROADMAP A2"),
-    ("bucket_bytes", "ROADMAP A2"), ("comm_dtype", "ROADMAP A2"),
-    ("overlap_segments", "ROADMAP A2"),
-    ("data_spec", "ROADMAP A2"), ("optimizer", "ROADMAP A5"),
+    ("comm_dtype", "ROADMAP A2"), ("overlap_segments", "ROADMAP A2"),
+    ("data_spec", "no 'sp' axis"), ("optimizer", "ROADMAP A5"),
     ("deferred", "deferred"), ("dtype", "float32/bfloat16/float16"),
     ("device", "mesh's device")])
 def test_refuses_what_is_not_ported(case, match):
+    """What the step refuses: a mesh of ranks with no process group, the
+    options of ``parallel/zero.py`` and ``overlap.py``, a data axis the mesh
+    lacks, an optimizer not ported, deferred shapes, a dtype, a device."""
     loss = mt.gluon.loss.SoftmaxCrossEntropyLoss()
     kw = {"mesh": _cpu_mesh()}
     net = _dense_net()
@@ -289,7 +293,7 @@ def test_refuses_what_is_not_ported(case, match):
         kw[case] = True
     elif case == "compression":
         kw[case] = {"type": "2bit"}
-    elif case in ("bucket_bytes", "overlap_segments"):
+    elif case == "overlap_segments":
         kw[case] = 4
     elif case == "comm_dtype":
         kw[case] = "bfloat16"
@@ -305,6 +309,32 @@ def test_refuses_what_is_not_ported(case, match):
     optimizer = _Unported() if case == "optimizer" else "sgd"
     with pytest.raises(mt.MXNetError, match=match):
         DataParallelTrainer(net, loss, optimizer, mesh=kw.pop("mesh"), **kw)
+
+
+def test_one_device_mesh_takes_specs_and_bucket_bytes():
+    """On a mesh of one device whose dp, tp and sp axes have size 1, the
+    dryrun's options (Megatron specs, ``data_spec=P("dp", "sp")``,
+    ``bucket_bytes``) give the one-device step, loss for loss."""
+    from mxnet_tpu_torch.parallel import shard_params_megatron
+    weights = seeded_params(BertModel(**CFG), seed=4)
+    x, y = _batch(2)
+    losses = []
+    for dryrun in (False, True):
+        net = BertModel(**CFG, head_major_qkv=True)
+        net.initialize(ctx=mt.cpu())
+        load_jax_params(net, weights)
+        kw = {"mesh": _cpu_mesh()}
+        if dryrun:
+            assert shard_params_megatron(net) > 0
+            kw = {"mesh": make_mesh({"dp": 1, "tp": 1, "sp": 1}, devices=[mt.cpu()]),
+                  "data_spec": P("dp", "sp"), "bucket_bytes": 4096}
+        tr = DataParallelTrainer(net, mt.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+                                 {"learning_rate": 1e-3}, **kw)
+        xp = mt.nd.array(x, ctx=mt.cpu())
+        yp = mt.nd.array(y, ctx=mt.cpu(), dtype="int32")
+        losses.append([float(tr.step(xp, yp)) for _ in range(2)])
+        assert all(p._mesh is None for p in tr._plist)
+    assert losses[0] == losses[1]
 
 
 def test_step_operands_keep_their_storage():

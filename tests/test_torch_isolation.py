@@ -1,8 +1,10 @@
 """The port stands alone and never falls back to the CPU by itself.
 
 - No file of ``mxnet_tpu_torch/``, and not ``chip_smoke.py``, imports jax or
-  anything of the reference package ``mxnet_tpu`` (an AST scan, plus a fresh
-  interpreter that imports the whole port and finds neither loaded).
+  anything of the reference package ``mxnet_tpu`` (an AST scan of every
+  module, plus a fresh interpreter that imports the whole port and finds
+  neither loaded, plus two ranks spawned by ``_dist_util.launch_local`` that
+  run a collective and find neither loaded).
 - With no CUDA device, the default context raises instead of running on the
   CPU; the kernel build raises without ``nvcc``; ``chip_smoke.py`` exits
   non-zero and prints no result without a card, and without the repository
@@ -69,13 +71,33 @@ def test_fresh_interpreter_loads_neither_jax_nor_reference():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.models, "
             "mxnet_tpu_torch.convert, mxnet_tpu_torch.ops.cuda.flash_attention, "
             "mxnet_tpu_torch.ops.cuda.blocked_matmul, mxnet_tpu_torch.rtc, "
-            "mxnet_tpu_torch.gluon.model_zoo.vision\n"
+            "mxnet_tpu_torch.gluon.model_zoo.vision, mxnet_tpu_torch._dist_util, "
+            "mxnet_tpu_torch.kvstore, mxnet_tpu_torch.parallel.megatron, "
+            "mxnet_tpu_torch.parallel.tensor_parallel\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def rank_loaded_modules():
+    """A spawned rank: one all-reduce, then the jax and reference modules it
+    has loaded."""
+    import torch.distributed as dist
+    t = torch.ones(2)
+    dist.all_reduce(t)
+    return {"sum": t.tolist(),
+            "bad": sorted(m for m in sys.modules if _forbidden(m.split(".")[0]))}
+
+
+def test_spawned_rank_loads_neither_jax_nor_reference(tmp_path):
+    from mxnet_tpu_torch import _dist_util
+    got = _dist_util.launch_local("test_torch_isolation:rank_loaded_modules", 2,
+                                  device="cpu", timeout=120,
+                                  pythonpath=[str(ROOT / "tests")], workdir=str(tmp_path))
+    assert got == [{"sum": [2.0, 2.0], "bad": []}] * 2
 
 
 @pytest.fixture()

@@ -135,7 +135,7 @@ def test_trainer_refuses_what_is_not_ported():
     net.initialize(ctx=mt.cpu())
     params = net.collect_params()
     with pytest.raises(mt.MXNetError, match="kvstore"):
-        mt.gluon.Trainer(params, "sgd", kvstore="dist_sync")
+        mt.gluon.Trainer(params, "sgd", kvstore="dist_async")
     with pytest.raises(mt.MXNetError, match="lr_scheduler"):
         mt.gluon.Trainer(params, "sgd", {"lr_scheduler": object()})
     with pytest.raises(mt.MXNetError, match="unknown optimizer"):
