@@ -97,6 +97,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    global batch (1e-5 relative, 1e-3 of each tensor's max, 2e-5). Any rank's
    failure or a hang past the join timeout fails the script. A correctness
    run: gloo stages every collective through the host.
+12. ``phase_lc_kernels``: K1, K2 and K3 with the causal mask at the
+   long-context path's shape (BH 8, T = Tk = 32768, D 32, f32) and at the
+   4-rank hops' (BH 4, 4096 x 4096, D 32: the causal diagonal hop and a full
+   hop), each held against its plain version (at T = 8192 if the plain
+   backward at the path's shape takes more than 20 s), timed by CUDA-graph
+   replay beside its plain version, its bound (the pairs under the mask at
+   3xTF32's 165 TFLOP/s) and SDPA's causal forward and whole backward.
+13. ``phase_lc_train``: ``recipes.long_context``'s ``LongContextTrainer`` on a
+   world-1 NCCL mesh ``{dp: 1, sp: 1}`` at the recipe's configuration
+   (``LongContextLM`` 2 layers, units 64, hidden 128, 2 heads, vocab 512;
+   T = 32768, batch 4, f32, Adam lr 1e-3), 5 steps and one profiled: K1, K2
+   and K3 twice a step, all causal, and K5 once (the sharded update at dp
+   1); the loss must fall. ``phase_lc_check``: one step of the same model at
+   T = 2048, batch 2, on the card against the CPU.
+14. ``phase_lc_ranks``: the trainer at dp2 x sp2 as 4 ranks sharing the card
+   over gloo (ring attention over sp, the sharded update over dp), T = 8192,
+   global batch 4, 3 steps, against the one-rank step; each rank's K1-K3
+   launches by mask and shape follow its hop schedule (rank sp=s: one causal
+   hop and s full hops a layer) and K5 runs once a step over its shard's
+   segments; the ring's point-to-point bytes beside the reference's estimate.
+15. ``phase_zero_bert_ranks``: ``DataParallelTrainer(zero_update=True)`` on 2
+   ranks at dp2 over gloo, 2 layers of BERT-base width, T = 1024, batch 4,
+   Adam, 3 steps, native, bf16 and int8 on the wire, against
+   ``zero_update=False``; each rank's optimizer state about half.
 
 It prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the rest of the repository beside it, it
@@ -105,6 +129,7 @@ exits non-zero and prints no result. Its full results also go to
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -235,8 +260,8 @@ def _short_kernel_name(line):
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def _time_ms(torch, fn, iters):
-    for _ in range(3):
+def _time_ms(torch, fn, iters, warmup=3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -934,6 +959,30 @@ def _tiny_bert_step(mx, ctx, params, x, y, dp=False):
     return loss, grads, weights
 
 
+def _step_agreement(gpu, cpu, lr):
+    """(loss, grads, weights) of one Adam step on two devices against each
+    other: loss relative, each gradient relative to its tensor's max, the
+    weights absolute except where the gradient lies within the gradient
+    tolerance of 0, whose elements Adam may step either way (2 lr)."""
+    loss_rel = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+    grad_rel = max(float(np.abs(gpu[1][k] - g).max()) / max(float(np.abs(g).max()), 1e-30)
+                   for k, g in cpu[1].items())
+    w_strict, loose, n_loose = 0.0, 0.0, 0
+    for k, w in cpu[2].items():
+        g = cpu[1][k]
+        d = np.abs(gpu[2][k] - w)
+        near0 = np.abs(g) <= TOL_TRAIN_GRAD * max(np.abs(g).max(), 1e-30)
+        w_strict = max(w_strict, float(d[~near0].max()) if (~near0).any() else 0.0)
+        if near0.any():
+            loose = max(loose, float(d[near0].max()))
+            n_loose += int((near0 & (g != 0)).sum())
+    ok = (loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_TRAIN_GRAD
+          and w_strict <= TOL_TRAIN_W and loose <= 2.0 * lr * 1.001
+          and set(gpu[1]) == set(cpu[1]))
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel, "weight_max_abs": w_strict,
+            "near_zero_grad_elements": n_loose, "near_zero_weight_max_abs": loose, "ok": ok}
+
+
 def phase_train_check(torch, dp=False):
     """One step of a 2-layer model of BERT-base width, GPU against CPU,
     through ``gluon.Trainer`` or (``dp``) ``DataParallelTrainer``."""
@@ -947,32 +996,19 @@ def phase_train_check(torch, dp=False):
     y = rs.randint(0, 30522, size=(1, 1024)).astype(np.int32)
     gpu = _tiny_bert_step(mx, mx.gpu(0), params, x, y, dp)
     cpu = _tiny_bert_step(mx, mx.cpu(), params, x, y, dp)
-    loss_rel = abs(gpu[0] - cpu[0]) / abs(cpu[0])
-    grad_rel = max(float(np.abs(gpu[1][k] - g).max()) / max(float(np.abs(g).max()), 1e-30)
-                   for k, g in cpu[1].items())
-    w_strict, loose, n_loose = 0.0, 0.0, 0
-    for k, w in cpu[2].items():
-        g = cpu[1][k]
-        d = np.abs(gpu[2][k] - w)
-        near0 = np.abs(g) <= TOL_TRAIN_GRAD * max(np.abs(g).max(), 1e-30)
-        w_strict = max(w_strict, float(d[~near0].max()) if (~near0).any() else 0.0)
-        if near0.any():
-            loose = max(loose, float(d[near0].max()))
-            n_loose += int((near0 & (g != 0)).sum())   # exact zeros do not move
-    ok = (loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_TRAIN_GRAD
-          and w_strict <= TOL_TRAIN_W and loose <= 2.0 * 1e-4 * 1.001)
+    res = _step_agreement(gpu, cpu, 1e-4)
     log(f"[{'dp-' if dp else ''}train-check] 2 layers of BERT-base width, T=1024, "
-        f"batch 1, one Adam step{' (DataParallelTrainer)' if dp else ''}, GPU vs CPU: loss {gpu[0]:.6f} vs {cpu[0]:.6f} (rel {loss_rel:.2e}, "
-        f"tol {TOL_TRAIN_LOSS:.0e}); gradients max|d| {grad_rel:.2e} of the "
-        f"tensor's max (tol {TOL_TRAIN_GRAD:.0e}); weights max|d| {w_strict:.2e} "
-        f"(tol {TOL_TRAIN_W:.0e}), {n_loose} elements with a nonzero |g| within "
-        f"the gradient tolerance of 0 up to {loose:.2e} (tol 2 lr = 2e-4); "
-        f"{'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
-    if not ok:
+        f"batch 1, one Adam step{' (DataParallelTrainer)' if dp else ''}, GPU vs CPU: loss "
+        f"{gpu[0]:.6f} vs {cpu[0]:.6f} (rel {res['loss_rel']:.2e}, tol {TOL_TRAIN_LOSS:.0e}); "
+        f"gradients max|d| {res['grad_rel']:.2e} of the tensor's max (tol "
+        f"{TOL_TRAIN_GRAD:.0e}); weights max|d| {res['weight_max_abs']:.2e} (tol "
+        f"{TOL_TRAIN_W:.0e}), {res['near_zero_grad_elements']} elements with a nonzero |g| "
+        f"within the gradient tolerance of 0 up to {res['near_zero_weight_max_abs']:.2e} "
+        f"(tol 2 lr = 2e-4); {'ok' if res['ok'] else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not res.pop("ok"):
         raise AssertionError("GPU training step disagrees with the CPU run")
-    return {"loss_gpu": gpu[0], "loss_cpu": cpu[0], "loss_rel": loss_rel,
-            "grad_rel": grad_rel, "weight_max_abs": w_strict,
-            "near_zero_grad_elements": n_loose, "near_zero_weight_max_abs": loose}
+    return dict(res, loss_gpu=gpu[0], loss_cpu=cpu[0])
 
 
 def phase_fused(torch, weights, grads):
@@ -1860,7 +1896,7 @@ def _flash_counters():
 def _zero_counters(counters):
     for c in counters.values():
         c.launches = 0
-        for attr in ("launches_by_dtype", "launches_by_shape"):
+        for attr in ("launches_by_dtype", "launches_by_shape", "launches_by_mask"):
             if hasattr(c, attr):
                 setattr(c, attr, {})
 
@@ -2112,7 +2148,7 @@ def phase_dist_bert_ranks(torch, params, batch, device="gpu", cfg=None, n=8, ste
         f"(tol {TOL_DIST_LOSS:.0e}), gradients after step 1 {worst_grad:.2e} of each "
         f"tensor's max (tol {TOL_DIST_GRAD:.0e}), weights after step {steps} max|d| "
         f"{worst_w:.2e} (tol {TOL_DIST_W:.0e}) {'ok' if ok else 'FAIL'}; {n} ranks ran "
-        f"in {seconds:.1f} s (a correctness run: gloo stages through the host)")
+        f"in {seconds:.1f} s (a correctness run: ranks sharing the card over gloo)")
     if not ok:
         raise AssertionError("the ranks disagree with the one-rank fused step")
     return {"axes": axes, "backend": backend, "cfg": cfg, "shape": shape, "seconds": seconds,
@@ -2121,6 +2157,664 @@ def phase_dist_bert_ranks(torch, params, batch, device="gpu", cfg=None, n=8, ste
             "launches": {k: sum(sum(st["launches"].get(k, 0) for st in r["steps"])
                                 for r in ranks) for k in per_step},
             "launches_per_rank_step": per_step}
+
+
+# --- the long-context recipe: causal K1-K3 at T=32768, ring attention, ZeRO ----
+
+# recipes/long_context.py's make_model defaults (head dim 32), its default
+# MXNET_TPU_LONG_CONTEXT_SEQ, and bench.py's BENCH_LC_BATCH default
+LC_CFG = dict(num_layers=2, units=64, hidden_size=128, num_heads=2)
+LC_VOCAB = 512
+LC_T, LC_B = 32768, 4
+LC_LR = 1e-3                       # make_trainer's default
+LC_CHECK_T, LC_CHECK_B = 2048, 2
+LC_RANKS_T, LC_RANKS_B = 8192, 4
+# causal K1-K3: the path's shape (B*H, T, Tk, D) and the 4-rank hops' (B/dp*H, T/sp)
+LC_SHAPES = [("path", 8, 32768, 32768, 32, True), ("hop-diagonal", 4, 4096, 4096, 32, True),
+             ("hop-full", 4, 4096, 4096, 32, False)]
+PLAIN_BWD_MAX_S = 20.0             # above it the path shape's check takes T=8192
+
+
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+# phase_zero_bert_ranks: the sharded step against the replicated one on the
+# same ranks. Native wire: the same sum of two ranks and the same elementwise
+# Adam. bf16/int8 wire: the gradients after step 1 within the wire's quantum
+# (_wire_ratio <= 1); the losses within the reference's bounds
+# (tests/test_zero_dp.py); the mean weight distance after the last step, in
+# lr x steps, within TOL_ZERO_COMPRESSED_W, set from the readings 1.75e-4
+# (bf16) and 0.314 (int8) on an H100 (PERF.md §6). The largest distance is
+# no test: Adam moves an element whose gradient is mostly wire noise by
+# about lr a step either way
+TOL_ZERO_LOSS, TOL_ZERO_W = 1e-6, 2e-6
+TOL_ZERO_COMPRESSED = {"bfloat16": 2e-2, "int8": 5e-2}
+TOL_ZERO_COMPRESSED_W = {"bfloat16": 1e-3, "int8": 0.4}
+
+
+def _causal_pairs(T, Tk, causal):
+    """(q, k) pairs the attention computes: T*Tk, or under the causal mask
+    (T = Tk) the T(T+1)/2 on and below the diagonal."""
+    return T * (T + 1) // 2 if causal else T * Tk
+
+
+def _lc_bound(kind, BH, T, Tk, D, causal):
+    """Least time for K1 ("fwd", 2 products), K2 ("dq", 3) or K3 ("dkv", 4)
+    on f32 inputs: the products over the (q, k) pairs the mask keeps, 2*D
+    flops a pair each, at 3xTF32's 165 TFLOP/s effective rate, or the bytes
+    (each input read once, each output written once) over 3.35 TB/s,
+    whichever is larger."""
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
+    flops = 2.0 * products * BH * D * _causal_pairs(T, Tk, causal)
+    if kind == "fwd":
+        nbytes = 4 * (2 * BH * T * D + 2 * BH * Tk * D) + 4 * BH * T
+    else:
+        nbytes = 4 * (2 * BH * T * D + 2 * BH * Tk * D) + 8 * BH * T \
+            + 4 * (BH * T * D if kind == "dq" else 2 * BH * Tk * D)
+    t_ops = flops / PEAK_3XTF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"gflop": flops / 1e9, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _rel_max(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max()
+                 .clamp_min(1e-30))
+
+
+def phase_lc_kernels(torch):
+    """K1, K2 and K3 with the long-context path's masks and shapes, f32: held
+    against their plain versions (the path's shape at T=32768, or T=8192 if the
+    plain backward there would take more than PLAIN_BWD_MAX_S), in f32 and in
+    f64, at TOL_BWD: the f64 plain version is the exact result, which the f32
+    plain version meets to 1.6e-5 of max at T=32768, so a kernel that sums
+    its long loops as carefully needs no more than the short shapes' bound;
+    then timed by CUDA-graph replay beside the plain versions, the bound and
+    SDPA's causal forward and whole backward (yardsticks the port never
+    calls)."""
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {"checks": [], "timings": {}}
+    for label, BH, T, Tk, D, causal in LC_SHAPES:
+        q, k, v = _attention_inputs(torch, gen, BH, T, Tk, D, torch.float32)
+        do = torch.randn(q.shape, generator=gen, device=q.device)
+        with torch.no_grad():
+            o, lse = fa.flash_attention_fwd(q, k, v, causal)
+            delta = (do * o).sum(-1)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+            torch.cuda.synchronize()
+            # the plain backward's time at this shape decides the checked shape
+            t0 = time.perf_counter()
+            expect_o, expect_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+            expect = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            checked = (BH, T, Tk, D)
+            if plain_s > PLAIN_BWD_MAX_S:
+                Tc = 8192
+                checked = (BH, Tc, Tc, D)
+                qc, kc, vc, doc = (t[:, :Tc].contiguous() for t in (q, k, v, do))
+                o, lse = fa.flash_attention_fwd(qc, kc, vc, causal)
+                delta = (doc * o).sum(-1)
+                dq = fa.flash_attention_bwd_dq(qc, kc, vc, doc, lse, delta, causal)
+                dk, dv = fa.flash_attention_bwd_dkv(qc, kc, vc, doc, lse, delta, causal)
+                expect_o, expect_lse = fa.flash_attention_fwd_plain(qc, kc, vc, causal)
+                expect = fa.flash_attention_bwd_plain(qc, kc, vc, o, lse, doc, causal)
+            errs = {"o": float((o - expect_o).abs().max()),
+                    "lse": float((lse - expect_lse).abs().max()),
+                    **{n: _rel_max(g, e) for n, g, e in zip(("dq", "dk", "dv"),
+                                                             (dq, dk, dv), expect)}}
+            # the same plain versions in f64: each f32 result's distance from it
+            q64, k64, v64, do64 = (t[:, :checked[1]].double() for t in (q, k, v, do))
+            o64, lse64 = fa.flash_attention_fwd_plain(q64, k64, v64, causal)
+            exact = fa.flash_attention_bwd_plain(q64, k64, v64, o64, lse64, do64, causal)
+            f64 = {who: {n: _rel_max(g.double(), e) for n, g, e in
+                         zip(("dq", "dk", "dv"), grads, exact)}
+                   for who, grads in (("kernel", (dq, dk, dv)), ("plain", expect))}
+            del q64, k64, v64, do64, o64, lse64, exact
+        tol = TOL_BWD["float32"]
+        ok = (errs["o"] <= TOL_O["float32"] and errs["lse"] <= TOL_LSE
+              and all(errs[n] <= tol and f64["kernel"][n] <= tol for n in ("dq", "dk", "dv")))
+        log(f"[lc-kernel] {label} causal={causal} checked at BHxTxTkxD "
+            f"{'x'.join(map(str, checked))} (plain fwd+bwd {plain_s:.1f} s at "
+            f"{BH}x{T}x{Tk}x{D}): max|dO| {errs['o']:.2e} (tol {TOL_O['float32']:.0e}), "
+            f"max|dLSE| {errs['lse']:.2e} (tol {TOL_LSE:.0e}), dQ/dK/dV "
+            f"{errs['dq']:.1e}/{errs['dk']:.1e}/{errs['dv']:.1e} of max (tol {tol:.1e}); "
+            f"against the f64 plain version: kernel "
+            + "/".join(f"{f64['kernel'][n]:.1e}" for n in ("dq", "dk", "dv"))
+            + ", f32 plain " + "/".join(f"{f64['plain'][n]:.1e}" for n in ("dq", "dk", "dv"))
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K1-K3 disagree with their plain versions ({label})")
+        out["checks"].append({"case": label, "causal": causal, "checked_shape": checked,
+                              "plain_s": plain_s, "errors": errs, "tol_bwd": tol,
+                              "against_f64": f64})
+        del expect, expect_o, expect_lse
+        with torch.no_grad():
+            o, lse = fa.flash_attention_fwd(q, k, v, causal)
+            delta = (do * o).sum(-1)
+            ms = {"fwd": _graph_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, causal)),
+                  "dq": _graph_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                      q, k, v, do, lse, delta, causal)),
+                  "dkv": _graph_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+                      q, k, v, do, lse, delta, causal))}
+            port_bwd = _graph_ms(torch, lambda: fa.flash_attention_bwd(
+                q, k, v, o, lse, do, causal))
+            plain = {"fwd": _time_ms(torch, lambda: fa.flash_attention_fwd_plain(
+                q, k, v, causal), 1, warmup=1)}
+            plain["bwd"] = _time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal), 1, warmup=1)
+        B, H = BH // 2, 2
+        q4 = q.view(B, H, T, D).clone().requires_grad_()
+        k4, v4 = (t.view(B, H, Tk, D).clone().requires_grad_() for t in (k, v))
+        do4 = do.view(B, H, T, D)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (q4, k4, v4), do4)
+        with torch.no_grad():
+            sdpa_f = _graph_ms(torch, sdpa_fwd)
+        sdpa_fb = _graph_ms(torch, sdpa_fwd_bwd)
+        entry = {"BH": BH, "T": T, "Tk": Tk, "D": D, "causal": causal,
+                 "port_bwd_ms": port_bwd, "plain_fwd_ms": plain["fwd"],
+                 "plain_bwd_ms": plain["bwd"], "sdpa_fwd_ms": sdpa_f,
+                 "sdpa_bwd_ms": sdpa_fb - sdpa_f, "sdpa_fwd_bwd_ms": sdpa_fb}
+        for kind in ("fwd", "dq", "dkv"):
+            entry[kind] = dict(ms=ms[kind], **_lc_bound(kind, BH, T, Tk, D, causal))
+            entry[kind]["tflops"] = entry[kind]["gflop"] / ms[kind]
+        out["timings"][label] = entry
+        log(f"[lc-kernel] {label} {BH}x{T}x{Tk}x{D} f32 causal={causal}, graph replay: "
+            + ", ".join(f"{n} {entry[n]['ms']:.4f} ms (bound {entry[n]['bound_ms']:.4f}, "
+                        f"{entry[n]['bound_by']}, {entry[n]['tflops']:.1f} TFLOP/s)"
+                        for n, name in (("fwd", "K1"), ("dq", "K2"), ("dkv", "K3")))
+            + f"; port whole backward {port_bwd:.4f} ms; plain fwd {plain['fwd']:.2f} ms, "
+            f"bwd {plain['bwd']:.2f} ms; SDPA forward {sdpa_f:.4f} ms, whole backward "
+            f"{sdpa_fb - sdpa_f:.4f} ms")
+        del q, k, v, do, o, lse, delta, q4, k4, v4
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lc_weights():
+    """The recipe's model at the widths of LC_CFG, seeded (the same weights for
+    every phase; positions up to LC_T)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import seeded_params
+    from mxnet_tpu_torch.recipes import long_context as lc
+    net = lc.LongContextLM(LC_VOCAB, max_length=LC_T, **LC_CFG)
+    net.initialize(ctx=mx.cpu())
+    return seeded_params(net, seed=11)
+
+
+def _lc_batch(B, T, seed):
+    rs = np.random.RandomState(seed)
+    return (rs.randint(0, LC_VOCAB, size=(B, T)).astype(np.int32),
+            rs.randint(0, LC_VOCAB, size=(B, T)).astype(np.int32))
+
+
+def _lc_trainer(mx, weights, ctx, mesh, max_length):
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.recipes import get_recipe
+    recipe = get_recipe("long_context")
+    net = recipe.build_model(vocab_size=LC_VOCAB, seq_len=max_length, ctx=ctx, **LC_CFG)
+    load_jax_params(net, {k: v[:max_length] if k == "pos_embed.weight" else v
+                          for k, v in weights.items()})
+    return net, recipe.build_trainer(net, mesh, learning_rate=LC_LR)
+
+
+def _lc_counters():
+    return dict(_flash_counters(), fused_adam_update=_fused_counters()["fused_adam_update"])
+
+
+def phase_lc_train(torch, weights):
+    """LongContextTrainer on a world-1 NCCL mesh {dp: 1, sp: 1} (the caller
+    holds the process group) at the recipe's configuration: T=32768, batch 4,
+    f32 (TF32 off), Adam lr 1e-3; 5 steps and one profiled. Each step must
+    launch K1, K2 and K3 twice (one causal hop a layer) and K5 once (one wd
+    group), and the loss must fall."""
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = mx.parallel.make_mesh({"dp": 1, "sp": 1}, devices=[mx.gpu(0)])
+    net, trainer = _lc_trainer(mx, weights, mx.gpu(0), mesh, LC_T)
+    tokens, labels = _lc_batch(LC_B, LC_T, seed=12)
+    x = mx.nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
+    y = mx.nd.array(labels, ctx=mx.gpu(0), dtype="int32")
+    counters = _lc_counters()
+    n = LC_CFG["num_layers"]
+    per_step = {"flash_attention_fwd": n, "flash_attention_bwd_dq": n,
+                "flash_attention_bwd_dkv": n, "fused_adam_update": 1}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters(counters)
+    label = "lc-train"
+    log(f"[{label}] LongContextLM {LC_CFG} vocab {LC_VOCAB}, batch {LC_B} x T {LC_T}, "
+        f"{mesh} over {dist.get_backend()}, {len(trainer._zero_plan)} ZeRO bucket(s)")
+    steps = _dp_steps(torch, label, trainer, x, y, 5, per_step, (LC_B * LC_T, "tokens_per_s"),
+                      counters)
+    masks = {k: dict(c.launches_by_mask) for k, c in _flash_counters().items()}
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if any(m.get("full") for m in masks.values()):
+        raise AssertionError(f"{label}: a flash kernel ran without the causal mask: {masks}")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"{label}: the loss did not fall")
+    profile = _step_profile(torch, f"{label} step", lambda: trainer.step(x, y), steps)
+    med = float(np.median([st["ms"] for st in steps if not st["warmup"]]))
+    log(f"[{label}] median step {med:.2f} ms, {LC_B * LC_T / med * 1e3:.0f} tokens/s; "
+        f"launches {launches} ({masks}); a step: {sum(profile['group_launches'].values())} "
+        f"launches; peak {peak / 2**30:.3f} GiB")
+    out = {"steps": steps, "step_median_ms": med, "tokens_per_s": LC_B * LC_T / med * 1e3,
+           "launches": launches, "launches_by_mask": masks, "peak_bytes": peak,
+           "profile": profile, "launches_per_step": sum(profile["group_launches"].values()),
+           "per_step": per_step}
+    del trainer, net
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lc_step(mx, weights, ctx, mesh, x, y):
+    net, trainer = _lc_trainer(mx, weights, ctx, mesh, LC_CHECK_T)
+    xs, ys = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in (x, y))
+    loss = float(trainer.step(xs, ys))
+    grads = {k: g.cpu().numpy() for k, g in trainer.gathered_grads().items()}
+    keys = net._collect_params_with_prefix()
+    return loss, grads, {k: p.data().asnumpy() for k, p in keys.items()}
+
+
+def phase_lc_check(torch, weights):
+    """One LongContextTrainer step at the recipe's widths, T=2048, batch 2: on
+    the card over the world-1 NCCL mesh (the caller's process group: the
+    sharded update at dp 1) against the CPU on a mesh of one device (the
+    kernels' plain versions), f32 with TF32 off, under the training checks'
+    tolerances."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    x, y = _lc_batch(LC_CHECK_B, LC_CHECK_T, seed=13)
+    gpu = _lc_step(mx, weights, mx.gpu(0), mx.parallel.make_mesh(
+        {"dp": 1, "sp": 1}, devices=[mx.gpu(0)]), x, y)
+    cpu = _lc_step(mx, weights, mx.cpu(), mx.parallel.Mesh([mx.cpu()], ("dp", "sp"), (1, 1)),
+                   x, y)
+    res = _step_agreement(gpu, cpu, LC_LR)
+    log(f"[lc-check] LongContextLM {LC_CFG}, T={LC_CHECK_T}, batch {LC_CHECK_B}, one "
+        f"LongContextTrainer step, GPU (NCCL world 1) vs CPU: loss {gpu[0]:.6f} vs "
+        f"{cpu[0]:.6f} (rel {res['loss_rel']:.2e}, tol {TOL_TRAIN_LOSS:.0e}); gradients "
+        f"{res['grad_rel']:.2e} of the tensor's max (tol {TOL_TRAIN_GRAD:.0e}); weights "
+        f"max|d| {res['weight_max_abs']:.2e} (tol {TOL_TRAIN_W:.0e}), "
+        f"{res['near_zero_grad_elements']} elements with a nonzero |g| within the gradient "
+        f"tolerance of 0 up to {res['near_zero_weight_max_abs']:.2e} (tol 2 lr); "
+        f"{'ok' if res['ok'] else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+    if not res["ok"]:
+        raise AssertionError("the long-context step on the card disagrees with the CPU")
+    res.pop("ok")
+    return dict(res, loss_gpu=gpu[0], loss_cpu=cpu[0])
+
+
+def rank_lc(workdir, axes, steps, T, device, lr):
+    """One rank of phase_lc_ranks: LongContextTrainer on ``axes`` ``steps``
+    times, counting every kernel launch by step, shape and mask and the ring's
+    point-to-point bytes; rank 0 writes the reduced gradients after the first
+    step and the weights after the last."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import gather_params
+    ctx = _dist_util.rank_context(device)
+    gpu = ctx.device_type == "gpu"
+    if gpu:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    weights = dict(np.load(os.path.join(workdir, "weights.npz")))
+    data = np.load(os.path.join(workdir, "data.npz"))
+    mesh = mx.parallel.make_mesh(axes, devices=[ctx])
+    net, trainer = _lc_trainer(mx, weights, ctx, mesh, T)
+    x = mx.nd.array(data["x"], ctx=ctx, dtype="int32")
+    y = mx.nd.array(data["y"], ctx=ctx, dtype="int32")
+    counters = _lc_counters()
+    _zero_counters(counters)
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    segments = sum(len(v) for v in trainer._segments.values())
+    seg_elems = sum(w.numel() for v in trainer._segments.values() for w, _, _ in v)
+    shard_elems = sum(max(0, min(zb["spec"].used_size, (r + 1) * zb["spec"].shard_size)
+                          - r * zb["spec"].shard_size)
+                      for zb in trainer._zero_buckets
+                      for r in [mesh.axis_index("dp")])
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords), "ready_s": time.perf_counter() - t0,
+           "segments": segments, "segment_elements": seg_elems, "shard_elements": shard_elems,
+           "wd_groups": len(trainer._segments), "ring_step_bytes":
+           trainer._ring_step_bytes(tuple(data["x"].shape))[0], "steps": []}
+    for i in range(steps):
+        before = {k: c.launches for k, c in counters.items()}
+        flash = {k: (dict(c.launches_by_shape), dict(c.launches_by_mask))
+                 for k, c in _flash_counters().items()}
+        p2p = dict(_dist_util.p2p_stats)
+        t_step = time.perf_counter()
+        loss = float(trainer.step(x, y))
+        if gpu:
+            torch.cuda.synchronize()
+        out["steps"].append({
+            "loss": loss, "s": time.perf_counter() - t_step,
+            "launches": {k: c.launches - before[k] for k, c in counters.items()},
+            "by_shape": {k: {s: n - flash[k][0].get(s, 0) for s, n in
+                             c.launches_by_shape.items() if n - flash[k][0].get(s, 0)}
+                         for k, c in _flash_counters().items()},
+            "by_mask": {k: {m: n - flash[k][1].get(m, 0) for m, n in
+                            c.launches_by_mask.items() if n - flash[k][1].get(m, 0)}
+                        for k, c in _flash_counters().items()},
+            "p2p_bytes": _dist_util.p2p_stats["bytes"] - p2p["bytes"],
+            "p2p_sends": _dist_util.p2p_stats["sends"] - p2p["sends"]})
+        if i == 0:
+            grads = {k: g.cpu().numpy() for k, g in trainer.gathered_grads().items()}
+            if mesh.rank == 0:
+                np.savez(os.path.join(workdir, "grads.npz"), **grads)
+    params = gather_params(net)
+    if mesh.rank == 0:
+        np.savez(os.path.join(workdir, "params.npz"), **params)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if gpu else None
+    out["device"] = str(ctx)
+    return out
+
+
+def phase_lc_ranks(torch, weights, device="gpu", axes=None, T=LC_RANKS_T, B=LC_RANKS_B,
+                   steps=3, timeout=900):
+    """LongContextTrainer on dp2 x sp2 as 4 ranks sharing the card over gloo
+    (a correctness run; the ring's sends go through host memory), the
+    recipe's widths, T=8192, global batch 4, Adam, f32, 3 steps, against the
+    one-rank step (a mesh of one device) on the same global batch: losses to TOL_DIST_LOSS,
+    gradients after step 1 to TOL_DIST_GRAD of each tensor's max, weights
+    after step 3 to TOL_DIST_W. Each rank s of sp must launch K1 (and K2, K3)
+    once a layer with the causal mask (its diagonal hop) and s times a layer
+    without (the hops from earlier ranks), all at (B/dp*H, T/sp, T/sp, D),
+    and K5 once a step over its shard's segments."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    axes = axes or {"dp": 2, "sp": 2}
+    n = axes["dp"] * axes["sp"]
+    n_layers = LC_CFG["num_layers"]
+    heads = LC_CFG["num_heads"]
+    D = LC_CFG["units"] // heads
+    shape = f"{B // axes['dp'] * heads}x{T // axes['sp']}x{T // axes['sp']}x{D}"
+    backend = _dist_util.choose_backend(device, n, torch.cuda.device_count()
+                                        if device == "gpu" else 0)
+    log(f"[lc-ranks] {n} ranks {axes} on {device} over {backend}; LongContextLM {LC_CFG}, "
+        f"batch {B} x T {T}, {steps} Adam steps; hop shape {shape}")
+    work = os.path.join(ROOT, "build", "lc_ranks")
+    os.makedirs(work, exist_ok=True)
+    tokens, labels = _lc_batch(B, T, seed=14)
+    np.savez(os.path.join(work, "weights.npz"), **weights)
+    np.savez(os.path.join(work, "data.npz"), x=tokens, y=labels)
+    ctx = mx.gpu(0) if device == "gpu" else mx.cpu()
+    net, trainer = _lc_trainer(mx, weights, ctx, mx.parallel.Mesh([ctx], ("dp", "sp"), (1, 1)), T)
+    xs, ys = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in (tokens, labels))
+    ref_losses = []
+    for i in range(steps):
+        ref_losses.append(float(trainer.step(xs, ys)))
+        if i == 0:
+            ref_grads = {k: g.cpu().numpy() for k, g in trainer.gathered_grads().items()}
+    ref_weights = {k: p.data().asnumpy() for k, p in net._collect_params_with_prefix().items()}
+    del trainer, net
+    t_launch = time.perf_counter()
+    ranks = _dist_util.launch_local(
+        "chip_smoke:rank_lc", n, {"workdir": work, "axes": axes, "steps": steps, "T": T,
+                                  "device": device, "lr": LC_LR},
+        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+    seconds = time.perf_counter() - t_launch
+    worst_loss = 0.0
+    for r in ranks:
+        s = r["coords"]["sp"]
+        losses = [st["loss"] for st in r["steps"]]
+        worst_loss = max(worst_loss, max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)))
+        log(f"[lc-ranks] rank {r['rank']} {r['coords']}: ready {r['ready_s']:.1f} s, steps "
+            f"{[round(st['s'], 2) for st in r['steps']]} s, losses "
+            f"{[round(v, 6) for v in losses]}; K1 by mask {r['steps'][-1]['by_mask']}; "
+            f"K5 {[st['launches']['fused_adam_update'] for st in r['steps']]} over "
+            f"{r['segments']} segments ({r['segment_elements']} of the shard's "
+            f"{r['shard_elements']} used elements); P2P {r['steps'][-1]['p2p_bytes']} B in "
+            f"{r['steps'][-1]['p2p_sends']} sends a step (the reference's estimate "
+            f"{r['ring_step_bytes']} B)")
+        if r["segment_elements"] != r["shard_elements"] or r["wd_groups"] != 1:
+            raise AssertionError(f"rank {r['rank']}: segments cover {r['segment_elements']} "
+                                 f"of {r['shard_elements']} shard elements")
+        if device == "cpu":          # a rehearsal: the plain versions count nothing
+            continue
+        for i, st in enumerate(r["steps"]):
+            want_mask = {"causal": n_layers, **({"full": s * n_layers} if s else {})}
+            for k in _flash_counters():
+                if st["by_mask"][k] != want_mask or \
+                        st["by_shape"][k] != {shape: (s + 1) * n_layers}:
+                    raise AssertionError(f"rank {r['rank']} step {i}: {k} launched "
+                                         f"{st['by_mask'][k]} at {st['by_shape'][k]}, "
+                                         f"expected {want_mask} at {shape}")
+            if st["launches"]["fused_adam_update"] != 1:
+                raise AssertionError(f"rank {r['rank']} step {i}: K5 launched "
+                                     f"{st['launches']['fused_adam_update']} times")
+    grads = dict(np.load(os.path.join(work, "grads.npz")))
+    got_w = dict(np.load(os.path.join(work, "params.npz")))
+    shutil.rmtree(work, ignore_errors=True)
+    worst_grad = max(float(np.abs(grads[k] - g).max()) / max(float(np.abs(g).max()), 1e-30)
+                     for k, g in ref_grads.items())
+    worst_w = max(float(np.abs(got_w[k] - w).max()) for k, w in ref_weights.items())
+    ok = (worst_loss <= TOL_DIST_LOSS and worst_grad <= TOL_DIST_GRAD
+          and worst_w <= TOL_DIST_W and set(grads) == set(ref_grads))
+    log(f"[lc-ranks] against the one-rank step (losses {[round(v, 6) for v in ref_losses]}): "
+        f"losses max rel {worst_loss:.2e} (tol {TOL_DIST_LOSS:.0e}), gradients after step 1 "
+        f"{worst_grad:.2e} of each tensor's max (tol {TOL_DIST_GRAD:.0e}), weights after "
+        f"step {steps} max|d| {worst_w:.2e} (tol {TOL_DIST_W:.0e}) {'ok' if ok else 'FAIL'}; "
+        f"{n} ranks in {seconds:.1f} s (a correctness run: ranks sharing the card over gloo, "
+        f"the ring's sends staged through host memory)")
+    if not ok:
+        raise AssertionError("the long-context ranks disagree with the one-rank step")
+    return {"axes": axes, "backend": backend, "T": T, "B": B, "shape": shape,
+            "seconds": seconds, "ref_losses": ref_losses, "loss_rel": worst_loss,
+            "grad_rel": worst_grad, "weight_abs": worst_w, "ranks": ranks,
+            "launches": {k: sum(st["launches"][k] for r in ranks for st in r["steps"])
+                         for k in _lc_counters()}}
+
+
+ZERO_CONFIGS = {"replicated": (False, None), "zero": (True, None),
+                "zero_bfloat16": (True, "bfloat16"), "zero_int8": (True, "int8")}
+
+
+def _wire_chunks(trainer):
+    """Per parameter path, the wire chunk of each element: chunk j of bucket b
+    (the slice of the flat bucket that rank j reduces) numbered across
+    buckets. The int8 wire takes one scale per chunk and rank."""
+    paths = {id(p): k for k, p in trainer.net._collect_params_with_prefix().items()}
+    out, base = {}, 0
+    for b in trainer._zero_plan:
+        for i, o, n, shape in zip(b.indices, b.offsets, b.sizes, b.shapes):
+            ids = base + (o + np.arange(n, dtype=np.int64)) // b.shard_size
+            out[paths[id(trainer._plist[i])]] = ids.astype(np.int32).reshape(shape)
+        base += b.ndp
+    return out
+
+
+def _wire_ratio(comm, n, rep, got, chunks):
+    """The largest of |got - rep| over the wire's quantum, element by element:
+    bf16 n 2^-8 of the tensor's max (each rank's value rounded once to an
+    8-bit significand), int8 n / 127 of its chunk's max (one scale, max /
+    127, per chunk and rank)."""
+    if comm == "int8":
+        ids = np.concatenate([chunks[k].ravel() for k in rep])
+        cmax = np.zeros(int(ids.max()) + 1)
+        np.maximum.at(cmax, ids, np.concatenate([np.abs(rep[k]).ravel() for k in rep]))
+    worst = 0.0
+    for key, r in rep.items():
+        quantum = (n / 127.0 * cmax[chunks[key]] if comm == "int8"
+                   else n * 2.0 ** -8 * np.abs(r).max())
+        worst = max(worst, float((np.abs(got[key] - r) / np.maximum(quantum, 1e-30)).max()))
+    return worst
+
+
+def rank_zero_bert(workdir, cfg, steps, device, lr):
+    """One rank of phase_zero_bert_ranks at dp2: each configuration of
+    ZERO_CONFIGS for ``steps`` Adam steps from the same weights; rank 0
+    writes the weights after the last step of each."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import gather_params, load_jax_params
+    from mxnet_tpu_torch.models import BertModel
+    ctx = _dist_util.rank_context(device)
+    gpu = ctx.device_type == "gpu"
+    if gpu:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    weights = dict(np.load(os.path.join(workdir, "weights.npz")))
+    data = np.load(os.path.join(workdir, "data.npz"))
+    mesh = mx.parallel.make_mesh({"dp": 2}, devices=[ctx])
+    x = mx.nd.array(data["x"], ctx=ctx, dtype="int32")
+    y = mx.nd.array(data["y"], ctx=ctx, dtype="int32")
+    counters = dict(_fused_counters(), **_flash_counters())
+    out = {"rank": mesh.rank}
+    for name, (zero, comm) in ZERO_CONFIGS.items():
+        net = BertModel(**cfg)
+        net.initialize(ctx=ctx)
+        load_jax_params(net, weights)
+        trainer = mx.parallel.DataParallelTrainer(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": lr},
+            mesh=mesh, zero_update=zero, comm_dtype=comm)
+        _zero_counters(counters)
+        losses, secs = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(trainer.step(x, y)))
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                grads = {k: g.cpu().numpy() for k, g in trainer.gathered_grads().items()}
+        params = gather_params(net)
+        if mesh.rank == 0:
+            np.savez(os.path.join(workdir, f"{name}.npz"), **params)
+            np.savez(os.path.join(workdir, f"{name}_grads.npz"), **grads)
+            if comm == "int8":
+                np.savez(os.path.join(workdir, "chunks.npz"), **_wire_chunks(trainer))
+        out[name] = {"losses": losses, "s": secs,
+                     "state_bytes": trainer._opt_state_replica_bytes(),
+                     "launches": {k: c.launches for k, c in counters.items() if c.launches},
+                     "buckets": len(trainer._zero_plan) or len(trainer._buckets)}
+        del trainer, net, params, grads
+        if gpu:
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_zero_bert_ranks(torch, device="gpu", cfg=None, steps=3, timeout=900):
+    """DataParallelTrainer(zero_update=True) on 2 ranks at dp2 sharing the card
+    over gloo (a correctness run): 2 layers of BERT-base width, T=1024, global
+    batch 4, Adam lr 1e-4, 3 steps, with native, bf16 and int8 wire dtypes,
+    against zero_update=False on the same ranks: native losses to
+    TOL_ZERO_LOSS and weights to TOL_ZERO_W; bf16 and int8 with the step-1
+    gradients within the wire's quantum, the losses within
+    TOL_ZERO_COMPRESSED and the mean weight distance within
+    TOL_ZERO_COMPRESSED_W lr x steps. Each rank's
+    optimizer state must be about half the replicated step's, and every
+    configuration must launch K5 once a step and K1-K3 once a layer."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import seeded_params
+    from mxnet_tpu_torch.models import BertModel
+    cfg = cfg or dict(vocab_size=30522, num_layers=2, units=768, hidden_size=3072,
+                      num_heads=12, max_length=1024)
+    lr = 1e-4
+    backend = _dist_util.choose_backend(device, 2, torch.cuda.device_count()
+                                        if device == "gpu" else 0)
+    work = os.path.join(ROOT, "build", "zero_bert")
+    os.makedirs(work, exist_ok=True)
+    net = BertModel(**cfg)
+    net.initialize(ctx=mx.cpu())
+    np.savez(os.path.join(work, "weights.npz"), **seeded_params(net, seed=15))
+    del net
+    rs = np.random.RandomState(16)
+    T = cfg["max_length"]
+    np.savez(os.path.join(work, "data.npz"),
+             x=rs.randint(0, cfg["vocab_size"], size=(4, T)).astype(np.int32),
+             y=rs.randint(0, cfg["vocab_size"], size=(4, T)).astype(np.int32))
+    log(f"[zero-ranks] 2 ranks at dp2 on {device} over {backend}; BertModel {cfg}, batch "
+        f"4 x {T}, {steps} Adam steps, configurations {list(ZERO_CONFIGS)}")
+    t0 = time.perf_counter()
+    ranks = _dist_util.launch_local(
+        "chip_smoke:rank_zero_bert", 2, {"workdir": work, "cfg": cfg, "steps": steps,
+                                         "device": device, "lr": lr},
+        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+    seconds = time.perf_counter() - t0
+    params = {name: dict(np.load(os.path.join(work, f"{name}.npz"))) for name in ZERO_CONFIGS}
+    grads = {name: dict(np.load(os.path.join(work, f"{name}_grads.npz")))
+             for name in ZERO_CONFIGS}
+    chunks = dict(np.load(os.path.join(work, "chunks.npz")))
+    shutil.rmtree(work, ignore_errors=True)
+    rep_w = params["replicated"]
+    out = {"seconds": seconds, "backend": backend, "cfg": cfg, "ranks": ranks, "configs": {}}
+    ok = True
+    n = cfg["num_layers"]
+    for name in ZERO_CONFIGS:
+        comm = ZERO_CONFIGS[name][1]
+        loss_tol = TOL_ZERO_COMPRESSED.get(comm, TOL_ZERO_LOSS)
+        loss_rel = max(abs(a - b) / abs(b) for r in ranks
+                       for a, b in zip(r[name]["losses"], r["replicated"]["losses"]))
+        w_abs = max(float(np.abs(params[name][k] - w).max()) for k, w in rep_w.items())
+        w_mean = float(sum(np.abs(params[name][k] - w).sum() for k, w in rep_w.items())
+                       / sum(w.size for w in rep_w.values())) / (lr * steps)
+        wire = (_wire_ratio(comm, 2, grads["replicated"], grads[name], chunks)
+                if comm else None)
+        ratio = max(r[name]["state_bytes"] / r["replicated"]["state_bytes"] for r in ranks)
+        launches = [r[name]["launches"] for r in ranks]
+        if comm:
+            w_check = (f"gradients {wire:.3f} of the wire's quantum (tol 1), weights mean|d| "
+                       f"{w_mean:.2e} lr x steps (tol {TOL_ZERO_COMPRESSED_W[comm]:.0e}), "
+                       f"max|d| {w_abs:.2e}")
+            good = wire <= 1.0 and w_mean <= TOL_ZERO_COMPRESSED_W[comm]
+        else:
+            w_check = f"weights max|d| {w_abs:.2e} (tol {TOL_ZERO_W:.0e})"
+            good = w_abs <= TOL_ZERO_W
+        good = good and loss_rel <= loss_tol and \
+            ranks[0][name]["losses"][-1] < ranks[0][name]["losses"][0]
+        if name != "replicated":
+            good = good and 0.45 <= ratio <= 0.55
+        if device == "gpu":
+            good = good and all(
+                lc.get("fused_adam_update") == steps and lc.get("flash_attention_fwd") == n * steps
+                and lc.get("flash_attention_bwd_dq") == n * steps
+                and lc.get("flash_attention_bwd_dkv") == n * steps for lc in launches)
+        ok = ok and good
+        out["configs"][name] = {"loss_rel": loss_rel, "weight_abs": w_abs,
+                                "weight_mean_lr_steps": w_mean, "wire_ratio": wire,
+                                "state_ratio": ratio, "losses": ranks[0][name]["losses"],
+                                "state_bytes": [r[name]["state_bytes"] for r in ranks],
+                                "s": [r[name]["s"] for r in ranks], "launches": launches}
+        log(f"[zero-ranks] {name}: losses {[round(v, 6) for v in ranks[0][name]['losses']]}, "
+            f"against the replicated step max rel {loss_rel:.2e} (tol {loss_tol:.0e}), "
+            f"{w_check}; optimizer state a rank "
+            f"{[r[name]['state_bytes'] for r in ranks]} B ({ratio:.3f} of the replicated "
+            f"step's); steps {[round(v, 2) for v in ranks[0][name]['s']]} s; launches "
+            f"{launches[0]}; {'ok' if good else 'FAIL'}")
+    log(f"[zero-ranks] 2 ranks in {seconds:.1f} s (a correctness run: ranks sharing the "
+        f"card over gloo)")
+    if not ok:
+        raise AssertionError("the sharded update disagrees with the replicated step")
+    return out
+
+
+@contextlib.contextmanager
+def _world1_nccl(torch):
+    """A world-1 process group on the card, over the backend rule's choice
+    (NCCL), for the block's phases."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch import _dist_util
+    work = os.path.join(ROOT, "build", "dist")
+    os.makedirs(work, exist_ok=True)
+    _dist_util.init_process_group(
+        device="gpu", rank=0, world_size=1,
+        init_method=f"file://{os.path.join(work, f'lc.{os.getpid()}.{time.time_ns()}')}")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"world 1 on one card runs {dist.get_backend()}, not nccl")
+        yield
+    finally:
+        _dist_util.destroy_process_group()
 
 
 def main() -> int:
@@ -2159,6 +2853,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist_ranks = phase_dist_bert_ranks(torch, bert_params, bert_batch)
     del bert_params
+    torch.cuda.empty_cache()
+    lc_kernels = phase_lc_kernels(torch)
+    lc_weights = _lc_weights()
+    with _world1_nccl(torch):
+        lc_train = phase_lc_train(torch, lc_weights)
+        lc_check = phase_lc_check(torch, lc_weights)
+    torch.cuda.empty_cache()
+    lc_ranks = phase_lc_ranks(torch, lc_weights)
+    zero_ranks = phase_zero_bert_ranks(torch)
     f32 = kernel["timings"]["float32"]
     b32 = kernel_bwd["timings"]["float32"]
     src = "mxnet_tpu_torch/csrc/"
@@ -2166,12 +2869,27 @@ def main() -> int:
     dist_by_dtype = {dt: dist_nccl[dt] for dt in ("float32", "bfloat16")}
 
     def dp_launches(name):
-        """Launches of ``name`` on the fused-step paths, by path (the 8 ranks'
+        """Launches of ``name`` on the fused-step paths, by path (the ranks'
         summed)."""
         return {**{f"{label}_{dt}": phase[dt]["launches"].get(name, 0) for label, phase in
                    (("dp_bert", dp_bert), ("dp_resnet", dp_resnet),
                     ("dist_nccl", dist_by_dtype)) for dt in phase},
-                "dist_ranks": dist_ranks["launches"].get(name, 0)}
+                "dist_ranks": dist_ranks["launches"].get(name, 0),
+                "lc_train": lc_train["launches"].get(name, 0),
+                "lc_ranks": lc_ranks["launches"].get(name, 0),
+                "zero_ranks": sum(lc.get(name, 0) for c in zero_ranks["configs"].values()
+                                  for lc in c["launches"])}
+
+    def lc_entry(kind):
+        """K1-K3 on the long-context path: the causal rows at each shape."""
+        return {label: {k: t[k] for k in ("BH", "T", "Tk", "D", "causal", "port_bwd_ms",
+                                          "plain_fwd_ms", "plain_bwd_ms", "sdpa_fwd_ms",
+                                          "sdpa_bwd_ms")} | t[kind]
+                for label, t in lc_kernels["timings"].items()} | {
+            "launches_per_step": lc_train["per_step"].get(
+                {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+                 "dkv": "flash_attention_bwd_dkv"}[kind]),
+            "checks": lc_kernels["checks"]}
     fwd_by_path = {"serve": serve["launches"]["flash_attention_fwd"],
                    "train": train["launches"]["flash_attention_fwd"],
                    **{k: v for k, v in dp_launches("flash_attention_fwd").items()
@@ -2193,7 +2911,8 @@ def main() -> int:
                                             "plain_ms", "library_ms", "bound_ms",
                                             "bound_by")},
           "launches_per_rank_step": {"shape": dist_ranks["shape"],
-                                     "n": dist_ranks["cfg"]["num_layers"]}}),
+                                     "n": dist_ranks["cfg"]["num_layers"]},
+          "long_context": lc_entry("fwd")}),
         *[(f"flash_attention_bwd_{kind}", "flash_attention_bwd.cu",
            f"flash_attention.py:{line}",
            train["launches"][f"flash_attention_bwd_{kind}"]
@@ -2210,7 +2929,8 @@ def main() -> int:
                                                    "library_ms", "port_bwd_ms")},
                              **sp_b[kind]),
             "hmma": {n: r["HMMA"] for n, r in kernel_bwd["resources"].items()
-                     if n.startswith(f"flash_bwd_{kind}_kernel<")}})
+                     if n.startswith(f"flash_bwd_{kind}_kernel<")},
+            "long_context": lc_entry(kind)})
           for kind, line in (("dq", 181), ("dkv", 229))],
         *[(name, "fused_optimizer.cu", f"fused_optimizer.py:{line}",
            sum(dp_launches(rule).values()),
@@ -2227,7 +2947,13 @@ def main() -> int:
             "pallas_rule": {k: fused[pallas][k] for k in
                             ("ms", "plain_ms", "bound_ms", "max_abs_err")},
             **({"dp_resnet_check": {dt: dp_resnet[dt]["update_check"] for dt in dp_resnet}}
-               if dp_checks else {})})
+               if dp_checks else {}),
+            **({"long_context": {
+                "per_step": lc_train["per_step"]["fused_adam_update"],
+                "segments_per_rank": [r["segments"] for r in lc_ranks["ranks"]],
+                "zero_state_ratio": {k: c["state_ratio"] for k, c in
+                                     zero_ranks["configs"].items()}}}
+               if rule == "fused_adam_update" else {})})
           for name, line, rule, pallas, dp_checks in (
               ("fused_sgd", 66, "fused_sgd_mom_update", "fused_sgd",
                [dp_resnet[dt]["update_check"] for dt in dp_resnet]),
@@ -2277,7 +3003,9 @@ def main() -> int:
                    "probe": probe, "resnet_train": resnet_train,
                    "resnet_train_check": resnet_train_check, "dp_bert": dp_bert,
                    "dp_resnet": dp_resnet, "dp_check": dp_check, "dist_nccl": dist_nccl,
-                   "dist_ranks": dist_ranks, "kernels": line["kernels"],
+                   "dist_ranks": dist_ranks, "lc_kernels": lc_kernels,
+                   "lc_train": lc_train, "lc_check": lc_check, "lc_ranks": lc_ranks,
+                   "zero_ranks": zero_ranks, "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1, default=float)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))

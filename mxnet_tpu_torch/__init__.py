@@ -29,7 +29,14 @@ the same step on a mesh of ``torch.distributed`` ranks (data, tensor and
 sequence parallel: ``parallel.make_mesh({"dp": 2, "tp": 2, "sp": 2})``,
 ``parallel.shard_params_megatron``, ``data_spec=P("dp", "sp")``), and
 ``kvstore`` under ``gluon.Trainer`` (``local``, ``device``, ``nccl``,
-``dist_sync``). ROADMAP.md lists what comes next.
+``dist_sync``); the ZeRO-sharded update (``DataParallelTrainer(zero_update=True,
+comm_dtype=...)``, ``parallel.zero``), ring and Ulysses attention
+(``parallel.ring_attention``, ``parallel.ulysses_attention``) and the
+long-context recipe (``recipes.get_recipe("long_context")``: ``LongContextLM``
+on the causal flash kernels, ``LongContextTrainer`` over a ``{dp, sp}`` mesh).
+Still to come (ROADMAP.md): the overlapped gradient reduction
+(``parallel/overlap.py``), ``dist_async`` and kvstore compression, elastic
+training, the pipeline, expert parallelism and the MoE recipe.
 
 Quick start::
 
@@ -71,9 +78,10 @@ from . import kvstore as kv
 from . import rtc
 from . import contrib
 from . import parallel
+from . import recipes
 from .ndarray import NDArray
 
 __all__ = ["base", "MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "ops", "ndarray", "nd", "autograd", "random",
            "initializer", "lr_scheduler", "optimizer", "gluon", "kvstore", "kv", "rtc", "contrib",
-           "parallel", "NDArray"]
+           "parallel", "recipes", "NDArray"]

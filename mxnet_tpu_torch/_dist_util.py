@@ -20,8 +20,16 @@ from ``MXNET_TPU_RANK`` (or ``DMLC_WORKER_ID``), the world size from
   under a timeout and raises if any rank failed or hung. Each rank imports
   only what the function's module imports.
 - ``plan_buckets`` groups tensors into buckets of at most ``bucket_bytes``
-  for one collective each (the role of ``parallel/zero.py``'s planner in the
-  reference).
+  for one all-reduce each (the replicated step's buckets; the ZeRO buckets
+  are ``parallel/zero.py``'s plan).
+- ``ring_shift`` sends tensors to the next rank of a group and receives
+  the previous rank's, posted together by ``batch_isend_irecv``. Under gloo
+  on CUDA tensors it stages them through pinned host memory: gloo's
+  send/recv refuse CUDA tensors (the peer closes the connection), while its
+  ``reduce_scatter_tensor``, ``all_gather_into_tensor`` and
+  ``all_to_all_single`` take them and are called directly. The compute
+  stays on the card. ``p2p_stats`` counts the sends and bytes
+  ``ring_shift`` made.
 
 Nothing here starts a process or opens a socket when it is imported.
 """
@@ -177,6 +185,40 @@ def plan_buckets(sizes: Sequence[Tuple[int, int]], bucket_bytes: int) -> List[Li
     return buckets
 
 
+# -- collectives ---------------------------------------------------------------
+
+p2p_stats = {"sends": 0, "bytes": 0}
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    """Send each of ``tensors`` to the next rank of ``group`` (in group
+    order, cyclic) and return the ones the previous rank sent (new tensors
+    of the same shapes, dtypes and device)."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (me + 1) % n)
+    prv = dist.get_global_rank(group, (me - 1) % n)
+    tensors = [t.contiguous() for t in tensors]
+    outs = [torch.empty_like(t) for t in tensors]
+    staged = dist.get_backend(group) == "gloo" and any(t.is_cuda for t in tensors)
+    if staged:     # gloo's send/recv take host memory only
+        sends = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+                 for t in tensors]
+        recvs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    else:
+        sends, recvs = tensors, outs
+    ops = [dist.P2POp(dist.isend, t, nxt, group) for t in sends] + \
+        [dist.P2POp(dist.irecv, t, prv, group) for t in recvs]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        for o, h in zip(outs, recvs):
+            o.copy_(h)
+    p2p_stats["sends"] += len(tensors)
+    p2p_stats["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+    return outs
+
+
 # -- the local launcher --------------------------------------------------------
 
 _WORKER = ("import sys; from mxnet_tpu_torch._dist_util import _worker_main; "
@@ -285,5 +327,5 @@ def _worker_main(argv: Sequence[str]) -> int:
 
 
 __all__ = ["choose_backend", "rank_context", "init_process_group",
-           "destroy_process_group", "launch_local", "plan_buckets", "env_rank",
-           "env_world_size", "env_local_rank", "env_init_method"]
+           "destroy_process_group", "launch_local", "plan_buckets", "ring_shift",
+           "p2p_stats", "env_rank", "env_world_size", "env_local_rank", "env_init_method"]

@@ -10,7 +10,9 @@ a missing, extra or mis-shaped key raises ``MXNetError`` and loads nothing.
 
 ``seeded_params(net, seed)`` makes such a dict with numpy, the same for the
 same seed on every host, so a run on the card and the CPU tests load
-weights through the same function.
+weights through the same function. Both work for every model of the port
+whose paths follow the reference's: BERT, ResNet and the long-context recipe's
+``LongContextLM`` (``word_embed``, ``pos_embed``, ``cells.<i>.attn.qkv``, ...).
 
 The carrier for ranks: ``shard_arrays(arrays, specs, mesh)`` cuts one rank's
 shards out of full arrays by their ``PartitionSpec``s (the parameters'

@@ -22,6 +22,9 @@
 //     once, to the input dtype. The scale multiplies each accumulator once
 //     at the end (the TPU kernel scales each tile's product; in f32 the two
 //     differ only in rounding);
+//   - f32: the accumulators go to the output every kFlushRows streamed rows
+//     and the output holds the running sum (`add_rows`, tensor_core.cuh):
+//     one mma accumulator over a long loop drifts;
 //   - ragged edges are masked here, not padded as the TPU wrapper does
 //     (:284-290): keys past Tk are masked in dQ; query rows past T load as
 //     zero with LSE = delta = 0 in dK/dV and are masked, so P = exp(-1e30) = 0.
@@ -167,6 +170,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* wQ = sQ + w0 * ld;
   const T* wDO = sDO + w0 * ld;
+  float one[kMS][2], mul_q[kMS][2];  // f32: add_rows' factors
+  fill(one, 1.f);
+  fill(mul_q, scale);
+  bool added = false;  // f32: a partial sum is in dq
   for (int kt = 0; kt < n_k; ++kt) {
     const int stage = kt & 1;
     if (kt + 1 < n_k) {  // the next tile into the other stage
@@ -203,9 +210,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kNNSteps<T, kNT>; ++j)
       mma_nn_step<T, D, kNT, kMS>(acc, s, cK, lane, j);
     __syncthreads();  // this stage is refilled at the next iteration
+    if constexpr (kIsF32<T>) {
+      if ((kt + 1) % (kFlushRows / kBN) == 0 && kt + 1 < n_k) {
+        add_rows<D, kMS>(dq + qoff, acc, r0, t_q, added, one, mul_q, lane);
+        added = true;
+      }
+    }
   }
 
-  store_rows<T, D, kMS>(dq + qoff, acc, r0, t_q, scale, lane);
+  if constexpr (kIsF32<T>)
+    add_rows<D, kMS>(dq + qoff, acc, r0, t_q, added, one, mul_q, lane);
+  else
+    store_rows<T, D, kMS>(dq + qoff, acc, r0, t_q, scale, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -269,6 +285,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = k0 + warp * 16 * kMS + g;  // this lane's key rows r0 + 16 m (+ 8)
   const T* wK = sK + warp * 16 * kMS * ld;
   const T* wV = sV + warp * 16 * kMS * ld;
+  float one[kMS][2], mul_k[kMS][2];  // f32: add_rows' factors
+  fill(one, 1.f);
+  fill(mul_k, scale);
+  bool added = false;  // f32: a partial sum is in dk/dv
   for (int qt = first; qt < n_q; ++qt) {
     const int stage = (qt - first) & 1;
     if (qt + 1 < n_q) load_q_tile(qt + 1, stage ^ 1);
@@ -307,10 +327,22 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mma_nn_step<T, D, kNT, kMS>(acc_k, dp, cQ, lane, j);
     }
     __syncthreads();  // this stage is refilled at the next iteration
+    if constexpr (kIsF32<T>) {
+      if ((qt - first + 1) % (kFlushRows / kBN) == 0 && qt + 1 < n_q) {
+        add_rows<D, kMS>(dk + koff, acc_k, r0, t_k, added, one, mul_k, lane);
+        add_rows<D, kMS>(dv + koff, acc_v, r0, t_k, added, one, one, lane);
+        added = true;
+      }
+    }
   }
 
-  store_rows<T, D, kMS>(dk + koff, acc_k, r0, t_k, scale, lane);
-  store_rows<T, D, kMS>(dv + koff, acc_v, r0, t_k, 1.f, lane);
+  if constexpr (kIsF32<T>) {
+    add_rows<D, kMS>(dk + koff, acc_k, r0, t_k, added, one, mul_k, lane);
+    add_rows<D, kMS>(dv + koff, acc_v, r0, t_k, added, one, one, lane);
+  } else {
+    store_rows<T, D, kMS>(dk + koff, acc_k, r0, t_k, scale, lane);
+    store_rows<T, D, kMS>(dv + koff, acc_v, r0, t_k, 1.f, lane);
+  }
 }
 
 template <typename T, int D>

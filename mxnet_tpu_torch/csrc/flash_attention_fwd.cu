@@ -36,7 +36,11 @@
 //     is p's rounding; for f32 p is split into hi/lo, and V's k rows are
 //     read in the order the m16n8k8 accumulator holds P's columns.
 //   - O is rescaled by alpha = exp2(m_old - m_new) at each tile; at the end
-//     the kernel writes O / l and LSE = m ln 2 + log(l).
+//     the kernel writes O / l and LSE = m ln 2 + log(l). In f32 the O
+//     accumulator goes to the output every kFlushRows keys (`add_rows`,
+//     tensor_core.cuh: one mma accumulator over a long loop drifts); the
+//     output holds the unnormalized sum at the running max m_o of that
+//     moment, brought to today's max by exp2(m_o - m) at the next addition.
 // Tiles (`FwdTiles`): one slab a warp for f32 (Q hi/lo, S and O at D=64
 // are about 130 live registers) and at D=128, two for bf16/f16 at D<=64;
 // 64-key tiles, 32 for f32 at D=128. Grid (BH, ceil(T / kBM)): 1536 blocks
@@ -110,7 +114,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float acc[kMS][D / 8][4];
   float m_i[kMS][2], l_i[kMS][2];  // this lane's rows g and g + 8 of each slab
+  float m_o[kMS][2];  // f32: the running max when acc last went to the output
   zero(acc);
+  fill(m_o, kNeg);
+  bool added = false;  // f32: a partial sum, scaled to exp2(-m_o), is in o
 #pragma unroll
   for (int m = 0; m < kMS; ++m)
 #pragma unroll
@@ -178,21 +185,44 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kNNSteps<T, kNT>; ++j)
       mma_nn_step<T, D, kNT, kMS>(acc, s, cV, lane, j);
     __syncthreads();  // this stage is refilled at the next iteration
+    if constexpr (kIsF32<T>) {
+      if ((kt + 1) % (kFlushRows / kBN) == 0 && kt + 1 < n_k) {
+        // o = o * exp2(m_o - m_i) + acc: the unnormalized sum at today's max
+        float keep[kMS][2], one[kMS][2];
+        fill(one, 1.f);
+#pragma unroll
+        for (int m = 0; m < kMS; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            keep[m][h] = exp2f(m_o[m][h] - m_i[m][h]);
+            m_o[m][h] = m_i[m][h];
+          }
+        add_rows<D, kMS>(o + qoff, acc, q0 + w0 + g, t_q, added, keep, one, lane);
+        added = true;
+      }
+    }
   }
 
+  float keep[kMS][2], inv_l[kMS][2];
 #pragma unroll
   for (int m = 0; m < kMS; ++m)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int qi = q0 + w0 + 16 * m + 8 * h + g;
-      if (qi >= t_q) continue;
       const float li = fmaxf(l_i[m][h], 1e-30f);
-      T* orow = o + qoff + (size_t)qi * D;
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-        store2<T>(orow + 8 * nt + 2 * t, acc[m][nt][2 * h] / li, acc[m][nt][2 * h + 1] / li);
+      inv_l[m][h] = 1.f / li;
+      keep[m][h] = exp2f(m_o[m][h] - m_i[m][h]) / li;
+      if (qi >= t_q) continue;
       if (t == 0) lse[(size_t)bh * t_q + qi] = m_i[m][h] * kLn2 + logf(li);
+      if constexpr (!kIsF32<T>) {
+        T* orow = o + qoff + (size_t)qi * D;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt)
+          store2<T>(orow + 8 * nt + 2 * t, acc[m][nt][2 * h] / li, acc[m][nt][2 * h + 1] / li);
+      }
     }
+  if constexpr (kIsF32<T>)
+    add_rows<D, kMS>(o + qoff, acc, q0 + w0 + g, t_q, added, keep, inv_l, lane);
 }
 
 template <typename T, int D>

@@ -18,7 +18,9 @@
 //   layout of two adjacent n8 tiles is the A layout of one k16 step; for
 //   m16n8k8 the accumulator holds columns 2t, 2t+1 where A wants t, t+4, so
 //   B's rows are read in that order (k is a sum) and no value moves;
-// - `store_rows`: a warp's accumulators into a (rows, D) output.
+// - `store_rows`: a warp's accumulators into a (rows, D) output; `add_rows`
+//   (f32) adds them into it, so that long sums leave the mma accumulators
+//   every kFlushRows rows.
 //
 // Shared-memory tiles are (rows, D) with rows padded by 16 bytes (`kLd`:
 // f32 D+4 floats, so per-lane fragment loads hit 32 distinct banks; 16-bit
@@ -347,6 +349,57 @@ __device__ __forceinline__ void store_rows(T* out, const float (&c)[MS][D / 8][4
         store2<T>(out + (size_t)row * D + 8 * nt + 2 * t, c[m][nt][2 * h] * mul,
                   c[m][nt][2 * h + 1] * mul);
     }
+}
+
+// f32 accumulators and their long sums. An mma does not round its f32
+// accumulator to nearest: fed the same accumulator over thousands of k steps
+// (K3 at T = 32768 adds 4,096 k8 steps of 3xTF32 into it), its rounding
+// errors add up with one sign, and on an H100 dK/dV drifted 2.5e-4 of their
+// max from the exact result (about 6e-8 a step) where a plain f32 sum lies
+// 1e-5 from it. So the f32 kernels hand their accumulators to the output
+// every kFlushRows streamed rows (`add_rows`): the output, f32 like the
+// inputs, holds the running sum, each partial is added to it by an FFMA
+// (round to nearest), and the drift stays that of 512 rows (8e-6 of max at
+// T = 32768). The 16-bit paths keep one accumulator: their operands'
+// rounding lies far above that drift.
+constexpr int kFlushRows = 512;
+
+// a warp's MS slabs of 16 x D f32 accumulators into the f32 (rows, D)
+// output: out = out * keep + c * mul per row (out = c * mul when `!add`,
+// so the output is never read before it is written), then c = 0. Row
+// r + 16 m + 8 h takes keep[m][h] and mul[m][h]; rows at or past `limit`
+// are not written.
+template <int D, int MS>
+__device__ __forceinline__ void add_rows(float* out, float (&c)[MS][D / 8][4], int r,
+                                         int limit, bool add, const float (&keep)[MS][2],
+                                         const float (&mul)[MS][2], int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < MS; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 16 * m + 8 * h;
+      if (row < limit) {
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          float2* p = reinterpret_cast<float2*>(out + (size_t)row * D + 8 * nt + 2 * t);
+          float2 v = make_float2(c[m][nt][2 * h] * mul[m][h], c[m][nt][2 * h + 1] * mul[m][h]);
+          if (add) {
+            const float2 o = *p;
+            v.x = fmaf(o.x, keep[m][h], v.x);
+            v.y = fmaf(o.y, keep[m][h], v.y);
+          }
+          *p = v;
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) c[m][nt][2 * h] = c[m][nt][2 * h + 1] = 0.f;
+    }
+}
+
+template <int MS> __device__ __forceinline__ void fill(float (&a)[MS][2], float x) {
+#pragma unroll
+  for (int m = 0; m < MS; ++m) a[m][0] = a[m][1] = x;
 }
 
 }  // namespace

@@ -15,8 +15,9 @@ kernels become hand-written Hopper kernels, built at first use by
 Each wrapper works on (BH, T, D) tensors, launches its kernel for CUDA
 tensors, raises if the launch fails, and counts its launches in
 ``<wrapper>.launches``, by the inputs' dtype (``"float32"``,
-``"bfloat16"``, ``"float16"``) in ``<wrapper>.launches_by_dtype`` and by
-the shape ``"BHxTqxTkxD"`` in ``<wrapper>.launches_by_shape``.
+``"bfloat16"``, ``"float16"``) in ``<wrapper>.launches_by_dtype``, by
+the shape ``"BHxTqxTkxD"`` in ``<wrapper>.launches_by_shape`` and by the
+mask (``"causal"``, ``"full"``) in ``<wrapper>.launches_by_mask``.
 ``flash_attention_fwd`` and ``flash_attention_bwd`` take their plain versions
 (``flash_attention_fwd_plain``, ``flash_attention_bwd_plain``) for CPU
 tensors; there is no other branch.
@@ -145,10 +146,12 @@ def _check(q3, k3, v3, do3=None, lse=None, delta=None,
         raise MXNetError(f"{who}: grid too large for {tuple(q3.shape)}")
 
 
-def _count(wrapper, q3, k3) -> None:
+def _count(wrapper, q3, k3, causal) -> None:
     """One launch of ``wrapper``'s kernel on inputs of ``q3``'s dtype and the
-    shape (BH, Tq, Tk, D)."""
+    shape (BH, Tq, Tk, D), with or without the causal mask."""
     wrapper.launches += 1
+    mask = "causal" if causal else "full"
+    wrapper.launches_by_mask[mask] = wrapper.launches_by_mask.get(mask, 0) + 1
     name = str(q3.dtype).rpartition(".")[2]
     wrapper.launches_by_dtype[name] = wrapper.launches_by_dtype.get(name, 0) + 1
     shape = f"{q3.shape[0]}x{q3.shape[1]}x{k3.shape[1]}x{q3.shape[2]}"
@@ -184,13 +187,14 @@ def flash_attention_fwd(q3, k3, v3, causal: bool = False,
     if err != 0:
         msg = lib.mxt_cuda_error_string(err).decode()
         raise MXNetError(f"flash_attention_fwd kernel launch failed: {msg}")
-    _count(flash_attention_fwd, q3, k3)
+    _count(flash_attention_fwd, q3, k3, causal)
     return o, lse
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_dtype = {}
 flash_attention_fwd.launches_by_shape = {}
+flash_attention_fwd.launches_by_mask = {}
 
 
 def flash_attention_bwd_plain(q3, k3, v3, o, lse, do3, causal: bool = False,
@@ -227,7 +231,7 @@ def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, causal: bool = False,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, T,
             k3.shape[1], D, _DTYPE_CODES[q3.dtype], int(bool(causal)), scale,
             stream))
-    _count(flash_attention_bwd_dq, q3, k3)
+    _count(flash_attention_bwd_dq, q3, k3, causal)
     return dq
 
 
@@ -250,7 +254,7 @@ def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, causal: bool = False,
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
             T, k3.shape[1], D, _DTYPE_CODES[q3.dtype], int(bool(causal)),
             scale, stream))
-    _count(flash_attention_bwd_dkv, q3, k3)
+    _count(flash_attention_bwd_dkv, q3, k3, causal)
     return dk, dv
 
 
@@ -260,6 +264,8 @@ flash_attention_bwd_dq.launches_by_dtype = {}
 flash_attention_bwd_dkv.launches_by_dtype = {}
 flash_attention_bwd_dq.launches_by_shape = {}
 flash_attention_bwd_dkv.launches_by_shape = {}
+flash_attention_bwd_dq.launches_by_mask = {}
+flash_attention_bwd_dkv.launches_by_mask = {}
 
 
 def flash_attention_bwd(q3, k3, v3, o, lse, do3, causal: bool = False,

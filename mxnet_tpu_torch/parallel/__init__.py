@@ -1,9 +1,11 @@
 """Parallel training (counterpart of ``mxnet_tpu/parallel/``): meshes over one
 device or the ranks of a ``torch.distributed`` job (``mesh``), the fused
-training step ``DataParallelTrainer`` with its ``functional_optimizer``, the
-tensor-parallel specs (``tensor_parallel``) and the Megatron boundary
-collectives (``megatron``). ZeRO, overlapped reduction, ring and Ulysses
-attention and pipelines wait for later slices (ROADMAP A2)."""
+training step ``DataParallelTrainer`` with its ``functional_optimizer`` and
+its ZeRO-sharded update (``zero``), the tensor-parallel specs
+(``tensor_parallel``), the Megatron boundary collectives (``megatron``), and
+ring and Ulysses attention (``ring_attention``). The overlapped reduction
+(``overlap.py``), pipelines, expert parallelism and elastic training wait for
+later slices (ROADMAP A2)."""
 from .mesh import (Mesh, PartitionSpec, P, make_mesh, local_mesh, current_mesh,
                    set_default_mesh, require_axis, axis_size, axis_index, activate,
                    active_mesh, sequence_axis)
@@ -12,6 +14,8 @@ from .tensor_parallel import (column_parallel_spec, row_parallel_spec,
                               shard_params_megatron, tp_shard_dim)
 from .megatron import (copy_to_tp, reduce_from_tp, gather_from_sp, scatter_to_sp,
                        partial_grad, vocab_parallel_embedding)
+from . import zero
+from .ring_attention import ring_attention, ulysses_attention
 
 __all__ = ["Mesh", "PartitionSpec", "P", "make_mesh", "local_mesh", "current_mesh",
            "set_default_mesh", "require_axis", "axis_size", "axis_index", "activate",
@@ -19,4 +23,5 @@ __all__ = ["Mesh", "PartitionSpec", "P", "make_mesh", "local_mesh", "current_mes
            "functional_optimizer", "PendingScalar", "column_parallel_spec",
            "row_parallel_spec", "shard_params_megatron", "tp_shard_dim",
            "copy_to_tp", "reduce_from_tp", "gather_from_sp", "scatter_to_sp",
-           "partial_grad", "vocab_parallel_embedding"]
+           "partial_grad", "vocab_parallel_embedding", "zero", "ring_attention",
+           "ulysses_attention"]

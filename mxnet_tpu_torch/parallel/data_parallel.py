@@ -74,12 +74,39 @@ step is the reference's GSPMD step made explicit:
   every rank;
 - ``state_dict()`` gathers the shards into full tensors.
 
-A mesh of one device takes the one-device step unchanged. ``compression``,
-``zero_update``, ``overlap_grads`` and the options that tune them
-(``comm_dtype``, ``overlap_segments``) raise ``MXNetError`` naming
-``parallel/zero.py`` and ``overlap.py`` (ROADMAP A2). The reference's
-environment switches (``MXNET_TPU_ZERO``, ``MXNET_TPU_OVERLAP_GRADS``) are
-not read.
+With ``zero_update=True`` (default ``MXNET_TPU_ZERO``) the step is the
+reference's ``_build_step_zero`` (:983) made explicit (``parallel/zero.py``),
+for pure data parallelism (``_validate_zero`` :544: replicated parameters,
+``data_spec=P(batch_axis_name)``; ``recipes.long_context.LongContextTrainer``
+also takes ``P("dp", "sp")``):
+
+- at construction (``_init_zero_state`` :598) the trainable floating
+  parameters are planned into flat buckets of at most ``bucket_bytes`` in
+  declaration order (``zero.plan_buckets``), each parameter's gradient buffer
+  becomes a view into its bucket's flat gradient, and the optimizer state is
+  kept for this rank's 1/dp shard of each bucket only;
+- after the backward each bucket's gradients are summed over the data axes
+  other than ``batch_axis_name`` (``sp``) and reduce-scattered over it
+  (``zero.reduce_scatter_bucket``, on the wire in ``comm_dtype``, default
+  ``MXNET_TPU_COMM_DTYPE``); being each rank's share of the global mean,
+  they need no division;
+- the shard update stays one launch of K4/K5 per distinct weight decay: a
+  rank's shard is cut at parameter boundaries into segments, each an entry
+  of the kernel's pointer table under its parameter's wd, views into the
+  parameters themselves, the reduced gradient shard and the state shard; the
+  pad is in no segment (the reference carries a per-element ``wd_vector``
+  instead, for which K4/K5 have no slot);
+- each bucket's updated shard is all-gathered (``zero.all_gather_bucket``)
+  back into the replicated parameters. Trainable parameters outside every
+  bucket (none in this repository's models) take the replicated step's
+  all-reduce and update.
+
+``gathered_grads()`` gives the reduced gradients (the shards gathered) and
+``state_dict()`` the full optimizer state. A mesh of one device takes the
+one-device step unchanged, ``zero_update`` included (its shard is the whole
+bucket, the same arithmetic). ``compression``, ``overlap_grads`` and
+``overlap_segments`` raise ``MXNetError`` naming ``parallel/overlap.py``
+(ROADMAP A2); ``MXNET_TPU_OVERLAP_GRADS`` is not read.
 """
 from __future__ import annotations
 
@@ -96,13 +123,14 @@ from ..ndarray import NDArray
 from .. import autograd
 from .. import optimizer as opt_mod
 from .. import _dist_util
+from . import zero as _zero
 from ..gluon.loss import Loss as GluonLoss
 from ..ops.cuda import fused_optimizer as _fo
 from .mesh import P, activate, current_mesh, require_axis
 from .tensor_parallel import shard_tensor, spec_axes
 
-_A2 = ("not ported yet (ROADMAP A2: the sharded update of parallel/zero.py and "
-       "the overlapped reduction of parallel/overlap.py)")
+_A2 = ("not ported yet (ROADMAP A2: the overlapped reduction of parallel/overlap.py "
+       "and the reference's 2-bit gradient compression)")
 
 
 def _f32(x) -> np.float32:
@@ -195,11 +223,15 @@ class DataParallelTrainer:
                  batch_axis_name: str = "dp", dtype=None, data_spec=None,
                  compression=None, zero_update=None, bucket_bytes=None,
                  comm_dtype=None, overlap_grads=None, overlap_segments=None):
-        for name, value in (("compression", compression), ("zero_update", zero_update),
-                            ("overlap_grads", overlap_grads), ("comm_dtype", comm_dtype),
+        for name, value in (("compression", compression), ("overlap_grads", overlap_grads),
                             ("overlap_segments", overlap_segments)):
             if value is not None and value is not False:
                 raise MXNetError(f"DataParallelTrainer({name}={value!r}): {_A2}")
+        self._zero = bool(zero_update if zero_update is not None
+                          else env.get("MXNET_TPU_ZERO"))
+        if comm_dtype is None:
+            comm_dtype = env.get("MXNET_TPU_COMM_DTYPE") or None
+        self._comm_dtype = _zero.canonical_comm_dtype(comm_dtype) if self._zero else None
         self.net = net
         self.compute_dtype: Optional[torch.dtype] = None
         if dtype is not None and torch_dtype(dtype) != torch.float32:
@@ -256,27 +288,139 @@ class DataParallelTrainer:
                     raise MXNetError(f"{p.name} is placed on another mesh, {p._mesh}")
         self._trainable = [p.grad_req != "null" for p in self._plist]
         self._t = 0
-        self._buckets: List[torch.Tensor] = []     # flat gradient buckets
-        if self.mesh.distributed:
-            self._bucket_bytes = int(bucket_bytes if bucket_bytes is not None
-                                     else env.get("MXNET_TPU_BUCKET_BYTES"))
-            self._make_buckets()
+        self._buckets: List[torch.Tensor] = []     # flat gradient buckets (all-reduce)
+        self._zero_plan = ()
+        self._zero_buckets: List[dict] = []
+        # one update launch for each distinct weight decay, over the whole
+        # parameters of _groups and, under ZeRO, this rank's segments of
+        # _segments (views of the weights, the gradient shard, the state shard)
+        self._groups: Dict[float, List[int]] = {}
+        self._segments: Dict[float, List[tuple]] = {}
+        self._bucket_bytes = int(bucket_bytes if bucket_bytes is not None
+                                 else env.get("MXNET_TPU_BUCKET_BYTES"))
+        if self._zero:
+            self._validate_zero()
         wds = [self.optimizer._get_wd(i) for i in range(len(self._plist))]
-        self._opt_state = [self._init_fn(p._param.detach()) if t else ()
-                           for p, t in zip(self._plist, self._trainable)]
-        # one update launch for each distinct weight decay
-        self._groups = {}
+        zero = self._zero and self.mesh.distributed
+        in_bucket = self._init_zero_state(wds) if zero else frozenset()
+        if self.mesh.distributed:
+            self._make_buckets([i for i in range(len(self._plist)) if i not in in_bucket])
+        self._opt_state = [self._init_fn(p._param.detach()) if t and i not in in_bucket
+                           else () for i, (p, t) in enumerate(zip(self._plist,
+                                                                  self._trainable))]
         for i, (t, wd) in enumerate(zip(self._trainable, wds)):
-            if t:
+            if t and i not in in_bucket:
                 self._groups.setdefault(float(wd), []).append(i)
 
-    def _make_buckets(self):
-        """Flat gradient buckets, in reverse declaration order (the order the
-        backward finishes them), of at most ``bucket_bytes`` and one dtype
-        each; every trainable parameter's gradient buffer becomes a view
-        into its bucket, each view starting 64 elements apart."""
+    # -- the sharded update (parallel/zero.py) ------------------------------------
+    def _validate_zero(self):
+        """zero_update preconditions (reference :544): replicated parameters
+        and the data split over the batch axis only."""
+        bad = [p.name for p in self._plist if spec_axes(p.sharding)]
+        if bad or tuple(self.data_spec) != (self.batch_axis,):
+            raise MXNetError(f"zero_update requires pure data parallelism (replicated "
+                             f"parameters, data sharded over the batch axis only); "
+                             f"offending params={bad[:3]} data_spec={self.data_spec}")
+
+    def _init_zero_state(self, wds) -> frozenset:
+        """Plan the buckets (reference :598), make each bucketed parameter's
+        gradient buffer a view into its bucket, keep the reduced gradient,
+        optimizer state and weights of this rank's shard, and cut the shard
+        into ``_segments`` by weight decay; returns the parameters in a
+        bucket."""
+        ndp = self.mesh.axis_size(self.batch_axis)
+        pos = self.mesh.axis_index(self.batch_axis)
+        dev = self.device.torch_device
+        entries = [(i, p._param.shape, p._param.dtype) for i, (p, t) in
+                   enumerate(zip(self._plist, self._trainable))
+                   if t and p._param.is_floating_point()]
+        self._zero_plan = _zero.plan_buckets(entries, ndp, self._bucket_bytes)
+        for b in self._zero_plan:
+            dtype = self._plist[b.indices[0]]._param.dtype
+            gflat = torch.zeros(b.padded_size, dtype=dtype, device=dev)
+            for i, g in _zero.unflatten_bucket(b, gflat):
+                p = self._plist[i]
+                p._grad = g
+                autograd._mark(p._param, p._grad, p.grad_req)
+            wshard = torch.zeros(b.shard_size, dtype=dtype, device=dev)
+            gshard = torch.zeros(b.shard_size, dtype=dtype, device=dev)
+            state = self._init_fn(wshard)
+            zb = {"spec": b, "gflat": gflat, "wshard": wshard, "gshard": gshard,
+                  "state": state, "segments": [], "weights": [], "in_shard": []}
+            lo, hi = pos * b.shard_size, (pos + 1) * b.shard_size
+            for i, o, n in zip(b.indices, b.offsets, b.sizes):
+                a, e = max(o, lo), min(o + n, hi)
+                if a >= e:
+                    continue
+                zb["segments"].append((i, a - o, e - o, a - lo))
+                w = self._plist[i]._param.detach().view(-1)[a - o:e - o]
+                part = slice(a - lo, e - lo)
+                zb["weights"].append(w)
+                zb["in_shard"].append(wshard[part])
+                self._segments.setdefault(float(wds[i]), []).append(
+                    (w, gshard[part], tuple(st[part] for st in state)))
+            self._zero_buckets.append(zb)
+        return frozenset(i for b in self._zero_plan for i in b.indices)
+
+    def _reduce_zero(self):
+        """Sum each bucket over the data axes but the batch axis, and
+        reduce-scatter it over the batch axis into the gradient shard."""
+        ndp = self.mesh.axis_size(self.batch_axis)
+        others = tuple(a for a in self._reduce_axes if a != self.batch_axis)
+        for zb in self._zero_buckets:
+            if others:
+                dist.all_reduce(zb["gflat"], group=self.mesh.group(others))
+            zb["gshard"].copy_(_zero.reduce_scatter_bucket(
+                zb["gflat"], self.batch_axis, ndp, self._comm_dtype, self.mesh))
+
+    def _gather_zero(self):
+        """All-gather each bucket's updated shard into the parameters."""
+        if self.mesh.axis_size(self.batch_axis) == 1:
+            return                 # the shard is the bucket: updated in place
+        for zb in self._zero_buckets:
+            if zb["weights"]:
+                torch._foreach_copy_(zb["in_shard"], zb["weights"])
+            full = _zero.all_gather_bucket(zb["wshard"], self.batch_axis, self.mesh)
+            views = _zero.unflatten_bucket(zb["spec"], full)
+            torch._foreach_copy_([self._plist[i]._param.detach() for i, _ in views],
+                                 [v for _, v in views])
+
+    def _opt_state_replica_bytes(self) -> int:
+        """Bytes of optimizer state this rank holds (``zero`` shards only)."""
+        return _zero.per_replica_state_bytes(
+            [self._opt_state, [zb["state"] for zb in self._zero_buckets]])
+
+    def _full_zero(self, key):
+        """Per parameter index, the full tensors of the bucket shards under
+        ``key`` ("gshard", or "state" for a tuple): an all-gather of every
+        bucket, a collective."""
+        out = {}
+        for zb in self._zero_buckets:
+            shards = zb[key] if key == "state" else (zb[key],)
+            fulls = [_zero.all_gather_bucket(s, self.batch_axis, self.mesh)
+                     for s in shards]
+            for f in fulls:
+                for i, v in _zero.unflatten_bucket(zb["spec"], f):
+                    out.setdefault(i, []).append(v.clone())
+        return {i: tuple(v) if key == "state" else v[0] for i, v in out.items()}
+
+    def gathered_grads(self) -> Dict[str, torch.Tensor]:
+        """Copies of the reduced gradient of every trainable parameter by
+        structural path, full: under ZeRO the gradient shards gathered over the
+        batch axis (a collective every rank calls), else the gradient buffers."""
+        full = self._full_zero("gshard") if self._zero_buckets else {}
+        paths = {id(p): k for k, p in self.net._collect_params_with_prefix().items()}
+        return {paths.get(id(p), p.name): full[i] if i in full else p._grad.clone()
+                for i, p in enumerate(self._plist) if self._trainable[i]}
+
+    def _make_buckets(self, indices):
+        """Flat gradient buckets of the trainable parameters among ``indices``,
+        in reverse declaration order (the order the backward finishes them),
+        of at most ``bucket_bytes`` and one dtype each; every such parameter's
+        gradient buffer becomes a view into its bucket, each view starting 64
+        elements apart."""
         align = 64
-        live = [i for i in reversed(range(len(self._plist))) if self._trainable[i]]
+        live = [i for i in reversed(indices) if self._trainable[i]]
         by_dtype: Dict[torch.dtype, List[int]] = {}
         for i in live:
             by_dtype.setdefault(self._plist[i]._grad.dtype, []).append(i)
@@ -328,8 +472,7 @@ class DataParallelTrainer:
         rank's part of the global mean, its gradients summed over the data
         axes)."""
         cdt = self.compute_dtype
-        scope = activate(self.mesh, self._seq_axis) if self.mesh.distributed \
-            else contextlib.nullcontext()
+        scope = self._forward_scope()
         with torch.enable_grad(), autograd.record(train_mode=True):
             if cdt is not None:
                 for p in self._plist:
@@ -367,6 +510,12 @@ class DataParallelTrainer:
                 dist.all_reduce(lossv, group=group)
         return lossv
 
+    def _forward_scope(self):
+        """The context the forward runs in: the mesh made active with the
+        sequence axis, on a mesh of ranks."""
+        return activate(self.mesh, self._seq_axis) if self.mesh.distributed \
+            else contextlib.nullcontext()
+
     def _unscale_finite(self, scale) -> bool:
         """Gradients times 1/scale in place; True if all are finite on every
         rank (syncs)."""
@@ -383,10 +532,16 @@ class DataParallelTrainer:
 
     def _update(self, lr):
         with torch.no_grad():
-            for wd, idx in self._groups.items():
-                self._update_fn([self._plist[i]._param for i in idx],
-                                [self._plist[i]._grad for i in idx],
-                                [self._opt_state[i] for i in idx], self._t, lr, wd)
+            if self._zero_buckets:
+                self._reduce_zero()
+            for wd in dict.fromkeys([*self._groups, *self._segments]):
+                idx, segments = self._groups.get(wd, []), self._segments.get(wd, [])
+                self._update_fn([self._plist[i]._param for i in idx] + [w for w, _, _ in segments],
+                                [self._plist[i]._grad for i in idx] + [g for _, g, _ in segments],
+                                [self._opt_state[i] for i in idx] + [s for _, _, s in segments],
+                                self._t, lr, wd)
+            if self._zero_buckets:
+                self._gather_zero()
 
     def _one_step(self, x, y, scale) -> tuple:
         self._t += 1
@@ -452,11 +607,14 @@ class DataParallelTrainer:
         (a collective on a mesh of ranks: every rank calls it)."""
         from .tensor_parallel import gather_tensor
         paths = {id(p): k for k, p in self.net._collect_params_with_prefix().items()}
+        zero_states = self._full_zero("state") if self._zero_buckets else {}
         params, states = {}, {}
-        for p, st in zip(self._plist, self._opt_state):
+        for i, (p, st) in enumerate(zip(self._plist, self._opt_state)):
             key = paths.get(id(p), p.name)
             params[key] = gather_tensor(p._param.detach(), p.sharding, p._mesh)
-            if st:
+            if i in zero_states:
+                states[key] = zero_states[i]
+            elif st:
                 states[key] = tuple(gather_tensor(s, p.sharding, p._mesh) for s in st)
         return {"params": params, "opt_state": states, "num_update": self._t}
 

@@ -18,8 +18,9 @@ batches from numpy:
 - float16 with the dynamic ``LossScaler``: BERT's loss times the initial
   scale 2^16 overflows float16, so the first steps are skipped and the
   scale halves until it fits, in both packages alike;
-- the refusals (a mesh of ranks without a process group, ``zero_update``,
-  ``compression``, ``overlap_grads`` and the options that tune them, a
+- the refusals (a mesh of ranks without a process group, ``zero_update``
+  beyond pure data parallelism, a comm dtype not ported, ``compression``,
+  ``overlap_grads`` and ``overlap_segments``, a
   ``data_spec`` axis the mesh lacks, an optimizer not ported, deferred
   shapes); on a mesh of one device, Megatron specs, ``P("dp", "sp")`` and
   ``bucket_bytes`` leave the step as it is, and the step's operands keeping their storage, so the
@@ -63,8 +64,8 @@ def ref():
     return mx, RefDPT, ref_mesh
 
 
-def _cpu_mesh():
-    return make_mesh({"dp": 1}, devices=[mt.cpu()])
+def _cpu_mesh(axes=None):
+    return make_mesh(axes or {"dp": 1}, devices=[mt.cpu()])
 
 
 def _batch(seed):
@@ -272,16 +273,18 @@ class _Unported(mt.optimizer.Optimizer):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("mesh", "torch.distributed"), ("zero_update", "ROADMAP A2"),
+    ("mesh", "torch.distributed"), ("zero_update", "pure data parallelism"),
     ("compression", "ROADMAP A2"), ("overlap_grads", "ROADMAP A2"),
-    ("comm_dtype", "ROADMAP A2"), ("overlap_segments", "ROADMAP A2"),
+    ("comm_dtype", "unsupported comm dtype"), ("overlap_segments", "ROADMAP A2"),
     ("data_spec", "no 'sp' axis"), ("optimizer", "ROADMAP A5"),
     ("deferred", "deferred"), ("dtype", "float32/bfloat16/float16"),
     ("device", "mesh's device")])
 def test_refuses_what_is_not_ported(case, match):
     """What the step refuses: a mesh of ranks with no process group, the
-    options of ``parallel/zero.py`` and ``overlap.py``, a data axis the mesh
-    lacks, an optimizer not ported, deferred shapes, a dtype, a device."""
+    options of ``overlap.py`` and 2-bit compression, ``zero_update`` beyond
+    pure data parallelism (the sequence split too) and a comm dtype
+    ``parallel/zero.py`` lacks, a data axis the mesh lacks, an optimizer not
+    ported, deferred shapes, a dtype, a device."""
     loss = mt.gluon.loss.SoftmaxCrossEntropyLoss()
     kw = {"mesh": _cpu_mesh()}
     net = _dense_net()
@@ -289,14 +292,17 @@ def test_refuses_what_is_not_ported(case, match):
         with pytest.raises(mt.MXNetError, match=match):
             make_mesh({"dp": 2}, devices=[mt.cpu(), mt.cpu()])
         return
-    if case in ("zero_update", "overlap_grads"):
+    if case == "overlap_grads":
         kw[case] = True
+    elif case == "zero_update":
+        kw.update(zero_update=True, mesh=_cpu_mesh({"dp": 1, "sp": 1}),
+                  data_spec=P("dp", "sp"))
     elif case == "compression":
         kw[case] = {"type": "2bit"}
     elif case == "overlap_segments":
         kw[case] = 4
     elif case == "comm_dtype":
-        kw[case] = "bfloat16"
+        kw.update(zero_update=True, comm_dtype="int4")
     elif case == "data_spec":
         kw[case] = P("dp", "sp")
     elif case == "dtype":

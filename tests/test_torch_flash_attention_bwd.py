@@ -347,3 +347,32 @@ def test_kernels_refuse_misaligned_input():
     for kk in (k4, k4_off):
         fa.flash_attention(q4, kk, v4).backward(do3.view(2, 3, 65, 64))
     assert torch.equal(k4.grad, k4_off.grad)
+
+
+# Long sequences, f32: each kernel's output no further from the exact result
+# (the plain version in f64) than TOL_LONG of its max. The plain version in
+# f32 lies up to 4e-6 from it at T = 8192. One mma accumulator fed a whole
+# long loop drifts with its length (8e-5 at T = 8192, 2.5e-4 at 32768), so
+# the f32 kernels add their partial sums into the output every 512 rows
+# (6e-6 at T = 8192).
+TOL_LONG = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernels_long_sequence_against_f64(causal):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q3, k3, v3, do3 = (torch.randn(2, 8192, 32, generator=gen, device="cuda")
+                       for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q3, k3, v3, causal)
+    delta = (do3 * o).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, causal)
+    q64, k64, v64, do64 = (t.double() for t in (q3, k3, v3, do3))
+    o64, lse64 = fa.flash_attention_fwd_plain(q64, k64, v64, causal)
+    exact = (o64, *fa.flash_attention_bwd_plain(q64, k64, v64, o64, lse64, do64, causal))
+    for name, g, e in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), exact):
+        rel = ((g.double() - e).abs().max() / e.abs().max()).item()
+        assert rel <= TOL_LONG, (name, rel)

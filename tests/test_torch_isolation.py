@@ -4,7 +4,8 @@
   anything of the reference package ``mxnet_tpu`` (an AST scan of every
   module, plus a fresh interpreter that imports the whole port and finds
   neither loaded, plus two ranks spawned by ``_dist_util.launch_local`` that
-  run a collective and find neither loaded).
+  run a collective and find neither loaded, and two that run a ring
+  attention and a sharded-update reduce-scatter and find neither loaded).
 - With no CUDA device, the default context raises instead of running on the
   CPU; the kernel build raises without ``nvcc``; ``chip_smoke.py`` exits
   non-zero and prints no result without a card, and without the repository
@@ -73,7 +74,9 @@ def test_fresh_interpreter_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.ops.cuda.blocked_matmul, mxnet_tpu_torch.rtc, "
             "mxnet_tpu_torch.gluon.model_zoo.vision, mxnet_tpu_torch._dist_util, "
             "mxnet_tpu_torch.kvstore, mxnet_tpu_torch.parallel.megatron, "
-            "mxnet_tpu_torch.parallel.tensor_parallel\n"
+            "mxnet_tpu_torch.parallel.tensor_parallel, mxnet_tpu_torch.parallel.zero, "
+            "mxnet_tpu_torch.parallel.ring_attention, mxnet_tpu_torch.recipes, "
+            "mxnet_tpu_torch.recipes.long_context\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -98,6 +101,27 @@ def test_spawned_rank_loads_neither_jax_nor_reference(tmp_path):
                                   device="cpu", timeout=120,
                                   pythonpath=[str(ROOT / "tests")], workdir=str(tmp_path))
     assert got == [{"sum": [2.0, 2.0], "bad": []}] * 2
+
+
+def rank_ring_modules():
+    """A spawned rank of a ring: one causal ring attention and its backward
+    over 2 ranks, one sharded-update reduce-scatter, then the jax and
+    reference modules it has loaded."""
+    from mxnet_tpu_torch.ops.attention import ring_attention
+    from mxnet_tpu_torch.parallel import make_mesh, zero
+    mesh = make_mesh({"sp": 2}, devices=[mt.cpu()])
+    q = torch.ones(1, 1, 4, 8, requires_grad=True)
+    ring_attention(q, q, q, "sp", causal=True, mesh=mesh).sum().backward()
+    zero.reduce_scatter_bucket(torch.ones(4), "sp", 2, "int8", mesh)
+    return sorted(m for m in sys.modules if _forbidden(m.split(".")[0]))
+
+
+def test_spawned_ring_rank_loads_neither_jax_nor_reference(tmp_path):
+    from mxnet_tpu_torch import _dist_util
+    got = _dist_util.launch_local("test_torch_isolation:rank_ring_modules", 2,
+                                  device="cpu", timeout=120,
+                                  pythonpath=[str(ROOT / "tests")], workdir=str(tmp_path))
+    assert got == [[], []]
 
 
 @pytest.fixture()
