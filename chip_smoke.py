@@ -122,6 +122,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    Adam, 3 steps, native, bf16 and int8 on the wire, against
    ``zero_update=False``; each rank's optimizer state about half.
 
+The elastic kill-and-resume (``mxnet_tpu_torch.elastic``), each path with
+every counter set to 0 just before it and read just after:
+
+16. ``phase_elastic_bert`` (after phase 9, on a world-1 NCCL group):
+   BERT-base T=1024 batch 8, f32, Adam lr 1e-4 through
+   ``elastic.run(trainer, feed, num_steps=8, save_every=3)``: asynchronous
+   snapshots at steps 3 and 6 while the steps go on and a final one at 8;
+   the step times around the saves, the time ``save()`` held the step path,
+   the device copy against its byte bound, the copy to pinned host memory,
+   the write. Then a trainer with its own initial weights boots through
+   ``resume_or_init`` from step 6: ``(6, "resumed")``, every tensor bitwise
+   the saved leaf, steps 7-8 equal to the run's at rtol 1e-6; K1-K3 12
+   launches a step and K5 one in both runs.
+17. ``phase_elastic_kill``: the same run in a child process, SIGKILLed once
+   the step-4 snapshot is committed and the step-6 write has begun; a second
+   child resumes from step 4 (the torn directory invisible, then pruned) and
+   continues the uninterrupted losses at rtol 1e-6; a third gets SIGTERM and
+   ends in a final snapshot, preempted.
+18. In phase 11, the dryrun's elastic half on the 8 ranks: a snapshot after
+   step 1, a rebuilt trainer on every rank through ``resume_or_init`` ->
+   ``(1, "resumed")``, its step equal to step 2 at rtol 1e-6, and the
+   manifest's chunks by the ownership rule (each tp shard written once).
+19. In phase 12, K1-K3 at D = 16 at the dryrun's 4-rank hops (timed beside
+   SDPA) and, f32 and bf16, at D = 16 and D = 80 (zero-padded to 128)
+   against their plain versions; ``phase_elastic_lc`` (on phase 13's
+   group): ``LongContextTrainer`` at T = 32768 snapshotted after step 2 and
+   resumed into a rebuilt trainer, ``(2, "resumed")``, step 3 at rtol 1e-6;
+   phase 14 again with ``dryrun_multichip``'s long-context model
+   (``LC_DRYRUN_CFG``: units 32, 2 heads, so D = 16).
+20. ``phase_elastic_zero_reshard``: phase 15's model with ``zero_update``, a
+   dp2 snapshot after step 2 resumed at world 1 and a dp1 snapshot resumed
+   on dp2: ``"resharded"``, every Adam lane bitwise the re-canonicalised
+   saved lane, step 3 against the saving degree's at TOL_ZERO_LOSS /
+   TOL_ZERO_W.
+
 It prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the rest of the repository beside it, it
 exits non-zero and prints no result. Its full results also go to
@@ -133,6 +168,7 @@ import contextlib
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -1981,14 +2017,19 @@ def phase_dist_bert_nccl(torch, params, batch, dp_bert):
     return out
 
 
-def rank_dist_bert(workdir, cfg, axes, steps, device, lr):
+def rank_dist_bert(workdir, cfg, axes, steps, device, lr, elastic_dir=None):
     """One rank of phase_dist_bert_ranks: the dryrun's step (Megatron specs,
     ``data_spec=P("dp", "sp")``, Adam) ``steps`` times on ``axes``, counting
     every kernel launch by step and shape; rank 0 writes the gathered
-    gradients after the first step and the gathered weights after the last."""
+    gradients after the first step and the gathered weights after the last.
+    With ``elastic_dir``, the dryrun's elastic half: a snapshot after the
+    first step (``save_trainer(wait=True)``), whose next step gives the
+    expected loss; after the last step a trainer rebuilt with its own
+    initial weights boots through ``resume_or_init`` and takes that step
+    again."""
     import torch
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch import _dist_util, elastic
     from mxnet_tpu_torch.convert import gather_grads, gather_params, load_jax_params
     from mxnet_tpu_torch.models import BertModel
     ctx = _dist_util.rank_context(device)
@@ -2037,11 +2078,40 @@ def rank_dist_bert(workdir, cfg, axes, steps, device, lr):
             if mesh.rank == 0:
                 np.savez(os.path.join(workdir, "grads.npz"), **grads)
             del grads
+            if elastic_dir is not None:
+                t_save = time.perf_counter()
+                mgr = elastic.SnapshotManager(elastic_dir)
+                elastic.save_trainer(mgr, trainer, wait=True)
+                out["elastic"] = {"save_s": time.perf_counter() - t_save,
+                                  "save_return_s": mgr.last_stats["return_s"],
+                                  "copy_bytes": mgr.last_stats["copy_bytes"]}
     params = gather_params(net)
     if mesh.rank == 0:
         np.savez(os.path.join(workdir, "params.npz"), **params)
     out["peak_bytes"] = torch.cuda.max_memory_allocated() if gpu else None
     out["device"] = str(ctx)
+    if elastic_dir is not None:
+        del trainer, net, params
+        if gpu:
+            torch.cuda.empty_cache()
+
+        def rebuild():
+            mx.random.seed(100 + mesh.rank)
+            net2 = BertModel(**cfg, head_major_qkv=True)
+            net2.initialize(ctx=ctx)
+            mx.parallel.shard_params_megatron(net2, axis="tp")
+            return mx.parallel.DataParallelTrainer(
+                net2, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": lr},
+                mesh=mesh, data_spec=mx.parallel.P("dp", "sp"))
+
+        t_resume = time.perf_counter()
+        _, tr2, start, outcome = elastic.resume_or_init(elastic_dir, rebuild)
+        resume_s = time.perf_counter() - t_resume
+        before = {k: c.launches for k, c in counters.items()}
+        got = float(tr2.step(x, y))
+        out["elastic"].update(start=start, outcome=outcome, loss=got, resume_s=resume_s,
+                              launches={k: c.launches - before[k] for k, c in counters.items()
+                                        if c.launches - before[k]})
     return out
 
 
@@ -2079,7 +2149,9 @@ def phase_dist_bert_ranks(torch, params, batch, device="gpu", cfg=None, n=8, ste
     if backend != "gloo":
         raise AssertionError(f"{n} ranks on one card must take gloo, the rule gave {backend}")
     work = os.path.join(ROOT, "build", "dist_bert")
-    os.makedirs(work, exist_ok=True)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    elastic_dir = os.path.join(work, "elastic")
     t0 = time.perf_counter()
     np.savez(os.path.join(work, "weights.npz"), **params)
     np.savez(os.path.join(work, "data.npz"), x=tokens, y=labels)
@@ -2109,11 +2181,12 @@ def phase_dist_bert_ranks(torch, params, batch, device="gpu", cfg=None, n=8, ste
     ranks = _dist_util.launch_local(
         "chip_smoke:rank_dist_bert", n,
         {"workdir": work, "cfg": cfg, "axes": axes, "steps": steps, "device": device,
-         "lr": 1e-4},
+         "lr": 1e-4, "elastic_dir": elastic_dir},
         device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
     seconds = time.perf_counter() - t_launch
     per_step = {"fused_adam_update": 1, "flash_attention_fwd": n_layers,
                 "flash_attention_bwd_dq": n_layers, "flash_attention_bwd_dkv": n_layers}
+    elastic_out = _elastic_ranks_check(ranks, elastic_dir, axes, per_step, device)
     worst_loss = 0.0
     for r in ranks:
         losses = [st["loss"] for st in r["steps"]]
@@ -2153,10 +2226,45 @@ def phase_dist_bert_ranks(torch, params, batch, device="gpu", cfg=None, n=8, ste
         raise AssertionError("the ranks disagree with the one-rank fused step")
     return {"axes": axes, "backend": backend, "cfg": cfg, "shape": shape, "seconds": seconds,
             "ref_losses": ref_losses, "loss_rel": worst_loss, "grad_rel": worst_grad,
-            "weight_abs": worst_w, "ranks": ranks,
+            "weight_abs": worst_w, "ranks": ranks, "elastic": elastic_out,
             "launches": {k: sum(sum(st["launches"].get(k, 0) for st in r["steps"])
+                                + r["elastic"]["launches"].get(k, 0)
                                 for r in ranks) for k in per_step},
             "launches_per_rank_step": per_step}
+
+
+def _elastic_ranks_check(ranks, elastic_dir, axes, per_step, device):
+    """phase_dist_bert_ranks' elastic half: every rank resumed (1, "resumed")
+    with the step after the snapshot equal to its uninterrupted step 2 at
+    TOL_RESUME, the resumed step's launches those of a step, and the
+    manifest's chunks by the ownership rule (each tp shard written once)."""
+    worst = 0.0
+    for r in ranks:
+        e = r["elastic"]
+        rel = abs(e["loss"] - r["steps"][1]["loss"]) / abs(r["steps"][1]["loss"])
+        worst = max(worst, rel)
+        if (e["start"], e["outcome"]) != (1, "resumed") or rel > TOL_RESUME or \
+                (device == "gpu" and e["launches"] != per_step):
+            raise AssertionError(f"rank {r['rank']}: resumed ({e['start']}, {e['outcome']!r}), "
+                                 f"loss {e['loss']} against {r['steps'][1]['loss']} (rel "
+                                 f"{rel:.2e}), launches {e['launches']}")
+    split = _check_ownership(elastic_dir, 1, axes)
+    want = 3 * ranks[0]["sharded"]
+    log(f"[dist-ranks] elastic: save_trainer(wait=True) after step 1 in "
+        f"{max(r['elastic']['save_s'] for r in ranks):.2f} s (save() returned in "
+        f"{max(r['elastic']['save_return_s'] for r in ranks) * 1e3:.1f} ms; "
+        f"{sum(r['elastic']['copy_bytes'] for r in ranks) / 1e9:.3f} GB copied over the ranks); "
+        f"every rank resume_or_init -> (1, 'resumed') in "
+        f"{max(r['elastic']['resume_s'] for r in ranks):.2f} s, its step 2 loss against the "
+        f"uninterrupted max rel {worst:.2e} (tol {TOL_RESUME:.0e}); manifest: {split} leaves "
+        f"in tp shards, each shard once from the rank at (dp 0, tp t, sp 0) (expected "
+        f"{want}: the sharded parameters and their Adam m and v), every other leaf once "
+        f"from rank 0 {'ok' if split == want else 'FAIL'}")
+    if split != want:
+        raise AssertionError(f"{split} tp-split leaves in the manifest, expected {want}")
+    return {"loss_rel": worst, "tp_split_leaves": split,
+            "save_s": max(r["elastic"]["save_s"] for r in ranks),
+            "resume_s": max(r["elastic"]["resume_s"] for r in ranks)}
 
 
 # --- the long-context recipe: causal K1-K3 at T=32768, ring attention, ZeRO ----
@@ -2171,7 +2279,16 @@ LC_CHECK_T, LC_CHECK_B = 2048, 2
 LC_RANKS_T, LC_RANKS_B = 8192, 4
 # causal K1-K3: the path's shape (B*H, T, Tk, D) and the 4-rank hops' (B/dp*H, T/sp)
 LC_SHAPES = [("path", 8, 32768, 32768, 32, True), ("hop-diagonal", 4, 4096, 4096, 32, True),
-             ("hop-full", 4, 4096, 4096, 32, False)]
+             ("hop-full", 4, 4096, 4096, 32, False),
+             ("d16-hop-diagonal", 4, 4096, 4096, 16, True),
+             ("d16-hop-full", 4, 4096, 4096, 16, False)]
+# dryrun_multichip's long-context model (__graft_entry__.py:243-257): units 32
+# over 2 heads, so K1-K3 run at D = 16 (the d16 rows above are its 4-rank hops
+# at phase_lc_ranks' T and batch); and the head dims the kernels are held at
+# beyond the path's: 16 (instantiated) and 80 (zero-padded to 128), f32 and
+# bf16, causal, at (BH, T, T)
+LC_DRYRUN_CFG = dict(num_layers=1, units=32, hidden_size=64, num_heads=2)
+HEAD_DIM_CHECKS = [(4, 2048, 16), (4, 2048, 80)]
 PLAIN_BWD_MAX_S = 20.0             # above it the path shape's check takes T=8192
 
 
@@ -2334,16 +2451,56 @@ def phase_lc_kernels(torch):
             f"{sdpa_fb - sdpa_f:.4f} ms")
         del q, k, v, do, o, lse, delta, q4, k4, v4
         torch.cuda.empty_cache()
+    out["head_dims"] = _head_dim_checks(torch, gen)
     return out
 
 
-def _lc_weights():
-    """The recipe's model at the widths of LC_CFG, seeded (the same weights for
-    every phase; positions up to LC_T)."""
+def _head_dim_checks(torch, gen):
+    """K1-K3 at the head dims of HEAD_DIM_CHECKS (16 instantiated, 80
+    zero-padded to 128 by the wrappers), causal, f32 and bf16, against their
+    plain versions: O, dQ, dK and dV within TOL_BWD of each one's max, the LSE
+    within TOL_LSE."""
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    checks = []
+    for BH, T, D in HEAD_DIM_CHECKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).rpartition(".")[2]
+            q, k, v = _attention_inputs(torch, gen, BH, T, T, D, dtype)
+            do = torch.randn(q.shape, generator=gen, device=q.device).to(dtype)
+            with torch.no_grad():
+                o, lse = fa.flash_attention_fwd(q, k, v, True)
+                delta = (do.float() * o.float()).sum(-1)
+                dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True)
+                dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
+                expect_o, expect_lse = fa.flash_attention_fwd_plain(q, k, v, True)
+                expect = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+                torch.cuda.synchronize()
+            errs = {"lse": float((lse - expect_lse).abs().max()),
+                    **{n: _rel_max(g, e) for n, g, e in zip(("o", "dq", "dk", "dv"),
+                                                            (o, dq, dk, dv),
+                                                            (expect_o, *expect))}}
+            tol = TOL_BWD[name]
+            ok = errs["lse"] <= TOL_LSE and all(errs[n] <= tol for n in ("o", "dq", "dk", "dv"))
+            log(f"[lc-kernel] head dim {D} ({'instantiated' if D in fa._HEAD_DIMS else f'padded to {fa._kernel_dim(D, name)}'}) "
+                f"{BH}x{T}x{T} {name} causal: O/dQ/dK/dV "
+                + "/".join(f"{errs[n]:.1e}" for n in ("o", "dq", "dk", "dv"))
+                + f" of max (tol {tol:.0e}), max|dLSE| {errs['lse']:.1e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K1-K3 at head dim {D} ({name}) disagree with their "
+                                     f"plain versions")
+            checks.append({"BH": BH, "T": T, "D": D, "dtype": name, "errors": errs, "tol": tol})
+            del q, k, v, do, o, lse, delta, dq, dk, dv, expect, expect_o, expect_lse
+    return checks
+
+
+def _lc_weights(cfg=LC_CFG):
+    """The recipe's model at the widths of ``cfg`` (LC_CFG), seeded (the same
+    weights for every phase; positions up to LC_T)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.convert import seeded_params
     from mxnet_tpu_torch.recipes import long_context as lc
-    net = lc.LongContextLM(LC_VOCAB, max_length=LC_T, **LC_CFG)
+    net = lc.LongContextLM(LC_VOCAB, max_length=LC_T, **cfg)
     net.initialize(ctx=mx.cpu())
     return seeded_params(net, seed=11)
 
@@ -2354,11 +2511,11 @@ def _lc_batch(B, T, seed):
             rs.randint(0, LC_VOCAB, size=(B, T)).astype(np.int32))
 
 
-def _lc_trainer(mx, weights, ctx, mesh, max_length):
+def _lc_trainer(mx, weights, ctx, mesh, max_length, cfg=LC_CFG):
     from mxnet_tpu_torch.convert import load_jax_params
     from mxnet_tpu_torch.recipes import get_recipe
     recipe = get_recipe("long_context")
-    net = recipe.build_model(vocab_size=LC_VOCAB, seq_len=max_length, ctx=ctx, **LC_CFG)
+    net = recipe.build_model(vocab_size=LC_VOCAB, seq_len=max_length, ctx=ctx, **cfg)
     load_jax_params(net, {k: v[:max_length] if k == "pos_embed.weight" else v
                           for k, v in weights.items()})
     return net, recipe.build_trainer(net, mesh, learning_rate=LC_LR)
@@ -2453,7 +2610,7 @@ def phase_lc_check(torch, weights):
     return dict(res, loss_gpu=gpu[0], loss_cpu=cpu[0])
 
 
-def rank_lc(workdir, axes, steps, T, device, lr):
+def rank_lc(workdir, axes, steps, T, device, lr, cfg=LC_CFG):
     """One rank of phase_lc_ranks: LongContextTrainer on ``axes`` ``steps``
     times, counting every kernel launch by step, shape and mask and the ring's
     point-to-point bytes; rank 0 writes the reduced gradients after the first
@@ -2470,7 +2627,7 @@ def rank_lc(workdir, axes, steps, T, device, lr):
     weights = dict(np.load(os.path.join(workdir, "weights.npz")))
     data = np.load(os.path.join(workdir, "data.npz"))
     mesh = mx.parallel.make_mesh(axes, devices=[ctx])
-    net, trainer = _lc_trainer(mx, weights, ctx, mesh, T)
+    net, trainer = _lc_trainer(mx, weights, ctx, mesh, T, cfg)
     x = mx.nd.array(data["x"], ctx=ctx, dtype="int32")
     y = mx.nd.array(data["y"], ctx=ctx, dtype="int32")
     counters = _lc_counters()
@@ -2521,7 +2678,7 @@ def rank_lc(workdir, axes, steps, T, device, lr):
 
 
 def phase_lc_ranks(torch, weights, device="gpu", axes=None, T=LC_RANKS_T, B=LC_RANKS_B,
-                   steps=3, timeout=900):
+                   steps=3, timeout=900, cfg=LC_CFG, label="lc-ranks"):
     """LongContextTrainer on dp2 x sp2 as 4 ranks sharing the card over gloo
     (a correctness run; the ring's sends go through host memory), the
     recipe's widths, T=8192, global batch 4, Adam, f32, 3 steps, against the
@@ -2530,26 +2687,29 @@ def phase_lc_ranks(torch, weights, device="gpu", axes=None, T=LC_RANKS_T, B=LC_R
     after step 3 to TOL_DIST_W. Each rank s of sp must launch K1 (and K2, K3)
     once a layer with the causal mask (its diagonal hop) and s times a layer
     without (the hops from earlier ranks), all at (B/dp*H, T/sp, T/sp, D),
-    and K5 once a step over its shard's segments."""
+    and K5 once a step over its shard's segments. ``cfg`` (LC_CFG) sets the
+    model's widths: ``LC_DRYRUN_CFG``, dryrun_multichip's, runs K1-K3 at
+    D = 16."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _dist_util
     axes = axes or {"dp": 2, "sp": 2}
     n = axes["dp"] * axes["sp"]
-    n_layers = LC_CFG["num_layers"]
-    heads = LC_CFG["num_heads"]
-    D = LC_CFG["units"] // heads
+    n_layers = cfg["num_layers"]
+    heads = cfg["num_heads"]
+    D = cfg["units"] // heads
     shape = f"{B // axes['dp'] * heads}x{T // axes['sp']}x{T // axes['sp']}x{D}"
     backend = _dist_util.choose_backend(device, n, torch.cuda.device_count()
                                         if device == "gpu" else 0)
-    log(f"[lc-ranks] {n} ranks {axes} on {device} over {backend}; LongContextLM {LC_CFG}, "
+    log(f"[{label}] {n} ranks {axes} on {device} over {backend}; LongContextLM {cfg}, "
         f"batch {B} x T {T}, {steps} Adam steps; hop shape {shape}")
-    work = os.path.join(ROOT, "build", "lc_ranks")
+    work = os.path.join(ROOT, "build", label)
     os.makedirs(work, exist_ok=True)
     tokens, labels = _lc_batch(B, T, seed=14)
     np.savez(os.path.join(work, "weights.npz"), **weights)
     np.savez(os.path.join(work, "data.npz"), x=tokens, y=labels)
     ctx = mx.gpu(0) if device == "gpu" else mx.cpu()
-    net, trainer = _lc_trainer(mx, weights, ctx, mx.parallel.Mesh([ctx], ("dp", "sp"), (1, 1)), T)
+    net, trainer = _lc_trainer(mx, weights, ctx, mx.parallel.Mesh([ctx], ("dp", "sp"), (1, 1)), T,
+                               cfg)
     xs, ys = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in (tokens, labels))
     ref_losses = []
     for i in range(steps):
@@ -2561,7 +2721,7 @@ def phase_lc_ranks(torch, weights, device="gpu", axes=None, T=LC_RANKS_T, B=LC_R
     t_launch = time.perf_counter()
     ranks = _dist_util.launch_local(
         "chip_smoke:rank_lc", n, {"workdir": work, "axes": axes, "steps": steps, "T": T,
-                                  "device": device, "lr": LC_LR},
+                                  "device": device, "lr": LC_LR, "cfg": cfg},
         device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
     seconds = time.perf_counter() - t_launch
     worst_loss = 0.0
@@ -2569,7 +2729,7 @@ def phase_lc_ranks(torch, weights, device="gpu", axes=None, T=LC_RANKS_T, B=LC_R
         s = r["coords"]["sp"]
         losses = [st["loss"] for st in r["steps"]]
         worst_loss = max(worst_loss, max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)))
-        log(f"[lc-ranks] rank {r['rank']} {r['coords']}: ready {r['ready_s']:.1f} s, steps "
+        log(f"[{label}] rank {r['rank']} {r['coords']}: ready {r['ready_s']:.1f} s, steps "
             f"{[round(st['s'], 2) for st in r['steps']]} s, losses "
             f"{[round(v, 6) for v in losses]}; K1 by mask {r['steps'][-1]['by_mask']}; "
             f"K5 {[st['launches']['fused_adam_update'] for st in r['steps']]} over "
@@ -2601,7 +2761,7 @@ def phase_lc_ranks(torch, weights, device="gpu", axes=None, T=LC_RANKS_T, B=LC_R
     worst_w = max(float(np.abs(got_w[k] - w).max()) for k, w in ref_weights.items())
     ok = (worst_loss <= TOL_DIST_LOSS and worst_grad <= TOL_DIST_GRAD
           and worst_w <= TOL_DIST_W and set(grads) == set(ref_grads))
-    log(f"[lc-ranks] against the one-rank step (losses {[round(v, 6) for v in ref_losses]}): "
+    log(f"[{label}] against the one-rank step (losses {[round(v, 6) for v in ref_losses]}): "
         f"losses max rel {worst_loss:.2e} (tol {TOL_DIST_LOSS:.0e}), gradients after step 1 "
         f"{worst_grad:.2e} of each tensor's max (tol {TOL_DIST_GRAD:.0e}), weights after "
         f"step {steps} max|d| {worst_w:.2e} (tol {TOL_DIST_W:.0e}) {'ok' if ok else 'FAIL'}; "
@@ -2798,6 +2958,642 @@ def phase_zero_bert_ranks(torch, device="gpu", cfg=None, steps=3, timeout=900):
     return out
 
 
+# --- elastic kill-and-resume: snapshot, kill and resume the fused step ----------
+
+TOL_RESUME = 1e-6       # the resumed losses, relative (the reference's, __graft_entry__.py:155)
+ELASTIC_STEPS, ELASTIC_EVERY = 8, 3
+KILL_EVERY = 2          # phase_elastic_kill: the child saves every 2 steps, killed at 6
+CHILD_TIMEOUT_S = 300
+
+
+def _ratio(a, b):
+    return a / b if b else float("nan")
+
+
+def _elastic_counters():
+    return dict(_flash_counters(), fused_adam_update=_fused_counters()["fused_adam_update"])
+
+
+def _bert_dp(mx, params, ctx, mesh, cfg=None, seed=None):
+    """BERT (base, or ``cfg``) under DataParallelTrainer with the dryrun's
+    data spec, Adam lr 1e-4: the weights ``params``, or with ``params`` None
+    its own initial weights (a rebuilt trainer before a resume)."""
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import BertModel, bert_base
+    if seed is not None:
+        mx.random.seed(seed)
+    net = bert_base(max_length=1024) if cfg is None else BertModel(**cfg)
+    net.initialize(ctx=ctx)
+    if params is not None:
+        load_jax_params(net, params)
+    return net, mx.parallel.DataParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": 1e-4},
+        mesh=mesh, data_spec=mx.parallel.P(*[a for a in ("dp", "sp") if a in mesh.shape]))
+
+
+def _snapshot_equal(trainer, directory, step):
+    """Every leaf of the trainer but ``rng`` against the snapshot's, bitwise:
+    the names that differ and the bytes compared."""
+    from mxnet_tpu_torch import elastic
+    snap = elastic.capture(trainer)
+    bad, nbytes = [], 0
+    with elastic.SnapshotReader(directory, step) as rd:
+        for name, leaf in snap["leaves"].items():
+            if name == "rng":
+                continue
+            chunk = isinstance(leaf, elastic.state.Chunk)
+            got = leaf.data.cpu().numpy() if chunk else np.asarray(leaf)
+            want = rd.read_region(name, leaf.index) if chunk else rd(name)
+            nbytes += want.nbytes
+            if got.dtype != want.dtype or not np.array_equal(got.view(np.uint8),
+                                                             want.view(np.uint8)):
+                bad.append(name)
+    return bad, nbytes
+
+
+def phase_elastic_bert(torch, params, batch):
+    """The main path at full width on the world-1 NCCL group the caller
+    holds: BERT-base T=1024 batch 8, f32 (TF32 off), Adam lr 1e-4, through
+    ``elastic.run(trainer, feed, num_steps=8, save_every=3)``: snapshots at
+    steps 3 and 6 while the steps go on, and the final synchronous one at 8.
+    Then a trainer with its own initial weights boots through
+    ``resume_or_init`` from the snapshot of step 6 (step 8's removed, as if
+    killed before it): ``(6, "resumed")``, every tensor bitwise the saved
+    leaf, and steps 7-8 equal to the run's at TOL_RESUME. K1-K3 launch 12
+    times a step and K5 once, in both runs."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import elastic
+    from mxnet_tpu_torch.elastic import manifest
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tokens, labels = batch
+    B, T = tokens.shape
+    ctx = mx.gpu(0)
+    mesh = mx.parallel.make_mesh({"dp": 1, "tp": 1, "sp": 1}, devices=[ctx])
+    work = os.path.join(ROOT, "build", "elastic_bert")
+    shutil.rmtree(work, ignore_errors=True)
+    x = mx.nd.array(tokens, ctx=ctx, dtype="int32")
+    y = mx.nd.array(labels, ctx=ctx, dtype="int32")
+    net, trainer = _bert_dp(mx, params, ctx, mesh)
+    n_layers = len(net.encoder.layers)
+    mgr = elastic.SnapshotManager(work, save_interval_steps=ELASTIC_EVERY)
+    counters = _elastic_counters()
+    steps, saves = [], {}
+    torch.cuda.synchronize()
+    last = [time.perf_counter()]
+    mem0 = torch.cuda.memory_allocated()
+
+    def on_step(t, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps.append({"step": t, "ms": (now - last[0]) * 1e3, "loss": float(loss),
+                      "saved": mgr._last_saved == t})
+        if mgr._last_saved == t:
+            saves[t] = mgr.last_stats        # the writer fills in the rest
+        last[0] = time.perf_counter()
+
+    _zero_counters(counters)
+    t_run = time.perf_counter()
+    res = elastic.run(trainer, [(x, y)] * ELASTIC_STEPS, num_steps=ELASTIC_STEPS,
+                      manager=mgr, on_step=on_step)
+    run_s = time.perf_counter() - t_run
+    launches = {k: c.launches for k, c in counters.items()}
+    final = dict(mgr.last_stats, save_seconds=mgr.save_seconds)
+    want = {"fused_adam_update": ELASTIC_STEPS, **{k: n_layers * ELASTIC_STEPS
+                                                  for k in _flash_counters()}}
+    losses = [st["loss"] for st in steps]
+    plain = [st["ms"] for st in steps if not st["saved"] and st["step"] not in
+             (1, ELASTIC_EVERY + 1, 2 * ELASTIC_EVERY + 1)]
+    log(f"[elastic-bert] BERT-base T={T} batch {B} f32 Adam on {mesh} over NCCL: "
+        f"elastic.run {ELASTIC_STEPS} steps, save_every {ELASTIC_EVERY}, {run_s:.2f} s; "
+        f"steps (ms) {[round(st['ms'], 2) for st in steps]} (saves after "
+        f"{sorted(saves)}); losses {[round(v, 6) for v in losses]}; launches {launches}")
+    if res["step"] != ELASTIC_STEPS or res["preempted"]:
+        raise AssertionError(f"elastic.run ended at {res}")
+    if launches != want:
+        raise AssertionError(f"elastic-bert: launches {launches}, expected {want}")
+    if manifest.all_complete_steps(work) != [3, 6, 8]:
+        raise AssertionError(f"snapshots {manifest.all_complete_steps(work)}, expected 3, 6, 8")
+    bound_ms = None
+    for t, st in sorted(saves.items()) + [(ELASTIC_STEPS, final)]:
+        bound_ms = 2 * st["copy_bytes"] / PEAK_BYTES_PER_S * 1e3
+        log(f"[elastic-bert] save at step {t}: save() waited {st['wait_s'] * 1e3:.2f} ms for "
+            f"the previous write, then returned in {st['return_s'] * 1e3:.2f} ms; "
+            f"device copy {st['copy_bytes'] / 1e9:.3f} GB in {st['d2d_ms']:.3f} ms (bound "
+            f"{bound_ms:.3f} ms, read + write at 3.35 TB/s; {_ratio(bound_ms, st['d2d_ms']):.0%} "
+            f"of it), extra device memory {st['device_extra_bytes'] / 2**30:.3f} GiB in flight; "
+            f"D2H {st['d2h_ms']:.2f} ms ({_ratio(st['copy_bytes'] / 1e6, st['d2h_ms']):.2f} "
+            f"GB/s), pinned buffer {st['host_alloc_s'] * 1e3:.1f} ms; write "
+            f"{st['write_s']:.2f} s ({_ratio(st['nbytes'] / 1e9, st['write_s']):.2f} GB/s, "
+            f"{st['nbytes']} B)")
+    routes = _copy_routes(torch, trainer)
+    # a kill before step 8's snapshot: the newest is step 6
+    shutil.rmtree(manifest.step_path(work, ELASTIC_STEPS))
+    del trainer, net, mgr
+    torch.cuda.empty_cache()
+    made = {}
+
+    def rebuild():
+        t0 = time.perf_counter()
+        out = _bert_dp(mx, None, ctx, mesh, seed=123)
+        torch.cuda.synchronize()
+        made["s"] = time.perf_counter() - t0
+        return out[1]
+
+    t0 = time.perf_counter()
+    _, tr2, start, outcome = elastic.resume_or_init(work, rebuild)
+    resume_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bad, compared = _snapshot_equal(tr2, work, start)
+    _zero_counters(counters)
+    got = [float(tr2.step(x, y)) for _ in range(ELASTIC_STEPS - start)]
+    after = {k: c.launches for k, c in counters.items()}
+    want2 = {"fused_adam_update": ELASTIC_STEPS - start,
+             **{k: n_layers * (ELASTIC_STEPS - start) for k in _flash_counters()}}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, losses[start:]))
+    ok = (start, outcome) == (2 * ELASTIC_EVERY, "resumed") and not bad and \
+        rel <= TOL_RESUME and after == want2
+    log(f"[elastic-bert] resume_or_init -> ({start}, {outcome!r}) in {resume_s:.2f} s "
+        f"(trainer built in {made['s']:.2f} s, the rest reading and installing); "
+        f"{compared / 1e9:.3f} GB of leaves against the snapshot bitwise: "
+        f"{'equal' if not bad else f'{len(bad)} differ, e.g. {bad[:3]}'}; steps "
+        f"{start + 1}-{ELASTIC_STEPS} losses {[round(v, 6) for v in got]} against the "
+        f"uninterrupted {[round(v, 6) for v in losses[start:]]}: max rel {rel:.2e} (tol "
+        f"{TOL_RESUME:.0e}); launches {after} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the resumed BERT-base run disagrees with the uninterrupted one")
+    del tr2
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    steady = float(np.median(plain)) if plain else None
+    return {"steps": steps, "losses": losses, "saves": {str(k): v for k, v in saves.items()},
+            "copy_routes": routes,
+            "final_save": final, "copy_bound_ms": bound_ms, "run_s": run_s,
+            "step_median_ms": steady, "resume_s": resume_s, "rebuild_s": made["s"],
+            "install_s": resume_s - made["s"], "bitwise_bytes": compared,
+            "resumed_losses": got, "loss_rel": rel, "launches": {
+                k: launches[k] + after[k] for k in launches},
+            "device_base_bytes": mem0}
+
+
+def _copy_routes(torch, trainer, reps=5):
+    """The device copy of a snapshot's leaves two ways, in turns: one
+    ``clone`` a leaf (the reference's per-leaf ``jnp.copy``) and
+    ``SnapshotManager``'s one flat buffer and one multi-tensor copy. Each
+    rep: the host's time to enqueue the copy, and the CUDA events' span (the
+    device time, or the enqueue time where the device waits for the host).
+    Medians of ``reps``."""
+    from mxnet_tpu_torch import elastic
+    from mxnet_tpu_torch.elastic.snapshot import _DeviceCopy
+    tensors = [(n, v.data) for n, v in elastic.capture(trainer)["leaves"].items()
+               if isinstance(v, elastic.state.Chunk) and v.owner]
+    side = torch.cuda.Stream()
+    routes = {"per_leaf": lambda: [t.clone() for _, t in tensors],
+              "flat": lambda: _DeviceCopy(tensors[0][1].device, tensors, side)}
+    times = {k: {"host_ms": [], "event_ms": []} for k in routes}
+    for _ in range(reps):
+        for name, fn in routes.items():
+            torch.cuda.synchronize()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            a.record()
+            out = fn()
+            b.record()
+            host = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            times[name]["host_ms"].append(host)
+            times[name]["event_ms"].append(a.elapsed_time(b))
+            del out
+    out = {k: {m: float(np.median(v)) for m, v in t.items()} for k, t in times.items()}
+    log(f"[elastic-bert] the device copy of {len(tensors)} leaves, median of {reps}: one "
+        f"clone a leaf is enqueued in {out['per_leaf']['host_ms']:.2f} ms on the host "
+        f"({out['per_leaf']['event_ms']:.2f} ms between its events), one flat buffer and "
+        f"one multi-tensor copy in {out['flat']['host_ms']:.2f} ms "
+        f"({out['flat']['event_ms']:.2f} ms)")
+    return dict(out, leaves=len(tensors))
+
+
+def elastic_child(workdir, mode, directory, num_steps, save_every):
+    """A child process of phase_elastic_kill: joins a world-1 NCCL group, boots
+    the BERT-base trainer of phase_elastic_bert from the saved weights through
+    ``resume_or_init`` and runs ``elastic.run``, appending each step's loss to
+    ``<mode>.losses`` (flushed); writes ``<mode>.json`` when the run returns."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util, elastic
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = dict(np.load(os.path.join(workdir, "weights.npz")))
+    data = np.load(os.path.join(workdir, "data.npz"))
+    _dist_util.init_process_group(
+        device="gpu", rank=0, world_size=1,
+        init_method=f"file://{os.path.join(workdir, f'{mode}.{os.getpid()}.rdv')}")
+    ctx = mx.gpu(0)
+    mesh = mx.parallel.make_mesh({"dp": 1, "tp": 1, "sp": 1}, devices=[ctx])
+    x = mx.nd.array(data["x"], ctx=ctx, dtype="int32")
+    y = mx.nd.array(data["y"], ctx=ctx, dtype="int32")
+    mgr, trainer, start, outcome = elastic.resume_or_init(
+        directory, lambda: _bert_dp(mx, params, ctx, mesh)[1],
+        save_interval_steps=save_every)
+    del params
+    counters = _elastic_counters()
+    _zero_counters(counters)
+    log_path = os.path.join(workdir, f"{mode}.losses")
+    with open(log_path, "a") as f:
+        def on_step(t, loss):
+            f.write(json.dumps({"step": t, "loss": float(loss)}) + "\n")
+            f.flush()
+        res = elastic.run(trainer, [(x, y)] * num_steps, num_steps=num_steps,
+                          manager=mgr, on_step=on_step)
+    out = {"start": start, "outcome": outcome, "step": res["step"],
+           "n_layers": len(trainer.net.encoder.layers),
+           "preempted": res["preempted"], "launches": {k: c.launches for k, c in
+                                                       counters.items()},
+           "steps_run": len(res["losses"])}
+    with open(os.path.join(workdir, f"{mode}.json"), "w") as f:
+        json.dump(out, f)
+    _dist_util.destroy_process_group()
+
+
+def _child(workdir, mode, directory, num_steps, save_every):
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke as cs; "
+            f"cs.elastic_child({workdir!r}, {mode!r}, {directory!r}, {num_steps}, "
+            f"{save_every})")
+    out = open(os.path.join(workdir, f"{mode}.log"), "w")
+    return subprocess.Popen([sys.executable, "-c", code], stdout=out,
+                            stderr=subprocess.STDOUT, cwd=ROOT)
+
+
+def _child_fail(workdir, mode, msg):
+    with open(os.path.join(workdir, f"{mode}.log")) as f:
+        tail = f.read()[-3000:]
+    raise AssertionError(f"{msg}; the child's output ends:\n{tail}")
+
+
+def _wait_child(proc, workdir, mode):
+    try:
+        rc = proc.wait(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        _child_fail(workdir, mode, f"child {mode} still running after {CHILD_TIMEOUT_S} s")
+    if rc != 0:
+        _child_fail(workdir, mode, f"child {mode} exited {rc}")
+    with open(os.path.join(workdir, f"{mode}.json")) as f:
+        return json.load(f)
+
+
+def _read_losses(workdir, mode):
+    path = os.path.join(workdir, f"{mode}.losses")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.endswith("\n")]
+
+
+def phase_elastic_kill(torch, params, batch, ref_losses):
+    """A real kill. A child process (same interpreter) trains phase_elastic_bert's
+    BERT-base run with ``save_every=2`` and is sent SIGKILL once the step-4
+    manifest exists and the step-6 write has begun; a second child boots
+    through ``resume_or_init``: ``(4, "resumed")`` with the torn step-6
+    directory invisible, then steps 5-8 (a snapshot at 5 and at 8, after
+    which retention prunes the torn directory), their losses equal to the
+    uninterrupted run's at TOL_RESUME; a third child, in a fresh directory, is
+    sent SIGTERM after its second step: ``PreemptionGuard`` lets the step
+    finish, the run writes a final snapshot and returns preempted. The
+    children reuse the kernels built in ``build/``."""
+    from mxnet_tpu_torch.elastic import manifest
+    tokens, labels = batch
+    work = os.path.join(ROOT, "build", "elastic_kill")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    np.savez(os.path.join(work, "weights.npz"), **params)
+    np.savez(os.path.join(work, "data.npz"), x=tokens, y=labels)
+    snap = os.path.join(work, "snap")
+    t0 = time.perf_counter()
+    proc = _child(work, "kill", snap, ELASTIC_STEPS, KILL_EVERY)
+    torn = manifest.step_path(snap, 3 * KILL_EVERY)
+    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    while not (manifest.latest_complete_step(snap) == 2 * KILL_EVERY and os.path.isdir(torn)):
+        if proc.poll() is not None:
+            _child_fail(work, "kill", f"the child exited ({proc.returncode}) before the kill")
+        if time.monotonic() > deadline:
+            proc.kill()
+            _child_fail(work, "kill", "no step-6 write within the time limit")
+        time.sleep(0.005)
+    proc.send_signal(signal.SIGKILL)
+    proc.wait()
+    killed_s = time.perf_counter() - t0
+    torn_files = sorted(os.listdir(torn)) if os.path.isdir(torn) else []
+    latest = manifest.latest_complete_step(snap)
+    ran = _read_losses(work, "kill")
+    log(f"[elastic-kill] child 1 SIGKILLed after {killed_s:.1f} s, {len(ran)} steps run; "
+        f"complete snapshots {manifest.all_complete_steps(snap)}, the torn step "
+        f"{3 * KILL_EVERY} directory holds {torn_files}")
+    if latest != 2 * KILL_EVERY or os.path.exists(os.path.join(torn, manifest.MANIFEST)):
+        raise AssertionError(f"after the kill the latest complete snapshot is {latest}")
+    t1 = time.perf_counter()
+    res = _wait_child(_child(work, "resume", snap, ELASTIC_STEPS, 5), work, "resume")
+    resume_s = time.perf_counter() - t1
+    got = [r["loss"] for r in _read_losses(work, "resume")]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref_losses[res["start"]:]))
+    pruned = not os.path.isdir(torn)
+    n_layers = res["n_layers"]
+    want = {"fused_adam_update": len(got), **{k: n_layers * len(got) for k in _flash_counters()}}
+    ok = (res["start"], res["outcome"]) == (2 * KILL_EVERY, "resumed") and \
+        len(got) == ELASTIC_STEPS - 2 * KILL_EVERY and rel <= TOL_RESUME and pruned and \
+        manifest.all_complete_steps(snap)[-1] == ELASTIC_STEPS and res["launches"] == want
+    log(f"[elastic-kill] child 2: resume_or_init -> ({res['start']}, {res['outcome']!r}); "
+        f"steps {res['start'] + 1}-{res['step']} losses {[round(v, 6) for v in got]} against "
+        f"the uninterrupted {[round(v, 6) for v in ref_losses[res['start']:]]}: max rel "
+        f"{rel:.2e} (tol {TOL_RESUME:.0e}); torn directory pruned: {pruned}; snapshots "
+        f"{manifest.all_complete_steps(snap)}; launches {res['launches']}; {resume_s:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the run resumed after SIGKILL disagrees with the uninterrupted one")
+    snap3 = os.path.join(work, "snap_term")
+    t2 = time.perf_counter()
+    proc = _child(work, "term", snap3, 100, 0)
+    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    while len(_read_losses(work, "term")) < 2:
+        if proc.poll() is not None:
+            _child_fail(work, "term", f"the child exited ({proc.returncode}) before SIGTERM")
+        if time.monotonic() > deadline:
+            proc.kill()
+            _child_fail(work, "term", "no second step within the time limit")
+        time.sleep(0.005)
+    proc.send_signal(signal.SIGTERM)
+    term = _wait_child(proc, work, "term")
+    term_s = time.perf_counter() - t2
+    final = manifest.all_complete_steps(snap3)
+    ok = term["preempted"] and term["outcome"] == "fresh" and final == [term["step"]] and \
+        term["step"] >= 2
+    log(f"[elastic-kill] child 3: SIGTERM after its step 2 -> preempted {term['preempted']} "
+        f"at step {term['step']}, final snapshot(s) {final}; {term_s:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("SIGTERM did not end in a final snapshot")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"killed_after_s": killed_s, "steps_before_kill": len(ran), "torn_files": torn_files,
+            "resume": res, "resumed_losses": got, "loss_rel": rel, "resume_child_s": resume_s,
+            "term": term, "term_child_s": term_s,
+            "launches": {k: res["launches"].get(k, 0) + term["launches"].get(k, 0)
+                         for k in _elastic_counters()}}
+
+
+def _check_ownership(directory, step, axes):
+    """The manifest's chunks against the ownership rule on a dp x tp x sp mesh:
+    every leaf tiled exactly once; a leaf in one chunk written by rank 0; a
+    tensor-parallel leaf in tp chunks along one dim, chunk t written by the
+    rank at (dp 0, tp t, sp 0). Returns the number of tp-split leaves."""
+    from mxnet_tpu_torch.elastic import manifest
+    man = manifest.load(directory, step)
+    names = tuple(axes)
+    shape = tuple(axes.values())
+
+    def file_of(coords):
+        r = 0
+        for a, n in zip(names, shape):
+            r = r * n + coords.get(a, 0)
+        return f"shard-{r:05d}.npz"
+
+    split = 0
+    for leaf, spec in man["leaves"].items():
+        chunks = man["chunks"][leaf]
+        size = int(np.prod(spec["shape"], dtype=np.int64))
+        covered = sum(int(np.prod([b - a for a, b in c["index"]], dtype=np.int64))
+                      for c in chunks)
+        regions = {tuple(map(tuple, c["index"])) for c in chunks}
+        if covered != size or len(regions) != len(chunks):
+            raise AssertionError(f"leaf {leaf}: chunks cover {covered} of {size}")
+        if len(chunks) == 1:
+            if chunks[0]["file"] != "shard-00000.npz":
+                raise AssertionError(f"replicated leaf {leaf} written by {chunks[0]['file']}")
+            continue
+        if len(chunks) != axes["tp"]:
+            raise AssertionError(f"leaf {leaf} in {len(chunks)} chunks")
+        dims = [d for d, n in enumerate(spec["shape"])
+                if chunks[0]["index"][d] != [0, n]]
+        step_ = spec["shape"][dims[0]] // axes["tp"]
+        for c in chunks:
+            t = c["index"][dims[0]][0] // step_
+            if c["file"] != file_of({"tp": t}):
+                raise AssertionError(f"leaf {leaf} tp shard {t} written by {c['file']}")
+        split += 1
+    return split
+
+
+def rank_elastic_zero(workdir, cfg, device, lr, modes):
+    """One rank of phase_elastic_zero_reshard, running each of ``modes`` in
+    turn on this world's dp (``zero_update=True``, one shard a rank).
+    ``save``: 2 steps from the saved weights, a snapshot to ``dp<n>``, step 3.
+    ``resume``: boot from the other degree's snapshot through
+    ``resume_or_init``, hold this rank's re-packed Adam lanes against
+    ``_revector`` of the saved ones, bitwise, then step 3. Rank 0 writes the
+    weights after each step 3 to ``<mode>_dp<n>.npz``."""
+    import torch
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util, elastic
+    from mxnet_tpu_torch.convert import gather_params, load_jax_params
+    from mxnet_tpu_torch.elastic import state as es
+    from mxnet_tpu_torch.models import BertModel
+    ctx = _dist_util.rank_context(device)
+    if ctx.device_type == "gpu":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    n = dist.get_world_size()
+    data = np.load(os.path.join(workdir, "data.npz"))
+    mesh = mx.parallel.make_mesh({"dp": n}, devices=[ctx])
+    x = mx.nd.array(data["x"], ctx=ctx, dtype="int32")
+    y = mx.nd.array(data["y"], ctx=ctx, dtype="int32")
+
+    def make(weights):
+        net = BertModel(**cfg)
+        net.initialize(ctx=ctx)
+        if weights is not None:
+            load_jax_params(net, weights)
+        return net, mx.parallel.DataParallelTrainer(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": lr},
+            mesh=mesh, zero_update=True)
+
+    counters = _elastic_counters()
+    results = {}
+    for mode in modes:
+        _zero_counters(counters)
+        out = {"rank": mesh.rank, "world": n}
+        t0 = time.perf_counter()
+        if mode == "save":
+            net, trainer = make(dict(np.load(os.path.join(workdir, "weights.npz"))))
+            out["losses"] = [float(trainer.step(x, y)) for _ in range(2)]
+            mgr = elastic.SnapshotManager(os.path.join(workdir, f"dp{n}"))
+            elastic.save_trainer(mgr, trainer, wait=True)
+            out["start"], out["outcome"] = 0, "fresh"
+        else:
+            src = os.path.join(workdir, f"dp{3 - n}")
+            holder = {}
+
+            def rebuild():
+                holder["net"], tr = make(None)
+                return tr
+            _, trainer, out["start"], out["outcome"] = elastic.resume_or_init(src, rebuild)
+            net = holder["net"]
+            with elastic.SnapshotReader(src, out["start"]) as rd:
+                old = [es._bucket_from(d) for d in rd.manifest["meta"]["zero_plan"]]
+                pos = mesh.axis_index("dp")
+                same = True
+                for b, zb in zip(trainer._zero_plan, trainer._zero_buckets):
+                    for k, lane in enumerate(zb["state"]):
+                        full = es._revector(old, [rd(f"opt.b{jo}.{k + 1}")
+                                                  for jo in range(len(old))], b)
+                        want = full[pos * b.shard_size:(pos + 1) * b.shard_size]
+                        same = same and np.array_equal(lane.cpu().numpy().view(np.uint32),
+                                                       want.view(np.uint32))
+            out["lanes_bitwise"] = same
+            out["buckets"] = [len(old), len(trainer._zero_plan)]
+            out["losses"] = []
+        out["losses"].append(float(trainer.step(x, y)))
+        out["launches"] = {k: c.launches for k, c in counters.items()}
+        out["s"] = time.perf_counter() - t0
+        params = gather_params(net)
+        if mesh.rank == 0:
+            np.savez(os.path.join(workdir, f"{mode}_dp{n}.npz"), **params)
+        results[mode] = out
+        del trainer, net, params
+        if ctx.device_type == "gpu":
+            torch.cuda.empty_cache()
+    return results
+
+
+def phase_elastic_zero_reshard(torch, device="gpu", cfg=None, timeout=900):
+    """The ZeRO state across data degrees, with phase_zero_bert_ranks' model
+    (2 layers of BERT-base width, T=1024, global batch 4, Adam lr 1e-4,
+    ``zero_update=True``): a snapshot after step 2 on dp2 (2 ranks sharing the
+    card over gloo) resumed at world 1 (NCCL): ``"resharded"``, every Adam lane
+    bitwise ``_revector`` of the saved lanes, and step 3's loss and weights
+    against the 2-rank run's step 3 at TOL_ZERO_LOSS / TOL_ZERO_W; then the
+    reverse, a dp1 snapshot resumed on dp2."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import seeded_params
+    from mxnet_tpu_torch.models import BertModel
+    cfg = cfg or dict(vocab_size=30522, num_layers=2, units=768, hidden_size=3072,
+                      num_heads=12, max_length=1024)
+    lr = 1e-4
+    work = os.path.join(ROOT, "build", "elastic_zero")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    net = BertModel(**cfg)
+    net.initialize(ctx=mx.cpu())
+    np.savez(os.path.join(work, "weights.npz"), **seeded_params(net, seed=15))
+    del net
+    rs = np.random.RandomState(16)
+    T = cfg["max_length"]
+    np.savez(os.path.join(work, "data.npz"),
+             x=rs.randint(0, cfg["vocab_size"], size=(4, T)).astype(np.int32),
+             y=rs.randint(0, cfg["vocab_size"], size=(4, T)).astype(np.int32))
+    t0 = time.perf_counter()
+    runs = {}
+    for modes, n in ((("save",), 2), (("resume", "save"), 1), (("resume",), 2)):
+        out = _dist_util.launch_local(
+            "chip_smoke:rank_elastic_zero", n, {"workdir": work, "cfg": cfg, "device": device,
+                                                "lr": lr, "modes": modes},
+            device=device, timeout=timeout, pythonpath=[ROOT],
+            workdir=os.path.join(work, f"launch_{'_'.join(modes)}_dp{n}"))
+        for mode in modes:
+            runs[f"{mode}_dp{n}"] = [r[mode] for r in out]
+    seconds = time.perf_counter() - t0
+    w = {k: dict(np.load(os.path.join(work, f"{k}.npz"))) for k in runs}
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"seconds": seconds, "cfg": cfg, "runs": runs}
+    ok = True
+    n_layers = cfg["num_layers"]
+    for resumed, saved in (("resume_dp1", "save_dp2"), ("resume_dp2", "save_dp1")):
+        r, s = runs[resumed], runs[saved]
+        loss_rel = max(abs(a["losses"][0] - b["losses"][2]) / abs(b["losses"][2])
+                       for a in r for b in s)
+        w_abs = max(float(np.abs(w[resumed][k] - v).max()) for k, v in w[saved].items())
+        good = all(a["start"] == 2 and a["outcome"] == "resharded" and a["lanes_bitwise"]
+                   for a in r) and loss_rel <= TOL_ZERO_LOSS and w_abs <= TOL_ZERO_W
+        if device == "gpu":
+            good = good and all(a["launches"].get("fused_adam_update") == 1 and all(
+                a["launches"].get(k) == n_layers for k in _flash_counters()) for a in r)
+        ok = ok and good
+        out[resumed] = {"loss_rel": loss_rel, "weight_abs": w_abs,
+                        "outcome": [a["outcome"] for a in r],
+                        "lanes_bitwise": [a["lanes_bitwise"] for a in r],
+                        "buckets": r[0]["buckets"]}
+        log(f"[elastic-zero] {saved} -> {resumed}: resume_or_init -> "
+            f"{[(a['start'], a['outcome']) for a in r]}, buckets (saved, new) "
+            f"{r[0]['buckets']}, Adam lanes bitwise _revector of the saved: "
+            f"{[a['lanes_bitwise'] for a in r]}; step 3 loss {r[0]['losses'][0]:.6f} against "
+            f"{s[0]['losses'][2]:.6f} (max rel {loss_rel:.2e}, tol {TOL_ZERO_LOSS:.0e}), "
+            f"weights max|d| {w_abs:.2e} (tol {TOL_ZERO_W:.0e}); launches "
+            f"{r[0]['launches']} {'ok' if good else 'FAIL'}")
+    log(f"[elastic-zero] 3 launches in {seconds:.1f} s (dp2 ranks sharing the card over gloo)")
+    if not ok:
+        raise AssertionError("the ZeRO resume across data degrees disagrees")
+    out["launches"] = {k: sum(a["launches"].get(k, 0) for rr in runs.values() for a in rr)
+                       for k in _elastic_counters()}
+    return out
+
+
+def phase_elastic_lc(torch, weights):
+    """LongContextTrainer at phase_lc_train's path (T=32768, batch 4, causal
+    K1-K3 at D=32, the world-1 NCCL group the caller holds): 2 steps, a
+    snapshot, step 3; a trainer with its own initial weights resumed from it:
+    ``(2, "resumed")`` and step 3 at TOL_RESUME."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import elastic
+    from mxnet_tpu_torch.recipes import get_recipe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = mx.gpu(0)
+    mesh = mx.parallel.make_mesh({"dp": 1, "sp": 1}, devices=[ctx])
+    work = os.path.join(ROOT, "build", "elastic_lc")
+    shutil.rmtree(work, ignore_errors=True)
+    net, trainer = _lc_trainer(mx, weights, ctx, mesh, LC_T)
+    tokens, labels = _lc_batch(LC_B, LC_T, seed=12)
+    x = mx.nd.array(tokens, ctx=ctx, dtype="int32")
+    y = mx.nd.array(labels, ctx=ctx, dtype="int32")
+    counters = _elastic_counters()
+    _zero_counters(counters)
+    for _ in range(2):
+        trainer.step(x, y)
+    mgr = elastic.SnapshotManager(work)
+    elastic.save_trainer(mgr, trainer, wait=True)
+    stats = dict(mgr.last_stats)
+    expect = float(trainer.step(x, y))
+    del trainer, net
+    recipe = get_recipe("long_context")
+
+    def rebuild():
+        mx.random.seed(321)
+        net2 = recipe.build_model(vocab_size=LC_VOCAB, seq_len=LC_T, ctx=ctx, **LC_CFG)
+        return recipe.build_trainer(net2, mesh, learning_rate=LC_LR)
+
+    t0 = time.perf_counter()
+    _, tr2, start, outcome = elastic.resume_or_init(work, rebuild)
+    resume_s = time.perf_counter() - t0
+    bad, _ = _snapshot_equal(tr2, work, start)
+    got = float(tr2.step(x, y))
+    launches = {k: c.launches for k, c in counters.items()}
+    rel = abs(got - expect) / abs(expect)
+    n = LC_CFG["num_layers"]
+    want = {"fused_adam_update": 4, **{k: 4 * n for k in _flash_counters()}}
+    ok = (start, outcome) == (2, "resumed") and rel <= TOL_RESUME and not bad and launches == want
+    log(f"[elastic-lc] LongContextTrainer T={LC_T} batch {LC_B}: snapshot after step 2 "
+        f"({stats['copy_bytes'] / 1e6:.1f} MB, save() {stats['return_s'] * 1e3:.2f} ms), "
+        f"resume_or_init -> ({start}, {outcome!r}) in {resume_s:.2f} s, leaves bitwise: "
+        f"{not bad}; step 3 loss {got:.6f} against {expect:.6f} (rel {rel:.2e}, tol "
+        f"{TOL_RESUME:.0e}); launches {launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the resumed long-context run disagrees")
+    del tr2
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"start": start, "outcome": outcome, "loss": got, "expect": expect, "rel": rel,
+            "resume_s": resume_s, "save": stats, "launches": launches}
+
+
 @contextlib.contextmanager
 def _world1_nccl(torch):
     """A world-1 process group on the card, over the backend rule's choice
@@ -2851,6 +3647,9 @@ def main() -> int:
     dp_resnet = phase_dp_resnet(torch, resnet_params, resnet_train["profile"])
     dp_check = phase_dp_check(torch)
     torch.cuda.empty_cache()
+    with _world1_nccl(torch):
+        elastic_bert = phase_elastic_bert(torch, bert_params, bert_batch)
+    elastic_kill = phase_elastic_kill(torch, bert_params, bert_batch, elastic_bert["losses"])
     dist_ranks = phase_dist_bert_ranks(torch, bert_params, bert_batch)
     del bert_params
     torch.cuda.empty_cache()
@@ -2859,9 +3658,13 @@ def main() -> int:
     with _world1_nccl(torch):
         lc_train = phase_lc_train(torch, lc_weights)
         lc_check = phase_lc_check(torch, lc_weights)
+        elastic_lc = phase_elastic_lc(torch, lc_weights)
     torch.cuda.empty_cache()
     lc_ranks = phase_lc_ranks(torch, lc_weights)
+    lc_ranks_d16 = phase_lc_ranks(torch, _lc_weights(LC_DRYRUN_CFG), cfg=LC_DRYRUN_CFG,
+                                  label="lc-ranks-d16")
     zero_ranks = phase_zero_bert_ranks(torch)
+    elastic_zero = phase_elastic_zero_reshard(torch)
     f32 = kernel["timings"]["float32"]
     b32 = kernel_bwd["timings"]["float32"]
     src = "mxnet_tpu_torch/csrc/"
@@ -2877,6 +3680,10 @@ def main() -> int:
                 "dist_ranks": dist_ranks["launches"].get(name, 0),
                 "lc_train": lc_train["launches"].get(name, 0),
                 "lc_ranks": lc_ranks["launches"].get(name, 0),
+                "lc_ranks_d16": lc_ranks_d16["launches"].get(name, 0),
+                **{label: phase["launches"].get(name, 0) for label, phase in
+                   (("elastic_bert", elastic_bert), ("elastic_kill", elastic_kill),
+                    ("elastic_lc", elastic_lc), ("elastic_zero", elastic_zero))},
                 "zero_ranks": sum(lc.get(name, 0) for c in zero_ranks["configs"].values()
                                   for lc in c["launches"])}
 
@@ -2889,7 +3696,7 @@ def main() -> int:
             "launches_per_step": lc_train["per_step"].get(
                 {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
                  "dkv": "flash_attention_bwd_dkv"}[kind]),
-            "checks": lc_kernels["checks"]}
+            "checks": lc_kernels["checks"], "head_dim_checks": lc_kernels["head_dims"]}
     fwd_by_path = {"serve": serve["launches"]["flash_attention_fwd"],
                    "train": train["launches"]["flash_attention_fwd"],
                    **{k: v for k, v in dp_launches("flash_attention_fwd").items()
@@ -3005,7 +3812,10 @@ def main() -> int:
                    "dp_resnet": dp_resnet, "dp_check": dp_check, "dist_nccl": dist_nccl,
                    "dist_ranks": dist_ranks, "lc_kernels": lc_kernels,
                    "lc_train": lc_train, "lc_check": lc_check, "lc_ranks": lc_ranks,
-                   "zero_ranks": zero_ranks, "kernels": line["kernels"],
+                   "lc_ranks_d16": lc_ranks_d16, "zero_ranks": zero_ranks,
+                   "elastic_bert": elastic_bert, "elastic_kill": elastic_kill,
+                   "elastic_lc": elastic_lc, "elastic_zero": elastic_zero,
+                   "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1, default=float)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))

@@ -33,10 +33,17 @@ sequence parallel: ``parallel.make_mesh({"dp": 2, "tp": 2, "sp": 2})``,
 comm_dtype=...)``, ``parallel.zero``), ring and Ulysses attention
 (``parallel.ring_attention``, ``parallel.ulysses_attention``) and the
 long-context recipe (``recipes.get_recipe("long_context")``: ``LongContextLM``
-on the causal flash kernels, ``LongContextTrainer`` over a ``{dp, sp}`` mesh).
-Still to come (ROADMAP.md): the overlapped gradient reduction
-(``parallel/overlap.py``), ``dist_async`` and kvstore compression, elastic
-training, the pipeline, expert parallelism and the MoE recipe.
+on the causal flash kernels, ``LongContextTrainer`` over a ``{dp, sp}`` mesh);
+elastic kill-and-resume (``elastic.SnapshotManager``, ``elastic.save_trainer``,
+``elastic.resume_or_init``, ``elastic.run`` with ``PreemptionGuard``: an
+asynchronous sharded snapshot of the fused step, restored in place on the
+same mesh or, with the ZeRO state re-canonicalised, another data degree) and
+the fault-injection plane with its bounded IO retry (``faults``).
+Still to come (ROADMAP.md): the MoE half of ``dryrun_multichip`` (expert
+parallelism, the MoE model and recipe), the 1F1B pipeline and its snapshot
+kind, the overlapped gradient reduction (``parallel/overlap.py``),
+``dist_async`` and kvstore compression, the multi-host elastic coordinator
+and its drills, and ``checkpoint.py``.
 
 Quick start::
 
@@ -79,9 +86,11 @@ from . import rtc
 from . import contrib
 from . import parallel
 from . import recipes
+from . import faults
+from . import elastic
 from .ndarray import NDArray
 
 __all__ = ["base", "MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "ops", "ndarray", "nd", "autograd", "random",
            "initializer", "lr_scheduler", "optimizer", "gluon", "kvstore", "kv", "rtc", "contrib",
-           "parallel", "recipes", "NDArray"]
+           "parallel", "recipes", "faults", "elastic", "NDArray"]

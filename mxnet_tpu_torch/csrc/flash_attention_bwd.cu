@@ -58,6 +58,7 @@
 // order (k = t from row 2t, k = t+4 from row 2t+1) and no value moves. P
 // and dS never go through shared memory.
 //
+// Head dims 16, 32, 64 and 128 are instantiated, as in the forward kernel.
 // Tiles (`Tiles`). 128 threads, 4 warps; each warp owns two 16-row slabs of
 // the block's resident axis (one at D = 128), so a block keeps 128 rows (Q
 // and dO rows for dQ, K and V rows for dK/dV) and every B fragment, split
@@ -385,6 +386,7 @@ cudaError_t dq_dim(const void* q, const void* k, const void* v, const void* dout
                    const void* lse, const void* delta, void* dq, int bh, int t_q, int t_k,
                    int d, int causal, float scale, cudaStream_t s) {
   switch (d) {
+    case 16: return launch_dq<T, 16>(q, k, v, dout, lse, delta, dq, bh, t_q, t_k, causal, scale, s);
     case 32: return launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, bh, t_q, t_k, causal, scale, s);
     case 64: return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, bh, t_q, t_k, causal, scale, s);
     case 128: return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, bh, t_q, t_k, causal, scale, s);
@@ -397,6 +399,7 @@ cudaError_t dkv_dim(const void* q, const void* k, const void* v, const void* dou
                     const void* lse, const void* delta, void* dk, void* dv, int bh,
                     int t_q, int t_k, int d, int causal, float scale, cudaStream_t s) {
   switch (d) {
+    case 16: return launch_dkv<T, 16>(q, k, v, dout, lse, delta, dk, dv, bh, t_q, t_k, causal, scale, s);
     case 32: return launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, bh, t_q, t_k, causal, scale, s);
     case 64: return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, bh, t_q, t_k, causal, scale, s);
     case 128: return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, bh, t_q, t_k, causal, scale, s);
@@ -406,6 +409,7 @@ cudaError_t dkv_dim(const void* q, const void* k, const void* v, const void* dou
 
 template <typename T> int smem_bytes(int dkv, int d) {
   switch (d) {
+    case 16: return (int)(dkv ? Tiles<T, 16, true>::kBytes : Tiles<T, 16, false>::kBytes);
     case 32: return (int)(dkv ? Tiles<T, 32, true>::kBytes : Tiles<T, 32, false>::kBytes);
     case 64: return (int)(dkv ? Tiles<T, 64, true>::kBytes : Tiles<T, 64, false>::kBytes);
     case 128: return (int)(dkv ? Tiles<T, 128, true>::kBytes : Tiles<T, 128, false>::kBytes);

@@ -41,6 +41,10 @@
 //     tensor_core.cuh: one mma accumulator over a long loop drifts); the
 //     output holds the unnormalized sum at the running max m_o of that
 //     moment, brought to today's max by exp2(m_o - m) at the next addition.
+// Head dims 16, 32, 64 and 128 are instantiated (the wrapper zero-pads any
+// other D up to 128). At D = 16 Q K^T is one k16 step (bf16) or two k8 steps
+// (f32), P V two n8 tiles, and a padded row of 48 B (bf16) or 80 B (f32)
+// stays 16-byte aligned for cp.async and ldmatrix, with conflict-free banks.
 // Tiles (`FwdTiles`): one slab a warp for f32 (Q hi/lo, S and O at D=64
 // are about 130 live registers) and at D=128, two for bf16/f16 at D<=64;
 // 64-key tiles, 32 for f32 at D=128. Grid (BH, ceil(T / kBM)): 1536 blocks
@@ -246,6 +250,7 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int t_q, int t_k, int d, int causal,
                        float scale, cudaStream_t stream) {
   switch (d) {
+    case 16: return launch<T, 16>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, stream);
     case 32: return launch<T, 32>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, stream);
@@ -255,6 +260,7 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o,
 
 template <typename T> int smem_bytes(int d) {
   switch (d) {
+    case 16: return (int)FwdTiles<T, 16>::kBytes;
     case 32: return (int)FwdTiles<T, 32>::kBytes;
     case 64: return (int)FwdTiles<T, 64>::kBytes;
     case 128: return (int)FwdTiles<T, 128>::kBytes;

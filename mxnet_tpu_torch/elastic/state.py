@@ -1,0 +1,499 @@
+"""Trainer state capture and install for elastic snapshots.
+
+Counterpart of ``mxnet_tpu/elastic/state.py``, the ``dp`` kind
+(``DataParallelTrainer`` and ``recipes.long_context.LongContextTrainer``).
+``capture(trainer)`` gives ``{"leaves": {name: value}, "meta": {...}}``, the
+schema ``SnapshotManager`` writes; ``install(trainer, meta, fetch, names)``
+is its inverse, ``fetch(name)`` giving a leaf's global host array (a
+``manifest.SnapshotReader``, or a dict lookup), ``names`` the leaves the
+snapshot holds.
+
+Leaves, with the reference's names (positional: Gluon parameter names carry
+process-wide counters and never match across restarts):
+
+    param.{i}                     parameter i of the trainer's list
+    opt.p{i}.{k}                  optimizer state lane k of parameter i
+    opt.b{j}.0                    ZeRO bucket j's per-element weight decay
+    opt.b{j}.{k}, k >= 1          ZeRO bucket j's flat state lanes
+    opt.x{i}.{k}                  state of a trainable parameter in no bucket
+    rng                           the generators (``random.get_state_raw``)
+
+A device value is a ``Chunk``: this rank's part of the global leaf, its
+``[[start, stop], ...]`` region, and whether this rank owns it (is at
+coordinate 0 on every mesh axis that does not split the leaf, the
+reference's ``replica_id == 0``): a tensor-parallel shard is written by one
+rank of its tp coordinate, a ZeRO lane's shard by each data-parallel rank, a
+replicated leaf by rank 0. Host values (the weight-decay lanes, ``rng``)
+are written by rank 0. Meta is the reference's: ``format``, ``step``,
+``optimizer``, ``mesh``, ``program`` (``parallel/step_program.py``),
+``sched``, ``scaler``, ``kind``, ``n_params``, ``zero``, ``dp_degree`` and
+``zero_plan``.
+
+ZeRO lanes. The reference's bucket carry is ``(wd_vector, state)``
+(``parallel/data_parallel.py:598-628``); the port's update cuts the shard
+into per-parameter segments instead (``parallel/data_parallel.py``), so
+``opt.b{j}.0`` is written from ``zero.wd_vector`` and the state lanes follow
+in the order of the optimizer's state tuple, the reference's
+``tree_leaves`` order (Adam: m, v). On install the saved weight-decay lane,
+re-packed onto the trainer's plan, must equal the trainer's own, or install
+raises: a resume never runs silently under another decay. A trainer with
+``zero_update`` on a mesh of one device keeps whole-parameter state; its
+lanes are those of the bucket plan at dp 1, as the reference's. Across data
+degrees the lanes are re-canonicalised (``_revector``,
+``_restore_zero_carry``): each saved bucket split into per-parameter
+segments by the saved plan (in the manifest) and re-packed under the new
+one, zero-padded to its shard multiple.
+
+Install copies into the live tensors in place, under ``torch.no_grad()``,
+and never rebinds them: the ZeRO segments are persistent views of the
+weights and the state shards, the gradient buffers views into buckets, and
+the fused update's pointer table is cached by data pointer
+(``ops/cuda/fused_optimizer.py``). Each rank copies only the region of a
+leaf it holds, through ``fetch.read_region`` where the fetch has it.
+
+The ``pp`` kind (``PipelineTrainer``) waits for the pipeline slice, and
+with it ``_restore_zero_carry``'s per-row re-packing of stage stacks.
+The ``elastic_state()`` / ``elastic_install()`` hooks let any other trainer
+supply its own schema.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Set
+
+import numpy as _np
+import torch
+
+from ..base import MXNetError
+from .. import random as _rng
+
+__all__ = ["Chunk", "capture", "install", "sched_state", "install_sched"]
+
+_PP = ("pipeline snapshots (kind 'pp') wait for the slice that ports the 1F1B "
+       "pipeline, parallel/pipeline.py (ROADMAP A2)")
+
+
+class Chunk:
+    """This process's part of a global leaf: ``data`` covers ``index``
+    (``[(start, stop), ...]`` per dim) of a leaf of global ``shape``;
+    ``owner``: this process writes it."""
+
+    __slots__ = ("data", "shape", "index", "owner")
+
+    def __init__(self, data, shape, index, owner: bool):
+        self.data = data
+        self.shape = tuple(int(d) for d in shape)
+        self.index = [(int(a), int(b)) for a, b in index]
+        self.owner = bool(owner)
+
+    def __repr__(self):
+        return f"Chunk({tuple(self.data.shape)} at {self.index} of {self.shape}, " \
+               f"owner={self.owner})"
+
+
+# ---------------------------------------------------------------------------
+# Optimizer schedule state
+# ---------------------------------------------------------------------------
+
+def sched_state(opt) -> Dict[str, Any]:
+    """The host counters a resumed run needs for lr parity at step K+1:
+    ``num_update``/``begin_num_update``, the per-index update counts and the
+    lr scheduler's mutable fields."""
+    d = {"num_update": int(opt.num_update),
+         "begin_num_update": int(opt.begin_num_update),
+         "index_update_count": {str(k): int(v) for k, v in opt._index_update_count.items()},
+         "scheduler": None}
+    sched = getattr(opt, "lr_scheduler", None)
+    if sched is not None:
+        d["scheduler"] = sched.state_dict()
+    return d
+
+
+def install_sched(opt, d: Dict[str, Any]):
+    opt.num_update = int(d["num_update"])
+    opt.begin_num_update = int(d.get("begin_num_update", 0))
+    counts = {}
+    for k, v in (d.get("index_update_count") or {}).items():
+        try:
+            k = int(k)
+        except (TypeError, ValueError):
+            pass
+        counts[k] = int(v)
+    opt._index_update_count = counts
+    sched = getattr(opt, "lr_scheduler", None)
+    if sched is not None and d.get("scheduler") is not None:
+        sched.load_state_dict(d["scheduler"])
+
+
+# ---------------------------------------------------------------------------
+# Bucket plans and ZeRO re-canonicalisation
+# ---------------------------------------------------------------------------
+
+def _bucket_dict(b) -> Dict[str, Any]:
+    return {"dtype": b.dtype, "indices": list(b.indices), "offsets": list(b.offsets),
+            "sizes": list(b.sizes), "shapes": [list(s) for s in b.shapes],
+            "padded_size": b.padded_size, "ndp": b.ndp}
+
+
+def _bucket_from(d):
+    from ..parallel.zero import BucketSpec
+    return BucketSpec(dtype=d["dtype"], indices=tuple(d["indices"]),
+                      offsets=tuple(d["offsets"]), sizes=tuple(d["sizes"]),
+                      shapes=tuple(tuple(s) for s in d["shapes"]),
+                      padded_size=int(d["padded_size"]), ndp=int(d["ndp"]))
+
+
+def _revector(old_specs, old_flats, new_spec) -> _np.ndarray:
+    """Re-pack one flat state lane from the saved bucket layout onto a new
+    bucket's: each old flat vector split into per-parameter segments (saved
+    offsets and sizes), the new bucket's members concatenated in its order
+    and zero-padded to its ``padded_size``."""
+    pieces: Dict[int, _np.ndarray] = {}
+    for spec, flat in zip(old_specs, old_flats):
+        flat = _np.asarray(flat).reshape(-1)
+        for i, o, s in zip(spec.indices, spec.offsets, spec.sizes):
+            pieces[i] = flat[o:o + s]
+    try:
+        parts = [pieces[i] for i in new_spec.indices]
+    except KeyError as e:
+        raise MXNetError(f"zero-state reshard: parameter slot {e} absent from the saved "
+                         f"bucket plan: the trainable set changed between save and "
+                         f"resume") from None
+    out = _np.zeros((new_spec.padded_size,), parts[0].dtype)
+    off = 0
+    for p in parts:
+        out[off:off + p.size] = p
+        off += p.size
+    return out
+
+
+def _bucket_lane_count(names: Set[str], prefix: str) -> int:
+    """How many ``{prefix}.{k}`` leaves the snapshot holds."""
+    n = 0
+    while f"{prefix}.{n}" in names:
+        n += 1
+    return n
+
+
+def _missing(name) -> MXNetError:
+    return MXNetError(f"snapshot is missing leaf {name!r}: saved with another trainer "
+                      f"configuration (optimizer/zero/precision)")
+
+
+def _fetch_np(fetch, name) -> _np.ndarray:
+    try:
+        return _np.asarray(fetch(name))
+    except KeyError:
+        raise _missing(name) from None
+
+
+def _restore_zero_carry(prefix_fmt, old_specs, new_specs, fetch, names,
+                        n_lanes: Optional[int] = None) -> List[List[_np.ndarray]]:
+    """The full host lanes of every new bucket: ``[[lane_0, lane_1, ...], ...]``.
+
+    ``prefix_fmt`` formats saved bucket ``j``'s leaf prefix (``"opt.b{j}"``).
+    When the saved and new plans agree the lanes come back as saved;
+    otherwise every flat lane is re-packed by ``_revector``, and a scalar
+    lane comes from the saved bucket that holds the new bucket's first
+    parameter. ``n_lanes``: the lanes a bucket of the trainer has; a
+    snapshot with another count raises (optimizer mismatch)."""
+    same = len(old_specs) == len(new_specs) and all(
+        o.padded_size == n.padded_size and o.indices == n.indices and o.ndp == n.ndp
+        for o, n in zip(old_specs, new_specs))
+    old_lanes: List[List[_np.ndarray]] = []
+    for j in range(len(old_specs)):
+        prefix = prefix_fmt.format(j=j)
+        old_lanes.append([_fetch_np(fetch, f"{prefix}.{k}")
+                          for k in range(_bucket_lane_count(names, prefix))])
+    for j, lanes in enumerate(old_lanes):
+        if n_lanes is not None and len(lanes) != n_lanes:
+            raise MXNetError(f"zero-state restore: saved bucket {j} has {len(lanes)} lanes, "
+                             f"the trainer's buckets {n_lanes}: optimizer mismatch")
+    if same:
+        return [list(lanes) for lanes in old_lanes]
+    out = []
+    for new_spec in new_specs:
+        j_scalar = next((jo for jo, s in enumerate(old_specs)
+                         if new_spec.indices[0] in s.indices), 0)
+        lanes = []
+        for k in range(len(old_lanes[0]) if old_lanes else 0):
+            if old_lanes[j_scalar][k].ndim == 0:
+                lanes.append(old_lanes[j_scalar][k])
+            else:
+                lanes.append(_revector(old_specs, [old[k] for old in old_lanes], new_spec))
+        out.append(lanes)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Placement: which region of a global leaf this rank holds
+# ---------------------------------------------------------------------------
+
+def _placement(shape, spec_dims, mesh):
+    """``(index, owner)`` of this rank's part of a global leaf of ``shape``
+    whose dims ``spec_dims`` (``[(dim, axes), ...]``) are split over mesh axes,
+    in the mesh's axis order (``parallel.tensor_parallel.shard_tensor``)."""
+    index = [(0, int(d)) for d in shape]
+    if mesh is None or not mesh.distributed:
+        return index, True
+    split = set()
+    for d, axes in spec_dims:
+        axes = tuple(a for a in mesh.axis_names if a in axes)
+        n, idx = 1, 0
+        for a in axes:
+            idx = idx * mesh.axis_size(a) + mesh.axis_index(a)
+            n *= mesh.axis_size(a)
+            split.add(a)
+        step = int(shape[d]) // n
+        index[d] = (idx * step, (idx + 1) * step)
+    owner = all(c == 0 for a, c in mesh.coords.items() if a not in split)
+    return index, owner
+
+
+def _param_chunk(tensor, p, mesh) -> Chunk:
+    from ..parallel.tensor_parallel import spec_axes
+    index, owner = _placement(p.shape, spec_axes(p.sharding) if p._mesh is not None else [],
+                              mesh)
+    return Chunk(tensor.detach(), p.shape, index, owner)
+
+
+def _lane_chunk(tensor, spec, mesh, batch_axis) -> Chunk:
+    """A ZeRO lane: this rank's shard of the bucket's flat vector (the whole
+    vector at dp 1)."""
+    if tensor.numel() == spec.padded_size:
+        index, owner = _placement((spec.padded_size,), [], mesh)
+    else:
+        index, owner = _placement((spec.padded_size,), [(0, (batch_axis,))], mesh)
+    return Chunk(tensor.detach(), (spec.padded_size,), index, owner)
+
+
+def _zero_layout(trainer):
+    """``(plan, states)``: the trainer's ZeRO bucket plan and, per bucket, its
+    state lanes as tensors (this rank's shards), or, for a trainer that keeps
+    whole-parameter state (a mesh of one device), the plan at dp 1 and None."""
+    from ..parallel import zero as _zero
+    if trainer._zero_buckets:
+        return list(trainer._zero_plan), [zb["state"] for zb in trainer._zero_buckets]
+    entries = [(i, p._param.shape, p._param.dtype) for i, (p, t) in
+               enumerate(zip(trainer._plist, trainer._trainable))
+               if t and p._param.is_floating_point()]
+    return list(_zero.plan_buckets(entries, 1, trainer._bucket_bytes)), None
+
+
+def _wds(trainer):
+    return [trainer.optimizer._get_wd(i) for i in range(len(trainer._plist))]
+
+
+# ---------------------------------------------------------------------------
+# Capture
+# ---------------------------------------------------------------------------
+
+def capture(trainer) -> Dict[str, Any]:
+    """The snapshot schema of a trainer's whole training state: the leaves
+    reference the live tensors (``SnapshotManager`` copies them), meta reads
+    host counters only; no device work, no sync."""
+    if hasattr(trainer, "elastic_state"):
+        return trainer.elastic_state()
+    if hasattr(trainer, "_plist") and hasattr(trainer, "_opt_state"):
+        return _capture_dp(trainer)
+    raise MXNetError(f"cannot snapshot {type(trainer).__name__}; expected "
+                     f"DataParallelTrainer or an elastic_state()/elastic_install() "
+                     f"provider")
+
+
+def _common_meta(trainer) -> Dict[str, Any]:
+    meta = {"format": 1, "step": trainer._t,
+            "optimizer": type(trainer.optimizer).__name__,
+            "mesh": {str(a): int(s) for a, s in trainer.mesh.shape.items()},
+            "program": trainer._program.fingerprint,
+            "sched": sched_state(trainer.optimizer), "scaler": None}
+    scaler = getattr(trainer, "_scaler", None)
+    if scaler is not None:
+        meta["scaler"] = scaler.state_dict()
+    return meta
+
+
+def _capture_dp(trainer) -> Dict[str, Any]:
+    from ..parallel import zero as _zero
+    mesh = trainer.mesh
+    leaves: Dict[str, Any] = {}
+    for i, p in enumerate(trainer._plist):
+        leaves[f"param.{i}"] = _param_chunk(p._param, p, mesh)
+    plan = []
+    if trainer._zero:
+        plan, states = _zero_layout(trainer)
+        wds = _wds(trainer)
+        for j, b in enumerate(plan):
+            leaves[f"opt.b{j}.0"] = _zero.wd_vector(b, wds)
+            if states is not None:
+                lanes = states[j]
+            else:          # whole-parameter state: the bucket's flat lanes
+                n = len(trainer._opt_state[b.indices[0]])
+                lanes = [_zero.flatten_bucket(b, {i: trainer._opt_state[i][k]
+                                                  for i in b.indices}) for k in range(n)]
+            for k, lane in enumerate(lanes):
+                leaves[f"opt.b{j}.{k + 1}"] = _lane_chunk(lane, b, mesh, trainer.batch_axis)
+        in_bucket = {i for b in plan for i in b.indices}
+        for i, (p, st) in enumerate(zip(trainer._plist, trainer._opt_state)):
+            if i not in in_bucket:
+                for k, leaf in enumerate(st):
+                    leaves[f"opt.x{i}.{k}"] = _param_chunk(leaf, p, mesh)
+    else:
+        for i, (p, st) in enumerate(zip(trainer._plist, trainer._opt_state)):
+            for k, leaf in enumerate(st):
+                leaves[f"opt.p{i}.{k}"] = _param_chunk(leaf, p, mesh)
+    leaves["rng"] = _rng.get_state_raw()
+    meta = _common_meta(trainer)
+    meta.update({"kind": "dp", "n_params": len(trainer._plist), "zero": trainer._zero,
+                 "dp_degree": trainer._dp_degree,
+                 "zero_plan": [_bucket_dict(b) for b in plan]})
+    return {"leaves": leaves, "meta": meta}
+
+
+# ---------------------------------------------------------------------------
+# Install
+# ---------------------------------------------------------------------------
+
+def install(trainer, meta: Dict[str, Any], fetch: Callable[[str], Any], names: Set[str]):
+    """Install a snapshot into a freshly built trainer, in place. ``fetch``
+    returns the global host value of a leaf; ``names`` is the set of leaf
+    names the snapshot holds (without ``"rng"`` the generators are left as
+    they are)."""
+    kind = meta.get("kind")
+    if kind not in ("dp", "pp") and hasattr(trainer, "elastic_install"):
+        trainer.elastic_install(meta, fetch, names)
+        return trainer
+    if kind == "pp":
+        raise MXNetError(f"cannot install the snapshot: {_PP}")
+    if kind != "dp":
+        raise MXNetError(f"unknown snapshot kind {kind!r}")
+    if not (hasattr(trainer, "_plist") and hasattr(trainer, "_opt_state")):
+        raise MXNetError(f"snapshot holds DataParallelTrainer state but the target is "
+                         f"{type(trainer).__name__}")
+    with torch.no_grad():
+        _install_dp(trainer, meta, fetch, names)
+    _install_host_state(trainer, meta, fetch, names)
+    trainer.sync()
+    return trainer
+
+
+def _check(cond, msg):
+    if not cond:
+        raise MXNetError(msg)
+
+
+def _install_host_state(trainer, meta, fetch, names):
+    trainer._t = int(meta["step"])
+    if meta.get("sched"):
+        install_sched(trainer.optimizer, meta["sched"])
+    else:
+        trainer.optimizer.num_update = trainer._t
+    scaler = getattr(trainer, "_scaler", None)
+    if scaler is not None and meta.get("scaler"):
+        scaler.load_state_dict(meta["scaler"])
+    if "rng" in names:
+        _rng.set_state_raw(_fetch_np(fetch, "rng"))
+
+
+def _leaf_shape(fetch, name) -> tuple:
+    man = getattr(fetch, "manifest", None)
+    if man is None:
+        return tuple(_fetch_np(fetch, name).shape)
+    if name not in man["leaves"]:
+        raise _missing(name)
+    return tuple(man["leaves"][name]["shape"])
+
+
+def _fetch_region(fetch, name, index) -> _np.ndarray:
+    """Only ``index``'s region of a leaf: ``fetch.read_region`` where the
+    fetch has it, else a slice of the whole."""
+    if not hasattr(fetch, "read_region"):
+        return _fetch_np(fetch, name)[tuple(slice(a, b) for a, b in index)]
+    try:
+        return fetch.read_region(name, index)
+    except KeyError:
+        raise _missing(name) from None
+
+
+def _copy_into(dst: torch.Tensor, host, what: str):
+    """``dst.copy_(host)`` in place, with ``_place_like``'s checks."""
+    host = _np.ascontiguousarray(host)
+    if tuple(host.shape) != tuple(dst.shape):
+        raise MXNetError(f"snapshot leaf {what!r}: saved shape {tuple(host.shape)} != "
+                         f"trainer shape {tuple(dst.shape)}: architecture mismatch")
+    if not host.dtype.isnative or host.dtype.kind not in "fiub":
+        raise MXNetError(f"snapshot leaf {what!r}: dtype {host.dtype} cannot be installed")
+    dst.copy_(torch.from_numpy(host))
+
+
+def _install_chunk(dst: torch.Tensor, fetch, name: str, chunk: Chunk):
+    saved = _leaf_shape(fetch, name)
+    if saved != chunk.shape:
+        raise MXNetError(f"snapshot leaf {name!r}: saved shape {saved} != trainer shape "
+                         f"{chunk.shape}: architecture mismatch")
+    _copy_into(dst, _fetch_region(fetch, name, chunk.index), name)
+
+
+def _install_dp(trainer, meta, fetch, names):
+    _check(meta.get("optimizer") == type(trainer.optimizer).__name__,
+           f"snapshot optimizer {meta.get('optimizer')!r} != trainer "
+           f"{type(trainer.optimizer).__name__!r}")
+    n = len(trainer._plist)
+    _check(int(meta.get("n_params", -1)) == n,
+           f"snapshot has {meta.get('n_params')} parameters, trainer has {n}: "
+           f"architecture mismatch")
+    _check(bool(meta.get("zero")) == bool(trainer._zero),
+           "snapshot and trainer disagree on zero_update; construct the resuming "
+           "trainer with the same zero_update setting")
+    mesh = trainer.mesh
+    # every shape before any copy: a mismatch leaves the trainer as it was
+    for i, p in enumerate(trainer._plist):
+        saved = _leaf_shape(fetch, f"param.{i}")
+        _check(saved == tuple(p.shape), f"snapshot leaf 'param.{i}': saved shape {saved} "
+                                        f"!= trainer shape {tuple(p.shape)}: architecture "
+                                        f"mismatch")
+    for i, p in enumerate(trainer._plist):
+        chunk = _param_chunk(p._param, p, mesh)
+        _copy_into(p._param, _fetch_region(fetch, f"param.{i}", chunk.index), f"param.{i}")
+    if trainer._zero:
+        _install_zero(trainer, meta, fetch, names)
+        return
+    for i, (p, st) in enumerate(zip(trainer._plist, trainer._opt_state)):
+        for k, t in enumerate(st):
+            _install_chunk(t, fetch, f"opt.p{i}.{k}", _param_chunk(t, p, mesh))
+
+
+def _install_zero(trainer, meta, fetch, names):
+    from ..parallel import zero as _zero
+    from ..parallel.zero import unflatten_bucket
+    mesh = trainer.mesh
+    plan, states = _zero_layout(trainer)
+    old_specs = [_bucket_from(d) for d in meta.get("zero_plan", [])]
+    n_state = len(states[0]) if states else \
+        (len(trainer._opt_state[plan[0].indices[0]]) if plan else 0)
+    lanes = _restore_zero_carry("opt.b{j}", old_specs, plan, fetch, names,
+                                n_lanes=1 + n_state)
+    wds = _wds(trainer)
+    for j, (b, blanes) in enumerate(zip(plan, lanes)):
+        want = _zero.wd_vector(b, wds)
+        if not _np.array_equal(_np.asarray(blanes[0], _np.float32), want):
+            def values(lane):
+                return ", ".join(f"{w:g}" for w in _np.unique(lane))
+            raise MXNetError(f"snapshot bucket {j}'s weight-decay lane ({values(blanes[0])}) "
+                             f"differs from the trainer's ({values(want)}): the resumed run "
+                             f"would decay its weights differently; build the trainer with "
+                             f"the saved wd and wd_mult")
+        for k in range(n_state):
+            full = _np.asarray(blanes[1 + k])
+            if states is not None:
+                dst = states[j][k]
+                chunk = _lane_chunk(dst, b, mesh, trainer.batch_axis)
+                lo, hi = chunk.index[0]
+                _copy_into(dst, full[lo:hi], f"opt.b{j}.{k + 1}")
+            else:
+                for i, view in unflatten_bucket(b, torch.from_numpy(_np.ascontiguousarray(full))):
+                    _copy_into(trainer._opt_state[i][k], view.numpy(), f"opt.b{j}.{k + 1}")
+    in_bucket = {i for b in plan for i in b.indices}
+    for i, (p, st) in enumerate(zip(trainer._plist, trainer._opt_state)):
+        if i not in in_bucket:
+            for k, t in enumerate(st):
+                _install_chunk(t, fetch, f"opt.x{i}.{k}", _param_chunk(t, p, mesh))

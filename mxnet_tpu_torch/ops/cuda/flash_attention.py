@@ -43,6 +43,14 @@ forward autograd is off, so the differentiable path is ``flash_attention``.
 Strides: q, k and v reach this module as (B, H, T, D) views out of a
 ``transpose``, not contiguous, and so does dO; the wrappers take contiguous
 tensors (one copy each); kernels that take strides are not written yet.
+Head dims: the kernels are instantiated at D = 16, 32, 64 and 128. The
+wrappers zero-pad Q, K, V and dO of any other D up to 128 on the last axis
+to the next instantiated width (``_kernel_dim``), launch with the scale of
+the original D, and slice O, dQ, dK and dV back; the counters see the
+original shape. A zero column adds nothing to the scores and gives zero
+columns of every output, so the result is the unpadded one. D above 128
+raises (ROADMAP C; the reference's Pallas kernels take it).
+
 All three kernels copy rows into shared memory 16 bytes at a time
 (``cp.async``), so their wrappers also refuse a CUDA tensor whose data
 does not start on a 16-byte boundary, as a contiguous view at a storage
@@ -62,7 +70,28 @@ from ..attention import blockwise_attention_bwd, blockwise_attention_lse
 from . import load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)    # the kernels' instantiations
+
+
+def _kernel_dim(D: int, who: str) -> int:
+    """The instantiated head dim a CUDA call of head dim ``D`` runs at: the
+    least one not below ``D``; above 128 none, and the call raises."""
+    for d in _HEAD_DIMS:
+        if D <= d:
+            return d
+    raise MXNetError(f"{who}: head dim {D} above {_HEAD_DIMS[-1]}, the widest the "
+                     f"kernels take (ROADMAP C)")
+
+
+def _pad_dim(t, d: int):
+    """``t`` zero-padded on its last axis to ``d`` (``t`` itself at ``d``). A
+    zero column adds nothing to Q K^T, and gives zero columns of O, dQ, dK
+    and dV, which the wrappers slice off."""
+    return t if t.shape[-1] == d else torch.nn.functional.pad(t, (0, d - t.shape[-1]))
+
+
+def _unpad(t, D: int):
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
 
 
 def _library() -> ctypes.CDLL:
@@ -171,24 +200,26 @@ def flash_attention_fwd(q3, k3, v3, causal: bool = False,
         return flash_attention_fwd_plain(q3, k3, v3, causal, scale)
     if q3.device.type != "cuda":
         raise MXNetError(f"flash_attention_fwd: unsupported device {q3.device}")
-    _check(q3, k3, v3)
+    Dk = _kernel_dim(D, "flash_attention_fwd")
+    qp, kp, vp = (_pad_dim(t, Dk) for t in (q3, k3, v3))
+    _check(qp, kp, vp)
     BH, T, _ = q3.shape
-    o = torch.empty_like(q3)
+    o = torch.empty_like(qp)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q3.device)
     if o.numel() == 0:
-        return o, lse
+        return _unpad(o, D), lse
     lib = _library()
     with torch.cuda.device(q3.device):
         stream = torch.cuda.current_stream(q3.device).cuda_stream
         err = lib.mxt_flash_attention_fwd(
-            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), BH, T, k3.shape[1], D, _DTYPE_CODES[q3.dtype],
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), BH, T, k3.shape[1], Dk, _DTYPE_CODES[q3.dtype],
             int(bool(causal)), scale, stream)
     if err != 0:
         msg = lib.mxt_cuda_error_string(err).decode()
         raise MXNetError(f"flash_attention_fwd kernel launch failed: {msg}")
     _count(flash_attention_fwd, q3, k3, causal)
-    return o, lse
+    return _unpad(o, D), lse
 
 
 flash_attention_fwd.launches = 0
@@ -217,22 +248,25 @@ def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, causal: bool = False,
     """dQ on CUDA (BH, T, D) tensors, by the kernel; raises for others."""
     if q3.device.type != "cuda":
         raise MXNetError(f"flash_attention_bwd_dq: unsupported device {q3.device}")
-    _check(q3, k3, v3, do3, lse, delta, who="flash_attention_bwd_dq")
-    BH, T, D = q3.shape
+    D = q3.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    dq = torch.empty_like(q3)
+    Dk = _kernel_dim(D, "flash_attention_bwd_dq")
+    qp, kp, vp, dop = (_pad_dim(t, Dk) for t in (q3, k3, v3, do3))
+    _check(qp, kp, vp, dop, lse, delta, who="flash_attention_bwd_dq")
+    BH, T = q3.shape[:2]
+    dq = torch.empty_like(qp)
     if dq.numel() == 0:
-        return dq
+        return _unpad(dq, D)
     lib = _bwd_library()
     with torch.cuda.device(q3.device):
         stream = torch.cuda.current_stream(q3.device).cuda_stream
         _launch_bwd(lib.mxt_flash_attention_bwd_dq, "flash_attention_bwd_dq", (
-            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, T,
-            k3.shape[1], D, _DTYPE_CODES[q3.dtype], int(bool(causal)), scale,
+            k3.shape[1], Dk, _DTYPE_CODES[q3.dtype], int(bool(causal)), scale,
             stream))
     _count(flash_attention_bwd_dq, q3, k3, causal)
-    return dq
+    return _unpad(dq, D)
 
 
 def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, causal: bool = False,
@@ -240,22 +274,25 @@ def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, causal: bool = False,
     """(dK, dV) on CUDA (BH, Tk, D) tensors, by the kernel; raises for others."""
     if q3.device.type != "cuda":
         raise MXNetError(f"flash_attention_bwd_dkv: unsupported device {q3.device}")
-    _check(q3, k3, v3, do3, lse, delta, who="flash_attention_bwd_dkv")
-    BH, T, D = q3.shape
+    D = q3.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    dk, dv = torch.empty_like(k3), torch.empty_like(v3)
+    Dk = _kernel_dim(D, "flash_attention_bwd_dkv")
+    qp, kp, vp, dop = (_pad_dim(t, Dk) for t in (q3, k3, v3, do3))
+    _check(qp, kp, vp, dop, lse, delta, who="flash_attention_bwd_dkv")
+    BH, T = q3.shape[:2]
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
     if dk.numel() == 0:
-        return dk, dv
+        return _unpad(dk, D), _unpad(dv, D)
     lib = _bwd_library()
     with torch.cuda.device(q3.device):
         stream = torch.cuda.current_stream(q3.device).cuda_stream
         _launch_bwd(lib.mxt_flash_attention_bwd_dkv, "flash_attention_bwd_dkv", (
-            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
-            T, k3.shape[1], D, _DTYPE_CODES[q3.dtype], int(bool(causal)),
+            T, k3.shape[1], Dk, _DTYPE_CODES[q3.dtype], int(bool(causal)),
             scale, stream))
     _count(flash_attention_bwd_dkv, q3, k3, causal)
-    return dk, dv
+    return _unpad(dk, D), _unpad(dv, D)
 
 
 flash_attention_bwd_dq.launches = 0

@@ -102,9 +102,12 @@ also takes ``P("dp", "sp")``):
   all-reduce and update.
 
 ``gathered_grads()`` gives the reduced gradients (the shards gathered) and
-``state_dict()`` the full optimizer state. A mesh of one device takes the
-one-device step unchanged, ``zero_update`` included (its shard is the whole
-bucket, the same arithmetic). ``compression``, ``overlap_grads`` and
+``state_dict()`` the full optimizer state. ``_program`` (a
+``parallel.step_program.StepProgram``, the configuration's fingerprint) and
+``_dp_degree`` are what ``elastic.state.capture`` records besides the
+tensors (reference :351, :540). A mesh of one device takes the one-device
+step unchanged, ``zero_update`` included (its shard is the whole bucket, the
+same arithmetic). ``compression``, ``overlap_grads`` and
 ``overlap_segments`` raise ``MXNetError`` naming ``parallel/overlap.py``
 (ROADMAP A2); ``MXNET_TPU_OVERLAP_GRADS`` is not read.
 """
@@ -127,6 +130,7 @@ from . import zero as _zero
 from ..gluon.loss import Loss as GluonLoss
 from ..ops.cuda import fused_optimizer as _fo
 from .mesh import P, activate, current_mesh, require_axis
+from .step_program import StepProgram, config_fingerprint, structural_fingerprint
 from .tensor_parallel import shard_tensor, spec_axes
 
 _A2 = ("not ported yet (ROADMAP A2: the overlapped reduction of parallel/overlap.py "
@@ -311,6 +315,24 @@ class DataParallelTrainer:
         for i, (t, wd) in enumerate(zip(self._trainable, wds)):
             if t and i not in in_bucket:
                 self._groups.setdefault(float(wd), []).append(i)
+        self._dp_degree = self.mesh.axis_size(self.batch_axis)
+        # the configuration's identity, which elastic snapshots record
+        # (reference :515-541; the placement of one run is left out)
+        self._program = StepProgram(f"dp.step[{type(net).__name__}]", (
+            "dp_step", structural_fingerprint(net), config_fingerprint(
+                optimizer=type(self.optimizer).__name__,
+                opt_conf=tuple(sorted(
+                    (k, repr(v)) for k, v in vars(self.optimizer).items()
+                    if isinstance(v, (int, float, bool, str, type(None))))),
+                wds=tuple(float(w) for w in wds), loss=self.loss,
+                mesh=tuple(sorted(self.mesh.shape.items())),
+                axis_order=self.mesh.axis_names, batch_axis=self.batch_axis,
+                data_spec=tuple(str(a) for a in self.data_spec),
+                param_specs=tuple(str(p.sharding) for p in self._plist),
+                trainable=tuple(self._trainable), compute_dtype=str(self.compute_dtype),
+                scaled=self._scaler is not None, zero=self._zero,
+                bucket_bytes=self._bucket_bytes if self._zero else None,
+                comm_dtype=self._comm_dtype)))
 
     # -- the sharded update (parallel/zero.py) ------------------------------------
     def _validate_zero(self):

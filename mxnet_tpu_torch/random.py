@@ -7,6 +7,13 @@ Initializers and dropout draw from ``generator(ctx)``. Threefry and Philox
 streams cannot be matched, so tests that compare the two packages draw
 their inputs and weights with numpy.
 
+``get_state_raw``/``set_state_raw`` (reference :118-134) carry the state of
+every generator made so far, and the seed that later ones take, as one
+uint8 vector (``_RAW_MAGIC``, the seed, then per generator its device and
+``Generator.get_state()``): the ``rng`` leaf of an elastic snapshot. The
+reference's leaf is a threefry key (uint32); neither package reads the
+other's.
+
 Like the reference, ``seed`` also seeds Python's ``random`` and numpy's
 global generator. The per-thread host RNG of the data pipeline waits for
 the slice that ports ``gluon/data``.
@@ -14,12 +21,14 @@ the slice that ports ``gluon/data``.
 from __future__ import annotations
 
 import random as _pyrandom
+import struct
 import threading
 from typing import Dict
 
 import numpy as _np
 import torch
 
+from .base import MXNetError
 from .context import Context
 
 _lock = threading.Lock()
@@ -50,3 +59,54 @@ def generator(ctx) -> torch.Generator:
             gen.manual_seed(_seed)
             _generators[device] = gen
     return gen
+
+
+_RAW_MAGIC = b"MXTG1"
+
+
+def get_state_raw() -> _np.ndarray:
+    """The seed and the state of every generator made so far, as one uint8
+    vector (for checkpointing)."""
+    with _lock:
+        parts = [_RAW_MAGIC, struct.pack("<qI", _seed, len(_generators))]
+        for device in sorted(_generators, key=str):
+            name = str(device).encode()
+            state = _generators[device].get_state().numpy().tobytes()
+            parts += [struct.pack("<I", len(name)), name,
+                      struct.pack("<Q", len(state)), state]
+    return _np.frombuffer(b"".join(parts), dtype=_np.uint8).copy()
+
+
+def set_state_raw(raw):
+    """Restore the generators from ``get_state_raw()``'s vector. Generators of
+    devices this process does not have (a snapshot of a GPU run restored on
+    the CPU) are not made; the others continue their saved streams."""
+    global _seed
+    raw = _np.asarray(raw)
+    buf = raw.tobytes()
+    if raw.dtype != _np.uint8 or not buf.startswith(_RAW_MAGIC):
+        raise MXNetError(f"rng state of another format ({raw.dtype}, {raw.shape}): "
+                         f"the port's generator states start with {_RAW_MAGIC!r}; a "
+                         f"threefry key from the reference package cannot seed them")
+    off = len(_RAW_MAGIC)
+    seed_state, n = struct.unpack_from("<qI", buf, off)
+    off += struct.calcsize("<qI")
+    states = {}
+    for _ in range(n):
+        (ln,) = struct.unpack_from("<I", buf, off)
+        name = buf[off + 4:off + 4 + ln].decode()
+        off += 4 + ln
+        (ls,) = struct.unpack_from("<Q", buf, off)
+        states[torch.device(name)] = torch.frombuffer(
+            bytearray(buf[off + 8:off + 8 + ls]), dtype=torch.uint8)
+        off += 8 + ls
+    with _lock:
+        _seed = int(seed_state)
+        _generators.clear()
+        for device, state in states.items():
+            if device.type == "cuda" and (not torch.cuda.is_available() or
+                                          device.index >= torch.cuda.device_count()):
+                continue
+            gen = torch.Generator(device=device)
+            gen.set_state(state)
+            _generators[device] = gen

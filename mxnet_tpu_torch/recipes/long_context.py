@@ -26,9 +26,9 @@ Not ported: ``make_feed`` raises (``engine/async_feed.DeviceFeed``, ROADMAP
 A7); ``pipeline_split`` and its stage blocks (:185-228) wait for the
 pipeline; ``_record_telemetry`` for the telemetry layer.
 
-The kernels take head dims 32, 64 and 128: a model whose ``units /
-num_heads`` is another (16 in ``dryrun_multichip``'s shape) runs on the CPU
-and raises on the card.
+The kernels take head dims up to 128 (16, 32, 64 and 128 instantiated,
+others zero-padded by their wrappers): ``dryrun_multichip``'s shape, units
+32 over 2 heads, runs at D = 16 on the card.
 """
 from __future__ import annotations
 

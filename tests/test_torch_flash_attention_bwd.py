@@ -376,3 +376,80 @@ def test_kernels_long_sequence_against_f64(causal):
     for name, g, e in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), exact):
         rel = ((g.double() - e).abs().max() / e.abs().max()).item()
         assert rel <= TOL_LONG, (name, rel)
+
+
+# Head dims besides the instantiated 32, 64 and 128: D = 16 has kernels of
+# its own (dryrun_multichip's long-context shape, units 32 over 2 heads);
+# any other D up to 128 is zero-padded by the wrappers to the next
+# instantiated width and sliced back. Padding adds zero columns, which leave
+# Q K^T, and so P, LSE and delta, as they were.
+PAD_DIMS = [(16, 16), (24, 32), (48, 64), (80, 128), (128, 128)]
+
+
+@pytest.mark.parametrize("D,Dk", PAD_DIMS)
+def test_kernel_dim_rule(D, Dk):
+    assert fa._kernel_dim(D, "t") == Dk
+    t = torch.ones(2, 3, D)
+    padded = fa._pad_dim(t, Dk)
+    assert padded.shape == (2, 3, Dk) and padded.is_contiguous()
+    assert torch.equal(fa._unpad(padded, D), t)
+
+
+def test_kernel_dim_above_128_raises():
+    with pytest.raises(MXNetError, match="head dim 144 above 128"):
+        fa._kernel_dim(144, "flash_attention_fwd")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D,Dk", [(16, 32), (80, 128)])
+def test_zero_padded_head_dim_gives_the_unpadded_result(causal, D, Dk):
+    """The wrappers' padding rule on the plain versions: the scale of the
+    original D, then O and the gradients sliced back, equal the unpadded
+    attention's to f32 rounding."""
+    q, k, v, do = (torch.from_numpy(a.reshape(6, -1, D))
+                   for a in _inputs(7, 2, 3, 100, 100, D))
+    scale = 1.0 / np.sqrt(D)
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, causal, scale)
+    grads = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    qp, kp, vp, dop = (fa._pad_dim(t, Dk) for t in (q, k, v, do))
+    op, lsep = fa.flash_attention_fwd_plain(qp, kp, vp, causal, scale)
+    gp = fa.flash_attention_bwd_plain(qp, kp, vp, op, lsep, dop, causal, scale)
+    assert float(op[..., D:].abs().max()) == 0.0
+    torch.testing.assert_close(fa._unpad(op, D), o, rtol=0, atol=1e-6)
+    torch.testing.assert_close(lsep, lse, rtol=0, atol=1e-6)
+    for g, e in zip(gp, grads):
+        assert float(g[..., D:].abs().max()) == 0.0
+        torch.testing.assert_close(fa._unpad(g, D), e, rtol=0, atol=1e-5)
+
+
+# chip_smoke.py's TOL_BWD: of each output's max, against the plain version
+TOL_PAD = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(TOL_PAD))
+@pytest.mark.parametrize("D", [16, 80])
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernels_at_head_dims_16_and_80(dtype, D, causal):
+    """K1-K3 at D = 16 (instantiated) and D = 80 (zero-padded to 128) against
+    their plain versions; the counters see the caller's shape."""
+    q3, k3, v3, do3 = _cuda_inputs(dtype, 300, 300, D)
+    shape = f"6x300x300x{D}"
+    before = {w: w.launches_by_shape.get(shape, 0) for w in (
+        fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)}
+    o, lse = fa.flash_attention_fwd(q3, k3, v3, causal)
+    got = fa.flash_attention_bwd(q3, k3, v3, o, lse, do3, causal)
+    torch.cuda.synchronize()
+    for w, n in before.items():
+        assert w.launches_by_shape[shape] == n + 1
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q3, k3, v3, causal)
+    expect = fa.flash_attention_bwd_plain(q3, k3, v3, o, lse, do3, causal)
+    tol = TOL_PAD[dtype]
+    assert o.shape == q3.shape and o.is_contiguous()
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol * max(
+        o_ref.float().abs().max().item(), 1.0)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    for g, e in zip(got, expect):
+        assert g.shape == e.shape and g.dtype == dtype
+        rel = ((g.float() - e.float()).abs().max() / e.float().abs().max()).item()
+        assert rel <= tol, rel
