@@ -157,6 +157,28 @@ every counter set to 0 just before it and read just after:
    saved lane, step 3 against the saving degree's at TOL_ZERO_LOSS /
    TOL_ZERO_W.
 
+The MoE half of ``dryrun_multichip`` (``parallel.moe``,
+``models.MoETransformerLM``, ``recipes.moe``), last:
+
+21. ``phase_moe_train`` (on a world-1 NCCL group), the slice's main path:
+   ``MoETransformerLM`` at Switch-Base-8's widths (12 layers, units 768,
+   hidden 3072, 12 heads, 8 experts, top-1, capacity factor 1.25, vocab
+   32128; 532 M parameters) with seeded weights through ``load_jax_params``,
+   ``get_recipe("moe").build_trainer`` on ``{dp: 1, ep: 1}``, Adam lr 1e-4,
+   T=1024 batch 8, f32 with TF32 off: 5 steps and one profiled, K1-K3 12
+   launches and K5 one a step, the loss falling; tokens/s, TFLOP/s by
+   ``bench.py:1874``'s count without its one-hot term, idle share, peak
+   memory, dropped assignments. ``phase_moe_check``: one step of 2 such
+   layers, batch 1, GPU against CPU, the routing compared first.
+22. ``phase_moe_serve``: the forward outside a trainer (``moe_ffn``) at batch
+   1 and 8, K1 12 launches each, the batch-1 logits against the CPU's.
+23. ``phase_moe_ranks``: 4 ranks sharing the card over gloo: the dryrun's
+   ``expert_parallel_moe`` (E 4, D 16, H 32, 32 tokens) against ``moe_ffn``
+   on each token shard; the recipe at Switch-Base-8 widths and 2 layers,
+   T=1024, global batch 4, 3 steps on dp2 x ep2 against dp4 x ep1 (routing,
+   losses, step-3 weights; K1-K3 and K5 counted on every rank); a dp2 x ep2
+   snapshot after step 2 resumed on dp1 x ep4: "resharded", step 3 equal.
+
 It prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the rest of the repository beside it, it
 exits non-zero and prints no result. Its full results also go to
@@ -3594,6 +3616,435 @@ def phase_elastic_lc(torch, weights):
             "resume_s": resume_s, "save": stats, "launches": launches}
 
 
+# -- the MoE half of dryrun_multichip -----------------------------------------------------
+# Switch-Base-8's published widths (Fedus et al. 2021, arXiv:2101.03961; the
+# google/switch-base-8 config) in the repository's decoder-only MoE LM, every
+# cell's FFN a mixture; T = 1024 so that the attention takes K1-K3
+# (MXNET_FLASH_ATTENTION_MIN_SEQ). The rank phases run 2 of the 12 layers.
+MOE_CFG = dict(vocab_size=32128, num_layers=12, units=768, hidden_size=3072, num_heads=12,
+               num_experts=8, top_k=1, capacity_factor=1.25, max_length=1024)
+MOE_T, MOE_B = 1024, 8
+MOE_LR = 1e-4
+MOE_RANK_LAYERS = 2
+MOE_RANKS_B = 4                    # one sequence a rank on 4 ranks
+MOE_CHECK_B = 1
+# the dryrun's functional call (__graft_entry__.py:188-203 on 4 devices)
+MOE_DRYRUN = dict(E=4, D=16, H=32, tokens=32, top_k=1, capacity_factor=4.0)
+TOL_MOE_DRYRUN = 2e-5              # tests/test_recipes.py:192-214's
+TOL_MOE_RESUME = 1e-5              # __graft_entry__.py:237's
+
+
+def moe_train_flops(B, T, cfg, shards=1, dispatch=False):
+    """bench.py:1874's analytic FLOPs of one MoE training step, 3x the
+    forward: attention, gate, the experts over every slot, the decoder; the
+    one-hot dispatch/combine einsums' term only with ``dispatch`` (the
+    port gathers instead)."""
+    N = B * T
+    units, hidden, E = cfg["units"], cfg["hidden_size"], cfg["num_experts"]
+    cap = max(1, int(cfg["capacity_factor"] * (N // shards) * cfg["top_k"] / E))
+    attn = 2 * N * units * 3 * units + 4 * N * T * units + 2 * N * units * units
+    gate = 2 * N * units * E
+    expert = 2 * 2 * shards * E * cap * units * hidden
+    one_hot = 2 * 2 * N * E * cap * units if dispatch else 0
+    return 3 * (cfg["num_layers"] * (attn + gate + expert + one_hot)
+                + 2 * N * units * cfg["vocab_size"])
+
+
+def _moe_weights(cfg, seed):
+    """Seeded f32 weights for every path of the MoE LM at ``cfg`` (the model
+    is built for its shapes only, never initialized)."""
+    from mxnet_tpu_torch.convert import seeded_params
+    from mxnet_tpu_torch.models import MoETransformerLM
+    return seeded_params(MoETransformerLM(**cfg), seed)
+
+
+def _moe_batch(B, T, seed, vocab=None):
+    vocab = vocab or MOE_CFG["vocab_size"]
+    rs = np.random.RandomState(seed)
+    return (rs.randint(0, vocab, size=(B, T)).astype(np.int32),
+            rs.randint(0, vocab, size=(B, T)).astype(np.int32))
+
+
+def _moe_net(mx, weights, ctx, cfg=None):
+    """``MoETransformerLM(**cfg)`` (default MOE_CFG) on ``ctx`` with
+    ``weights`` (the main path's entry points: the class, ``initialize``,
+    ``load_jax_params``)."""
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import MoETransformerLM
+    net = MoETransformerLM(**(cfg or MOE_CFG))
+    net.initialize(ctx=ctx)
+    load_jax_params(net, weights)
+    return net
+
+
+def _moe_trainer(net, mesh):
+    from mxnet_tpu_torch.recipes import get_recipe
+    return get_recipe("moe").build_trainer(net, mesh, learning_rate=MOE_LR)
+
+
+def _flips(a, b):
+    """Tokens whose routing differs between two runs' ``last_assignments``."""
+    return sum(int((np.asarray(x) != np.asarray(y)).any(axis=-1).sum()) for x, y in zip(a, b))
+
+
+def phase_moe_train(torch, weights):
+    """The main path of the MoE slice on a world-1 NCCL mesh {dp: 1, ep: 1}
+    (the caller holds the process group): ``MoETransformerLM`` at
+    Switch-Base-8's widths, seeded weights through ``load_jax_params``,
+    ``get_recipe("moe").build_trainer``, Adam lr 1e-4, f32 with TF32 off,
+    T=1024 batch 8; 5 steps and one profiled, then ``drain()``. Each step
+    must launch K1, K2 and K3 once a layer and K5 once (the dense shard
+    segments and the expert tensors under one weight decay), and the loss
+    must fall."""
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = mx.parallel.make_mesh({"dp": 1, "ep": 1}, devices=[mx.gpu(0)])
+    net = _moe_net(mx, weights, mx.gpu(0))
+    trainer = _moe_trainer(net, mesh)
+    ready_s = time.perf_counter() - t0
+    tokens, labels = _moe_batch(MOE_B, MOE_T, seed=31)
+    x = mx.nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
+    y = mx.nd.array(labels, ctx=mx.gpu(0), dtype="int32")
+    n = MOE_CFG["num_layers"]
+    counters = _elastic_counters()
+    per_step = {"flash_attention_fwd": n, "flash_attention_bwd_dq": n,
+                "flash_attention_bwd_dkv": n, "fused_adam_update": 1}
+    n_params = sum(int(np.prod(p.shape)) for p in net.collect_params().values())
+    n_expert = sum(int(np.prod(p.shape)) for p in net.collect_params().values()
+                   if getattr(p, "_is_moe_expert", False))
+    label = "moe-train"
+    cap = mx.parallel.moe_capacity(MOE_B * MOE_T, 1, MOE_CFG["capacity_factor"],
+                                   MOE_CFG["num_experts"])
+    log(f"[{label}] MoETransformerLM {MOE_CFG}: {n_params} parameters ({n_expert} in the "
+        f"experts), batch {MOE_B} x T {MOE_T}, capacity {cap} slots an expert, {mesh} over "
+        f"{dist.get_backend()}, {len(trainer._zero_plan)} ZeRO bucket(s), "
+        f"{len(trainer._buckets)} expert gradient bucket(s); ready in {ready_s:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters(counters)
+    steps = _dp_steps(torch, label, trainer, x, y, 5, per_step,
+                      (MOE_B * MOE_T, "tokens_per_s"), counters)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    trainer.drain()
+    dropped = trainer.global_dropped_tokens()
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"{label}: the loss did not fall")
+    profile = _step_profile(torch, f"{label} step", lambda: trainer.step(x, y), steps)
+    med = float(np.median([st["ms"] for st in steps if not st["warmup"]]))
+    flops = moe_train_flops(MOE_B, MOE_T, MOE_CFG)
+    flops_einsum = moe_train_flops(MOE_B, MOE_T, MOE_CFG, dispatch=True)
+    tflops = flops / med / 1e9
+    log(f"[{label}] median step {med:.2f} ms, {MOE_B * MOE_T / med * 1e3:.0f} tokens/s, "
+        f"{tflops:.1f} TFLOP/s of {flops / 1e12:.3f} TFLOP a step (bench.py:1874's count "
+        f"without the one-hot dispatch/combine term, which the port does not run; with it "
+        f"{flops_einsum / 1e12:.3f} TFLOP); launches {launches} over 5 steps; peak "
+        f"{peak / 2**30:.3f} GiB; dropped (token, choice) assignments {dropped} of "
+        f"{5 * MOE_B * MOE_T} in 5 steps; a profiled step "
+        f"{sum(profile['group_launches'].values())} launches")
+    out = {"steps": steps, "step_median_ms": med, "tokens_per_s": MOE_B * MOE_T / med * 1e3,
+           "flops_per_step": flops, "flops_per_step_with_one_hot": flops_einsum,
+           "tflops": tflops, "launches": launches, "per_step": per_step, "peak_bytes": peak,
+           "dropped": dropped, "profile": profile, "capacity": cap, "parameters": n_params,
+           "expert_parameters": n_expert, "ready_s": ready_s,
+           "launches_per_step": sum(profile["group_launches"].values())}
+    del trainer, net, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_serve(torch, weights):
+    """The Switch-Base-8-width MoE LM's forward outside a trainer (``net(tokens)``,
+    ``moe_ffn`` in every cell) at T=1024: batch 1 (a warm-up), 1, 8, 8; each
+    forward launches K1 once a layer. The batch-1 logits against the CPU's
+    (the plain versions), f32, TF32 off, at TOL_LOGITS with the routing
+    compared first."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from mxnet_tpu_torch.parallel import moe as pmoe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = _moe_net(mx, weights, mx.gpu(0))
+    n = MOE_CFG["num_layers"]
+    rs = np.random.RandomState(32)
+    requests = [rs.randint(0, MOE_CFG["vocab_size"], size=(b, MOE_T)).astype(np.int32)
+                for b in (1, 1, 8, 8)]
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd}
+    _zero_counters(counters)
+    torch.cuda.reset_peak_memory_stats()
+    served, first = [], None
+    with torch.no_grad():
+        for i, tokens in enumerate(requests):
+            before = fa.flash_attention_fwd.launches
+            t_start = time.perf_counter()
+            with pmoe.collect_metrics() as mc:
+                logits = net(mx.nd.array(tokens, ctx=mx.gpu(0), dtype="int32"))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t_start) * 1e3
+            launched = fa.flash_attention_fwd.launches - before
+            B = tokens.shape[0]
+            finite = bool(torch.isfinite(logits._data).all().item())
+            log(f"[moe-serve] request {i} batch={B} T={MOE_T}: {ms:.2f} ms, "
+                f"{B * MOE_T / ms * 1e3:.0f} tokens/s, K1 launches {launched}, dropped "
+                f"{int(mc.dropped_total())}" + (" (warm-up)" if i == 0 else ""))
+            if launched != n or not finite or \
+                    logits.shape != (B, MOE_T, MOE_CFG["vocab_size"]):
+                raise AssertionError(f"moe-serve: {launched} K1 launches, finite={finite}, "
+                                     f"logits {logits.shape}")
+            if i == 1:
+                first = (logits.asnumpy(), [a.cpu().numpy() for a in mc.assignments])
+            served.append({"batch": B, "ms": ms, "tokens_per_s": B * MOE_T / ms * 1e3,
+                           "warmup": i == 0})
+            del logits
+    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    del net
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    net_cpu = _moe_net(mx, weights, mx.cpu())
+    with torch.no_grad(), pmoe.collect_metrics() as mc:
+        ref = net_cpu(mx.nd.array(requests[1], ctx=mx.cpu(), dtype="int32")).asnumpy()
+    flips = _flips(first[1], [a.numpy() for a in mc.assignments])
+    rel = float(np.abs(ref - first[0]).max() / np.abs(ref).max())
+    ok = flips == 0 and rel <= TOL_LOGITS
+    log(f"[moe-serve] batch-1 logits, GPU vs CPU: routing flips {flips}, max|d| {rel:.3e} "
+        f"of max|logit| {np.abs(ref).max():.3f} (tol {TOL_LOGITS:.0e}); CPU run "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}; peak {peak / 2**30:.3f} GiB "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the MoE forward on the card disagrees with the CPU")
+    batch8 = [r["ms"] for r in served if r["batch"] == 8]
+    return {"requests": served, "batch8_ms": float(np.median(batch8)), "launches": launches,
+            "peak_bytes": peak, "cpu_rel": rel, "flips": flips}
+
+
+def _moe_step(mx, weights, ctx, mesh, x, y, cfg):
+    net = _moe_net(mx, weights, ctx, cfg)
+    trainer = _moe_trainer(net, mesh)
+    loss = float(trainer.step(*(mx.nd.array(a, ctx=ctx, dtype="int32") for a in (x, y))))
+    grads = {k: g.cpu().numpy() for k, g in trainer.gathered_grads().items()}
+    routes = [a.cpu().numpy() for a in trainer.last_assignments]
+    keys = net._collect_params_with_prefix()
+    return (loss, grads, {k: p.data().asnumpy() for k, p in keys.items()}), routes
+
+
+def phase_moe_check(torch, cfg=None):
+    """One MoETrainer step of a 2-layer model of Switch-Base-8 width, T=1024,
+    batch 1: on the card over the world-1 NCCL mesh (the caller's group:
+    expert_parallel_moe over ep 1, the sharded update at dp 1) against the
+    CPU on a mesh of one device (moe_ffn, the kernels' plain versions), f32
+    with TF32 off; the routing compared first (flips reported), then the
+    training checks' tolerances (_step_agreement)."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cfg or dict(MOE_CFG, num_layers=MOE_RANK_LAYERS)
+    t0 = time.perf_counter()
+    weights = _moe_weights(cfg, seed=33)
+    x, y = _moe_batch(MOE_CHECK_B, MOE_T, seed=34, vocab=cfg["vocab_size"])
+    gpu, routes_gpu = _moe_step(mx, weights, mx.gpu(0), mx.parallel.make_mesh(
+        {"dp": 1, "ep": 1}, devices=[mx.gpu(0)]), x, y, cfg)
+    torch.cuda.empty_cache()
+    cpu, routes_cpu = _moe_step(mx, weights, mx.cpu(),
+                                mx.parallel.Mesh([mx.cpu()], ("dp", "ep"), (1, 1)), x, y, cfg)
+    flips = _flips(routes_gpu, routes_cpu)
+    res = _step_agreement(gpu, cpu, MOE_LR)
+    ok = res.pop("ok") and flips == 0
+    log(f"[moe-check] {cfg['num_layers']} layers of Switch-Base-8 width, T={MOE_T}, batch "
+        f"{MOE_CHECK_B}, one MoETrainer step, GPU (NCCL world 1) vs CPU: routing flips "
+        f"{flips}; loss {gpu[0]:.6f} vs {cpu[0]:.6f} (rel {res['loss_rel']:.2e}, tol "
+        f"{TOL_TRAIN_LOSS:.0e}); gradients {res['grad_rel']:.2e} of the tensor's max (tol "
+        f"{TOL_TRAIN_GRAD:.0e}); weights max|d| {res['weight_max_abs']:.2e} (tol "
+        f"{TOL_TRAIN_W:.0e}), {res['near_zero_grad_elements']} elements with a nonzero |g| "
+        f"within the gradient tolerance of 0 up to {res['near_zero_weight_max_abs']:.2e} "
+        f"(tol 2 lr); {'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        raise AssertionError("the MoE step on the card disagrees with the CPU")
+    return dict(res, flips=flips, loss_gpu=gpu[0], loss_cpu=cpu[0])
+
+
+def _moe_run(mx, torch, weights, ctx, cfg, axes, x, y, steps, snapshot=None):
+    """MoETrainer on ``axes`` for ``steps`` steps, counting launches and
+    keeping each step's routing; a snapshot after step 2 into ``snapshot``."""
+    from mxnet_tpu_torch import elastic
+    gpu = ctx.device_type == "gpu"
+    mesh = mx.parallel.make_mesh(axes, devices=[ctx])
+    net = _moe_net(mx, weights, ctx, cfg)
+    trainer = _moe_trainer(net, mesh)
+    counters = _elastic_counters()
+    _zero_counters(counters)
+    xs, ys = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in (x, y))
+    out = {"losses": [], "routes": [], "launches": [], "s": []}
+    for i in range(steps):
+        before = {k: c.launches for k, c in counters.items()}
+        t0 = time.perf_counter()
+        out["losses"].append(float(trainer.step(xs, ys)))
+        if gpu:
+            torch.cuda.synchronize()
+        out["s"].append(time.perf_counter() - t0)
+        out["launches"].append({k: c.launches - before[k] for k, c in counters.items()})
+        out["routes"].append([a.cpu().numpy().tolist() for a in trainer.last_assignments])
+        if snapshot and i == 1:
+            elastic.save_trainer(elastic.SnapshotManager(snapshot), trainer, wait=True)
+    out["dropped"] = trainer.global_dropped_tokens()
+    out["experts_local"] = list(net.cells[0].moe.w1._param.shape)
+    return out, net
+
+
+def rank_moe(workdir, device, steps, cfg):
+    """One of 4 ranks of phase_moe_ranks: (a) the dryrun's expert_parallel_moe
+    on {ep: 4}; (b) the recipe on {dp: 2, ep: 2} (a snapshot after step 2)
+    and on {dp: 4, ep: 1}; (c) {dp: 1, ep: 4} resumed from the snapshot."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util, elastic
+    from mxnet_tpu_torch.convert import gather_params
+    from mxnet_tpu_torch.parallel import moe as pmoe
+    ctx = _dist_util.rank_context(device)
+    if ctx.device_type == "gpu":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    d = dict(np.load(os.path.join(workdir, "dryrun.npz")))
+    ep = mx.parallel.make_mesh({"ep": 4}, devices=[ctx])
+    r = ep.axis_index("ep")
+    E, nl = MOE_DRYRUN["E"], MOE_DRYRUN["tokens"] // 4
+    dev = ctx.torch_device
+    xl = torch.from_numpy(d["x"][r * nl:(r + 1) * nl]).to(dev)
+    gw = torch.from_numpy(d["gate_w"]).to(dev)
+    w1 = torch.from_numpy(d["w1"]).to(dev)
+    w2 = torch.from_numpy(d["w2"]).to(dev)
+    kw = dict(top_k=MOE_DRYRUN["top_k"], capacity_factor=MOE_DRYRUN["capacity_factor"])
+    el = E // 4
+    y_ep = pmoe.expert_parallel_moe(xl, gw, w1[r * el:(r + 1) * el], w2[r * el:(r + 1) * el],
+                                    axis_name="ep", mesh=ep, **kw)
+    y_one = pmoe.moe_ffn(xl, gw, w1, w2, **kw)
+    out = {"rank": ep.rank, "dryrun_rel": float((y_ep - y_one).abs().max()
+                                                / y_one.abs().max().clamp_min(1e-30)),
+           "dryrun_finite": bool(torch.isfinite(y_ep).all())}
+    weights = dict(np.load(os.path.join(workdir, "weights.npz")))
+    data = np.load(os.path.join(workdir, "data.npz"))
+    out["ready_s"] = time.perf_counter() - t0
+    for axes, snap in (({"dp": 2, "ep": 2}, os.path.join(workdir, "snap")),
+                       ({"dp": 4, "ep": 1}, None)):
+        key = f"dp{axes['dp']}ep{axes['ep']}"
+        out[key], net = _moe_run(mx, torch, weights, ctx, cfg, axes, data["x"], data["y"],
+                                 steps, snap)
+        params = gather_params(net)
+        if ep.rank == 0:
+            np.savez(os.path.join(workdir, f"{key}.npz"), **params)
+        del net, params
+        if ctx.device_type == "gpu":
+            torch.cuda.empty_cache()
+    mesh = mx.parallel.make_mesh({"dp": 1, "ep": 4}, devices=[ctx])
+
+    def rebuild():
+        from mxnet_tpu_torch.models import MoETransformerLM
+        mx.random.seed(123)
+        net = MoETransformerLM(**cfg)
+        net.initialize(ctx=ctx)
+        return _moe_trainer(net, mesh)
+    t1 = time.perf_counter()
+    _, trainer, start, outcome = elastic.resume_or_init(os.path.join(workdir, "snap"), rebuild)
+    resume_s = time.perf_counter() - t1
+    loss = float(trainer.step(*(mx.nd.array(data[k], ctx=ctx, dtype="int32")
+                                for k in ("x", "y"))))
+    out["resume"] = {"start": start, "outcome": outcome, "loss": loss, "s": resume_s,
+                     "experts_local": list(trainer.net.cells[0].moe.w1._param.shape),
+                     "routes": [a.cpu().numpy().tolist() for a in trainer.last_assignments]}
+    return out
+
+
+def phase_moe_ranks(torch, device="gpu", steps=3, timeout=900, cfg=None):
+    """The MoE half of dryrun_multichip on 4 ranks sharing the card over gloo
+    (a correctness run: gloo stages every collective through the host):
+    (a) expert_parallel_moe at the dryrun's shapes (E 4, D 16, H 32, 32
+    tokens, top-1, capacity factor 4) against moe_ffn on each rank's token
+    shard at TOL_MOE_DRYRUN; (b) the recipe at Switch-Base-8 widths and 2
+    layers, T=1024, global batch 4, 3 steps, on {dp: 2, ep: 2} against
+    {dp: 4, ep: 1} (the same 4 token shards, so the same gating): routing
+    compared first, then losses at TOL_DIST_LOSS and the step-3 weights at
+    TOL_DIST_W; every rank launches K1-K3 once a layer and K5 once a step;
+    (c) a snapshot after step 2 on {dp: 2, ep: 2} resumed on {dp: 1, ep: 4}
+    through resume_or_init into the shared directory: "resharded", step 3's
+    loss at TOL_MOE_RESUME."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    cfg = cfg or dict(MOE_CFG, num_layers=MOE_RANK_LAYERS)
+    n = 4
+    backend = _dist_util.choose_backend(device, n, torch.cuda.device_count()
+                                        if device == "gpu" else 0)
+    work = os.path.join(ROOT, "build", "moe_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rs = np.random.RandomState(0)       # the dryrun's draws (__graft_entry__.py:191-197)
+    E, D, H, N = (MOE_DRYRUN[k] for k in ("E", "D", "H", "tokens"))
+    np.savez(os.path.join(work, "dryrun.npz"),
+             x=rs.normal(0, 1, (N, D)).astype(np.float32),
+             gate_w=rs.normal(0, 0.5, (D, E)).astype(np.float32),
+             w1=rs.normal(0, 0.5, (E, D, H)).astype(np.float32),
+             w2=rs.normal(0, 0.5, (E, H, D)).astype(np.float32))
+    np.savez(os.path.join(work, "weights.npz"), **_moe_weights(cfg, seed=35))
+    x, y = _moe_batch(MOE_RANKS_B, MOE_T, seed=36, vocab=cfg["vocab_size"])
+    np.savez(os.path.join(work, "data.npz"), x=x, y=y)
+    log(f"[moe-ranks] {n} ranks on {device} over {backend}: the dryrun's expert_parallel_moe "
+        f"{MOE_DRYRUN}; MoETrainer at {cfg}, batch {MOE_RANKS_B} x T {MOE_T}, {steps} steps "
+        f"on dp2 x ep2 and dp4 x ep1, the dp2 x ep2 snapshot resumed on dp1 x ep4")
+    t0 = time.perf_counter()
+    ranks = _dist_util.launch_local(
+        "chip_smoke:rank_moe", n, {"workdir": work, "device": device, "steps": steps,
+                                   "cfg": cfg},
+        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+    seconds = time.perf_counter() - t0
+    w = {k: dict(np.load(os.path.join(work, f"{k}.npz"))) for k in ("dp2ep2", "dp4ep1")}
+    shutil.rmtree(work, ignore_errors=True)
+    per_step = {"flash_attention_fwd": MOE_RANK_LAYERS, "flash_attention_bwd_dq":
+                MOE_RANK_LAYERS, "flash_attention_bwd_dkv": MOE_RANK_LAYERS,
+                "fused_adam_update": 1}
+    dry = max(r["dryrun_rel"] for r in ranks)
+    ok_a = dry <= TOL_MOE_DRYRUN and all(r["dryrun_finite"] for r in ranks)
+    flips = sum(_flips(sa, sb) for r in ranks
+                for sa, sb in zip(r["dp2ep2"]["routes"], r["dp4ep1"]["routes"]))
+    loss_rel = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["dp2ep2"]["losses"], r["dp4ep1"]["losses"]))
+    w_abs = max(float(np.abs(w["dp2ep2"][k] - v).max()) for k, v in w["dp4ep1"].items())
+    launches_ok = device != "gpu" or all(st == per_step for r in ranks for key in
+                                         ("dp2ep2", "dp4ep1") for st in r[key]["launches"])
+    ok_b = flips == 0 and loss_rel <= TOL_DIST_LOSS and w_abs <= TOL_DIST_W and launches_ok
+    resume_flips = sum(_flips(r["resume"]["routes"], r["dp2ep2"]["routes"][2]) for r in ranks)
+    resume_rel = max(abs(r["resume"]["loss"] - r["dp2ep2"]["losses"][2])
+                     / abs(r["dp2ep2"]["losses"][2]) for r in ranks)
+    ok_c = all((r["resume"]["start"], r["resume"]["outcome"]) == (2, "resharded")
+               for r in ranks) and resume_rel <= TOL_MOE_RESUME and resume_flips == 0
+    for r in ranks:
+        log(f"[moe-ranks] rank {r['rank']}: ready {r['ready_s']:.1f} s; dp2ep2 losses "
+            f"{[round(v, 6) for v in r['dp2ep2']['losses']]} steps "
+            f"{[round(s, 2) for s in r['dp2ep2']['s']]} s, experts here "
+            f"{r['dp2ep2']['experts_local']}; dp4ep1 losses "
+            f"{[round(v, 6) for v in r['dp4ep1']['losses']]}; launches a step "
+            f"{r['dp2ep2']['launches'][-1]}; resume {r['resume']['start']}, "
+            f"{r['resume']['outcome']!r} in {r['resume']['s']:.2f} s, experts here "
+            f"{r['resume']['experts_local']}, step 3 loss {r['resume']['loss']:.6f}")
+    log(f"[moe-ranks] (a) the dryrun's call against moe_ffn on each token shard: max "
+        f"{dry:.2e} of max (tol {TOL_MOE_DRYRUN:.0e}) {'ok' if ok_a else 'FAIL'}")
+    log(f"[moe-ranks] (b) dp2 x ep2 against dp4 x ep1: routing flips {flips}; losses max rel "
+        f"{loss_rel:.2e} (tol {TOL_DIST_LOSS:.0e}); step-{steps} weights max|d| {w_abs:.2e} "
+        f"(tol {TOL_DIST_W:.0e}); dropped {ranks[0]['dp2ep2']['dropped']} and "
+        f"{ranks[0]['dp4ep1']['dropped']}; launches {'ok' if launches_ok else 'FAIL'} "
+        f"{'ok' if ok_b else 'FAIL'}")
+    log(f"[moe-ranks] (c) ep-reshard resume: routing flips {resume_flips}, step 3 max rel "
+        f"{resume_rel:.2e} (tol {TOL_MOE_RESUME:.0e}) {'ok' if ok_c else 'FAIL'}; "
+        f"{n} ranks in {seconds:.1f} s")
+    if not (ok_a and ok_b and ok_c):
+        raise AssertionError("the MoE ranks disagree")
+    return {"backend": backend, "seconds": seconds, "dryrun_rel": dry, "flips": flips,
+            "loss_rel": loss_rel, "weight_abs": w_abs, "resume_rel": resume_rel,
+            "resume_outcomes": [r["resume"]["outcome"] for r in ranks],
+            "losses": {k: ranks[0][k]["losses"] for k in ("dp2ep2", "dp4ep1")},
+            "resume_loss": [r["resume"]["loss"] for r in ranks],
+            "launches": {k: sum(st[k] for r in ranks for key in ("dp2ep2", "dp4ep1")
+                                for st in r[key]["launches"]) for k in per_step}}
+
+
 @contextlib.contextmanager
 def _world1_nccl(torch):
     """A world-1 process group on the card, over the backend rule's choice
@@ -3665,6 +4116,13 @@ def main() -> int:
                                   label="lc-ranks-d16")
     zero_ranks = phase_zero_bert_ranks(torch)
     elastic_zero = phase_elastic_zero_reshard(torch)
+    moe_weights = _moe_weights(MOE_CFG, seed=30)
+    with _world1_nccl(torch):
+        moe_train = phase_moe_train(torch, moe_weights)
+        moe_check = phase_moe_check(torch)
+    moe_serve = phase_moe_serve(torch, moe_weights)
+    del moe_weights
+    moe_ranks = phase_moe_ranks(torch)
     f32 = kernel["timings"]["float32"]
     b32 = kernel_bwd["timings"]["float32"]
     src = "mxnet_tpu_torch/csrc/"
@@ -3681,6 +4139,8 @@ def main() -> int:
                 "lc_train": lc_train["launches"].get(name, 0),
                 "lc_ranks": lc_ranks["launches"].get(name, 0),
                 "lc_ranks_d16": lc_ranks_d16["launches"].get(name, 0),
+                "moe_train": moe_train["launches"].get(name, 0),
+                "moe_ranks": moe_ranks["launches"].get(name, 0),
                 **{label: phase["launches"].get(name, 0) for label, phase in
                    (("elastic_bert", elastic_bert), ("elastic_kill", elastic_kill),
                     ("elastic_lc", elastic_lc), ("elastic_zero", elastic_zero))},
@@ -3699,6 +4159,7 @@ def main() -> int:
             "checks": lc_kernels["checks"], "head_dim_checks": lc_kernels["head_dims"]}
     fwd_by_path = {"serve": serve["launches"]["flash_attention_fwd"],
                    "train": train["launches"]["flash_attention_fwd"],
+                   "moe_serve": moe_serve["launches"]["flash_attention_fwd"],
                    **{k: v for k, v in dp_launches("flash_attention_fwd").items()
                       if not k.startswith("dp_resnet")}}
     sp_f, sp_b = kernel["timings"]["sp_float32"], kernel_bwd["timings"]["sp_float32"]
@@ -3755,6 +4216,10 @@ def main() -> int:
                             ("ms", "plain_ms", "bound_ms", "max_abs_err")},
             **({"dp_resnet_check": {dt: dp_resnet[dt]["update_check"] for dt in dp_resnet}}
                if dp_checks else {}),
+            **({"moe": {"per_step": moe_train["per_step"]["fused_adam_update"],
+                        "update": "the dense ZeRO shard segments and the expert tensors, "
+                                  "one weight decay"}}
+               if rule == "fused_adam_update" else {}),
             **({"long_context": {
                 "per_step": lc_train["per_step"]["fused_adam_update"],
                 "segments_per_rank": [r["segments"] for r in lc_ranks["ranks"]],
@@ -3815,6 +4280,8 @@ def main() -> int:
                    "lc_ranks_d16": lc_ranks_d16, "zero_ranks": zero_ranks,
                    "elastic_bert": elastic_bert, "elastic_kill": elastic_kill,
                    "elastic_lc": elastic_lc, "elastic_zero": elastic_zero,
+                   "moe_train": moe_train, "moe_check": moe_check, "moe_serve": moe_serve,
+                   "moe_ranks": moe_ranks,
                    "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1, default=float)
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -38,10 +38,13 @@ elastic kill-and-resume (``elastic.SnapshotManager``, ``elastic.save_trainer``,
 ``elastic.resume_or_init``, ``elastic.run`` with ``PreemptionGuard``: an
 asynchronous sharded snapshot of the fused step, restored in place on the
 same mesh or, with the ZeRO state re-canonicalised, another data degree) and
-the fault-injection plane with its bounded IO retry (``faults``).
-Still to come (ROADMAP.md): the MoE half of ``dryrun_multichip`` (expert
-parallelism, the MoE model and recipe), the 1F1B pipeline and its snapshot
-kind, the overlapped gradient reduction (``parallel/overlap.py``),
+the fault-injection plane with its bounded IO retry (``faults``); and the
+mixture of experts (``parallel.moe``: capacity gating, the expert-parallel
+FFN over an ``ep`` axis with its bf16/int8 all-to-all wire), the MoE
+transformer (``models.MoETransformerLM``) and its recipe
+(``recipes.get_recipe("moe")``: ``MoETrainer`` over a ``{dp, ep}`` mesh, the
+experts sharded over ep, restorable across ep degrees).
+Still to come (ROADMAP.md): the 1F1B pipeline and its snapshot kind, the overlapped gradient reduction (``parallel/overlap.py``),
 ``dist_async`` and kvstore compression, the multi-host elastic coordinator
 and its drills, and ``checkpoint.py``.
 

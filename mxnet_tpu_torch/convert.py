@@ -11,12 +11,14 @@ a missing, extra or mis-shaped key raises ``MXNetError`` and loads nothing.
 ``seeded_params(net, seed)`` makes such a dict with numpy, the same for the
 same seed on every host, so a run on the card and the CPU tests load
 weights through the same function. Both work for every model of the port
-whose paths follow the reference's: BERT, ResNet and the long-context recipe's
-``LongContextLM`` (``word_embed``, ``pos_embed``, ``cells.<i>.attn.qkv``, ...).
+whose paths follow the reference's: BERT, ResNet, the long-context recipe's
+``LongContextLM`` (``word_embed``, ``pos_embed``, ``cells.<i>.attn.qkv``, ...)
+and ``MoETransformerLM`` (``cells.<i>.moe.gate_w``, ``.w1``, ``.w2``).
 
 The carrier for ranks: ``shard_arrays(arrays, specs, mesh)`` cuts one rank's
 shards out of full arrays by their ``PartitionSpec``s (the parameters'
-``sharding`` after ``parallel.shard_params_megatron``), and ``gather_params(net)`` /
+``sharding`` after ``parallel.shard_params_megatron``, or an expert's
+``P("ep", None, None)`` under ``recipes.moe.MoETrainer``), and ``gather_params(net)`` /
 ``gather_grads(net)`` gather every placed parameter's shards (or its
 gradient's) back into full numpy arrays by structural path, a collective
 that every rank of the mesh calls. The tests and ``chip_smoke.py`` compare

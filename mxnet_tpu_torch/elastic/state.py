@@ -1,7 +1,8 @@
 """Trainer state capture and install for elastic snapshots.
 
 Counterpart of ``mxnet_tpu/elastic/state.py``, the ``dp`` kind
-(``DataParallelTrainer`` and ``recipes.long_context.LongContextTrainer``).
+(``DataParallelTrainer``, ``recipes.long_context.LongContextTrainer`` and
+``recipes.moe.MoETrainer``).
 ``capture(trainer)`` gives ``{"leaves": {name: value}, "meta": {...}}``, the
 schema ``SnapshotManager`` writes; ``install(trainer, meta, fetch, names)``
 is its inverse, ``fetch(name)`` giving a leaf's global host array (a
@@ -38,11 +39,16 @@ in the order of the optimizer's state tuple, the reference's
 re-packed onto the trainer's plan, must equal the trainer's own, or install
 raises: a resume never runs silently under another decay. A trainer with
 ``zero_update`` on a mesh of one device keeps whole-parameter state; its
-lanes are those of the bucket plan at dp 1, as the reference's. Across data
+lanes are those of the bucket plan at dp 1 (over the trainer's
+``_zero_entries``), as the reference's. Across data
 degrees the lanes are re-canonicalised (``_revector``,
 ``_restore_zero_carry``): each saved bucket split into per-parameter
 segments by the saved plan (in the manifest) and re-packed under the new
 one, zero-padded to its shard multiple.
+
+A trainable parameter outside every bucket (``MoETrainer``'s experts, placed
+over ep) keeps its whole state in ``opt.x{i}.{k}``, a chunk of the rank's
+rows like its parameter's, so a snapshot restores across ep degrees.
 
 Install copies into the live tensors in place, under ``torch.no_grad()``,
 and never rebinds them: the ZeRO segments are persistent views of the
@@ -273,10 +279,7 @@ def _zero_layout(trainer):
     from ..parallel import zero as _zero
     if trainer._zero_buckets:
         return list(trainer._zero_plan), [zb["state"] for zb in trainer._zero_buckets]
-    entries = [(i, p._param.shape, p._param.dtype) for i, (p, t) in
-               enumerate(zip(trainer._plist, trainer._trainable))
-               if t and p._param.is_floating_point()]
-    return list(_zero.plan_buckets(entries, 1, trainer._bucket_bytes)), None
+    return list(_zero.plan_buckets(trainer._zero_entries(), 1, trainer._bucket_bytes)), None
 
 
 def _wds(trainer):

@@ -3,9 +3,9 @@ device or the ranks of a ``torch.distributed`` job (``mesh``), the fused
 training step ``DataParallelTrainer`` with its ``functional_optimizer`` and
 its ZeRO-sharded update (``zero``), the tensor-parallel specs
 (``tensor_parallel``), the Megatron boundary collectives (``megatron``), and
-ring and Ulysses attention (``ring_attention``). The overlapped reduction
-(``overlap.py``), pipelines, expert parallelism and elastic training wait for
-later slices (ROADMAP A2)."""
+ring and Ulysses attention (``ring_attention``), and the mixture of experts
+with expert parallelism (``moe``). The overlapped reduction (``overlap.py``)
+and pipelines wait for later slices (ROADMAP A2)."""
 from .mesh import (Mesh, PartitionSpec, P, make_mesh, local_mesh, current_mesh,
                    set_default_mesh, require_axis, axis_size, axis_index, activate,
                    active_mesh, sequence_axis)
@@ -16,6 +16,10 @@ from .megatron import (copy_to_tp, reduce_from_tp, gather_from_sp, scatter_to_sp
                        partial_grad, vocab_parallel_embedding)
 from . import zero
 from .ring_attention import ring_attention, ulysses_attention
+from . import moe
+from .moe import (moe_ffn, expert_parallel_moe, topk_gating, load_balancing_loss,
+                  load_balance_loss, dropped_tokens, wire_all_to_all,
+                  all_to_all_wire_bytes, moe_capacity, expert_axis, collect_metrics)
 
 __all__ = ["Mesh", "PartitionSpec", "P", "make_mesh", "local_mesh", "current_mesh",
            "set_default_mesh", "require_axis", "axis_size", "axis_index", "activate",
@@ -24,4 +28,6 @@ __all__ = ["Mesh", "PartitionSpec", "P", "make_mesh", "local_mesh", "current_mes
            "row_parallel_spec", "shard_params_megatron", "tp_shard_dim",
            "copy_to_tp", "reduce_from_tp", "gather_from_sp", "scatter_to_sp",
            "partial_grad", "vocab_parallel_embedding", "zero", "ring_attention",
-           "ulysses_attention"]
+           "ulysses_attention", "moe", "moe_ffn", "expert_parallel_moe", "topk_gating",
+           "load_balancing_loss", "load_balance_loss", "dropped_tokens", "wire_all_to_all",
+           "all_to_all_wire_bytes", "moe_capacity", "expert_axis", "collect_metrics"]

@@ -101,6 +101,12 @@ also takes ``P("dp", "sp")``):
   bucket (none in this repository's models) take the replicated step's
   all-reduce and update.
 
+A subclass adapts the plan through three hooks: ``_zero_entries`` (the
+parameters the buckets pack), ``_may_shard_over_data`` (a parameter sharded
+over a data axis) and ``_grad_axes`` (the axes a gradient bucket outside
+ZeRO is summed over); ``recipes.moe.MoETrainer`` keeps its ep-sharded
+experts out of the buckets and sums their gradients over dp only.
+
 ``gathered_grads()`` gives the reduced gradients (the shards gathered) and
 ``state_dict()`` the full optimizer state. ``_program`` (a
 ``parallel.step_program.StepProgram``, the configuration's fingerprint) and
@@ -282,7 +288,7 @@ class DataParallelTrainer:
             for _, axes in spec_axes(p.sharding):
                 for a in axes:
                     require_axis(self.mesh, a, f"the sharding of {p.name}")
-                    if a in self._reduce_axes:
+                    if a in self._reduce_axes and not self._may_shard_over_data(p):
                         raise MXNetError(f"{p.name} is sharded over the data axis {a!r} "
                                          f"({p.sharding}): {_A2}")
             if self.mesh.distributed and spec_axes(p.sharding):
@@ -293,6 +299,7 @@ class DataParallelTrainer:
         self._trainable = [p.grad_req != "null" for p in self._plist]
         self._t = 0
         self._buckets: List[torch.Tensor] = []     # flat gradient buckets (all-reduce)
+        self._bucket_axes: List[tuple] = []        # the axes each bucket is summed over
         self._zero_plan = ()
         self._zero_buckets: List[dict] = []
         # one update launch for each distinct weight decay, over the whole
@@ -353,10 +360,7 @@ class DataParallelTrainer:
         ndp = self.mesh.axis_size(self.batch_axis)
         pos = self.mesh.axis_index(self.batch_axis)
         dev = self.device.torch_device
-        entries = [(i, p._param.shape, p._param.dtype) for i, (p, t) in
-                   enumerate(zip(self._plist, self._trainable))
-                   if t and p._param.is_floating_point()]
-        self._zero_plan = _zero.plan_buckets(entries, ndp, self._bucket_bytes)
+        self._zero_plan = _zero.plan_buckets(self._zero_entries(), ndp, self._bucket_bytes)
         for b in self._zero_plan:
             dtype = self._plist[b.indices[0]]._param.dtype
             gflat = torch.zeros(b.padded_size, dtype=dtype, device=dev)
@@ -383,6 +387,23 @@ class DataParallelTrainer:
                     (w, gshard[part], tuple(st[part] for st in state)))
             self._zero_buckets.append(zb)
         return frozenset(i for b in self._zero_plan for i in b.indices)
+
+    def _zero_entries(self):
+        """``(index, shape, dtype)`` of the parameters the ZeRO buckets pack:
+        the trainable floating ones."""
+        return [(i, p._param.shape, p._param.dtype) for i, (p, t) in
+                enumerate(zip(self._plist, self._trainable))
+                if t and p._param.is_floating_point()]
+
+    def _may_shard_over_data(self, p) -> bool:
+        """Whether ``p`` may be sharded over a data axis (a subclass whose
+        layers exchange those shards, ``recipes.moe``'s experts)."""
+        return False
+
+    def _grad_axes(self, i) -> tuple:
+        """The mesh axes parameter ``i``'s gradient is summed over outside
+        the ZeRO buckets: the data axes."""
+        return self._reduce_axes
 
     def _reduce_zero(self):
         """Sum each bucket over the data axes but the batch axis, and
@@ -438,15 +459,15 @@ class DataParallelTrainer:
     def _make_buckets(self, indices):
         """Flat gradient buckets of the trainable parameters among ``indices``,
         in reverse declaration order (the order the backward finishes them),
-        of at most ``bucket_bytes`` and one dtype each; every such parameter's
-        gradient buffer becomes a view into its bucket, each view starting 64
-        elements apart."""
+        of at most ``bucket_bytes``, one dtype and one set of ``_grad_axes``
+        each; every such parameter's gradient buffer becomes a view into its
+        bucket, each view starting 64 elements apart."""
         align = 64
         live = [i for i in reversed(indices) if self._trainable[i]]
-        by_dtype: Dict[torch.dtype, List[int]] = {}
+        by_kind: Dict[tuple, List[int]] = {}
         for i in live:
-            by_dtype.setdefault(self._plist[i]._grad.dtype, []).append(i)
-        for dtype, idx in by_dtype.items():
+            by_kind.setdefault((self._grad_axes(i), self._plist[i]._grad.dtype), []).append(i)
+        for (axes, dtype), idx in by_kind.items():
             elem = torch.empty((), dtype=dtype).element_size()
             sizes = [(i, -(-self._plist[i]._grad.numel() // align) * align * elem)
                      for i in idx]
@@ -461,6 +482,7 @@ class DataParallelTrainer:
                     autograd._mark(p._param, p._grad, p.grad_req)
                     off += n
                 self._buckets.append(flat)
+                self._bucket_axes.append(axes)
 
     # -- the step --------------------------------------------------------------
     def _raw(self, a) -> torch.Tensor:
@@ -525,11 +547,10 @@ class DataParallelTrainer:
                     p._grad.zero_()
             lossv = lossv.detach()
             if self.mesh.distributed and self._reduce_axes:
-                group = self.mesh.group(self._reduce_axes)
-                for flat in self._buckets:
-                    dist.all_reduce(flat, group=group)
+                for flat, axes in zip(self._buckets, self._bucket_axes):
+                    dist.all_reduce(flat, group=self.mesh.group(axes))
                 lossv = lossv.float().clone()
-                dist.all_reduce(lossv, group=group)
+                dist.all_reduce(lossv, group=self.mesh.group(self._reduce_axes))
         return lossv
 
     def _forward_scope(self):

@@ -9,7 +9,9 @@ keys its program as
 
     key_base = ("dp_step", structural_fingerprint(net), config_fingerprint(**config))
 
-and elastic snapshots record ``program.fingerprint``: ``elastic.resume_or_init``
+(``recipes.moe.MoETrainer`` appends ``("moe", ep axis, ep degree, aux weight,
+wire dtype)``, the reference's ``recipes/moe.py:122-127``), and elastic
+snapshots record ``program.fingerprint``: ``elastic.resume_or_init``
 calls a boot "resumed" when the saved fingerprint and mesh equal the new
 trainer's, "resharded" otherwise.
 

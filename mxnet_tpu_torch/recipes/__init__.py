@@ -1,23 +1,26 @@
 """Large-model training recipes (counterpart of ``mxnet_tpu/recipes/``).
 
 A recipe is a (model-factory, trainer-config, parity-oracle) triple
-registered under a name: ``get_recipe("long_context")`` is the long-context
-causal LM of ``recipes.long_context`` (``LongContextLM`` trained by
-``LongContextTrainer`` over a ``{dp, sp}`` mesh with ring attention and the
-ZeRO-sharded update; oracle: the same model with dense attention).
-``recipes.moe`` (the expert-parallel MoE recipe) is not ported:
-``get_recipe("moe")`` raises and ROADMAP.md lists it. The submodules load
-when first touched.
+registered under a name:
+
+- ``get_recipe("moe")``: the sparse-MoE transformer of ``recipes.moe``
+  (``MoETransformerLM`` trained by ``MoETrainer`` over a ``{dp, ep}`` mesh
+  with the experts sharded over ep and the ZeRO-sharded update of the rest;
+  oracle: the same model with a dense FFN, which E = 1 gating matches);
+- ``get_recipe("long_context")``: the long-context causal LM of
+  ``recipes.long_context`` (``LongContextLM`` trained by
+  ``LongContextTrainer`` over a ``{dp, sp}`` mesh with ring attention and
+  the ZeRO-sharded update; oracle: the same model with dense attention).
+
+The submodules load when first touched.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
-from ..base import MXNetError
+__all__ = ["Recipe", "get_recipe", "list_recipes", "register", "moe", "long_context"]
 
-__all__ = ["Recipe", "get_recipe", "list_recipes", "register", "long_context"]
-
-_PORTED = ("long_context",)
+_PORTED = ("moe", "long_context")
 
 
 class Recipe(NamedTuple):
@@ -48,16 +51,12 @@ def get_recipe(name: str) -> Recipe:
     if name not in _REGISTRY:
         if name in _PORTED:
             _lazy(name)  # registers itself at import
-        elif name == "moe":
-            raise MXNetError("recipe 'moe' is not ported yet (ROADMAP: recipes/moe.py, "
-                             "models/moe_transformer.py and parallel/moe.py)")
         else:
             raise KeyError(f"unknown recipe {name!r}; have {list_recipes()}")
     return _REGISTRY[name]
 
 
 def list_recipes():
-    """The recipes this package has (the reference's also lists ``moe``)."""
     return list(_PORTED)
 
 
