@@ -26,7 +26,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    of the 3xTF32 tensor-core route beside the FMA one, K1 and SDPA's forward
    and the port's and SDPA's whole backward replayed from captured CUDA
    graphs. K1-K3 are also held and timed at each rank's shape of phase 11
-   (BH 24, Tq 512 against Tk 1024, D 64).
+   (BH 24, Tq 512 against Tk 1024, D 64), at the pipeline microbatch's of
+   phase 24 (BH 24, T 1024, D 64: f32 and bf16, against the plain versions,
+   timed beside SDPA and the bound), and at the widest head they take,
+   D = 256 (two passes of 128 output columns), at BH 24, T 1024: f32 and
+   bf16, causal and not, against the plain versions, timed beside SDPA and
+   the bound; each D = 256 instantiation's registers, stack and local
+   memory are printed with the others.
 4. serve: BERT-base at T=1024 (full published width, 12 layers, random
    weights from a seed loaded through ``convert.load_jax_params``) on
    ``gpu(0)`` in f32 with TF32 off answers requests of batch 1, 2, 4 and 8;
@@ -178,6 +184,30 @@ The MoE half of ``dryrun_multichip`` (``parallel.moe``,
    T=1024, global batch 4, 3 steps on dp2 x ep2 against dp4 x ep1 (routing,
    losses, step-3 weights; K1-K3 and K5 counted on every rank); a dp2 x ep2
    snapshot after step 2 resumed on dp1 x ep4: "resharded", step 3 equal.
+
+The 1F1B pipeline of ``dryrun_multichip`` (``parallel.PipelineTrainer``), after
+phase 11:
+
+24. ``phase_pp_train`` (on a world-1 NCCL group), the slice's main path:
+   ``bert_base(max_length=1024)`` from the training phase's weights through
+   ``load_jax_params`` and one forward, ``PipelineTrainer`` on ``{pp: 1, dp:
+   1}``, Adam lr 1e-4, batch 8 in M = 4 microbatches, f32 with TF32 off: a
+   warm-up, 5 timed steps and one profiled; K1-K3 48 launches a step (12
+   layers x 4) and K5 one, the first 3 losses against phase 9's
+   DataParallelTrainer batch-8 step at 1e-5 relative, the loss falling;
+   step ms, tokens/s, idle share, launches, peak memory; then 3 bf16 steps
+   on the bf16 kernels. ``phase_pp_check``: one step of 2 such layers,
+   batch 2, M = 2, GPU against CPU at the training checks' tolerances.
+25. ``phase_pp_ranks``: 2 ranks sharing the card over gloo: (a) ``{pp: 2}``,
+   M = 4, 3 steps against phase 24's (losses 1e-5, step-3 weights after
+   ``sync()`` 2e-5), K1-K3 24 launches and K5 one a rank-step, the embed and
+   head bitwise equal on the ranks; (b) M = 8 on batch 16: each stage's peak
+   memory at M = 4 and 8 (stage 0's within the extra tokens plus 10%),
+   beside GPipe's M microbatches of activations; (c) the step-2 snapshot
+   resumed on ``{pp: 1, dp: 2}``: "resharded", step 3 equal.
+26. ``phase_pp_dryrun``: the dryrun's own pipeline step on 4 ranks, ``{pp:
+   2, dp: 2}``, ``bert_tiny(vocab_size=512)``, T 32, batch 8, M = 2, 3 steps
+   against the one-rank DataParallelTrainer (losses 1e-5, weights 2e-5).
 
 It prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the rest of the repository beside it, it
@@ -363,10 +393,23 @@ def _bound_ms(BH, T, Tk, D, dtype_name, elem):
 # against the Tk=1024 gathered keys.
 SP_CASES = [("sp-shard", 4, 6, 512, 1024, 64, "float32", False),
             ("sp-shard", 4, 6, 512, 1024, 64, "bfloat16", False)]
-# (timings key, dtype, B, H, T, Tk): the one-device step's shape and the sp shard's
-TIMED_SHAPES = [("float32", "float32", 8, 12, 1024, 1024),
-                ("bfloat16", "bfloat16", 8, 12, 1024, 1024),
-                ("sp_float32", "float32", 4, 6, 512, 1024)]
+# (timings key, dtype, B, H, T, Tk, D): the one-device step's shape, the sp
+# shard's, the pipeline microbatch's, and the widest head the kernels take (D = 256 at BH 24, T 1024: two
+# passes of 128 output columns)
+TIMED_SHAPES = [("float32", "float32", 8, 12, 1024, 1024, 64),
+                ("bfloat16", "bfloat16", 8, 12, 1024, 1024, 64),
+                ("sp_float32", "float32", 4, 6, 512, 1024, 64),
+                ("pp_float32", "float32", 2, 12, 1024, 1024, 64),
+                ("pp_bfloat16", "bfloat16", 2, 12, 1024, 1024, 64),
+                ("d256_float32", "float32", 2, 12, 1024, 1024, 256),
+                ("d256_bfloat16", "bfloat16", 2, 12, 1024, 1024, 256)]
+# The pipeline's microbatch of 2 sequences in phase_pp_train (BERT-base, T=1024),
+# in f32 and then in bf16
+PP_CASES = [("pp-microbatch", 2, 12, 1024, 1024, 64, dt, False)
+            for dt in ("float32", "bfloat16")]
+# K1-K3 at D = 256 against their plain versions (the TIMED_SHAPES' shape)
+HEAD256_CASES = [("head256", 2, 12, 1024, 1024, 256, dt, causal)
+                 for dt in ("float32", "bfloat16") for causal in (False, True)]
 
 
 def phase_kernel(torch):
@@ -384,7 +427,7 @@ def phase_kernel(torch):
              ("ragged", 2, 4, 1000, 1000, 64, "float32", True),
              ("cross", 2, 2, 96, 224, 32, "float32", False),
              ("head128", 1, 4, 300, 300, 128, "float16", True),
-             *SP_CASES]
+             *SP_CASES, *PP_CASES, *HEAD256_CASES]
     worst = 0.0
     results = []
     with torch.no_grad():
@@ -411,8 +454,7 @@ def phase_kernel(torch):
 
         resources = _fwd_resources(fa)
         timings = {}
-        for key, dname, B, H, T, Tk in TIMED_SHAPES:
-            D = 64
+        for key, dname, B, H, T, Tk, D in TIMED_SHAPES:
             q, k, v = _attention_inputs(torch, gen, B * H, T, Tk, D, dtypes[dname])
             q4 = q.view(B, H, T, D)
             k4, v4 = (t.view(B, H, Tk, D) for t in (k, v))
@@ -599,7 +641,7 @@ def phase_kernel_bwd(torch):
              ("ragged", 2, 4, 1000, 1000, 64, "float32", True),
              ("cross", 2, 2, 96, 224, 32, "float32", False),
              ("head128", 1, 4, 300, 300, 128, "float16", True),
-             *SP_CASES]
+             *SP_CASES, *PP_CASES, *HEAD256_CASES]
     results, worst = [], {"dq": 0.0, "dkv": 0.0}
     with torch.no_grad():
         for label, B, H, T, Tk, D, dname, causal in cases:
@@ -633,8 +675,7 @@ def phase_kernel_bwd(torch):
 
     resources = _bwd_resources(fa)
     timings = {}
-    for key, dname, B, H, T, Tk in TIMED_SHAPES:
-        D = 64
+    for key, dname, B, H, T, Tk, D in TIMED_SHAPES:
         BH = B * H
         q, k, v = _attention_inputs(torch, gen, BH, T, Tk, D, dtypes[dname])
         do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
@@ -1700,10 +1741,10 @@ def _fused_counters():
                                     fo.fused_adam_update)}
 
 
-def _dp_steps(torch, label, trainer, x, y, n, per_step, units, counters):
+def _dp_steps(torch, label, trainer, x, y, n, per_step, units, counters, after=None):
     """``n`` steps of ``trainer`` on one batch (the first a warm-up), every
     counter in ``counters`` set to 0 just before; each step must launch
-    exactly ``per_step`` of them."""
+    exactly ``per_step`` of them. ``after(i)`` runs after step i's checks."""
     for c in counters.values():
         c.launches = 0
         if hasattr(c, "launches_by_dtype"):
@@ -1726,6 +1767,8 @@ def _dp_steps(torch, label, trainer, x, y, n, per_step, units, counters):
             raise AssertionError(f"{label}: the loss is not finite")
         steps.append({"ms": ms, units[1]: units[0] / ms * 1e3, "loss": value,
                       "warmup": i == 0})
+        if after is not None:
+            after(i)
     return steps
 
 
@@ -4045,6 +4088,469 @@ def phase_moe_ranks(torch, device="gpu", steps=3, timeout=900, cfg=None):
                                 for st in r[key]["launches"]) for k in per_step}}
 
 
+PP_T, PP_B, PP_M = 1024, 8, 4      # the pipeline's main path: BERT-base, microbatches of 2
+PP_LR = 1e-4
+PP_STEPS = 6                       # a warm-up and 5 timed
+PP_BF16_STEPS = 3
+PP_CHECK_LAYERS, PP_CHECK_B, PP_CHECK_M = 2, 2, 2
+TOL_PP_LOSS = 1e-5                 # against DataParallelTrainer's batch-8 step, relative
+TOL_PP_W = 2e-5                    # step-3 weights of 2 ranks against one (tests' TOL_W)
+PP_MEM_MARGIN = 0.10               # stage 0's peak at M = 8 over M = 4's, beyond the tokens
+# dryrun_multichip's pipeline (__graft_entry__.py:162-179): bert_tiny, T 32,
+# Bp = 2 * 2 * dp, M = 2, Adam 1e-4, on {pp: 2, dp: 2}
+PP_DRYRUN = dict(vocab=512, T=32, B=8, M=2, lr=1e-4, steps=3)
+
+
+def _pp_trainer(mx, net, mesh, M, dp_axis=None, dtype=None):
+    """``parallel.PipelineTrainer`` with the dryrun's configuration: softmax
+    cross entropy over the MLM logits, Adam lr 1e-4, the 1F1B schedule."""
+    return mx.parallel.PipelineTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), optimizer="adam",
+        optimizer_params={"learning_rate": PP_LR}, mesh=mesh, dp_axis=dp_axis,
+        num_microbatch=M, schedule="1f1b", dtype=dtype)
+
+
+def _bert_base_net(mx, params, ctx, cfg=None):
+    """``bert_base(max_length=1024)`` (or ``BertModel(**cfg)``) on ``ctx`` with
+    ``params`` through ``load_jax_params``."""
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import BertModel, bert_base
+    net = bert_base(max_length=PP_T) if cfg is None else BertModel(**cfg)
+    net.initialize(ctx=ctx)
+    load_jax_params(net, params)
+    return net
+
+
+def _host_weights(net):
+    return {k: p.data().asnumpy() for k, p in net._collect_params_with_prefix().items()}
+
+
+def phase_pp_train(torch, params, batch, dp_bert):
+    """The 1F1B pipeline's main path on a world-1 NCCL mesh {pp: 1, dp: 1}
+    (the caller holds the process group): BERT-base at T=1024 from the
+    training phase's weights (``load_jax_params``, then one forward),
+    ``PipelineTrainer`` with Adam lr 1e-4, batch 8 in M = 4 microbatches,
+    f32 with TF32 off: a warm-up, 5 timed steps and one profiled. Each step
+    must launch K1, K2 and K3 once a layer and microbatch (48) and K5 once;
+    its first 3 losses equal DataParallelTrainer's batch-8 step's
+    (``phase_dp_bert``, same weights and batch) to TOL_PP_LOSS, and the loss
+    falls. Then 3 steps in bfloat16 (the bf16 kernels, 48 a step). Returns
+    the results and the weights after step 3 (for ``phase_pp_ranks``)."""
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tokens, labels = batch
+    B, T = tokens.shape
+    n_layers = 12
+    label = "pp-train"
+    t0 = time.perf_counter()
+    mesh = mx.parallel.make_mesh({"pp": 1, "dp": 1}, devices=[mx.gpu(0)])
+    x = mx.nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
+    y = mx.nd.array(labels, ctx=mx.gpu(0), dtype="int32")
+    net = _bert_base_net(mx, params, mx.gpu(0))
+    with mx.autograd.predict_mode():
+        net(mx.nd.array(tokens[:1], ctx=mx.gpu(0), dtype="int32"))
+    torch.cuda.synchronize()
+    tr = _pp_trainer(mx, net, mesh, PP_M, dp_axis="dp")
+    ready_s = time.perf_counter() - t0
+    counters = _elastic_counters()
+    per_step = {"flash_attention_fwd": n_layers * PP_M, "flash_attention_bwd_dq":
+                n_layers * PP_M, "flash_attention_bwd_dkv": n_layers * PP_M,
+                "fused_adam_update": 1}
+    n_params = sum(int(np.prod(p.shape)) for p in net.collect_params().values())
+    log(f"[{label}] bert_base(max_length={T}) {n_params} parameters, batch {B} x T {T} in "
+        f"M={PP_M} microbatches of {B // PP_M}, {mesh} over {dist.get_backend()}, "
+        f"{len(tr._groups)} update group(s); ready in {ready_s:.1f} s")
+    w3 = {}
+
+    def grab(i):
+        if i == 2:
+            tr.sync()
+            w3.update(_host_weights(net))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters(counters)
+    steps = _dp_steps(torch, label, tr, x, y, PP_STEPS, per_step,
+                      (B * T, "tokens_per_s"), counters, after=grab)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(tr.last_stats)
+    ref = [st["loss"] for st in dp_bert["float32"]["steps"][:3]]
+    rel = max(abs(a["loss"] - b) / abs(b) for a, b in zip(steps, ref))
+    log(f"[{label}] first 3 losses against DataParallelTrainer's batch-8 step "
+        f"{[round(v, 6) for v in ref]}: max rel {rel:.2e} (tol {TOL_PP_LOSS:.0e}) "
+        f"{'ok' if rel <= TOL_PP_LOSS else 'FAIL'}")
+    if rel > TOL_PP_LOSS:
+        raise AssertionError(f"{label}: losses disagree with DataParallelTrainer's")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"{label}: the loss did not fall")
+    profile = _step_profile(torch, f"{label} step, batch {B}, M={PP_M}",
+                            lambda: tr.step(x, y), steps)
+    tr.drain()
+    med = float(np.median([st["ms"] for st in steps if not st["warmup"]]))
+    log(f"[{label}] median step {med:.2f} ms, {B * T / med * 1e3:.0f} tokens/s, idle "
+        f"{100 * profile['idle_share_steps']:.1f}%, a profiled step "
+        f"{sum(profile['group_launches'].values())} launches; kernel launches {launches} "
+        f"over {PP_STEPS} steps ({per_step} a step); peak {peak / 2**30:.3f} GiB; schedule "
+        f"{stats}")
+    out = {"steps": steps, "step_median_ms": med, "tokens_per_s": B * T / med * 1e3,
+           "launches": launches, "per_step": per_step, "peak_bytes": peak,
+           "loss_rel_dp": rel, "profile": profile, "schedule": stats, "ready_s": ready_s,
+           "parameters": n_params, "launches_per_step": sum(profile["group_launches"].values())}
+    del tr, net
+    torch.cuda.empty_cache()
+    # the bf16 kernels on the pipeline
+    net = _bert_base_net(mx, params, mx.gpu(0))
+    tr = _pp_trainer(mx, net, mesh, PP_M, dp_axis="dp", dtype="bfloat16")
+    _zero_counters(counters)
+    bf16 = _dp_steps(torch, f"{label} bf16", tr, x, y, PP_BF16_STEPS, per_step,
+                     (B * T, "tokens_per_s"), counters)
+    by_dtype = {k: dict(c.launches_by_dtype) for k, c in _flash_counters().items()}
+    log(f"[{label} bf16] flash launches by dtype {by_dtype}")
+    if any(v != {"bfloat16": PP_BF16_STEPS * n_layers * PP_M} for v in by_dtype.values()):
+        raise AssertionError(f"{label} bf16: expected the bf16 flash kernels only, "
+                             f"{n_layers * PP_M} a step: {by_dtype}")
+    out["bfloat16"] = {"steps": bf16, "launches": {k: c.launches for k, c in counters.items()},
+                       "flash_launches_by_dtype": by_dtype}
+    del tr, net
+    torch.cuda.empty_cache()
+    return out, w3
+
+
+def _pp_step(mx, ctx, params, mesh, x, y, cfg):
+    """One PipelineTrainer step (M = PP_CHECK_M) of ``BertModel(**cfg)`` on
+    ``ctx``: (loss, reduced gradients, weights) by structural path."""
+    net = _bert_base_net(mx, params, ctx, cfg)
+    tr = _pp_trainer(mx, net, mesh, PP_CHECK_M, dp_axis="dp")
+    xs, ys = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in (x, y))
+    loss = float(tr.step(xs, ys))
+    tr.sync()
+    keys = net._collect_params_with_prefix()
+    return (loss, {k: p.grad().asnumpy() for k, p in keys.items()}, _host_weights(net))
+
+
+def phase_pp_check(torch):
+    """One PipelineTrainer step of a 2-layer model of BERT-base width at
+    T=1024, batch 2 in 2 microbatches: on the card over the world-1 NCCL mesh
+    (the caller's group) against the CPU on a mesh of one device (the
+    kernels' plain versions), f32 with TF32 off: loss, every gradient and
+    every weight after the Adam step at the training checks' tolerances."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import seeded_params
+    from mxnet_tpu_torch.models import BertModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = dict(num_layers=PP_CHECK_LAYERS, max_length=PP_T)
+    params = seeded_params(BertModel(**cfg), seed=40)
+    rs = np.random.RandomState(41)
+    x = rs.randint(0, 30522, size=(PP_CHECK_B, PP_T)).astype(np.int32)
+    y = rs.randint(0, 30522, size=(PP_CHECK_B, PP_T)).astype(np.int32)
+    gpu = _pp_step(mx, mx.gpu(0), params, mx.parallel.make_mesh(
+        {"pp": 1, "dp": 1}, devices=[mx.gpu(0)]), x, y, cfg)
+    torch.cuda.empty_cache()
+    cpu = _pp_step(mx, mx.cpu(), params, mx.parallel.Mesh([mx.cpu()], ("pp", "dp"), (1, 1)),
+                   x, y, cfg)
+    res = _step_agreement(gpu, cpu, PP_LR)
+    ok = res.pop("ok")
+    log(f"[pp-check] {PP_CHECK_LAYERS} layers of BERT-base width, T={PP_T}, batch "
+        f"{PP_CHECK_B} in {PP_CHECK_M} microbatches, one PipelineTrainer step, GPU (NCCL "
+        f"world 1) vs CPU: loss {gpu[0]:.6f} vs {cpu[0]:.6f} (rel {res['loss_rel']:.2e}, tol "
+        f"{TOL_TRAIN_LOSS:.0e}); gradients {res['grad_rel']:.2e} of the tensor's max (tol "
+        f"{TOL_TRAIN_GRAD:.0e}); weights max|d| {res['weight_max_abs']:.2e} (tol "
+        f"{TOL_TRAIN_W:.0e}), {res['near_zero_grad_elements']} elements with a nonzero |g| "
+        f"within the gradient tolerance of 0 up to {res['near_zero_weight_max_abs']:.2e} "
+        f"(tol 2 lr); {'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        raise AssertionError("the pipeline step on the card disagrees with the CPU")
+    return dict(res, loss_gpu=gpu[0], loss_cpu=cpu[0])
+
+
+def _digest(arrays):
+    import hashlib
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def rank_pp(workdir, device, steps, cfg=None):
+    """One of 2 ranks of phase_pp_ranks: (a) {pp: 2} at M = 4, ``steps``
+    steps (a snapshot after step 2), peak memory of the last; the embed's and
+    head's digest after the last step, the weights after ``sync()``; (b) M = 8
+    on batch 16 (microbatches still of 2), peak of its second step; (c)
+    {pp: 1, dp: 2} resumed from the snapshot, one step."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util, elastic
+    ctx = _dist_util.rank_context(device)
+    gpu = ctx.device_type == "gpu"
+    if gpu:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    params = dict(np.load(os.path.join(workdir, "weights.npz")))
+    data = np.load(os.path.join(workdir, "data.npz"))
+    x, y = (mx.nd.array(data[k][:PP_B], ctx=ctx, dtype="int32") for k in ("x", "y"))
+    x16, y16 = (mx.nd.array(data[k], ctx=ctx, dtype="int32") for k in ("x", "y"))
+    counters = _elastic_counters()
+
+    def memory():
+        return (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()) if gpu \
+            else (0, 0)
+    net = _bert_base_net(mx, params, ctx, cfg)
+    tr = _pp_trainer(mx, net, mx.parallel.make_mesh({"pp": 2}, devices=[ctx]), PP_M)
+    out = {"rank": tr.mesh.rank, "stage": tr.stage, "layers": list(tr._own),
+           "ready_s": time.perf_counter() - t0, "losses": [], "launches": [], "s": []}
+    _zero_counters(counters)
+    for i in range(steps):
+        if i == steps - 1 and gpu:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out["static_bytes"] = memory()[0]
+        before = {k: c.launches for k, c in counters.items()}
+        t_step = time.perf_counter()
+        out["losses"].append(float(tr.step(x, y)))
+        out["s"].append(time.perf_counter() - t_step)
+        out["launches"].append({k: c.launches - before[k] for k, c in counters.items()})
+        if i == 1:
+            elastic.save_trainer(elastic.SnapshotManager(os.path.join(workdir, "snap")), tr,
+                                 wait=True)
+    out["peak_m4"] = memory()[1]
+    out["in_flight_m4"] = tr.last_stats["max_in_flight"]
+    out["wire"] = dict(tr.last_stats)
+    # the reference's two cyclic rings send one activation each a tick:
+    # 2(M + 2(pp - 1)) hops, where the port sends only the live ones
+    hops = 2 * (PP_M + 2 * (2 - 1))
+    out["estimate"] = [hops * tr.last_stats["bytes"] // tr.last_stats["sends"], hops]
+    out["embed_head"] = _digest([p._param.detach().cpu().numpy()
+                                 for p in tr._embed_plist + tr._head_plist])
+    tr.sync()
+    if tr.mesh.rank == 0:
+        np.savez(os.path.join(workdir, "pp2.npz"), **_host_weights(net))
+    del tr
+    if gpu:
+        torch.cuda.empty_cache()
+    tr8 = _pp_trainer(mx, net, mx.parallel.make_mesh({"pp": 2}, devices=[ctx]), 2 * PP_M)
+    tr8.step(x16, y16)
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out["static_bytes_m8"] = memory()[0]
+    tr8.step(x16, y16)
+    out["peak_m8"] = memory()[1]
+    out["in_flight_m8"] = tr8.last_stats["max_in_flight"]
+    del tr8, net
+    if gpu:
+        torch.cuda.empty_cache()
+    mesh = mx.parallel.make_mesh({"pp": 1, "dp": 2}, devices=[ctx])
+
+    def rebuild():
+        from mxnet_tpu_torch.models import BertModel, bert_base
+        mx.random.seed(200 + mesh.rank)
+        net2 = bert_base(max_length=PP_T) if cfg is None else BertModel(**cfg)
+        net2.initialize(ctx=ctx)
+        return _pp_trainer(mx, net2, mesh, PP_M, dp_axis="dp")
+    t_resume = time.perf_counter()
+    _, tr2, start, outcome = elastic.resume_or_init(os.path.join(workdir, "snap"), rebuild)
+    out["resume"] = {"start": start, "outcome": outcome, "s": time.perf_counter() - t_resume,
+                     "loss": float(tr2.step(x, y)), "layers": list(tr2._own)}
+    return out
+
+
+def phase_pp_ranks(torch, params, batch, pp_train, pp_w3, device="gpu", steps=3,
+                   timeout=900, cfg=None):
+    """The pipeline at pp = 2 as 2 ranks sharing the card over gloo (a
+    correctness run: gloo stages the point-to-point messages and the
+    collectives through the host), BERT-base at T=1024 (or ``cfg``):
+    (a) {pp: 2}, M = 4, batch 8, 3 steps: the losses equal phase_pp_train's
+    first 3 to TOL_PP_LOSS, the weights after step 3 (``sync()``) its step-3
+    weights to TOL_PP_W, each rank launches K1-K3 6 layers x 4 = 24 times and
+    K5 once a step, the embed and head bitwise equal on both ranks; (b) M = 8
+    on batch 16 (microbatches still of 2): each rank's peak device memory at
+    M = 4 and M = 8; stage 0's may grow by no more than the extra tokens plus
+    PP_MEM_MARGIN, beside what GPipe's order would hold (M times one
+    microbatch's stage activations); (c) the snapshot of (a) after step 2
+    resumed on {pp: 1, dp: 2} through resume_or_init: "resharded", step 3's
+    loss equal to (a)'s to TOL_PP_LOSS."""
+    from mxnet_tpu_torch import _dist_util
+    n = 2
+    n_layers = (cfg or {}).get("num_layers", 12)
+    backend = _dist_util.choose_backend(device, n, torch.cuda.device_count()
+                                        if device == "gpu" else 0)
+    work = os.path.join(ROOT, "build", "pp_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    tokens, labels = batch
+    rs = np.random.RandomState(42)
+    vocab = (cfg or {}).get("vocab_size", 30522)
+    more = rs.randint(0, vocab, size=(2,) + tokens.shape).astype(np.int32)
+    np.savez(os.path.join(work, "weights.npz"), **params)
+    np.savez(os.path.join(work, "data.npz"), x=np.concatenate([tokens, more[0]]),
+             y=np.concatenate([labels, more[1]]))
+    log(f"[pp-ranks] {n} ranks on {device} over {backend}: {{pp: 2}} at M={PP_M} batch "
+        f"{PP_B}, then M={2 * PP_M} batch {2 * PP_B}, then the step-2 snapshot resumed on "
+        f"{{pp: 1, dp: 2}}")
+    t0 = time.perf_counter()
+    ranks = _dist_util.launch_local(
+        "chip_smoke:rank_pp", n, {"workdir": work, "device": device, "steps": steps,
+                                  "cfg": cfg},
+        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+    seconds = time.perf_counter() - t0
+    got_w = dict(np.load(os.path.join(work, "pp2.npz")))
+    shutil.rmtree(work, ignore_errors=True)
+    per_step = {"flash_attention_fwd": n_layers // n * PP_M,
+                "flash_attention_bwd_dq": n_layers // n * PP_M,
+                "flash_attention_bwd_dkv": n_layers // n * PP_M, "fused_adam_update": 1}
+    ref = [st["loss"] for st in pp_train["steps"][:steps]]
+    loss_rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r["losses"], ref))
+    w_abs = max(float(np.abs(got_w[k] - w).max()) for k, w in pp_w3.items())
+    launches_ok = device != "gpu" or all(st == per_step for r in ranks for st in r["launches"])
+    eh_equal = len({r["embed_head"] for r in ranks}) == 1
+    ok_a = loss_rel <= TOL_PP_LOSS and w_abs <= TOL_PP_W and launches_ok and eh_equal
+    extra = PP_B * PP_T * 4 * 2          # the 8 more sequences' tokens and labels, int32
+    mem = [{"stage": r["stage"], "peak_m4": r["peak_m4"], "peak_m8": r["peak_m8"],
+            "static": r.get("static_bytes"), "in_flight": [r["in_flight_m4"],
+                                                           r["in_flight_m8"]]}
+           for r in sorted(ranks, key=lambda r: r["stage"])]
+    s0 = mem[0]
+    # stage 0 holds 3 microbatches' activations at its peak (the rest is
+    # static); GPipe's order would hold all M of them
+    act = (s0["peak_m4"] - s0["static"]) / s0["in_flight"][0] if device == "gpu" else 0
+    s0["gpipe_m8_estimate"] = (s0["static"] or 0) + 2 * PP_M * act
+    ok_b = device != "gpu" or s0["peak_m8"] <= (s0["peak_m4"] + extra) * (1 + PP_MEM_MARGIN)
+    ok_b = ok_b and [m["in_flight"] for m in mem] == [[3, 3], [1, 1]]
+    resume_rel = max(abs(r["resume"]["loss"] - r["losses"][2]) / abs(r["losses"][2])
+                     for r in ranks)
+    ok_c = all((r["resume"]["start"], r["resume"]["outcome"]) == (2, "resharded")
+               for r in ranks) and resume_rel <= TOL_PP_LOSS
+    for r in sorted(ranks, key=lambda r: r["rank"]):
+        log(f"[pp-ranks] rank {r['rank']} stage {r['stage']} layers {r['layers']}: ready "
+            f"{r['ready_s']:.1f} s, steps {[round(v, 2) for v in r['s']]} s, losses "
+            f"{[round(v, 6) for v in r['losses']]}, launches a step {r['launches'][-1]}, "
+            f"sends {r['wire']['sends']} ({r['wire']['bytes']} B) a step against the "
+            f"reference's cyclic estimate {r['estimate'][1]} hops ({r['estimate'][0]} B); "
+            f"resume {r['resume']['start']} {r['resume']['outcome']!r} in "
+            f"{r['resume']['s']:.1f} s, step 3 {r['resume']['loss']:.6f}")
+    gib = 2 ** 30
+    for m in mem:
+        log(f"[pp-ranks] stage {m['stage']}: peak {m['peak_m4'] / gib:.3f} GiB at M={PP_M}, "
+            f"{m['peak_m8'] / gib:.3f} GiB at M={2 * PP_M} (static {(m['static'] or 0) / gib:.3f}"
+            f" GiB; in flight {m['in_flight']})")
+    log(f"[pp-ranks] GPipe's order would hold all M={2 * PP_M} microbatches on stage 0: "
+        f"static + {2 * PP_M} x {act / gib:.3f} GiB (a microbatch's stage activations at "
+        f"M={PP_M}: peak less static over the 3 in flight) = "
+        f"{s0['gpipe_m8_estimate'] / gib:.3f} GiB, against 1F1B's {s0['peak_m8'] / gib:.3f}")
+    log(f"[pp-ranks] (a) losses against phase_pp_train's max rel {loss_rel:.2e} (tol "
+        f"{TOL_PP_LOSS:.0e}); step-{steps} weights max|d| {w_abs:.2e} (tol {TOL_PP_W:.0e}); "
+        f"launches {'ok' if launches_ok else 'FAIL'} ({per_step} a rank-step); embed and head "
+        f"{'bitwise equal' if eh_equal else 'DIFFER'} across the ranks "
+        f"{'ok' if ok_a else 'FAIL'}")
+    log(f"[pp-ranks] (b) stage 0's peak {s0['peak_m4'] / 2**30:.3f} -> "
+        f"{s0['peak_m8'] / 2**30:.3f} GiB from M={PP_M} to M={2 * PP_M} (limit: +{extra} B of "
+        f"tokens, +{100 * PP_MEM_MARGIN:.0f}%) {'ok' if ok_b else 'FAIL'}")
+    log(f"[pp-ranks] (c) pp2 -> pp1 x dp2 resume: step 3 max rel {resume_rel:.2e} (tol "
+        f"{TOL_PP_LOSS:.0e}) {'ok' if ok_c else 'FAIL'}; {n} ranks in {seconds:.1f} s")
+    if not (ok_a and ok_b and ok_c):
+        raise AssertionError("the pipeline ranks disagree")
+    return {"backend": backend, "seconds": seconds, "loss_rel": loss_rel, "weight_abs": w_abs,
+            "memory": mem, "resume_rel": resume_rel,
+            "losses": [r["losses"] for r in ranks],
+            "resume_outcomes": [r["resume"]["outcome"] for r in ranks],
+            "wire": [r["wire"] for r in ranks], "estimate": ranks[0]["estimate"],
+            "launches": {k: sum(st[k] for r in ranks for st in r["launches"])
+                         for k in per_step}, "per_rank_step": per_step}
+
+
+def _dryrun_batch(seed):
+    rs = np.random.RandomState(seed)
+    shape = (PP_DRYRUN["B"], PP_DRYRUN["T"])
+    return (rs.randint(0, PP_DRYRUN["vocab"], size=shape).astype(np.int32),
+            rs.randint(0, PP_DRYRUN["vocab"], size=shape).astype(np.int32))
+
+
+def rank_pp_dryrun(workdir, device):
+    """One of 4 ranks of phase_pp_dryrun: the dryrun's pipeline step on
+    {pp: 2, dp: 2}, PP_DRYRUN's steps; rank 0 writes the weights after
+    ``sync()``."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import bert_tiny
+    ctx = _dist_util.rank_context(device)
+    if ctx.device_type == "gpu":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    params = dict(np.load(os.path.join(workdir, "weights.npz")))
+    x, y = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in _dryrun_batch(43))
+    net = bert_tiny(vocab_size=PP_DRYRUN["vocab"])
+    net.initialize(ctx=ctx)
+    load_jax_params(net, params)
+    tr = mx.parallel.PipelineTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), optimizer="adam",
+        optimizer_params={"learning_rate": PP_DRYRUN["lr"]},
+        mesh=mx.parallel.make_mesh({"pp": 2, "dp": 2}, devices=[ctx]), dp_axis="dp",
+        num_microbatch=PP_DRYRUN["M"], schedule="1f1b")
+    counters = _elastic_counters()
+    _zero_counters(counters)
+    losses = [float(tr.step(x, y)) for _ in range(PP_DRYRUN["steps"])]
+    tr.sync()
+    if tr.mesh.rank == 0:
+        np.savez(os.path.join(workdir, "pp.npz"), **_host_weights(net))
+    return {"rank": tr.mesh.rank, "coords": dict(tr.mesh.coords), "losses": losses,
+            "launches": {k: c.launches for k, c in counters.items()}}
+
+
+def phase_pp_dryrun(torch, device="gpu", timeout=600):
+    """``dryrun_multichip``'s pipeline step (``__graft_entry__.py:162-179``) on
+    4 ranks sharing the card over gloo: {pp: 2, dp: 2}, ``bert_tiny(vocab_size
+    =512)``, T 32, batch 8, M = 2, Adam lr 1e-4, 3 steps against the one-rank
+    DataParallelTrainer's on the same weights and batch: losses to
+    TOL_PP_LOSS, the weights after step 3 to TOL_PP_W; K5 once a rank-step (T
+    = 32 takes the plain attention: no K1-K3)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import seeded_params
+    from mxnet_tpu_torch.models import bert_tiny
+    n = 4
+    work = os.path.join(ROOT, "build", "pp_dryrun")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    params = seeded_params(bert_tiny(vocab_size=PP_DRYRUN["vocab"]), seed=44)
+    np.savez(os.path.join(work, "weights.npz"), **params)
+    ctx = mx.gpu(0) if device == "gpu" else mx.cpu()
+    net = _bert_base_net(mx, params, ctx, dict(vocab_size=PP_DRYRUN["vocab"], num_layers=2,
+                                               units=128, hidden_size=512, num_heads=2))
+    dpt = _dp_trainer(mx, net, ctx, "adam", {"learning_rate": PP_DRYRUN["lr"]})
+    x, y = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in _dryrun_batch(43))
+    ref = [float(dpt.step(x, y)) for _ in range(PP_DRYRUN["steps"])]
+    ref_w = _host_weights(net)
+    del dpt, net
+    t0 = time.perf_counter()
+    ranks = _dist_util.launch_local(
+        "chip_smoke:rank_pp_dryrun", n, {"workdir": work, "device": device},
+        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+    seconds = time.perf_counter() - t0
+    got_w = dict(np.load(os.path.join(work, "pp.npz")))
+    shutil.rmtree(work, ignore_errors=True)
+    loss_rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r["losses"], ref))
+    w_abs = max(float(np.abs(got_w[k] - w).max()) for k, w in ref_w.items())
+    want = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "fused_adam_update": PP_DRYRUN["steps"]}
+    launches_ok = device != "gpu" or all(r["launches"] == want for r in ranks)
+    ok = loss_rel <= TOL_PP_LOSS and w_abs <= TOL_PP_W and launches_ok
+    log(f"[pp-dryrun] {{pp: 2, dp: 2}} bert_tiny(vocab_size={PP_DRYRUN['vocab']}), T "
+        f"{PP_DRYRUN['T']}, batch {PP_DRYRUN['B']}, M={PP_DRYRUN['M']}, {n} ranks on {device} "
+        f"in {seconds:.1f} s: losses {[round(v, 6) for v in ranks[0]['losses']]} against the "
+        f"one-rank step's {[round(v, 6) for v in ref]}, max rel {loss_rel:.2e} (tol "
+        f"{TOL_PP_LOSS:.0e}); step-{PP_DRYRUN['steps']} weights max|d| {w_abs:.2e} (tol "
+        f"{TOL_PP_W:.0e}); launches {[r['launches'] for r in ranks]} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the dryrun's pipeline step disagrees with the one-rank step")
+    return {"seconds": seconds, "loss_rel": loss_rel, "weight_abs": w_abs, "losses": ref,
+            "launches": {k: sum(r["launches"][k] for r in ranks) for k in want}}
+
+
 @contextlib.contextmanager
 def _world1_nccl(torch):
     """A world-1 process group on the card, over the backend rule's choice
@@ -4102,6 +4608,12 @@ def main() -> int:
         elastic_bert = phase_elastic_bert(torch, bert_params, bert_batch)
     elastic_kill = phase_elastic_kill(torch, bert_params, bert_batch, elastic_bert["losses"])
     dist_ranks = phase_dist_bert_ranks(torch, bert_params, bert_batch)
+    with _world1_nccl(torch):
+        pp_train, pp_w3 = phase_pp_train(torch, bert_params, bert_batch, dp_bert)
+        pp_check = phase_pp_check(torch)
+    pp_ranks = phase_pp_ranks(torch, bert_params, bert_batch, pp_train, pp_w3)
+    del pp_w3
+    pp_dryrun = phase_pp_dryrun(torch)
     del bert_params
     torch.cuda.empty_cache()
     lc_kernels = phase_lc_kernels(torch)
@@ -4141,6 +4653,10 @@ def main() -> int:
                 "lc_ranks_d16": lc_ranks_d16["launches"].get(name, 0),
                 "moe_train": moe_train["launches"].get(name, 0),
                 "moe_ranks": moe_ranks["launches"].get(name, 0),
+                "pp_train": pp_train["launches"].get(name, 0),
+                "pp_train_bfloat16": pp_train["bfloat16"]["launches"].get(name, 0),
+                "pp_ranks": pp_ranks["launches"].get(name, 0),
+                "pp_dryrun": pp_dryrun["launches"].get(name, 0),
                 **{label: phase["launches"].get(name, 0) for label, phase in
                    (("elastic_bert", elastic_bert), ("elastic_kill", elastic_kill),
                     ("elastic_lc", elastic_lc), ("elastic_zero", elastic_zero))},
@@ -4164,6 +4680,25 @@ def main() -> int:
                       if not k.startswith("dp_resnet")}}
     sp_f, sp_b = kernel["timings"]["sp_float32"], kernel_bwd["timings"]["sp_float32"]
     bf16 = kernel["timings"]["bfloat16"]
+
+    def timed_rows(kind, prefix):
+        """K1-K3 at one of TIMED_SHAPES' extra shapes (``prefix``: ``pp``, the
+        pipeline's microbatch, or ``d256``), f32 and bf16."""
+        out = {}
+        for dt in ("float32", "bfloat16"):
+            if kind == "fwd":
+                t = kernel["timings"][f"{prefix}_{dt}"]
+                out[dt] = {k: t[k] for k in ("B", "H", "T", "Tk", "D", "ms", "graph_ms",
+                                             "plain_ms", "library_ms", "library_graph_ms",
+                                             "bound_ms", "bound_by", "tflops")}
+            else:
+                t = kernel_bwd["timings"][f"{prefix}_{dt}"]
+                out[dt] = dict({k: t[k] for k in ("B", "H", "T", "Tk", "D", "plain_ms",
+                                                  "library_ms", "port_bwd_ms")}, **t[kind])
+        if prefix == "d256":
+            res = kernel["resources"] if kind == "fwd" else kernel_bwd["resources"]
+            out["resources"] = {n: r for n, r in res.items() if n.endswith(", 256>")}
+        return out
     entries = [
         ("flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:86",
          sum(fwd_by_path.values()), kernel["max_abs_err_f32"], f32["ms"],
@@ -4180,7 +4715,8 @@ def main() -> int:
                                             "bound_by")},
           "launches_per_rank_step": {"shape": dist_ranks["shape"],
                                      "n": dist_ranks["cfg"]["num_layers"]},
-          "long_context": lc_entry("fwd")}),
+          "long_context": lc_entry("fwd"), "pipeline_microbatch": timed_rows("fwd", "pp"),
+          "head_dim_256": timed_rows("fwd", "d256")}),
         *[(f"flash_attention_bwd_{kind}", "flash_attention_bwd.cu",
            f"flash_attention.py:{line}",
            train["launches"][f"flash_attention_bwd_{kind}"]
@@ -4198,7 +4734,8 @@ def main() -> int:
                              **sp_b[kind]),
             "hmma": {n: r["HMMA"] for n, r in kernel_bwd["resources"].items()
                      if n.startswith(f"flash_bwd_{kind}_kernel<")},
-            "long_context": lc_entry(kind)})
+            "long_context": lc_entry(kind), "pipeline_microbatch": timed_rows(kind, "pp"),
+            "head_dim_256": timed_rows(kind, "d256")})
           for kind, line in (("dq", 181), ("dkv", 229))],
         *[(name, "fused_optimizer.cu", f"fused_optimizer.py:{line}",
            sum(dp_launches(rule).values()),
@@ -4216,6 +4753,11 @@ def main() -> int:
                             ("ms", "plain_ms", "bound_ms", "max_abs_err")},
             **({"dp_resnet_check": {dt: dp_resnet[dt]["update_check"] for dt in dp_resnet}}
                if dp_checks else {}),
+            **({"pipeline": {"per_step": pp_train["per_step"]["fused_adam_update"],
+                             "per_rank_step": pp_ranks["per_rank_step"]["fused_adam_update"],
+                             "update": "the embed, the stage's own layers and the head, "
+                                       "one weight decay"}}
+               if rule == "fused_adam_update" else {}),
             **({"moe": {"per_step": moe_train["per_step"]["fused_adam_update"],
                         "update": "the dense ZeRO shard segments and the expert tensors, "
                                   "one weight decay"}}
@@ -4281,7 +4823,8 @@ def main() -> int:
                    "elastic_bert": elastic_bert, "elastic_kill": elastic_kill,
                    "elastic_lc": elastic_lc, "elastic_zero": elastic_zero,
                    "moe_train": moe_train, "moe_check": moe_check, "moe_serve": moe_serve,
-                   "moe_ranks": moe_ranks,
+                   "moe_ranks": moe_ranks, "pp_train": pp_train, "pp_check": pp_check,
+                   "pp_ranks": pp_ranks, "pp_dryrun": pp_dryrun,
                    "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1, default=float)
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -22,14 +22,18 @@ from ``MXNET_TPU_RANK`` (or ``DMLC_WORKER_ID``), the world size from
 - ``plan_buckets`` groups tensors into buckets of at most ``bucket_bytes``
   for one all-reduce each (the replicated step's buckets; the ZeRO buckets
   are ``parallel/zero.py``'s plan).
-- ``ring_shift`` sends tensors to the next rank of a group and receives
-  the previous rank's, posted together by ``batch_isend_irecv``. Under gloo
-  on CUDA tensors it stages them through pinned host memory: gloo's
-  send/recv refuse CUDA tensors (the peer closes the connection), while its
-  ``reduce_scatter_tensor``, ``all_gather_into_tensor`` and
-  ``all_to_all_single`` take them and are called directly. The compute
-  stays on the card. ``p2p_stats`` counts the sends and bytes
-  ``ring_shift`` made.
+- ``exchange`` posts one round of point-to-point sends and receives
+  together (``batch_isend_irecv``), each with a peer and a tag; the
+  pipeline's two rings (activations forward, cotangents backward) carry
+  tags of their own, so at two stages, where the next and the previous
+  rank are one peer, a receive never takes the other ring's message.
+  ``ring_shift`` sends tensors to the next rank of a group and receives
+  the previous rank's, as one such round. Under gloo on CUDA tensors both
+  stage them through pinned host memory: gloo's send/recv refuse CUDA tensors (the peer closes the
+  connection), while its ``reduce_scatter_tensor``,
+  ``all_gather_into_tensor`` and ``all_to_all_single`` take them and are
+  called directly. The compute stays on the card. ``p2p_stats`` counts the
+  sends and bytes they made.
 
 Nothing here starts a process or opens a socket when it is imported.
 """
@@ -190,32 +194,48 @@ def plan_buckets(sizes: Sequence[Tuple[int, int]], bucket_bytes: int) -> List[Li
 p2p_stats = {"sends": 0, "bytes": 0}
 
 
+def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],
+             recvs: Sequence[Tuple[torch.Tensor, int, int]], group) -> None:
+    """One round of point-to-point messages, posted together: each ``(tensor,
+    peer, tag)`` of ``sends`` goes to ``peer`` (a rank of ``group``), and each
+    of ``recvs`` is filled in place from its peer's send of the same tag.
+    Both sides of a message must be in the round on their ranks; a round
+    with neither does nothing."""
+    if not sends and not recvs:
+        return
+    staged = dist.get_backend(group) == "gloo" and any(
+        t.is_cuda for t, _, _ in [*sends, *recvs])
+    if staged:     # gloo's send/recv take host memory only
+        out = [(torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t), p, g)
+               for t, p, g in sends]
+        into = [(torch.empty(t.shape, dtype=t.dtype, pin_memory=True), p, g)
+                for t, p, g in recvs]
+    else:
+        out = [(t.contiguous(), p, g) for t, p, g in sends]
+        into = list(recvs)
+    ops = [dist.P2POp(dist.isend, t, dist.get_global_rank(group, p), group, g)
+           for t, p, g in out] + \
+        [dist.P2POp(dist.irecv, t, dist.get_global_rank(group, p), group, g)
+         for t, p, g in into]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        for (dst, _, _), (h, _, _) in zip(recvs, into):
+            dst.copy_(h)
+    p2p_stats["sends"] += len(sends)
+    p2p_stats["bytes"] += sum(t.numel() * t.element_size() for t, _, _ in sends)
+
+
 def ring_shift(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
     """Send each of ``tensors`` to the next rank of ``group`` (in group
     order, cyclic) and return the ones the previous rank sent (new tensors
     of the same shapes, dtypes and device)."""
     n = dist.get_world_size(group)
     me = dist.get_rank(group)
-    nxt = dist.get_global_rank(group, (me + 1) % n)
-    prv = dist.get_global_rank(group, (me - 1) % n)
     tensors = [t.contiguous() for t in tensors]
     outs = [torch.empty_like(t) for t in tensors]
-    staged = dist.get_backend(group) == "gloo" and any(t.is_cuda for t in tensors)
-    if staged:     # gloo's send/recv take host memory only
-        sends = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
-                 for t in tensors]
-        recvs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-    else:
-        sends, recvs = tensors, outs
-    ops = [dist.P2POp(dist.isend, t, nxt, group) for t in sends] + \
-        [dist.P2POp(dist.irecv, t, prv, group) for t in recvs]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    if staged:
-        for o, h in zip(outs, recvs):
-            o.copy_(h)
-    p2p_stats["sends"] += len(tensors)
-    p2p_stats["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+    exchange([(t, (me + 1) % n, 0) for t in tensors],
+             [(o, (me - 1) % n, 0) for o in outs], group)
     return outs
 
 
@@ -327,5 +347,5 @@ def _worker_main(argv: Sequence[str]) -> int:
 
 
 __all__ = ["choose_backend", "rank_context", "init_process_group",
-           "destroy_process_group", "launch_local", "plan_buckets", "ring_shift",
+           "destroy_process_group", "launch_local", "plan_buckets", "exchange", "ring_shift",
            "p2p_stats", "env_rank", "env_world_size", "env_local_rank", "env_init_method"]

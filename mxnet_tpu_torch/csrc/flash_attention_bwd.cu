@@ -58,7 +58,17 @@
 // order (k = t from row 2t, k = t+4 from row 2t+1) and no value moves. P
 // and dS never go through shared memory.
 //
-// Head dims 16, 32, 64 and 128 are instantiated, as in the forward kernel.
+// Head dims 16, 32, 64, 128 and 256 are instantiated, as in the forward
+// kernel. At D = 256 each kernel runs in two passes of kDV = 128 output
+// columns, one a block (blockIdx.z): a pass forms S and dP from the full D,
+// reading Q and dO fragments from shared memory at each k step as every
+// D does here, and accumulates only its columns of dQ (from K's) or of dK
+// and dV (from Q's and dO's), so the accumulators are D = 128's (dK and dV
+// together 128 floats a lane). S and dP are computed twice: the D = 256
+// kernels do 4/3 (dQ) and 6/4 (dK/dV) of the D<=128 work a column. In f32
+// the resident and streamed tiles at D = 256 (1,040 B a row) do not fit with
+// 32-row tiles (266,240 B), so both f32 kernels stream 16 rows: 199,680 B
+// of tiles a block.
 // Tiles (`Tiles`). 128 threads, 4 warps; each warp owns two 16-row slabs of
 // the block's resident axis (one at D = 128), so a block keeps 128 rows (Q
 // and dO rows for dQ, K and V rows for dK/dV) and every B fragment, split
@@ -109,7 +119,9 @@ namespace {
 template <typename T, int D, bool kDkv> struct Tiles {
   static constexpr int kMS = D >= 128 ? 1 : 2;
   static constexpr int kBM = 16 * kMS * kWarps;
-  static constexpr int kBN = D < 128 && kDkv && kIsF32<T> ? 16 : 32;
+  static constexpr int kBN = kIsF32<T> && ((D < 128 && kDkv) || D > 128) ? 16 : 32;
+  static constexpr int kDV = D > 128 ? 128 : D;  // output columns a block (a pass)
+  static constexpr int kPasses = D / kDV;
   static constexpr size_t kBytes =  // resident 2 x kBM rows, 2 stages x 2 x kBN
       sizeof(T) * (size_t)kLd<T, D> * (2 * kBM + 4 * kBN) +
       sizeof(float) * 2 * (kDkv ? 2 * kBN : kBM);  // LSE and delta
@@ -129,6 +141,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using Cfg = Tiles<T, D, false>;
   constexpr int ld = kLd<T, D>;
   constexpr int kMS = Cfg::kMS, kBM = Cfg::kBM, kBN = Cfg::kBN, kNT = kBN / 8;
+  constexpr int kDV = Cfg::kDV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);  // [kBM][ld]
   T* sDO = sQ + kBM * ld;                  // [kBM][ld]
@@ -139,6 +152,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * kBM;
+  const int c0 = blockIdx.z * kDV;  // this pass's first output column
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const size_t qoff = (size_t)bh * t_q * D;
@@ -166,7 +180,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int w0 = warp * 16 * kMS;  // the warp's first row in the block
   const int r0 = q0 + w0 + g;      // this lane's rows r0 + 16 m (+ 8)
-  float acc[kMS][D / 8][4];
+  float acc[kMS][kDV / 8][4];
   zero(acc);
 
   const T* wQ = sQ + w0 * ld;
@@ -209,20 +223,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
     for (int j = 0; j < kNNSteps<T, kNT>; ++j)
-      mma_nn_step<T, D, kNT, kMS>(acc, s, cK, lane, j);
+      mma_nn_step<T, kDV, kNT, kMS, ld>(acc, s, cK + c0, lane, j);
     __syncthreads();  // this stage is refilled at the next iteration
     if constexpr (kIsF32<T>) {
       if ((kt + 1) % (kFlushRows / kBN) == 0 && kt + 1 < n_k) {
-        add_rows<D, kMS>(dq + qoff, acc, r0, t_q, added, one, mul_q, lane);
+        add_rows<kDV, kMS, D>(dq + qoff + c0, acc, r0, t_q, added, one, mul_q, lane);
         added = true;
       }
     }
   }
 
   if constexpr (kIsF32<T>)
-    add_rows<D, kMS>(dq + qoff, acc, r0, t_q, added, one, mul_q, lane);
+    add_rows<kDV, kMS, D>(dq + qoff + c0, acc, r0, t_q, added, one, mul_q, lane);
   else
-    store_rows<T, D, kMS>(dq + qoff, acc, r0, t_q, scale, lane);
+    store_rows<T, kDV, kMS, D>(dq + qoff + c0, acc, r0, t_q, scale, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -240,6 +254,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using Cfg = Tiles<T, D, true>;
   constexpr int ld = kLd<T, D>;
   constexpr int kMS = Cfg::kMS, kBM = Cfg::kBM, kBN = Cfg::kBN, kNT = kBN / 8;
+  constexpr int kDV = Cfg::kDV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);  // [kBM][ld]
   T* sV = sK + kBM * ld;                   // [kBM][ld]
@@ -250,6 +265,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kBM;
+  const int c0 = blockIdx.z * kDV;  // this pass's first output column
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const size_t qoff = (size_t)bh * t_q * D;
@@ -279,7 +295,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (first < n_q) load_q_tile(first, 0);
   cp_async_commit();
 
-  float acc_k[kMS][D / 8][4], acc_v[kMS][D / 8][4];
+  float acc_k[kMS][kDV / 8][4], acc_v[kMS][kDV / 8][4];
   zero(acc_k);
   zero(acc_v);
 
@@ -324,25 +340,25 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
     for (int j = 0; j < kNNSteps<T, kNT>; ++j) {
-      mma_nn_step<T, D, kNT, kMS>(acc_v, s, cDO, lane, j);
-      mma_nn_step<T, D, kNT, kMS>(acc_k, dp, cQ, lane, j);
+      mma_nn_step<T, kDV, kNT, kMS, ld>(acc_v, s, cDO + c0, lane, j);
+      mma_nn_step<T, kDV, kNT, kMS, ld>(acc_k, dp, cQ + c0, lane, j);
     }
     __syncthreads();  // this stage is refilled at the next iteration
     if constexpr (kIsF32<T>) {
       if ((qt - first + 1) % (kFlushRows / kBN) == 0 && qt + 1 < n_q) {
-        add_rows<D, kMS>(dk + koff, acc_k, r0, t_k, added, one, mul_k, lane);
-        add_rows<D, kMS>(dv + koff, acc_v, r0, t_k, added, one, one, lane);
+        add_rows<kDV, kMS, D>(dk + koff + c0, acc_k, r0, t_k, added, one, mul_k, lane);
+        add_rows<kDV, kMS, D>(dv + koff + c0, acc_v, r0, t_k, added, one, one, lane);
         added = true;
       }
     }
   }
 
   if constexpr (kIsF32<T>) {
-    add_rows<D, kMS>(dk + koff, acc_k, r0, t_k, added, one, mul_k, lane);
-    add_rows<D, kMS>(dv + koff, acc_v, r0, t_k, added, one, one, lane);
+    add_rows<kDV, kMS, D>(dk + koff + c0, acc_k, r0, t_k, added, one, mul_k, lane);
+    add_rows<kDV, kMS, D>(dv + koff + c0, acc_v, r0, t_k, added, one, one, lane);
   } else {
-    store_rows<T, D, kMS>(dk + koff, acc_k, r0, t_k, scale, lane);
-    store_rows<T, D, kMS>(dv + koff, acc_v, r0, t_k, 1.f, lane);
+    store_rows<T, kDV, kMS, D>(dk + koff + c0, acc_k, r0, t_k, scale, lane);
+    store_rows<T, kDV, kMS, D>(dv + koff + c0, acc_v, r0, t_k, 1.f, lane);
   }
 }
 
@@ -355,7 +371,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (t_q + Cfg::kBM - 1) / Cfg::kBM);
+  const dim3 grid(bh, (t_q + Cfg::kBM - 1) / Cfg::kBM, Cfg::kPasses);
   flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
@@ -372,7 +388,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (t_k + Cfg::kBM - 1) / Cfg::kBM);
+  const dim3 grid(bh, (t_k + Cfg::kBM - 1) / Cfg::kBM, Cfg::kPasses);
   flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
@@ -390,6 +406,7 @@ cudaError_t dq_dim(const void* q, const void* k, const void* v, const void* dout
     case 32: return launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, bh, t_q, t_k, causal, scale, s);
     case 64: return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, bh, t_q, t_k, causal, scale, s);
     case 128: return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, bh, t_q, t_k, causal, scale, s);
+    case 256: return launch_dq<T, 256>(q, k, v, dout, lse, delta, dq, bh, t_q, t_k, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -403,6 +420,7 @@ cudaError_t dkv_dim(const void* q, const void* k, const void* v, const void* dou
     case 32: return launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, bh, t_q, t_k, causal, scale, s);
     case 64: return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, bh, t_q, t_k, causal, scale, s);
     case 128: return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, bh, t_q, t_k, causal, scale, s);
+    case 256: return launch_dkv<T, 256>(q, k, v, dout, lse, delta, dk, dv, bh, t_q, t_k, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -413,6 +431,7 @@ template <typename T> int smem_bytes(int dkv, int d) {
     case 32: return (int)(dkv ? Tiles<T, 32, true>::kBytes : Tiles<T, 32, false>::kBytes);
     case 64: return (int)(dkv ? Tiles<T, 64, true>::kBytes : Tiles<T, 64, false>::kBytes);
     case 128: return (int)(dkv ? Tiles<T, 128, true>::kBytes : Tiles<T, 128, false>::kBytes);
+    case 256: return (int)(dkv ? Tiles<T, 256, true>::kBytes : Tiles<T, 256, false>::kBytes);
     default: return -1;
   }
 }

@@ -41,15 +41,24 @@
 //     tensor_core.cuh: one mma accumulator over a long loop drifts); the
 //     output holds the unnormalized sum at the running max m_o of that
 //     moment, brought to today's max by exp2(m_o - m) at the next addition.
-// Head dims 16, 32, 64 and 128 are instantiated (the wrapper zero-pads any
-// other D up to 128). At D = 16 Q K^T is one k16 step (bf16) or two k8 steps
-// (f32), P V two n8 tiles, and a padded row of 48 B (bf16) or 80 B (f32)
-// stays 16-byte aligned for cp.async and ldmatrix, with conflict-free banks.
-// Tiles (`FwdTiles`): one slab a warp for f32 (Q hi/lo, S and O at D=64
-// are about 130 live registers) and at D=128, two for bf16/f16 at D<=64;
-// 64-key tiles, 32 for f32 at D=128. Grid (BH, ceil(T / kBM)): 1536 blocks
-// (f32) / 768 (bf16) at BERT-base for 132 SMs. Row starts must be 16-byte
-// aligned (cp.async; the wrapper checks).
+// Head dims 16, 32, 64, 128 and 256 are instantiated (the wrapper zero-pads
+// any other D up to 256). At D = 16 Q K^T is one k16 step (bf16) or two k8
+// steps (f32), P V two n8 tiles, and a padded row of 48 B (bf16) or 80 B
+// (f32) stays 16-byte aligned for cp.async and ldmatrix, with conflict-free
+// banks. Tiles (`FwdTiles`): one slab a warp for f32 (Q hi/lo, S and O at
+// D=64 are about 130 live registers) and at D>=128, two for bf16/f16 at
+// D<=64; 64-key tiles, 32 for f32 at D>=128. Grid (BH, ceil(T / kBM),
+// passes): 1536 blocks (f32) / 768 (bf16) at BERT-base for 132 SMs. Row
+// starts must be 16-byte aligned (cp.async; the wrapper checks).
+// D = 256 does not fit the D<=128 layout: Q's fragments alone would take
+// 256 registers a lane in f32 (32 k8 steps x 4 x hi/lo) and O another 128.
+// So at D = 256 (`kQRegs` false) Q stays in shared memory and its fragments
+// are read and split at each k step (mma_nt), and O is computed in two
+// passes of kDV = 128 columns, one a block (blockIdx.z): each pass forms S
+// from the full D (so Q K^T runs twice, 1.5x the D<=128 work) and
+// accumulates P V[:, pass columns] from a V tile of those columns only. Both
+// passes compute the same m and l; pass 0 writes the LSE. Shared memory
+// (Q and K at D, V at 128 columns): f32 166,912 B, bf16/f16 136,192 B.
 //
 // Bound at BERT-base shapes (B=8, H=12, T=Tk=1024, D=64): the work is
 // 4*B*H*T*Tk*D = 25.8 GFLOP. In f32 by 3xTF32 that is three TF32 products,
@@ -72,8 +81,11 @@ template <typename T, int D> struct FwdTiles {
   static constexpr int kMS = kIsF32<T> || D >= 128 ? 1 : 2;  // 16-row slabs a warp
   static constexpr int kBM = 16 * kMS * kWarps;                // query rows a block
   static constexpr int kBN = kIsF32<T> && D >= 128 ? 32 : 64;  // keys a tile
-  static constexpr size_t kBytes =  // Q tile, then 2 stages of K and V
-      sizeof(T) * (size_t)kLd<T, D> * (kBM + 4 * kBN);
+  static constexpr int kDV = D > 128 ? 128 : D;  // output columns a block (a pass)
+  static constexpr int kPasses = D / kDV;
+  static constexpr bool kQRegs = D <= 128;       // Q's fragments held in registers
+  static constexpr size_t kBytes =  // Q tile, 2 stages of K, 2 of V's kDV columns
+      sizeof(T) * ((size_t)kLd<T, D> * (kBM + 2 * kBN) + (size_t)kLd<T, kDV> * 2 * kBN);
 };
 
 template <typename T, int D>
@@ -84,14 +96,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int causal) {
   using Cfg = FwdTiles<T, D>;
   constexpr int ld = kLd<T, D>;
+  constexpr int kDV = Cfg::kDV, ldv = kLd<T, kDV>;
   constexpr int kMS = Cfg::kMS, kBM = Cfg::kBM, kBN = Cfg::kBN, kNT = kBN / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);  // [kBM][ld]
   T* sK = sQ + kBM * ld;                   // [2][kBN][ld]
-  T* sV = sK + 2 * kBN * ld;               // [2][kBN][ld]
+  T* sV = sK + 2 * kBN * ld;               // [2][kBN][ldv]
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * kBM;
+  const int c0 = blockIdx.z * kDV;  // this pass's first output column
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const size_t qoff = (size_t)bh * t_q * D;
@@ -107,16 +121,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_rows<T, D, kBM>(sQ, q + qoff, q0, t_q);
   cp_async_commit();
   load_rows<T, D, kBN>(sK, k + koff, 0, t_k);
-  load_rows<T, D, kBN>(sV, v + koff, 0, t_k);
+  load_rows<T, kDV, kBN, D>(sV, v + koff + c0, 0, t_k);
   cp_async_commit();
   cp_async_wait<1>();  // Q has landed; the first K/V tile may still be in flight
   __syncthreads();
 
   const int w0 = warp * 16 * kMS;  // the warp's first row in the block
-  uint32_t qh[kKSteps<T, D>][kMS][4], ql[kKSteps<T, D>][kMS][4];
-  load_a_frags<T, D, kMS>(qh, ql, sQ + w0 * ld, lane);
+  constexpr int kQSteps = Cfg::kQRegs ? kKSteps<T, D> : 1;
+  uint32_t qh[kQSteps][kMS][4], ql[kQSteps][kMS][4];
+  if constexpr (Cfg::kQRegs) load_a_frags<T, D, kMS>(qh, ql, sQ + w0 * ld, lane);
 
-  float acc[kMS][D / 8][4];
+  float acc[kMS][kDV / 8][4];
   float m_i[kMS][2], l_i[kMS][2];  // this lane's rows g and g + 8 of each slab
   float m_o[kMS][2];  // f32: the running max when acc last went to the output
   zero(acc);
@@ -135,17 +150,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (kt + 1 < n_k) {  // the next tile into the other stage
       const int nxt = (kt + 1) * kBN;
       load_rows<T, D, kBN>(sK + (stage ^ 1) * kBN * ld, k + koff, nxt, t_k);
-      load_rows<T, D, kBN>(sV + (stage ^ 1) * kBN * ld, v + koff, nxt, t_k);
+      load_rows<T, kDV, kBN, D>(sV + (stage ^ 1) * kBN * ldv, v + koff + c0, nxt, t_k);
     }
     cp_async_commit();
     cp_async_wait<1>();  // all but the copy just issued have landed
     __syncthreads();
     const T* cK = sK + stage * kBN * ld;
-    const T* cV = sV + stage * kBN * ld;
+    const T* cV = sV + stage * kBN * ldv;
 
     float s[kMS][kNT][4];
     zero(s);
-    mma_nt_frags<T, D, kNT, kMS>(s, qh, ql, cK, lane);
+    if constexpr (Cfg::kQRegs)
+      mma_nt_frags<T, D, kNT, kMS>(s, qh, ql, cK, lane);
+    else
+      mma_nt<T, D, kNT, kMS>(s, sQ + w0 * ld, cK, lane);
 
     const int k0 = kt * kBN;
 #pragma unroll
@@ -180,14 +198,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l_i[m][h] = l_i[m][h] * alpha + rs;
         m_i[m][h] = m_new;
 #pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt) {
+        for (int nt = 0; nt < kDV / 8; ++nt) {
           acc[m][nt][2 * h] *= alpha;
           acc[m][nt][2 * h + 1] *= alpha;
         }
       }
 #pragma unroll
     for (int j = 0; j < kNNSteps<T, kNT>; ++j)
-      mma_nn_step<T, D, kNT, kMS>(acc, s, cV, lane, j);
+      mma_nn_step<T, kDV, kNT, kMS>(acc, s, cV, lane, j);
     __syncthreads();  // this stage is refilled at the next iteration
     if constexpr (kIsF32<T>) {
       if ((kt + 1) % (kFlushRows / kBN) == 0 && kt + 1 < n_k) {
@@ -201,7 +219,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             keep[m][h] = exp2f(m_o[m][h] - m_i[m][h]);
             m_o[m][h] = m_i[m][h];
           }
-        add_rows<D, kMS>(o + qoff, acc, q0 + w0 + g, t_q, added, keep, one, lane);
+        add_rows<kDV, kMS, D>(o + qoff + c0, acc, q0 + w0 + g, t_q, added, keep, one, lane);
         added = true;
       }
     }
@@ -217,16 +235,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       inv_l[m][h] = 1.f / li;
       keep[m][h] = exp2f(m_o[m][h] - m_i[m][h]) / li;
       if (qi >= t_q) continue;
-      if (t == 0) lse[(size_t)bh * t_q + qi] = m_i[m][h] * kLn2 + logf(li);
+      if (t == 0 && c0 == 0) lse[(size_t)bh * t_q + qi] = m_i[m][h] * kLn2 + logf(li);
       if constexpr (!kIsF32<T>) {
-        T* orow = o + qoff + (size_t)qi * D;
+        T* orow = o + qoff + (size_t)qi * D + c0;
 #pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt)
+        for (int nt = 0; nt < kDV / 8; ++nt)
           store2<T>(orow + 8 * nt + 2 * t, acc[m][nt][2 * h] / li, acc[m][nt][2 * h + 1] / li);
       }
     }
   if constexpr (kIsF32<T>)
-    add_rows<D, kMS>(o + qoff, acc, q0 + w0 + g, t_q, added, keep, inv_l, lane);
+    add_rows<kDV, kMS, D>(o + qoff + c0, acc, q0 + w0 + g, t_q, added, keep, inv_l, lane);
 }
 
 template <typename T, int D>
@@ -238,7 +256,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (t_q + Cfg::kBM - 1) / Cfg::kBM);
+  const dim3 grid(bh, (t_q + Cfg::kBM - 1) / Cfg::kBM, Cfg::kPasses);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), t_q, t_k, scale, causal);
@@ -254,6 +272,7 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o,
     case 32: return launch<T, 32>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, lse, bh, t_q, t_k, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -264,6 +283,7 @@ template <typename T> int smem_bytes(int d) {
     case 32: return (int)FwdTiles<T, 32>::kBytes;
     case 64: return (int)FwdTiles<T, 64>::kBytes;
     case 128: return (int)FwdTiles<T, 128>::kBytes;
+    case 256: return (int)FwdTiles<T, 256>::kBytes;
     default: return -1;
   }
 }

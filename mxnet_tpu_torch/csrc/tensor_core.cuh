@@ -22,6 +22,12 @@
 //   (f32) adds them into it, so that long sums leave the mma accumulators
 //   every kFlushRows rows.
 //
+// Head dims above 128 (D = 256) run in passes of 128 output columns: the
+// products that form S and dP read the full D, the ones that accumulate an
+// output read a column block of their B tile (`load_rows`' SrcLd, the Ld of
+// `mma_nn_step`) and write a column block of the output (OutLd of
+// `store_rows`/`add_rows`), so no accumulator is wider than 128 columns.
+//
 // Shared-memory tiles are (rows, D) with rows padded by 16 bytes (`kLd`:
 // f32 D+4 floats, so per-lane fragment loads hit 32 distinct banks; 16-bit
 // D+8 elements, so each 8x8 ldmatrix reads 8 distinct 16-byte bank groups).
@@ -70,17 +76,19 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// rows [r0, r0 + N) of a (rows, D) matrix into shared memory (kLd<T, D>),
-// rows at or past `limit` zero-filled
-template <typename T, int D, int N>
+// rows [r0, r0 + N) of a matrix whose rows lie SrcLd elements apart, W
+// columns a row from `src` on, into shared memory (stride kLd<T, W>); rows
+// at or past `limit` zero-filled. W = SrcLd copies whole rows; a narrower W
+// takes a column block (the D = 256 passes' 128 columns of V)
+template <typename T, int W, int N, int SrcLd = W>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, int r0, int limit) {
   constexpr int kChunk = 16 / sizeof(T);  // elements a 16-byte copy
-  constexpr int kPerRow = D / kChunk;
+  constexpr int kPerRow = W / kChunk;
 #pragma unroll
   for (int idx = threadIdx.x; idx < N * kPerRow; idx += kThreads) {
     const int r = idx / kPerRow, c = (idx % kPerRow) * kChunk;
     const bool valid = r0 + r < limit;
-    cp_async16(dst + r * kLd<T, D> + c, src + (size_t)(valid ? r0 + r : 0) * D + c, valid);
+    cp_async16(dst + r * kLd<T, W> + c, src + (size_t)(valid ? r0 + r : 0) * SrcLd + c, valid);
   }
 }
 
@@ -270,14 +278,15 @@ template <typename T, int NT> constexpr int kNNSteps = kIsF32<T> ? NT : NT / 2;
 // One warp, step j of kNNSteps: c[m][D/8][4] (16 x D) += A_m(16 x 8*NT)
 // B(8*NT x D) over A's columns of that step, for its MS slabs m; A_m is
 // given as the accumulator fragments p[m][NT][4] of an mma_nt (rounded to T
-// here for 16-bit types), B's rows (the k index) at sB with the stride
-// kLd<T, D>. A caller that runs two products step by step lets each step's
-// P or dS registers go as soon as it is done.
-template <typename T, int D, int NT, int MS>
+// here for 16-bit types), B's rows (the k index) at sB with the stride Ld
+// (kLd<T, D>, or a wider tile's when B is a column block of it). A caller
+// that runs two products step by step lets each step's P or dS registers
+// go as soon as it is done.
+template <typename T, int D, int NT, int MS, int Ld = kLd<T, D>>
 __device__ __forceinline__ void mma_nn_step(float (&c)[MS][D / 8][4],
                                             const float (&p)[MS][NT][4], const T* sB,
                                             int lane, int j) {
-  constexpr int ld = kLd<T, D>;
+  constexpr int ld = Ld;
   if constexpr (kIsF32<T>) {
     const int g = lane >> 2, t = lane & 3;
     // A's k = t is column 2t of the accumulator tile, k = t + 4 column 2t+1
@@ -331,10 +340,11 @@ __device__ __forceinline__ void zero(float (&c)[MS][N][4]) {
       for (int e = 0; e < 4; ++e) c[m][n][e] = 0.f;
 }
 
-// a warp's MS slabs of 16 x D accumulators, times `mul`, into the (rows, D)
-// output: this lane's rows r + 16 m and r + 16 m + 8; rows at or past
-// `limit` are not written
-template <typename T, int D, int MS>
+// a warp's MS slabs of 16 x D accumulators, times `mul`, into D columns of
+// an output whose rows lie OutLd elements apart (D, or the full head dim
+// when `out` points at a pass's column block): this lane's rows r + 16 m
+// and r + 16 m + 8; rows at or past `limit` are not written
+template <typename T, int D, int MS, int OutLd = D>
 __device__ __forceinline__ void store_rows(T* out, const float (&c)[MS][D / 8][4], int r,
                                            int limit, float mul, int lane) {
   const int t = lane & 3;
@@ -346,7 +356,7 @@ __device__ __forceinline__ void store_rows(T* out, const float (&c)[MS][D / 8][4
       if (row >= limit) continue;
 #pragma unroll
       for (int nt = 0; nt < D / 8; ++nt)
-        store2<T>(out + (size_t)row * D + 8 * nt + 2 * t, c[m][nt][2 * h] * mul,
+        store2<T>(out + (size_t)row * OutLd + 8 * nt + 2 * t, c[m][nt][2 * h] * mul,
                   c[m][nt][2 * h + 1] * mul);
     }
 }
@@ -364,12 +374,12 @@ __device__ __forceinline__ void store_rows(T* out, const float (&c)[MS][D / 8][4
 // rounding lies far above that drift.
 constexpr int kFlushRows = 512;
 
-// a warp's MS slabs of 16 x D f32 accumulators into the f32 (rows, D)
-// output: out = out * keep + c * mul per row (out = c * mul when `!add`,
-// so the output is never read before it is written), then c = 0. Row
-// r + 16 m + 8 h takes keep[m][h] and mul[m][h]; rows at or past `limit`
-// are not written.
-template <int D, int MS>
+// a warp's MS slabs of 16 x D f32 accumulators into D columns of the f32
+// output (rows OutLd elements apart, as store_rows): out = out * keep +
+// c * mul per row (out = c * mul when `!add`, so the output is never read
+// before it is written), then c = 0. Row r + 16 m + 8 h takes keep[m][h]
+// and mul[m][h]; rows at or past `limit` are not written.
+template <int D, int MS, int OutLd = D>
 __device__ __forceinline__ void add_rows(float* out, float (&c)[MS][D / 8][4], int r,
                                          int limit, bool add, const float (&keep)[MS][2],
                                          const float (&mul)[MS][2], int lane) {
@@ -382,7 +392,7 @@ __device__ __forceinline__ void add_rows(float* out, float (&c)[MS][D / 8][4], i
       if (row < limit) {
 #pragma unroll
         for (int nt = 0; nt < D / 8; ++nt) {
-          float2* p = reinterpret_cast<float2*>(out + (size_t)row * D + 8 * nt + 2 * t);
+          float2* p = reinterpret_cast<float2*>(out + (size_t)row * OutLd + 8 * nt + 2 * t);
           float2 v = make_float2(c[m][nt][2 * h] * mul[m][h], c[m][nt][2 * h + 1] * mul[m][h]);
           if (add) {
             const float2 o = *p;

@@ -1,8 +1,9 @@
 """Trainer state capture and install for elastic snapshots.
 
-Counterpart of ``mxnet_tpu/elastic/state.py``, the ``dp`` kind
+Counterpart of ``mxnet_tpu/elastic/state.py``: the ``dp`` kind
 (``DataParallelTrainer``, ``recipes.long_context.LongContextTrainer`` and
-``recipes.moe.MoETrainer``).
+``recipes.moe.MoETrainer``) and the ``pp`` kind (``parallel.PipelineTrainer``,
+without ZeRO).
 ``capture(trainer)`` gives ``{"leaves": {name: value}, "meta": {...}}``, the
 schema ``SnapshotManager`` writes; ``install(trainer, meta, fetch, names)``
 is its inverse, ``fetch(name)`` giving a leaf's global host array (a
@@ -18,6 +19,15 @@ process-wide counters and never match across restarts):
     opt.b{j}.{k}, k >= 1          ZeRO bucket j's flat state lanes
     opt.x{i}.{k}                  state of a trainable parameter in no bucket
     rng                           the generators (``random.get_state_raw``)
+
+and for the ``pp`` kind (the reference's ``_capture_pp``, :315-348):
+
+    param.e.{i}  param.h.{i}      embed / head leaf i (replicated)
+    param.s.{i}                   cell leaf i of every layer, a global
+                                  (n_layers, ...) stack in ``stack_order``
+    opt.{e,s,h}.{i}.{k}           state lane k of each of those (none for a
+                                  frozen leaf), stage lanes stacked the same way
+    rng
 
 A device value is a ``Chunk``: this rank's part of the global leaf, its
 ``[[start, stop], ...]`` region, and whether this rank owns it (is at
@@ -50,6 +60,20 @@ A trainable parameter outside every bucket (``MoETrainer``'s experts, placed
 over ep) keeps its whole state in ``opt.x{i}.{k}``, a chunk of the rank's
 rows like its parameter's, so a snapshot restores across ep degrees.
 
+A pipeline rank owns no stacked storage: it writes its stage's rows
+[s L, (s + 1) L) of each stage leaf as a ``Chunk`` stacked from its layers'
+Parameters (owned at dp coordinate 0), and the replicated embed and head
+are written by global rank 0. Install (``_install_pp``, the reference's
+:460-557) reads each rank's rows, permuted by ``_stack_perm`` when the saved
+``stack_order`` differs, copies them into its layers, and ``sync()`` fills
+the other stages' layers; so a snapshot restores onto another (pp, dp)
+layout. ZeRO-over-pp state (the reference's ``opt.z{e,s,h}`` lanes) is not
+ported (ROADMAP A2b): installing it raises. ``meta`` adds the reference's
+``n_e``, ``n_s``, ``n_h``, ``n_layers``, ``n_stages``, ``virtual_stages``,
+``stack_order``, ``zero``, ``dp_degree``, ``tp_mode``, ``tp_degree`` and
+``sequence_parallel``. ``LeafFetch`` serves a ``capture()``'s own leaves
+to ``install`` (``PipelineTrainer.load_state_dict``).
+
 Install copies into the live tensors in place, under ``torch.no_grad()``,
 and never rebinds them: the ZeRO segments are persistent views of the
 weights and the state shards, the gradient buffers views into buckets, and
@@ -57,8 +81,6 @@ the fused update's pointer table is cached by data pointer
 (``ops/cuda/fused_optimizer.py``). Each rank copies only the region of a
 leaf it holds, through ``fetch.read_region`` where the fetch has it.
 
-The ``pp`` kind (``PipelineTrainer``) waits for the pipeline slice, and
-with it ``_restore_zero_carry``'s per-row re-packing of stage stacks.
 The ``elastic_state()`` / ``elastic_install()`` hooks let any other trainer
 supply its own schema.
 """
@@ -72,10 +94,7 @@ import torch
 from ..base import MXNetError
 from .. import random as _rng
 
-__all__ = ["Chunk", "capture", "install", "sched_state", "install_sched"]
-
-_PP = ("pipeline snapshots (kind 'pp') wait for the slice that ports the 1F1B "
-       "pipeline, parallel/pipeline.py (ROADMAP A2)")
+__all__ = ["Chunk", "LeafFetch", "capture", "install", "sched_state", "install_sched"]
 
 
 class Chunk:
@@ -298,9 +317,11 @@ def capture(trainer) -> Dict[str, Any]:
         return trainer.elastic_state()
     if hasattr(trainer, "_plist") and hasattr(trainer, "_opt_state"):
         return _capture_dp(trainer)
+    if hasattr(trainer, "_cell_plists"):
+        return _capture_pp(trainer)
     raise MXNetError(f"cannot snapshot {type(trainer).__name__}; expected "
-                     f"DataParallelTrainer or an elastic_state()/elastic_install() "
-                     f"provider")
+                     f"DataParallelTrainer, PipelineTrainer or an "
+                     f"elastic_state()/elastic_install() provider")
 
 
 def _common_meta(trainer) -> Dict[str, Any]:
@@ -352,6 +373,52 @@ def _capture_dp(trainer) -> Dict[str, Any]:
     return {"leaves": leaves, "meta": meta}
 
 
+def _replicated(tensor, mesh) -> Chunk:
+    """A leaf every rank holds whole: written by global rank 0."""
+    return Chunk(tensor.detach(), tensor.shape, [(0, int(d)) for d in tensor.shape],
+                 mesh is None or not mesh.distributed or mesh.rank == 0)
+
+
+def _stage_chunk(tensors, trainer) -> Chunk:
+    """This stage's rows of a global (n_layers, ...) stage leaf: its layers'
+    tensors stacked, owned at dp coordinate 0 (every axis but pp at 0)."""
+    mesh, lo = trainer.mesh, trainer._own[0]
+    data = torch.stack([t.detach() for t in tensors])
+    shape = (trainer.n_layers,) + tuple(data.shape[1:])
+    owner = not mesh.distributed or all(
+        c == 0 for a, c in mesh.coords.items() if a != trainer.pp_axis)
+    return Chunk(data, shape, [(lo, lo + data.shape[0])] + [(0, int(d)) for d in shape[1:]],
+                 owner)
+
+
+def _capture_pp(trainer) -> Dict[str, Any]:
+    mesh = trainer.mesh
+    leaves: Dict[str, Any] = {}
+    for tag, plist, states in (("e", trainer._embed_plist, trainer._opt_e),
+                               ("h", trainer._head_plist, trainer._opt_h)):
+        for i, p in enumerate(plist):
+            leaves[f"param.{tag}.{i}"] = _replicated(p._param, mesh)
+        for i, st in enumerate(states):
+            for k, lane in enumerate(st):
+                leaves[f"opt.{tag}.{i}.{k}"] = _replicated(lane, mesh)
+    for i in range(len(trainer._cell_plists[0])):
+        leaves[f"param.s.{i}"] = _stage_chunk(
+            [trainer._cell_plists[m][i]._param for m in trainer._own], trainer)
+        per_layer = trainer._opt_s[i]
+        for k in range(len(per_layer[0])):
+            leaves[f"opt.s.{i}.{k}"] = _stage_chunk([st[k] for st in per_layer], trainer)
+    leaves["rng"] = _rng.get_state_raw()
+    meta = _common_meta(trainer)
+    meta.update({"kind": "pp", "n_e": len(trainer._embed_plist),
+                 "n_s": len(trainer._cell_plists[0]), "n_h": len(trainer._head_plist),
+                 "n_layers": trainer.n_layers, "n_stages": trainer.n_stages,
+                 "virtual_stages": trainer.virtual_stages,
+                 "stack_order": list(trainer._stack_order), "zero": False,
+                 "dp_degree": trainer.n_dp, "tp_mode": "sharded", "tp_degree": 1,
+                 "sequence_parallel": False})
+    return {"leaves": leaves, "meta": meta}
+
+
 # ---------------------------------------------------------------------------
 # Install
 # ---------------------------------------------------------------------------
@@ -366,14 +433,19 @@ def install(trainer, meta: Dict[str, Any], fetch: Callable[[str], Any], names: S
         trainer.elastic_install(meta, fetch, names)
         return trainer
     if kind == "pp":
-        raise MXNetError(f"cannot install the snapshot: {_PP}")
-    if kind != "dp":
+        if not hasattr(trainer, "_cell_plists"):
+            raise MXNetError(f"snapshot holds pipeline state (kind 'pp', PipelineTrainer) "
+                             f"but the target is {type(trainer).__name__}")
+        with torch.no_grad():
+            _install_pp(trainer, meta, fetch, names)
+    elif kind != "dp":
         raise MXNetError(f"unknown snapshot kind {kind!r}")
-    if not (hasattr(trainer, "_plist") and hasattr(trainer, "_opt_state")):
+    elif not (hasattr(trainer, "_plist") and hasattr(trainer, "_opt_state")):
         raise MXNetError(f"snapshot holds DataParallelTrainer state but the target is "
                          f"{type(trainer).__name__}")
-    with torch.no_grad():
-        _install_dp(trainer, meta, fetch, names)
+    else:
+        with torch.no_grad():
+            _install_dp(trainer, meta, fetch, names)
     _install_host_state(trainer, meta, fetch, names)
     trainer.sync()
     return trainer
@@ -500,3 +572,107 @@ def _install_zero(trainer, meta, fetch, names):
         if i not in in_bucket:
             for k, t in enumerate(st):
                 _install_chunk(t, fetch, f"opt.x{i}.{k}", _param_chunk(t, p, mesh))
+
+
+def _stack_perm(old_order, new_order):
+    """Row permutation mapping a stacked cell leaf saved under ``old_order``
+    onto ``new_order`` (None when they agree): new row k holds global layer
+    ``new_order[k]``, which the save put at row ``old_order.index(...)``."""
+    if list(old_order) == list(new_order):
+        return None
+    pos = {m: r for r, m in enumerate(old_order)}
+    try:
+        return [pos[m] for m in new_order]
+    except KeyError:
+        raise MXNetError(f"snapshot and trainer stack orders cover different layer sets "
+                         f"({sorted(pos)} vs {sorted(new_order)})") from None
+
+
+def _install_pp(trainer, meta, fetch, names):
+    _check(meta.get("optimizer") == type(trainer.optimizer).__name__,
+           f"snapshot optimizer {meta.get('optimizer')!r} != trainer "
+           f"{type(trainer.optimizer).__name__!r}")
+    n_s = len(trainer._cell_plists[0])
+    for key, have in (("n_e", len(trainer._embed_plist)), ("n_s", n_s),
+                      ("n_h", len(trainer._head_plist)), ("n_layers", trainer.n_layers)):
+        _check(int(meta.get(key, -1)) == int(have),
+               f"snapshot {key}={meta.get(key)} != trainer {have}: architecture mismatch")
+    _check(not meta.get("zero"),
+           "cannot install the snapshot: ZeRO-over-pp optimizer state is not ported yet "
+           "(ROADMAP A2b: the pipeline's other compositions); save without zero_update")
+    _check(meta.get("tp_mode", "sharded") == "sharded",
+           f"snapshot was taken under tp_mode={meta.get('tp_mode')!r}: partitioned "
+           f"tensor parallelism in the stages is not ported yet (ROADMAP A2b)")
+    perm = _stack_perm(meta.get("stack_order") or list(range(trainer.n_layers)),
+                       trainer._stack_order)
+    lo, hi = trainer._own[0], trainer._own[-1] + 1
+    # every shape before any copy: a mismatch leaves the trainer as it was
+    for tag, plist in (("e", trainer._embed_plist), ("h", trainer._head_plist)):
+        for i, p in enumerate(plist):
+            saved = _leaf_shape(fetch, f"param.{tag}.{i}")
+            _check(saved == tuple(p.shape), f"snapshot leaf 'param.{tag}.{i}': saved shape "
+                                            f"{saved} != trainer shape {tuple(p.shape)}: "
+                                            f"architecture mismatch")
+    for i in range(n_s):
+        want = (trainer.n_layers,) + tuple(trainer._cell_plists[0][i].shape)
+        saved = _leaf_shape(fetch, f"param.s.{i}")
+        _check(saved == want, f"snapshot leaf 'param.s.{i}': saved shape {saved} != "
+                              f"trainer shape {want}: architecture mismatch")
+
+    def rows(name):
+        """This stage's rows of a stage leaf, in the trainer's order."""
+        if perm is None:
+            shape = _leaf_shape(fetch, name)
+            return _fetch_region(fetch, name, [(lo, hi)] + [(0, d) for d in shape[1:]])
+        return _fetch_np(fetch, name)[perm][lo:hi]
+
+    for tag, plist, states in (("e", trainer._embed_plist, trainer._opt_e),
+                               ("h", trainer._head_plist, trainer._opt_h)):
+        for i, p in enumerate(plist):
+            _copy_into(p._param, _fetch_np(fetch, f"param.{tag}.{i}"), f"param.{tag}.{i}")
+        for i, st in enumerate(states):
+            for k, lane in enumerate(st):
+                _copy_into(lane, _fetch_np(fetch, f"opt.{tag}.{i}.{k}"), f"opt.{tag}.{i}.{k}")
+    for i in range(n_s):
+        host = rows(f"param.s.{i}")
+        for j, m in enumerate(trainer._own):
+            _copy_into(trainer._cell_plists[m][i]._param, host[j], f"param.s.{i}")
+        per_layer = trainer._opt_s[i]
+        for k in range(len(per_layer[0])):
+            host = rows(f"opt.s.{i}.{k}")
+            for j, st in enumerate(per_layer):
+                _copy_into(st[k], host[j], f"opt.s.{i}.{k}")
+
+
+class LeafFetch:
+    """``install``'s ``fetch`` over a ``capture()``'s leaves: a ``Chunk``
+    serves the regions it covers (``read_region``), a tensor or host value
+    the whole leaf; ``manifest`` gives each leaf's global shape."""
+
+    def __init__(self, leaves: Dict[str, Any]):
+        self._leaves = leaves
+        self.manifest = {"leaves": {
+            name: {"shape": list(v.shape if isinstance(v, (Chunk, torch.Tensor))
+                                 else _np.shape(v))} for name, v in leaves.items()}}
+
+    @staticmethod
+    def _host(v) -> _np.ndarray:
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu().numpy()
+        return _np.asarray(v)
+
+    def __call__(self, name: str) -> _np.ndarray:
+        v = self._leaves[name]
+        if isinstance(v, Chunk):
+            return self.read_region(name, [(0, d) for d in v.shape])
+        return self._host(v)
+
+    def read_region(self, name: str, region) -> _np.ndarray:
+        v = self._leaves[name]
+        if not isinstance(v, Chunk):
+            return self._host(v)[tuple(slice(a, b) for a, b in region)]
+        if any(a < ca or b > cb for (a, b), (ca, cb) in zip(region, v.index)):
+            raise MXNetError(f"snapshot leaf {name!r}: region {list(region)} is not in this "
+                             f"process's part {v.index}")
+        return self._host(v.data)[tuple(slice(a - ca, b - ca)
+                                        for (a, b), (ca, _) in zip(region, v.index))]

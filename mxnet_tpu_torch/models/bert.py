@@ -11,8 +11,17 @@ on the card, its plain version on the CPU) when no mask is given and
 T >= ``MXNET_FLASH_ATTENTION_MIN_SEQ`` (default 1024, read at every call,
 the same variable and default as the reference, so both packages take the
 same branch); otherwise the plain ``batch_dot``/``softmax`` path. The
-reference's symbolic-export branch (no concrete shape) and
-``pipeline_split`` wait for later slices.
+reference's symbolic-export branch (no concrete shape) waits for a later
+slice.
+
+``BertModel.pipeline_split()`` (reference :205-263) gives
+``parallel.PipelineTrainer`` its ``(embed, cells, head)``: fresh wrappers
+``_BertEmbedStage`` (token and position embeddings, ``embed_ln``, the
+embedding dropout; ``seg_embed`` is registered but, as in the reference,
+not used) and ``_BertHeadStage`` (``encoder.ln``, ``mlm_dense``,
+``mlm_ln``, ``mlm_decoder``) that re-register the model's own child blocks,
+and the encoder's cells. No wrapper is stored on the model, so its
+``collect_params()`` and ``load_jax_params`` see each parameter once.
 
 On a mesh of ranks (``parallel.DataParallelTrainer``, the reference's
 GSPMD step with ``shard_params_megatron`` and ``data_spec=P("dp", "sp")``):
@@ -219,6 +228,13 @@ class BertModel(HybridBlock):
         self.mlm_ln = nn.LayerNorm(in_channels=units)
         self.mlm_decoder = nn.Dense(vocab_size, flatten=False, in_units=units)
 
+    def pipeline_split(self):
+        """(embed, cells, head) for ``parallel.PipelineTrainer``. The wrappers
+        re-register this model's own child blocks, so the parameters are
+        shared and the trainer's updates land in this model."""
+        cells = [self.encoder.layers[i] for i in range(len(self.encoder.layers))]
+        return _BertEmbedStage(self), cells, _BertHeadStage(self)
+
     def hybrid_forward(self, F, token_ids, segment_ids=None):
         pos = _position_ids(token_ids)
         x = self.word_embed(token_ids) + self.pos_embed(pos).expand_dims(axis=0)
@@ -229,6 +245,43 @@ class BertModel(HybridBlock):
             x = self.embed_drop(x)
         x = self.encoder(x)
         h = self.mlm_ln(self.mlm_dense(x))
+        return self.mlm_decoder(h)
+
+
+class _BertEmbedStage(HybridBlock):
+    """Pipeline stage 0's entry: the embedding section of BertModel's
+    forward, on the parent model's child blocks (no new parameters)."""
+
+    def __init__(self, bert, **kwargs):
+        super().__init__(**kwargs)
+        self.word_embed = bert.word_embed
+        self.pos_embed = bert.pos_embed
+        self.seg_embed = bert.seg_embed
+        self.embed_ln = bert.embed_ln
+        self.drop = bert.embed_drop
+
+    def hybrid_forward(self, F, token_ids):
+        pos = _position_ids(token_ids)
+        x = self.word_embed(token_ids) + self.pos_embed(pos).expand_dims(axis=0)
+        x = self.embed_ln(x)
+        if self.drop:
+            x = self.drop(x)
+        return x
+
+
+class _BertHeadStage(HybridBlock):
+    """Pipeline last stage's tail: the encoder's final LayerNorm and the MLM
+    head of BertModel, on the parent model's child blocks."""
+
+    def __init__(self, bert, **kwargs):
+        super().__init__(**kwargs)
+        self.ln = bert.encoder.ln
+        self.mlm_dense = bert.mlm_dense
+        self.mlm_ln = bert.mlm_ln
+        self.mlm_decoder = bert.mlm_decoder
+
+    def hybrid_forward(self, F, x):
+        h = self.mlm_ln(self.mlm_dense(self.ln(x)))
         return self.mlm_decoder(h)
 
 

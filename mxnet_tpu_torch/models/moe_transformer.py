@@ -23,7 +23,8 @@ so ``convert.load_jax_params`` carries its weights unchanged.
 
 Unlike the reference's, the port's cell is differentiable by autograd
 (``autograd.record()``), so the eager tape trains it too.
-``pipeline_split`` raises: the pipeline waits for ROADMAP A2.
+``pipeline_split`` raises: the pipeline of this model waits for ROADMAP A2b
+(``parallel.PipelineTrainer`` takes BERT's ``pipeline_split``).
 """
 from __future__ import annotations
 
@@ -130,8 +131,9 @@ class MoETransformerLM(HybridBlock):
         return self.decoder(self.ln(x))
 
     def pipeline_split(self):
-        raise MXNetError("MoETransformerLM.pipeline_split: parallel.PipelineTrainer is not "
-                         "ported yet (ROADMAP A2: the pipeline with the 'pp' kind)")
+        raise MXNetError("MoETransformerLM.pipeline_split: not ported yet (ROADMAP A2b: "
+                         "the pipeline's other compositions; parallel.PipelineTrainer "
+                         "takes BERT's pipeline_split)")
 
 
 def moe_transformer_tiny(vocab_size=1024, num_experts=4, top_k=2, capacity_factor=2.0,

@@ -43,13 +43,15 @@ forward autograd is off, so the differentiable path is ``flash_attention``.
 Strides: q, k and v reach this module as (B, H, T, D) views out of a
 ``transpose``, not contiguous, and so does dO; the wrappers take contiguous
 tensors (one copy each); kernels that take strides are not written yet.
-Head dims: the kernels are instantiated at D = 16, 32, 64 and 128. The
-wrappers zero-pad Q, K, V and dO of any other D up to 128 on the last axis
-to the next instantiated width (``_kernel_dim``), launch with the scale of
-the original D, and slice O, dQ, dK and dV back; the counters see the
-original shape. A zero column adds nothing to the scores and gives zero
-columns of every output, so the result is the unpadded one. D above 128
-raises (ROADMAP C; the reference's Pallas kernels take it).
+Head dims: the kernels are instantiated at D = 16, 32, 64, 128 and 256
+(D = 256 in two passes of 128 output columns, ``csrc/tensor_core.cuh``).
+The wrappers zero-pad Q, K, V and dO of any other D up to 256 on the last
+axis to the next instantiated width (``_kernel_dim``; 129-255 to 256),
+launch with the scale of the original D, and slice O, dQ, dK and dV back;
+the counters see the original shape. A zero column adds nothing to the
+scores and gives zero columns of every output, so the result is the
+unpadded one. D above 256 raises (the reference's Pallas kernels take it;
+no model of the repository has such a head).
 
 All three kernels copy rows into shared memory 16 bytes at a time
 (``cp.async``), so their wrappers also refuse a CUDA tensor whose data
@@ -70,17 +72,17 @@ from ..attention import blockwise_attention_bwd, blockwise_attention_lse
 from . import load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (16, 32, 64, 128)    # the kernels' instantiations
+_HEAD_DIMS = (16, 32, 64, 128, 256)    # the kernels' instantiations
 
 
 def _kernel_dim(D: int, who: str) -> int:
     """The instantiated head dim a CUDA call of head dim ``D`` runs at: the
-    least one not below ``D``; above 128 none, and the call raises."""
+    least one not below ``D``; above 256 none, and the call raises."""
     for d in _HEAD_DIMS:
         if D <= d:
             return d
     raise MXNetError(f"{who}: head dim {D} above {_HEAD_DIMS[-1]}, the widest the "
-                     f"kernels take (ROADMAP C)")
+                     f"kernels take")
 
 
 def _pad_dim(t, d: int):

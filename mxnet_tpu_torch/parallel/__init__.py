@@ -3,9 +3,11 @@ device or the ranks of a ``torch.distributed`` job (``mesh``), the fused
 training step ``DataParallelTrainer`` with its ``functional_optimizer`` and
 its ZeRO-sharded update (``zero``), the tensor-parallel specs
 (``tensor_parallel``), the Megatron boundary collectives (``megatron``), and
-ring and Ulysses attention (``ring_attention``), and the mixture of experts
-with expert parallelism (``moe``). The overlapped reduction (``overlap.py``)
-and pipelines wait for later slices (ROADMAP A2)."""
+ring and Ulysses attention (``ring_attention``), the mixture of experts
+with expert parallelism (``moe``), and the 1F1B pipeline over a pp axis with
+an optional dp axis (``pipeline``: ``PipelineTrainer``, ``schedule_1f1b``,
+``pipeline_spec``). The overlapped reduction (``overlap.py``, ROADMAP A2)
+and the pipeline's other compositions (ROADMAP A2b) wait for later slices."""
 from .mesh import (Mesh, PartitionSpec, P, make_mesh, local_mesh, current_mesh,
                    set_default_mesh, require_axis, axis_size, axis_index, activate,
                    active_mesh, sequence_axis)
@@ -20,6 +22,8 @@ from . import moe
 from .moe import (moe_ffn, expert_parallel_moe, topk_gating, load_balancing_loss,
                   load_balance_loss, dropped_tokens, wire_all_to_all,
                   all_to_all_wire_bytes, moe_capacity, expert_axis, collect_metrics)
+from . import pipeline
+from .pipeline import PipelineTrainer, pipeline_spec, schedule_1f1b
 
 __all__ = ["Mesh", "PartitionSpec", "P", "make_mesh", "local_mesh", "current_mesh",
            "set_default_mesh", "require_axis", "axis_size", "axis_index", "activate",
@@ -30,4 +34,5 @@ __all__ = ["Mesh", "PartitionSpec", "P", "make_mesh", "local_mesh", "current_mes
            "partial_grad", "vocab_parallel_embedding", "zero", "ring_attention",
            "ulysses_attention", "moe", "moe_ffn", "expert_parallel_moe", "topk_gating",
            "load_balancing_loss", "load_balance_loss", "dropped_tokens", "wire_all_to_all",
-           "all_to_all_wire_bytes", "moe_capacity", "expert_axis", "collect_metrics"]
+           "all_to_all_wire_bytes", "moe_capacity", "expert_axis", "collect_metrics",
+           "pipeline", "PipelineTrainer", "pipeline_spec", "schedule_1f1b"]

@@ -10,7 +10,11 @@ keys its program as
     key_base = ("dp_step", structural_fingerprint(net), config_fingerprint(**config))
 
 (``recipes.moe.MoETrainer`` appends ``("moe", ep axis, ep degree, aux weight,
-wire dtype)``, the reference's ``recipes/moe.py:122-127``), and elastic
+wire dtype)``, the reference's ``recipes/moe.py:122-127``), and
+``parallel.PipelineTrainer`` keys its program ``("pp_step", ...)`` with the
+reference's pipeline configuration (``parallel/pipeline.py:583-616``: the
+schedule, M, the pp and dp axes, the virtual stages, the trainable lanes of
+the embed, the cells and the head, the compute dtype, zero); elastic
 snapshots record ``program.fingerprint``: ``elastic.resume_or_init``
 calls a boot "resumed" when the saved fingerprint and mesh equal the new
 trainer's, "resharded" otherwise.

@@ -23,10 +23,11 @@ Counterpart of ``mxnet_tpu/recipes/long_context.py``:
   ``token_cross_entropy`` (the reference's ``recipes/moe.py:54``).
 
 Not ported: ``make_feed`` raises (``engine/async_feed.DeviceFeed``, ROADMAP
-A7); ``pipeline_split`` and its stage blocks (:185-228) wait for the
-pipeline; ``_record_telemetry`` for the telemetry layer.
+A7); ``pipeline_split`` and its stage blocks (:185-228) wait for ROADMAP
+A2b, the pipeline's other compositions (``parallel.PipelineTrainer`` takes
+BERT's); ``_record_telemetry`` for the telemetry layer.
 
-The kernels take head dims up to 128 (16, 32, 64 and 128 instantiated,
+The kernels take head dims up to 256 (16, 32, 64, 128 and 256 instantiated,
 others zero-padded by their wrappers): ``dryrun_multichip``'s shape, units
 32 over 2 heads, runs at D = 16 on the card.
 """

@@ -41,10 +41,11 @@ TOL_PALLAS = 5e-5
 TOL_NAIVE = 1e-4
 TOL_BF16 = 5e-2
 
-# (B, H, T, Tk, D, causal): BERT-like, padded, cross-attention
+# (B, H, T, Tk, D, causal): BERT-like, padded, cross-attention, and the
+# widest head the kernels take (D = 256, two passes of 128 columns on the card)
 CASES = [(1, 2, 128, 128, 32, False), (1, 2, 128, 128, 32, True),
          (1, 1, 100, 150, 32, False), (1, 1, 100, 150, 32, True),
-         (1, 2, 96, 224, 32, False)]
+         (1, 2, 96, 224, 32, False), (1, 1, 64, 80, 256, True)]
 
 
 def _inputs(seed, B, H, T, Tk, D):
@@ -379,11 +380,12 @@ def test_kernels_long_sequence_against_f64(causal):
 
 
 # Head dims besides the instantiated 32, 64 and 128: D = 16 has kernels of
-# its own (dryrun_multichip's long-context shape, units 32 over 2 heads);
-# any other D up to 128 is zero-padded by the wrappers to the next
-# instantiated width and sliced back. Padding adds zero columns, which leave
-# Q K^T, and so P, LSE and delta, as they were.
-PAD_DIMS = [(16, 16), (24, 32), (48, 64), (80, 128), (128, 128)]
+# its own (dryrun_multichip's long-context shape, units 32 over 2 heads), so
+# does D = 256 (two passes of 128 output columns); any other D up to 256 is
+# zero-padded by the wrappers to the next instantiated width and sliced
+# back. Padding adds zero columns, which leave Q K^T, and so P, LSE and
+# delta, as they were.
+PAD_DIMS = [(16, 16), (24, 32), (48, 64), (80, 128), (128, 128), (144, 256), (256, 256)]
 
 
 @pytest.mark.parametrize("D,Dk", PAD_DIMS)
@@ -395,13 +397,13 @@ def test_kernel_dim_rule(D, Dk):
     assert torch.equal(fa._unpad(padded, D), t)
 
 
-def test_kernel_dim_above_128_raises():
-    with pytest.raises(MXNetError, match="head dim 144 above 128"):
-        fa._kernel_dim(144, "flash_attention_fwd")
+def test_kernel_dim_above_256_raises():
+    with pytest.raises(MXNetError, match="head dim 257 above 256"):
+        fa._kernel_dim(257, "flash_attention_fwd")
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D,Dk", [(16, 32), (80, 128)])
+@pytest.mark.parametrize("D,Dk", [(16, 32), (80, 128), (144, 256)])
 def test_zero_padded_head_dim_gives_the_unpadded_result(causal, D, Dk):
     """The wrappers' padding rule on the plain versions: the scale of the
     original D, then O and the gradients sliced back, equal the unpadded
@@ -453,3 +455,41 @@ def test_kernels_at_head_dims_16_and_80(dtype, D, causal):
         assert g.shape == e.shape and g.dtype == dtype
         rel = ((g.float() - e.float()).abs().max() / e.float().abs().max()).item()
         assert rel <= tol, rel
+
+
+# (T, Tk) at D = 256: the forward's 64-row query blocks and 32- (f32) or
+# 64-key tiles, the backward's 64-row blocks and 16- (f32) or 32-row tiles;
+# 300 crosses each, 17 is a part tile, T != Tk under the causal mask
+HEAD256_SHAPES = [(300, 300), (17, 130)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(TOL_PAD))
+@pytest.mark.parametrize("D", [144, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernels_at_head_dims_144_and_256(dtype, D, causal):
+    """K1-K3 at D = 256 (instantiated: two passes of 128 output columns,
+    each forming S and dP from the full D) and D = 144 (zero-padded to 256)
+    against their plain versions, at the tolerances of the D <= 128 cases;
+    the counters see the caller's shape."""
+    for T, Tk in HEAD256_SHAPES:
+        q3, k3, v3, do3 = _cuda_inputs(dtype, T, Tk, D)
+        shape = f"6x{T}x{Tk}x{D}"
+        before = {w: w.launches_by_shape.get(shape, 0) for w in (
+            fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)}
+        o, lse = fa.flash_attention_fwd(q3, k3, v3, causal)
+        got = fa.flash_attention_bwd(q3, k3, v3, o, lse, do3, causal)
+        torch.cuda.synchronize()
+        for w, n in before.items():
+            assert w.launches_by_shape[shape] == n + 1
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(q3, k3, v3, causal)
+        expect = fa.flash_attention_bwd_plain(q3, k3, v3, o, lse, do3, causal)
+        tol = TOL_PAD[dtype]
+        assert o.shape == q3.shape and o.is_contiguous()
+        assert (o.float() - o_ref.float()).abs().max().item() <= tol * max(
+            o_ref.float().abs().max().item(), 1.0)
+        assert (lse - lse_ref).abs().max().item() <= 1e-4
+        for g, e in zip(got, expect):
+            assert g.shape == e.shape and g.dtype == dtype
+            rel = ((g.float() - e.float()).abs().max() / e.float().abs().max()).item()
+            assert rel <= tol, (T, Tk, rel)

@@ -79,7 +79,8 @@ def test_fresh_interpreter_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.recipes.long_context, mxnet_tpu_torch.faults, "
             "mxnet_tpu_torch.elastic, mxnet_tpu_torch.elastic.manifest, "
             "mxnet_tpu_torch.parallel.step_program, mxnet_tpu_torch.parallel.moe, "
-            "mxnet_tpu_torch.models.moe_transformer, mxnet_tpu_torch.recipes.moe\n"
+            "mxnet_tpu_torch.models.moe_transformer, mxnet_tpu_torch.recipes.moe, "
+            "mxnet_tpu_torch.parallel.pipeline, mxnet_tpu_torch.elastic.state\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
