@@ -59,7 +59,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
    Also the fused training step's rules (``sgd_mom_update``'s,
    ``sgd_update``'s and ``adam_update``'s, ``fused_*_update``) against their
-   plain versions and timed in place.
+   plain versions and timed in place; each also in its device-scalar form
+   (``fused_*_update_hyper``: the 10 scalars read from device memory, the form
+   every trainer's step uses), bitwise against the by-value form and timed
+   beside it in place and by graph replay (one launch a replay).
 8. the rtc (K6), ResNet-50 serve, probe and ResNet-50 training phases. rtc:
    the example kernels against their plain versions (``axpy`` also on views
    off a 16-byte boundary, exact), ``axpy`` on 2^26 f32 on a grid sized to
@@ -208,6 +211,40 @@ phase 11:
 26. ``phase_pp_dryrun``: the dryrun's own pipeline step on 4 ranks, ``{pp:
    2, dp: 2}``, ``bert_tiny(vocab_size=512)``, T 32, batch 8, M = 2, 3 steps
    against the one-rank DataParallelTrainer (losses 1e-5, weights 2e-5).
+
+The compiled paths (``mxnet_tpu_torch.engine``), last. Since this slice the
+fused step of phases 9-10, 13, 16-17, 19 and 21 is captured as a CUDA graph
+on the card (step 1 of a batch signature eager, step 2 captured, replays
+after); the launch counters count the replays, so their checks hold as
+before, and every fused step must reach K4/K5 only through the device-scalar
+form:
+
+27. ``phase_graph_serve``: ``hybridize(static_alloc=True, static_shape=True)``
+   on BERT-base T=1024 (batch 1, 2, 4, 8), ResNet-50 v1 (batch 1, 32) and the
+   MoE LM at Switch-Base-8 widths (T 1024, batch 1, 8), f32 with TF32 off:
+   GRAPH_TIMED requests eagerly, then hybridized (the first call of a batch
+   captures, the others replay): replayed logits bitwise the eager ones,
+   fresh tensors, latency p50/p90 of both, K1 launches a request by the
+   counter (12), the launches the host issued a request (``torch.profiler``'s
+   runtime API records), capture seconds and pool bytes, one capture a batch.
+28. ``phase_graph_train``: each fused-step path eagerly and captured, from the
+   same weights: BERT-base T=1024 batch 8 Adam (f32, bf16), ResNet-50 batch
+   32 SGD momentum (f32, bf16), and on a world-1 NCCL group the NCCL BERT
+   step, ``LongContextTrainer`` (T 32768, batch 4) and ``MoETrainer``
+   (Switch-Base-8, T 1024, batch 8). GRAPH_CMP_STEPS steps compared, losses
+   and every weight bitwise (ResNet-50, long context and MoE under
+   ``torch.use_deterministic_algorithms``: their backward otherwise adds with
+   atomics in an order that changes from run to run, eager against eager
+   too), and GRAPH_SCHED_STEPS steps under a FactorScheduler that changes lr
+   every step, bitwise, with one capture; then each mode timed over
+   GRAPH_TIMED steps after two (p50/p90), the counters over them (steps x
+   the per-step launches), one capture and steps - 1 replays, the launches
+   the host issued a step, peak memory, a replay's busy time by CUDA events
+   and the idle share. Also a
+   snapshot saved under the captured BERT step, resumed by a rebuilt trainer
+   whose steps equal the run's bitwise and then installed in place into that
+   captured trainer (no capture, the replays bitwise), and a 2-layer BERT with dropout 0.1
+   whose 3 captured steps equal 3 eager ones after the same seed.
 
 It prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the rest of the repository beside it, it
@@ -1194,7 +1231,8 @@ def phase_fused(torch, weights, grads):
     sgd_nomom_lib = _time_ms(torch, lib_sgd_nomom.step, 10)
     del pn, lib_sgd_nomom
     # the fused training step's rules (the registered ops' arithmetic), two
-    # calls each with lr changed between them, then timed in place
+    # calls each with lr changed between them; then the device-scalar form,
+    # which the training paths run, timed in place beside the by-value form
     step_rules = {
         "fused_adam_update": (lambda w, st, lr: fo.fused_adam_update(
             w, g0, *st, lr, wd=0.01, clip_gradient=1.0, out=(w, *st)), 2, 28, adam_lib),
@@ -1202,7 +1240,7 @@ def phase_fused(torch, weights, grads):
             w, g0, *st, lr, momentum=0.9, wd=0.01, out=(w, *st)), 1, 20, sgd_lib),
         "fused_sgd_update": (lambda w, st, lr: fo.fused_sgd_update(
             w, g0, lr, wd=0.01, out=(w,)), 0, 12, sgd_nomom_lib)}
-    rule_ms = {}
+    rule_ms, hyper_form = {}, {}
     for name, (call, n_states, per, lib) in step_rules.items():
         plain = getattr(fo, name + "_plain")
         w, st = [t.clone() for t in w0], [zeros() for _ in range(n_states)]
@@ -1220,10 +1258,10 @@ def phase_fused(torch, weights, grads):
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
         errs[name] = worst
-        ms = _time_ms(torch, lambda: call(w, st, 1e-3), 10)
         st0 = [zeros() for _ in range(n_states)]
         plain_ms = _time_ms(torch, lambda: plain(w0, g0, *st0, 1e-3), 3)
-        rule_ms[name] = (ms, plain_ms, lib, per)
+        hyper_form[name] = _fused_hyper_form(torch, fo, name, w, st, g0)
+        rule_ms[name] = (hyper_form[name]["hyper_ms"], plain_ms, lib, per)
     out = {"parameters": n, "tensors": len(w0), "launches": launches,
            "first_step_vs_torch": {"adam": d_adam, "sgd": d_sgd}}
     for name, ms, plain, lib, per in (("fused_adam", adam_ms, adam_plain, adam_lib, 28),
@@ -1232,11 +1270,86 @@ def phase_fused(torch, weights, grads):
         bound = per * n / PEAK_BYTES_PER_S * 1e3
         out[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
                      "bound_by": "bytes", "max_abs_err": errs[name][1],
-                     "rel_err": errs[name][0]}
+                     "rel_err": errs[name][0], **hyper_form.get(name, {})}
         log(f"[fused] {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.optim "
             f"fused {lib if lib is None else round(lib, 4)} ms, bound {bound:.4f} ms "
             f"(bytes: {per} B x {n}), {per * n / ms / 1e9:.3f} TB/s")
     return out
+
+
+FUSED_RULE_KW = {"fused_adam_update": dict(lr=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                                           wd=0.01, clip_gradient=1.0),
+                 "fused_sgd_mom_update": dict(lr=1e-3, momentum=0.9, wd=0.01),
+                 "fused_sgd_update": dict(lr=1e-3, wd=0.01)}
+FUSED_REPLAYS = 10
+
+
+def _fused_by_value(fo, name, kw):
+    """The fused step's rule ``name`` through the kernel's by-value entry
+    point (``mxt_fused_sgd``/``mxt_fused_adam``: the scalars as launch
+    arguments), in place; its launches are not counted."""
+    clip = kw.get("clip_gradient", -1.0)
+    if name == "fused_adam_update":
+        sc = (kw["lr"], kw["beta1"], kw["beta2"], kw["epsilon"], kw["wd"], 1.0, 1.0, 1.0, clip)
+        return lambda ws, g, sts: fo._adam(name, ws, g, *sts, sc, (ws, *sts))
+    rule = fo._RULE_SGD_MOM if name == "fused_sgd_mom_update" else fo._RULE_SGD
+    sc = (kw["lr"], kw.get("momentum", 0.0), kw["wd"], 1.0, clip)
+    return lambda ws, g, sts: fo._sgd(name, rule, ws, g, sts[0] if sts else None, sc,
+                                      (ws, *sts))
+
+
+def _fused_hyper_form(torch, fo, name, w, st, g0):
+    """The fused step's rule ``name`` in its device-scalar form
+    (``<name>_hyper``, the scalars read from a device tensor: the form the
+    training paths run) against the kernel's by-value form on the same
+    lists: bitwise, both timed in place by CUDA events and by graph replay;
+    the device form's graph is captured through ``engine.capture`` and its
+    launches a replay read from the rule's counter over FUSED_REPLAYS
+    replays."""
+    from mxnet_tpu_torch import engine
+    kw = FUSED_RULE_KW[name]
+    hyper = torch.tensor(fo.hyper_values(**kw), device=w[0].device)
+    fn, counter = getattr(fo, name + "_hyper"), getattr(fo, name)
+    value = _fused_by_value(fo, name, kw)
+
+    def hcall(ws, sts):
+        return fn(ws, g0, *sts, hyper, out=(ws, *sts))
+    wa, sa = [t.clone() for t in w], [[t.clone() for t in s_] for s_ in st]
+    wb, sb = [t.clone() for t in w], [[t.clone() for t in s_] for s_ in st]
+    value(wa, g0, sa)
+    hcall(wb, sb)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(wa + sum(sa, []), wb + sum(sb, [])))
+    del wa, sa, wb, sb
+    value_ms = _time_ms(torch, lambda: value(w, g0, st), 10)
+    hyper_ms = _time_ms(torch, lambda: hcall(w, st), 10)
+    value_graph_ms = _graph_ms(torch, lambda: value(w, g0, st))
+    with engine.side_stream(w[0].device):
+        hcall(w, st)
+    entry = engine.capture(lambda: hcall(w, st), ("fused_probe", name), w[0].device,
+                           owner=hcall)
+    torch.cuda.synchronize()
+    before = counter.launches
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(FUSED_REPLAYS):
+        entry.replay()
+    end.record()
+    torch.cuda.synchronize()
+    hyper_graph_ms = start.elapsed_time(end) / FUSED_REPLAYS
+    per_replay = (counter.launches - before) / FUSED_REPLAYS
+    counter.launches = before                  # comparison launches do not count
+    del entry
+    log(f"[fused] {name} device-scalar form against by-value: "
+        f"{'bitwise equal' if equal else 'DIFFERS'}; in place {hyper_ms:.4f} ms against "
+        f"{value_ms:.4f} ms; graph replay {hyper_graph_ms:.4f} against {value_graph_ms:.4f} "
+        f"ms; {per_replay:g} launches a replay (counter over {FUSED_REPLAYS} replays)")
+    if not equal or per_replay != 1:
+        raise AssertionError(f"{name}: the device-scalar form differs from the by-value one "
+                             f"or launched {per_replay} times a replay")
+    return {"hyper_ms": hyper_ms, "value_ms": value_ms, "hyper_graph_ms": hyper_graph_ms,
+            "value_graph_ms": value_graph_ms, "hyper_equal_value": equal,
+            "launches_per_replay": per_replay}
 
 
 # --- K6 (mx.rtc), K7 (blocked matmul probe), ResNet-50 ----------------------
@@ -1867,8 +1980,9 @@ def _dp_sgd_check(torch, label, trainer):
     """K4's ``sgd_mom_update`` rule on the trainer's own lists (clones of its
     weights, gradient buffers and momenta after its steps) against the plain
     version: the recipe's lr, momentum and wd, then with rescale and clip on.
-    Also the rule's time in place on those lists, by CUDA events (the
-    wrapper's host work on 193 tensors shows there) and by graph replay."""
+    Also the rule's time in place on those lists in the form the step runs
+    (the scalars in a device tensor), by CUDA events (the wrapper's host work
+    on 193 tensors shows there) and by graph replay."""
     from mxnet_tpu_torch.ops.cuda import fused_optimizer as fo
     opt = trainer.optimizer
     lr = float(opt.learning_rate)
@@ -1883,8 +1997,10 @@ def _dp_sgd_check(torch, label, trainer):
             rel, abs_ = _fused_errors(torch, fo.fused_sgd_mom_update(*args),
                                       fo.fused_sgd_mom_update_plain(*args))
             worst = (max(worst[0], rel), max(worst[1], abs_))
-        update = lambda: fo.fused_sgd_mom_update(                 # noqa: E731
-            ws, gs, moms, lr, opt.momentum, wd, out=(ws, moms))
+        hyper = torch.tensor(fo.hyper_values(lr=lr, momentum=opt.momentum, wd=wd),
+                             device=ws[0].device)
+        update = lambda: fo.fused_sgd_mom_update_hyper(           # noqa: E731
+            ws, gs, moms, hyper, out=(ws, moms))
         ms += _time_ms(torch, update, 20)
         graph_ms += _graph_ms(torch, update)
     n = sum(sizes)
@@ -4551,6 +4667,546 @@ def phase_pp_dryrun(torch, device="gpu", timeout=600):
             "launches": {k: sum(r["launches"][k] for r in ranks) for k in want}}
 
 
+# --- CUDA graphs: the compiled step and the CachedOp (mxnet_tpu_torch.engine) -----
+
+GRAPH_TIMED = 20            # timed requests or steps a mode: p50 and p90 exist
+GRAPH_CMP_STEPS = 5         # captured steps against eager ones, from the same weights
+GRAPH_SCHED_STEPS = 10      # under a FactorScheduler that changes lr every step
+GRAPH_SCHED = (1, 0.9)      # FactorScheduler(step, factor)
+GRAPH_BUSY_REPLAYS = 3      # back-to-back replays between CUDA events: a graph's span
+GRAPH_DROPOUT_CFG = dict(vocab_size=1024, num_layers=2, units=128, hidden_size=512,
+                         num_heads=2, max_length=1024, dropout=0.1)
+
+
+def _pct(ms):
+    return {"p50": float(np.percentile(ms, 50)), "p90": float(np.percentile(ms, 90)),
+            "n": len(ms)}
+
+
+PROFILE_PAD = 64             # spin kernels that open a profiler session, left out of it
+PROFILE_SESSIONS = 5
+MEASURED = "chip_smoke.measured"
+
+
+def _trace_once(torch, fn):
+    """One profiler session of ``fn()`` (see ``_api_launches``), or None if
+    it kept no padding record or lost ``fn``'s range."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        with record_function(MEASURED):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    window = next((e.time_range for e in events
+                   if e.name == MEASURED and e.device_type != cuda), None)
+    pads = [e.time_range.end for e in events if e.device_type == cuda and "spin_kernel" in e.name]
+    if window is None or not pads:
+        return None
+    api, spans = {}, []
+    for e in events:
+        if e.device_type == cuda:
+            if e.name != MEASURED and "spin_kernel" not in e.name \
+                    and e.time_range.start >= max(pads) and e.time_range.end > e.time_range.start:
+                spans.append((e.time_range.start, e.time_range.end))
+        elif window.start <= e.time_range.start <= window.end and e.name.startswith(
+                ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpy",
+                 "cuMemcpy")):
+            api[e.name] = api.get(e.name, 0) + 1
+    busy_us, end_us = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy_us += max(0.0, b - max(a, end_us))
+        end_us = max(end_us, b)
+    launches = sum(n for k, n in api.items() if "Launch" in k)
+    return {"api": api, "host_launches": launches if api else None,
+            "device_ops": len(spans), "device_busy_ms": busy_us / 1e3 if spans else None,
+            "device_span_ms": (end_us - min(spans)[0]) / 1e3 if spans else None}
+
+
+def _api_launches(torch, fn):
+    """``fn()`` under torch.profiler, PROFILE_SESSIONS sessions: the
+    launches the host issued in its range, by API name (kernel and graph
+    launches, copies), and from the device records after a session's
+    padding the operations, the busy time (the union of their intervals) and
+    the span from the first one's start to the last one's end. On the H100
+    host a session now and then drops device records or stretches their
+    times (in 150 sessions of one 200-kernel call: 27 records lost at a
+    session's start, 35 in its middle, a 34.7 ms replay read as 40.2 ms;
+    late in a full run of this script, with one session a mode, every
+    traced step read 32-35 operations short), so each session opens with
+    PROFILE_PAD spin kernels that are left out, the sessions that kept the
+    most operations are kept, and of those the one with the median busy
+    time is returned, with every session's operations and busy time."""
+    runs = [r for r in (_trace_once(torch, fn) for _ in range(PROFILE_SESSIONS))
+            if r is not None and r["device_ops"]]
+    if not runs:
+        raise AssertionError(f"{PROFILE_SESSIONS} profiler sessions kept no device record")
+    full = max(r["device_ops"] for r in runs)
+    kept = sorted((r for r in runs if r["device_ops"] == full),
+                  key=lambda r: r["device_busy_ms"])
+    return dict(kept[len(kept) // 2], sessions={
+        "device_ops": [r["device_ops"] for r in runs],
+        "busy_ms": [r["device_busy_ms"] for r in runs]})
+
+
+def _rel_diff(torch, a, b):
+    """max |a - b| over max |b|, 0.0 when bitwise equal."""
+    if torch.equal(a, b):
+        return 0.0
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+
+def _serve_modes(torch, mx, label, net, inputs, k1_per_request, tol):
+    """The requests of ``inputs`` ({batch: NDArray on the card}) eagerly,
+    then with ``net`` hybridized (the first call of a batch captures, the
+    others replay): logits replayed against eager, latency p50/p90 over
+    GRAPH_TIMED requests each, K1 launches a request (the counter under
+    replay), launches the host issued a request, capture seconds and pool
+    bytes."""
+    from mxnet_tpu_torch import engine
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+
+    def timed(x):
+        ms, out = [], None
+        for _ in range(GRAPH_TIMED):
+            del out
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = net(x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    rows, eager = {}, {}
+    k1_start = fa.flash_attention_fwd.launches
+    with torch.no_grad():
+        for b, x in inputs.items():
+            net(x)
+            out, ms = timed(x)
+            eager[b] = out._data
+            rows[b] = {"eager_ms": _pct(ms), "eager_launches": _api_launches(torch, lambda: net(x))}
+        net.hybridize(static_alloc=True, static_shape=True)
+        engine.reset_stats()
+        for b, x in inputs.items():
+            first = net(x)._data
+            before = fa.flash_attention_fwd.launches
+            out, ms = timed(x)
+            k1 = (fa.flash_attention_fwd.launches - before) / GRAPH_TIMED
+            entry = next(e for sig, e in net._cached_graphs.items()
+                         if sig[0][0][0] == tuple(x.shape))
+            diff = max(_rel_diff(torch, first, eager[b]), _rel_diff(torch, out._data, eager[b]))
+            r = rows[b]
+            r.update(graph_ms=_pct(ms), k1_per_request=k1, max_rel_diff=diff,
+                     graph_launches=_api_launches(torch, lambda: net(x)),
+                     capture_s=entry.graph.capture_seconds, pool_bytes=entry.graph.pool_bytes,
+                     fresh=out._data.data_ptr() != entry.graph.outputs[0].data_ptr())
+            log(f"[graph-serve] {label} batch {b}: eager p50 {r['eager_ms']['p50']:.3f} / p90 "
+                f"{r['eager_ms']['p90']:.3f} ms, replayed p50 {r['graph_ms']['p50']:.3f} / p90 "
+                f"{r['graph_ms']['p90']:.3f} ms; logits max rel diff {diff:.3e} (tol {tol:.0e}); "
+                f"K1 {k1:g} a request; host launches {r['eager_launches']['host_launches']} -> "
+                f"{r['graph_launches']['host_launches']} ({r['graph_launches']['api']}); capture "
+                f"{entry.graph.capture_seconds:.3f} s, pool {entry.graph.pool_bytes / 2**20:.1f} MiB")
+            if diff > tol or k1 != k1_per_request or not r["fresh"]:
+                raise AssertionError(f"graph-serve {label} batch {b}: diff {diff}, K1 {k1} "
+                                     f"(want {k1_per_request}), fresh {r['fresh']}")
+            del first, out
+        stats = engine.cache_stats()
+        if stats["captures"] != len(inputs):
+            raise AssertionError(f"graph-serve {label}: {stats['captures']} captures for "
+                                 f"{len(inputs)} signatures")
+    del eager
+    return {"batches": {str(b): r for b, r in rows.items()}, "engine": stats,
+            "k1_launches": fa.flash_attention_fwd.launches - k1_start}
+
+
+def _weights_of(net):
+    return {k: p._param.detach().clone() for k, p in net._collect_params_with_prefix().items()}
+
+
+def _weights_diff(torch, got, want):
+    return max(_rel_diff(torch, got[k], w) for k, w in want.items())
+
+
+@contextlib.contextmanager
+def _deterministic(torch, on):
+    """``torch.use_deterministic_algorithms`` (warnings only, for cuBLAS's
+    workspace setting) inside the block when ``on``: cuDNN's deterministic
+    weight gradients, ``index_add_`` by a sort."""
+    if not on:
+        yield
+        return
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def _as_mode(trainer, captured):
+    """``trainer`` as built (its step captured on the card), or with its body
+    run eagerly every step: the same trainer's eager yardstick."""
+    if not captured:
+        trainer._graph_reason = "eager yardstick"
+    return trainer
+
+
+def _train_compare(torch, make, x, y, steps, sched, atomic):
+    """``steps`` steps of an eager and a captured trainer from the same
+    weights (``sched``: under a FactorScheduler that changes lr every step):
+    the largest relative differences of the losses and the weights, and the
+    captures of the captured run."""
+    from mxnet_tpu_torch import engine
+    from mxnet_tpu_torch.lr_scheduler import FactorScheduler
+    runs = {}
+    with _deterministic(torch, atomic):
+        for captured in (False, True):
+            trainer = _as_mode(make(), captured)
+            if sched:
+                sch = FactorScheduler(*GRAPH_SCHED)
+                sch.base_lr = trainer.optimizer.lr
+                trainer.optimizer.lr_scheduler = sch
+            engine.reset_stats()
+            losses = [float(trainer.step(x, y)) for _ in range(steps)]
+            runs[captured] = (losses, _weights_of(trainer.net), engine.cache_stats()["captures"],
+                              float(trainer.optimizer.learning_rate))
+            del trainer
+    (le, we, _, _), (lc, wc, captures, lr) = runs[False], runs[True]
+    return {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(lc, le)),
+            "weight_rel": _weights_diff(torch, wc, we), "captures": captures,
+            "final_lr": lr, "losses": lc}
+
+
+def _train_modes(torch, mx, label, make, x, y, per_step, atomic=False):
+    """One training path eagerly and captured (``make()`` -> a trainer on
+    the path's net, its weights reset to the path's seeded ones; the eager
+    mode is the same trainer with ``_as_mode``): GRAPH_CMP_STEPS steps
+    compared, losses and every weight bitwise (under
+    ``torch.use_deterministic_algorithms`` where ``atomic``: ResNet-50's cuDNN
+    weight gradients, the long-context model's embedding gradient (131,072
+    tokens into 512 rows) and MoE's ``index_add_`` otherwise add with atomics,
+    in an order that changes from run to run, eager against eager too; the
+    timed runs below use the default, faster kernels, so for these paths the
+    timed graphs are not the ones compared); then each mode timed over
+    GRAPH_TIMED steps after two (p50/p90), the launch counters over those
+    steps (steps x ``per_step``), one capture and steps - 1 replays, peak
+    memory, and one more step under torch.profiler: the launches the host
+    issued, the device's busy time (the union of the trace's device
+    intervals) and each mode's idle share, 1 - busy / p50, as measured
+    (negative where the profiled step's busy time exceeds the p50 of the
+    unprofiled ones); in the captured mode also the span of
+    GRAPH_BUSY_REPLAYS back-to-back replays by CUDA events
+    (``graph_span_ms``, which counts gaps inside the graph as busy). Before
+    that, GRAPH_SCHED_STEPS steps under a FactorScheduler that changes lr
+    every step, captured against eager, bitwise, with one capture."""
+    from mxnet_tpu_torch import engine
+    counters = {**_fused_counters(), **_flash_counters()}
+    n = 2 + GRAPH_TIMED
+    cmp = {"steps": _train_compare(torch, make, x, y, GRAPH_CMP_STEPS, False, atomic),
+           "scheduled": _train_compare(torch, make, x, y, GRAPH_SCHED_STEPS, True, atomic)}
+    res = {}
+    for mode in ("eager", "captured"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = _as_mode(make(), mode == "captured")
+        if trainer.captured != (mode == "captured"):
+            raise AssertionError(f"graph-train {label}: {mode} trainer captured="
+                                 f"{trainer.captured} ({trainer._graph_reason})")
+        _zero_counters(counters)
+        engine.reset_stats()
+        ms = []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pending = trainer.step(x, y)
+            torch.cuda.synchronize()
+            if i >= 2:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            if not np.isfinite(float(pending)):
+                raise AssertionError(f"graph-train {label} {mode}: loss not finite")
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        stats = engine.cache_stats()
+        peak = torch.cuda.max_memory_allocated()
+        api = _api_launches(torch, lambda: trainer.step(x, y))
+        r = {"step_ms": _pct(ms), "launches": launches, "per_step": per_step,
+             "engine": stats, "peak_bytes": peak, "host_launches": api["host_launches"],
+             "api": api["api"], "device_ops": api["device_ops"],
+             "busy_ms": api["device_busy_ms"], "device_span_ms": api["device_span_ms"]}
+        r["idle_share"] = (1.0 - r["busy_ms"] / r["step_ms"]["p50"]
+                           if r["busy_ms"] is not None else None)
+        want = {k: v * n for k, v in per_step.items() if v}
+        if launches != want:
+            raise AssertionError(f"graph-train {label} {mode}: launches {launches} over {n} "
+                                 f"steps, want {want}")
+        if r["busy_ms"] is None:
+            raise AssertionError(f"graph-train {label} {mode}: the profiler recorded no "
+                                 f"device operation")
+        if mode == "captured":
+            if (stats["captures"], stats["replays"]) != (1, n - 1):
+                raise AssertionError(f"graph-train {label}: captures {stats['captures']}, "
+                                     f"replays {stats['replays']} over {n} steps")
+            entry = next(iter(trainer._graphs.values())).graph
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(GRAPH_BUSY_REPLAYS):
+                entry.graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            r.update(graph_span_ms=start.elapsed_time(end) / GRAPH_BUSY_REPLAYS,
+                     capture_s=entry.capture_seconds, pool_bytes=entry.pool_bytes)
+            # the same graph's device span in the trace and by CUDA events:
+            # near 1 where the trace kept every record of the step
+            r["trace_span_vs_events"] = r["device_span_ms"] / r["graph_span_ms"]
+        res[mode] = r
+        del trainer
+    e, c = res["eager"], res["captured"]
+    log(f"[graph-train] {label}: step eager p50 {e['step_ms']['p50']:.3f} / p90 "
+        f"{e['step_ms']['p90']:.3f} ms, captured p50 {c['step_ms']['p50']:.3f} / p90 "
+        f"{c['step_ms']['p90']:.3f} ms; profiled busy {e['busy_ms']:.3f} / {c['busy_ms']:.3f} "
+        f"ms (device span {e['device_span_ms']:.3f} / {c['device_span_ms']:.3f} ms), idle "
+        f"{e['idle_share']:.2%} / {c['idle_share']:.2%}; a replay's span by CUDA events "
+        f"{c['graph_span_ms']:.3f} ms (the trace's / the events' "
+        f"{c['trace_span_vs_events']:.4f}); device operations {e['device_ops']} / "
+        f"{c['device_ops']}; host launches a step {e['host_launches']} -> "
+        f"{c['host_launches']} ({c['api']}); peak {e['peak_bytes'] / 2**30:.3f} / "
+        f"{c['peak_bytes'] / 2**30:.3f} GiB; capture {c['capture_s']:.3f} s, pool "
+        f"{c['pool_bytes'] / 2**20:.1f} MiB; launches {c['launches']} over {n} steps; "
+        f"captured against eager{' (deterministic algorithms)' if atomic else ''}: "
+        f"{GRAPH_CMP_STEPS} steps {cmp['steps']['loss_rel']:.3e} / "
+        f"{cmp['steps']['weight_rel']:.3e}, {GRAPH_SCHED_STEPS} scheduled steps "
+        f"{cmp['scheduled']['loss_rel']:.3e} / {cmp['scheduled']['weight_rel']:.3e} (losses / "
+        f"weights, bitwise wanted), lr {cmp['scheduled']['final_lr']:.3e} at the end, "
+        f"{cmp['scheduled']['captures']} capture")
+    bad = [k for k, d in cmp.items() if d["loss_rel"] or d["weight_rel"] or d["captures"] != 1]
+    if bad:
+        raise AssertionError(f"graph-train {label}: captured disagrees with eager in {bad}: "
+                             f"{cmp}")
+    return {"modes": res, "compare": cmp, "deterministic_algorithms": atomic}
+
+
+def phase_graph_serve(torch, bert_params, resnet_params, moe_weights):
+    """``hybridize()``'s CachedOp on the card: BERT-base T=1024 (batch 1, 2,
+    4, 8; K1 12 a request), ResNet-50 v1 (batch 1, 32) and the MoE LM at
+    Switch-Base-8 widths (T 1024, batch 1, 8), f32 with TF32 off, eager
+    against replayed."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import bert_base
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.gpu(0)
+    out = {}
+    rs = np.random.RandomState(40)
+    net = bert_base(max_length=1024)
+    net.initialize(ctx=ctx)
+    load_jax_params(net, bert_params)
+    out["bert"] = _serve_modes(torch, mx, "bert-base", net, {
+        b: mx.nd.array(rs.randint(0, 30522, size=(b, 1024)).astype(np.int32), ctx=ctx,
+                       dtype="int32") for b in (1, 2, 4, 8)}, 12, 0.0)
+    del net
+    net, _ = _resnet50(mx, ctx, resnet_params)
+    out["resnet"] = _serve_modes(torch, mx, "resnet-50", net, {
+        b: mx.nd.array(rs.uniform(-1, 1, (b, 3, 224, 224)).astype(np.float32), ctx=ctx)
+        for b in (1, 32)}, 0, 0.0)
+    del net
+    net = _moe_net(mx, moe_weights, ctx)
+    out["moe"] = _serve_modes(torch, mx, "moe", net, {
+        b: mx.nd.array(rs.randint(0, MOE_CFG["vocab_size"], size=(b, MOE_T)).astype(np.int32),
+                       ctx=ctx, dtype="int32") for b in (1, 8)}, MOE_CFG["num_layers"], 0.0)
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_graph_train(torch, bert_params, bert_batch, resnet_params, lc_weights, moe_weights):
+    """The fused step captured on the card against the same step eager: BERT-
+    base T=1024 batch 8 Adam (f32 with TF32 off, bf16), ResNet-50 batch 32 SGD
+    momentum (f32, bf16), and on a world-1 NCCL group the NCCL BERT step,
+    LongContextTrainer at T=32768 batch 4 and MoETrainer at Switch-Base-8
+    widths, T 1024 batch 8 (f32); a snapshot saved under the captured BERT
+    step resumed bitwise; a 2-layer BERT with dropout 0.1 captured against
+    eager after the same seed."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import BertModel, bert_base
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.gpu(0)
+    n_layers = 12
+    out = {}
+    bert_step = dict({k: 0 for k in {**_fused_counters(), **_flash_counters()}},
+                     fused_adam_update=1, flash_attention_fwd=n_layers,
+                     flash_attention_bwd_dq=n_layers, flash_attention_bwd_dkv=n_layers)
+    x, y = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in bert_batch)
+    net = bert_base(max_length=1024)
+    net.initialize(ctx=ctx)
+    for dtype in ("float32", "bfloat16"):
+        def make(dtype=dtype):
+            load_jax_params(net, bert_params)
+            return mx.parallel.DataParallelTrainer(
+                net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": 1e-4},
+                mesh=mx.parallel.make_mesh({"dp": 1}, devices=[ctx]),
+                dtype=None if dtype == "float32" else dtype)
+        out[f"bert_{dtype}"] = _train_modes(torch, mx, f"bert-base {dtype}", make, x, y,
+                                            bert_step)
+    out["snapshot"] = _graph_snapshot(torch, mx, net, bert_params, x, y)
+    del net
+    rs = np.random.RandomState(41)
+    rx = mx.nd.array(rs.uniform(-1, 1, (32, 3, 224, 224)).astype(np.float32), ctx=ctx)
+    ry = mx.nd.array(rs.randint(0, 1000, (32,)).astype(np.int32), ctx=ctx, dtype="int32")
+    params0 = _zero_last_gamma(resnet_params)
+    rnet, _ = _resnet50(mx, ctx, params0)
+    sgd_step = dict({k: 0 for k in bert_step}, fused_sgd_mom_update=1)
+    for dtype in ("float32", "bfloat16"):
+        def make(dtype=dtype):
+            load_jax_params(rnet, params0)
+            return mx.parallel.DataParallelTrainer(
+                rnet, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4},
+                dtype=None if dtype == "float32" else dtype,
+                mesh=mx.parallel.make_mesh({"dp": 1}, devices=[ctx]))
+        out[f"resnet_{dtype}"] = _train_modes(torch, mx, f"resnet-50 {dtype}", make, rx, ry,
+                                              sgd_step, atomic=True)
+    del rnet
+    out["dropout"] = _graph_dropout(torch, mx)
+    torch.cuda.empty_cache()
+    with _world1_nccl(torch):
+        mesh = mx.parallel.make_mesh({"dp": 1, "tp": 1, "sp": 1}, devices=[ctx])
+        net = bert_base(max_length=1024)
+        net.initialize(ctx=ctx)
+
+        def make():
+            load_jax_params(net, bert_params)
+            return mx.parallel.DataParallelTrainer(
+                net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": 1e-4},
+                mesh=mesh, data_spec=mx.parallel.P("dp", "sp"))
+        out["nccl_bert"] = _train_modes(torch, mx, "bert-base nccl world 1", make, x, y,
+                                        bert_step)
+        del net
+        torch.cuda.empty_cache()
+        lc_mesh = mx.parallel.make_mesh({"dp": 1, "sp": 1}, devices=[ctx])
+        lnet, _ = _lc_trainer(mx, lc_weights, ctx, lc_mesh, LC_T)
+        lx, ly = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in _lc_batch(LC_B, LC_T, 42))
+        lc_step = dict({k: 0 for k in bert_step}, fused_adam_update=1,
+                       **{k: LC_CFG["num_layers"] for k in _flash_counters()})
+
+        def make():
+            from mxnet_tpu_torch.recipes import get_recipe
+            load_jax_params(lnet, {k: v[:LC_T] if k == "pos_embed.weight" else v
+                                   for k, v in lc_weights.items()})
+            return get_recipe("long_context").build_trainer(lnet, lc_mesh,
+                                                            learning_rate=LC_LR)
+        out["long_context"] = _train_modes(torch, mx, f"long-context T={LC_T}", make, lx, ly,
+                                           lc_step, atomic=True)
+        del lnet
+        torch.cuda.empty_cache()
+        moe_mesh = mx.parallel.make_mesh({"dp": 1, "ep": 1}, devices=[ctx])
+        mnet = _moe_net(mx, moe_weights, ctx)
+        mx_, my_ = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in _moe_batch(MOE_B, MOE_T, 43))
+        moe_step = dict(bert_step, **{k: MOE_CFG["num_layers"] for k in _flash_counters()})
+
+        def make():
+            from mxnet_tpu_torch.recipes import get_recipe
+            load_jax_params(mnet, moe_weights)
+            return get_recipe("moe").build_trainer(mnet, moe_mesh, learning_rate=MOE_LR)
+        out["moe"] = _train_modes(torch, mx, "moe switch-base-8", make, mx_, my_, moe_step,
+                                  atomic=True)
+        del mnet
+        torch.cuda.empty_cache()
+    return out
+
+
+def _graph_snapshot(torch, mx, net, bert_params, x, y):
+    """A snapshot saved under the captured BERT-base f32 step (after step 3),
+    two more steps; a rebuilt trainer resumes from it and its two steps (a
+    warm-up and a capture) equal the run's bitwise; the snapshot installed
+    again, in place, into that trainer: its graph stays (no capture) and the
+    two replays equal the run's bitwise."""
+    from mxnet_tpu_torch import elastic, engine
+    from mxnet_tpu_torch.convert import load_jax_params
+    work = os.path.join(ROOT, "build", "graph_snapshot")
+    shutil.rmtree(work, ignore_errors=True)
+    load_jax_params(net, bert_params)
+    mesh = mx.parallel.make_mesh({"dp": 1}, devices=[mx.gpu(0)])
+    trainer = mx.parallel.DataParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": 1e-4},
+        mesh=mesh)
+    for _ in range(3):
+        trainer.step(x, y)
+    mgr = elastic.SnapshotManager(work)
+    elastic.save_trainer(mgr, trainer, wait=True)
+    mgr.close()
+    after = [float(trainer.step(x, y)) for _ in range(2)]
+    w_after = _weights_of(net)
+    del trainer
+
+    def rebuild():
+        from mxnet_tpu_torch.models import bert_base
+        n2 = bert_base(max_length=1024)
+        n2.initialize(ctx=mx.gpu(0))
+        return mx.parallel.DataParallelTrainer(
+            n2, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": 1e-4},
+            mesh=mesh)
+    _, tr2, start, outcome = elastic.resume_or_init(work, rebuild)
+    got = [float(tr2.step(x, y)) for _ in range(2)]
+    w_diff = _weights_diff(torch, _weights_of(tr2.net), w_after)
+    # the same snapshot installed in place into the trainer whose step is
+    # captured now: its graph stays, the steps replay
+    engine.reset_stats()
+    _, tr3, start3, _ = elastic.resume_or_init(work, lambda: tr2)
+    again = [float(tr3.step(x, y)) for _ in range(2)]
+    stats = engine.cache_stats()
+    w_diff3 = _weights_diff(torch, _weights_of(tr3.net), w_after)
+    ok = ((start, outcome) == (3, "resumed") and got == after and w_diff == 0.0
+          and tr2.captured and tr3 is tr2 and start3 == 3 and again == after
+          and w_diff3 == 0.0 and (stats["captures"], stats["replays"]) == (0, 2))
+    log(f"[graph-train] snapshot after captured step 3 -> resume_or_init ({start}, "
+        f"{outcome!r}); steps 4-5 {got} against the run's {after}, weights max rel diff "
+        f"{w_diff:.3e}; installed again in place into the captured trainer: steps 4-5 "
+        f"{again}, weights {w_diff3:.3e}, captures {stats['captures']}, replays "
+        f"{stats['replays']} {'ok' if ok else 'FAIL'}")
+    del tr2, tr3
+    shutil.rmtree(work, ignore_errors=True)
+    if not ok:
+        raise AssertionError("a snapshot of the captured step did not resume bitwise")
+    return {"step": start, "outcome": outcome, "losses": got, "weight_rel": w_diff,
+            "in_place": {"losses": again, "weight_rel": w_diff3, "engine": stats}}
+
+
+def _graph_dropout(torch, mx):
+    """A 2-layer BERT (units 128) with dropout 0.1 at T=1024 batch 4: 3
+    captured steps against 3 eager ones after the same ``mx.random.seed``."""
+    from mxnet_tpu_torch.convert import load_jax_params, seeded_params
+    from mxnet_tpu_torch.models import BertModel
+    rs = np.random.RandomState(44)
+    x, y = (mx.nd.array(rs.randint(0, 1024, size=(4, 1024)).astype(np.int32), ctx=mx.gpu(0),
+                        dtype="int32") for _ in range(2))
+    weights = seeded_params(BertModel(**GRAPH_DROPOUT_CFG), seed=45)
+    runs = {}
+    for captured in (False, True):
+        mx.random.seed(46)
+        net = BertModel(**GRAPH_DROPOUT_CFG)
+        net.initialize(ctx=mx.gpu(0))
+        load_jax_params(net, weights)
+        tr = _as_mode(mx.parallel.DataParallelTrainer(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": 1e-3},
+            mesh=mx.parallel.make_mesh({"dp": 1}, devices=[mx.gpu(0)])), captured)
+        runs[captured] = ([float(tr.step(x, y)) for _ in range(3)], _weights_of(net))
+        del tr, net
+    w_diff = _weights_diff(torch, runs[True][1], runs[False][1])
+    ok = runs[True][0] == runs[False][0] and w_diff == 0.0
+    log(f"[graph-train] dropout 0.1, 3 steps after mx.random.seed(46): captured "
+        f"{runs[True][0]} against eager {runs[False][0]}, weights max rel diff {w_diff:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the captured dropout steps differ from the eager ones")
+    return {"captured": runs[True][0], "eager": runs[False][0], "weight_rel": w_diff}
+
+
 @contextlib.contextmanager
 def _world1_nccl(torch):
     """A world-1 process group on the card, over the backend rule's choice
@@ -4614,7 +5270,6 @@ def main() -> int:
     pp_ranks = phase_pp_ranks(torch, bert_params, bert_batch, pp_train, pp_w3)
     del pp_w3
     pp_dryrun = phase_pp_dryrun(torch)
-    del bert_params
     torch.cuda.empty_cache()
     lc_kernels = phase_lc_kernels(torch)
     lc_weights = _lc_weights()
@@ -4633,8 +5288,11 @@ def main() -> int:
         moe_train = phase_moe_train(torch, moe_weights)
         moe_check = phase_moe_check(torch)
     moe_serve = phase_moe_serve(torch, moe_weights)
-    del moe_weights
     moe_ranks = phase_moe_ranks(torch)
+    graph_serve = phase_graph_serve(torch, bert_params, resnet_params, moe_weights)
+    graph_train = phase_graph_train(torch, bert_params, bert_batch, resnet_params, lc_weights,
+                                    moe_weights)
+    del bert_params, moe_weights
     f32 = kernel["timings"]["float32"]
     b32 = kernel_bwd["timings"]["float32"]
     src = "mxnet_tpu_torch/csrc/"
@@ -4660,6 +5318,8 @@ def main() -> int:
                 **{label: phase["launches"].get(name, 0) for label, phase in
                    (("elastic_bert", elastic_bert), ("elastic_kill", elastic_kill),
                     ("elastic_lc", elastic_lc), ("elastic_zero", elastic_zero))},
+                **{f"graph_{path}_{mode}": r["modes"][mode]["launches"].get(name, 0)
+                   for path, r in graph_train.items() if "modes" in r for mode in r["modes"]},
                 "zero_ranks": sum(lc.get(name, 0) for c in zero_ranks["configs"].values()
                                   for lc in c["launches"])}
 
@@ -4676,6 +5336,8 @@ def main() -> int:
     fwd_by_path = {"serve": serve["launches"]["flash_attention_fwd"],
                    "train": train["launches"]["flash_attention_fwd"],
                    "moe_serve": moe_serve["launches"]["flash_attention_fwd"],
+                   **{f"graph_serve_{path}": r["k1_launches"]
+                      for path, r in graph_serve.items()},
                    **{k: v for k, v in dp_launches("flash_attention_fwd").items()
                       if not k.startswith("dp_resnet")}}
     sp_f, sp_b = kernel["timings"]["sp_float32"], kernel_bwd["timings"]["sp_float32"]
@@ -4751,6 +5413,10 @@ def main() -> int:
                                   for dt in phase},
             "pallas_rule": {k: fused[pallas][k] for k in
                             ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+            "device_scalar_form": {k: fused[rule][k] for k in
+                                   ("hyper_ms", "value_ms", "hyper_graph_ms",
+                                    "value_graph_ms", "hyper_equal_value",
+                                    "launches_per_replay")},
             **({"dp_resnet_check": {dt: dp_resnet[dt]["update_check"] for dt in dp_resnet}}
                if dp_checks else {}),
             **({"pipeline": {"per_step": pp_train["per_step"]["fused_adam_update"],
@@ -4825,6 +5491,7 @@ def main() -> int:
                    "moe_train": moe_train, "moe_check": moe_check, "moe_serve": moe_serve,
                    "moe_ranks": moe_ranks, "pp_train": pp_train, "pp_check": pp_check,
                    "pp_ranks": pp_ranks, "pp_dryrun": pp_dryrun,
+                   "graph_serve": graph_serve, "graph_train": graph_train,
                    "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1, default=float)
     log(f"[done] {time.perf_counter() - t0:.1f} s")

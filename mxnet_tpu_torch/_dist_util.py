@@ -33,7 +33,7 @@ from ``MXNET_TPU_RANK`` (or ``DMLC_WORKER_ID``), the world size from
   connection), while its ``reduce_scatter_tensor``,
   ``all_gather_into_tensor`` and ``all_to_all_single`` take them and are
   called directly. The compute stays on the card. ``p2p_stats`` counts the
-  sends and bytes they made.
+  sends and bytes they made, also under CUDA graph replay (``engine``).
 
 Nothing here starts a process or opens a socket when it is imported.
 """
@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from . import engine
 from .base import MXNetError, env
 from .context import Context, cpu, gpu
 
@@ -192,6 +193,7 @@ def plan_buckets(sizes: Sequence[Tuple[int, int]], bucket_bytes: int) -> List[Li
 # -- collectives ---------------------------------------------------------------
 
 p2p_stats = {"sends": 0, "bytes": 0}
+engine.register_counter(sys.modules[__name__], "p2p_stats")
 
 
 def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],

@@ -32,10 +32,17 @@
 // chunk each thread takes 4 elements at a time with one vector load per
 // operand (16 bytes in f32, 8 in bf16/f16) when every pointer of the tensor
 // is aligned for it, element by element otherwise, and for the tail.
-// lr, momentum, wd, b1, b2, eps, c1, c2, rescale and clip are kernel
-// arguments by value, so a change of learning rate costs nothing and a CUDA
-// graph could capture the launch. An output may alias its input (in-place
-// update): each element is read and then written by the same thread.
+// lr, momentum, wd, b1, b2, eps, c1, c2, rescale and clip (`struct Hyper`)
+// reach the kernel in one of two ways. The by-value entry points
+// (mxt_fused_sgd, mxt_fused_adam) pass them as kernel arguments: a CUDA graph
+// that captured such a launch would replay the values of the step it was
+// captured at. The device entry points (mxt_fused_sgd_hyper,
+// mxt_fused_adam_hyper) pass a pointer to the 10 floats in device memory,
+// which the caller rewrites before each launch or graph replay: each block
+// reads them once into shared memory, so a captured step takes this step's lr
+// and bias correction. The per-element arithmetic is the same in both. An
+// output may alias its input (in-place update): each element is read and
+// then written by the same thread.
 //
 // Bound at BERT-base (133,349,946 f32 parameters in 157 tensors): the update
 // is elementwise, about 10 (SGD) or 20 (Adam) f32 operations per parameter,
@@ -138,8 +145,16 @@ __device__ __forceinline__ void update(const Hyper& h, float& w, float g, float&
 
 template <typename TW, typename TS, int kRule>
 __global__ void __launch_bounds__(kThreads)
-multi_tensor_update(const long long* __restrict__ table, int n_tensors, Hyper h) {
+multi_tensor_update(const long long* __restrict__ table, int n_tensors, Hyper h,
+                    const float* __restrict__ hyper) {
   constexpr bool kHasM = kRule != kSgd, kHasV = kRule == kAdam;
+  constexpr int kHyper = sizeof(Hyper) / sizeof(float);
+  if (hyper != nullptr) {  // the device form: the block reads the 10 floats once
+    __shared__ float sh[kHyper];
+    if (threadIdx.x < kHyper) sh[threadIdx.x] = hyper[threadIdx.x];
+    __syncthreads();
+    h = Hyper{sh[0], sh[1], sh[2], sh[3], sh[4], sh[5], sh[6], sh[7], sh[8], sh[9]};
+  }
   const long long b = blockIdx.x;
   int lo = 0, hi = n_tensors - 1;  // the last row whose first chunk <= b
   while (lo < hi) {
@@ -193,22 +208,22 @@ multi_tensor_update(const long long* __restrict__ table, int n_tensors, Hyper h)
 
 template <typename TW, typename TS, int kRule>
 cudaError_t launch(const long long* table, int n_tensors, long long n_chunks,
-                   const Hyper& h, cudaStream_t stream) {
+                   const Hyper& h, const float* hyper, cudaStream_t stream) {
   multi_tensor_update<TW, TS, kRule><<<(unsigned)n_chunks, kThreads, 0, stream>>>(
-      table, n_tensors, h);
+      table, n_tensors, h, hyper);
   return cudaGetLastError();
 }
 
 template <int kRule, typename TW>
 cudaError_t by_state(const long long* table, int n_tensors, long long n_chunks, int sdtype,
-                     const Hyper& h, cudaStream_t s) {
+                     const Hyper& h, const float* hy, cudaStream_t s) {
   if constexpr (kRule == kSgd) {  // no state: sdtype is not read
-    return launch<TW, float, kRule>(table, n_tensors, n_chunks, h, s);
+    return launch<TW, float, kRule>(table, n_tensors, n_chunks, h, hy, s);
   } else {
     switch (sdtype) {
-      case 0: return launch<TW, float, kRule>(table, n_tensors, n_chunks, h, s);
-      case 1: return launch<TW, __nv_bfloat16, kRule>(table, n_tensors, n_chunks, h, s);
-      case 2: return launch<TW, __half, kRule>(table, n_tensors, n_chunks, h, s);
+      case 0: return launch<TW, float, kRule>(table, n_tensors, n_chunks, h, hy, s);
+      case 1: return launch<TW, __nv_bfloat16, kRule>(table, n_tensors, n_chunks, h, hy, s);
+      case 2: return launch<TW, __half, kRule>(table, n_tensors, n_chunks, h, hy, s);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -216,12 +231,12 @@ cudaError_t by_state(const long long* table, int n_tensors, long long n_chunks, 
 
 template <int kRule>
 cudaError_t dispatch(const long long* table, int n_tensors, long long n_chunks, int wdtype,
-                     int sdtype, const Hyper& h, cudaStream_t s) {
+                     int sdtype, const Hyper& h, const float* hy, cudaStream_t s) {
   if (n_tensors <= 0 || n_chunks <= 0 || n_chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
   switch (wdtype) {
-    case 0: return by_state<kRule, float>(table, n_tensors, n_chunks, sdtype, h, s);
-    case 1: return by_state<kRule, __nv_bfloat16>(table, n_tensors, n_chunks, sdtype, h, s);
-    case 2: return by_state<kRule, __half>(table, n_tensors, n_chunks, sdtype, h, s);
+    case 0: return by_state<kRule, float>(table, n_tensors, n_chunks, sdtype, h, hy, s);
+    case 1: return by_state<kRule, __nv_bfloat16>(table, n_tensors, n_chunks, sdtype, h, hy, s);
+    case 2: return by_state<kRule, __half>(table, n_tensors, n_chunks, sdtype, h, hy, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -234,17 +249,24 @@ cudaError_t dispatch(const long long* table, int n_tensors, long long n_chunks, 
 // wdtype (weights and grads) and sdtype (states): 0 float32, 1 bfloat16,
 // 2 float16. rule: 0 the Pallas kernel's momentum rule, 1 sgd_mom_update's,
 // 2 sgd_update's (no state). Returns a cudaError_t.
+namespace {
+cudaError_t sgd_rule(const long long* table, int n_tensors, long long n_chunks, int wdtype,
+                     int sdtype, int rule, const Hyper& h, const float* hy, cudaStream_t s) {
+  switch (rule) {
+    case kSgdPallas: return dispatch<kSgdPallas>(table, n_tensors, n_chunks, wdtype, sdtype, h, hy, s);
+    case kSgdMom: return dispatch<kSgdMom>(table, n_tensors, n_chunks, wdtype, sdtype, h, hy, s);
+    case kSgd: return dispatch<kSgd>(table, n_tensors, n_chunks, wdtype, sdtype, h, hy, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+}  // namespace
+
 extern "C" int mxt_fused_sgd(const long long* table, int n_tensors, long long n_chunks,
                              int wdtype, int sdtype, int rule, float lr, float momentum,
                              float wd, float rescale, float clip, void* stream) {
   const Hyper h{lr, momentum, wd, 0.f, 0.f, 0.f, 1.f, 1.f, rescale, clip};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rule) {
-    case kSgdPallas: return dispatch<kSgdPallas>(table, n_tensors, n_chunks, wdtype, sdtype, h, s);
-    case kSgdMom: return dispatch<kSgdMom>(table, n_tensors, n_chunks, wdtype, sdtype, h, s);
-    case kSgd: return dispatch<kSgd>(table, n_tensors, n_chunks, wdtype, sdtype, h, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return sgd_rule(table, n_tensors, n_chunks, wdtype, sdtype, rule, h, nullptr,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // Adam with the corrections c1, c2 applied inside (c1 = c2 = 1: adam_update's
@@ -254,9 +276,29 @@ extern "C" int mxt_fused_adam(const long long* table, int n_tensors, long long n
                               float eps, float wd, float c1, float c2, float rescale,
                               float clip, void* stream) {
   const Hyper h{lr, 0.f, wd, beta1, beta2, eps, c1, c2, rescale, clip};
-  return dispatch<kAdam>(table, n_tensors, n_chunks, wdtype, sdtype, h,
+  return dispatch<kAdam>(table, n_tensors, n_chunks, wdtype, sdtype, h, nullptr,
                          static_cast<cudaStream_t>(stream));
 }
+
+// The device forms: `hyper` points to the 10 floats of `struct Hyper` (lr,
+// momentum, wd, b1, b2, eps, c1, c2, rescale, clip) in device memory, read by
+// the kernel when it runs, not when it is launched.
+extern "C" int mxt_fused_sgd_hyper(const long long* table, int n_tensors, long long n_chunks,
+                                   int wdtype, int sdtype, int rule, const float* hyper,
+                                   void* stream) {
+  if (hyper == nullptr) return cudaErrorInvalidValue;
+  return sgd_rule(table, n_tensors, n_chunks, wdtype, sdtype, rule, Hyper{}, hyper,
+                  static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mxt_fused_adam_hyper(const long long* table, int n_tensors, long long n_chunks,
+                                    int wdtype, int sdtype, const float* hyper, void* stream) {
+  if (hyper == nullptr) return cudaErrorInvalidValue;
+  return dispatch<kAdam>(table, n_tensors, n_chunks, wdtype, sdtype, Hyper{}, hyper,
+                         static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mxt_fused_hyper_floats() { return (int)(sizeof(Hyper) / sizeof(float)); }
 
 extern "C" int mxt_fused_chunk_elems() { return (int)kChunk; }
 

@@ -13,8 +13,40 @@ Counterpart of ``mxnet_tpu/gluon/block.py``. ``Block`` is a
   signature), returned as a ``HookHandle`` with the reference's ``detach()``.
 
 ``HybridBlock.forward`` calls ``hybrid_forward(F, *args, **params)`` with
-``F`` the port's ``nd`` (``block.py:417-449``). ``hybridize()`` is accepted
-and runs eagerly: no ``torch.compile`` and no CUDA graphs yet (ROADMAP A4).
+``F`` the port's ``nd`` (``block.py:417-449``).
+
+``hybridize(active, static_alloc, static_shape)`` is the reference's
+CachedOp boundary (:351-375, :420-520) with CUDA graphs for compiled
+programs. A hybridized block keeps ``_cached_graphs``, keyed by the
+reference's ``_signature``: the inputs' (shape, dtype) and the train flag.
+On a CUDA input, in predict mode (not recording, not training) and outside
+a capture, the first call of a signature runs the forward eagerly on the
+engine's side stream (deferred shapes, kernel builds, cuBLAS handles) and
+returns its result, then captures the forward with its inputs in static
+buffers (``engine.capture``, one graph memory pool a block); each later call
+copies the inputs in, replays the graph and returns fresh outputs (clones:
+a later replay never overwrites what a caller holds). The entry of every
+other signature records why it runs the eager forward:
+
+- ``"record"`` under ``autograd.record()`` and ``"train"`` in training
+  mode: the reference's training pair (``fwd_res``/``bwd``) as a graph
+  pair is ROADMAP A1b's next item;
+- ``"cpu"`` for inputs on the CPU, where the kernels' plain versions run;
+- ``"mesh"`` for parameters placed on a mesh of ranks, or under an active
+  mesh of ranks.
+
+Inside another capture (``engine.capturing()``), and inside a hybridized
+parent's call, a block folds into the enclosing graph and adds no entry,
+as the reference's folds into an enclosing trace (:428). A capture that
+fails raises ``MXNetError`` with the CUDA error. ``hybridize()``,
+``clear_cache()`` and ``cast()`` drop the entries, as the reference's do;
+so does a call that finds a parameter's storage replaced since the capture
+(``Parameter.cast``, ``_place``: the engine's ``storage_epoch`` and the
+addresses), while ``set_data`` and ``initialize(force_reinit=True)`` write
+in place and keep the graphs. Each call of a signature looks its graph up
+in ``engine``'s cache under ``("gluon", id(block), structural fingerprint,
+signature)`` (a hit or a miss in ``engine.cache_stats()``): one capture per
+instance and signature.
 
 Deferred shape inference (reference :377-447): a layer whose parameter
 still waits for its shape resolves it at its first forward, eagerly and
@@ -42,10 +74,12 @@ from __future__ import annotations
 import re
 import threading
 from collections import OrderedDict
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
+from .. import autograd
+from .. import engine
 from ..base import MXNetError
 from ..ndarray import NDArray
 from .. import ndarray as nd
@@ -213,16 +247,100 @@ class Block(torch.nn.Module):
         raise NotImplementedError
 
 
+class _Folding(threading.local):
+    depth = 0
+
+
+_FOLDING = _Folding()
+
+
+class _Fold:
+    """Inside it, hybridized blocks run their eager forward and add no entry:
+    they fold into the call that is being run or captured."""
+
+    def __enter__(self):
+        _FOLDING.depth += 1
+
+    def __exit__(self, *exc):
+        _FOLDING.depth -= 1
+        return False
+
+
+def _flatten_out(out):
+    """(tensors, structure) of a forward's output: an NDArray or nested
+    tuples and lists of them."""
+    if isinstance(out, NDArray):
+        return [out._data], ("nd", out._ctx)
+    if isinstance(out, (tuple, list)):
+        flat, parts = [], []
+        for o in out:
+            f, st = _flatten_out(o)
+            flat += f
+            parts.append((len(f), st))
+        return flat, (type(out), parts)
+    raise MXNetError(f"a hybridized block returns NDArrays or tuples and lists of "
+                     f"them, got {type(out).__name__}")
+
+
+def _rebuild_out(flat, structure):
+    kind, body = structure
+    if kind == "nd":
+        return NDArray(flat[0], body)
+    out, i = [], 0
+    for n, st in body:
+        out.append(_rebuild_out(flat[i:i + n], st))
+        i += n
+    return kind(out)
+
+
+class _CachedGraph:
+    """One signature's entry: the captured graph (``graph``, an
+    ``engine.GraphEntry``, held here so that the engine's weak cache keeps
+    it) with its static input buffers and the output's structure, or
+    ``graph`` None and ``eager`` the reason the signature runs the eager
+    forward."""
+
+    __slots__ = ("graph", "inputs", "structure", "eager")
+
+    def __init__(self, graph=None, inputs=(), structure=None, eager=None):
+        self.graph = graph
+        self.inputs = inputs
+        self.structure = structure
+        self.eager = eager
+
+
 class HybridBlock(Block):
-    """reference gluon/block.py:341; hybridize() is accepted, runs eagerly."""
+    """reference gluon/block.py:341; ``hybridize()`` captures the predict
+    forward into CUDA graphs (see the module docstring)."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix, params)
         self._active = False
+        self._flags: Dict[str, Any] = {}
+        self._cached_graphs: Dict[Any, _CachedGraph] = {}
+        self._fingerprint_memo: Optional[str] = None
 
-    def hybridize(self, active=True, **kwargs):
+    def hybridize(self, active=True, static_alloc=False, static_shape=False, **kwargs):
         self._active = active
-        super().hybridize(active, **kwargs)
+        self._flags = dict(static_alloc=static_alloc, static_shape=static_shape)
+        self._drop_graphs()
+        super().hybridize(active, static_alloc=static_alloc, static_shape=static_shape,
+                          **kwargs)
+
+    def clear_cache(self):
+        self._drop_graphs()
+        for c in self._children.values():
+            if isinstance(c, HybridBlock):
+                c.clear_cache()
+
+    def cast(self, dtype):
+        self._drop_graphs()
+        super().cast(dtype)
+
+    def _drop_graphs(self):
+        engine.clear_compilation_cache(id(self))
+        self._cached_graphs.clear()
+        self._fingerprint_memo = None
 
     def infer_shape(self, *args):
         """Layers override this to set deferred parameter shapes from the
@@ -232,6 +350,11 @@ class HybridBlock(Block):
         if not args or not isinstance(args[0], NDArray):
             raise MXNetError(f"{type(self).__name__}.forward expects NDArray "
                              f"input (symbolic tracing is not ported yet)")
+        if self._active and not kwargs and not _FOLDING.depth and not engine.capturing():
+            return self._call_cached(*args)
+        return self._forward_unhybridized(*args, **kwargs)
+
+    def _forward_unhybridized(self, *args, **kwargs):
         for name, p in self._reg_params.items():
             try:
                 kwargs[name] = p.data()
@@ -243,3 +366,77 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+    # -- the CachedOp path ------------------------------------------------------
+    def _signature(self, raws):
+        """The reference's: each input's (shape, dtype), and the train flag."""
+        return (tuple((tuple(r.shape), str(r.dtype)) if isinstance(r, torch.Tensor)
+                      else ("const", repr(r)) for r in raws), autograd.is_training())
+
+    def _fingerprint(self) -> str:
+        if self._fingerprint_memo is None:
+            from ..parallel.step_program import structural_fingerprint
+            self._fingerprint_memo = structural_fingerprint(self)
+        return self._fingerprint_memo
+
+    def _eager_reason(self, raws, placed: bool) -> Optional[str]:
+        """Why this call runs the eager forward, or None to capture it
+        (``placed``: look for a mesh of ranks too)."""
+        tensors = [r for r in raws if isinstance(r, torch.Tensor)]
+        if not tensors or any(t.device.type != "cuda" for t in tensors):
+            return "cpu"
+        if autograd.is_recording():
+            return "record"
+        if autograd.is_training():
+            return "train"
+        if placed:
+            from ..parallel.mesh import active_mesh
+            mesh = active_mesh()
+            if (mesh is not None and mesh.distributed) or any(
+                    p._mesh is not None for p in self.collect_params().values()):
+                return "mesh"
+        return None
+
+    def _param_ptrs(self):
+        return tuple(p._param.data_ptr() for p in self.collect_params().values()
+                     if p._param is not None)
+
+    def _call_cached(self, *args):
+        raws = [a._data if isinstance(a, NDArray) else a for a in args]
+        sig = self._signature(raws)
+        reason = self._eager_reason(raws, placed=False)
+        if reason is None:
+            if engine.lookup(("gluon", id(self), self._fingerprint(), sig)) is not None:
+                entry = self._cached_graphs[sig]
+                for buf, r in zip(entry.inputs, raws):
+                    if isinstance(r, torch.Tensor):
+                        buf.copy_(r)
+                outs = entry.graph.replay()
+                return _rebuild_out([o.clone() for o in outs], entry.structure)
+            reason = self._eager_reason(raws, placed=True)
+        if reason is not None:
+            self._cached_graphs.setdefault(sig, _CachedGraph(eager=reason))
+            with _Fold():
+                return self._forward_unhybridized(*args)
+        return self._capture(sig, args, raws)
+
+    def _capture(self, sig, args, raws):
+        """The first call of ``sig`` (or the first after its graph went
+        stale): the eager forward on the side stream (returned), then the
+        capture of the forward on static inputs."""
+        device = next(r.device for r in raws if isinstance(r, torch.Tensor))
+        with _Fold(), engine.side_stream(device):
+            out = self._forward_unhybridized(*args)
+        _, structure = _flatten_out(out)
+        static = [r.clone() if isinstance(r, torch.Tensor) else r for r in raws]
+        self._fingerprint_memo = None           # deferred shapes are known now
+
+        def run():
+            with _Fold():
+                o = self._forward_unhybridized(*[NDArray(t) if isinstance(t, torch.Tensor)
+                                                 else t for t in static])
+            return _flatten_out(o)[0]
+        graph = engine.capture(run, ("gluon", id(self), self._fingerprint(), sig), device,
+                               owner=self, ptrs=HybridBlock._param_ptrs)
+        self._cached_graphs[sig] = _CachedGraph(graph, static, structure)
+        return out

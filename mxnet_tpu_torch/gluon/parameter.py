@@ -35,6 +35,13 @@ a step, so the layers compute in that dtype while autograd carries the
 gradient through the cast to the float32 value (the reference swaps the
 cast arrays into the parameters, ``_make_apply_fn``).
 
+Storage: giving a parameter's value or gradient buffer new storage (first
+materialization, ``cast``, ``_place``, a gradient buffer made anew) moves
+``engine.storage_epoch()``. A CUDA graph reads tensors by address, so the
+engine then compares a captured block's or step's addresses with the
+capture's and drops the graph if one changed; ``set_data`` and
+``initialize(force_reinit=True)`` copy in place and keep the graphs.
+
 Sharding: ``sharding`` is a ``PartitionSpec`` (``parallel.P``), None for a
 replicated parameter; ``parallel.shard_params_megatron`` sets it and nothing
 else, as in the reference. A ``DataParallelTrainer`` on a mesh of ranks then
@@ -55,6 +62,7 @@ import torch
 from ..base import MXNetError, torch_dtype
 from ..context import Context, current_context
 from ..ndarray import NDArray
+from .. import engine
 from .. import initializer as init_mod
 from ..initializer import InitDesc
 
@@ -116,6 +124,7 @@ class Parameter:
         """Make ``tensor`` this parameter's value (first materialization)."""
         self._param = torch.nn.Parameter(tensor,
                                          requires_grad=self._grad_req != "null")
+        engine.note_storage_change()
         for ref, name in self._owners:
             block = ref()
             if block is not None:
@@ -131,6 +140,7 @@ class Parameter:
         elif self._grad is None or self._grad.shape != self._param.shape \
                 or self._grad.dtype != self._param.dtype:
             self._grad = torch.zeros_like(self._param, requires_grad=False)
+            engine.note_storage_change()
         autograd._mark(self._param, self._grad, self._grad_req)
 
     def _place(self, mesh) -> None:
@@ -142,6 +152,7 @@ class Parameter:
             raise MXNetError(f"parameter '{self.name}' is already placed on {self._mesh}")
         shard = shard_tensor(self._param.detach(), self.sharding, mesh)
         self._param.data = shard.clone(memory_format=torch.contiguous_format)
+        engine.note_storage_change()
         self._mesh = mesh
         self._init_grad()
 
@@ -248,6 +259,7 @@ class Parameter:
         self.dtype = dtype
         if self._param is not None:
             self._param.data = self._param.data.to(torch_dtype(dtype))
+            engine.note_storage_change()
             self._init_grad()
 
     def __repr__(self):

@@ -17,7 +17,8 @@ tensors, raises if the launch fails, and counts its launches in
 ``<wrapper>.launches``, by the inputs' dtype (``"float32"``,
 ``"bfloat16"``, ``"float16"``) in ``<wrapper>.launches_by_dtype``, by
 the shape ``"BHxTqxTkxD"`` in ``<wrapper>.launches_by_shape`` and by the
-mask (``"causal"``, ``"full"``) in ``<wrapper>.launches_by_mask``.
+mask (``"causal"``, ``"full"``) in ``<wrapper>.launches_by_mask``; a CUDA
+graph that captured launches adds them again at each replay (``engine``).
 ``flash_attention_fwd`` and ``flash_attention_bwd`` take their plain versions
 (``flash_attention_fwd_plain``, ``flash_attention_bwd_plain``) for CPU
 tensors; there is no other branch.
@@ -67,6 +68,7 @@ from typing import Optional
 
 import torch
 
+from ... import engine
 from ...base import MXNetError
 from ..attention import blockwise_attention_bwd, blockwise_attention_lse
 from . import load_library
@@ -305,6 +307,10 @@ flash_attention_bwd_dq.launches_by_shape = {}
 flash_attention_bwd_dkv.launches_by_shape = {}
 flash_attention_bwd_dq.launches_by_mask = {}
 flash_attention_bwd_dkv.launches_by_mask = {}
+for _wrapper in (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    for _attr in ("launches", "launches_by_dtype", "launches_by_shape", "launches_by_mask"):
+        engine.register_counter(_wrapper, _attr)
+del _wrapper, _attr
 
 
 def flash_attention_bwd(q3, k3, v3, o, lse, do3, causal: bool = False,

@@ -40,6 +40,28 @@ it runs the plain version (``fused_sgd_apply_plain``,
 same f32 arithmetic in PyTorch. ``table_stats`` counts the pointer tables
 built and found in the cache (below).
 
+The three rules of the fused step also take their scalars from memory:
+``fused_sgd_update_hyper(weights, grads, hyper, out)``,
+``fused_sgd_mom_update_hyper(weights, grads, moms, hyper, out)`` and
+``fused_adam_update_hyper(weights, grads, ms, vs, hyper, out)``, where
+``hyper`` is a float32 tensor of the 10 values of ``HYPER_FIELDS`` (lr,
+momentum, wd, beta1, beta2, epsilon, c1, c2, rescale_grad, clip_gradient;
+``hyper_values`` makes them) on the weights' device. On the card the
+kernel reads them from device memory when it runs (``mxt_fused_*_hyper``),
+so a CUDA graph that captured the launch takes the values written before
+each replay; on the CPU the plain versions read them from the tensor. The
+three rules' by-value signatures above call these with a ``hyper`` tensor
+made from their floats, so each rule has one launching path, whose
+``launches`` counter counts under graph replay too (``engine``). The
+by-value kernel entry points (``mxt_fused_sgd``, ``mxt_fused_adam``) serve
+``fused_sgd_apply`` and ``fused_adam_apply``.
+
+A pointer table is never built while a CUDA graph is being captured: the
+copy of the table to the device would be captured with a host buffer that
+does not outlive the call. A miss then raises ``MXNetError``; the
+warm-up run before a capture builds every table, and the capture keeps the
+tables it reads alive (``engine.keep_alive``).
+
 Semantics to keep apart (ROADMAP B5, B6): this momentum rule is not
 ``sgd_mom_update``'s (which folds lr into the momentum), and this Adam
 applies the bias correction itself, so eps lands elsewhere than in
@@ -65,6 +87,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ... import engine
 from ...base import MXNetError
 from . import load_library
 
@@ -87,6 +110,13 @@ def _library() -> ctypes.CDLL:
         lib.mxt_fused_adam.argtypes = head + [ctypes.c_float] * 9 + [ctypes.c_void_p]
         lib.mxt_fused_sgd.restype = ctypes.c_int
         lib.mxt_fused_adam.restype = ctypes.c_int
+        lib.mxt_fused_sgd_hyper.argtypes = head + [ctypes.c_int, ctypes.c_void_p,
+                                                   ctypes.c_void_p]
+        lib.mxt_fused_adam_hyper.argtypes = head + [ctypes.c_void_p, ctypes.c_void_p]
+        lib.mxt_fused_sgd_hyper.restype = ctypes.c_int
+        lib.mxt_fused_adam_hyper.restype = ctypes.c_int
+        if lib.mxt_fused_hyper_floats() != len(HYPER_FIELDS):
+            raise MXNetError("fused_optimizer: the library's Hyper has another size")
         lib.mxt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mxt_cuda_error_string.restype = ctypes.c_char_p
         if lib.mxt_fused_chunk_elems() != _CHUNK:
@@ -96,6 +126,23 @@ def _library() -> ctypes.CDLL:
 
 def _f32(x) -> np.float32:
     return np.float32(x)
+
+
+# csrc struct Hyper, in order
+HYPER_FIELDS = ("lr", "momentum", "wd", "beta1", "beta2", "epsilon", "c1", "c2",
+                "rescale_grad", "clip_gradient")
+_HYPER_DEFAULTS = dict(lr=0.0, momentum=0.0, wd=0.0, beta1=0.0, beta2=0.0, epsilon=0.0,
+                       c1=1.0, c2=1.0, rescale_grad=1.0, clip_gradient=-1.0)
+
+
+def hyper_values(**kw) -> List[float]:
+    """The 10 values of ``HYPER_FIELDS`` as float32-rounded floats; fields
+    not given take the value that leaves them out (c1 = c2 = rescale = 1,
+    clip -1, the others 0)."""
+    bad = set(kw) - set(HYPER_FIELDS)
+    if bad:
+        raise MXNetError(f"hyper_values: unknown fields {sorted(bad)}")
+    return [float(_f32(kw.get(k, _HYPER_DEFAULTS[k]))) for k in HYPER_FIELDS]
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +245,35 @@ def fused_adam_update_plain(weights, grads, ms, vs, lr, beta1=0.9, beta2=0.999,
     return _write_out((new_w, new_m, new_v), out)
 
 
+def _read_hyper(hyper) -> dict:
+    if hyper.dtype != torch.float32 or hyper.numel() != len(HYPER_FIELDS):
+        raise MXNetError(f"hyper must hold the {len(HYPER_FIELDS)} float32 values of "
+                         f"HYPER_FIELDS, got {hyper.dtype} {tuple(hyper.shape)}")
+    return dict(zip(HYPER_FIELDS, hyper.reshape(-1).tolist()))
+
+
+def fused_sgd_update_hyper_plain(weights, grads, hyper, out=None):
+    """``fused_sgd_update_plain`` with the scalars read from ``hyper``."""
+    h = _read_hyper(hyper)
+    return fused_sgd_update_plain(weights, grads, h["lr"], h["wd"], h["rescale_grad"],
+                                  h["clip_gradient"], out)
+
+
+def fused_sgd_mom_update_hyper_plain(weights, grads, moms, hyper, out=None):
+    """``fused_sgd_mom_update_plain`` with the scalars read from ``hyper``."""
+    h = _read_hyper(hyper)
+    return fused_sgd_mom_update_plain(weights, grads, moms, h["lr"], h["momentum"], h["wd"],
+                                      h["rescale_grad"], h["clip_gradient"], out)
+
+
+def fused_adam_update_hyper_plain(weights, grads, ms, vs, hyper, out=None):
+    """``fused_adam_update_plain`` with the scalars read from ``hyper``."""
+    h = _read_hyper(hyper)
+    return fused_adam_update_plain(weights, grads, ms, vs, h["lr"], h["beta1"], h["beta2"],
+                                   h["epsilon"], h["wd"], h["rescale_grad"],
+                                   h["clip_gradient"], out)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -240,7 +316,12 @@ def _table(who, device, operands: List[Optional[Sequence[torch.Tensor]]], names)
     if hit is not None and all(all(map(torch.Tensor.is_contiguous, op)) for op in lists):
         _tables.move_to_end(key)
         table_stats["hits"] += 1
+        engine.keep_alive(hit[0])
         return hit
+    if engine.capturing():
+        raise MXNetError(f"{who}: no pointer table for these {', '.join(names)} "
+                         f"while a CUDA graph is being captured; run the update once "
+                         f"before the capture (the warm-up step builds every table)")
     _check(who, lists, names, device)
     rows, first = [], 0
     for i, numel in enumerate(numels):
@@ -257,6 +338,8 @@ def _table(who, device, operands: List[Optional[Sequence[torch.Tensor]]], names)
 
 
 def _launch(who, fn, table, n_rows, n_chunks, codes, scalars, device):
+    """One launch of ``fn``; ``scalars`` are floats (by value) or one
+    device pointer (the hyper form)."""
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -275,9 +358,19 @@ def _new_lists(out, groups):
     return tuple([torch.empty_like(t) for t in g] for g in groups)
 
 
-def _sgd(who, rule, weights, grads, moms, scalars, out):
+def _hyper_ptr(who, hyper, device) -> int:
+    if hyper.dtype != torch.float32 or hyper.numel() != len(HYPER_FIELDS) \
+            or hyper.device != device or not hyper.is_contiguous():
+        raise MXNetError(f"{who}: hyper must be a contiguous float32 tensor of the "
+                         f"{len(HYPER_FIELDS)} values of HYPER_FIELDS on {device}, got "
+                         f"{hyper.dtype} {tuple(hyper.shape)} on {hyper.device}")
+    return hyper.data_ptr()
+
+
+def _sgd(who, rule, weights, grads, moms, scalars, out, hyper=None):
     """One launch of an SGD ``rule`` over CUDA tensors (``moms`` None for
-    the stateless rule) -> (the new lists, whether it launched)."""
+    the stateless rule), with ``scalars`` by value or, given ``hyper``, read
+    from it -> (the new lists, whether it launched)."""
     device = weights[0].device
     if device.type != "cuda":
         raise MXNetError(f"{who}: unsupported device {device}")
@@ -292,16 +385,21 @@ def _sgd(who, rule, weights, grads, moms, scalars, out):
     table, n_rows, n_chunks = _table(who, device,
                                      [weights, grads, moms, None, res[0], out_m, None], names)
     if n_rows:
-        _launch(who, "mxt_fused_sgd", table, n_rows, n_chunks,
-                (_DTYPE_CODES[weights[0].dtype],
-                 _DTYPE_CODES[moms[0].dtype] if moms is not None else 0, rule),
-                tuple(float(_f32(v)) for v in scalars), device)
+        codes = (_DTYPE_CODES[weights[0].dtype],
+                 _DTYPE_CODES[moms[0].dtype] if moms is not None else 0, rule)
+        if hyper is None:
+            _launch(who, "mxt_fused_sgd", table, n_rows, n_chunks, codes,
+                    tuple(float(_f32(v)) for v in scalars), device)
+        else:
+            _launch(who, "mxt_fused_sgd_hyper", table, n_rows, n_chunks, codes,
+                    (_hyper_ptr(who, hyper, device),), device)
     return res, n_rows > 0
 
 
-def _adam(who, weights, grads, ms, vs, scalars, out):
+def _adam(who, weights, grads, ms, vs, scalars, out, hyper=None):
     """One Adam launch over CUDA tensors with ``scalars`` = (lr, b1, b2, eps,
-    wd, c1, c2, rescale, clip) -> (the new lists, whether it launched)."""
+    wd, c1, c2, rescale, clip) by value or, given ``hyper``, read from it ->
+    (the new lists, whether it launched)."""
     device = weights[0].device
     if device.type != "cuda":
         raise MXNetError(f"{who}: unsupported device {device}")
@@ -315,10 +413,19 @@ def _adam(who, weights, grads, ms, vs, scalars, out):
         who, device, [weights, grads, ms, vs, *res],
         ["weights", "grads", "ms", "vs", "out weights", "out ms", "out vs"])
     if n_rows:
-        _launch(who, "mxt_fused_adam", table, n_rows, n_chunks,
-                (_DTYPE_CODES[weights[0].dtype], _DTYPE_CODES[ms[0].dtype]),
-                tuple(float(_f32(v)) for v in scalars), device)
+        codes = (_DTYPE_CODES[weights[0].dtype], _DTYPE_CODES[ms[0].dtype])
+        if hyper is None:
+            _launch(who, "mxt_fused_adam", table, n_rows, n_chunks, codes,
+                    tuple(float(_f32(v)) for v in scalars), device)
+        else:
+            _launch(who, "mxt_fused_adam_hyper", table, n_rows, n_chunks, codes,
+                    (_hyper_ptr(who, hyper, device),), device)
     return res, n_rows > 0
+
+
+def _hyper_tensor(weights, **kw) -> torch.Tensor:
+    """The 10 values of ``hyper_values(**kw)`` on the weights' device."""
+    return torch.tensor(hyper_values(**kw), dtype=torch.float32, device=weights[0].device)
 
 
 def fused_sgd_apply(weights: List, grads: List, moms: List, lr: float,
@@ -359,13 +466,9 @@ def fused_sgd_mom_update(weights: List, grads: List, moms: List, lr: float,
     """One-launch ``sgd_mom_update`` over a list -> ``(new_weights, new_moms)``."""
     if not weights:
         return [], []
-    if weights[0].device.type == "cpu":
-        return fused_sgd_mom_update_plain(weights, grads, moms, lr, momentum, wd,
-                                          rescale_grad, clip_gradient, out)
-    res, launched = _sgd("fused_sgd_mom_update", _RULE_SGD_MOM, weights, grads, moms,
-                         (lr, momentum, wd, rescale_grad, clip_gradient), out)
-    fused_sgd_mom_update.launches += launched
-    return res
+    return fused_sgd_mom_update_hyper(weights, grads, moms, _hyper_tensor(
+        weights, lr=lr, momentum=momentum, wd=wd, rescale_grad=rescale_grad,
+        clip_gradient=clip_gradient), out)
 
 
 def fused_sgd_update(weights: List, grads: List, lr: float, wd: float = 0.0,
@@ -373,13 +476,8 @@ def fused_sgd_update(weights: List, grads: List, lr: float, wd: float = 0.0,
     """One-launch ``sgd_update`` over a list -> ``(new_weights,)``; no state."""
     if not weights:
         return ([],)
-    if weights[0].device.type == "cpu":
-        return fused_sgd_update_plain(weights, grads, lr, wd, rescale_grad,
-                                      clip_gradient, out)
-    res, launched = _sgd("fused_sgd_update", _RULE_SGD, weights, grads, None,
-                         (lr, 0.0, wd, rescale_grad, clip_gradient), out)
-    fused_sgd_update.launches += launched
-    return res
+    return fused_sgd_update_hyper(weights, grads, _hyper_tensor(
+        weights, lr=lr, wd=wd, rescale_grad=rescale_grad, clip_gradient=clip_gradient), out)
 
 
 def fused_adam_update(weights: List, grads: List, ms: List, vs: List, lr: float,
@@ -389,18 +487,54 @@ def fused_adam_update(weights: List, grads: List, ms: List, vs: List, lr: float,
     into ``lr``) -> ``(new_weights, new_ms, new_vs)``."""
     if not weights:
         return [], [], []
+    return fused_adam_update_hyper(weights, grads, ms, vs, _hyper_tensor(
+        weights, lr=lr, beta1=beta1, beta2=beta2, epsilon=epsilon, wd=wd,
+        rescale_grad=rescale_grad, clip_gradient=clip_gradient), out)
+
+
+def fused_sgd_update_hyper(weights: List, grads: List, hyper: torch.Tensor, out=None):
+    """``fused_sgd_update`` with its scalars in ``hyper`` (see the module
+    docstring) -> ``(new_weights,)``."""
+    if not weights:
+        return ([],)
     if weights[0].device.type == "cpu":
-        return fused_adam_update_plain(weights, grads, ms, vs, lr, beta1, beta2,
-                                       epsilon, wd, rescale_grad, clip_gradient, out)
-    res, launched = _adam("fused_adam_update", weights, grads, ms, vs,
-                          (lr, beta1, beta2, epsilon, wd, 1.0, 1.0, rescale_grad,
-                           clip_gradient), out)
+        return fused_sgd_update_hyper_plain(weights, grads, hyper, out)
+    res, launched = _sgd("fused_sgd_update_hyper", _RULE_SGD, weights, grads, None, None,
+                         out, hyper)
+    fused_sgd_update.launches += launched
+    return res
+
+
+def fused_sgd_mom_update_hyper(weights: List, grads: List, moms: List, hyper: torch.Tensor,
+                               out=None):
+    """``fused_sgd_mom_update`` with its scalars in ``hyper`` ->
+    ``(new_weights, new_moms)``."""
+    if not weights:
+        return [], []
+    if weights[0].device.type == "cpu":
+        return fused_sgd_mom_update_hyper_plain(weights, grads, moms, hyper, out)
+    res, launched = _sgd("fused_sgd_mom_update_hyper", _RULE_SGD_MOM, weights, grads, moms,
+                         None, out, hyper)
+    fused_sgd_mom_update.launches += launched
+    return res
+
+
+def fused_adam_update_hyper(weights: List, grads: List, ms: List, vs: List,
+                            hyper: torch.Tensor, out=None):
+    """``fused_adam_update`` with its scalars in ``hyper`` (c1 = c2 = 1: fold
+    the bias correction into lr) -> ``(new_weights, new_ms, new_vs)``."""
+    if not weights:
+        return [], [], []
+    if weights[0].device.type == "cpu":
+        return fused_adam_update_hyper_plain(weights, grads, ms, vs, hyper, out)
+    res, launched = _adam("fused_adam_update_hyper", weights, grads, ms, vs, None, out,
+                          hyper)
     fused_adam_update.launches += launched
     return res
 
 
-fused_sgd_apply.launches = 0
-fused_adam_apply.launches = 0
-fused_sgd_mom_update.launches = 0
-fused_sgd_update.launches = 0
-fused_adam_update.launches = 0
+for _wrapper in (fused_sgd_apply, fused_adam_apply, fused_sgd_mom_update, fused_sgd_update,
+                 fused_adam_update):
+    _wrapper.launches = 0
+    engine.register_counter(_wrapper, "launches")
+del _wrapper

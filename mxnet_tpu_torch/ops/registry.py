@@ -9,7 +9,9 @@ Shape inference, where a later slice needs it, runs the same function on
 
 Each ``Op`` counts its calls (``Op.calls``, a plain integer): a test or a
 run can read how often the main path reached an operator, for example the
-flash-attention op once per BERT layer.
+flash-attention op once per BERT layer. It counts Python dispatches only: a
+replayed CUDA graph (``engine``) runs no Python and adds nothing here, where
+the kernels' launch counters do count replays.
 
 ``differentiable=False`` marks an op that ``invoke`` always runs under
 ``torch.no_grad()``, recording or not (the optimizer updates, reference

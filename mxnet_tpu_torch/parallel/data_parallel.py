@@ -4,12 +4,48 @@ Counterpart of ``mxnet_tpu/parallel/data_parallel.py``: ``functional_optimizer``
 (:51) and ``DataParallelTrainer`` (:276) with its step body
 (``_make_apply_fn`` :237, ``_build_step`` :805), ``run_steps``, ``step``,
 ``drain``, ``sync`` and ``num_update`` (:1373-1567). The reference compiles
-forward, backward and the update of every parameter into one jit. Here the
-step is eager PyTorch, and the update of every parameter is one launch of
-the fused multi-tensor kernel (``ops/cuda/fused_optimizer.py``, kernels K4
-and K5 of ``csrc/fused_optimizer.cu``) with the rules the reference's step
-applies: ``sgd_update``, ``sgd_mom_update`` and ``adam_update`` with the
-bias correction folded into lr (``_k_sgd``, ``_k_sgd_mom``, ``_k_adam``).
+forward, backward and the update of every parameter into one jit, with lr,
+t and the loss scale as device arguments (:805, :832, :1479-1492). Here the
+step body (``_body``: forward, backward, the copy into the gradient
+buckets, their all-reduce, the update) is written once, and the update of
+every parameter is one launch of the fused multi-tensor kernel
+(``ops/cuda/fused_optimizer.py``, kernels K4 and K5 of
+``csrc/fused_optimizer.cu``) with the rules the reference's step applies:
+``sgd_update``, ``sgd_mom_update`` and ``adam_update`` with the bias
+correction folded into lr (``_k_sgd``, ``_k_sgd_mom``, ``_k_adam``). The
+update reads its scalars (lr, momentum, wd, ..., one row a weight decay)
+from the trainer's ``_hyper`` tensor on the device, which the host writes
+before each step, so a new learning rate costs no new program.
+
+The compiled step: on a CUDA device the body is captured as a CUDA graph
+(``engine.capture``). Step 1 of a signature (the shapes and dtypes of x and
+y) runs the body eagerly on the engine's side stream as the warm-up (it
+builds the kernels, the update's pointer tables, cuBLAS's and autograd's
+state, NCCL's communicator); step 2 captures the body over static buffers
+(x, y, ``_hyper`` and the loss slot) and replays it; every later step
+replays it. The host's work a step is then: copy x and y into the static
+buffers, write ``_hyper`` for this step's lr and t (through a pinned
+buffer, asynchronously), replay, clone the loss slot into the
+``PendingScalar``. One capture per signature and trainer (the key holds
+``id(trainer)``, ``engine.cache_stats()`` counts them); a new lr or t
+captures nothing. A parameter or gradient buffer given new storage since
+the capture (the engine's ``storage_epoch``, then the addresses) drops the
+graph, and the next step warms up again; the elastic restore writes in
+place and keeps it. The kernels' launch counters count each replay
+(``engine``). What runs the body eagerly every step (``_graph_reason``):
+
+- ``"cpu"``: a CPU device, where the kernels' plain versions run;
+- ``"float16"``: the loss-scaled step reads its overflow flag on the host
+  (``_unscale_finite``); its flag on the device is ROADMAP A1b's;
+- ``"gloo"``: a mesh of ranks whose groups are not all NCCL (gloo cannot
+  be captured).
+
+At world size 1 over NCCL the all-reduces (the replicated step's buckets,
+ZeRO's sum over the data axes other than the batch axis, the loss) are
+captured into the graph as NCCL calls; ZeRO's reduce-scatter and all-gather
+and the ring's sends are not issued at a degree of 1.
+``_program`` does not record whether the step is captured: a snapshot of a
+captured step restores into an eager trainer and back.
 
 ::
 
@@ -33,19 +69,20 @@ A step (reference :832-877):
 - takes the mean of the loss (a Gluon ``Loss`` or a callable on the
   prediction's and the label's tensors), and its gradients with respect to
   every trainable parameter into the parameters' gradient buffers;
-- under float16, multiplies the gradients by 1/loss_scale and checks them
-  for inf and NaN; reading that flag is the step's one host sync. An
-  overflow skips the whole update, and ``LossScaler.update_from_step``
-  halves the scale (:1514-1518);
+- under float16 (eager, see above), multiplies the gradients by
+  1/loss_scale and checks them for inf and NaN; reading that flag is the
+  step's one host sync. An overflow skips the whole update, and
+  ``LossScaler.update_from_step`` halves the scale (:1514-1518);
 - updates every trainable parameter and its state in place with one launch
-  (one per distinct weight decay, as wd is a scalar of the launch; one in
-  the models of this repository), through the cached pointer table: the
+  (one per distinct weight decay, each reading its row of ``_hyper``; one
+  in the models of this repository), through the cached pointer table: the
   parameters, gradient buffers and states keep their storage from step to
   step.
 
 ``step`` returns a ``PendingScalar`` of the loss, which syncs only when read,
-so float32 and bfloat16 steps run without a host sync. The parameters are
-the ``Parameter``s' own tensors, so ``sync()`` only waits for the device.
+so float32 and bfloat16 steps, captured or not, run without a host sync. The
+parameters are the ``Parameter``s' own tensors, so ``sync()`` only waits for
+the device.
 
 On a mesh of ``torch.distributed`` ranks (``make_mesh`` after
 ``_dist_util.init_process_group``; each rank runs the same program), the
@@ -130,6 +167,7 @@ import torch.distributed as dist
 from ..base import MXNetError, env, torch_dtype
 from ..ndarray import NDArray
 from .. import autograd
+from .. import engine
 from .. import optimizer as opt_mod
 from .. import _dist_util
 from . import zero as _zero
@@ -148,47 +186,83 @@ def _f32(x) -> np.float32:
 
 
 def functional_optimizer(opt: "opt_mod.Optimizer"):
-    """``(init(weight) -> state tuple, update(weights, grads, states, t, lr,
-    wd))`` for an ``SGD`` or ``Adam``: ``update`` applies the optimizer's
-    rule to the lists in place, one launch for a list on the card."""
+    """``(init, update, hyper)`` for an ``SGD`` or ``Adam``: ``init(weight)``
+    -> the state tuple; ``hyper(t, lr, wd)`` -> the 10 scalars of step t's
+    update (``fused_optimizer.HYPER_FIELDS``; Adam's bias correction folded
+    into lr as ``_k_adam`` does); ``update(weights, grads, states, hyper)``
+    applies the rule to the lists in place, reading the scalars from
+    ``hyper``, a float32 tensor of those 10 on the weights' device: one
+    launch of K4/K5's device form on the card, the plain version on the
+    CPU."""
     clip = opt.clip_gradient if opt.clip_gradient is not None else -1.0
 
     if isinstance(opt, opt_mod.Adam):
         def init(w):
             return (torch.zeros_like(w), torch.zeros_like(w))
 
-        def update(ws, gs, states, t, lr, wd):
+        def hyper(t, lr, wd):
             # _k_adam: lr_t = lr * sqrt(c2) / c1, all f32 (t an f32 step count)
             c1 = np.float32(1) - _f32(opt.beta1) ** _f32(t)
             c2 = np.float32(1) - _f32(opt.beta2) ** _f32(t)
             lr_t = _f32(lr) * np.sqrt(c2) / c1
+            return _fo.hyper_values(lr=lr_t, beta1=opt.beta1, beta2=opt.beta2,
+                                    epsilon=opt.epsilon, wd=wd,
+                                    rescale_grad=opt.rescale_grad, clip_gradient=clip)
+
+        def update(ws, gs, states, h):
             ms, vs = [s[0] for s in states], [s[1] for s in states]
-            _fo.fused_adam_update(ws, gs, ms, vs, lr_t, opt.beta1, opt.beta2,
-                                  opt.epsilon, wd, opt.rescale_grad, clip,
-                                  out=(ws, ms, vs))
-        return init, update
+            _fo.fused_adam_update_hyper(ws, gs, ms, vs, h, out=(ws, ms, vs))
+        return init, update, hyper
 
     if isinstance(opt, opt_mod.SGD):
+        def hyper(t, lr, wd):
+            return _fo.hyper_values(lr=lr, momentum=opt.momentum, wd=wd,
+                                    rescale_grad=opt.rescale_grad, clip_gradient=clip)
+
         if opt.momentum == 0.0:
             def init(w):
                 return ()
 
-            def update(ws, gs, states, t, lr, wd):
-                _fo.fused_sgd_update(ws, gs, lr, wd, opt.rescale_grad, clip, out=(ws,))
-            return init, update
+            def update(ws, gs, states, h):
+                _fo.fused_sgd_update_hyper(ws, gs, h, out=(ws,))
+            return init, update, hyper
 
         def init(w):
             return (torch.zeros_like(w),)
 
-        def update(ws, gs, states, t, lr, wd):
+        def update(ws, gs, states, h):
             moms = [s[0] for s in states]
-            _fo.fused_sgd_mom_update(ws, gs, moms, lr, opt.momentum, wd,
-                                     opt.rescale_grad, clip, out=(ws, moms))
-        return init, update
+            _fo.fused_sgd_mom_update_hyper(ws, gs, moms, h, out=(ws, moms))
+        return init, update, hyper
 
     raise MXNetError(f"no functional adapter for optimizer {type(opt).__name__}: "
                      f"the fused step ports SGD and Adam; the other optimizers are "
                      f"ROADMAP A5")
+
+
+def write_hyper(dst: torch.Tensor, rows) -> None:
+    """Write the step's scalar rows into ``dst`` (a trainer's ``_hyper``)
+    ahead of the work that reads them: in place on the CPU; on the card from
+    a pinned buffer, asynchronously on the current stream (the caching host
+    allocator keeps each buffer until its copy has run), so neither the host
+    nor a replay in flight waits for the other."""
+    src = torch.tensor(rows, dtype=torch.float32)
+    if dst.device.type == "cpu":
+        dst.copy_(src)
+    else:
+        dst.copy_(src.pin_memory(), non_blocking=True)
+
+
+class _StepGraph:
+    """One signature's captured step (``graph`` None until step 2, held
+    here so that the engine's weak cache keeps it) with its static
+    inputs."""
+
+    __slots__ = ("graph", "x", "y")
+
+    def __init__(self):
+        self.graph = None
+        self.x = self.y = None
 
 
 class PendingScalar:
@@ -269,7 +343,7 @@ class DataParallelTrainer:
         self._seq_axis = seq
         self.optimizer = optimizer if isinstance(optimizer, opt_mod.Optimizer) \
             else opt_mod.create(optimizer, **(optimizer_params or {}))
-        self._init_fn, self._update_fn = functional_optimizer(self.optimizer)
+        self._init_fn, self._update_fn, self._hyper_fn = functional_optimizer(self.optimizer)
         self.loss = loss
         params = list(net.collect_params().values())
         deferred = [p.name for p in params
@@ -323,6 +397,14 @@ class DataParallelTrainer:
             if t and i not in in_bucket:
                 self._groups.setdefault(float(wd), []).append(i)
         self._dp_degree = self.mesh.axis_size(self.batch_axis)
+        # the update's scalars, a row for each weight decay, on the device
+        self._wd_order = list(dict.fromkeys([*self._groups, *self._segments]))
+        self._hyper = torch.zeros((max(1, len(self._wd_order)), len(_fo.HYPER_FIELDS)),
+                                  dtype=torch.float32, device=self.device.torch_device)
+        self._graphs: Dict[tuple, _StepGraph] = {}
+        # why the body runs eagerly every step, None to capture it; the tests
+        # set it to a string to run the same trainer eagerly as a yardstick
+        self._graph_reason = self._eager_reason()
         # the configuration's identity, which elastic snapshots record
         # (reference :515-541; the placement of one run is left out)
         self._program = StepProgram(f"dp.step[{type(net).__name__}]", (
@@ -340,6 +422,18 @@ class DataParallelTrainer:
                 scaled=self._scaler is not None, zero=self._zero,
                 bucket_bytes=self._bucket_bytes if self._zero else None,
                 comm_dtype=self._comm_dtype)))
+
+    def _eager_reason(self) -> Optional[str]:
+        """Why the step runs its body eagerly every time, or None to capture
+        it (see the module docstring)."""
+        if self.device.device_type != "gpu":
+            return "cpu"
+        if self._scaler is not None:
+            return "float16"
+        if self.mesh.distributed and any(dist.get_backend(g) != "nccl"
+                                         for g in self.mesh._groups.values()):
+            return "gloo"
+        return None
 
     # -- the sharded update (parallel/zero.py) ------------------------------------
     def _validate_zero(self):
@@ -386,6 +480,7 @@ class DataParallelTrainer:
                 self._segments.setdefault(float(wds[i]), []).append(
                     (w, gshard[part], tuple(st[part] for st in state)))
             self._zero_buckets.append(zb)
+        engine.note_storage_change()      # the gradient buffers are bucket views now
         return frozenset(i for b in self._zero_plan for i in b.indices)
 
     def _zero_entries(self):
@@ -483,6 +578,7 @@ class DataParallelTrainer:
                     off += n
                 self._buckets.append(flat)
                 self._bucket_axes.append(axes)
+        engine.note_storage_change()      # the gradient buffers are bucket views now
 
     # -- the step --------------------------------------------------------------
     def _raw(self, a) -> torch.Tensor:
@@ -573,30 +669,69 @@ class DataParallelTrainer:
                             group=self.mesh.group(self.mesh.axis_names))
         return not bool(found.item())
 
-    def _update(self, lr):
+    def _update(self):
         with torch.no_grad():
             if self._zero_buckets:
                 self._reduce_zero()
-            for wd in dict.fromkeys([*self._groups, *self._segments]):
+            for k, wd in enumerate(self._wd_order):
                 idx, segments = self._groups.get(wd, []), self._segments.get(wd, [])
                 self._update_fn([self._plist[i]._param for i in idx] + [w for w, _, _ in segments],
                                 [self._plist[i]._grad for i in idx] + [g for _, g, _ in segments],
                                 [self._opt_state[i] for i in idx] + [s for _, _, s in segments],
-                                self._t, lr, wd)
+                                self._hyper[k])
             if self._zero_buckets:
                 self._gather_zero()
 
-    def _one_step(self, x, y, scale) -> tuple:
-        self._t += 1
-        self.optimizer.num_update = self._t
-        lr = _f32(self.optimizer.learning_rate)
+    def _body(self, x, y, scale) -> tuple:
+        """The step's device work: forward, backward, the gradient buckets'
+        reduction and the update (skipped after a float16 overflow)."""
         lossv = self._forward_backward(x, y, scale)
         finite = True
         if scale is not None:
             finite = self._unscale_finite(scale)
         if finite:
-            self._update(lr)
+            self._update()
         return lossv, finite
+
+    def _one_step(self, x, y, scale) -> tuple:
+        self._t += 1
+        self.optimizer.num_update = self._t
+        lr = _f32(self.optimizer.learning_rate)
+        write_hyper(self._hyper, [self._hyper_fn(self._t, lr, wd) for wd in self._wd_order])
+        if self._graph_reason is None:
+            return self._graph_step(x, y), True
+        return self._body(x, y, scale)
+
+    # -- the captured step -------------------------------------------------------
+    def _operand_ptrs(self):
+        return tuple((p._param.data_ptr(), p._grad.data_ptr() if p._grad is not None else 0)
+                     for p in self._plist)
+
+    def _graph_step(self, x, y) -> torch.Tensor:
+        """The step on the card: warm up at a signature's first step, capture
+        at its second, replay from then on (module docstring)."""
+        sig = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype)
+        key = ("dp_step", id(self), self._program.fingerprint, sig)
+        entry = self._graphs.get(sig)
+        graph = engine.lookup(key) if entry is not None else None
+        if graph is None:
+            if entry is None or entry.graph is not None:     # new, or its graph went stale
+                self._graphs[sig] = _StepGraph()
+                with engine.side_stream(self.device.torch_device):
+                    lossv, _ = self._body(x, y, None)
+                return lossv
+            entry.x, entry.y = x.clone(), y.clone()
+            graph = entry.graph = engine.capture(
+                lambda: (self._body(entry.x, entry.y, None)[0],), key, self.device.torch_device,
+                owner=self, ptrs=DataParallelTrainer._operand_ptrs)
+        entry.x.copy_(x)
+        entry.y.copy_(y)
+        return graph.replay()[0].clone()
+
+    @property
+    def captured(self) -> bool:
+        """Whether this trainer's steps run as captured CUDA graphs."""
+        return self._graph_reason is None
 
     def step(self, x, y, batch_size=None) -> PendingScalar:
         """One fused training step on the batch ``x``, ``y``."""
@@ -610,10 +745,11 @@ class DataParallelTrainer:
 
     def run_steps(self, x, y, n, stacked=False) -> NDArray:
         """``n`` steps, one after another (the reference scans them in one
-        program): on one batch, or with ``stacked=True`` on ``x[i], y[i]``.
-        The learning rate follows the scheduler step by step; the float16
-        loss scale stays fixed for the call, as in the reference, and is
-        updated once at its end. Returns the losses."""
+        program): on one batch, or with ``stacked=True`` on ``x[i], y[i]``,
+        each a replay of the captured step where it is captured. The learning
+        rate follows the scheduler step by step; the float16 loss scale stays
+        fixed for the call, as in the reference, and is updated once at its
+        end. Returns the losses."""
         xr = self._local(self._raw(x), stacked)
         yr = self._local(self._raw(y), stacked)
         if stacked and (xr.shape[0] != n or yr.shape[0] != n):

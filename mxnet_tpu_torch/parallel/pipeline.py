@@ -53,7 +53,10 @@ its own stage of the same tick loop eagerly:
 - **No stacked storage.** Every rank holds the model's Parameters; each
   updates its own stage's layers and the replicated embed and head, with one
   launch of the fused update (K5 for Adam, K4 for SGD, through
-  ``functional_optimizer`` and its pointer table) for each weight decay.
+  ``functional_optimizer`` and its pointer table) for each weight decay,
+  reading its scalars from the trainer's ``_hyper`` rows as the fused step
+  does. The step runs eagerly on the card too: its tick loop of
+  point-to-point rounds is not captured (ROADMAP A1b).
   Weight-decay indices follow the reference's convention (:551-556): embed
   leaves first, then the cell leaves (one index for a leaf of every layer),
   then the head, so a ``wd_mult`` set by index selects the same parameter in
@@ -88,7 +91,9 @@ from ..ndarray import NDArray
 from .. import autograd
 from .. import optimizer as opt_mod
 from .. import _dist_util
-from .data_parallel import DataParallelTrainer, PendingScalar, functional_optimizer
+from ..ops.cuda import fused_optimizer as _fo
+from .data_parallel import (DataParallelTrainer, PendingScalar, functional_optimizer,
+                            write_hyper)
 from .mesh import current_mesh, require_axis
 from .step_program import StepProgram, config_fingerprint, structural_fingerprint
 
@@ -300,7 +305,7 @@ class PipelineTrainer:
                 raise MXNetError(f"PipelineTrainer supports float32/bfloat16, got {dtype!r}")
         self.optimizer = optimizer if isinstance(optimizer, opt_mod.Optimizer) \
             else opt_mod.create(optimizer, **(optimizer_params or {}))
-        self._init_fn, self._update_fn = functional_optimizer(self.optimizer)
+        self._init_fn, self._update_fn, self._hyper_fn = functional_optimizer(self.optimizer)
         self.num_microbatch = int(num_microbatch if num_microbatch is not None
                                   else self.n_stages)
         self.device = self.mesh.device
@@ -375,6 +380,8 @@ class PipelineTrainer:
             # point-to-point round, which joins two of them only
             dist.all_reduce(torch.zeros(1, device=self.device.torch_device),
                             group=self._pp_group)
+        self._hyper = torch.zeros((max(1, len(self._groups)), len(_fo.HYPER_FIELDS)),
+                                  dtype=torch.float32, device=self.device.torch_device)
         self._t = 0
         self._act_meta: Dict[tuple, tuple] = {}
         self.last_stats: Optional[dict] = None
@@ -500,10 +507,11 @@ class PipelineTrainer:
         self._t += 1
         self.optimizer.num_update = self._t
         lr = np.float32(self.optimizer.learning_rate)
+        write_hyper(self._hyper, [self._hyper_fn(self._t, lr, wd) for wd in self._groups])
         lossv = self._forward_backward(xs, ys)
         with torch.no_grad():
-            for wd, (ws, gs, ss) in self._groups.items():
-                self._update_fn(ws, gs, ss, self._t, lr, wd)
+            for k, (ws, gs, ss) in enumerate(self._groups.values()):
+                self._update_fn(ws, gs, ss, self._hyper[k])
         return PendingScalar(lossv)
 
     def drain(self):

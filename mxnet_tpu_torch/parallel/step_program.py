@@ -20,8 +20,12 @@ calls a boot "resumed" when the saved fingerprint and mesh equal the new
 trainer's, "resharded" otherwise.
 
 The reference's program also resolves compiled executables through the
-process-wide engine cache and captures XLA's cost model; an eager step
-compiles nothing, so the port keeps the fingerprint only. The digest is the
+process-wide engine cache and captures XLA's cost model; the port keeps the
+fingerprint only. A trainer's captured CUDA graphs live in ``engine``'s
+cache under its own key (the instance, the fingerprint, the batch's
+signature): whether a step is captured is no part of the configuration's
+identity, so a snapshot of a captured step restores into an eager trainer
+and back. The digest is the
 port's own and differs from the reference's: module and class names are part
 of it. Opaque configuration values (callables, objects) enter by type name,
 where the reference takes their identity, so that two instances of one model

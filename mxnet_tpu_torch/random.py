@@ -14,6 +14,11 @@ uint8 vector (``_RAW_MAGIC``, the seed, then per generator its device and
 reference's leaf is a threefry key (uint32); neither package reads the
 other's.
 
+``seed`` and ``set_state_raw`` reseed or restore the generators in place:
+a generator object lives as long as the process, so a CUDA graph that
+registered it (``engine.capture``) goes on drawing from it, and a replay
+after ``seed(n)`` draws what an eager step would.
+
 Like the reference, ``seed`` also seeds Python's ``random`` and numpy's
 global generator. The per-thread host RNG of the data pipeline waits for
 the slice that ports ``gluon/data``.
@@ -42,7 +47,8 @@ def seed(seed_state: int, ctx="all"):
     global _seed
     with _lock:
         _seed = int(seed_state)
-        _generators.clear()
+        for gen in _generators.values():
+            gen.manual_seed(_seed)
     _pyrandom.seed(int(seed_state))
     _np.random.seed(int(seed_state) % (2 ** 32))
 
@@ -102,11 +108,14 @@ def set_state_raw(raw):
         off += 8 + ls
     with _lock:
         _seed = int(seed_state)
-        _generators.clear()
+        for device, gen in _generators.items():
+            if device not in states:       # as if made anew at its first use
+                gen.manual_seed(_seed)
         for device, state in states.items():
             if device.type == "cuda" and (not torch.cuda.is_available() or
                                           device.index >= torch.cuda.device_count()):
                 continue
-            gen = torch.Generator(device=device)
+            gen = _generators.get(device)
+            if gen is None:
+                gen = _generators[device] = torch.Generator(device=device)
             gen.set_state(state)
-            _generators[device] = gen

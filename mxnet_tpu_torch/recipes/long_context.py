@@ -17,7 +17,13 @@ Counterpart of ``mxnet_tpu/recipes/long_context.py``:
   are the mean over both axes, the reference's sum divided by dp*sp), the
   shard updated by one K5 launch and all-gathered (``parallel/zero.py``).
   ``_ring_step_bytes`` and ``_ring_cells`` (:409-431) estimate the ring's
-  wire bytes as the reference does.
+  wire bytes as the reference does. On the card the step is captured as a
+  CUDA graph where ``DataParallelTrainer`` captures it (NCCL groups). At
+  sp = 1 the ring sends nothing and at dp = 1 ZeRO's reduce-scatter and
+  all-gather are not issued; the buckets' sum over sp and the loss's
+  all-reduce are NCCL calls inside the graph.
+  ``_dist_util.p2p_stats`` counts replayed sends like the kernels' launches
+  (``engine``).
 - ``TokenWindows`` (:231), ``default_seq_len`` / ``MXNET_TPU_LONG_CONTEXT_SEQ``
   (:48-52), ``make_model``, ``make_oracle``, ``make_trainer``, and
   ``token_cross_entropy`` (the reference's ``recipes/moe.py:54``).

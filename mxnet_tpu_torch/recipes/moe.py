@@ -26,9 +26,14 @@ The dropped-token count stays a device tensor on the trainer and is read at
 ``global_dropped_tokens()`` (a collective every rank calls): the port has
 no telemetry layer yet (ROADMAP A7). ``last_assignments`` holds the last
 step's routing on this rank (each cell's expert per token and choice, -1
-where dropped). ``_a2a_step_bytes`` gives a step's
-dispatch/combine wire bytes as the reference books them. On a mesh of one
-device the cells run ``moe_ffn`` and every parameter is whole.
+where dropped). On the card the step is captured as a CUDA graph where
+``DataParallelTrainer`` captures it (NCCL groups): the dropped count is
+added on the device by each replay, and ``last_assignments`` are then the
+capture's tensors, which each replay rewrites; at ep = 1 the all-to-alls
+are not issued, and the buckets' all-reduces and the loss's are NCCL calls
+inside the graph. ``_a2a_step_bytes`` gives a step's dispatch/combine wire
+bytes as the reference books them. On a mesh of one device the cells run
+``moe_ffn`` and every parameter is whole.
 ``token_cross_entropy``, ``make_model`` (the tiny preset: its size knobs
 are fixed, so ``make_model(units=768)`` raises ``TypeError`` as in the
 reference; build a larger model with ``models.MoETransformerLM``),
