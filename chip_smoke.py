@@ -212,6 +212,28 @@ phase 11:
    2, dp: 2}``, ``bert_tiny(vocab_size=512)``, T 32, batch 8, M = 2, 3 steps
    against the one-rank DataParallelTrainer (losses 1e-5, weights 2e-5).
 
+Tensor parallelism and ZeRO inside the pipeline's stages (``tp_mode=
+"partitioned"``: ``parallel.megatron``'s programs; ``"sharded"``; ``zero_update``):
+
+24b. ``phase_pp_tp_train`` (in phase 24's world-1 NCCL group), the slice's
+   main path: BERT-base T=1024, batch 8, M = 4, Adam 1e-4, f32 with TF32 off
+   through ``PipelineTrainer(tp_axis="tp", tp_mode="partitioned",
+   dp_axis="dp", zero_update=True)`` on ``{pp: 1, tp: 1, dp: 1}``: 5 losses
+   against phase 24's at 1e-5 relative; K1-K3 48 launches a step at (24,
+   1024, 1024, 64) and K5 one a weight decay; 20 timed steps (p50, p90,
+   tokens/s), a traced step (host launches, device busy, idle share), peak
+   memory, the counted collectives beside the reference's estimates.
+26b. ``phase_pp_tp_ranks``: 4 gloo ranks sharing the card, 2 layers of
+   BERT-base width, T=1024, batch 4, M = 2, 3 steps, against the tp-1
+   partitioned run in this process: ``{tp: 2}`` partitioned (K1-K3 on 6 heads
+   a rank) and weight-sharded, losses 1e-5 and weights 2e-5; sp against none
+   with dropout 0.1 (the first loss bitwise); ``{tp: 2, dp: 2}`` with ZeRO,
+   native and bf16 wire; each tp 2 rank's kept tp-split bytes half their
+   whole, its peak memory, its counted weight gathers (0 partitioned) and
+   activation all-reduces (M(4L+2)); a tp 2 snapshot resumed on ``{tp: 4}``
+   at vocab 30520 (30522 does not split 4 ways), rtol 5e-4. K1-K3 are also
+   held and timed in phase 3 at a tp 2 rank's (BH 12, T 1024, D 64).
+
 The compiled paths (``mxnet_tpu_torch.engine``), last. Since this slice the
 fused step of phases 9-10, 13, 16-17, 19 and 21 is captured as a CUDA graph
 on the card (step 1 of a batch signature eager, step 2 captured, replays
@@ -431,19 +453,23 @@ def _bound_ms(BH, T, Tk, D, dtype_name, elem):
 SP_CASES = [("sp-shard", 4, 6, 512, 1024, 64, "float32", False),
             ("sp-shard", 4, 6, 512, 1024, 64, "bfloat16", False)]
 # (timings key, dtype, B, H, T, Tk, D): the one-device step's shape, the sp
-# shard's, the pipeline microbatch's, and the widest head the kernels take (D = 256 at BH 24, T 1024: two
-# passes of 128 output columns)
+# shard's, the pipeline microbatch's, a tp 2 rank's share of it (6 heads), and
+# the widest head the kernels take (D = 256 at BH 24, T 1024: two passes of 128
+# output columns)
 TIMED_SHAPES = [("float32", "float32", 8, 12, 1024, 1024, 64),
                 ("bfloat16", "bfloat16", 8, 12, 1024, 1024, 64),
                 ("sp_float32", "float32", 4, 6, 512, 1024, 64),
                 ("pp_float32", "float32", 2, 12, 1024, 1024, 64),
                 ("pp_bfloat16", "bfloat16", 2, 12, 1024, 1024, 64),
+                ("tp_float32", "float32", 2, 6, 1024, 1024, 64),
+                ("tp_bfloat16", "bfloat16", 2, 6, 1024, 1024, 64),
                 ("d256_float32", "float32", 2, 12, 1024, 1024, 256),
                 ("d256_bfloat16", "bfloat16", 2, 12, 1024, 1024, 256)]
 # The pipeline's microbatch of 2 sequences in phase_pp_train (BERT-base, T=1024),
-# in f32 and then in bf16
+# in f32 and then in bf16; a tp 2 rank's 6 heads of it (phase_pp_tp_ranks)
 PP_CASES = [("pp-microbatch", 2, 12, 1024, 1024, 64, dt, False)
-            for dt in ("float32", "bfloat16")]
+            for dt in ("float32", "bfloat16")] + \
+    [("tp-rank", 2, 6, 1024, 1024, 64, dt, False) for dt in ("float32", "bfloat16")]
 # K1-K3 at D = 256 against their plain versions (the TIMED_SHAPES' shape)
 HEAD256_CASES = [("head256", 2, 12, 1024, 1024, 256, dt, causal)
                  for dt in ("float32", "bfloat16") for causal in (False, True)]
@@ -4667,6 +4693,339 @@ def phase_pp_dryrun(torch, device="gpu", timeout=600):
             "launches": {k: sum(r["launches"][k] for r in ranks) for k in want}}
 
 
+# --- tensor parallelism and ZeRO inside the pipeline stages ---------------------------
+
+PP_TP_STEPS = 5                    # held against phase_pp_train's first 5 losses
+PP_TP_TIMED = 20                   # timed steps after them: p50 and p90
+PP_TP_LAYERS, PP_TP_B, PP_TP_M, PP_TP_RANK_STEPS = 2, 4, 2, 3
+PP_TP_VOCAB4 = 30520               # the tp 4 reshard's vocab: 30522 does not split 4 ways
+TOL_PP_TP_WIRE = {"bfloat16": (5e-4, 1e-3)}   # losses rel, weights abs (the tests' bars)
+TOL_PP_TP_RESUME = 5e-4            # the reference's own (tests/test_partitioned_tp.py:254)
+
+
+def _pp_tp_trainer(mx, net, mesh, M, **kw):
+    """``PipelineTrainer`` with phase_pp_train's loss and optimizer and a tp
+    axis (partitioned unless ``tp_mode`` says otherwise)."""
+    kw.setdefault("tp_mode", "partitioned")
+    return mx.parallel.PipelineTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), optimizer="adam",
+        optimizer_params={"learning_rate": PP_LR}, mesh=mesh, num_microbatch=M,
+        schedule="1f1b", tp_axis="tp", **kw)
+
+
+def _held_bytes(tr):
+    """Bytes of weights and optimizer state the trainer keeps on this rank:
+    ``(all, the tp-split leaves', what those leaves would take whole)``."""
+    total = split = whole = 0
+    for lf in tr._all_leaves():
+        n = sum(t.numel() * t.element_size() for t in (lf.w, *lf.state))
+        total += n
+        if lf.dim is not None:
+            split += n
+            whole += int(np.prod(lf.param.shape)) * lf.w.element_size() * (1 + len(lf.state))
+    for tag in ("e", "s", "h"):
+        total += sum(t.numel() * t.element_size() for zb in tr._zbuckets[tag]
+                     for t in zb["state"])
+    return total, split, whole
+
+
+def phase_pp_tp_train(torch, params, batch, pp_train):
+    """Tensor parallelism and ZeRO in the stages on the main path, world-1
+    NCCL {pp: 1, tp: 1, dp: 1} (the caller holds the group): BERT-base at
+    T=1024, batch 8 in M = 4, Adam lr 1e-4, f32 with TF32 off, through
+    ``PipelineTrainer(tp_mode="partitioned", zero_update=True)``: the cells,
+    embed and head as ``parallel.megatron``'s programs, the update over ZeRO
+    buckets. Its first PP_TP_STEPS losses equal phase_pp_train's (the Gluon
+    blocks' 1F1B step, same weights and batch) to TOL_PP_LOSS; each step
+    launches K1-K3 48 times at (24, 1024, 1024, 64) and K5 once a weight
+    decay. Then PP_TP_TIMED timed steps (p50, p90, tokens/s), one step traced
+    (``_api_launches``: host launches, device busy, idle = 1 - busy / p50),
+    peak memory and the counted collectives beside the reference's
+    estimates."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tokens, labels = batch
+    B, T = tokens.shape
+    n_layers = 12
+    label = "pp-tp-train"
+    t0 = time.perf_counter()
+    mesh = mx.parallel.make_mesh({"pp": 1, "tp": 1, "dp": 1}, devices=[mx.gpu(0)])
+    x = mx.nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
+    y = mx.nd.array(labels, ctx=mx.gpu(0), dtype="int32")
+    net = _bert_base_net(mx, params, mx.gpu(0))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    tr = _pp_tp_trainer(mx, net, mesh, PP_M, dp_axis="dp", zero_update=True)
+    ready_s = time.perf_counter() - t0
+    counters = _elastic_counters()
+    per_step = {"flash_attention_fwd": n_layers * PP_M, "flash_attention_bwd_dq":
+                n_layers * PP_M, "flash_attention_bwd_dkv": n_layers * PP_M,
+                "fused_adam_update": len(tr._groups)}
+    buckets = {t: len(getattr(tr, f"_zplan_{t}")) for t in ("e", "s", "h")}
+    log(f"[{label}] bert_base(max_length={T}), batch {B} x T {T} in M={PP_M}, {mesh}, "
+        f"tp_mode='partitioned', zero_update=True: ZeRO buckets {buckets}, "
+        f"{len(tr._groups)} update group(s); ready in {ready_s:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters(counters)
+    steps = _dp_steps(torch, label, tr, x, y, PP_TP_STEPS, per_step, (B * T, "tokens_per_s"),
+                      counters)
+    ref = [st["loss"] for st in pp_train["steps"][:PP_TP_STEPS]]
+    rel = max(abs(a["loss"] - b) / abs(b) for a, b in zip(steps, ref))
+    log(f"[{label}] {PP_TP_STEPS} losses against phase_pp_train's (the Gluon blocks' 1F1B "
+        f"step) {[round(v, 6) for v in ref]}: max rel {rel:.2e} (tol {TOL_PP_LOSS:.0e}) "
+        f"{'ok' if rel <= TOL_PP_LOSS else 'FAIL'}")
+    if rel > TOL_PP_LOSS:
+        raise AssertionError(f"{label}: the partitioned step disagrees with the 1F1B step")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"{label}: the loss did not fall")
+    ms = []
+    for _ in range(PP_TP_TIMED):
+        t_step = time.perf_counter()
+        tr.step(x, y)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t_step) * 1e3)
+    n_steps = PP_TP_STEPS + PP_TP_TIMED
+    launches = {k: c.launches for k, c in counters.items()}
+    by_shape = {k: dict(c.launches_by_shape) for k, c in _flash_counters().items()}
+    heads, units = tr._cplan.heads, tr._cplan.units
+    want_shape = {f"{B // PP_M * heads}x{T}x{T}x{units // heads}": n_steps * n_layers * PP_M}
+    ok = launches == {k: v * n_steps for k, v in per_step.items()} and \
+        all(v == want_shape for v in by_shape.values())
+    peak = torch.cuda.max_memory_allocated() - base
+    trace = _api_launches(torch, lambda: tr.step(x, y))
+    pct = _pct(ms)
+    idle = 1.0 - trace["device_busy_ms"] / pct["p50"]
+    comm, estimate = dict(tr.last_stats["comm"]), tr.comm_estimate((B, T))
+    held = _held_bytes(tr)
+    log(f"[{label}] step p50 {pct['p50']:.2f} ms, p90 {pct['p90']:.2f} ms over "
+        f"{PP_TP_TIMED}, {B * T / pct['p50'] * 1e3:.0f} tokens/s; traced step: device busy "
+        f"{trace['device_busy_ms']:.2f} ms, idle {100 * idle:.2f}% of the p50, "
+        f"{trace['host_launches']} host launches; peak {peak / 2**30:.3f} GiB above the "
+        f"phase's start; weights and optimizer state held {held[0] / 2**30:.3f} GiB")
+    log(f"[{label}] kernel launches over {n_steps} steps {launches} ({per_step} a step), "
+        f"K1-K3 by shape {by_shape} (want {want_shape}) {'ok' if ok else 'FAIL'}; "
+        f"collectives counted in a step {comm} (world 1: every group of one rank is "
+        f"skipped), the reference's estimates {estimate}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel launches {launches}, by shape {by_shape}")
+    out = {"steps": steps, "loss_rel_pp": rel, "ms": ms, "pct": pct,
+           "tokens_per_s": B * T / pct["p50"] * 1e3, "trace": trace, "idle_share": idle,
+           "launches": launches, "per_step": per_step, "launches_by_shape": by_shape,
+           "peak_bytes": peak, "held_bytes": held[0], "comm": comm, "estimate": estimate,
+           "buckets": buckets, "ready_s": ready_s, "seconds": time.perf_counter() - t0}
+    del tr, net
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_pp_tp(workdir, device, steps, cfg, cfg4):
+    """One of 4 ranks of phase_pp_tp_ranks (see there): each configuration's
+    losses, counted collectives, kernel launches by shape, held bytes and peak
+    memory; rank 0 writes each one's weights after ``sync()``."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util, elastic
+    from mxnet_tpu_torch.models import BertModel
+    ctx = _dist_util.rank_context(device)
+    gpu = ctx.device_type == "gpu"
+    if gpu:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    params = dict(np.load(os.path.join(workdir, "weights.npz")))
+    params4 = dict(np.load(os.path.join(workdir, "weights4.npz")))
+    data = np.load(os.path.join(workdir, "data.npz"))
+    x, y = (mx.nd.array(data[k], ctx=ctx, dtype="int32") for k in ("x", "y"))
+    counters = _elastic_counters()
+    rank = torch.distributed.get_rank()
+    out = {"rank": rank}
+    two = {"rep": 2, "pp": 1, "tp": 2}
+
+    def run(name, axes, weights=params, c=cfg, dropout=0.0, megatron=False, n=steps,
+            snapshot=None, **kw):
+        net = _bert_base_net(mx, weights, ctx, dict(c, dropout=dropout))
+        if megatron:
+            mx.parallel.shard_params_megatron(net, axis="tp")
+        mx.random.seed(7)
+        if gpu:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        tr = _pp_tp_trainer(mx, net, mx.parallel.make_mesh(axes, devices=[ctx]), PP_TP_M, **kw)
+        _zero_counters(counters)
+        t0 = time.perf_counter()
+        losses = []
+        for i in range(n):
+            losses.append(float(tr.step(x, y)))
+            if snapshot is not None and i + 1 == snapshot:
+                elastic.save_trainer(elastic.SnapshotManager(os.path.join(workdir, name)), tr,
+                                     wait=True)
+        res = {"losses": losses, "s": time.perf_counter() - t0, "comm": tr.last_stats["comm"],
+               "launches": {k: c.launches for k, c in counters.items()},
+               "by_shape": {k: dict(c.launches_by_shape) for k, c in
+                            _flash_counters().items()},
+               "held": _held_bytes(tr),
+               "peak": torch.cuda.max_memory_allocated() - base if gpu else 0}
+        tr.sync()
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"{name}.npz"), **_host_weights(net))
+        del tr, net
+        return res
+    out["part"] = run("part", two)
+    out["sharded"] = run("sharded", two, megatron=True, tp_mode="sharded")
+    out["drop"] = run("drop", two, dropout=0.1)
+    out["drop_sp"] = run("drop_sp", two, dropout=0.1, sequence_parallel=True)
+    zero = {"pp": 1, "tp": 2, "dp": 2}
+    out["zero"] = run("zero", zero, dp_axis="dp", zero_update=True)
+    out["zero_bf16"] = run("zero_bf16", zero, dp_axis="dp", zero_update=True,
+                           comm_dtype="bfloat16")
+    out["tp2"] = run("tp2", two, weights=params4, c=cfg4, n=4, snapshot=2)
+    mx.random.seed(9)
+    fresh = BertModel(**cfg4)
+    fresh.initialize(ctx=ctx)
+    tr4 = _pp_tp_trainer(mx, fresh, mx.parallel.make_mesh({"pp": 1, "tp": 4}, devices=[ctx]),
+                         PP_TP_M)
+    t0 = time.perf_counter()
+    with elastic.SnapshotReader(os.path.join(workdir, "tp2"), 2) as rd:
+        elastic.state.install(tr4, rd.manifest["meta"], rd, rd.names - {"rng"})
+    out["tp4"] = {"install_s": time.perf_counter() - t0,
+                  "losses": [float(tr4.step(x, y)) for _ in range(2)]}
+    return out
+
+
+def phase_pp_tp_ranks(torch, device="gpu", cfg=None, timeout=900):
+    """Tensor parallelism and ZeRO in the stages as 4 gloo ranks sharing the
+    card (correctness and memory, not time): BERT-base widths with
+    PP_TP_LAYERS layers (or ``cfg``), T=1024, batch PP_TP_B in M = PP_TP_M,
+    Adam 1e-4, PP_TP_RANK_STEPS steps, against the same trainer partitioned
+    at tp 1 on a mesh of one device in this process: {tp: 2} partitioned
+    (K1-K3 on 6 heads a rank) and weight-sharded (``shard_params_megatron``),
+    losses to TOL_PP_LOSS and weights after ``sync()`` to TOL_PP_W; {tp: 2}
+    partitioned with sequence parallelism against none, dropout 0.1: the
+    first loss bitwise, then the f32 tolerances; {tp: 2, dp: 2} partitioned
+    with ZeRO against the tp-1 run on the same global batch, native (the f32
+    tolerances) and bf16 wire (TOL_PP_TP_WIRE). On each tp 2 rank: the
+    weights and optimizer state it keeps for the tp-split leaves are half of
+    theirs whole; partitioned gathers no weight and issues M (4L + 2)
+    activation all-reduces a step, weight-sharded gathers. A tp 2 snapshot
+    (vocab PP_TP_VOCAB4, which splits 4 ways) resumed on {tp: 4} continues the
+    tp 2 trajectory to TOL_PP_TP_RESUME."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import seeded_params
+    from mxnet_tpu_torch.models import BertModel
+    label = "pp-tp-ranks"
+    cfg = dict(cfg or dict(num_layers=PP_TP_LAYERS, max_length=PP_T))
+    cfg4 = dict(cfg, vocab_size=PP_TP_VOCAB4)
+    L = cfg["num_layers"]
+    T = cfg["max_length"]
+    heads = cfg.get("num_heads", 12)
+    D = cfg.get("units", 768) // heads
+    vocab = min(cfg.get("vocab_size", 30522), PP_TP_VOCAB4)
+    n = 4
+    work = os.path.join(ROOT, "build", "pp_tp_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    params = seeded_params(BertModel(**cfg), seed=45)
+    params4 = seeded_params(BertModel(**cfg4), seed=46)
+    rs = np.random.RandomState(47)
+    data = {k: rs.randint(0, vocab, size=(PP_TP_B, T)).astype(np.int32)
+            for k in ("x", "y")}
+    np.savez(os.path.join(work, "weights.npz"), **params)
+    np.savez(os.path.join(work, "weights4.npz"), **params4)
+    np.savez(os.path.join(work, "data.npz"), **data)
+    ctx = mx.gpu(0) if device == "gpu" else mx.cpu()
+    gpu = device == "gpu"
+    if gpu:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    net = _bert_base_net(mx, params, ctx, cfg)
+    tr = _pp_tp_trainer(mx, net, mx.parallel.Mesh([ctx], ("pp", "tp"), (1, 1)), PP_TP_M)
+    x, y = (mx.nd.array(data[k], ctx=ctx, dtype="int32") for k in ("x", "y"))
+    ref = [float(tr.step(x, y)) for _ in range(PP_TP_RANK_STEPS)]
+    held1 = _held_bytes(tr)
+    peak1 = torch.cuda.max_memory_allocated() - base if gpu else 0
+    tr.sync()
+    ref_w = _host_weights(net)
+    del tr, net
+    if gpu:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _dist_util.launch_local(
+        "chip_smoke:rank_pp_tp", n, {"workdir": work, "device": device,
+                                     "steps": PP_TP_RANK_STEPS, "cfg": cfg, "cfg4": cfg4},
+        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+    seconds = time.perf_counter() - t0
+    got = {k: dict(np.load(os.path.join(work, f"{k}.npz")))
+           for k in ("part", "sharded", "drop", "drop_sp", "zero", "zero_bf16")}
+    shutil.rmtree(work, ignore_errors=True)
+
+    def close(name, want_losses, want_w, tol):
+        rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r[name]["losses"],
+                                                                      want_losses))
+        w_abs = max(float(np.abs(got[name][k] - w).max()) for k, w in want_w.items())
+        ok = rel <= tol[0] and w_abs <= tol[1]
+        log(f"[{label}] {name}: losses {[round(v, 6) for v in ranks[0][name]['losses']]} "
+            f"max rel {rel:.2e} (tol {tol[0]:.0e}), weights max|d| {w_abs:.2e} (tol "
+            f"{tol[1]:.0e}) {'ok' if ok else 'FAIL'}")
+        return ok, rel, w_abs
+    f32 = (TOL_PP_LOSS, TOL_PP_W)
+    checks = {name: close(name, ref, ref_w, f32) for name in ("part", "sharded", "zero")}
+    checks["zero_bf16"] = close("zero_bf16", ref, ref_w, TOL_PP_TP_WIRE["bfloat16"])
+    drop = [r["drop"]["losses"] for r in ranks]
+    checks["drop_sp"] = close("drop_sp", drop[0], got["drop"], f32)
+    first_bitwise = all(r["drop"]["losses"][0] == r["drop_sp"]["losses"][0] for r in ranks)
+    dropped = drop[0][0] != ranks[0]["part"]["losses"][0]
+    log(f"[{label}] dropout 0.1, sp against none: first loss "
+        f"{'bitwise equal' if first_bitwise else 'DIFFERS'} on every rank; dropout "
+        f"{'changes' if dropped else 'DOES NOT change'} the loss")
+    tp4 = max(abs(a - b) / abs(b) for r in ranks
+              for a, b in zip(r["tp4"]["losses"], r["tp2"]["losses"][2:]))
+    log(f"[{label}] tp 2 snapshot (vocab {PP_TP_VOCAB4}) resumed on {{tp: 4}}: steps 3-4 "
+        f"{[round(v, 6) for v in ranks[0]['tp4']['losses']]} against tp 2's "
+        f"{[round(v, 6) for v in ranks[0]['tp2']['losses'][2:]]}, max rel {tp4:.2e} (tol "
+        f"{TOL_PP_TP_RESUME:.0e}); install {ranks[0]['tp4']['install_s']:.2f} s")
+    M_act = PP_TP_M * (4 * L + 2)
+    mem_ok = comm_ok = launch_ok = True
+    for r in sorted(ranks, key=lambda r: r["rank"]):
+        for name in ("part", "sharded"):
+            held, split, whole = r[name]["held"]
+            ratio = split / whole
+            mem_ok &= ratio == 0.5
+            comm = r[name]["comm"]
+            gathers = comm.get("tp_weight_all_gather@tp", {"calls": 0})["calls"]
+            acts = comm.get("act_all_reduce@tp", {"calls": 0})["calls"]
+            comm_ok &= (gathers == 0 and acts == M_act) if name == "part" else \
+                (gathers > 0 and acts == 0)
+            log(f"[{label}] rank {r['rank']} {name}: held {held / 2**20:.1f} MiB (tp 1: "
+                f"{held1[0] / 2**20:.1f}), its tp-split leaves {split / 2**20:.1f} of "
+                f"{whole / 2**20:.1f} MiB whole ({ratio:.3f}); peak {r[name]['peak'] / 2**30:.3f}"
+                f" GiB (tp 1: {peak1 / 2**30:.3f}); a step's weight all-gathers {gathers}, "
+                f"activation all-reduces {acts} (M(4L+2) = {M_act}); {r[name]['s']:.1f} s")
+        want = {f"{PP_TP_B // PP_TP_M * heads // 2}x{T}x{T}x{D}":
+                PP_TP_RANK_STEPS * L * PP_TP_M}
+        launch_ok &= not gpu or all(v == want for v in r["part"]["by_shape"].values())
+    log(f"[{label}] K1-K3 on {heads // 2} heads a rank: {ranks[0]['part']['by_shape']} "
+        f"{'ok' if launch_ok else 'FAIL'}; {n} ranks in {seconds:.1f} s")
+    ok = all(c[0] for c in checks.values()) and first_bitwise and dropped and \
+        tp4 <= TOL_PP_TP_RESUME and mem_ok and comm_ok and launch_ok
+    if not ok:
+        raise AssertionError(f"{label}: a check failed (see above)")
+    return {"seconds": seconds, "ref_losses": ref, "held_tp1": held1, "peak_tp1": peak1,
+            "checks": {k: {"loss_rel": c[1], "weight_abs": c[2]} for k, c in checks.items()},
+            "tp4_rel": tp4, "act_all_reduces_per_rank_step": M_act,
+            "ranks": ranks,
+            "launches": {k: sum(r[c]["launches"][k] for r in ranks
+                                for c in ("part", "sharded", "drop", "drop_sp", "zero",
+                                          "zero_bf16", "tp2"))
+                         for k in ranks[0]["part"]["launches"]}}
+
+
 # --- CUDA graphs: the compiled step and the CachedOp (mxnet_tpu_torch.engine) -----
 
 GRAPH_TIMED = 20            # timed requests or steps a mode: p50 and p90 exist
@@ -5267,9 +5626,11 @@ def main() -> int:
     with _world1_nccl(torch):
         pp_train, pp_w3 = phase_pp_train(torch, bert_params, bert_batch, dp_bert)
         pp_check = phase_pp_check(torch)
+        pp_tp_train = phase_pp_tp_train(torch, bert_params, bert_batch, pp_train)
     pp_ranks = phase_pp_ranks(torch, bert_params, bert_batch, pp_train, pp_w3)
     del pp_w3
     pp_dryrun = phase_pp_dryrun(torch)
+    pp_tp_ranks = phase_pp_tp_ranks(torch)
     torch.cuda.empty_cache()
     lc_kernels = phase_lc_kernels(torch)
     lc_weights = _lc_weights()
@@ -5315,6 +5676,8 @@ def main() -> int:
                 "pp_train_bfloat16": pp_train["bfloat16"]["launches"].get(name, 0),
                 "pp_ranks": pp_ranks["launches"].get(name, 0),
                 "pp_dryrun": pp_dryrun["launches"].get(name, 0),
+                "pp_tp_train": pp_tp_train["launches"].get(name, 0),
+                "pp_tp_ranks": pp_tp_ranks["launches"].get(name, 0),
                 **{label: phase["launches"].get(name, 0) for label, phase in
                    (("elastic_bert", elastic_bert), ("elastic_kill", elastic_kill),
                     ("elastic_lc", elastic_lc), ("elastic_zero", elastic_zero))},
@@ -5345,7 +5708,8 @@ def main() -> int:
 
     def timed_rows(kind, prefix):
         """K1-K3 at one of TIMED_SHAPES' extra shapes (``prefix``: ``pp``, the
-        pipeline's microbatch, or ``d256``), f32 and bf16."""
+        pipeline's microbatch, ``tp``, a tp 2 rank's share of it, or ``d256``),
+        f32 and bf16."""
         out = {}
         for dt in ("float32", "bfloat16"):
             if kind == "fwd":
@@ -5378,6 +5742,7 @@ def main() -> int:
           "launches_per_rank_step": {"shape": dist_ranks["shape"],
                                      "n": dist_ranks["cfg"]["num_layers"]},
           "long_context": lc_entry("fwd"), "pipeline_microbatch": timed_rows("fwd", "pp"),
+          "pipeline_tp_rank": timed_rows("fwd", "tp"),
           "head_dim_256": timed_rows("fwd", "d256")}),
         *[(f"flash_attention_bwd_{kind}", "flash_attention_bwd.cu",
            f"flash_attention.py:{line}",
@@ -5397,6 +5762,7 @@ def main() -> int:
             "hmma": {n: r["HMMA"] for n, r in kernel_bwd["resources"].items()
                      if n.startswith(f"flash_bwd_{kind}_kernel<")},
             "long_context": lc_entry(kind), "pipeline_microbatch": timed_rows(kind, "pp"),
+            "pipeline_tp_rank": timed_rows(kind, "tp"),
             "head_dim_256": timed_rows(kind, "d256")})
           for kind, line in (("dq", 181), ("dkv", 229))],
         *[(name, "fused_optimizer.cu", f"fused_optimizer.py:{line}",
@@ -5422,7 +5788,11 @@ def main() -> int:
             **({"pipeline": {"per_step": pp_train["per_step"]["fused_adam_update"],
                              "per_rank_step": pp_ranks["per_rank_step"]["fused_adam_update"],
                              "update": "the embed, the stage's own layers and the head, "
-                                       "one weight decay"}}
+                                       "one weight decay"},
+                "pipeline_tp_zero": {
+                    "per_step": pp_tp_train["per_step"]["fused_adam_update"],
+                    "update": "the pieces of the rank's shard of every ZeRO bucket (embed, "
+                              "stage, head), one weight decay"}}
                if rule == "fused_adam_update" else {}),
             **({"moe": {"per_step": moe_train["per_step"]["fused_adam_update"],
                         "update": "the dense ZeRO shard segments and the expert tensors, "
@@ -5490,7 +5860,8 @@ def main() -> int:
                    "elastic_lc": elastic_lc, "elastic_zero": elastic_zero,
                    "moe_train": moe_train, "moe_check": moe_check, "moe_serve": moe_serve,
                    "moe_ranks": moe_ranks, "pp_train": pp_train, "pp_check": pp_check,
-                   "pp_ranks": pp_ranks, "pp_dryrun": pp_dryrun,
+                   "pp_ranks": pp_ranks, "pp_dryrun": pp_dryrun, "pp_tp_train": pp_tp_train,
+                   "pp_tp_ranks": pp_tp_ranks,
                    "graph_serve": graph_serve, "graph_train": graph_train,
                    "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0}, f, indent=1, default=float)

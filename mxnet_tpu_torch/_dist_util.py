@@ -195,6 +195,19 @@ def plan_buckets(sizes: Sequence[Tuple[int, int]], bucket_bytes: int) -> List[Li
 p2p_stats = {"sends": 0, "bytes": 0}
 engine.register_counter(sys.modules[__name__], "p2p_stats")
 
+# (op, axis) -> [calls, payload bytes] of the collectives the tensor-parallel
+# and pipeline paths issue (``count_comm``); ``PipelineTrainer.last_stats``
+# reads the difference across a step
+comm_stats: Dict[Tuple[str, str], List[int]] = {}
+
+
+def count_comm(op: str, axis: str, nbytes: int, calls: int = 1) -> None:
+    """Add ``calls`` collectives ``op`` over ``axis`` moving ``nbytes`` of
+    payload (the tensor's bytes on this rank) to ``comm_stats``."""
+    c = comm_stats.setdefault((op, axis), [0, 0])
+    c[0] += calls
+    c[1] += int(nbytes)
+
 
 def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],
              recvs: Sequence[Tuple[torch.Tensor, int, int]], group) -> None:
@@ -350,4 +363,4 @@ def _worker_main(argv: Sequence[str]) -> int:
 
 __all__ = ["choose_backend", "rank_context", "init_process_group",
            "destroy_process_group", "launch_local", "plan_buckets", "exchange", "ring_shift",
-           "p2p_stats", "env_rank", "env_world_size", "env_local_rank", "env_init_method"]
+           "p2p_stats", "comm_stats", "count_comm", "env_rank", "env_world_size", "env_local_rank", "env_init_method"]

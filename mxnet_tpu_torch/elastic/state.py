@@ -3,7 +3,7 @@
 Counterpart of ``mxnet_tpu/elastic/state.py``: the ``dp`` kind
 (``DataParallelTrainer``, ``recipes.long_context.LongContextTrainer`` and
 ``recipes.moe.MoETrainer``) and the ``pp`` kind (``parallel.PipelineTrainer``,
-without ZeRO).
+with its tensor-parallel and ZeRO layouts).
 ``capture(trainer)`` gives ``{"leaves": {name: value}, "meta": {...}}``, the
 schema ``SnapshotManager`` writes; ``install(trainer, meta, fetch, names)``
 is its inverse, ``fetch(name)`` giving a leaf's global host array (a
@@ -22,11 +22,15 @@ process-wide counters and never match across restarts):
 
 and for the ``pp`` kind (the reference's ``_capture_pp``, :315-348):
 
-    param.e.{i}  param.h.{i}      embed / head leaf i (replicated)
+    param.e.{i}  param.h.{i}      embed / head leaf i (replicated over pp)
     param.s.{i}                   cell leaf i of every layer, a global
                                   (n_layers, ...) stack in ``stack_order``
     opt.{e,s,h}.{i}.{k}           state lane k of each of those (none for a
                                   frozen leaf), stage lanes stacked the same way
+    opt.z{e,s,h}.{j}.0            under ZeRO: bucket j's weight decay (padded,)
+    opt.z{e,s,h}.{j}.{k}, k >= 1  its state lanes: (padded,), with a leading
+                                  stage dim for the stage's buckets and a tp
+                                  dim under partitioned tp (:665-791)
     rng
 
 A device value is a ``Chunk``: this rank's part of the global leaf, its
@@ -62,17 +66,26 @@ rows like its parameter's, so a snapshot restores across ep degrees.
 
 A pipeline rank owns no stacked storage: it writes its stage's rows
 [s L, (s + 1) L) of each stage leaf as a ``Chunk`` stacked from its layers'
-Parameters (owned at dp coordinate 0), and the replicated embed and head
-are written by global rank 0. Install (``_install_pp``, the reference's
-:460-557) reads each rank's rows, permuted by ``_stack_perm`` when the saved
-``stack_order`` differs, copies them into its layers, and ``sync()`` fills
-the other stages' layers; so a snapshot restores onto another (pp, dp)
-layout. ZeRO-over-pp state (the reference's ``opt.z{e,s,h}`` lanes) is not
-ported (ROADMAP A2b): installing it raises. ``meta`` adds the reference's
-``n_e``, ``n_s``, ``n_h``, ``n_layers``, ``n_stages``, ``virtual_stages``,
-``stack_order``, ``zero``, ``dp_degree``, ``tp_mode``, ``tp_degree`` and
-``sequence_parallel``. ``LeafFetch`` serves a ``capture()``'s own leaves
-to ``install`` (``PipelineTrainer.load_state_dict``).
+leaves, and the embed and head once for the pp axis; a leaf split over tp
+(weight-sharded, or a partitioned view shard) is this rank's part of its
+tp dim, written at coordinate 0 of the other axes. Under partitioned tp the
+globals are the leaves' view shapes (the fused qkv as (3, C, C)), which do
+not depend on the tp degree: a tp 2 snapshot installs onto tp 4 (the
+reference's :344-352, :487-541). Install (``_install_pp``) reads each
+rank's region (rows permuted by ``_stack_perm`` when the saved
+``stack_order`` differs) into its leaves and ``sync()`` fills the
+Parameters; so a snapshot restores onto another (pp, dp, tp) layout.
+Installing a partitioned snapshot into a trainer of the other tp mode
+raises, naming ``tp_mode``. ZeRO lanes are re-canonicalised onto the
+trainer's plans (``_restore_zero_carry``, stacked lanes row by row: across
+dp degrees), then each rank copies its stage's, tp rank's and dp shard's
+part; across pp or tp degrees they raise, as the reference's. ``meta`` adds
+the reference's ``n_e``, ``n_s``, ``n_h``, ``n_layers``, ``n_stages``,
+``virtual_stages``, ``stack_order``, ``zero``, ``dp_degree``, ``tp_mode``,
+``tp_degree``, ``sequence_parallel`` and ``zero_plan_{e,s,h}``, and the
+port's ``dropout_seed`` (the partitioned programs' dropout keys).
+``LeafFetch`` serves a ``capture()``'s own leaves to ``install``
+(``PipelineTrainer.load_state_dict``).
 
 Install copies into the live tensors in place, under ``torch.no_grad()``,
 and never rebinds them: the ZeRO segments are persistent views of the
@@ -241,10 +254,15 @@ def _restore_zero_carry(prefix_fmt, old_specs, new_specs, fetch, names,
                          if new_spec.indices[0] in s.indices), 0)
         lanes = []
         for k in range(len(old_lanes[0]) if old_lanes else 0):
-            if old_lanes[j_scalar][k].ndim == 0:
-                lanes.append(old_lanes[j_scalar][k])
-            else:
-                lanes.append(_revector(old_specs, [old[k] for old in old_lanes], new_spec))
+            lane = old_lanes[j_scalar][k]
+            if lane.ndim == 0:
+                lanes.append(lane)
+                continue
+            # a stacked lane (a pipeline's stage or tp rows) re-packs row by row
+            lead = lane.shape[:-1]
+            rows = [_revector(old_specs, [old[k][idx] for old in old_lanes], new_spec)
+                    for idx in _np.ndindex(*lead)]
+            lanes.append(_np.stack(rows).reshape(lead + (new_spec.padded_size,)))
         out.append(lanes)
     return out
 
@@ -373,49 +391,98 @@ def _capture_dp(trainer) -> Dict[str, Any]:
     return {"leaves": leaves, "meta": meta}
 
 
-def _replicated(tensor, mesh) -> Chunk:
-    """A leaf every rank holds whole: written by global rank 0."""
-    return Chunk(tensor.detach(), tensor.shape, [(0, int(d)) for d in tensor.shape],
-                 mesh is None or not mesh.distributed or mesh.rank == 0)
+def _owner(trainer, split) -> bool:
+    """Whether this rank writes a pp leaf split over the axes ``split``: it is
+    at coordinate 0 of every other axis (the reference's ``replica_id``)."""
+    mesh = trainer.mesh
+    return not mesh.distributed or all(c == 0 for a, c in mesh.coords.items()
+                                       if a not in split)
 
 
-def _stage_chunk(tensors, trainer) -> Chunk:
-    """This stage's rows of a global (n_layers, ...) stage leaf: its layers'
-    tensors stacked, owned at dp coordinate 0 (every axis but pp at 0)."""
-    mesh, lo = trainer.mesh, trainer._own[0]
+def _tp_range(trainer, size) -> tuple:
+    step = int(size) // trainer.n_tp
+    return (trainer._tp_idx * step, (trainer._tp_idx + 1) * step)
+
+
+def _leaf_chunk(tensor, trainer, view, dim) -> Chunk:
+    """An embed or head leaf of global shape ``view``: this rank's tp part
+    of ``dim`` (None: the whole leaf)."""
+    index = [(0, int(d)) for d in view]
+    if dim is not None:
+        index[dim] = _tp_range(trainer, view[dim])
+    return Chunk(tensor.detach(), view, index,
+                 _owner(trainer, {trainer.tp_axis} if dim is not None else set()))
+
+
+def _stage_chunk(tensors, trainer, view, dim) -> Chunk:
+    """This stage's rows of a global (n_layers, *view) stage leaf: its
+    layers' tensors (their tp parts of ``dim``) stacked."""
+    lo = trainer._own[0]
     data = torch.stack([t.detach() for t in tensors])
-    shape = (trainer.n_layers,) + tuple(data.shape[1:])
-    owner = not mesh.distributed or all(
-        c == 0 for a, c in mesh.coords.items() if a != trainer.pp_axis)
-    return Chunk(data, shape, [(lo, lo + data.shape[0])] + [(0, int(d)) for d in shape[1:]],
-                 owner)
+    index = [(lo, lo + data.shape[0])] + [(0, int(d)) for d in view]
+    split = {trainer.pp_axis}
+    if dim is not None:
+        index[dim + 1] = _tp_range(trainer, view[dim])
+        split.add(trainer.tp_axis)
+    return Chunk(data, (trainer.n_layers,) + tuple(view), index, _owner(trainer, split))
+
+
+def _zero_lane_chunk(tensor, trainer, spec, stacked) -> Chunk:
+    """This rank's shard of a ZeRO state lane: global (padded,), with a
+    leading stage dim for the stage's buckets and a tp dim under partitioned
+    tp (the reference's carries, :665-791), split over dp."""
+    lead, index, split = [], [], {trainer.dp_axis}
+    if stacked:
+        lead.append(trainer.n_stages)
+        index.append((trainer.stage, trainer.stage + 1))
+        split.add(trainer.pp_axis)
+    if trainer._partitioned:
+        lead.append(trainer.n_tp)
+        index.append((trainer._tp_idx, trainer._tp_idx + 1))
+        split.add(trainer.tp_axis)
+    pos = trainer.mesh.axis_index(trainer.dp_axis) if trainer.mesh.distributed else 0
+    S = spec.shard_size
+    index.append((pos * S, (pos + 1) * S))
+    data = tensor.detach().reshape((1,) * len(lead) + (S,))
+    return Chunk(data, tuple(lead) + (spec.padded_size,), index, _owner(trainer, split))
 
 
 def _capture_pp(trainer) -> Dict[str, Any]:
-    mesh = trainer.mesh
+    from ..parallel import zero as _zero
     leaves: Dict[str, Any] = {}
-    for tag, plist, states in (("e", trainer._embed_plist, trainer._opt_e),
-                               ("h", trainer._head_plist, trainer._opt_h)):
-        for i, p in enumerate(plist):
-            leaves[f"param.{tag}.{i}"] = _replicated(p._param, mesh)
-        for i, st in enumerate(states):
-            for k, lane in enumerate(st):
-                leaves[f"opt.{tag}.{i}.{k}"] = _replicated(lane, mesh)
-    for i in range(len(trainer._cell_plists[0])):
-        leaves[f"param.s.{i}"] = _stage_chunk(
-            [trainer._cell_plists[m][i]._param for m in trainer._own], trainer)
-        per_layer = trainer._opt_s[i]
-        for k in range(len(per_layer[0])):
-            leaves[f"opt.s.{i}.{k}"] = _stage_chunk([st[k] for st in per_layer], trainer)
-    leaves["rng"] = _rng.get_state_raw()
+    for tag, group, views in (("e", trainer._leaves_e, trainer._view_e),
+                              ("h", trainer._leaves_h, trainer._view_h)):
+        for i, lf in enumerate(group):
+            leaves[f"param.{tag}.{i}"] = _leaf_chunk(lf.w, trainer, views[i], lf.dim)
+            if not trainer._zero:
+                for k, lane in enumerate(lf.state):
+                    leaves[f"opt.{tag}.{i}.{k}"] = _leaf_chunk(lane, trainer, views[i], lf.dim)
+    for i, view in enumerate(trainer._view_s):
+        row = [r[i] for r in trainer._leaves_s]
+        leaves[f"param.s.{i}"] = _stage_chunk([lf.w for lf in row], trainer, view, row[0].dim)
+        if not trainer._zero:
+            for k in range(len(row[0].state)):
+                leaves[f"opt.s.{i}.{k}"] = _stage_chunk([lf.state[k] for lf in row], trainer,
+                                                        view, row[0].dim)
     meta = _common_meta(trainer)
+    if trainer._zero:
+        for tag, wds in (("e", trainer._wd_e), ("s", trainer._wd_s), ("h", trainer._wd_h)):
+            for j, zb in enumerate(trainer._zbuckets[tag]):
+                leaves[f"opt.z{tag}.{j}.0"] = _zero.wd_vector(zb["spec"], wds)
+                for k, lane in enumerate(zb["state"]):
+                    leaves[f"opt.z{tag}.{j}.{k + 1}"] = _zero_lane_chunk(
+                        lane, trainer, zb["spec"], tag == "s")
+            meta[f"zero_plan_{tag}"] = [_bucket_dict(b)
+                                        for b in getattr(trainer, f"_zplan_{tag}")]
+    leaves["rng"] = _rng.get_state_raw()
     meta.update({"kind": "pp", "n_e": len(trainer._embed_plist),
                  "n_s": len(trainer._cell_plists[0]), "n_h": len(trainer._head_plist),
                  "n_layers": trainer.n_layers, "n_stages": trainer.n_stages,
                  "virtual_stages": trainer.virtual_stages,
-                 "stack_order": list(trainer._stack_order), "zero": False,
-                 "dp_degree": trainer.n_dp, "tp_mode": "sharded", "tp_degree": 1,
-                 "sequence_parallel": False})
+                 "stack_order": list(trainer._stack_order), "zero": trainer._zero,
+                 "dp_degree": trainer.n_dp, "tp_mode": trainer.tp_mode,
+                 "tp_degree": trainer.n_tp, "sequence_parallel": trainer.sequence_parallel,
+                 "dropout_seed": trainer._seed})
     return {"leaves": leaves, "meta": meta}
 
 
@@ -597,51 +664,105 @@ def _install_pp(trainer, meta, fetch, names):
                       ("n_h", len(trainer._head_plist)), ("n_layers", trainer.n_layers)):
         _check(int(meta.get(key, -1)) == int(have),
                f"snapshot {key}={meta.get(key)} != trainer {have}: architecture mismatch")
-    _check(not meta.get("zero"),
-           "cannot install the snapshot: ZeRO-over-pp optimizer state is not ported yet "
-           "(ROADMAP A2b: the pipeline's other compositions); save without zero_update")
-    _check(meta.get("tp_mode", "sharded") == "sharded",
-           f"snapshot was taken under tp_mode={meta.get('tp_mode')!r}: partitioned "
-           f"tensor parallelism in the stages is not ported yet (ROADMAP A2b)")
+    _check(bool(meta.get("zero")) == bool(trainer._zero),
+           "snapshot and trainer disagree on zero_update; construct the resuming trainer "
+           "with the same zero_update setting")
+    saved_mode = meta.get("tp_mode", "sharded")
+    _check(saved_mode == trainer.tp_mode,
+           f"snapshot was taken under tp_mode={saved_mode!r} but the resuming trainer uses "
+           f"tp_mode={trainer.tp_mode!r}; partitioned snapshots store blocked view-shaped "
+           f"leaves that only a partitioned trainer can install (and vice versa)")
     perm = _stack_perm(meta.get("stack_order") or list(range(trainer.n_layers)),
                        trainer._stack_order)
+    if trainer._zero:
+        same_pp = int(meta.get("n_stages", -1)) == trainer.n_stages and \
+            int(meta.get("virtual_stages", 1)) == trainer.virtual_stages
+        _check(same_pp and perm is None,
+               f"ZeRO-over-pp optimizer state cannot reshard across pipeline degrees (saved "
+               f"pp={meta.get('n_stages')}xv{meta.get('virtual_stages')}, trainer "
+               f"pp={trainer.n_stages}xv{trainer.virtual_stages}); resume on the saved "
+               f"pipeline layout, or save without zero_update")
+        _check(int(meta.get("tp_degree", 1)) == trainer.n_tp,
+               f"ZeRO optimizer state under partitioned tp is laid out per tp rank and cannot "
+               f"reshard across tp degrees (saved tp={meta.get('tp_degree', 1)}, trainer "
+               f"tp={trainer.n_tp}); resume on the saved tp degree, or save without "
+               f"zero_update")
     lo, hi = trainer._own[0], trainer._own[-1] + 1
+    groups = (("e", trainer._leaves_e, trainer._view_e), ("h", trainer._leaves_h,
+                                                          trainer._view_h))
     # every shape before any copy: a mismatch leaves the trainer as it was
-    for tag, plist in (("e", trainer._embed_plist), ("h", trainer._head_plist)):
-        for i, p in enumerate(plist):
+    for tag, group, views in groups:
+        for i, view in enumerate(views):
             saved = _leaf_shape(fetch, f"param.{tag}.{i}")
-            _check(saved == tuple(p.shape), f"snapshot leaf 'param.{tag}.{i}': saved shape "
-                                            f"{saved} != trainer shape {tuple(p.shape)}: "
-                                            f"architecture mismatch")
-    for i in range(n_s):
-        want = (trainer.n_layers,) + tuple(trainer._cell_plists[0][i].shape)
+            _check(saved == tuple(view), f"snapshot leaf 'param.{tag}.{i}': saved shape "
+                                         f"{saved} != trainer shape {tuple(view)}: "
+                                         f"architecture mismatch")
+    for i, view in enumerate(trainer._view_s):
+        want = (trainer.n_layers,) + tuple(view)
         saved = _leaf_shape(fetch, f"param.s.{i}")
         _check(saved == want, f"snapshot leaf 'param.s.{i}': saved shape {saved} != "
                               f"trainer shape {want}: architecture mismatch")
 
-    def rows(name):
-        """This stage's rows of a stage leaf, in the trainer's order."""
-        if perm is None:
-            shape = _leaf_shape(fetch, name)
-            return _fetch_region(fetch, name, [(lo, hi)] + [(0, d) for d in shape[1:]])
-        return _fetch_np(fetch, name)[perm][lo:hi]
+    def part(name, chunk):
+        """This rank's part of a leaf (a stage leaf's rows in the trainer's
+        order)."""
+        if perm is None or len(chunk.shape) < 1 or chunk.shape[0] != trainer.n_layers \
+                or not name.split(".")[1] == "s":
+            return _fetch_region(fetch, name, chunk.index)
+        return _fetch_np(fetch, name)[perm][tuple(slice(a, b) for a, b in chunk.index)]
 
-    for tag, plist, states in (("e", trainer._embed_plist, trainer._opt_e),
-                               ("h", trainer._head_plist, trainer._opt_h)):
-        for i, p in enumerate(plist):
-            _copy_into(p._param, _fetch_np(fetch, f"param.{tag}.{i}"), f"param.{tag}.{i}")
-        for i, st in enumerate(states):
-            for k, lane in enumerate(st):
-                _copy_into(lane, _fetch_np(fetch, f"opt.{tag}.{i}.{k}"), f"opt.{tag}.{i}.{k}")
-    for i in range(n_s):
-        host = rows(f"param.s.{i}")
-        for j, m in enumerate(trainer._own):
-            _copy_into(trainer._cell_plists[m][i]._param, host[j], f"param.s.{i}")
-        per_layer = trainer._opt_s[i]
-        for k in range(len(per_layer[0])):
-            host = rows(f"opt.s.{i}.{k}")
-            for j, st in enumerate(per_layer):
-                _copy_into(st[k], host[j], f"opt.s.{i}.{k}")
+    for tag, group, views in groups:
+        for i, lf in enumerate(group):
+            name = f"param.{tag}.{i}"
+            _copy_into(lf.w.detach(), part(name, _leaf_chunk(lf.w, trainer, views[i], lf.dim)),
+                       name)
+            if not trainer._zero:
+                for k, lane in enumerate(lf.state):
+                    name = f"opt.{tag}.{i}.{k}"
+                    _copy_into(lane, part(name, _leaf_chunk(lane, trainer, views[i], lf.dim)),
+                               name)
+    for i, view in enumerate(trainer._view_s):
+        row = [r[i] for r in trainer._leaves_s]
+        name = f"param.s.{i}"
+        host = part(name, _stage_chunk([lf.w for lf in row], trainer, view, row[0].dim))
+        for j, lf in enumerate(row):
+            _copy_into(lf.w.detach(), host[j], name)
+        if not trainer._zero:
+            for k in range(len(row[0].state)):
+                name = f"opt.s.{i}.{k}"
+                host = part(name, _stage_chunk([lf.state[k] for lf in row], trainer, view,
+                                               row[0].dim))
+                for j, lf in enumerate(row):
+                    _copy_into(lf.state[k], host[j], name)
+    if trainer._zero:
+        _install_pp_zero(trainer, meta, fetch, names)
+    if "dropout_seed" in meta:
+        trainer._seed = int(meta["dropout_seed"])
+
+
+def _install_pp_zero(trainer, meta, fetch, names):
+    """The ZeRO lanes of the three bucket groups, re-canonicalised onto the
+    trainer's plans (across dp degrees), this rank's stage, tp and dp shard
+    of each copied into its bucket state."""
+    from ..parallel import zero as _zero
+    for tag, wds in (("e", trainer._wd_e), ("s", trainer._wd_s), ("h", trainer._wd_h)):
+        new_specs = list(getattr(trainer, f"_zplan_{tag}"))
+        old_specs = [_bucket_from(d) for d in meta.get(f"zero_plan_{tag}", [])]
+        zbs = trainer._zbuckets[tag]
+        n_state = len(zbs[0]["state"]) if zbs else 0
+        lanes = _restore_zero_carry(f"opt.z{tag}.{{j}}", old_specs, new_specs, fetch, names,
+                                    n_lanes=1 + n_state)
+        for j, (zb, blanes) in enumerate(zip(zbs, lanes)):
+            want = _zero.wd_vector(zb["spec"], wds)
+            if not _np.array_equal(_np.asarray(blanes[0], _np.float32).reshape(-1), want):
+                raise MXNetError(f"snapshot bucket opt.z{tag}.{j}'s weight-decay lane differs "
+                                 f"from the trainer's: the resumed run would decay its "
+                                 f"weights differently; build the trainer with the saved wd "
+                                 f"and wd_mult")
+            for k, lane in enumerate(zb["state"]):
+                chunk = _zero_lane_chunk(lane, trainer, zb["spec"], tag == "s")
+                region = _np.asarray(blanes[1 + k])[tuple(slice(a, b) for a, b in chunk.index)]
+                _copy_into(lane, region.reshape(tuple(lane.shape)), f"opt.z{tag}.{j}.{k + 1}")
 
 
 class LeafFetch:

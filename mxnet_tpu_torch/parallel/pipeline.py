@@ -1,17 +1,17 @@
 """Pipeline parallelism: the 1F1B schedule and ``PipelineTrainer``.
 
 Counterpart of ``mxnet_tpu/parallel/pipeline.py``: ``pipeline_spec``,
-``schedule_1f1b`` (:125-247) and ``PipelineTrainer`` (:250-1348) for the
-composition ``dryrun_multichip`` runs (``__graft_entry__.py:160-179``):
-1F1B with ``virtual_stages=1`` over a ``pp`` mesh axis, with an optional
-``dp`` axis, in float32 or bfloat16 (float32 master weights), frozen lanes
+``schedule_1f1b`` (:125-247) and ``PipelineTrainer`` (:250-1348): 1F1B with
+``virtual_stages=1`` over a ``pp`` mesh axis, with optional ``dp`` and ``tp``
+axes, in float32 or bfloat16 (float32 master weights), frozen lanes
 (``grad_req='null'``), ``step``, ``drain``, ``sync``, ``num_update``,
 ``state_dict`` and ``load_state_dict`` (the ``pp`` snapshot kind of
 ``elastic/state.py``). ::
 
     embed, cells, head = net.pipeline_split()      # models/bert.py
     tr = PipelineTrainer(net, loss, "adam", {"learning_rate": 1e-4},
-                         mesh=make_mesh({"pp": 2, "dp": 2}), dp_axis="dp",
+                         mesh=make_mesh({"pp": 2, "tp": 2, "dp": 2}), dp_axis="dp",
+                         tp_axis="tp", tp_mode="partitioned", zero_update=True,
                          num_microbatch=4)
     loss = tr.step(x, y)        # a PendingScalar of the global batch's mean
 
@@ -33,8 +33,8 @@ its own stage of the same tick loop eagerly:
 - **The backward** of a microbatch is ``torch.autograd.grad`` of the head
   loss times 1 / (M dp) on the last stage, or of the stage output against
   the received cotangent elsewhere, with respect to the stage's trainable
-  parameters and its input; the parameters' gradients are added into their
-  buffers (microbatch sums of the 1 / (M dp)-scaled loss: the dp mean of the
+  leaves and its input; the leaves' gradients are added into their buffers
+  (microbatch sums of the 1 / (M dp)-scaled loss: the dp mean of the
   reference's sums over M, ``:930-935``), the input's goes to the previous
   stage.
 - **The wires.** After each tick, one ``_dist_util.exchange`` round posts
@@ -46,7 +46,7 @@ its own stage of the same tick loop eagerly:
   At pp = 1 nothing is exchanged. The stages learn the shape and dtype of
   what they receive from the embed run once in predict mode (cached per
   batch signature; the reference's ``eval_shape``, :397).
-- **The reductions** (reference :957-968): the embed's and the head's
+- **The reductions** (reference :957-993): the embed's and the head's
   gradients (nonzero on stage 0 and on the last stage only) are summed over
   pp and dp in one all-reduce of a flat buffer, the stage's own layers' over
   dp in another; the loss over pp and dp. A group of one rank is skipped.
@@ -60,26 +60,65 @@ its own stage of the same tick loop eagerly:
   Weight-decay indices follow the reference's convention (:551-556): embed
   leaves first, then the cell leaves (one index for a leaf of every layer),
   then the head, so a ``wd_mult`` set by index selects the same parameter in
-  both packages. The embed and head stay bitwise equal across pp ranks: their
-  reduced gradients and their Adam inputs are the same on every rank.
-  ``sync()`` all-gathers each stage's layers over pp so that every rank's
-  Parameters hold every weight, as the reference's single-controller
-  ``sync`` (:1301-1326) leaves them.
+  both packages. ``sync()`` all-gathers each stage's layers over pp so that
+  every rank's Parameters hold every weight, as the reference's
+  single-controller ``sync`` (:1301-1326) leaves them.
+
+The compositions (reference :271-294):
+
+- **``tp_axis`` with ``tp_mode="sharded"``** (weight-sharded): a leaf whose
+  ``Parameter.sharding`` splits a dim over ``tp`` is kept as this rank's
+  shard (its weights and optimizer state); once a step, outside autograd,
+  ``tensor_parallel.gather_tp`` all-gathers it into the Parameter, which the
+  Gluon blocks compute with (:854-858), and the update reads this rank's
+  slice of the full gradient, the same on every tp rank (``slice_tp``,
+  :976-980). The full weight exists on every rank during the step.
+- **``tp_mode="partitioned"``** (Megatron, ``parallel/megatron.py``): the
+  layer plans (``plan_embed``, ``plan_cell``, ``plan_head``) decide each
+  leaf's layout; each rank keeps only its view shard of a partitioned leaf,
+  and the stage runs ``embed_forward``, ``cell_forward`` and
+  ``head_loss_forward`` on the shards (:874, :901, :907), the decoder fused
+  into ``vocab_parallel_cross_entropy``. No weight is ever gathered: the
+  collectives move activations. The gradients of replicated leaves are
+  partial sums, all-reduced over tp with the others of their flat buffer
+  (:982-993). At tp > 1 the Parameters of partitioned leaves keep no storage
+  until ``sync()`` gathers them back. ``sequence_parallel=True`` shards the
+  non-matmul regions over the same ranks. Dropout keys are the step, the
+  stage, the dp rank, the layer and the microbatch; the seed is agreed over
+  the mesh at construction.
+- **``zero_update``** over ``dp`` (:665-791): the embed's, the stage's and
+  the head's trainable leaves are planned into flat buckets
+  (``zero.plan_buckets``, over the stage's stacked (L, ...) and the
+  tp-local view shapes); after the backward each bucket is reduce-scattered
+  over dp in ``comm_dtype`` (native, ``"bfloat16"``, ``"int8"``), the
+  rank's shard updated (its pieces join the update's lists: still one
+  launch of K4/K5 a weight decay) against its 1/dp of the optimizer state,
+  and all-gathered back. Weight-sharded tp and ZeRO do not compose
+  (:651-656).
+
+``last_stats`` adds ``comm``: the collectives the step issued, ``{"op@axis":
+{"calls", "bytes"}}`` (from ``_dist_util.comm_stats``: the payload is the
+tensor a rank passes in, its shard for an all-gather); ``comm_estimate``
+gives the reference's estimates beside them.
 
 Refused, as the reference refuses them (``tests/test_pipeline_1f1b.py``,
-``tests/test_pipeline_parallel.py``): layers that do not divide into the
-stages, cells that are not structurally identical, uninitialized
-parameters, a batch that does not divide by M dp, a net without
-``pipeline_split``, a stage block that keeps aux state (BatchNorm's running
-statistics), a cell leaf frozen in some layers only. Not ported yet (ROADMAP
-A2b, ``MXNetError``): ``schedule="gpipe"`` (also through
-``MXNET_TPU_PP_SCHEDULE``), ``virtual_stages > 1``, ``zero_update``,
-``comm_dtype``, ``tp_axis``, ``pipeline_apply`` and ``gpipe_schedule``. The
-reference's ``remat``, ``bucket_bytes``, ``tp_mode`` and
-``sequence_parallel`` serve those compositions only and are not taken.
+``tests/test_pipeline_parallel.py``, ``tests/test_partitioned_tp.py``):
+layers that do not divide into the stages, cells that are not structurally
+identical, uninitialized parameters, a batch that does not divide by M dp, a
+net without ``pipeline_split``, a stage block that keeps aux state
+(BatchNorm's running statistics), a cell leaf frozen in some layers only, an
+unknown ``tp_mode``, ``sequence_parallel`` without partitioned tp, a
+partitioned loss that is not the mean token cross entropy, heads, hidden or
+vocab that do not divide by tp, ZeRO without ``dp_axis`` or with
+weight-sharded tp, a sequence that does not divide by tp under sp. Not
+ported yet (ROADMAP A2b, ``MXNetError``): ``schedule="gpipe"`` (also
+through ``MXNET_TPU_PP_SCHEDULE``), ``virtual_stages > 1``,
+``pipeline_apply`` and ``gpipe_schedule``. The reference's ``remat`` serves
+GPipe only and is not taken.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -89,12 +128,16 @@ import torch.distributed as dist
 from ..base import MXNetError, env, torch_dtype
 from ..ndarray import NDArray
 from .. import autograd
+from .. import engine
 from .. import optimizer as opt_mod
 from .. import _dist_util
 from ..ops.cuda import fused_optimizer as _fo
+from . import megatron as _mg
+from . import zero as _zero
 from .data_parallel import (DataParallelTrainer, PendingScalar, functional_optimizer,
                             write_hyper)
-from .mesh import current_mesh, require_axis
+from .mesh import P, current_mesh, require_axis
+from .tensor_parallel import gather_tp, shard_tensor, slice_tp, tp_shard_dim
 from .step_program import StepProgram, config_fingerprint, structural_fingerprint
 
 __all__ = ["pipeline_spec", "pipeline_apply", "gpipe_schedule", "schedule_1f1b",
@@ -104,9 +147,9 @@ env.declare("MXNET_TPU_PP_SCHEDULE", "1f1b", str,
             "Default PipelineTrainer schedule: '1f1b' (bounded activation "
             "memory) or 'gpipe' (grad-of-scan transpose)")
 
-_A2B = ("not ported yet (ROADMAP A2b: the pipeline's other compositions, GPipe, "
-        "interleaved virtual stages, ZeRO over dp, compressed wires and tensor "
-        "parallelism; the port runs schedule='1f1b' over pp and dp)")
+_A2B = ("not ported yet (ROADMAP A2b: the pipeline's schedule variants, GPipe "
+        "(pipeline_apply, gpipe_schedule) and interleaved virtual stages; the port runs "
+        "schedule='1f1b' over pp, dp and tp)")
 
 FWD_TAG = 1     # activations, stage s -> s + 1
 BWD_TAG = 2     # cotangents, stage s -> s - 1
@@ -216,30 +259,68 @@ def _aux_blocks(block) -> List[str]:
     return [type(m).__name__ for m in block.modules() if isinstance(m, BatchNorm)]
 
 
+class _Leaf:
+    """One leaf of the step: ``param`` the Gluon Parameter; ``x`` the tensor
+    the schedule differentiates (the Parameter's own tensor, or the local
+    view shard of a partitioned leaf); ``w`` the tensor the update writes
+    (``x``, or this rank's shard of a weight-sharded leaf); ``dim`` the
+    dimension of ``w``'s storage split over tp (None: replicated); ``grad``
+    the gradient buffer of ``x``; ``gshard`` the contiguous gradient of
+    ``w`` when it is not ``grad``; ``state`` the optimizer state of ``w``."""
+
+    __slots__ = ("param", "x", "w", "dim", "grad", "gshard", "state", "trainable",
+                 "tp_sum")
+
+    def __init__(self, param, x, w, dim, trainable):
+        self.param, self.x, self.w, self.dim = param, x, w, dim
+        self.trainable = trainable
+        self.grad = self.gshard = None
+        self.state = ()
+        self.tp_sum = False
+
+
 class PipelineTrainer:
-    """The 1F1B pipeline trainer over a ``pp`` axis (and an optional ``dp``
-    axis) of a mesh of ranks; see the module docstring. ``net`` exposes
-    ``pipeline_split() -> (embed, cells, head)``; ``loss`` is a Gluon
+    """The 1F1B pipeline trainer over a ``pp`` axis of a mesh of ranks, with
+    optional ``dp`` and ``tp`` axes; see the module docstring. ``net``
+    exposes ``pipeline_split() -> (embed, cells, head)``; ``loss`` is a Gluon
     ``Loss`` or a callable ``(pred, label) -> per-sample loss`` on tensors
     (its mean is the microbatch's loss)."""
 
     def __init__(self, net, loss, optimizer="sgd", optimizer_params=None, mesh=None,
                  num_microbatch: Optional[int] = None, pp_axis: str = "pp",
-                 dp_axis: Optional[str] = None, tp_axis: Optional[str] = None, dtype=None,
+                 dp_axis: Optional[str] = None, tp_axis: Optional[str] = None,
+                 tp_mode: str = "sharded", sequence_parallel: bool = False, dtype=None,
                  schedule: Optional[str] = None, virtual_stages: int = 1,
-                 zero_update: Optional[bool] = None, comm_dtype=None):
+                 zero_update: Optional[bool] = None, bucket_bytes: Optional[int] = None,
+                 comm_dtype=None):
         self.net = net
         self.loss = loss
         self.mesh = mesh if mesh is not None else current_mesh()
         self.n_stages = require_axis(self.mesh, pp_axis, "pipeline stages")
         self.pp_axis, self.dp_axis, self.tp_axis = pp_axis, dp_axis, tp_axis
         self.n_dp = require_axis(self.mesh, dp_axis, "data parallelism") if dp_axis else 1
-        if tp_axis is not None:
-            raise MXNetError(f"PipelineTrainer(tp_axis={tp_axis!r}): {_A2B}")
+        self.n_tp = require_axis(self.mesh, tp_axis, "tensor parallelism") if tp_axis else 1
+        if tp_mode not in ("sharded", "partitioned"):
+            raise MXNetError(f"unknown tp_mode {tp_mode!r}; use 'sharded' (per-step weight "
+                             f"gather) or 'partitioned' (compute-partitioned Megatron "
+                             f"collectives)")
+        if tp_mode == "partitioned" and tp_axis is None:
+            raise MXNetError("tp_mode='partitioned' requires a tp_axis")
+        self.tp_mode = tp_mode
+        self._partitioned = tp_axis is not None and tp_mode == "partitioned"
+        self._sharded = tp_axis is not None and not self._partitioned
+        self.sequence_parallel = bool(sequence_parallel)
+        if self.sequence_parallel and not self._partitioned:
+            raise MXNetError("sequence_parallel shards the non-matmul regions over the tp "
+                             "device group; it requires tp_mode='partitioned'")
         if schedule is None:
             schedule = env.get("MXNET_TPU_PP_SCHEDULE") or "1f1b"
         if schedule not in ("1f1b", "gpipe"):
             raise MXNetError(f"unknown pipeline schedule {schedule!r}; use '1f1b' or 'gpipe'")
+        if self._partitioned and schedule != "1f1b":
+            raise MXNetError("tp_mode='partitioned' runs its manual collectives inside the "
+                             "1F1B tick body; schedule='gpipe' (grad-of-scan) only supports "
+                             "weight-sharded tp")
         if schedule == "gpipe":
             raise MXNetError(f"PipelineTrainer(schedule='gpipe'): {_A2B}")
         self.schedule = schedule
@@ -248,12 +329,6 @@ class PipelineTrainer:
             raise MXNetError("virtual_stages must be >= 1")
         if self.virtual_stages > 1:
             raise MXNetError(f"PipelineTrainer(virtual_stages={virtual_stages}): {_A2B}")
-        if zero_update is None:
-            zero_update = bool(env.get("MXNET_TPU_ZERO"))
-        if zero_update:
-            raise MXNetError(f"PipelineTrainer(zero_update=True): {_A2B}")
-        if comm_dtype is not None:
-            raise MXNetError(f"PipelineTrainer(comm_dtype={comm_dtype!r}): {_A2B}")
 
         if not hasattr(net, "pipeline_split"):
             raise MXNetError(f"{type(net).__name__} has no pipeline_split(); implement it "
@@ -298,6 +373,48 @@ class PipelineTrainer:
                 raise MXNetError(f"pipeline {what} emits mutable aux state (BN running stats: "
                                  f"{aux[0]}); pipeline stages must be stateless")
 
+        # each leaf's layout: the layer plans (partitioned; Parameter.sharding
+        # is not read), or the dim its spec shards over tp (weight-sharded)
+        nE, nS, nH = len(self._embed_plist), len(ref), len(self._head_plist)
+        self._lay_e, self._lay_s, self._lay_h = [None] * nE, [None] * nS, [None] * nH
+        if self._partitioned:
+            self._eplan = _mg.plan_embed(embed, self._embed_plist, self.n_tp)
+            self._cplan = _mg.plan_cell(cells[0], ref, self.n_tp)
+            self._hplan = _mg.plan_head(head, self._head_plist, self.n_tp)
+            self._lay_e = list(self._eplan.layouts)
+            self._lay_s = list(self._cplan.layouts)
+            self._lay_h = list(self._hplan.layouts)
+            self._tp_e = [_mg.view_shard_dim(lay) for lay in self._lay_e]
+            self._tp_s = [_mg.view_shard_dim(lay) for lay in self._lay_s]
+            self._tp_h = [_mg.view_shard_dim(lay) for lay in self._lay_h]
+            self._validate_partitioned_loss()
+        elif tp_axis is not None:
+            self._tp_e = [tp_shard_dim(p.sharding, tp_axis) for p in self._embed_plist]
+            self._tp_h = [tp_shard_dim(p.sharding, tp_axis) for p in self._head_plist]
+            self._tp_s = [tp_shard_dim(p.sharding, tp_axis) for p in ref]
+            for cp in self._cell_plists[1:]:
+                for i, p in enumerate(cp):
+                    if tp_shard_dim(p.sharding, tp_axis) != self._tp_s[i]:
+                        raise MXNetError(f"cell param {ref[i].name!r} carries different tp "
+                                         f"specs across cells; stacked leaves must shard "
+                                         f"uniformly")
+        else:
+            self._tp_e, self._tp_s, self._tp_h = [None] * nE, [None] * nS, [None] * nH
+        # storage (view) shapes: the logical ones but for a blocked layout
+        self._view_e = [_mg.view_shape(tuple(p.shape), lay)
+                        for p, lay in zip(self._embed_plist, self._lay_e)]
+        self._view_s = [_mg.view_shape(tuple(p.shape), lay) for p, lay in zip(ref, self._lay_s)]
+        self._view_h = [_mg.view_shape(tuple(p.shape), lay)
+                        for p, lay in zip(self._head_plist, self._lay_h)]
+        for views, dims, plist in ((self._view_e, self._tp_e, self._embed_plist),
+                                   (self._view_h, self._tp_h, self._head_plist),
+                                   (self._view_s, self._tp_s, ref)):
+            for vshape, d, p in zip(views, dims, plist):
+                if d is not None and vshape[d] % self.n_tp != 0:
+                    raise MXNetError(f"{p.name!r} {'partitioned ' if self._partitioned else ''}"
+                                     f"dim {d} ({vshape[d]}) does not divide by "
+                                     f"tp={self.n_tp}")
+
         self.compute_dtype: Optional[torch.dtype] = None
         if dtype is not None and torch_dtype(dtype) != torch.float32:
             self.compute_dtype = torch_dtype(dtype)
@@ -308,6 +425,16 @@ class PipelineTrainer:
         self._init_fn, self._update_fn, self._hyper_fn = functional_optimizer(self.optimizer)
         self.num_microbatch = int(num_microbatch if num_microbatch is not None
                                   else self.n_stages)
+        if zero_update is None:
+            zero_update = bool(env.get("MXNET_TPU_ZERO"))
+        self._zero = bool(zero_update)
+        self._bucket_bytes = int(bucket_bytes if bucket_bytes is not None
+                                 else env.get("MXNET_TPU_BUCKET_BYTES"))
+        if comm_dtype is None:
+            comm_dtype = env.get("MXNET_TPU_COMM_DTYPE") or None
+        self._comm_dtype = _zero.canonical_comm_dtype(comm_dtype) if self._zero else None
+        if self._zero:
+            self._validate_zero()
         self.device = self.mesh.device
         everything = self._embed_plist + self._head_plist + [p for cp in self._cell_plists
                                                              for p in cp]
@@ -321,56 +448,69 @@ class PipelineTrainer:
         L = self.layers_per_stage
         self._stack_order = list(range(self.n_layers))
         self._own = list(range(self.stage * L, (self.stage + 1) * L))
+        first, last = self.stage == 0, self.stage == self.n_stages - 1
         # weight-decay indices: embed leaves, then the cell leaves, then the head
-        nE, nS = len(self._embed_plist), len(ref)
         self._wd_e = [self.optimizer._get_wd(i) for i in range(nE)]
         self._wd_s = [self.optimizer._get_wd(nE + i) for i in range(nS)]
-        self._wd_h = [self.optimizer._get_wd(nE + nS + i) for i in range(len(self._head_plist))]
-        # optimizer state: the embed, this stage's layers (per layer), the head
-        self._opt_e = [self._init_fn(p._param.detach()) if t else ()
-                       for p, t in zip(self._embed_plist, self._tr_e)]
-        self._opt_h = [self._init_fn(p._param.detach()) if t else ()
-                       for p, t in zip(self._head_plist, self._tr_h)]
-        self._opt_s = [[self._init_fn(self._cell_plists[m][i]._param.detach())
-                        if self._tr_s[i] else () for m in self._own] for i in range(nS)]
-        # gradient buffers: views into one flat buffer for the replicated
-        # embed and head (summed over pp and dp) and one for the stage's own
-        # layers (summed over dp)
-        rep = [p for p, t in zip(self._embed_plist, self._tr_e) if t] + \
-              [p for p, t in zip(self._head_plist, self._tr_h) if t]
-        own = [self._cell_plists[m][i] for m in self._own for i in range(nS) if self._tr_s[i]]
-        self._rep_flat = self._flat_grads(rep)
-        self._own_flat = self._flat_grads(own)
-        # what the schedule differentiates on this stage, and each weight
-        # decay's update lists (weights, gradients, states)
-        first, last = self.stage == 0, self.stage == self.n_stages - 1
-        self._train = own + ([p for p, t in zip(self._embed_plist, self._tr_e) if t]
-                             if first else []) + \
-            ([p for p, t in zip(self._head_plist, self._tr_h) if t] if last else [])
+        self._wd_h = [self.optimizer._get_wd(nE + nS + i) for i in range(nH)]
+
+        dist_mesh = self.mesh.distributed
+        self._tp_idx = self.mesh.axis_index(tp_axis) if tp_axis else 0
+        self._leaves_e = [self._make_leaf(p, lay, d, v, t) for p, lay, d, v, t in zip(
+            self._embed_plist, self._lay_e, self._tp_e, self._view_e, self._tr_e)]
+        self._leaves_h = [self._make_leaf(p, lay, d, v, t) for p, lay, d, v, t in zip(
+            self._head_plist, self._lay_h, self._tp_h, self._view_h, self._tr_h)]
+        self._leaves_s = [[self._make_leaf(self._cell_plists[m][i], self._lay_s[i],
+                                           self._tp_s[i], self._view_s[i], self._tr_s[i])
+                           for i in range(nS)] for m in self._own]
+        # gradient buffers: views into flat buffers, one for each set of axes
+        # the gradients are summed over (the embed and head over pp and dp,
+        # the stage's layers over dp; under partitioned tp a replicated leaf
+        # over tp too, its partial sums; under ZeRO dp leaves the all-reduce
+        # for the buckets' reduce-scatter)
+        rep = [lf for lf in self._leaves_e + self._leaves_h if lf.trainable]
+        own = [lf for row in self._leaves_s for lf in row if lf.trainable]
+        for lf in rep + own:
+            lf.tp_sum = self._partitioned and self.n_tp > 1 and lf.dim is None
+        dp = () if self._zero else (dp_axis,)
+        self._flats: List[Tuple[torch.Tensor, Optional[tuple]]] = []
+        for leaves, axes in ((rep, (pp_axis,) + dp), (own, dp)):
+            for tp_sum in (False, True):
+                part = [lf for lf in leaves if lf.tp_sum == tp_sum]
+                flat = self._flat_grads(part)
+                if flat is not None:
+                    ax = tuple(a for a in axes + ((tp_axis,) if tp_sum else ()) if a)
+                    self._flats.append((flat, ax if dist_mesh and ax and
+                                        self.mesh.group_size(ax) > 1 else None))
+        # what the schedule differentiates on this stage
+        self._train = [lf for row in self._leaves_s for lf in row if lf.trainable] + \
+            ([lf for lf in self._leaves_e if lf.trainable] if first else []) + \
+            ([lf for lf in self._leaves_h if lf.trainable] if last else [])
         self._used = (self._embed_plist if first else []) + \
             [self._cell_plists[m][i] for m in self._own for i in range(nS)] + \
             (self._head_plist if last else [])
+        self._gather_leaves = [lf for lf in (self._leaves_e if first else []) +
+                               [lf for row in self._leaves_s for lf in row] +
+                               (self._leaves_h if last else []) if lf.dim is not None]
+        # optimizer state and each weight decay's update lists (weights,
+        # gradients, states): whole leaves, or under ZeRO the pieces of this
+        # rank's shard of each bucket
         self._groups: Dict[float, Tuple[list, list, list]] = {}
+        self._zbuckets: Dict[str, list] = {"e": [], "s": [], "h": []}
+        self._zplan_e = self._zplan_s = self._zplan_h = ()
+        if self._zero:
+            self._init_zero_state()
+        else:
+            for lf, wd in [*zip(self._leaves_e, self._wd_e), *zip(self._leaves_h, self._wd_h),
+                           *((lf, self._wd_s[i]) for row in self._leaves_s
+                             for i, lf in enumerate(row))]:
+                if lf.trainable:
+                    lf.state = self._init_fn(lf.w.detach())
+                    self._add(wd, lf.w, lf.gshard if lf.gshard is not None else lf.grad,
+                              lf.state)
+        self._opt_e = [lf.state for lf in self._leaves_e]
 
-        def add(p, wd, state):
-            ws, gs, ss = self._groups.setdefault(float(wd), ([], [], []))
-            ws.append(p._param)
-            gs.append(p._grad)
-            ss.append(state)
-        for p, t, wd, st in zip(self._embed_plist, self._tr_e, self._wd_e, self._opt_e):
-            if t:
-                add(p, wd, st)
-        for i in range(nS):
-            if self._tr_s[i]:
-                for j, m in enumerate(self._own):
-                    add(self._cell_plists[m][i], self._wd_s[i], self._opt_s[i][j])
-        for p, t, wd, st in zip(self._head_plist, self._tr_h, self._wd_h, self._opt_h):
-            if t:
-                add(p, wd, st)
-
-        dist_mesh = self.mesh.distributed
         self._pp_group = self.mesh.group(pp_axis) if dist_mesh and self.n_stages > 1 else None
-        self._dp_group = self.mesh.group(dp_axis) if dist_mesh and self.n_dp > 1 else None
         rep_axes = tuple(a for a in (pp_axis, dp_axis) if a is not None)
         self._rep_group = self.mesh.group(rep_axes) if dist_mesh and \
             self.mesh.group_size(rep_axes) > 1 else None
@@ -380,6 +520,19 @@ class PipelineTrainer:
             # point-to-point round, which joins two of them only
             dist.all_reduce(torch.zeros(1, device=self.device.torch_device),
                             group=self._pp_group)
+        self._seed = 0
+        if self._partitioned:
+            # the dropout seed of the partitioned programs: one for the mesh
+            self._seed = self._draw_seed()
+            if dist_mesh and self.mesh.size > 1:
+                seed = torch.tensor([self._seed], dtype=torch.int64,
+                                    device=self.device.torch_device)
+                dist.broadcast(seed, src=0, group=self.mesh.group(self.mesh.axis_names))
+                self._seed = int(seed.item())
+            self._pcfg = _mg.PartitionConfig(axis=tp_axis, n_tp=self.n_tp,
+                                             sp=self.sequence_parallel and self.n_tp > 1,
+                                             mesh=self.mesh)
+            self._release_partitioned()
         self._hyper = torch.zeros((max(1, len(self._groups)), len(_fo.HYPER_FIELDS)),
                                   dtype=torch.float32, device=self.device.torch_device)
         self._t = 0
@@ -397,26 +550,162 @@ class PipelineTrainer:
                 tp_axis=tp_axis, schedule=self.schedule,
                 virtual_stages=self.virtual_stages, num_microbatch=self.num_microbatch,
                 trainable=(tuple(self._tr_e), tuple(self._tr_s), tuple(self._tr_h)),
-                compute_dtype=str(self.compute_dtype))))
+                tp_dims=(tuple(self._tp_e), tuple(self._tp_s), tuple(self._tp_h)),
+                tp_mode=self.tp_mode, sequence_parallel=self.sequence_parallel,
+                tp_layouts=((tuple(self._lay_e), tuple(self._lay_s), tuple(self._lay_h))
+                            if self._partitioned else None),
+                compute_dtype=str(self.compute_dtype), zero=self._zero,
+                bucket_bytes=self._bucket_bytes if self._zero else None,
+                comm_dtype=self._comm_dtype)))
 
-    def _flat_grads(self, plist) -> Optional[torch.Tensor]:
-        """One flat f32 buffer whose views, 64 elements apart, become the
-        gradient buffers of ``plist``."""
-        if not plist:
+    # -- construction helpers --------------------------------------------------
+    def _validate_partitioned_loss(self):
+        """The partitioned head fuses the decoder into the vocab-parallel cross
+        entropy, so the loss must be the mean token cross entropy (reference
+        :619-644)."""
+        from ..gluon.loss import SoftmaxCrossEntropyLoss
+        lo = self.loss
+        if isinstance(lo, SoftmaxCrossEntropyLoss):
+            if (getattr(lo, "_sparse_label", True) and not getattr(lo, "_from_logits", False)
+                    and getattr(lo, "_axis", -1) in (-1,)
+                    and getattr(lo, "_weight", None) is None):
+                return
+            raise MXNetError("tp_mode='partitioned' fuses the LM head into a vocab-parallel "
+                             "softmax cross-entropy; SoftmaxCrossEntropyLoss must use "
+                             "sparse_label=True, from_logits=False, axis=-1, weight=None")
+        if getattr(lo, "__name__", "") == "token_cross_entropy":
+            return
+        raise MXNetError("tp_mode='partitioned' supports mean token cross-entropy losses "
+                         "only (gluon SoftmaxCrossEntropyLoss or "
+                         "recipes.long_context.token_cross_entropy); got "
+                         f"{type(lo).__name__}")
+
+    def _validate_zero(self):
+        """The reference's ``_validate_zero`` (:647-663)."""
+        if self.dp_axis is None:
+            raise MXNetError("zero_update requires a dp_axis: the sharded update "
+                             "distributes over data-parallel replicas")
+        if self._sharded:
+            raise MXNetError("zero_update and weight-sharded tp_axis do not compose in "
+                             "PipelineTrainer (the gathered weights would defeat the sharded "
+                             "state); tp_mode='partitioned' composes: its optimizer state "
+                             "covers each rank's tp shards")
+
+    def _draw_seed(self) -> int:
+        """A dropout seed for the partitioned programs, from the port's host
+        generator."""
+        from .. import random as _rng
+        return int(torch.randint(0, 2 ** 62, (1,), generator=_rng.generator("cpu")).item())
+
+    def _make_leaf(self, p, layout, dim, view, trainable) -> _Leaf:
+        """This rank's leaf of Parameter ``p`` (see ``_Leaf``)."""
+        full = p._param
+        if dim is None:
+            return _Leaf(p, full, full, None, trainable)
+        if self._sharded:
+            shard = shard_tensor(full.detach(), _tp_spec(dim, full.dim(), self.tp_axis),
+                                 self.mesh).clone(memory_format=torch.contiguous_format)
+            lf = _Leaf(p, full, shard, dim, trainable)
+            if trainable:
+                lf.gshard = torch.zeros_like(shard)
+            return lf
+        # partitioned: the local view shard, a view of the Parameter at tp 1
+        if self.n_tp == 1:
+            local = full.detach().view(view)
+        else:
+            local = shard_tensor(full.detach().reshape(view),
+                                 _tp_spec(dim, len(view), self.tp_axis),
+                                 self.mesh).clone(memory_format=torch.contiguous_format)
+        local.requires_grad_(trainable)
+        return _Leaf(p, local, local, dim, trainable)
+
+    def _release_partitioned(self):
+        """At tp > 1 the Parameters of partitioned leaves keep no storage
+        between ``sync()`` calls: the leaves hold this rank's shards, and
+        ``sync()`` gathers the full weights back."""
+        if self.n_tp == 1:
+            return
+        for lf in self._all_leaves():
+            if lf.dim is not None and lf.param._param.numel():
+                lf.param._param.data = lf.param._param.data.new_empty((0,))
+                lf.param._grad = None
+        engine.note_storage_change()
+
+    def _all_leaves(self):
+        return self._leaves_e + self._leaves_h + [lf for row in self._leaves_s for lf in row]
+
+    def _add(self, wd, w, g, state):
+        ws, gs, ss = self._groups.setdefault(float(wd), ([], [], []))
+        ws.append(w)
+        gs.append(g)
+        ss.append(state)
+
+    def _flat_grads(self, leaves) -> Optional[torch.Tensor]:
+        """One flat buffer whose views, 64 elements apart, become the gradient
+        buffers of ``leaves`` (the Parameters' own ``_grad`` where the leaf is
+        the Parameter's tensor)."""
+        if not leaves:
             return None
         align = 64
-        counts = [-(-p._param.numel() // align) * align for p in plist]
-        flat = torch.zeros(sum(counts), dtype=plist[0]._param.dtype,
+        counts = [-(-lf.x.numel() // align) * align for lf in leaves]
+        flat = torch.zeros(sum(counts), dtype=leaves[0].x.dtype,
                            device=self.device.torch_device)
         off = 0
-        for p, n in zip(plist, counts):
-            if p._param.dtype != flat.dtype:
-                raise MXNetError(f"{p.name} is {p._param.dtype}, the other trained "
+        for lf, n in zip(leaves, counts):
+            if lf.x.dtype != flat.dtype:
+                raise MXNetError(f"{lf.param.name} is {lf.x.dtype}, the other trained "
                                  f"parameters {flat.dtype}")
-            p._grad = flat[off:off + p._param.numel()].view(p._param.shape)
-            autograd._mark(p._param, p._grad, p.grad_req)
+            lf.grad = flat[off:off + lf.x.numel()].view(lf.x.shape)
+            if lf.x is lf.param._param:
+                lf.param._grad = lf.grad
+                autograd._mark(lf.param._param, lf.grad, lf.param.grad_req)
             off += n
         return flat
+
+    def _init_zero_state(self):
+        """ZeRO over dp (reference :665-791): the embed's, the stage's and the
+        head's trainable floating leaves planned into flat buckets over their
+        local shapes (the stage's stacked as (L, ...), tp-local view shapes
+        under partitioned tp); this rank keeps the reduced gradient and the
+        optimizer state of its 1/dp shard of each bucket, cut at leaf (and
+        layer) boundaries into pieces that join the update's lists."""
+        ndp = self.n_dp
+        pos = self.mesh.axis_index(self.dp_axis) if self.mesh.distributed else 0
+        dev = self.device.torch_device
+        L = self.layers_per_stage
+
+        def entries(leaves, stacked):
+            return [(i, ((L,) if stacked else ()) + tuple(lf.w.shape), lf.w.dtype)
+                    for i, lf in enumerate(leaves) if lf.trainable and lf.w.is_floating_point()]
+
+        groups = (("e", [[lf] for lf in self._leaves_e], self._wd_e, False),
+                  ("s", [[row[i] for row in self._leaves_s]
+                         for i in range(len(self._wd_s))], self._wd_s, True),
+                  ("h", [[lf] for lf in self._leaves_h], self._wd_h, False))
+        for tag, members, wds, stacked in groups:
+            plan = _zero.plan_buckets(entries([m[0] for m in members], stacked), ndp,
+                                      self._bucket_bytes)
+            setattr(self, f"_zplan_{tag}", plan)
+            for b in plan:
+                dtype = members[b.indices[0]][0].w.dtype
+                wshard = torch.zeros(b.shard_size, dtype=dtype, device=dev)
+                zb = {"spec": b, "members": [members[i] for i in b.indices],
+                      "stacked": stacked,
+                      "gshard": torch.zeros(b.shard_size, dtype=dtype, device=dev),
+                      "wshard": wshard, "state": self._init_fn(wshard), "pieces": []}
+                lo, hi = pos * b.shard_size, (pos + 1) * b.shard_size
+                for i, o in zip(b.indices, b.offsets):
+                    for j, lf in enumerate(members[i]):
+                        n = lf.w.numel()
+                        a, e = max(o + j * n, lo), min(o + (j + 1) * n, hi)
+                        if a >= e:
+                            continue
+                        piece = slice(a - lo, e - lo)
+                        w = lf.w.detach().view(-1)[a - o - j * n:e - o - j * n]
+                        zb["pieces"].append((w, zb["wshard"][piece]))
+                        self._add(wds[i], w, zb["gshard"][piece],
+                                  tuple(st[piece] for st in zb["state"]))
+                self._zbuckets[tag].append(zb)
 
     # -- the step --------------------------------------------------------------
     def _raw(self, a) -> torch.Tensor:
@@ -436,29 +725,71 @@ class PipelineTrainer:
             t = t[:, d * n:(d + 1) * n]
         return t.contiguous()
 
+    def _key(self, *parts) -> tuple:
+        """The dropout key of a program call: the same on every tp rank of
+        this stage, distinct across steps, stages, dp ranks, layers and
+        microbatches (the reference folds the same coordinates, :838-846)."""
+        dp = self.mesh.axis_index(self.dp_axis) if self.dp_axis else 0
+        return (self._seed, self._t, self.stage, dp) + parts
+
+    def _low(self, leaves):
+        cdt = self.compute_dtype
+        return [lf.x.to(cdt) if cdt is not None and lf.x.is_floating_point() else lf.x
+                for lf in leaves]
+
     def _embed_fn(self, x, m):
+        if self._partitioned:
+            return _mg.embed_forward(self._eplan, self._pcfg, self._low(self._leaves_e), x,
+                                     self._key(10_000, m))
         return self._embed(NDArray(x, self.device))._data
 
     def _stage_fn(self, h, m):
+        if self._partitioned:
+            for j, row in enumerate(self._leaves_s):
+                h = _mg.cell_forward(self._cplan, self._pcfg, self._low(row), h,
+                                     self._key(self._own[j], m))
+            return h
         out = NDArray(h, self.device)
         for j in self._own:
             out = self._cells[j](out)
         return out._data
 
     def _head_loss_fn(self, h, y, m):
+        if self._partitioned:
+            return _mg.head_loss_forward(self._hplan, self._pcfg, self._low(self._leaves_h),
+                                         h, y, self._key(10_001, m))
         return self._loss_mean(self._head(NDArray(h, self.device)), y)
 
     def _activation(self, xs) -> tuple:
-        """``(shape, dtype, device)`` of one activation between stages: the
+        """``(shape, dtype, device)`` of one activation between stages. The
         shape of the embed's output on microbatch 0 in predict mode (no
-        dropout draws), once for each batch signature; the dtype the compute
-        dtype where one is set (the reference's ``_ppermute_stats``, :404)."""
+        dropout draws), once for each batch signature, or under partitioned
+        tp (B, T or T/tp under sp, units); the dtype the compute dtype where
+        one is set (the reference's ``_ppermute_stats``, :404)."""
         key = (tuple(xs.shape), xs.dtype)
         if key not in self._act_meta:
-            with torch.no_grad(), autograd.pause(train_mode=False):
-                a = self._embed_fn(xs[0], 0)
-            self._act_meta[key] = (tuple(a.shape), self.compute_dtype or a.dtype, a.device)
+            if self._partitioned:
+                T = xs.shape[2] // (self.n_tp if self._pcfg.sp else 1)
+                w = self._leaves_e[self._eplan.word_w].x
+                self._act_meta[key] = ((xs.shape[1], T, self._eplan.units),
+                                       self.compute_dtype or w.dtype, w.device)
+            else:
+                with torch.no_grad(), autograd.pause(train_mode=False):
+                    a = self._embed_fn(xs[0], 0)
+                self._act_meta[key] = (tuple(a.shape), self.compute_dtype or a.dtype,
+                                       a.device)
         return self._act_meta[key]
+
+    def _gather_sharded(self, leaves, what="tp_weight_all_gather"):
+        """Weight-sharded tp: each sharded leaf's full weight all-gathered
+        over tp into its Parameter, outside autograd (reference :854-858)."""
+        for lf in leaves:
+            if lf.dim is not None:
+                full = gather_tp(lf.w, lf.dim, self.tp_axis, self.mesh)
+                if full is not lf.w:
+                    _dist_util.count_comm(what, self.tp_axis,
+                                          lf.w.numel() * lf.w.element_size())
+                lf.x.detach().copy_(full)
 
     def _forward_backward(self, xs, ys) -> torch.Tensor:
         """The schedule's pass over the microbatches: the loss mean of the
@@ -466,35 +797,75 @@ class PipelineTrainer:
         M = self.num_microbatch
         cdt = self.compute_dtype
         with torch.no_grad():
-            for flat in (self._rep_flat, self._own_flat):
-                if flat is not None:
-                    flat.zero_()
+            for flat, _ in self._flats:
+                flat.zero_()
+            if self._sharded:
+                self._gather_sharded(self._gather_leaves)
         meta = self._activation(xs) if self.n_stages > 1 else None
+        blocks = not self._partitioned
         try:
             with torch.enable_grad(), autograd.record(train_mode=True):
-                if cdt is not None:
+                if cdt is not None and blocks:
                     for p in self._used:
                         if p._param.is_floating_point():
                             p._compute = p._param.to(cdt)
-                loss_sum, self.last_stats = schedule_1f1b(
+                loss_sum, stats = schedule_1f1b(
                     self._embed_fn, self._stage_fn, self._head_loss_fn,
-                    [p._param for p in self._train], [p._grad for p in self._train],
+                    [lf.x for lf in self._train], [lf.grad for lf in self._train],
                     xs, ys, mesh=self.mesh if self.n_stages > 1 else None,
                     axis_name=self.pp_axis, act_meta=meta,
                     loss_scale=1.0 / (M * self.n_dp))
         finally:
-            for p in self._used:
-                p._compute = None
+            if blocks:
+                for p in self._used:
+                    p._compute = None
+        self.last_stats = stats
         with torch.no_grad():
             lossv = loss_sum.to(self.device.torch_device) / M
             if self._rep_group is not None:
                 lossv = lossv / self.n_dp
                 dist.all_reduce(lossv, group=self._rep_group)
-                if self._rep_flat is not None:
-                    dist.all_reduce(self._rep_flat, group=self._rep_group)
-            if self._dp_group is not None and self._own_flat is not None:
-                dist.all_reduce(self._own_flat, group=self._dp_group)
+            for flat, axes in self._flats:
+                if axes is not None:
+                    dist.all_reduce(flat, group=self.mesh.group(axes))
+                    _dist_util.count_comm("grad_all_reduce", "+".join(axes),
+                                          flat.numel() * flat.element_size())
         return lossv
+
+    def _reduce_zero(self):
+        """Each bucket's gradient (the stage's stacked over its layers)
+        reduce-scattered over dp in the wire dtype into this rank's shard."""
+        for tag in ("e", "s", "h"):
+            for zb in self._zbuckets[tag]:
+                b = zb["spec"]
+                grads = {i: torch.stack([lf.grad for lf in m]) if zb["stacked"] else m[0].grad
+                         for i, m in zip(b.indices, zb["members"])}
+                flat = _zero.flatten_bucket(b, grads)
+                zb["gshard"].copy_(_zero.reduce_scatter_bucket(
+                    flat, self.dp_axis, self.n_dp, self._comm_dtype, self.mesh))
+                if self.n_dp > 1:
+                    _dist_util.count_comm("zero_reduce_scatter", self.dp_axis,
+                                          flat.numel() * flat.element_size())
+
+    def _gather_zero(self):
+        """Each bucket's updated shard all-gathered over dp into the leaves."""
+        if self.n_dp == 1:
+            return               # the shard is the bucket: updated in place
+        for tag in ("e", "s", "h"):
+            for zb in self._zbuckets[tag]:
+                if zb["pieces"]:
+                    torch._foreach_copy_([d for _, d in zb["pieces"]],
+                                         [w for w, _ in zb["pieces"]])
+                full = _zero.all_gather_bucket(zb["wshard"], self.dp_axis, self.mesh)
+                _dist_util.count_comm("zero_all_gather", self.dp_axis,
+                                      zb["wshard"].numel() * zb["wshard"].element_size())
+                b = zb["spec"]
+                dst, src = [], []
+                for m, (i, view) in zip(zb["members"], _zero.unflatten_bucket(b, full)):
+                    for j, lf in enumerate(m):
+                        dst.append(lf.w.detach())
+                        src.append(view[j] if zb["stacked"] else view)
+                torch._foreach_copy_(dst, src)
 
     def step(self, x, y) -> PendingScalar:
         """One 1F1B training step on the global batch ``x``, ``y``."""
@@ -503,16 +874,73 @@ class PipelineTrainer:
         self.optimizer.rescale_grad = 1.0
         if B % (M * self.n_dp) != 0:
             raise MXNetError(f"batch {B} must divide by num_microbatch*dp = {M}*{self.n_dp}")
+        if self._partitioned and self.sequence_parallel and self.n_tp > 1 and \
+                xr.dim() >= 2 and xr.shape[1] % self.n_tp != 0:
+            raise MXNetError(f"sequence_parallel shards the sequence axis over tp: seq_len "
+                             f"{xr.shape[1]} must divide by n_tp={self.n_tp}")
         xs, ys = self._stack(xr), self._stack(yr)
         self._t += 1
         self.optimizer.num_update = self._t
         lr = np.float32(self.optimizer.learning_rate)
         write_hyper(self._hyper, [self._hyper_fn(self._t, lr, wd) for wd in self._groups])
+        before = {k: list(v) for k, v in _dist_util.comm_stats.items()}
         lossv = self._forward_backward(xs, ys)
         with torch.no_grad():
+            if self._sharded:
+                for lf in self._all_leaves():
+                    if lf.gshard is not None:
+                        lf.gshard.copy_(slice_tp(lf.grad, lf.dim, self.tp_axis, self.mesh))
+            if self._zero:
+                self._reduce_zero()
             for k, (ws, gs, ss) in enumerate(self._groups.values()):
                 self._update_fn(ws, gs, ss, self._hyper[k])
+            if self._zero:
+                self._gather_zero()
+        comm = {}
+        for key, (calls, nbytes) in _dist_util.comm_stats.items():
+            c0, b0 = before.get(key, (0, 0))
+            if calls > c0:
+                comm["@".join(key)] = {"calls": calls - c0, "bytes": nbytes - b0}
+        self.last_stats["comm"] = comm
         return PendingScalar(lossv)
+
+    def comm_estimate(self, x_shape) -> Dict[str, Tuple[int, int]]:
+        """The reference's per-step estimates of this trainer's tensor-parallel
+        and ZeRO collectives for a global batch of ``x_shape`` (B, T), summed
+        over the pipeline's stages: ``{op: (calls, wire bytes)}`` under the
+        reference's op names (``_record_partitioned_tp_telemetry``,
+        :1180-1219: (tp - 1)/tp of one microbatch's activation per
+        collective, M (4L + 2) all-reduces, or M (2L + 1) 2 all-gathers and as
+        many reduce-scatters under sp; ``_record_zero_telemetry``,
+        :1221-1231; the weight-sharded gather, :1258-1266)."""
+        B, T = int(x_shape[0]), int(x_shape[1])
+        M, L, ntp = self.num_microbatch, self.n_layers, self.n_tp
+        out: Dict[str, Tuple[int, int]] = {}
+        if self._partitioned and ntp > 1:
+            item = (self.compute_dtype or self._leaves_e[self._eplan.word_w].x.dtype).itemsize
+            act = (B // M) * T * self._eplan.units // self.n_dp * item
+            wire = act * (ntp - 1) // ntp
+            if self.sequence_parallel:
+                calls = M * (2 * L + 1) * 2
+                out["tp_act_all_gather"] = (calls, wire * calls)
+                out["tp_act_psum_scatter"] = (calls, wire * calls)
+            else:
+                calls = M * (4 * L + 2)
+                out["tp_act_psum"] = (calls, wire * calls)
+        elif self._sharded and ntp > 1:
+            full = [lf.param for lf in self._leaves_e + self._leaves_h if lf.dim is not None]
+            full += [p for cp in self._cell_plists for p, d in zip(cp, self._tp_s)
+                     if d is not None]
+            out["tp_weight_all_gather"] = (
+                1, sum(math.prod(p.shape) * p._param.element_size() * (ntp - 1) // ntp
+                       for p in full))
+        if self._zero:
+            plans = self._zplan_e + self._zplan_s + self._zplan_h
+            n = len(plans)
+            out["reduce_scatter"] = (n, _zero.reduce_scatter_wire_bytes(
+                plans, self.n_dp, self._comm_dtype))
+            out["all_gather"] = (n, _zero.all_gather_wire_bytes(plans, self.n_dp))
+        return out
 
     def drain(self):
         """Wait until every step that was issued has finished on the device."""
@@ -520,15 +948,34 @@ class PipelineTrainer:
             torch.cuda.synchronize(self.device.torch_device)
 
     def sync(self):
-        """Leave every weight in every rank's Parameters: each cell leaf's
-        layers all-gathered over pp from the stages that own them (a
-        collective every rank of the mesh calls). The embed and head are the
-        Parameters' own tensors on every rank."""
+        """Leave every weight in every rank's Parameters: the tp shards
+        gathered (weight-sharded and partitioned leaves, the blocked views
+        folded back to the logical shapes), then each cell leaf's layers
+        all-gathered over pp from the stages that own them (collectives every
+        rank of the mesh calls). Under partitioned tp at tp > 1 this gives
+        the Parameters their storage back."""
         self.drain()
-        if self._pp_group is None:
-            return
-        L = self.layers_per_stage
         with torch.no_grad():
+            for lf in self._all_leaves():
+                if self._partitioned and self.n_tp > 1 and lf.dim is None:
+                    # a replicated leaf's copies agree across tp up to a lossy
+                    # wire's chunk scales (int8): tp rank 0's is the model's
+                    group = self.mesh.group(self.tp_axis)
+                    dist.broadcast(lf.w.detach(), dist.get_global_rank(group, 0), group=group)
+                if lf.dim is None or (self._partitioned and self.n_tp == 1):
+                    continue
+                full = gather_tp(lf.w, lf.dim, self.tp_axis, self.mesh)
+                p = lf.param
+                if self._partitioned:
+                    full = full.reshape(tuple(p.shape))
+                    if p._param.shape != full.shape:
+                        p._param.data = torch.empty_like(full)
+                        p._init_grad()
+                        engine.note_storage_change()
+                p._param.detach().copy_(full)
+            if self._pp_group is None:
+                return
+            L = self.layers_per_stage
             for i in range(len(self._cell_plists[0])):
                 mine = torch.stack([self._cell_plists[m][i]._param.detach() for m in self._own])
                 full = torch.empty((self.n_layers,) + tuple(mine.shape[1:]),
@@ -562,3 +1009,9 @@ class PipelineTrainer:
         leaves, meta = snapshot["leaves"], snapshot["meta"]
         _estate.install(self, meta, _estate.LeafFetch(leaves), set(leaves))
         return self
+
+
+def _tp_spec(dim: int, ndim: int, axis: str):
+    spec = [None] * ndim
+    spec[dim] = axis
+    return P(*spec)

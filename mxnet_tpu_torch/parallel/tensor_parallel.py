@@ -18,6 +18,13 @@ Convention for Dense (weight (out, in), y = x W^T):
 ``shard_tensor`` cuts a rank's shard out of a full tensor by a spec and a
 mesh's coordinates (``convert.shard_arrays`` and the trainer's placement use
 it); ``gather_tensor`` is its inverse, an all-gather.
+
+``gather_tp`` and ``slice_tp`` (reference :65-80) serve the weight-sharded
+tensor parallelism of ``parallel.PipelineTrainer``: the all-gather of one
+sharded dimension over the tp group, outside autograd, and this rank's slice
+of a gradient that every rank of the group holds whole. ``shard_rules`` and
+``apply_rules`` (:82-166) attach specs from a table of logical roles
+(``DEFAULT_RULES``), refusing an unknown role or an axis the mesh lacks.
 """
 from __future__ import annotations
 
@@ -27,10 +34,11 @@ from typing import Dict, Optional
 import torch
 
 from ..base import MXNetError
-from .mesh import Mesh, PartitionSpec as P
+from .mesh import Mesh, PartitionSpec as P, active_mesh
 
 __all__ = ["column_parallel_spec", "row_parallel_spec", "tp_shard_dim",
-           "shard_params_megatron", "shard_tensor", "gather_tensor", "spec_axes"]
+           "shard_params_megatron", "shard_tensor", "gather_tensor", "spec_axes",
+           "gather_tp", "slice_tp", "DEFAULT_RULES", "shard_rules", "apply_rules"]
 
 
 def column_parallel_spec(axis: str = "tp") -> P:
@@ -67,6 +75,101 @@ def tp_shard_dim(spec: Optional[P], axis: str = "tp") -> Optional[int]:
                              f"one sharded dim per leaf")
         dim = d
     return dim
+
+
+def gather_tp(w: torch.Tensor, dim: int, axis: str = "tp",
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """A weight-sharded leaf's ``dim`` all-gathered over ``axis`` back to its
+    full size, outside autograd: the gradients with respect to the gathered
+    tensor are then the same on every rank, and ``slice_tp`` takes this
+    rank's part of them with no collective. ``w`` itself on a mesh of one
+    device or an axis of size 1."""
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is None or not mesh.distributed or mesh.axis_size(axis) == 1:
+        return w
+    import torch.distributed as dist
+    w = w.detach().contiguous()
+    parts = [torch.empty_like(w) for _ in range(mesh.axis_size(axis))]
+    dist.all_gather(parts, w, group=mesh.group(axis))
+    return torch.cat(parts, dim=dim)
+
+
+def slice_tp(g: torch.Tensor, dim: int, axis: str = "tp",
+             mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """This rank's shard along ``dim`` of a full gradient that every rank of
+    ``axis`` holds the same (a view): the inverse of ``gather_tp`` for the
+    update."""
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is None or not mesh.distributed:
+        return g
+    n = mesh.axis_size(axis)
+    step = g.shape[dim] // n
+    return g.narrow(dim, mesh.axis_index(axis) * step, step)
+
+
+# Logical role -> the mesh axis that shards it (None: replicated). "batch" and
+# "seq" are activation roles: checked against the mesh like the others, but
+# apply_rules attaches only the parameter roles.
+DEFAULT_RULES: Dict[str, Optional[str]] = {
+    "batch": "dp",
+    "vocab": "tp",
+    "embed": None,
+    "heads": "tp",
+    "kv": "tp",
+    "joined_kv": "tp",
+    "mlp": "tp",
+    "seq": "sp",
+}
+
+# name pattern -> the role of each dimension of the weight (Dense: (out, in))
+_ROLE_PATTERNS = [
+    (r".*(qkv|joined_qkv).*weight$", ("joined_kv", "embed")),
+    (r".*(query|key|value|ffn1|inter|fc1).*weight$", ("kv", "embed")),
+    (r".*(proj|ffn2|output|fc2).*weight$", ("embed", "mlp")),
+    (r".*(qkv|joined_qkv).*bias$", ("joined_kv",)),
+    (r".*(query|key|value|ffn1|inter|fc1).*bias$", ("kv",)),
+    (r".*(word_embed|decoder).*weight$", ("vocab", "embed")),
+    (r".*decoder.*bias$", ("vocab",)),
+]
+
+
+def shard_rules(overrides: Optional[Dict[str, Optional[str]]] = None
+                ) -> Dict[str, Optional[str]]:
+    """``DEFAULT_RULES`` with ``overrides`` applied; an unknown role raises."""
+    rules = dict(DEFAULT_RULES)
+    for k in overrides or {}:
+        if k not in rules:
+            raise MXNetError(f"shard_rules: unknown logical axis {k!r}; known roles: "
+                             f"{sorted(rules)}")
+    rules.update(overrides or {})
+    return rules
+
+
+def apply_rules(block, rules: Optional[Dict[str, Optional[str]]] = None,
+                mesh: Optional[Mesh] = None) -> int:
+    """Attach PartitionSpecs from a table of logical roles (``shard_rules``):
+    each parameter whose structural name matches a pattern gets the spec of
+    its dimensions' roles. A rule naming an axis ``mesh`` lacks raises (a
+    silent no-op would train replicated). Returns the number of parameters
+    given a spec that shards something."""
+    rules = shard_rules(rules)
+    if mesh is not None:
+        for role, ax in rules.items():
+            if ax is not None and ax not in mesh.axis_names:
+                raise MXNetError(f"apply_rules: rule {role!r} -> {ax!r} names a mesh axis "
+                                 f"that does not exist (mesh axes: {mesh.axis_names}); add "
+                                 f"the axis to make_mesh or set the rule to None")
+    compiled = [(re.compile(pat), roles) for pat, roles in _ROLE_PATTERNS]
+    n = 0
+    for name, p in block._collect_params_with_prefix().items():
+        for pat, roles in compiled:
+            if pat.match(name):
+                spec = P(*(rules.get(r) for r in roles))
+                if any(s is not None for s in spec):
+                    p.sharding = spec
+                    n += 1
+                break
+    return n
 
 
 def shard_params_megatron(block, rules: Optional[Dict[str, P]] = None,

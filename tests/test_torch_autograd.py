@@ -17,6 +17,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.base import MXNetError
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-6
 

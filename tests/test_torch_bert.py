@@ -20,6 +20,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.convert import load_jax_params, seeded_params
 from mxnet_tpu_torch.models import BertModel
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 CFG = dict(vocab_size=1024, num_layers=2, units=128, hidden_size=512,

@@ -27,6 +27,7 @@ import torch
 
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.cuda import blocked_matmul as bm
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-2}

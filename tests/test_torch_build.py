@@ -13,6 +13,7 @@ import pytest
 
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import cuda as cuda_ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture()

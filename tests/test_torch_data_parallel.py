@@ -46,6 +46,7 @@ from mxnet_tpu_torch.gluon.model_zoo import vision
 from mxnet_tpu_torch.models import BertModel
 from mxnet_tpu_torch.ops.cuda import fused_optimizer as fo
 from mxnet_tpu_torch.parallel import DataParallelTrainer, P, make_mesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(vocab_size=1024, num_layers=2, units=128, hidden_size=512,
            num_heads=2, max_length=256)

@@ -36,6 +36,7 @@ from mxnet_tpu_torch.convert import gather_grads, gather_params, load_jax_params
 from mxnet_tpu_torch.models import bert_tiny
 from mxnet_tpu_torch.parallel import DataParallelTrainer, P, make_mesh, \
     shard_params_megatron
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = 512
 B, T = 4, 128

@@ -64,6 +64,7 @@ from mxnet_tpu_torch.lr_scheduler import FactorScheduler
 from mxnet_tpu_torch.models import BertModel
 from mxnet_tpu_torch.parallel import DataParallelTrainer, make_mesh
 from mxnet_tpu_torch.parallel import zero as zero_mod
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(vocab_size=1024, num_layers=2, units=128, hidden_size=512, num_heads=2,
            max_length=256)

@@ -40,6 +40,7 @@ from mxnet_tpu_torch import elastic, faults
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.elastic import manifest as _manifest
 from mxnet_tpu_torch.parallel import DataParallelTrainer, make_mesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 SPECS = ["every_nth:1", "every_nth:3", "first_k:0", "first_k:2", "p:0.4:seed11",
          "p:0.9:seed3"]

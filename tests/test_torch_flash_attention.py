@@ -30,6 +30,7 @@ import torch
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.attention import blockwise_attention
 from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401
 from test_torch_flash_attention_bwd import _mm_1xtf32, _mm_3xtf32, _offset_view
 
 TOL_F32 = 2e-5

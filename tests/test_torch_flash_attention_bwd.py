@@ -36,6 +36,7 @@ import torch
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.attention import blockwise_attention_bwd
 from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL_PALLAS = 5e-5
 TOL_NAIVE = 1e-4

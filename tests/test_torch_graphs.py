@@ -43,6 +43,7 @@ from mxnet_tpu_torch.convert import load_jax_params, seeded_params
 from mxnet_tpu_torch.models import BertModel
 from mxnet_tpu_torch.ops.cuda import fused_optimizer as fo
 from mxnet_tpu_torch.parallel import DataParallelTrainer, make_mesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 BERT = dict(vocab_size=64, num_layers=2, units=32, hidden_size=64, num_heads=2,
             max_length=32)

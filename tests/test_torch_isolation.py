@@ -24,6 +24,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.base import MXNetError
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "mxnet_tpu_torch"

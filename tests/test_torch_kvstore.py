@@ -26,6 +26,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import _dist_util
+from torch_threads import one_torch_thread  # noqa: F401
 
 MODULE = "test_torch_kvstore"
 TESTS_DIR = str(pathlib.Path(__file__).resolve().parent)

@@ -38,6 +38,7 @@ from mxnet_tpu_torch.ops.attention import ring_attention, ulysses_attention
 from mxnet_tpu_torch.parallel import make_mesh
 from mxnet_tpu_torch.recipes import get_recipe, list_recipes
 from mxnet_tpu_torch.recipes import long_context as lc
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(num_layers=2, units=32, hidden_size=64, num_heads=2)
 VOCAB = 64

@@ -10,6 +10,7 @@ Both are the same Python arithmetic on floats, so the tolerance is 0.
 import pytest
 
 import mxnet_tpu_torch as mt
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 40
 SCHEDULERS = [

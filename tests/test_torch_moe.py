@@ -33,6 +33,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import _dist_util
 from mxnet_tpu_torch.parallel import make_mesh
 from mxnet_tpu_torch.parallel import moe as pm
+from torch_threads import one_torch_thread  # noqa: F401
 
 MODULE = "test_torch_moe"
 TESTS_DIR = str(__import__("pathlib").Path(__file__).resolve().parent)

@@ -44,6 +44,7 @@ from mxnet_tpu_torch.parallel import DataParallelTrainer, Mesh, P, make_mesh
 from mxnet_tpu_torch.parallel import moe as pm
 from mxnet_tpu_torch.recipes import get_recipe, list_recipes
 from mxnet_tpu_torch.recipes import moe as rm
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB, E, TOPK, CF = 64, 4, 1, 2.0
 B, T = 8, 8

@@ -14,6 +14,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops.registry import get_op, list_ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

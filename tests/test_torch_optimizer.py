@@ -45,6 +45,7 @@ import torch
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops.cuda import fused_optimizer as fo
 from mxnet_tpu_torch.ops.registry import get_op
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-6
 TOL_STEPS = 1e-5

@@ -18,8 +18,9 @@ tokens from a numpy seed, and the mean token cross entropy.
   module loaded.
 - In one process: ``{pp: 1}`` at M = 4 against the port's
   ``DataParallelTrainer``; a frozen embedding (the reference's :265); the
-  rejections and the ROADMAP A2b refusals; ``pipeline_split``'s shared
-  Parameters.
+  rejections and the ROADMAP A2b refusals (GPipe and interleaved stages; the
+  tp and ZeRO compositions are ``test_torch_pipeline_tp.py``'s);
+  ``pipeline_split``'s shared Parameters.
 
 Tolerances (f32; the reference's own 1F1B tests allow losses 2e-3 / 5e-4
 relative and weights 5e-3 / 1e-3 relative for Adam / SGD over 10 steps):
@@ -47,6 +48,7 @@ from mxnet_tpu_torch.convert import load_jax_params, seeded_params
 from mxnet_tpu_torch.models import BertModel
 from mxnet_tpu_torch.parallel import (DataParallelTrainer, Mesh, PipelineTrainer,
                                       make_mesh, pipeline)
+from torch_threads import one_torch_thread  # noqa: F401
 
 V, B, T = 64, 8, 8
 CFG = dict(vocab_size=V, num_layers=4, units=32, hidden_size=64, num_heads=2,
@@ -268,7 +270,8 @@ def test_pp1_matches_data_parallel(weights):
     want = [float(dpt.step(*_xy(x, y))) for _ in range(STEPS)]
     got = [float(tr.step(*_xy(x, y))) for _ in range(STEPS)]
     np.testing.assert_allclose(got, want, rtol=TOL_LOSS)
-    assert tr.last_stats == {"ticks": 4, "max_in_flight": 1, "sends": 0, "bytes": 0}
+    assert tr.last_stats == {"ticks": 4, "max_in_flight": 1, "sends": 0, "bytes": 0,
+                             "comm": {}}
     assert tr.num_update == STEPS and tr._program.label == "pp.step[BertModel]"
     assert tr._program.key_base[0] == "pp_step"
     a, b = _params(n1), _params(n2)
@@ -376,8 +379,7 @@ def test_rejections(weights, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(schedule="gpipe"), dict(virtual_stages=2),
-                                dict(zero_update=True), dict(comm_dtype="bfloat16"),
-                                dict(tp_axis="tp"), dict(schedule="env")])
+                                dict(schedule="env")])
 def test_other_compositions_raise_a2b(weights, monkeypatch, kw):
     net = _net(weights)
     if kw == dict(schedule="env"):

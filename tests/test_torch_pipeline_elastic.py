@@ -16,8 +16,9 @@ reference's pipeline tests' BERT, 4 layers, batch (8, 8)), at M = 4.
   port's; the same snapshot resumed on ``{pp: 1, dp: 2}`` through
   ``resume_or_init``: ``(3, "resharded")``, step 4 against the pp2 run's.
 - In one process: ``state_dict()`` and ``load_state_dict`` at pp 1, the
-  leaf names and shapes and meta keys against the reference's ``capture``,
-  and a ZeRO-over-pp snapshot refused naming ROADMAP A2b.
+  leaf names and shapes and meta keys against the reference's ``capture``.
+  The ZeRO and tensor-parallel layouts of the kind are
+  ``test_torch_pipeline_tp.py``'s.
 
 Tolerances: the resume of a run in one package, rtol 1e-6 (the reference's
 own); across the packages, losses 1e-5 relative (only the order of
@@ -33,9 +34,9 @@ import torch
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import elastic
 from mxnet_tpu_torch import _dist_util
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.elastic import state as es
 from mxnet_tpu_torch.parallel import PipelineTrainer, make_mesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 if TESTS_DIR not in sys.path:
@@ -222,9 +223,3 @@ def test_capture_matches_reference_schema(weights):
                 "zero", "tp_mode", "tp_degree", "sequence_parallel", "optimizer"):
         assert port["meta"][key] == ref["meta"][key], key
 
-
-def test_zero_over_pp_snapshot_raises_a2b(weights):
-    snap = _trainer(weights, {"pp": 1}).state_dict()
-    snap["meta"]["zero"] = True
-    with pytest.raises(MXNetError, match="ROADMAP A2b"):
-        _trainer(None, {"pp": 1}, seed=5).load_state_dict(snap)

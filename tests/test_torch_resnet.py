@@ -37,6 +37,7 @@ from mxnet_tpu_torch.gluon import model_zoo
 from mxnet_tpu_torch.gluon.model_zoo import vision
 from mxnet_tpu_torch.gluon.parameter import DeferredInitializationError
 from mxnet_tpu_torch.ops.registry import get_op
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 IMAGE = 64

@@ -30,6 +30,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.convert import load_jax_params, seeded_params
 from mxnet_tpu_torch.models import BertModel
 from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(vocab_size=1024, num_layers=2, units=128, hidden_size=512,
            num_heads=2, max_length=256)

@@ -50,6 +50,7 @@ from mxnet_tpu_torch.convert import gather_params, load_jax_params, seeded_param
 from mxnet_tpu_torch.models import bert_tiny
 from mxnet_tpu_torch.parallel import DataParallelTrainer, make_mesh
 from mxnet_tpu_torch.parallel import zero as zero_mod
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = 512
 B, T = 4, 128
