@@ -234,6 +234,43 @@ Tensor parallelism and ZeRO inside the pipeline's stages (``tp_mode=
    at vocab 30520 (30522 does not split 4 ways), rtol 5e-4. K1-K3 are also
    held and timed in phase 3 at a tp 2 rank's (BH 12, T 1024, D 64).
 
+The pipeline's other schedules and models (GPipe, ``remat``, the interleaved
+``virtual_stages``, ``LongContextLM``'s and ``MoETransformerLM``'s
+``pipeline_split``):
+
+24c. ``phase_pp_gpipe`` (in phase 24's world-1 NCCL group): BERT-base
+   T=1024, batch 8, M = 4, Adam 1e-4, f32, ``schedule="gpipe"`` with and
+   without ``remat``: the first loss against phase 24's 1F1B at 1e-5, the
+   weights after 3 steps at 2e-5; K1 96 launches a step with remat (the
+   backward runs each stage forward again) and 48 without, K2/K3 48, K5
+   one; 10 timed steps (p50, p90), a traced one (idle share). Then the peak
+   memory at a microbatch of 2 sequences, M 4 and 8, of 1F1B and GPipe with
+   and without remat: 1F1B's flat within the extra tokens plus 10%.
+24d. ``phase_pp_interleaved`` (same group): ``virtual_stages`` 2 and 3
+   (chunks of 6 and 4 layers), 3 steps each against phase 24's losses at
+   1e-5, at most min(M, 2v - 1) microbatches in a chunk, no send.
+13b. ``phase_pp_lc`` (in phase 13's group): ``LongContextLM.pipeline_split``
+   at the recipe's configuration, T 32768, batch 4 in M = 4, Adam 1e-3,
+   through the Gluon cells and partitioned at tp 1 (the causal branch of
+   ``megatron.cell_forward``): 3 losses against phase 13's
+   ``LongContextTrainer`` at 1e-5; causal K1-K3 8 launches a step, K5 one;
+   10 timed steps, a traced one. Phase 12 times K1-K3 at its microbatch's
+   causal shape (BH 2, T 32768, D 32).
+21b. ``phase_pp_moe`` (in phase 21's group): ``MoETransformerLM.pipeline_split``
+   at Switch-Base-8 widths, T 1024, batch 8 in M = 4, Adam 1e-4, f32, the
+   task loss: 5 steps of K1-K3 48 launches and K5 one, a falling loss, the
+   dropped assignments, 10 timed steps, a traced one, peak memory; a 2-layer
+   copy, one step of batch 2 in M = 2, GPU against CPU (routing flips
+   counted, then the training checks' tolerances).
+23b. ``phase_pp_sched_ranks``: 4 gloo ranks sharing the card (correctness
+   and memory), 3 steps of batch 4 in M = 2 against the same model's 1F1B at
+   pp 1 in this process, losses 1e-5 and weights 2e-5: GPipe at ``{pp: 2}``
+   and ``{pp: 2, dp: 2}`` (2 layers of BERT-base width), the interleaved pp
+   2 x v 2 (4 layers, stack order [0, 2, 1, 3]), ``LongContextLM``'s split
+   at ``{tp: 2}`` partitioned (T 4096) and the MoE's (2 layers of
+   Switch-Base-8 width, ``_tp_moe``); stage 0's peak for GPipe and 1F1B at M
+   4 and 8.
+
 The compiled paths (``mxnet_tpu_torch.engine``), last. Since this slice the
 fused step of phases 9-10, 13, 16-17, 19 and 21 is captured as a CUDA graph
 on the card (step 1 of a batch signature eager, step 2 captured, replays
@@ -270,8 +307,8 @@ form:
 
 It prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the rest of the repository beside it, it
-exits non-zero and prints no result. Its full results also go to
-``chiprun_out/chip_smoke.json``.
+exits non-zero and prints no result. Its full results, with each phase's
+seconds (``phase_seconds``), also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -287,6 +324,25 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
+PHASE_SECONDS = {}                 # phase name -> seconds by this process's clock
+
+
+def _time_phases():
+    """Wrap every ``phase_*`` function of this module so that its seconds
+    (summed over its calls) land in PHASE_SECONDS and in the log."""
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            def run(*args, _fn=fn, _name=name, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    dt = time.perf_counter() - t
+                    PHASE_SECONDS[_name] = PHASE_SECONDS.get(_name, 0.0) + dt
+                    log(f"[time] {_name}: {dt:.1f} s ({time.perf_counter() - T_START:.1f} s "
+                        f"since the start)")
+            globals()[name] = run
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -2485,7 +2541,9 @@ LC_LR = 1e-3                       # make_trainer's default
 LC_CHECK_T, LC_CHECK_B = 2048, 2
 LC_RANKS_T, LC_RANKS_B = 8192, 4
 # causal K1-K3: the path's shape (B*H, T, Tk, D) and the 4-rank hops' (B/dp*H, T/sp)
-LC_SHAPES = [("path", 8, 32768, 32768, 32, True), ("hop-diagonal", 4, 4096, 4096, 32, True),
+LC_SHAPES = [("path", 8, 32768, 32768, 32, True),
+             ("pp-microbatch", 2, 32768, 32768, 32, True),      # phase_pp_lc's microbatch
+             ("hop-diagonal", 4, 4096, 4096, 32, True),
              ("hop-full", 4, 4096, 4096, 32, False),
              ("d16-hop-diagonal", 4, 4096, 4096, 16, True),
              ("d16-hop-full", 4, 4096, 4096, 16, False)]
@@ -4243,13 +4301,14 @@ PP_MEM_MARGIN = 0.10               # stage 0's peak at M = 8 over M = 4's, beyon
 PP_DRYRUN = dict(vocab=512, T=32, B=8, M=2, lr=1e-4, steps=3)
 
 
-def _pp_trainer(mx, net, mesh, M, dp_axis=None, dtype=None):
+def _pp_trainer(mx, net, mesh, M, dp_axis=None, dtype=None, schedule="1f1b", **kw):
     """``parallel.PipelineTrainer`` with the dryrun's configuration: softmax
-    cross entropy over the MLM logits, Adam lr 1e-4, the 1F1B schedule."""
+    cross entropy over the MLM logits, Adam lr 1e-4, the 1F1B schedule
+    (``schedule``, ``remat`` and ``virtual_stages`` through ``kw``)."""
     return mx.parallel.PipelineTrainer(
         net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), optimizer="adam",
         optimizer_params={"learning_rate": PP_LR}, mesh=mesh, dp_axis=dp_axis,
-        num_microbatch=M, schedule="1f1b", dtype=dtype)
+        num_microbatch=M, schedule=schedule, dtype=dtype, **kw)
 
 
 def _bert_base_net(mx, params, ctx, cfg=None):
@@ -5026,11 +5085,595 @@ def phase_pp_tp_ranks(torch, device="gpu", cfg=None, timeout=900):
                          for k in ranks[0]["part"]["launches"]}}
 
 
+# --- the pipeline's other schedules and models: GPipe, interleaved stages, LC and MoE ---
+
+PP_GPIPE_CHECKED = 3               # steps held against phase_pp_train's; its step-3 weights
+PP_SCHED_TIMED = 10                # timed steps after them: p50 and p90
+PP_MEM_MICRO = 2                   # the memory sweep's microbatch (sequences) at M 4 and 8
+PP_VIRTUAL = (2, 3)                # phase_pp_interleaved's virtual stages (12 layers: 6, 4)
+PP_LC_M = 4                        # LongContextLM's pipeline: batch LC_B in 4 microbatches
+PP_MOE_M, PP_MOE_STEPS = 4, 5      # the MoE pipeline: batch MOE_B in 4, 5 checked steps
+PP_MOE_CHECK_B, PP_MOE_CHECK_M = 2, 2
+PP_SCHED_RANK_STEPS = 3
+PP_SCHED_RANK_B, PP_SCHED_RANK_M = 4, 2
+PP_LC_RANK_T = 4096                # the ranks' LongContextLM sequence: causal K1-K3 on a tp half
+
+
+def _flash_per_step(n, fwd=1):
+    """K1-K3 and K5 a step: ``n`` attention calls (layers x microbatches),
+    K1 ``fwd`` times each (2 where remat runs the forward again)."""
+    return {"flash_attention_fwd": fwd * n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkv": n, "fused_adam_update": 1}
+
+
+def _timed_steps(torch, tr, x, y, n):
+    """``n`` steps of ``tr``, each ending in a sync: their ms."""
+    ms = []
+    for _ in range(n):
+        t_step = time.perf_counter()
+        tr.step(x, y)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t_step) * 1e3)
+    return ms
+
+
+def _timed_report(torch, label, tr, x, y, tokens, counters, per_step, done):
+    """PP_SCHED_TIMED timed steps after ``done`` checked ones (the launch
+    counts of all of them checked against ``per_step``), then one step
+    traced (``_api_launches``): p50, p90, tokens/s, device busy, the idle
+    share 1 - busy / p50, host launches."""
+    ms = _timed_steps(torch, tr, x, y, PP_SCHED_TIMED)
+    n = done + PP_SCHED_TIMED
+    launches = {k: c.launches for k, c in counters.items()}
+    if launches != {k: v * n for k, v in per_step.items()}:
+        raise AssertionError(f"{label}: launches {launches} over {n} steps, want {per_step} "
+                             f"a step")
+    trace = _api_launches(torch, lambda: tr.step(x, y))
+    pct = _pct(ms)
+    idle = 1.0 - trace["device_busy_ms"] / pct["p50"]
+    log(f"[{label}] step p50 {pct['p50']:.2f} ms, p90 {pct['p90']:.2f} ms over "
+        f"{PP_SCHED_TIMED}, {tokens / pct['p50'] * 1e3:.0f} tokens/s; traced step: device busy "
+        f"{trace['device_busy_ms']:.2f} ms, idle {100 * idle:.2f}% of the p50, "
+        f"{trace['host_launches']} host launches; launches over {n} steps {launches}")
+    return {"ms": ms, "pct": pct, "tokens_per_s": tokens / pct["p50"] * 1e3, "trace": trace,
+            "idle_share": idle, "launches": launches}
+
+
+def _pp_memory(torch, mx, net, mesh, x16, y16):
+    """Peak device memory of one step at a microbatch of PP_MEM_MICRO
+    sequences, M 4 (batch 8) and M 8 (batch 16), for 1F1B and GPipe with
+    and without remat (the step after a warm-up one; ``static`` the memory
+    held before it, ``act`` the peak above it). ``x16``, ``y16``: (16, T)
+    numpy tokens and labels."""
+    out = {}
+    for name, kw in (("1f1b", {}), ("gpipe_remat", dict(schedule="gpipe")),
+                     ("gpipe_noremat", dict(schedule="gpipe", remat=False))):
+        for M in (PP_M, 2 * PP_M):
+            b = PP_MEM_MICRO * M
+            xs, ys = (mx.nd.array(a[:b], ctx=mx.gpu(0), dtype="int32") for a in (x16, y16))
+            tr = _pp_trainer(mx, net, mesh, M, dp_axis="dp", **kw)
+            tr.step(xs, ys)
+            torch.cuda.synchronize()
+            static = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            tr.step(xs, ys)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            out[f"{name}_m{M}"] = {"peak": peak, "static": static, "act": peak - static,
+                                   "in_flight": tr.last_stats["max_in_flight"]}
+            del tr
+            torch.cuda.empty_cache()
+    gib = 2 ** 30
+    for key, m in out.items():
+        log(f"[pp-memory] {key}: peak {m['peak'] / gib:.3f} GiB, static {m['static'] / gib:.3f},"
+            f" above it {m['act'] / gib:.3f} GiB, {m['in_flight']} microbatches held")
+    return out
+
+
+def phase_pp_gpipe(torch, params, batch, pp_train, pp_w3):
+    """GPipe on the main path, world-1 NCCL {pp: 1, dp: 1} (the caller holds
+    the group): BERT-base at T=1024, batch 8 in M = 4, Adam lr 1e-4, f32 with
+    TF32 off, ``schedule="gpipe"`` with ``remat`` and without. Each: its
+    first loss against phase_pp_train's 1F1B (same weights and batch) to
+    TOL_PP_LOSS, its weights after 3 steps against phase_pp_train's step-3
+    weights to TOL_PP_W (the order of the gradient sums differs); each step
+    launches K1 48 times (96 with remat: the backward runs each stage forward
+    again), K2 and K3 48 and K5 once; then PP_SCHED_TIMED timed steps and one
+    traced. Then the memory sweep (``_pp_memory``): 1F1B's peak above the
+    static memory may grow from M 4 to M 8 by no more than the extra tokens
+    plus PP_MEM_MARGIN, beside GPipe's with and without remat."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tokens, labels = batch
+    B, T = tokens.shape
+    n_layers = 12
+    mesh = mx.parallel.make_mesh({"pp": 1, "dp": 1}, devices=[mx.gpu(0)])
+    x = mx.nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
+    y = mx.nd.array(labels, ctx=mx.gpu(0), dtype="int32")
+    counters = _elastic_counters()
+    ref = [st["loss"] for st in pp_train["steps"][:PP_GPIPE_CHECKED]]
+    out = {}
+    for remat in (True, False):
+        label = "pp-gpipe" + ("" if remat else "-noremat")
+        t0 = time.perf_counter()
+        net = _bert_base_net(mx, params, mx.gpu(0))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = _pp_trainer(mx, net, mesh, PP_M, dp_axis="dp", schedule="gpipe", remat=remat)
+        per_step = _flash_per_step(n_layers * PP_M, 2 if remat else 1)
+        w3 = {}
+
+        def grab(i):
+            if i == PP_GPIPE_CHECKED - 1:
+                tr.sync()
+                w3.update(_host_weights(net))
+        _zero_counters(counters)
+        steps = _dp_steps(torch, label, tr, x, y, PP_GPIPE_CHECKED, per_step,
+                          (B * T, "tokens_per_s"), counters, after=grab)
+        rels = [abs(a["loss"] - b) / abs(b) for a, b in zip(steps, ref)]
+        w_abs = max(float(np.abs(w3[k] - w).max()) for k, w in pp_w3.items())
+        ok = rels[0] <= TOL_PP_LOSS and w_abs <= TOL_PP_W and \
+            steps[-1]["loss"] < steps[0]["loss"]
+        log(f"[{label}] losses {[round(st['loss'], 6) for st in steps]} against 1F1B's "
+            f"{[round(v, 6) for v in ref]}: rel {[f'{r:.1e}' for r in rels]} (the first's tol "
+            f"{TOL_PP_LOSS:.0e}); step-{PP_GPIPE_CHECKED} weights max|d| {w_abs:.2e} (tol "
+            f"{TOL_PP_W:.0e}); schedule {tr.last_stats} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: GPipe disagrees with 1F1B")
+        res = _timed_report(torch, label, tr, x, y, B * T, counters, per_step,
+                            PP_GPIPE_CHECKED)
+        res.update(steps=steps, loss_rel=rels, weight_abs=w_abs, per_step=per_step,
+                   schedule=dict(tr.last_stats), seconds=time.perf_counter() - t0,
+                   peak_bytes=torch.cuda.max_memory_allocated() - base)
+        out["remat" if remat else "noremat"] = res
+        del tr, net
+        torch.cuda.empty_cache()
+    # the memory sweep, on one model
+    rs = np.random.RandomState(42)
+    more = rs.randint(0, params["word_embed.weight"].shape[0],
+                      size=(2,) + tokens.shape).astype(np.int32)
+    net = _bert_base_net(mx, params, mx.gpu(0))
+    mem = _pp_memory(torch, mx, net, mesh, np.concatenate([tokens, more[0]]),
+                     np.concatenate([labels, more[1]]))
+    del net
+    torch.cuda.empty_cache()
+    extra = PP_B * PP_T * 4 * 2          # the 8 more sequences' tokens and labels, int32
+    f4, f8 = mem[f"1f1b_m{PP_M}"], mem[f"1f1b_m{2 * PP_M}"]
+    flat = f8["peak"] <= (f4["peak"] + extra) * (1 + PP_MEM_MARGIN)
+    log(f"[pp-memory] 1F1B peak {f4['peak'] / 2**30:.3f} -> {f8['peak'] / 2**30:.3f} GiB from "
+        f"M={PP_M} to M={2 * PP_M} (limit +{extra} B of tokens, +{100 * PP_MEM_MARGIN:.0f}%) "
+        f"{'ok' if flat else 'FAIL'}; GPipe with remat "
+        f"{mem[f'gpipe_remat_m{PP_M}']['peak'] / 2**30:.3f} -> "
+        f"{mem[f'gpipe_remat_m{2 * PP_M}']['peak'] / 2**30:.3f}, without "
+        f"{mem[f'gpipe_noremat_m{PP_M}']['peak'] / 2**30:.3f} -> "
+        f"{mem[f'gpipe_noremat_m{2 * PP_M}']['peak'] / 2**30:.3f} GiB")
+    if not flat:
+        raise AssertionError("pp-memory: 1F1B's peak grew with M")
+    out["memory"] = mem
+    return out
+
+
+def phase_pp_interleaved(torch, params, batch, pp_train):
+    """The interleaved 1F1B on the main path, world-1 NCCL {pp: 1, dp: 1}:
+    BERT-base at T=1024, batch 8 in M = 4, Adam lr 1e-4, f32, at
+    ``virtual_stages`` 2 and 3 (chunks of 6 and 4 layers), 3 steps each: the
+    losses within TOL_PP_LOSS of phase_pp_train's (v 1), K1-K3 48 and K5
+    once a step, M + 2(v - 1) ticks, at most min(M, 2 v - 1) microbatches
+    in a chunk, no send (a chunk hands its output to the next within the
+    process)."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tokens, labels = batch
+    B, T = tokens.shape
+    mesh = mx.parallel.make_mesh({"pp": 1, "dp": 1}, devices=[mx.gpu(0)])
+    x = mx.nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
+    y = mx.nd.array(labels, ctx=mx.gpu(0), dtype="int32")
+    counters = _elastic_counters()
+    per_step = _flash_per_step(12 * PP_M)
+    ref = [st["loss"] for st in pp_train["steps"][:3]]
+    out = {}
+    for v in PP_VIRTUAL:
+        label = f"pp-interleaved-v{v}"
+        net = _bert_base_net(mx, params, mx.gpu(0))
+        tr = _pp_trainer(mx, net, mesh, PP_M, dp_axis="dp", virtual_stages=v)
+        _zero_counters(counters)
+        steps = _dp_steps(torch, label, tr, x, y, 3, per_step, (B * T, "tokens_per_s"),
+                          counters)
+        rel = max(abs(a["loss"] - b) / abs(b) for a, b in zip(steps, ref))
+        stats = dict(tr.last_stats)
+        want = {"ticks": PP_M + 2 * (v - 1), "max_in_flight": min(PP_M, 2 * v - 1),
+                "sends": 0, "bytes": 0}
+        ok = rel <= TOL_PP_LOSS and {k: stats[k] for k in want} == want
+        med = float(np.median([st["ms"] for st in steps[1:]]))
+        log(f"[{label}] chunks of {12 // v} layers: losses against v 1's max rel {rel:.2e} "
+            f"(tol {TOL_PP_LOSS:.0e}); schedule {stats} (want {want}); median step "
+            f"{med:.2f} ms {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: the interleaved schedule disagrees")
+        out[f"v{v}"] = {"steps": steps, "loss_rel": rel, "schedule": stats,
+                        "step_median_ms": med, "per_step": per_step,
+                        "launches": {k: c.launches for k, c in counters.items()}}
+        del tr, net
+        torch.cuda.empty_cache()
+    out["launches"] = {k: sum(r["launches"][k] for r in out.values()) for k in per_step}
+    return out
+
+
+def _lc_pipeline(mx, weights, ctx, mesh, M, T, cfg=LC_CFG, **kw):
+    """``LongContextLM`` (``cfg``, positions up to ``T``) with ``weights``
+    in ``PipelineTrainer`` through its ``pipeline_split``: the recipe's loss
+    and Adam lr."""
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.recipes import long_context as lc
+    net = lc.LongContextLM(LC_VOCAB, max_length=T, **cfg)
+    net.initialize(ctx=ctx)
+    load_jax_params(net, {k: v[:T] if k == "pos_embed.weight" else v
+                          for k, v in weights.items()})
+    return net, mx.parallel.PipelineTrainer(
+        net, lc.token_cross_entropy, optimizer="adam", optimizer_params={"learning_rate": LC_LR},
+        mesh=mesh, num_microbatch=M, **kw)
+
+
+def phase_pp_lc(torch, weights, lc_train):
+    """``LongContextLM.pipeline_split`` on a world-1 NCCL mesh, at the
+    recipe's configuration: T=32768, batch 4 in M = 4 microbatches, Adam
+    1e-3, f32 with TF32 off, through the Gluon cells and through
+    ``tp_mode="partitioned"`` at tp 1 (``megatron.cell_forward``'s causal
+    branch). The first 3 losses of each against LongContextTrainer's
+    (phase_lc_train: the same weights and batch) to TOL_PP_LOSS: the
+    microbatch means average to the batch mean. Each step launches causal
+    K1, K2 and K3 8 times (2 layers x 4) and K5 once; then PP_SCHED_TIMED
+    timed steps and one traced."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tokens, labels = _lc_batch(LC_B, LC_T, seed=12)     # phase_lc_train's batch
+    x = mx.nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
+    y = mx.nd.array(labels, ctx=mx.gpu(0), dtype="int32")
+    ref = [st["loss"] for st in lc_train["steps"][:3]]
+    counters = _lc_counters()
+    per_step = _flash_per_step(LC_CFG["num_layers"] * PP_LC_M)
+    out = {}
+    for name, axes, kw in (("gluon", {"pp": 1, "dp": 1}, {}),
+                           ("partitioned", {"pp": 1, "tp": 1},
+                            dict(tp_axis="tp", tp_mode="partitioned"))):
+        label = f"pp-lc-{name}"
+        mesh = mx.parallel.make_mesh(axes, devices=[mx.gpu(0)])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        net, tr = _lc_pipeline(mx, weights, mx.gpu(0), mesh, PP_LC_M, LC_T, **kw)
+        _zero_counters(counters)
+        steps = _dp_steps(torch, label, tr, x, y, 3, per_step, (LC_B * LC_T, "tokens_per_s"),
+                          counters)
+        rel = max(abs(a["loss"] - b) / abs(b) for a, b in zip(steps, ref))
+        masks = {k: dict(c.launches_by_mask) for k, c in _flash_counters().items()}
+        ok = rel <= TOL_PP_LOSS and not any(m.get("full") for m in masks.values()) and \
+            steps[-1]["loss"] < steps[0]["loss"]
+        log(f"[{label}] LongContextLM {LC_CFG}, batch {LC_B} x T {LC_T} in M={PP_LC_M}: "
+            f"losses against LongContextTrainer's {[round(v, 6) for v in ref]}: max rel "
+            f"{rel:.2e} (tol {TOL_PP_LOSS:.0e}); K1-K3 by mask {masks} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: the pipeline disagrees with LongContextTrainer")
+        res = _timed_report(torch, label, tr, x, y, LC_B * LC_T, counters, per_step, 3)
+        res.update(steps=steps, loss_rel=rel, per_step=per_step, launches_by_mask=masks,
+                   peak_bytes=torch.cuda.max_memory_allocated() - base)
+        out[name] = res
+        del tr, net
+        torch.cuda.empty_cache()
+    out["launches"] = {k: sum(r["launches"][k] for r in out.values()) for k in per_step}
+    return out
+
+
+def _moe_pipeline(mx, weights, ctx, mesh, M, cfg=None, **kw):
+    """``MoETransformerLM`` (``cfg``, default MOE_CFG) with ``weights`` in
+    ``PipelineTrainer`` through its ``pipeline_split``: the recipe's task
+    loss, Adam lr 1e-4."""
+    from mxnet_tpu_torch.recipes import moe as rmoe
+    net = _moe_net(mx, weights, ctx, cfg)
+    return net, mx.parallel.PipelineTrainer(
+        net, rmoe.token_cross_entropy, optimizer="adam",
+        optimizer_params={"learning_rate": MOE_LR}, mesh=mesh, num_microbatch=M, **kw)
+
+
+def _moe_pp_step(mx, weights, ctx, mesh, x, y, cfg):
+    """One pipeline step of the MoE LM: ((loss, gradients, weights), each
+    gated forward's routing)."""
+    from mxnet_tpu_torch.parallel import moe as pmoe
+    net, tr = _moe_pipeline(mx, weights, ctx, mesh, PP_MOE_CHECK_M, cfg)
+    xs, ys = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in (x, y))
+    with pmoe.collect_metrics() as mc:
+        loss = float(tr.step(xs, ys))
+    keys = net._collect_params_with_prefix()
+    return ((loss, {k: p.grad().asnumpy() for k, p in keys.items()}, _host_weights(net)),
+            [a.cpu().numpy() for a in mc.assignments])
+
+
+def phase_pp_moe(torch, weights):
+    """``MoETransformerLM.pipeline_split`` on a world-1 NCCL mesh {pp: 1, dp:
+    1}: Switch-Base-8 widths (MOE_CFG, 532 M parameters), T=1024, batch 8 in
+    M = 4, Adam 1e-4, f32 with TF32 off, the task loss: PP_MOE_STEPS steps,
+    each launching K1-K3 48 times and K5 once, a finite loss that falls, the
+    dropped assignments; PP_SCHED_TIMED timed steps and one traced; peak
+    memory. The capacity is each microbatch's, so the losses are not
+    MoETrainer's. Then a 2-layer copy at the same widths, one step of batch
+    2 in M = 2, on the card against the CPU (the plain versions): the
+    routing first (flips counted), then the training checks' tolerances,
+    gate_w's rounding-only gradient apart."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import moe as pmoe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    label = "pp-moe"
+    t0 = time.perf_counter()
+    mesh = mx.parallel.make_mesh({"pp": 1, "dp": 1}, devices=[mx.gpu(0)])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    net, tr = _moe_pipeline(mx, weights, mx.gpu(0), mesh, PP_MOE_M, dp_axis="dp")
+    tokens, labels = _moe_batch(MOE_B, MOE_T, seed=31)      # phase_moe_train's batch
+    x = mx.nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
+    y = mx.nd.array(labels, ctx=mx.gpu(0), dtype="int32")
+    counters = _elastic_counters()
+    per_step = _flash_per_step(MOE_CFG["num_layers"] * PP_MOE_M)
+    _zero_counters(counters)
+    with pmoe.collect_metrics() as mc:
+        steps = _dp_steps(torch, label, tr, x, y, PP_MOE_STEPS, per_step,
+                          (MOE_B * MOE_T, "tokens_per_s"), counters)
+    dropped = int(mc.dropped_total())
+    assignments = PP_MOE_STEPS * MOE_B * MOE_T * MOE_CFG["top_k"] * MOE_CFG["num_layers"]
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"{label}: the loss did not fall")
+    res = _timed_report(torch, label, tr, x, y, MOE_B * MOE_T, counters, per_step,
+                        PP_MOE_STEPS)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"[{label}] MoETransformerLM at Switch-Base-8 widths, batch {MOE_B} x T {MOE_T} in "
+        f"M={PP_MOE_M}: losses {[round(st['loss'], 6) for st in steps]}; dropped (token, "
+        f"choice) assignments {dropped} of {assignments} over {PP_MOE_STEPS} steps and "
+        f"{MOE_CFG['num_layers']} layers; peak {peak / 2**30:.3f} GiB above the phase's start")
+    res.update(steps=steps, per_step=per_step, dropped=dropped, assignments=assignments,
+               peak_bytes=peak, ready_s=time.perf_counter() - t0)
+    del tr, net, x, y
+    torch.cuda.empty_cache()
+    # the 2-layer copy, GPU against CPU
+    cfg = dict(MOE_CFG, num_layers=MOE_RANK_LAYERS)
+    w2 = _moe_weights(cfg, seed=35)
+    xc, yc = _moe_batch(PP_MOE_CHECK_B, MOE_T, seed=36, vocab=cfg["vocab_size"])
+    gpu, routes_gpu = _moe_pp_step(mx, w2, mx.gpu(0), mesh, xc, yc, cfg)
+    torch.cuda.empty_cache()
+    cpu, routes_cpu = _moe_pp_step(mx, w2, mx.cpu(),
+                                   mx.parallel.Mesh([mx.cpu()], ("pp",), (1,)), xc, yc, cfg)
+    flips = _flips(routes_gpu, routes_cpu)
+    # top-1's normalized combine weight is g/g = 1: the task loss gives the
+    # gate no gradient but f32 rounding, different on the two devices, so
+    # gate_w's gradient is compared by neither bar, and its weights, which
+    # Adam may step by up to lr either way on such noise, at 2 lr
+    gate = [k for k in cpu[1] if k.endswith("moe.gate_w")]
+    gpu_r, cpu_r = ((r[0], *({k: v for k, v in d.items() if k not in gate} for d in r[1:]))
+                    for r in (gpu, cpu))
+    check = _step_agreement(gpu_r, cpu_r, MOE_LR)
+    gate_w = max(float(np.abs(gpu[2][k] - cpu[2][k]).max()) for k in gate)
+    gate_g = max(float(np.abs(gpu[1][k]).max()) for k in gate)
+    ok = check.pop("ok") and flips == 0 and gate_w <= 2.0 * MOE_LR * 1.001
+    log(f"[{label}-check] {MOE_RANK_LAYERS} layers of Switch-Base-8 width, T={MOE_T}, batch "
+        f"{PP_MOE_CHECK_B} in M={PP_MOE_CHECK_M}, one PipelineTrainer step, GPU vs CPU: routing "
+        f"flips {flips} over {len(routes_gpu)} gated forwards; loss {gpu[0]:.6f} vs "
+        f"{cpu[0]:.6f} (rel {check['loss_rel']:.2e}, tol {TOL_TRAIN_LOSS:.0e}); gradients but "
+        f"gate_w's {check['grad_rel']:.2e} of the tensor's max (tol {TOL_TRAIN_GRAD:.0e}); "
+        f"weights max|d| {check['weight_max_abs']:.2e} (tol {TOL_TRAIN_W:.0e}), "
+        f"{check['near_zero_grad_elements']} elements with a nonzero |g| within the gradient "
+        f"tolerance of 0 up to {check['near_zero_weight_max_abs']:.2e} (tol 2 lr); gate_w "
+        f"(largest |g| {gate_g:.1e}, rounding) weights max|d| {gate_w:.2e} (tol 2 lr) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the MoE pipeline step on the card disagrees with the "
+                             f"CPU")
+    res["check"] = dict(check, flips=flips, loss_gpu=gpu[0], loss_cpu=cpu[0],
+                        gate_w_weight_abs=gate_w, gate_w_grad_max=gate_g)
+    return res
+
+
+def rank_pp_sched(workdir, device, steps, cfg, cfg4, lc_cfg, lc_T, moe_cfg):
+    """One of 4 ranks of phase_pp_sched_ranks (see there): each case's
+    losses and launches, stage 0's peaks; rank 0 writes each case's weights
+    after ``sync()``."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    ctx = _dist_util.rank_context(device)
+    gpu = ctx.device_type == "gpu"
+    if gpu:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    data = dict(np.load(os.path.join(workdir, "data.npz")))
+    counters = _elastic_counters()
+    rank = torch.distributed.get_rank()
+    out = {"rank": rank}
+
+    def mesh(axes):
+        return mx.parallel.make_mesh(axes, devices=[ctx])
+
+    def run(name, make, xk, n=steps):
+        net, tr = make()
+        x, y = (mx.nd.array(data[f"{xk}_{k}"], ctx=ctx, dtype="int32") for k in ("x", "y"))
+        _zero_counters(counters)
+        t0 = time.perf_counter()
+        losses = [float(tr.step(x, y)) for _ in range(n)]
+        res = {"losses": losses, "s": time.perf_counter() - t0, "stage": tr.stage,
+               "stats": {k: v for k, v in tr.last_stats.items() if k != "comm"},
+               "own": list(tr._own), "stack_order": list(tr._stack_order),
+               "launches": {k: c.launches for k, c in counters.items()}}
+        tr.sync()
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"{name}.npz"), **_host_weights(net))
+        del tr, net
+        return res
+
+    def bert(c, axes, **kw):
+        def make():
+            net = _bert_base_net(mx, dict(np.load(os.path.join(workdir, f"{c}.npz"))), ctx,
+                                 cfg if c == "bert2" else cfg4)
+            return net, _pp_trainer(mx, net, mesh(axes), PP_SCHED_RANK_M, **kw)
+        return make
+    two = {"rep": 2, "pp": 2}
+    out["gpipe_pp2"] = run("gpipe_pp2", bert("bert2", two, schedule="gpipe"), "bert")
+    out["gpipe_pp2_dp2"] = run("gpipe_pp2_dp2", bert("bert2", {"pp": 2, "dp": 2},
+                                                     dp_axis="dp", schedule="gpipe"), "bert")
+    out["v2_pp2"] = run("v2_pp2", bert("bert4", two, virtual_stages=2), "bert")
+    tp = {"rep": 2, "pp": 1, "tp": 2}
+    part = dict(tp_axis="tp", tp_mode="partitioned")
+    lc_w = dict(np.load(os.path.join(workdir, "lc.npz")))
+    out["lc_tp2"] = run("lc_tp2", lambda: _lc_pipeline(
+        mx, lc_w, ctx, mesh(tp), PP_SCHED_RANK_M, lc_T, cfg=lc_cfg, **part), "lc")
+    moe_w = dict(np.load(os.path.join(workdir, "moe.npz")))
+    out["moe_tp2"] = run("moe_tp2", lambda: _moe_pipeline(
+        mx, moe_w, ctx, mesh(tp), PP_SCHED_RANK_M, moe_cfg, **part), "moe")
+    # stage 0's peak at a microbatch of PP_MEM_MICRO, M 4 and 8: GPipe and 1F1B
+    net = _bert_base_net(mx, dict(np.load(os.path.join(workdir, "bert2.npz"))), ctx, cfg)
+    peaks = {}
+    for name, kw in (("1f1b", {}), ("gpipe", dict(schedule="gpipe"))):
+        for M in (PP_M, 2 * PP_M):
+            b = PP_MEM_MICRO * M
+            x, y = (mx.nd.array(data[f"mem_{k}"][:b], ctx=ctx, dtype="int32") for k in "xy")
+            tr = _pp_trainer(mx, net, mesh(two), M, **kw)
+            tr.step(x, y)
+            if gpu:
+                torch.cuda.synchronize()
+                static = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            tr.step(x, y)
+            peaks[f"{name}_m{M}"] = {"stage": tr.stage, **(
+                {"peak": torch.cuda.max_memory_allocated(), "static": static} if gpu else {})}
+            del tr
+            if gpu:
+                torch.cuda.empty_cache()
+    out["memory"] = peaks
+    return out
+
+
+def phase_pp_sched_ranks(torch, device="gpu", cfg=None, timeout=900):
+    """The new schedules and splits as 4 gloo ranks sharing the card
+    (correctness and memory, not time), PP_SCHED_RANK_STEPS steps of batch
+    PP_SCHED_RANK_B in M = PP_SCHED_RANK_M, each against the same model's
+    1F1B at pp 1 in this process: GPipe at {pp: 2} and {pp: 2, dp: 2} on 2
+    layers of BERT-base width (or ``cfg``) at T=1024; the interleaved pp 2 x
+    v 2 on 4 such layers (stack order [0, 2, 1, 3]); ``LongContextLM``'s
+    split at {tp: 2} partitioned (the causal branch, one head a rank) at
+    T=PP_LC_RANK_T; the MoE's split at {tp: 2} partitioned (``_tp_moe``: 4
+    of the 8 experts a rank) on 2 layers of Switch-Base-8 width: losses to
+    TOL_PP_LOSS, the weights after ``sync()`` to TOL_PP_W. Then stage 0's
+    peak memory at {pp: 2} for GPipe against 1F1B at M 4 and 8 (microbatches
+    of PP_MEM_MICRO sequences)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import seeded_params
+    from mxnet_tpu_torch.models import BertModel
+    label = "pp-sched-ranks"
+    cfg = dict(cfg or dict(num_layers=2, max_length=PP_T))
+    cfg4 = dict(cfg, num_layers=4)
+    lc_cfg = dict(LC_CFG)
+    moe_cfg = dict(MOE_CFG, num_layers=MOE_RANK_LAYERS)
+    T = cfg["max_length"]
+    vocab = cfg.get("vocab_size", 30522)
+    n = 4
+    work = os.path.join(ROOT, "build", "pp_sched_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    weights = {"bert2": seeded_params(BertModel(**cfg), seed=50),
+               "bert4": seeded_params(BertModel(**cfg4), seed=51),
+               "lc": _lc_weights(lc_cfg), "moe": _moe_weights(moe_cfg, seed=52)}
+    for k, w in weights.items():
+        np.savez(os.path.join(work, f"{k}.npz"), **w)
+    rs = np.random.RandomState(53)
+    data = {}
+    for k, (vv, tt) in {"bert": (vocab, T), "lc": (LC_VOCAB, PP_LC_RANK_T),
+                        "moe": (moe_cfg["vocab_size"], MOE_T)}.items():
+        for part in ("x", "y"):
+            data[f"{k}_{part}"] = rs.randint(0, vv, size=(PP_SCHED_RANK_B, tt)).astype(np.int32)
+    for part in ("x", "y"):
+        data[f"mem_{part}"] = rs.randint(0, vocab, size=(2 * PP_M * PP_MEM_MICRO, T)).astype(
+            np.int32)
+    np.savez(os.path.join(work, "data.npz"), **data)
+    ctx = mx.gpu(0) if device == "gpu" else mx.cpu()
+    if device == "gpu":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    one = mx.parallel.Mesh([ctx], ("pp",), (1,))
+
+    def reference(name, make, xk):
+        net, tr = make()
+        x, y = (mx.nd.array(data[f"{xk}_{k}"], ctx=ctx, dtype="int32") for k in ("x", "y"))
+        losses = [float(tr.step(x, y)) for _ in range(PP_SCHED_RANK_STEPS)]
+        tr.sync()
+        w = _host_weights(net)
+        del tr, net
+        if device == "gpu":
+            torch.cuda.empty_cache()
+        return losses, w
+
+    def bert(c, cf):
+        def make():
+            net = _bert_base_net(mx, weights[c], ctx, cf)
+            return net, _pp_trainer(mx, net, one, PP_SCHED_RANK_M)
+        return make
+    refs = {"bert2": reference("bert2", bert("bert2", cfg), "bert"),
+            "bert4": reference("bert4", bert("bert4", cfg4), "bert"),
+            "lc": reference("lc", lambda: _lc_pipeline(mx, weights["lc"], ctx, one,
+                                                       PP_SCHED_RANK_M, PP_LC_RANK_T,
+                                                       cfg=lc_cfg), "lc"),
+            "moe": reference("moe", lambda: _moe_pipeline(mx, weights["moe"], ctx, one,
+                                                          PP_SCHED_RANK_M, moe_cfg), "moe")}
+    t0 = time.perf_counter()
+    ranks = _dist_util.launch_local(
+        "chip_smoke:rank_pp_sched", n, {"workdir": work, "device": device,
+                                        "steps": PP_SCHED_RANK_STEPS, "cfg": cfg, "cfg4": cfg4,
+                                        "lc_cfg": lc_cfg, "lc_T": PP_LC_RANK_T,
+                                        "moe_cfg": moe_cfg},
+        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+    seconds = time.perf_counter() - t0
+    cases = {"gpipe_pp2": "bert2", "gpipe_pp2_dp2": "bert2", "v2_pp2": "bert4",
+             "lc_tp2": "lc", "moe_tp2": "moe"}
+    got = {k: dict(np.load(os.path.join(work, f"{k}.npz"))) for k in cases}
+    shutil.rmtree(work, ignore_errors=True)
+    checks, ok = {}, True
+    for name, ref in cases.items():
+        want_losses, want_w = refs[ref]
+        rel = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r[name]["losses"],
+                                                                      want_losses))
+        w_abs = max(float(np.abs(got[name][k] - w).max()) for k, w in want_w.items())
+        good = rel <= TOL_PP_LOSS and w_abs <= TOL_PP_W
+        if name == "v2_pp2":
+            good &= all(r[name]["stack_order"] == [0, 2, 1, 3] for r in ranks)
+        checks[name] = {"loss_rel": rel, "weight_abs": w_abs}
+        ok &= good
+        log(f"[{label}] {name}: losses {[round(v, 6) for v in ranks[0][name]['losses']]} "
+            f"against one rank's {[round(v, 6) for v in want_losses]}: max rel {rel:.2e} (tol "
+            f"{TOL_PP_LOSS:.0e}), weights max|d| {w_abs:.2e} (tol {TOL_PP_W:.0e}); rank 0 "
+            f"schedule {ranks[0][name]['stats']}, layers {ranks[0][name]['own']}, launches "
+            f"{ranks[0][name]['launches']}, {ranks[0][name]['s']:.1f} s "
+            f"{'ok' if good else 'FAIL'}")
+    gib = 2 ** 30
+    mem = {}
+    for r in ranks:
+        for key, m in r["memory"].items():
+            if m["stage"] == 0 and "peak" in m:
+                mem.setdefault(key, []).append(m)
+    for key, ms in sorted(mem.items()):
+        log(f"[{label}] stage 0 {key}: peak " + ", ".join(
+            f"{m['peak'] / gib:.3f} GiB (static {m['static'] / gib:.3f})" for m in ms))
+    log(f"[{label}] {n} ranks in {seconds:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: a case disagrees with one rank")
+    return {"seconds": seconds, "checks": checks, "memory_stage0": mem,
+            "launches": {k: sum(r[c]["launches"][k] for r in ranks for c in cases)
+                         for k in ranks[0]["gpipe_pp2"]["launches"]},
+            "ranks": [{k: v for k, v in r.items() if k != "memory"} for r in ranks]}
+
+
 # --- CUDA graphs: the compiled step and the CachedOp (mxnet_tpu_torch.engine) -----
 
-GRAPH_TIMED = 20            # timed requests or steps a mode: p50 and p90 exist
+GRAPH_TIMED = 12            # timed requests or steps a mode: p50 and p90 exist
 GRAPH_CMP_STEPS = 5         # captured steps against eager ones, from the same weights
-GRAPH_SCHED_STEPS = 10      # under a FactorScheduler that changes lr every step
+GRAPH_SCHED_STEPS = 6       # under a FactorScheduler that changes lr every step
 GRAPH_SCHED = (1, 0.9)      # FactorScheduler(step, factor)
 GRAPH_BUSY_REPLAYS = 3      # back-to-back replays between CUDA events: a graph's span
 GRAPH_DROPOUT_CFG = dict(vocab_size=1024, num_layers=2, units=128, hidden_size=512,
@@ -5042,14 +5685,16 @@ def _pct(ms):
             "n": len(ms)}
 
 
-PROFILE_PAD = 64             # spin kernels that open a profiler session, left out of it
-PROFILE_SESSIONS = 5
+PROFILE_PAD = 1024           # spin kernels of 100 cycles that open a profiler session
+PROFILE_SESSIONS = 3
+PROFILE_ROUNDS = 4           # rounds of PROFILE_SESSIONS before a trace is given up
 MEASURED = "chip_smoke.measured"
 
 
 def _trace_once(torch, fn):
-    """One profiler session of ``fn()`` (see ``_api_launches``), or None if
-    it kept no padding record or lost ``fn``'s range."""
+    """One profiler session of ``fn()`` (see ``_api_launches``). A session
+    that lost its padding or ``fn``'s range, or kept no device record after
+    the padding, has ``device_ops`` 0 and says what it lost."""
     from torch.profiler import ProfilerActivity, profile, record_function
     cuda = torch.autograd.DeviceType.CUDA
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -5064,7 +5709,8 @@ def _trace_once(torch, fn):
                    if e.name == MEASURED and e.device_type != cuda), None)
     pads = [e.time_range.end for e in events if e.device_type == cuda and "spin_kernel" in e.name]
     if window is None or not pads:
-        return None
+        return {"device_ops": 0, "pads_kept": len(pads),
+                "lost": "fn's range" if window is None else "the whole padding"}
     api, spans = {}, []
     for e in events:
         if e.device_type == cuda:
@@ -5080,7 +5726,8 @@ def _trace_once(torch, fn):
         busy_us += max(0.0, b - max(a, end_us))
         end_us = max(end_us, b)
     launches = sum(n for k, n in api.items() if "Launch" in k)
-    return {"api": api, "host_launches": launches if api else None,
+    return {"api": api, "host_launches": launches if api else None, "pads_kept": len(pads),
+            "lost": None if spans else "every device record after the padding",
             "device_ops": len(spans), "device_busy_ms": busy_us / 1e3 if spans else None,
             "device_span_ms": (end_us - min(spans)[0]) / 1e3 if spans else None}
 
@@ -5091,24 +5738,40 @@ def _api_launches(torch, fn):
     launches, copies), and from the device records after a session's
     padding the operations, the busy time (the union of their intervals) and
     the span from the first one's start to the last one's end. On the H100
-    host a session now and then drops device records or stretches their
-    times (in 150 sessions of one 200-kernel call: 27 records lost at a
-    session's start, 35 in its middle, a 34.7 ms replay read as 40.2 ms;
-    late in a full run of this script, with one session a mode, every
-    traced step read 32-35 operations short), so each session opens with
-    PROFILE_PAD spin kernels that are left out, the sessions that kept the
-    most operations are kept, and of those the one with the median busy
-    time is returned, with every session's operations and busy time."""
-    runs = [r for r in (_trace_once(torch, fn) for _ in range(PROFILE_SESSIONS))
-            if r is not None and r["device_ops"]]
-    if not runs:
-        raise AssertionError(f"{PROFILE_SESSIONS} profiler sessions kept no device record")
-    full = max(r["device_ops"] for r in runs)
-    kept = sorted((r for r in runs if r["device_ops"] == full),
+    host a session loses its first N device records, N growing with the
+    process's age, and now and then records in its middle or a stretched
+    time (in 150 sessions of one 200-kernel call: 27 records lost at a
+    session's start, 35 in its middle, a 34.7 ms replay read as 40.2 ms).
+    N counts records, not time: with 64 spin kernels of 100,000 cycles, and
+    again of 400,000 after a 50 ms wait on the host, the sessions of two
+    full runs of this script kept 49-51 of them at 260-300 s, 38-40 at
+    430-470 s, 24-25 at 640-670 s and 7 at 960 s (a call's first session
+    often all 64); with 64 of 100 cycles every session of the last step
+    lost them all and the step failed. So each session opens with
+    PROFILE_PAD spin kernels, left out; the sessions that kept the most
+    operations are kept, and of those the one with the median busy time is
+    returned, with every session's operations, busy time and spin kernels
+    kept. A round in which no session kept a device record after its padding
+    is logged and run again, up to PROFILE_ROUNDS rounds."""
+    runs = []
+    for _ in range(PROFILE_ROUNDS):
+        round_ = [_trace_once(torch, fn) for _ in range(PROFILE_SESSIONS)]
+        runs += round_
+        if any(r["device_ops"] for r in round_):
+            break
+        log(f"[profile] {PROFILE_SESSIONS} sessions kept no device record: lost "
+            f"{[r['lost'] for r in round_]}, spin kernels kept "
+            f"{[r['pads_kept'] for r in round_]} of {PROFILE_PAD}")
+    kept = [r for r in runs if r["device_ops"]]
+    if not kept:
+        raise AssertionError(f"{len(runs)} profiler sessions kept no device record")
+    full = max(r["device_ops"] for r in kept)
+    best = sorted((r for r in kept if r["device_ops"] == full),
                   key=lambda r: r["device_busy_ms"])
-    return dict(kept[len(kept) // 2], sessions={
+    return dict(best[len(best) // 2], sessions={
         "device_ops": [r["device_ops"] for r in runs],
-        "busy_ms": [r["device_busy_ms"] for r in runs]})
+        "busy_ms": [r.get("device_busy_ms") for r in runs],
+        "pads_kept": [r["pads_kept"] for r in runs]})
 
 
 def _rel_diff(torch, a, b):
@@ -5294,7 +5957,8 @@ def _train_modes(torch, mx, label, make, x, y, per_step, atomic=False):
         r = {"step_ms": _pct(ms), "launches": launches, "per_step": per_step,
              "engine": stats, "peak_bytes": peak, "host_launches": api["host_launches"],
              "api": api["api"], "device_ops": api["device_ops"],
-             "busy_ms": api["device_busy_ms"], "device_span_ms": api["device_span_ms"]}
+             "busy_ms": api["device_busy_ms"], "device_span_ms": api["device_span_ms"],
+             "sessions": api["sessions"]}
         r["idle_share"] = (1.0 - r["busy_ms"] / r["step_ms"]["p50"]
                            if r["busy_ms"] is not None else None)
         want = {k: v * n for k, v in per_step.items() if v}
@@ -5596,6 +6260,7 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, ROOT)
+    _time_phases()
     t0 = time.perf_counter()
     device = phase_device(torch)
     build = phase_build()
@@ -5627,6 +6292,8 @@ def main() -> int:
         pp_train, pp_w3 = phase_pp_train(torch, bert_params, bert_batch, dp_bert)
         pp_check = phase_pp_check(torch)
         pp_tp_train = phase_pp_tp_train(torch, bert_params, bert_batch, pp_train)
+        pp_gpipe = phase_pp_gpipe(torch, bert_params, bert_batch, pp_train, pp_w3)
+        pp_interleaved = phase_pp_interleaved(torch, bert_params, bert_batch, pp_train)
     pp_ranks = phase_pp_ranks(torch, bert_params, bert_batch, pp_train, pp_w3)
     del pp_w3
     pp_dryrun = phase_pp_dryrun(torch)
@@ -5636,6 +6303,7 @@ def main() -> int:
     lc_weights = _lc_weights()
     with _world1_nccl(torch):
         lc_train = phase_lc_train(torch, lc_weights)
+        pp_lc = phase_pp_lc(torch, lc_weights, lc_train)
         lc_check = phase_lc_check(torch, lc_weights)
         elastic_lc = phase_elastic_lc(torch, lc_weights)
     torch.cuda.empty_cache()
@@ -5648,8 +6316,10 @@ def main() -> int:
     with _world1_nccl(torch):
         moe_train = phase_moe_train(torch, moe_weights)
         moe_check = phase_moe_check(torch)
+        pp_moe = phase_pp_moe(torch, moe_weights)
     moe_serve = phase_moe_serve(torch, moe_weights)
     moe_ranks = phase_moe_ranks(torch)
+    pp_sched_ranks = phase_pp_sched_ranks(torch)
     graph_serve = phase_graph_serve(torch, bert_params, resnet_params, moe_weights)
     graph_train = phase_graph_train(torch, bert_params, bert_batch, resnet_params, lc_weights,
                                     moe_weights)
@@ -5678,6 +6348,12 @@ def main() -> int:
                 "pp_dryrun": pp_dryrun["launches"].get(name, 0),
                 "pp_tp_train": pp_tp_train["launches"].get(name, 0),
                 "pp_tp_ranks": pp_tp_ranks["launches"].get(name, 0),
+                "pp_gpipe": pp_gpipe["remat"]["launches"].get(name, 0),
+                "pp_gpipe_noremat": pp_gpipe["noremat"]["launches"].get(name, 0),
+                "pp_interleaved": pp_interleaved["launches"].get(name, 0),
+                "pp_lc": pp_lc["launches"].get(name, 0),
+                "pp_moe": pp_moe["launches"].get(name, 0),
+                "pp_sched_ranks": pp_sched_ranks["launches"].get(name, 0),
                 **{label: phase["launches"].get(name, 0) for label, phase in
                    (("elastic_bert", elastic_bert), ("elastic_kill", elastic_kill),
                     ("elastic_lc", elastic_lc), ("elastic_zero", elastic_zero))},
@@ -5792,7 +6468,16 @@ def main() -> int:
                 "pipeline_tp_zero": {
                     "per_step": pp_tp_train["per_step"]["fused_adam_update"],
                     "update": "the pieces of the rank's shard of every ZeRO bucket (embed, "
-                              "stage, head), one weight decay"}}
+                              "stage, head), one weight decay"},
+                "pipeline_schedules": {
+                    "per_step": {
+                        "gpipe": pp_gpipe["remat"]["per_step"]["fused_adam_update"],
+                        **{f"interleaved_{v}": r["per_step"]["fused_adam_update"]
+                           for v, r in pp_interleaved.items() if v != "launches"},
+                        "long_context": pp_lc["gluon"]["per_step"]["fused_adam_update"],
+                        "moe": pp_moe["per_step"]["fused_adam_update"]},
+                    "update": "the embed, the stage's layers and the head, one weight "
+                              "decay, after the schedule's last backward"}}
                if rule == "fused_adam_update" else {}),
             **({"moe": {"per_step": moe_train["per_step"]["fused_adam_update"],
                         "update": "the dense ZeRO shard segments and the expert tensors, "
@@ -5861,11 +6546,16 @@ def main() -> int:
                    "moe_train": moe_train, "moe_check": moe_check, "moe_serve": moe_serve,
                    "moe_ranks": moe_ranks, "pp_train": pp_train, "pp_check": pp_check,
                    "pp_ranks": pp_ranks, "pp_dryrun": pp_dryrun, "pp_tp_train": pp_tp_train,
-                   "pp_tp_ranks": pp_tp_ranks,
+                   "pp_tp_ranks": pp_tp_ranks, "pp_gpipe": pp_gpipe,
+                   "pp_interleaved": pp_interleaved, "pp_lc": pp_lc, "pp_moe": pp_moe,
+                   "pp_sched_ranks": pp_sched_ranks,
                    "graph_serve": graph_serve, "graph_train": graph_train,
                    "kernels": line["kernels"],
-                   "seconds": time.perf_counter() - t0}, f, indent=1, default=float)
-    log(f"[done] {time.perf_counter() - t0:.1f} s")
+                   "seconds": time.perf_counter() - t0, "phase_seconds": PHASE_SECONDS,
+                   "process_seconds": time.perf_counter() - T_START},
+                  f, indent=1, default=float)
+    log(f"[done] {time.perf_counter() - t0:.1f} s, {time.perf_counter() - T_START:.1f} s "
+        f"since the process started")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": device["name"],

@@ -415,9 +415,10 @@ def _leaf_chunk(tensor, trainer, view, dim) -> Chunk:
 
 
 def _stage_chunk(tensors, trainer, view, dim) -> Chunk:
-    """This stage's rows of a global (n_layers, *view) stage leaf: its
-    layers' tensors (their tp parts of ``dim``) stacked."""
-    lo = trainer._own[0]
+    """This stage's rows of a global (n_layers, *view) stage leaf in the
+    trainer's stack order: its layers' tensors (their tp parts of ``dim``)
+    stacked."""
+    lo = trainer.stage * trainer.layers_per_stage
     data = torch.stack([t.detach() for t in tensors])
     index = [(lo, lo + data.shape[0])] + [(0, int(d)) for d in view]
     split = {trainer.pp_axis}
@@ -687,7 +688,6 @@ def _install_pp(trainer, meta, fetch, names):
                f"reshard across tp degrees (saved tp={meta.get('tp_degree', 1)}, trainer "
                f"tp={trainer.n_tp}); resume on the saved tp degree, or save without "
                f"zero_update")
-    lo, hi = trainer._own[0], trainer._own[-1] + 1
     groups = (("e", trainer._leaves_e, trainer._view_e), ("h", trainer._leaves_h,
                                                           trainer._view_h))
     # every shape before any copy: a mismatch leaves the trainer as it was

@@ -23,14 +23,19 @@ so ``convert.load_jax_params`` carries its weights unchanged.
 
 Unlike the reference's, the port's cell is differentiable by autograd
 (``autograd.record()``), so the eager tape trains it too.
-``pipeline_split`` raises: the pipeline of this model waits for ROADMAP A2b
-(``parallel.PipelineTrainer`` takes BERT's ``pipeline_split``).
+``MoETransformerLM.pipeline_split`` (:141-175) gives
+``parallel.PipelineTrainer`` the embedding section (``_MoEEmbedStage``), the
+cells and the final LN + decoder (``_MoEHeadStage``) on the model's own
+child blocks. Under ``tp_mode="partitioned"`` the cells run
+``parallel.megatron``'s ``_tp_moe`` (experts split over tp). The pipeline's
+loss is the task loss, as the reference's: the aux values that
+``report_metrics`` collects are not added to it, and the capacity is each
+microbatch's.
 """
 from __future__ import annotations
 
 import torch
 
-from ..base import MXNetError
 from ..gluon.block import HybridBlock
 from ..gluon import nn
 from ..ndarray import NDArray
@@ -131,9 +136,38 @@ class MoETransformerLM(HybridBlock):
         return self.decoder(self.ln(x))
 
     def pipeline_split(self):
-        raise MXNetError("MoETransformerLM.pipeline_split: not ported yet (ROADMAP A2b: "
-                         "the pipeline's other compositions; parallel.PipelineTrainer "
-                         "takes BERT's pipeline_split)")
+        """(embed, cells, head) for ``parallel.PipelineTrainer``. The wrappers
+        re-register this model's own child blocks, so the parameters are
+        shared and the trainer's updates land in this model."""
+        cells = [self.cells[i] for i in range(len(self.cells))]
+        return _MoEEmbedStage(self), cells, _MoEHeadStage(self)
+
+
+class _MoEEmbedStage(HybridBlock):
+    """Pipeline stage 0's entry: MoETransformerLM's embedding section."""
+
+    def __init__(self, lm, **kwargs):
+        super().__init__(**kwargs)
+        self.word_embed = lm.word_embed
+        self.pos_embed = lm.pos_embed
+        self.embed_ln = lm.embed_ln
+
+    def hybrid_forward(self, F, token_ids):
+        pos = _position_ids(token_ids)
+        x = self.word_embed(token_ids) + self.pos_embed(pos).expand_dims(axis=0)
+        return self.embed_ln(x)
+
+
+class _MoEHeadStage(HybridBlock):
+    """Pipeline last stage's tail: the final LN and the LM decoder."""
+
+    def __init__(self, lm, **kwargs):
+        super().__init__(**kwargs)
+        self.ln = lm.ln
+        self.decoder = lm.decoder
+
+    def hybrid_forward(self, F, x):
+        return self.decoder(self.ln(x))
 
 
 def moe_transformer_tiny(vocab_size=1024, num_experts=4, top_k=2, capacity_factor=2.0,

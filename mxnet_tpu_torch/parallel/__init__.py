@@ -5,12 +5,12 @@ its ZeRO-sharded update (``zero``), the tensor-parallel specs
 (``tensor_parallel``: specs, the logical-role rules, the weight gather), the
 Megatron collectives and partitioned programs (``megatron``), and
 ring and Ulysses attention (``ring_attention``), the mixture of experts
-with expert parallelism (``moe``), and the 1F1B pipeline over a pp axis with
-an optional dp axis (``pipeline``: ``PipelineTrainer``, ``schedule_1f1b``,
-``pipeline_spec``; tensor parallelism in the stages, weight-sharded or
-partitioned, and ZeRO over dp). The overlapped reduction (``overlap.py``,
-ROADMAP A2) and the pipeline's schedule variants (ROADMAP A2b) wait for
-later slices."""
+with expert parallelism (``moe``), and the pipeline over a pp axis with
+optional dp and tp axes (``pipeline``: ``PipelineTrainer``, the 1F1B
+``schedule_1f1b`` and its interleaved chunks, GPipe's ``pipeline_apply``
+and ``gpipe_schedule``, ``pipeline_spec``; tensor parallelism in the stages,
+weight-sharded or partitioned, and ZeRO over dp). The overlapped reduction
+(``overlap.py``, ROADMAP A2) waits for a later slice."""
 from .mesh import (Mesh, PartitionSpec, P, make_mesh, local_mesh, current_mesh,
                    set_default_mesh, require_axis, axis_size, axis_index, activate,
                    active_mesh, sequence_axis)
@@ -27,7 +27,8 @@ from .moe import (moe_ffn, expert_parallel_moe, topk_gating, load_balancing_loss
                   load_balance_loss, dropped_tokens, wire_all_to_all,
                   all_to_all_wire_bytes, moe_capacity, expert_axis, collect_metrics)
 from . import pipeline
-from .pipeline import PipelineTrainer, pipeline_spec, schedule_1f1b
+from .pipeline import (PipelineTrainer, pipeline_spec, pipeline_apply, gpipe_schedule,
+                       schedule_1f1b)
 
 __all__ = ["Mesh", "PartitionSpec", "P", "make_mesh", "local_mesh", "current_mesh",
            "set_default_mesh", "require_axis", "axis_size", "axis_index", "activate",
@@ -40,4 +41,5 @@ __all__ = ["Mesh", "PartitionSpec", "P", "make_mesh", "local_mesh", "current_mes
            "ulysses_attention", "moe", "moe_ffn", "expert_parallel_moe", "topk_gating",
            "load_balancing_loss", "load_balance_loss", "dropped_tokens", "wire_all_to_all",
            "all_to_all_wire_bytes", "moe_capacity", "expert_axis", "collect_metrics",
-           "pipeline", "PipelineTrainer", "pipeline_spec", "schedule_1f1b"]
+           "pipeline", "PipelineTrainer", "pipeline_spec", "pipeline_apply", "gpipe_schedule",
+           "schedule_1f1b"]

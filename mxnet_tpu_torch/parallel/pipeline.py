@@ -1,9 +1,11 @@
-"""Pipeline parallelism: the 1F1B schedule and ``PipelineTrainer``.
+"""Pipeline parallelism: GPipe, the 1F1B schedule and ``PipelineTrainer``.
 
 Counterpart of ``mxnet_tpu/parallel/pipeline.py``: ``pipeline_spec``,
-``schedule_1f1b`` (:125-247) and ``PipelineTrainer`` (:250-1348): 1F1B with
-``virtual_stages=1`` over a ``pp`` mesh axis, with optional ``dp`` and ``tp``
-axes, in float32 or bfloat16 (float32 master weights), frozen lanes
+``pipeline_apply`` and ``gpipe_schedule`` (:78-122), ``schedule_1f1b``
+(:125-247) and ``PipelineTrainer`` (:250-1348): the 1F1B schedule, its
+interleaved form (``virtual_stages=v``) and GPipe (``schedule="gpipe"``,
+``remat``) over a ``pp`` mesh axis, with optional ``dp`` and ``tp`` axes, in
+float32 or bfloat16 (float32 master weights), frozen lanes
 (``grad_req='null'``), ``step``, ``drain``, ``sync``, ``num_update``,
 ``state_dict`` and ``load_state_dict`` (the ``pp`` snapshot kind of
 ``elastic/state.py``). ::
@@ -19,17 +21,37 @@ The reference runs the schedule as one ``lax.scan`` inside ``shard_map``.
 Here every rank of a ``torch.distributed`` mesh (``parallel/mesh.py``) runs
 its own stage of the same tick loop eagerly:
 
-- **The ticks and lanes are the reference's.** M + 2(pp - 1) ticks; at tick
-  t stage s runs the forward of microbatch t - s and the backward of
-  microbatch t - 2(pp - 1) + s. The last stage turns a microbatch around
-  within one tick. A lane outside [0, M) is skipped, where the reference
-  computes it on zeros and masks it (:176-186).
+- **The ticks and lanes are the reference's.** M + 2(pp v - 1) ticks; chunk
+  c of stage s is logical stage l = c pp + s (v = 1: l = s, one chunk of
+  the stage's layers); at tick t it runs the forward of microbatch t - l
+  and the backward of microbatch t - 2(pp v - 1) + l. The last logical
+  stage turns a microbatch around within one tick. A lane outside [0, M) is
+  skipped, where the reference computes it on zeros and masks it
+  (:176-186). The interleaved forward wraps from the last stage's chunk c
+  to stage 0's chunk c + 1, the cotangents the other way (:182-184,
+  :213-216); at pp = 1 a chunk hands its output to the next chunk within
+  the process (no send).
 - **Each in-flight microbatch keeps its autograd graph**, where the
   reference stashes the stage input and re-derives the vjp (:200-222). The
-  numbers and the bound are the same: stage s holds at most
-  min(M, 2(pp - 1 - s) + 1) microbatches, whatever M is (``last_stats``
-  counts them), and no forward is run twice (K1 once a layer and
-  microbatch, K2 and K3 once each in its backward).
+  numbers and the bound are the same: chunk c of stage s holds at most
+  min(M, 2(pp v - 1 - l) + 1) microbatches, at most 2 pp v - 1 whatever M
+  is (``last_stats["max_in_flight"]``, the most of any chunk), and no
+  forward is run twice (K1 once a layer and microbatch, K2 and K3 once each
+  in its backward).
+- **GPipe** (``pipeline_apply``, reference :78-111): M + pp - 1 forward
+  ticks (stage s runs microbatch t - s; stage 0 takes ``x_stack[t]``, the
+  others what their neighbour sent), then the transposed order, the same
+  ticks reversed, in the backward of one ``torch.autograd.Function``: each
+  microbatch's weight gradients are added into the same buffers and its
+  input's cotangent goes to the previous stage. With ``remat=True`` each
+  stage forward runs under ``torch.utils.checkpoint`` (non-reentrant): only
+  its input is kept and the backward runs it again, with the port's
+  autograd mode and dropout generator state of the first run; with
+  ``remat=False`` every microbatch keeps its whole graph until the
+  backward, GPipe's O(M) activation memory. The trainer's GPipe step runs
+  the embed on stage 0's M microbatches, ``pipeline_apply`` over the
+  stages, then the head and loss of each microbatch on the last stage (the
+  reference computes the head on every stage and masks it, :933-957).
 - **The backward** of a microbatch is ``torch.autograd.grad`` of the head
   loss times 1 / (M dp) on the last stage, or of the stage output against
   the received cotangent elsewhere, with respect to the stage's trainable
@@ -38,8 +60,10 @@ its own stage of the same tick loop eagerly:
   reference's sums over M, ``:930-935``), the input's goes to the previous
   stage.
 - **The wires.** After each tick, one ``_dist_util.exchange`` round posts
-  the activations to the next stage (tag ``FWD_TAG``) and the cotangents to
-  the previous one (``BWD_TAG``). The reference's two cyclic ``ppermute``\\ s
+  the activations to the next stage (tag ``FWD_TAG + 2 c`` for the
+  receiving chunk c) and the cotangents to the previous one
+  (``BWD_TAG + 2 c``), in the order of their tags on both sides (NCCL pairs
+  a peer's messages by order). The reference's two cyclic ``ppermute``\\ s
   (:233-236) become the sends whose receive is live: both peers know the
   schedule, so a send is skipped exactly where the peer's receive is. At two
   stages both rings join the same pair of ranks; the tags keep them apart.
@@ -60,9 +84,13 @@ its own stage of the same tick loop eagerly:
   Weight-decay indices follow the reference's convention (:551-556): embed
   leaves first, then the cell leaves (one index for a leaf of every layer),
   then the head, so a ``wd_mult`` set by index selects the same parameter in
-  both packages. ``sync()`` all-gathers each stage's layers over pp so that
-  every rank's Parameters hold every weight, as the reference's
-  single-controller ``sync`` (:1301-1326) leaves them.
+  both packages. Stage s owns rows [s L, (s + 1) L) of the stack order
+  (``_stack_order``, reference :480-486: row s L + c Lc + j holds layer
+  (c pp + s) Lc + j, the identity at v = 1), its chunk c the rows' c-th
+  Lc. ``sync()`` all-gathers each stage's rows over pp and writes each into
+  the layer the stack order names, so that every rank's Parameters hold
+  every weight, as the reference's single-controller ``sync``
+  (:1301-1326) leaves them.
 
 The compositions (reference :271-294):
 
@@ -103,18 +131,16 @@ gives the reference's estimates beside them.
 
 Refused, as the reference refuses them (``tests/test_pipeline_1f1b.py``,
 ``tests/test_pipeline_parallel.py``, ``tests/test_partitioned_tp.py``):
-layers that do not divide into the stages, cells that are not structurally
+layers that do not divide into pp x v chunks, ``virtual_stages`` without
+1F1B, GPipe with partitioned tp, cells that are not structurally
 identical, uninitialized parameters, a batch that does not divide by M dp, a
 net without ``pipeline_split``, a stage block that keeps aux state
 (BatchNorm's running statistics), a cell leaf frozen in some layers only, an
 unknown ``tp_mode``, ``sequence_parallel`` without partitioned tp, a
 partitioned loss that is not the mean token cross entropy, heads, hidden or
 vocab that do not divide by tp, ZeRO without ``dp_axis`` or with
-weight-sharded tp, a sequence that does not divide by tp under sp. Not
-ported yet (ROADMAP A2b, ``MXNetError``): ``schedule="gpipe"`` (also
-through ``MXNET_TPU_PP_SCHEDULE``), ``virtual_stages > 1``,
-``pipeline_apply`` and ``gpipe_schedule``. The reference's ``remat`` serves
-GPipe only and is not taken.
+weight-sharded tp, a sequence that does not divide by tp under sp. As in
+the reference, ``remat`` serves GPipe only.
 """
 from __future__ import annotations
 
@@ -147,104 +173,287 @@ env.declare("MXNET_TPU_PP_SCHEDULE", "1f1b", str,
             "Default PipelineTrainer schedule: '1f1b' (bounded activation "
             "memory) or 'gpipe' (grad-of-scan transpose)")
 
-_A2B = ("not ported yet (ROADMAP A2b: the pipeline's schedule variants, GPipe "
-        "(pipeline_apply, gpipe_schedule) and interleaved virtual stages; the port runs "
-        "schedule='1f1b' over pp, dp and tp)")
-
-FWD_TAG = 1     # activations, stage s -> s + 1
-BWD_TAG = 2     # cotangents, stage s -> s - 1
+FWD_TAG = 1     # activations, stage s -> s + 1 (to chunk c: FWD_TAG + 2 c)
+BWD_TAG = 2     # cotangents, stage s -> s - 1 (to chunk c: BWD_TAG + 2 c)
 
 
 def pipeline_spec(num_stages: int, axis: str = "pp"):
     return {"num_stages": num_stages, "axis": axis}
 
 
-def pipeline_apply(*args, **kwargs):
-    """GPipe's differentiable schedule (reference :72-111)."""
-    raise MXNetError(f"pipeline_apply: {_A2B}")
+def _stage_of(mesh, axis_name) -> Tuple[int, int]:
+    return (mesh.axis_size(axis_name), mesh.axis_index(axis_name)) if mesh else (1, 0)
 
 
-def gpipe_schedule(*args, **kwargs):
-    """The reference's shim over ``pipeline_apply`` (:114-120)."""
-    raise MXNetError(f"gpipe_schedule: {_A2B}")
+def _exchange(sends, recvs, group):
+    """``_dist_util.exchange`` with each side's messages in the order of
+    (peer, tag): NCCL pairs two ranks' messages by the order they are
+    posted, and both sides of a message use the same tag."""
+    if group is not None:
+        key = lambda m: (m[1], m[2])     # noqa: E731
+        _dist_util.exchange(sorted(sends, key=key), sorted(recvs, key=key), group)
+
+
+def _remat(fn: Callable) -> Callable:
+    """``fn(params, h, tick)`` under non-reentrant ``torch.utils.checkpoint``:
+    the forward keeps its input only and the backward runs it again. The
+    rerun sees the port's autograd mode of the first run and draws the same
+    dropout masks: the device generator is set back to where the first run
+    started, and after the rerun to where it was (the reference's
+    ``jax.checkpoint`` replays the same keys)."""
+    from torch.utils.checkpoint import checkpoint
+    from .. import random as _rng
+
+    def run(params, h, tick):
+        mode = (autograd.is_recording(), autograd.is_training())
+        gen = _rng.generator(h.device)
+        start: list = []
+
+        def body(a):
+            if not start:
+                start.append(gen.get_state())
+                return fn(params, a, tick)
+            now = gen.get_state()
+            gen.set_state(start[0])
+            try:
+                with autograd._RecordingScope(*mode):
+                    return fn(params, a, tick)
+            finally:
+                gen.set_state(now)
+        return checkpoint(body, h, use_reentrant=False)
+    return run
+
+
+class _GPipeRun:
+    """One call of ``pipeline_apply`` on this rank: the forward ticks, the
+    stash of each microbatch's (input, output) and the reversed ticks."""
+
+    def __init__(self, stage_fn, n, s, group, remat):
+        self.fn = _remat(stage_fn) if remat else stage_fn
+        self.n, self.s, self.group = n, s, group
+        self.stash: Dict[int, tuple] = {}
+        self.stats = {"ticks": 0, "max_in_flight": 0}
+        self._sent = dict(_dist_util.p2p_stats)
+
+    def forward(self, x_stack, params):
+        n, s, M = self.n, self.s, x_stack.shape[0]
+        params = list(params)
+        self.M, self.meta, self.params = M, x_stack[0], params
+        self.stats["ticks"] = M + n - 1
+        outs, recv = [], None
+        with torch.enable_grad():
+            for t in range(M + n - 1):
+                sends, recvs = [], []
+                m = t - s
+                if 0 <= m < M:
+                    h_in = (x_stack[m] if s == 0 else recv).detach().requires_grad_()
+                    h_out = self.fn(params, h_in, t)
+                    self.stash[m] = (h_in, h_out)
+                    self.stats["max_in_flight"] = max(self.stats["max_in_flight"],
+                                                      len(self.stash))
+                    if s < n - 1:
+                        sends.append((h_out.detach(), s + 1, FWD_TAG))
+                    else:
+                        outs.append(h_out.detach())
+                recv = None
+                if s > 0 and 0 <= t + 1 - s < M:
+                    recv = torch.empty_like(self.meta)
+                    recvs.append((recv, s - 1, FWD_TAG))
+                _exchange(sends, recvs, self.group)
+        return torch.stack(outs) if s == n - 1 else torch.zeros_like(x_stack)
+
+    def backward(self, dout):
+        n, s, M, params = self.n, self.s, self.M, self.params
+        grads: List[Optional[torch.Tensor]] = [None] * len(params)
+        dxs: List[Optional[torch.Tensor]] = [None] * M
+        cot = None
+        for t in reversed(range(M + n - 1)):
+            sends, recvs = [], []
+            m = t - s
+            if 0 <= m < M:
+                h_in, h_out = self.stash.pop(m)
+                got = torch.autograd.grad(h_out, list(params) + [h_in],
+                                          dout[m] if s == n - 1 else cot, allow_unused=True)
+                acc = [(i, g) for i, g in enumerate(got[:-1]) if g is not None]
+                for i, g in acc:
+                    if grads[i] is None:
+                        grads[i] = g
+                old = [(grads[i], g) for i, g in acc if grads[i] is not g]
+                if old:
+                    torch._foreach_add_([b for b, _ in old], [g for _, g in old])
+                dx = got[-1] if got[-1] is not None else torch.zeros_like(h_in)
+                if s == 0:
+                    dxs[m] = dx
+                else:
+                    sends.append((dx, s - 1, BWD_TAG))
+                del got, h_in, h_out
+            cot = None
+            if s < n - 1 and 0 <= t - 1 - s < M:
+                cot = torch.empty_like(self.meta)
+                recvs.append((cot, s + 1, BWD_TAG))
+            _exchange(sends, recvs, self.group)
+        self.stats.update({k: _dist_util.p2p_stats[k] - self._sent[k] for k in ("sends", "bytes")})
+        return (torch.stack(dxs) if s == 0 else None), grads
+
+
+class _GPipe(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, run, x_stack, *params):
+        ctx.run = run
+        return run.forward(x_stack, params)
+
+    @staticmethod
+    def backward(ctx, dout):
+        dx, grads = ctx.run.backward(dout)
+        ctx.run = None
+        return (None, dx, *grads)
+
+
+def _pipeline_apply(stage_fn, stage_params, x_stack, mesh, axis_name, remat):
+    n, s = _stage_of(mesh, axis_name)
+    group = mesh.group(axis_name) if n > 1 else None
+    run = _GPipeRun(stage_fn, n, s, group, remat)
+    return _GPipe.apply(run, x_stack, *stage_params), run
+
+
+def pipeline_apply(stage_fn: Callable, stage_params, x_stack, mesh=None,
+                   axis_name: str = "pp", remat: bool = True):
+    """GPipe's differentiable schedule (reference :78-111) on this rank's
+    stage of ``axis_name`` of ``mesh`` (None: one stage).
+
+    ``stage_fn(stage_params, x_mb, tick) -> y_mb`` is this stage's layers,
+    shape-preserving; ``stage_params`` the tensors it differentiates (a
+    sequence, passed back to it as a list); ``tick`` the schedule step (this
+    stage runs microbatch ``tick - stage``); ``x_stack`` the (M, ...)
+    microbatch stack, on every stage (only stage 0's is read: the others
+    receive their inputs, and take its shape and dtype). Returns the (M,
+    ...) output stack, valid on the last stage and zeros elsewhere. Its
+    backward runs the transposed schedule on every stage, so every rank of
+    the axis must differentiate through the output (a zero cotangent
+    elsewhere than on the last stage): the gradients of ``stage_params`` are
+    summed over the microbatches, and stage 0 gets ``x_stack``'s. See the
+    module docstring for ``remat``."""
+    out, _ = _pipeline_apply(stage_fn, list(stage_params), x_stack, mesh, axis_name, remat)
+    return out
+
+
+def gpipe_schedule(stage_fn: Callable, n_microbatch: int, axis_name: str = "pp", mesh=None):
+    """The reference's shim over ``pipeline_apply`` (:114-120): a stage of
+    no parameters, ``stage_fn(x_mb) -> y_mb``, without remat. Returns
+    ``run(x_stack)``; like the reference, it reads M from ``x_stack``."""
+    def run(x_stack):
+        return pipeline_apply(lambda _, x, t: stage_fn(x), (), x_stack, mesh=mesh,
+                              axis_name=axis_name, remat=False)
+    return run
 
 
 def schedule_1f1b(embed_fn: Callable, stage_fn: Callable, head_loss_fn: Callable,
                   params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                   x_stack, y_stack, mesh=None, axis_name: str = "pp",
                   n_chunks: int = 1, act_meta=None, loss_scale: float = 1.0):
-    """This rank's stage of the 1F1B schedule (reference :125-247), eager.
+    """This rank's stage of the 1F1B schedule (reference :125-247), eager,
+    interleaved over ``n_chunks`` chunks of its layers.
 
-    ``embed_fn(x_mb, m) -> act`` (stage 0's entry), ``stage_fn(act, m) ->
-    act`` (this stage's layers, shape-preserving), ``head_loss_fn(act, y_mb,
-    m) -> scalar`` (the last stage's head and mean loss); ``x_stack`` and
-    ``y_stack`` index microbatch m as ``x_stack[m]``. Run under
-    ``torch.enable_grad()`` and ``autograd.record()``. The gradient of
-    ``loss_scale`` times each microbatch's loss with respect to each of
-    ``params`` that the stage reaches is added into ``grads`` (buffers of
-    the same shapes). ``act_meta`` is ``(shape, dtype, device)`` of one
-    activation (what the stages receive: activations and cotangents); a
-    pipeline of more than one stage requires it.
+    ``embed_fn(x_mb, m) -> act`` (logical stage 0's entry), ``stage_fn(act,
+    m, c) -> act`` (chunk c of this stage's layers, shape-preserving),
+    ``head_loss_fn(act, y_mb, m) -> scalar`` (the last logical stage's head
+    and mean loss); ``x_stack`` and ``y_stack`` index microbatch m as
+    ``x_stack[m]``. Run under ``torch.enable_grad()`` and
+    ``autograd.record()``. The gradient of ``loss_scale`` times each
+    microbatch's loss with respect to each of ``params`` that the stage
+    reaches is added into ``grads`` (buffers of the same shapes).
+    ``act_meta`` is ``(shape, dtype, device)`` of one activation (what the
+    stages receive: activations and cotangents); a pipeline of more than one
+    stage requires it.
 
     Returns ``(loss_sum, stats)``: the sum of the microbatches' losses (on
     the last stage; zero elsewhere) and ``{"ticks", "max_in_flight",
-    "sends", "bytes"}`` of this rank (the sends from ``p2p_stats``)."""
-    if n_chunks != 1:
-        raise MXNetError(f"schedule_1f1b(n_chunks={n_chunks}): {_A2B}")
-    n, s = (mesh.axis_size(axis_name), mesh.axis_index(axis_name)) if mesh else (1, 0)
+    "sends", "bytes"}`` of this rank (``max_in_flight`` the most
+    microbatches any chunk held; the sends from ``p2p_stats``)."""
+    n, s = _stage_of(mesh, axis_name)
     if n > 1 and act_meta is None:
         raise MXNetError("schedule_1f1b over more than one stage needs act_meta, "
                          "the (shape, dtype, device) of one activation")
+    v = int(n_chunks)
+    if v < 1:
+        raise MXNetError("n_chunks must be >= 1")
+    nv = n * v
     M = len(x_stack)
     group = mesh.group(axis_name) if n > 1 else None
-    first, last = s == 0, s == n - 1
     params = list(params)
-    stash: Dict[int, tuple] = {}
+    stash: List[Dict[int, tuple]] = [{} for _ in range(v)]
     loss_sum = None
-    fwd_in = bwd_in = None
-    stats = {"ticks": M + 2 * (n - 1), "max_in_flight": 0}
+    fwd_in: List[Optional[torch.Tensor]] = [None] * v
+    bwd_in: List[Optional[torch.Tensor]] = [None] * v
+    stats = {"ticks": M + 2 * (nv - 1), "max_in_flight": 0}
     sent = dict(_dist_util.p2p_stats)
+
+    def route(msg, lstage, tag, local, sends):
+        """``msg`` to logical stage ``lstage``: a send, or at one stage the
+        next tick's input of chunk ``lstage``."""
+        peer, chunk = lstage % n, lstage // n
+        if peer == s:
+            local[chunk] = msg
+        else:
+            sends.append((msg, peer, tag + 2 * chunk))
     for t in range(stats["ticks"]):
         sends, recvs = [], []
-        mf = t - s                        # the forward lane's microbatch
-        if 0 <= mf < M:
-            h_in = embed_fn(x_stack[mf], mf) if first else fwd_in.requires_grad_()
-            h_out = stage_fn(h_in, mf)
+        local_f: Dict[int, torch.Tensor] = {}
+        local_b: Dict[int, torch.Tensor] = {}
+        for c in range(v):
+            ls = c * n + s                # this chunk's logical stage
+            mf = t - ls                   # the forward lane's microbatch
+            if not 0 <= mf < M:
+                continue
+            h_in = embed_fn(x_stack[mf], mf) if ls == 0 else fwd_in[c].requires_grad_()
+            h_out = stage_fn(h_in, mf, c)
             lossv = None
-            if last:
+            if ls == nv - 1:
                 lossv = head_loss_fn(h_out, y_stack[mf], mf)
                 part = lossv.detach().float()
                 loss_sum = part if loss_sum is None else loss_sum + part
             else:
-                sends.append((h_out.detach(), s + 1, FWD_TAG))
-            stash[mf] = (h_in, h_out, lossv)
-            stats["max_in_flight"] = max(stats["max_in_flight"], len(stash))
-        mb = t - 2 * (n - 1) + s          # the backward lane's microbatch
-        if 0 <= mb < M:
-            h_in, h_out, lossv = stash.pop(mb)
-            inputs = params if first else params + [h_in]
+                route(h_out.detach(), ls + 1, FWD_TAG, local_f, sends)
+            stash[c][mf] = (h_in, h_out, lossv)
+            stats["max_in_flight"] = max(stats["max_in_flight"], len(stash[c]))
+        for c in range(v):
+            ls = c * n + s
+            mb = t - 2 * (nv - 1) + ls    # the backward lane's microbatch
+            if not 0 <= mb < M:
+                continue
+            h_in, h_out, lossv = stash[c].pop(mb)
+            inputs = params if ls == 0 else params + [h_in]
             if not inputs:              # stage 0 with every parameter frozen
                 got = []
-            elif last:
+            elif lossv is not None:
                 got = torch.autograd.grad(lossv * loss_scale, inputs, allow_unused=True)
             else:
-                got = torch.autograd.grad(h_out, inputs, bwd_in, allow_unused=True)
+                got = torch.autograd.grad(h_out, inputs, bwd_in[c], allow_unused=True)
             pairs = [(b, g) for b, g in zip(grads, got) if g is not None]
             if pairs:
                 torch._foreach_add_([b for b, _ in pairs], [g for _, g in pairs])
-            if not first:
-                sends.append((got[-1], s - 1, BWD_TAG))
+            if ls > 0:
+                route(got[-1], ls - 1, BWD_TAG, local_b, sends)
             del got, h_in, h_out, lossv
-        # the receives of the next tick's lanes: what the peers sent at this one
-        fwd_in = bwd_in = None
-        if not first and 0 <= t + 1 - s < M:
-            fwd_in = torch.empty(act_meta[0], dtype=act_meta[1], device=act_meta[2])
-            recvs.append((fwd_in, s - 1, FWD_TAG))
-        if not last and 0 <= t + 1 - 2 * (n - 1) + s < M:
-            bwd_in = torch.empty(act_meta[0], dtype=act_meta[1], device=act_meta[2])
-            recvs.append((bwd_in, s + 1, BWD_TAG))
-        if group is not None:
-            _dist_util.exchange(sends, recvs, group)
+        # the next tick's inputs: what the peers sent at this one
+        fwd_in, bwd_in = [None] * v, [None] * v
+        for c in range(v):
+            ls = c * n + s
+            if ls > 0 and 0 <= t + 1 - ls < M:
+                peer = (ls - 1) % n
+                if peer == s:
+                    fwd_in[c] = local_f.pop(c)
+                else:
+                    fwd_in[c] = torch.empty(act_meta[0], dtype=act_meta[1], device=act_meta[2])
+                    recvs.append((fwd_in[c], peer, FWD_TAG + 2 * c))
+            if ls < nv - 1 and 0 <= t + 1 - 2 * (nv - 1) + ls < M:
+                peer = (ls + 1) % n
+                if peer == s:
+                    bwd_in[c] = local_b.pop(c)
+                else:
+                    bwd_in[c] = torch.empty(act_meta[0], dtype=act_meta[1], device=act_meta[2])
+                    recvs.append((bwd_in[c], peer, BWD_TAG + 2 * c))
+        _exchange(sends, recvs, group)
     stats.update({k: _dist_util.p2p_stats[k] - sent[k] for k in ("sends", "bytes")})
     if loss_sum is None:
         dev = act_meta[2] if act_meta is not None else None
@@ -280,17 +489,19 @@ class _Leaf:
 
 
 class PipelineTrainer:
-    """The 1F1B pipeline trainer over a ``pp`` axis of a mesh of ranks, with
+    """The pipeline trainer over a ``pp`` axis of a mesh of ranks, with
     optional ``dp`` and ``tp`` axes; see the module docstring. ``net``
     exposes ``pipeline_split() -> (embed, cells, head)``; ``loss`` is a Gluon
     ``Loss`` or a callable ``(pred, label) -> per-sample loss`` on tensors
-    (its mean is the microbatch's loss)."""
+    (its mean is the microbatch's loss). ``schedule`` is ``"1f1b"`` (the
+    default, ``MXNET_TPU_PP_SCHEDULE``; ``virtual_stages`` chunks a stage)
+    or ``"gpipe"`` (``remat``)."""
 
     def __init__(self, net, loss, optimizer="sgd", optimizer_params=None, mesh=None,
                  num_microbatch: Optional[int] = None, pp_axis: str = "pp",
                  dp_axis: Optional[str] = None, tp_axis: Optional[str] = None,
                  tp_mode: str = "sharded", sequence_parallel: bool = False, dtype=None,
-                 schedule: Optional[str] = None, virtual_stages: int = 1,
+                 remat: bool = True, schedule: Optional[str] = None, virtual_stages: int = 1,
                  zero_update: Optional[bool] = None, bucket_bytes: Optional[int] = None,
                  comm_dtype=None):
         self.net = net
@@ -313,28 +524,27 @@ class PipelineTrainer:
         if self.sequence_parallel and not self._partitioned:
             raise MXNetError("sequence_parallel shards the non-matmul regions over the tp "
                              "device group; it requires tp_mode='partitioned'")
+        self.remat = bool(remat)
         if schedule is None:
             schedule = env.get("MXNET_TPU_PP_SCHEDULE") or "1f1b"
         if schedule not in ("1f1b", "gpipe"):
             raise MXNetError(f"unknown pipeline schedule {schedule!r}; use '1f1b' or 'gpipe'")
-        if self._partitioned and schedule != "1f1b":
-            raise MXNetError("tp_mode='partitioned' runs its manual collectives inside the "
-                             "1F1B tick body; schedule='gpipe' (grad-of-scan) only supports "
-                             "weight-sharded tp")
-        if schedule == "gpipe":
-            raise MXNetError(f"PipelineTrainer(schedule='gpipe'): {_A2B}")
         self.schedule = schedule
         self.virtual_stages = int(virtual_stages)
         if self.virtual_stages < 1:
             raise MXNetError("virtual_stages must be >= 1")
-        if self.virtual_stages > 1:
-            raise MXNetError(f"PipelineTrainer(virtual_stages={virtual_stages}): {_A2B}")
+        if self.virtual_stages > 1 and schedule != "1f1b":
+            raise MXNetError("virtual_stages (interleaved schedule) requires schedule='1f1b'")
+        if self._partitioned and schedule != "1f1b":
+            raise MXNetError("tp_mode='partitioned' runs its manual collectives inside the "
+                             "1F1B tick body; schedule='gpipe' (grad-of-scan) only supports "
+                             "weight-sharded tp")
 
         if not hasattr(net, "pipeline_split"):
             raise MXNetError(f"{type(net).__name__} has no pipeline_split(); implement it "
                              f"returning (embed_block, identical_cells, head_block)")
         embed, cells, head = net.pipeline_split()
-        if len(cells) % self.n_stages != 0:
+        if len(cells) % (self.n_stages * self.virtual_stages) != 0:
             raise MXNetError(f"{len(cells)} layers do not divide into {self.n_stages} "
                              f"pipeline stages x {self.virtual_stages} virtual chunks")
         self._embed, self._cells, self._head = embed, list(cells), head
@@ -443,11 +653,15 @@ class PipelineTrainer:
             raise MXNetError(f"parameters {elsewhere[:3]} are not on the mesh's device "
                              f"{self.device}")
 
-        # this rank's stage; the schedule order of the layers (v = 1: identity)
+        # this rank's stage; the schedule order of the layers (reference
+        # :480-486: row s L + c Lc + j holds layer (c pp + s) Lc + j; v = 1
+        # the identity) and this stage's rows of it
         self.stage = self.mesh.axis_index(pp_axis)
-        L = self.layers_per_stage
-        self._stack_order = list(range(self.n_layers))
-        self._own = list(range(self.stage * L, (self.stage + 1) * L))
+        L, v = self.layers_per_stage, self.virtual_stages
+        Lc = L // v
+        self._stack_order = [(c * self.n_stages + s) * Lc + j for s in range(self.n_stages)
+                             for c in range(v) for j in range(Lc)]
+        self._own = self._stack_order[self.stage * L:(self.stage + 1) * L]
         first, last = self.stage == 0, self.stage == self.n_stages - 1
         # weight-decay indices: embed leaves, then the cell leaves, then the head
         self._wd_e = [self.optimizer._get_wd(i) for i in range(nE)]
@@ -547,7 +761,7 @@ class PipelineTrainer:
                 wds=tuple(float(w) for w in self._wd_e + self._wd_s + self._wd_h),
                 loss=self.loss, mesh=tuple(sorted(self.mesh.shape.items())),
                 axis_order=self.mesh.axis_names, pp_axis=pp_axis, dp_axis=dp_axis,
-                tp_axis=tp_axis, schedule=self.schedule,
+                tp_axis=tp_axis, schedule=self.schedule, remat=self.remat,
                 virtual_stages=self.virtual_stages, num_microbatch=self.num_microbatch,
                 trainable=(tuple(self._tr_e), tuple(self._tr_s), tuple(self._tr_h)),
                 tp_dims=(tuple(self._tp_e), tuple(self._tp_s), tuple(self._tp_h)),
@@ -743,15 +957,19 @@ class PipelineTrainer:
                                      self._key(10_000, m))
         return self._embed(NDArray(x, self.device))._data
 
-    def _stage_fn(self, h, m):
+    def _stage_fn(self, h, m, c=0):
+        """Chunk ``c`` of this stage's layers (all of them at v = 1) on
+        microbatch ``m``."""
+        Lc = self.layers_per_stage // self.virtual_stages
+        rows = range(c * Lc, (c + 1) * Lc)
         if self._partitioned:
-            for j, row in enumerate(self._leaves_s):
-                h = _mg.cell_forward(self._cplan, self._pcfg, self._low(row), h,
+            for j in rows:
+                h = _mg.cell_forward(self._cplan, self._pcfg, self._low(self._leaves_s[j]), h,
                                      self._key(self._own[j], m))
             return h
         out = NDArray(h, self.device)
-        for j in self._own:
-            out = self._cells[j](out)
+        for j in rows:
+            out = self._cells[self._own[j]](out)
         return out._data
 
     def _head_loss_fn(self, h, y, m):
@@ -809,12 +1027,15 @@ class PipelineTrainer:
                     for p in self._used:
                         if p._param.is_floating_point():
                             p._compute = p._param.to(cdt)
-                loss_sum, stats = schedule_1f1b(
-                    self._embed_fn, self._stage_fn, self._head_loss_fn,
-                    [lf.x for lf in self._train], [lf.grad for lf in self._train],
-                    xs, ys, mesh=self.mesh if self.n_stages > 1 else None,
-                    axis_name=self.pp_axis, act_meta=meta,
-                    loss_scale=1.0 / (M * self.n_dp))
+                if self.schedule == "gpipe":
+                    loss_sum, stats = self._gpipe(xs, ys, meta, 1.0 / (M * self.n_dp))
+                else:
+                    loss_sum, stats = schedule_1f1b(
+                        self._embed_fn, self._stage_fn, self._head_loss_fn,
+                        [lf.x for lf in self._train], [lf.grad for lf in self._train],
+                        xs, ys, mesh=self.mesh if self.n_stages > 1 else None,
+                        axis_name=self.pp_axis, n_chunks=self.virtual_stages,
+                        act_meta=meta, loss_scale=1.0 / (M * self.n_dp))
         finally:
             if blocks:
                 for p in self._used:
@@ -831,6 +1052,41 @@ class PipelineTrainer:
                     _dist_util.count_comm("grad_all_reduce", "+".join(axes),
                                           flat.numel() * flat.element_size())
         return lossv
+
+    def _gpipe(self, xs, ys, meta, loss_scale):
+        """GPipe's pass (reference :933-957): the embed of stage 0's M
+        microbatches, ``pipeline_apply`` over the stages, the head and loss
+        of each microbatch on the last stage; one ``autograd.grad`` of
+        ``loss_scale`` times their sum (elsewhere of the output against a
+        zero cotangent) runs the reversed ticks. Returns ``(loss_sum,
+        stats)`` as ``schedule_1f1b`` does."""
+        M, first, last = self.num_microbatch, self.stage == 0, \
+            self.stage == self.n_stages - 1
+        if first:
+            h = torch.stack([self._embed_fn(xs[m], m) for m in range(M)])
+        else:
+            h = torch.zeros((M,) + tuple(meta[0]), dtype=meta[1], device=meta[2])
+        if not h.requires_grad:         # the reversed ticks run on every stage
+            h.requires_grad_()
+        own = [lf.x for row in self._leaves_s for lf in row if lf.trainable]
+        out, run = _pipeline_apply(lambda _, a, t: self._stage_fn(a, t - self.stage), own, h,
+                                   self.mesh if self.n_stages > 1 else None, self.pp_axis,
+                                   self.remat)
+        leaves = [lf.x for lf in self._train] + [h]
+        if last:
+            total = None
+            for m in range(M):
+                lv = self._head_loss_fn(out[m], ys[m], m).float()
+                total = lv if total is None else total + lv
+            got = torch.autograd.grad(total * loss_scale, leaves, allow_unused=True)
+            loss_sum = total.detach()
+        else:
+            got = torch.autograd.grad(out, leaves, torch.zeros_like(out), allow_unused=True)
+            loss_sum = torch.zeros((), dtype=torch.float32, device=out.device)
+        pairs = [(lf.grad, g) for lf, g in zip(self._train, got) if g is not None]
+        if pairs:
+            torch._foreach_add_([b for b, _ in pairs], [g for _, g in pairs])
+        return loss_sum, run.stats
 
     def _reduce_zero(self):
         """Each bucket's gradient (the stage's stacked over its layers)
@@ -868,7 +1124,7 @@ class PipelineTrainer:
                 torch._foreach_copy_(dst, src)
 
     def step(self, x, y) -> PendingScalar:
-        """One 1F1B training step on the global batch ``x``, ``y``."""
+        """One training step of the schedule on the global batch ``x``, ``y``."""
         xr, yr = self._raw(x), self._raw(y)
         M, B = self.num_microbatch, xr.shape[0]
         self.optimizer.rescale_grad = 1.0
@@ -912,10 +1168,21 @@ class PipelineTrainer:
         :1180-1219: (tp - 1)/tp of one microbatch's activation per
         collective, M (4L + 2) all-reduces, or M (2L + 1) 2 all-gathers and as
         many reduce-scatters under sp; ``_record_zero_telemetry``,
-        :1221-1231; the weight-sharded gather, :1258-1266)."""
+        :1221-1231; the weight-sharded gather, :1258-1266), and at pp > 1 the
+        schedule's activation hops (``_ppermute_stats``, :1146-1178): one
+        v-stack of a microbatch's activation each way at each of M + pp v - 1
+        ticks (GPipe) or M + 2(pp v - 1) (1F1B), a rank's share over dp."""
         B, T = int(x_shape[0]), int(x_shape[1])
         M, L, ntp = self.num_microbatch, self.n_layers, self.n_tp
         out: Dict[str, Tuple[int, int]] = {}
+        if self.n_stages > 1:
+            nv = self.n_stages * self.virtual_stages
+            hops = M + nv - 1 if self.schedule == "gpipe" else M + 2 * (nv - 1)
+            tokens = torch.zeros((M, B // (M * self.n_dp), T), dtype=torch.int32,
+                                 device=self.device.torch_device)
+            shape, dtype, _ = self._activation(tokens)
+            act = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+            out["ppermute"] = (2 * hops, act * self.virtual_stages * 2 * hops)
         if self._partitioned and ntp > 1:
             item = (self.compute_dtype or self._leaves_e[self._eplan.word_w].x.dtype).itemsize
             act = (B // M) * T * self._eplan.units // self.n_dp * item
@@ -951,8 +1218,8 @@ class PipelineTrainer:
         """Leave every weight in every rank's Parameters: the tp shards
         gathered (weight-sharded and partitioned leaves, the blocked views
         folded back to the logical shapes), then each cell leaf's layers
-        all-gathered over pp from the stages that own them (collectives every
-        rank of the mesh calls). Under partitioned tp at tp > 1 this gives
+        all-gathered over pp from the stages that own them, unstacked
+        through ``_stack_order`` (collectives every rank of the mesh calls). Under partitioned tp at tp > 1 this gives
         the Parameters their storage back."""
         self.drain()
         with torch.no_grad():
@@ -981,9 +1248,9 @@ class PipelineTrainer:
                 full = torch.empty((self.n_layers,) + tuple(mine.shape[1:]),
                                    dtype=mine.dtype, device=mine.device)
                 dist.all_gather_into_tensor(full, mine, group=self._pp_group)
-                for m in range(self.n_layers):
-                    if m // L != self.stage:
-                        self._cell_plists[m][i]._param.detach().copy_(full[m])
+                for r, m in enumerate(self._stack_order):
+                    if r // L != self.stage:
+                        self._cell_plists[m][i]._param.detach().copy_(full[r])
 
     @property
     def num_update(self):

@@ -28,10 +28,14 @@ Counterpart of ``mxnet_tpu/recipes/long_context.py``:
   (:48-52), ``make_model``, ``make_oracle``, ``make_trainer``, and
   ``token_cross_entropy`` (the reference's ``recipes/moe.py:54``).
 
+``LongContextLM.pipeline_split`` (:185-228) gives ``parallel.PipelineTrainer``
+the embedding section (``_LCEmbedStage``, with the sequence axis's position
+offset), the cells and the final LN + decoder (``_LCHeadStage``) on the
+model's own child blocks; under ``tp_mode="partitioned"`` the cells run
+``parallel.megatron``'s causal branch.
+
 Not ported: ``make_feed`` raises (``engine/async_feed.DeviceFeed``, ROADMAP
-A7); ``pipeline_split`` and its stage blocks (:185-228) wait for ROADMAP
-A2b, the pipeline's other compositions (``parallel.PipelineTrainer`` takes
-BERT's); ``_record_telemetry`` for the telemetry layer.
+A7); ``_record_telemetry`` for the telemetry layer.
 
 The kernels take head dims up to 256 (16, 32, 64, 128 and 256 instantiated,
 others zero-padded by their wrappers): ``dryrun_multichip``'s shape, units
@@ -177,16 +181,57 @@ class LongContextLM(HybridBlock):
         self.decoder = nn.Dense(vocab_size, flatten=False, in_units=units)
 
     def hybrid_forward(self, F, token_ids):
-        from .. import ndarray as nd
-        Tl = token_ids.shape[1]
-        start = 0
-        ctx = current_sequence_axis()
-        if ctx is not None:
-            start = _sequence_mesh(ctx).axis_index(ctx.axis_name) * Tl
-        pos = nd.arange(start, start + Tl, dtype="int32", ctx=token_ids.ctx)
-        x = self.word_embed(token_ids) + self.pos_embed(pos).expand_dims(axis=0)
-        x = self.embed_ln(x)
+        x = _embed(self, token_ids)
         x = self.cells(x)
+        return self.decoder(self.ln(x))
+
+    def pipeline_split(self):
+        """(embed, cells, head) for ``parallel.PipelineTrainer``. The wrappers
+        re-register this model's own child blocks, so the parameters are
+        shared and ``sync()`` writes back into this model."""
+        cells = [self.cells[i] for i in range(len(self.cells))]
+        return _LCEmbedStage(self), cells, _LCHeadStage(self)
+
+
+def _embed(block, token_ids):
+    """Token and position embeddings and LN of ``block``'s word_embed,
+    pos_embed and embed_ln; under ``sequence_axis`` the positions start at
+    ``sp_rank * T/sp``."""
+    from .. import ndarray as nd
+    Tl = token_ids.shape[1]
+    start = 0
+    ctx = current_sequence_axis()
+    if ctx is not None:
+        start = _sequence_mesh(ctx).axis_index(ctx.axis_name) * Tl
+    pos = nd.arange(start, start + Tl, dtype="int32", ctx=token_ids.ctx)
+    x = block.word_embed(token_ids) + block.pos_embed(pos).expand_dims(axis=0)
+    return block.embed_ln(x)
+
+
+class _LCEmbedStage(HybridBlock):
+    """Pipeline stage 0's entry: LongContextLM's embedding section (keeps
+    the sequence axis's position offset, so a ring run still sees global
+    positions)."""
+
+    def __init__(self, lm, **kwargs):
+        super().__init__(**kwargs)
+        self.word_embed = lm.word_embed
+        self.pos_embed = lm.pos_embed
+        self.embed_ln = lm.embed_ln
+
+    def hybrid_forward(self, F, token_ids):
+        return _embed(self, token_ids)
+
+
+class _LCHeadStage(HybridBlock):
+    """Pipeline last stage's tail: the final LN and the LM decoder."""
+
+    def __init__(self, lm, **kwargs):
+        super().__init__(**kwargs)
+        self.ln = lm.ln
+        self.decoder = lm.decoder
+
+    def hybrid_forward(self, F, x):
         return self.decoder(self.ln(x))
 
 

@@ -9,8 +9,9 @@ the ranks), aux weight 1e-2.
 - ``MoETransformerLM``: logits against the reference's, and the gradient of
   the token cross entropy plus the weighted aux loss against ``jax.grad``
   through the reference's ``_make_apply_fn`` (its eager tape does not see
-  through the MoE cell); the registry, the parameter paths and tags, and the
-  refusals (``tests/test_recipes.py:337-350``, ``pipeline_split``).
+  through the MoE cell); the registry, the parameter paths and tags,
+  ``pipeline_split``'s shared blocks, and the refusals
+  (``tests/test_recipes.py:337-350``).
 - ``MoETrainer`` on ``{dp: 1, ep: 1}`` (a mesh of one device): 10 losses
   against the reference's trainer; with E = 1 against the dense oracle
   through ``DataParallelTrainer(zero_update=True)`` (aux weight 0).
@@ -126,8 +127,17 @@ def test_registry_paths_and_refusals(weights):
     tagged = sorted(k for k, p in net._collect_params_with_prefix().items()
                     if getattr(p, "_is_moe_expert", False))
     assert tagged == [f"cells.{i}.moe.{w}" for i in range(2) for w in ("w1", "w2")]
-    with pytest.raises(mt.MXNetError, match="ROADMAP A2"):
-        net.pipeline_split()
+    # pipeline_split (refused until the pipeline took this model): wrappers
+    # over the model's own blocks, the same Parameters and the same logits
+    embed, cells, head = net.pipeline_split()
+    shared = {id(p) for p in net.collect_params().values()}
+    split = [p for b in (embed, head, *cells) for p in b.collect_params().values()]
+    assert len(split) == len(shared) and all(id(p) in shared for p in split)
+    tokens = mt.nd.array(np.arange(B * T).reshape(B, T) % VOCAB, ctx=mt.cpu(), dtype="int32")
+    h = embed(tokens)
+    for c in cells:
+        h = c(h)
+    torch.testing.assert_close(head(h)._data, net(tokens)._data, rtol=0, atol=0)
     dense = mt.gluon.nn.Dense(4, in_units=3)
     dense.initialize(ctx=mt.cpu())
     with pytest.raises(mt.MXNetError, match="_is_moe_expert"):

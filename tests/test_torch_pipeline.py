@@ -18,8 +18,11 @@ tokens from a numpy seed, and the mean token cross entropy.
   module loaded.
 - In one process: ``{pp: 1}`` at M = 4 against the port's
   ``DataParallelTrainer``; a frozen embedding (the reference's :265); the
-  rejections and the ROADMAP A2b refusals (GPipe and interleaved stages; the
-  tp and ZeRO compositions are ``test_torch_pipeline_tp.py``'s);
+  rejections; GPipe and the interleaved stages at pp 1 against the same
+  fused step, and ``pipeline_apply``, ``gpipe_schedule`` and
+  ``schedule_1f1b(n_chunks=2)`` on one stage (their parity with the
+  reference on more stages is ``test_torch_pipeline_schedules.py``'s, the
+  tp and ZeRO compositions ``test_torch_pipeline_tp.py``'s);
   ``pipeline_split``'s shared Parameters.
 
 Tolerances (f32; the reference's own 1F1B tests allow losses 2e-3 / 5e-4
@@ -381,21 +384,58 @@ def test_rejections(weights, monkeypatch):
 @pytest.mark.parametrize("kw", [dict(schedule="gpipe"), dict(virtual_stages=2),
                                 dict(schedule="env")])
 def test_other_compositions_raise_a2b(weights, monkeypatch, kw):
-    net = _net(weights)
+    """The compositions that were refused until the GPipe and interleaved
+    schedules came (``schedule="gpipe"``, also through
+    ``MXNET_TPU_PP_SCHEDULE``, and ``virtual_stages=2``) now train: at pp 1
+    their 3 losses and the weights equal the full-batch fused step's (the
+    reference's parity on more stages is ``test_torch_pipeline_schedules.py``'s)."""
     if kw == dict(schedule="env"):
         monkeypatch.setenv("MXNET_TPU_PP_SCHEDULE", "gpipe")
         kw = {}
-    with pytest.raises(MXNetError, match="ROADMAP A2b"):
-        PipelineTrainer(net, token_ce, mesh=make_mesh({"pp": 1}, devices=[mt.cpu()]), **kw)
+    x, y = _batch(6)
+    n1, n2 = _net(weights), _net(weights)
+    dpt = DataParallelTrainer(n1, token_ce, "adam", {"learning_rate": 1e-2},
+                              mesh=make_mesh({"dp": 1}, devices=[mt.cpu()]))
+    tr = _one(n2, **kw)
+    assert tr.schedule == kw.get("schedule", "gpipe" if not kw else "1f1b")
+    want = [float(dpt.step(*_xy(x, y))) for _ in range(3)]
+    got = [float(tr.step(*_xy(x, y))) for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=TOL_LOSS)
+    a, b = _params(n1), _params(n2)
+    for key, w in a.items():
+        assert np.abs(b[key] - w).max() <= TOL_W, key
 
 
 def test_functional_gpipe_and_chunks_raise_a2b():
-    for call in (lambda: pipeline.pipeline_apply(None, (), None),
-                 lambda: pipeline.gpipe_schedule(None, 2, "pp"),
-                 lambda: pipeline.schedule_1f1b(None, None, None, [], [], [0], [0],
-                                                n_chunks=2)):
-        with pytest.raises(MXNetError, match="ROADMAP A2b"):
-            call()
+    """The functional forms that were refused until the GPipe and
+    interleaved schedules came now run on one stage: ``pipeline_apply`` and
+    ``gpipe_schedule`` give the stage's output and gradients,
+    ``schedule_1f1b(n_chunks=2)`` the loss and gradients of one chunk."""
+    rs = np.random.RandomState(8)
+    w = torch.tensor(rs.normal(0, 0.5, (6, 6)).astype(np.float32), requires_grad=True)
+    xs = torch.tensor(rs.normal(0, 1, (4, 3, 6)).astype(np.float32), requires_grad=True)
+    out = pipeline.pipeline_apply(lambda p, h, t: torch.tanh(h @ p[0]), [w], xs)
+    out.sum().backward()
+    w2, x2 = w.detach().clone().requires_grad_(), xs.detach().clone().requires_grad_()
+    want = torch.tanh(x2 @ w2)
+    want.sum().backward()
+    torch.testing.assert_close(out, want.detach(), rtol=0, atol=1e-6)
+    torch.testing.assert_close(w.grad, w2.grad, rtol=0, atol=1e-5)
+    torch.testing.assert_close(xs.grad, x2.grad, rtol=0, atol=1e-6)
+    shim = pipeline.gpipe_schedule(lambda h: torch.tanh(h @ w.detach()), 4, "pp")
+    torch.testing.assert_close(shim(xs.detach()), want.detach(), rtol=0, atol=1e-6)
+    ys = torch.tensor(rs.normal(0, 1, (4, 3, 6)).astype(np.float32))
+    got = {}
+    for chunks in (1, 2):
+        grad = torch.zeros_like(w)
+        loss, stats = pipeline.schedule_1f1b(
+            lambda x, m: x, lambda h, m, c: torch.tanh(h @ w) if c == 0 or chunks == 1 else h,
+            lambda h, y, m: ((h - y) ** 2).mean(), [w], [grad], xs.detach(), ys,
+            n_chunks=chunks, loss_scale=0.25)
+        got[chunks] = (float(loss), grad, stats)
+    assert got[2][2]["ticks"] == 4 + 2 and got[2][2]["max_in_flight"] == 3
+    assert got[1][0] == pytest.approx(got[2][0], rel=1e-6)
+    torch.testing.assert_close(got[1][1], got[2][1], rtol=0, atol=1e-6)
     assert pipeline.pipeline_spec(4) == {"num_stages": 4, "axis": "pp"}
 
 
