@@ -98,11 +98,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. ``dryrun_multichip``'s step on 8 ranks (``phase_dist_bert_ranks``): the
    layout dp2 x tp2 x sp2 as 8 processes sharing the card over gloo (NCCL
    refuses two ranks on one device), launched by ``_dist_util.launch_local``:
-   BERT-base width, 12 layers, T=1024, global batch 8, Megatron specs
-   (``shard_params_megatron``), ``data_spec=P("dp", "sp")``, Adam, f32, 3
+   BERT-base width, 6 of its 12 layers, T=1024, global batch 8, Megatron specs
+   (``shard_params_megatron``), ``data_spec=P("dp", "sp")``, Adam, f32, 2
    steps. Every rank launches K1-K3 once a layer a step at (24, 512, 1024,
    64) and K5 once; the losses, the gathered gradients after step 1 and the
-   gathered weights after step 3 equal the one-rank fused step's on the same
+   gathered weights after the last step equal the one-rank fused step's on the same
    global batch (1e-5 relative, 1e-3 of each tensor's max, 2e-5). Any rank's
    failure or a hang past the join timeout fails the script. A correctness
    run: gloo stages every collective through the host.
@@ -122,27 +122,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    T = 2048, batch 2, on the card against the CPU.
 14. ``phase_lc_ranks``: the trainer at dp2 x sp2 as 4 ranks sharing the card
    over gloo (ring attention over sp, the sharded update over dp), T = 8192,
-   global batch 4, 3 steps, against the one-rank step; each rank's K1-K3
+   global batch 4, 2 steps, against the one-rank step; each rank's K1-K3
    launches by mask and shape follow its hop schedule (rank sp=s: one causal
    hop and s full hops a layer) and K5 runs once a step over its shard's
    segments; the ring's point-to-point bytes beside the reference's estimate.
 15. ``phase_zero_bert_ranks``: ``DataParallelTrainer(zero_update=True)`` on 2
    ranks at dp2 over gloo, 2 layers of BERT-base width, T = 1024, batch 4,
-   Adam, 3 steps, native, bf16 and int8 on the wire, against
+   Adam, 2 steps, native, bf16 and int8 on the wire, against
    ``zero_update=False``; each rank's optimizer state about half.
 
 The elastic kill-and-resume (``mxnet_tpu_torch.elastic``), each path with
 every counter set to 0 just before it and read just after:
 
 16. ``phase_elastic_bert`` (after phase 9, on a world-1 NCCL group):
-   BERT-base T=1024 batch 8, f32, Adam lr 1e-4 through
+   BERT-base width (6 of its 12 layers, ELASTIC_CFG), T=1024 batch 8, f32,
+   Adam lr 1e-4 through
    ``elastic.run(trainer, feed, num_steps=8, save_every=3)``: asynchronous
    snapshots at steps 3 and 6 while the steps go on and a final one at 8;
    the step times around the saves, the time ``save()`` held the step path,
    the device copy against its byte bound, the copy to pinned host memory,
    the write. Then a trainer with its own initial weights boots through
    ``resume_or_init`` from step 6: ``(6, "resumed")``, every tensor bitwise
-   the saved leaf, steps 7-8 equal to the run's at rtol 1e-6; K1-K3 12
+   the saved leaf, steps 7-8 equal to the run's at rtol 1e-6; K1-K3 6
    launches a step and K5 one in both runs.
 17. ``phase_elastic_kill``: the same run in a child process, SIGKILLed once
    the step-4 snapshot is committed and the step-6 write has begun; a second
@@ -170,11 +171,11 @@ The MoE half of ``dryrun_multichip`` (``parallel.moe``,
 ``models.MoETransformerLM``, ``recipes.moe``), last:
 
 21. ``phase_moe_train`` (on a world-1 NCCL group), the slice's main path:
-   ``MoETransformerLM`` at Switch-Base-8's widths (12 layers, units 768,
-   hidden 3072, 12 heads, 8 experts, top-1, capacity factor 1.25, vocab
-   32128; 532 M parameters) with seeded weights through ``load_jax_params``,
+   ``MoETransformerLM`` at Switch-Base-8's widths (4 of its 12 layers,
+   units 768, hidden 3072, 12 heads, 8 experts, top-1, capacity factor 1.25,
+   vocab 32128; 211 M parameters) with seeded weights through ``load_jax_params``,
    ``get_recipe("moe").build_trainer`` on ``{dp: 1, ep: 1}``, Adam lr 1e-4,
-   T=1024 batch 8, f32 with TF32 off: 5 steps and one profiled, K1-K3 12
+   T=1024 batch 8, f32 with TF32 off: 5 steps and one profiled, K1-K3 4
    launches and K5 one a step, the loss falling; tokens/s, TFLOP/s by
    ``bench.py:1874``'s count without its one-hot term, idle share, peak
    memory, dropped assignments. ``phase_moe_check``: one step of 2 such
@@ -220,7 +221,7 @@ Tensor parallelism and ZeRO inside the pipeline's stages (``tp_mode=
    through ``PipelineTrainer(tp_axis="tp", tp_mode="partitioned",
    dp_axis="dp", zero_update=True)`` on ``{pp: 1, tp: 1, dp: 1}``: 5 losses
    against phase 24's at 1e-5 relative; K1-K3 48 launches a step at (24,
-   1024, 1024, 64) and K5 one a weight decay; 20 timed steps (p50, p90,
+   1024, 1024, 64) and K5 one a weight decay; 10 timed steps (p50, p90,
    tokens/s), a traced step (host launches, device busy, idle share), peak
    memory, the counted collectives beside the reference's estimates.
 26b. ``phase_pp_tp_ranks``: 4 gloo ranks sharing the card, 2 layers of
@@ -254,20 +255,20 @@ The pipeline's other schedules and models (GPipe, ``remat``, the interleaved
    through the Gluon cells and partitioned at tp 1 (the causal branch of
    ``megatron.cell_forward``): 3 losses against phase 13's
    ``LongContextTrainer`` at 1e-5; causal K1-K3 8 launches a step, K5 one;
-   10 timed steps, a traced one. Phase 12 times K1-K3 at its microbatch's
+   8 timed steps, a traced one. Phase 12 times K1-K3 at its microbatch's
    causal shape (BH 2, T 32768, D 32).
 21b. ``phase_pp_moe`` (in phase 21's group): ``MoETransformerLM.pipeline_split``
    at Switch-Base-8 widths, T 1024, batch 8 in M = 4, Adam 1e-4, f32, the
-   task loss: 5 steps of K1-K3 48 launches and K5 one, a falling loss, the
-   dropped assignments, 10 timed steps, a traced one, peak memory; a 2-layer
+   task loss: 3 steps of K1-K3 16 launches and K5 one, a falling loss, the
+   dropped assignments, 8 timed steps, a traced one, peak memory; a 2-layer
    copy, one step of batch 2 in M = 2, GPU against CPU (routing flips
    counted, then the training checks' tolerances).
 23b. ``phase_pp_sched_ranks``: 4 gloo ranks sharing the card (correctness
-   and memory), 3 steps of batch 4 in M = 2 against the same model's 1F1B at
+   and memory), 2 steps of batch 4 in M = 2 against the same model's 1F1B at
    pp 1 in this process, losses 1e-5 and weights 2e-5: GPipe at ``{pp: 2}``
    and ``{pp: 2, dp: 2}`` (2 layers of BERT-base width), the interleaved pp
    2 x v 2 (4 layers, stack order [0, 2, 1, 3]), ``LongContextLM``'s split
-   at ``{tp: 2}`` partitioned (T 4096) and the MoE's (2 layers of
+   at ``{tp: 2}`` partitioned (T 2048) and the MoE's (2 layers of
    Switch-Base-8 width, ``_tp_moe``); stage 0's peak for GPipe and 1F1B at M
    4 and 8.
 
@@ -304,6 +305,29 @@ form:
    whose steps equal the run's bitwise and then installed in place into that
    captured trainer (no capture, the replays bitwise), and a 2-layer BERT with dropout 0.1
    whose 3 captured steps equal 3 eager ones after the same seed.
+
+The rest of A2 (``parallel/overlap.py``, 2-bit compression, ``dist_async``,
+``elastic/coordinator.py``), after them:
+
+29. ``phase_overlap_bert``: on a world-1 NCCL group, BERT-base T=1024 batch 8
+   Adam through ``DataParallelTrainer(overlap_grads=True,
+   overlap_segments=4)`` against the plain fused step from the same weights:
+   losses and weights, K1-K3 12 and K5 1 a step, one capture and its replays
+   bitwise eager, p50/p90 and idle share of both steps, and a padded trace of
+   an eager overlapped step in which the buckets' kernels on the side stream
+   start before the backward's last kernel.
+30. ``phase_overlap_ranks``: 4 gloo ranks, a narrow BERT (T 1024): the
+   overlapped step x {replicated, ZeRO} x {f32, bf16, int8 wire} against
+   one rank, and the 2-bit compressed step against one process fed the same
+   four shards with the same residual rule, on the card and on the CPU.
+31. ``phase_coord_kill``: 3 processes, a gloo dp-3 mesh, 2 layers of
+   BERT-base width, ``elastic.run(coordinator=...)`` saving every 2 steps;
+   a non-leader SIGKILLed at a step boundary, the survivors' ``peer_dead``
+   stop, one agreed step S committed by both; a world-1 resume from S against
+   an uninterrupted world-1 run.
+32. ``phase_dist_async``: 2 workers under ``gluon.Trainer(kvstore=
+   "dist_async")`` (the same model, SGD on the servers), 3 steps: every push
+   applied once at its home, the homes' values a host replay of the pushes.
 
 It prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the rest of the repository beside it, it
@@ -2176,6 +2200,7 @@ TOL_DIST_NCCL = 1e-6   # world-1 losses against phase_dp_bert's, relative
 TOL_DIST_LOSS = 1e-5   # the ranks' losses against the one-rank fused step's, relative
 TOL_DIST_GRAD = 1e-3   # gathered gradients after step 1, of each tensor's max
 TOL_DIST_W = 2e-5      # gathered weights after the last step (tests' TOL_W)
+DIST_RANK_LAYERS = 6   # phase_dist_bert_ranks: BERT-base width, depth cut to 6 of 12 layers
 
 
 def _mesh_axes(n):
@@ -2378,7 +2403,7 @@ def rank_dist_bert(workdir, cfg, axes, steps, device, lr, elastic_dir=None):
     return out
 
 
-def phase_dist_bert_ranks(torch, params, batch, device="gpu", cfg=None, n=8, steps=3,
+def phase_dist_bert_ranks(torch, params, batch, device="gpu", cfg=None, n=8, steps=2,
                           timeout=900):
     """``_mesh_axes(n)``'s layout (8: dp2 x tp2 x sp2) as n ranks of
     torch.distributed on the one card over gloo (NCCL refuses two ranks on a
@@ -2395,8 +2420,9 @@ def phase_dist_bert_ranks(torch, params, batch, device="gpu", cfg=None, n=8, ste
     from mxnet_tpu_torch import _dist_util
     from mxnet_tpu_torch.convert import load_jax_params
     from mxnet_tpu_torch.models import BertModel
-    cfg = cfg or dict(vocab_size=30522, num_layers=12, units=768, hidden_size=3072,
-                      num_heads=12, max_length=1024)
+    cfg = cfg or dict(vocab_size=30522, num_layers=DIST_RANK_LAYERS, units=768,
+                      hidden_size=3072, num_heads=12, max_length=1024)
+    params = _first_layers(params, cfg["num_layers"])
     axes = _mesh_axes(n)
     tokens, labels = batch
     B, T = tokens.shape
@@ -2943,13 +2969,13 @@ def rank_lc(workdir, axes, steps, T, device, lr, cfg=LC_CFG):
 
 
 def phase_lc_ranks(torch, weights, device="gpu", axes=None, T=LC_RANKS_T, B=LC_RANKS_B,
-                   steps=3, timeout=900, cfg=LC_CFG, label="lc-ranks"):
+                   steps=2, timeout=900, cfg=LC_CFG, label="lc-ranks"):
     """LongContextTrainer on dp2 x sp2 as 4 ranks sharing the card over gloo
     (a correctness run; the ring's sends go through host memory), the
-    recipe's widths, T=8192, global batch 4, Adam, f32, 3 steps, against the
+    recipe's widths, T=8192, global batch 4, Adam, f32, ``steps`` steps, against the
     one-rank step (a mesh of one device) on the same global batch: losses to TOL_DIST_LOSS,
     gradients after step 1 to TOL_DIST_GRAD of each tensor's max, weights
-    after step 3 to TOL_DIST_W. Each rank s of sp must launch K1 (and K2, K3)
+    after the last to TOL_DIST_W. Each rank s of sp must launch K1 (and K2, K3)
     once a layer with the causal mask (its diagonal hop) and s times a layer
     without (the hops from earlier ranks), all at (B/dp*H, T/sp, T/sp, D),
     and K5 once a step over its shard's segments. ``cfg`` (LC_CFG) sets the
@@ -3127,7 +3153,7 @@ def rank_zero_bert(workdir, cfg, steps, device, lr):
     return out
 
 
-def phase_zero_bert_ranks(torch, device="gpu", cfg=None, steps=3, timeout=900):
+def phase_zero_bert_ranks(torch, device="gpu", cfg=None, steps=2, timeout=900):
     """DataParallelTrainer(zero_update=True) on 2 ranks at dp2 sharing the card
     over gloo (a correctness run): 2 layers of BERT-base width, T=1024, global
     batch 4, Adam lr 1e-4, 3 steps, with native, bf16 and int8 wire dtypes,
@@ -3227,6 +3253,9 @@ def phase_zero_bert_ranks(torch, device="gpu", cfg=None, steps=3, timeout=900):
 
 TOL_RESUME = 1e-6       # the resumed losses, relative (the reference's, __graft_entry__.py:155)
 ELASTIC_STEPS, ELASTIC_EVERY = 8, 3
+ELASTIC_LAYERS = 6      # the elastic phases' BERT: base width, depth cut to 6 of 12 layers
+ELASTIC_CFG = dict(vocab_size=30522, num_layers=ELASTIC_LAYERS, units=768, hidden_size=3072,
+                   num_heads=12, max_length=1024)
 KILL_EVERY = 2          # phase_elastic_kill: the child saves every 2 steps, killed at 6
 CHILD_TIMEOUT_S = 300
 
@@ -3239,18 +3268,29 @@ def _elastic_counters():
     return dict(_flash_counters(), fused_adam_update=_fused_counters()["fused_adam_update"])
 
 
+def _first_layers(params, n):
+    """BERT weights less the encoder layers from ``n`` on: a model of the same
+    width and ``n`` layers takes the first ``n`` of a deeper one's."""
+    import re
+    return {k: v for k, v in params.items()
+            if not (m := re.search(r"encoder\.layers\.(\d+)\.", k)) or int(m.group(1)) < n}
+
+
 def _bert_dp(mx, params, ctx, mesh, cfg=None, seed=None):
-    """BERT (base, or ``cfg``) under DataParallelTrainer with the dryrun's
-    data spec, Adam lr 1e-4: the weights ``params``, or with ``params`` None
-    its own initial weights (a rebuilt trainer before a resume)."""
+    """BERT (``cfg``; by default ELASTIC_CFG, BERT-base width and
+    ELASTIC_LAYERS layers) under DataParallelTrainer with the dryrun's data
+    spec, Adam lr 1e-4: the weights ``params`` (their first layers), or with
+    ``params`` None its own initial weights (a rebuilt trainer before a
+    resume)."""
     from mxnet_tpu_torch.convert import load_jax_params
-    from mxnet_tpu_torch.models import BertModel, bert_base
+    from mxnet_tpu_torch.models import BertModel
     if seed is not None:
         mx.random.seed(seed)
-    net = bert_base(max_length=1024) if cfg is None else BertModel(**cfg)
+    cfg = cfg or ELASTIC_CFG
+    net = BertModel(**cfg)
     net.initialize(ctx=ctx)
     if params is not None:
-        load_jax_params(net, params)
+        load_jax_params(net, _first_layers(params, cfg["num_layers"]))
     return net, mx.parallel.DataParallelTrainer(
         net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": 1e-4},
         mesh=mesh, data_spec=mx.parallel.P(*[a for a in ("dp", "sp") if a in mesh.shape]))
@@ -3278,14 +3318,15 @@ def _snapshot_equal(trainer, directory, step):
 
 def phase_elastic_bert(torch, params, batch):
     """The main path at full width on the world-1 NCCL group the caller
-    holds: BERT-base T=1024 batch 8, f32 (TF32 off), Adam lr 1e-4, through
+    holds: BERT-base width (ELASTIC_CFG: 6 of its 12 layers) T=1024 batch 8,
+    f32 (TF32 off), Adam lr 1e-4, through
     ``elastic.run(trainer, feed, num_steps=8, save_every=3)``: snapshots at
     steps 3 and 6 while the steps go on, and the final synchronous one at 8.
     Then a trainer with its own initial weights boots through
     ``resume_or_init`` from the snapshot of step 6 (step 8's removed, as if
     killed before it): ``(6, "resumed")``, every tensor bitwise the saved
-    leaf, and steps 7-8 equal to the run's at TOL_RESUME. K1-K3 launch 12
-    times a step and K5 once, in both runs."""
+    leaf, and steps 7-8 equal to the run's at TOL_RESUME. K1-K3 launch once a
+    layer a step and K5 once, in both runs."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import elastic
     from mxnet_tpu_torch.elastic import manifest
@@ -3329,7 +3370,8 @@ def phase_elastic_bert(torch, params, batch):
     losses = [st["loss"] for st in steps]
     plain = [st["ms"] for st in steps if not st["saved"] and st["step"] not in
              (1, ELASTIC_EVERY + 1, 2 * ELASTIC_EVERY + 1)]
-    log(f"[elastic-bert] BERT-base T={T} batch {B} f32 Adam on {mesh} over NCCL: "
+    log(f"[elastic-bert] BERT-base width, {n_layers} layers, T={T} batch {B} f32 Adam on "
+        f"{mesh} over NCCL: "
         f"elastic.run {ELASTIC_STEPS} steps, save_every {ELASTIC_EVERY}, {run_s:.2f} s; "
         f"steps (ms) {[round(st['ms'], 2) for st in steps]} (saves after "
         f"{sorted(saves)}); losses {[round(v, 6) for v in losses]}; launches {launches}")
@@ -3440,7 +3482,7 @@ def _copy_routes(torch, trainer, reps=5):
 
 def elastic_child(workdir, mode, directory, num_steps, save_every):
     """A child process of phase_elastic_kill: joins a world-1 NCCL group, boots
-    the BERT-base trainer of phase_elastic_bert from the saved weights through
+    the trainer of phase_elastic_bert (ELASTIC_CFG) from the saved weights through
     ``resume_or_init`` and runs ``elastic.run``, appending each step's loss to
     ``<mode>.losses`` (flushed); writes ``<mode>.json`` when the run returns."""
     import torch
@@ -3863,8 +3905,9 @@ def phase_elastic_lc(torch, weights):
 # Switch-Base-8's published widths (Fedus et al. 2021, arXiv:2101.03961; the
 # google/switch-base-8 config) in the repository's decoder-only MoE LM, every
 # cell's FFN a mixture; T = 1024 so that the attention takes K1-K3
-# (MXNET_FLASH_ATTENTION_MIN_SEQ). The rank phases run 2 of the 12 layers.
-MOE_CFG = dict(vocab_size=32128, num_layers=12, units=768, hidden_size=3072, num_heads=12,
+# (MXNET_FLASH_ATTENTION_MIN_SEQ). Depth cut to 4 of the 12 layers (210 M of
+# the 532 M parameters) to keep the script in its time; the rank phases run 2.
+MOE_CFG = dict(vocab_size=32128, num_layers=4, units=768, hidden_size=3072, num_heads=12,
                num_experts=8, top_k=1, capacity_factor=1.25, max_length=1024)
 MOE_T, MOE_B = 1024, 8
 MOE_LR = 1e-4
@@ -4755,8 +4798,8 @@ def phase_pp_dryrun(torch, device="gpu", timeout=600):
 # --- tensor parallelism and ZeRO inside the pipeline stages ---------------------------
 
 PP_TP_STEPS = 5                    # held against phase_pp_train's first 5 losses
-PP_TP_TIMED = 20                   # timed steps after them: p50 and p90
-PP_TP_LAYERS, PP_TP_B, PP_TP_M, PP_TP_RANK_STEPS = 2, 4, 2, 3
+PP_TP_TIMED = 10                   # timed steps after them: p50 and p90
+PP_TP_LAYERS, PP_TP_B, PP_TP_M, PP_TP_RANK_STEPS = 2, 4, 2, 2
 PP_TP_VOCAB4 = 30520               # the tp 4 reshard's vocab: 30522 does not split 4 ways
 TOL_PP_TP_WIRE = {"bfloat16": (5e-4, 1e-3)}   # losses rel, weights abs (the tests' bars)
 TOL_PP_TP_RESUME = 5e-4            # the reference's own (tests/test_partitioned_tp.py:254)
@@ -5088,15 +5131,15 @@ def phase_pp_tp_ranks(torch, device="gpu", cfg=None, timeout=900):
 # --- the pipeline's other schedules and models: GPipe, interleaved stages, LC and MoE ---
 
 PP_GPIPE_CHECKED = 3               # steps held against phase_pp_train's; its step-3 weights
-PP_SCHED_TIMED = 10                # timed steps after them: p50 and p90
+PP_SCHED_TIMED = 8                 # timed steps after them: p50 and p90
 PP_MEM_MICRO = 2                   # the memory sweep's microbatch (sequences) at M 4 and 8
 PP_VIRTUAL = (2, 3)                # phase_pp_interleaved's virtual stages (12 layers: 6, 4)
 PP_LC_M = 4                        # LongContextLM's pipeline: batch LC_B in 4 microbatches
-PP_MOE_M, PP_MOE_STEPS = 4, 5      # the MoE pipeline: batch MOE_B in 4, 5 checked steps
+PP_MOE_M, PP_MOE_STEPS = 4, 3      # the MoE pipeline: batch MOE_B in 4, 3 checked steps
 PP_MOE_CHECK_B, PP_MOE_CHECK_M = 2, 2
-PP_SCHED_RANK_STEPS = 3
+PP_SCHED_RANK_STEPS = 2
 PP_SCHED_RANK_B, PP_SCHED_RANK_M = 4, 2
-PP_LC_RANK_T = 4096                # the ranks' LongContextLM sequence: causal K1-K3 on a tp half
+PP_LC_RANK_T = 2048                # the ranks' LongContextLM sequence: causal K1-K3 on a tp half
 
 
 def _flash_per_step(n, fwd=1):
@@ -5393,9 +5436,9 @@ def _moe_pp_step(mx, weights, ctx, mesh, x, y, cfg):
 
 def phase_pp_moe(torch, weights):
     """``MoETransformerLM.pipeline_split`` on a world-1 NCCL mesh {pp: 1, dp:
-    1}: Switch-Base-8 widths (MOE_CFG, 532 M parameters), T=1024, batch 8 in
-    M = 4, Adam 1e-4, f32 with TF32 off, the task loss: PP_MOE_STEPS steps,
-    each launching K1-K3 48 times and K5 once, a finite loss that falls, the
+    1}: Switch-Base-8 widths (MOE_CFG, 4 layers, 211 M parameters), T=1024,
+    batch 8 in M = 4, Adam 1e-4, f32 with TF32 off, the task loss:
+    PP_MOE_STEPS steps, each launching K1-K3 16 times and K5 once, a finite loss that falls, the
     dropped assignments; PP_SCHED_TIMED timed steps and one traced; peak
     memory. The capacity is each microbatch's, so the losses are not
     MoETrainer's. Then a 2-layer copy at the same widths, one step of batch
@@ -5671,9 +5714,9 @@ def phase_pp_sched_ranks(torch, device="gpu", cfg=None, timeout=900):
 
 # --- CUDA graphs: the compiled step and the CachedOp (mxnet_tpu_torch.engine) -----
 
-GRAPH_TIMED = 12            # timed requests or steps a mode: p50 and p90 exist
-GRAPH_CMP_STEPS = 5         # captured steps against eager ones, from the same weights
-GRAPH_SCHED_STEPS = 6       # under a FactorScheduler that changes lr every step
+GRAPH_TIMED = 8             # timed requests or steps a mode: p50 and p90 exist
+GRAPH_CMP_STEPS = 3         # captured steps against eager: warm-up, capture, a replay
+GRAPH_SCHED_STEPS = 3       # under a FactorScheduler that changes lr every step
 GRAPH_SCHED = (1, 0.9)      # FactorScheduler(step, factor)
 GRAPH_BUSY_REPLAYS = 3      # back-to-back replays between CUDA events: a graph's span
 GRAPH_DROPOUT_CFG = dict(vocab_size=1024, num_layers=2, units=128, hidden_size=512,
@@ -6230,6 +6273,769 @@ def _graph_dropout(torch, mx):
     return {"captured": runs[True][0], "eager": runs[False][0], "weight_rel": w_diff}
 
 
+# --- the rest of A2: overlapped buckets, 2-bit compression, the coordinator, dist_async ---
+
+OVERLAP_SEGMENTS = 4
+OVERLAP_CHECKED = 5          # steps held against the plain step: warm-up, capture, 3 replays
+OVERLAP_TIMED = 10           # timed steps after them: p50 and p90
+TOL_OVERLAP_LOSS = 1e-6      # overlapped losses against the plain step's, relative
+TOL_OVERLAP_W = 1e-6         # weights after OVERLAP_CHECKED steps, of each tensor's max
+
+
+def _stream_trace(torch, fn):
+    """One profiler session of ``fn()``, opened by PROFILE_PAD spin kernels
+    (left out): every device kernel after them as (start us, end us, stream,
+    name), in start order. The stream is the trace's resource id."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        with record_function(MEASURED):
+            fn()
+            torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == cuda and e.name != MEASURED]
+    pads = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    start = max(pads) if pads else float("-inf")
+    return sorted((e.time_range.start, e.time_range.end, getattr(e, "device_resource_id", None),
+                   e.name) for e in events
+                  if "spin_kernel" not in e.name and e.time_range.start >= start)
+
+
+def _overlap_interleaving(kernels):
+    """From ``_stream_trace``'s kernels of one overlapped step: the compute
+    stream (the one running K2/K3), the backward's last kernel (the last one
+    on it before K5's ``multi_tensor_update``), and the kernels on other
+    streams (the buckets' copies and collectives) before K5, with how many of
+    them start before that last backward kernel and before the last K2/K3
+    launch; both counts must be positive."""
+    bwd = [k for k in kernels if "flash_bwd" in k[3]]
+    adam = [k for k in kernels if "multi_tensor_update" in k[3]]     # K4/K5's kernel
+    if not bwd or not adam:
+        return {"ok": False, "why": f"{len(bwd)} K2/K3 and {len(adam)} K5 records kept"}
+    compute = bwd[0][2]
+    t_update = adam[0][0]
+    mine = [k for k in kernels if k[2] == compute and k[0] < t_update]
+    last_bwd = mine[-1]
+    side = [k for k in kernels if k[2] != compute and k[0] < t_update]
+    early = [k for k in side if k[0] < last_bwd[0]]
+    before_last_flash = [k for k in side if k[0] < bwd[-1][0]]
+    return {"ok": bool(early) and bool(before_last_flash), "compute_stream": compute,
+            "side_before_last_flash_bwd": len(before_last_flash),
+            "last_flash_bwd_start_us": bwd[-1][0] - kernels[0][0],
+            "side_streams": sorted({k[2] for k in side}, key=str),
+            "side_kernels": len(side), "side_before_last_bwd": len(early),
+            "first_side_start_us": side[0][0] - kernels[0][0] if side else None,
+            "last_bwd_start_us": last_bwd[0] - kernels[0][0],
+            "k5_start_us": t_update - kernels[0][0], "last_bwd_kernel": last_bwd[3][:80],
+            "side_names": sorted({k[3][:60] for k in side}),
+            "first_bwd_start_us": bwd[0][0] - kernels[0][0]}
+
+
+def phase_overlap_bert(torch, params, batch):
+    """The overlapped reduction on the card, on the caller's world-1 NCCL
+    group: BERT-base T=1024, batch 8, f32 (TF32 off), Adam lr 1e-4, through
+    ``DataParallelTrainer(overlap_grads=True, overlap_segments=4)`` against
+    the plain fused step from the same weights: OVERLAP_CHECKED losses and
+    the weights after them (TOL_OVERLAP_LOSS / TOL_OVERLAP_W; no leaf spans
+    two segments, so bitwise is expected), K1-K3 12 and K5 1 a step, the
+    overlapped step captured (one capture) and its replays bitwise its eager
+    steps; p50/p90 of OVERLAP_TIMED steps and the idle share of both steps;
+    a padded trace of an eager overlapped step, in which the buckets' work on
+    the side stream starts before the backward's last kernel."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import engine
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import bert_base
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tokens, labels = batch
+    B, T = tokens.shape
+    n_layers = 12
+    ctx = mx.gpu(0)
+    mesh = mx.parallel.make_mesh({"dp": 1}, devices=[ctx])
+    x = mx.nd.array(tokens, ctx=ctx, dtype="int32")
+    y = mx.nd.array(labels, ctx=ctx, dtype="int32")
+    net = bert_base(max_length=T)
+    net.initialize(ctx=ctx)
+
+    def make(overlap):
+        load_jax_params(net, params)
+        return mx.parallel.DataParallelTrainer(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": 1e-4},
+            mesh=mesh, overlap_grads=overlap,
+            overlap_segments=OVERLAP_SEGMENTS if overlap else None)
+
+    counters = dict(_fused_counters(), **_flash_counters())
+    per_step = dict({k: 0 for k in counters}, fused_adam_update=1,
+                    **{k: n_layers for k in _flash_counters()})
+    out = {}
+    for mode in ("plain", "overlap"):
+        trainer = make(mode == "overlap")
+        engine.reset_stats()
+        steps = _dp_steps(torch, f"overlap-bert {mode}", trainer, x, y, OVERLAP_CHECKED,
+                          per_step, (B * T, "tokens_per_s"), counters)
+        r = {"losses": [st["loss"] for st in steps], "weights": _weights_of(net),
+             "captured": trainer.captured, "engine": engine.cache_stats()}
+        if mode == "overlap":
+            plan = trainer._overlap_plan
+            spans = sorted({i for s in plan.segments for i in s.uses} -
+                           {i for s in plan.segments for i in s.owned})
+            r["plan"] = {"segments": [list(s.names) for s in plan.segments],
+                         "owned": [len(s.owned) for s in plan.segments],
+                         "buckets": {str(k): v for k, v in trainer._seg_buckets.items()},
+                         "leaves_spanning_segments": [trainer._plist[i].name for i in spans]}
+        ms = _timed_steps(torch, trainer, x, y, OVERLAP_TIMED)
+        api = _api_launches(torch, lambda: trainer.step(x, y))
+        r.update(step_ms=_pct(ms), busy_ms=api["device_busy_ms"],
+                 host_launches=api["host_launches"], sessions=api["sessions"])
+        r["idle_share"] = 1.0 - r["busy_ms"] / r["step_ms"]["p50"]
+        out[mode] = r
+        del trainer
+        torch.cuda.empty_cache()
+    p, o = out["plain"], out["overlap"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(o["losses"], p["losses"]))
+    w_rel = _weights_diff(torch, o["weights"], p["weights"])
+    cmp = _train_compare(torch, lambda: make(True), x, y, OVERLAP_CHECKED, False, False)
+    eager = _as_mode(make(True), False)
+    eager.step(x, y)
+    torch.cuda.synchronize()
+    trace = _overlap_interleaving(_stream_trace(torch, lambda: eager.step(x, y)))
+    del eager
+    torch.cuda.empty_cache()
+    for mode in ("plain", "overlap"):
+        del out[mode]["weights"]
+    good = (loss_rel <= TOL_OVERLAP_LOSS and w_rel <= TOL_OVERLAP_W and o["captured"]
+            and o["engine"]["captures"] == 1 and cmp["loss_rel"] == 0.0
+            and cmp["weight_rel"] == 0.0 and cmp["captures"] == 1 and trace["ok"]
+            and len(o["plan"]["segments"]) == OVERLAP_SEGMENTS)
+    log(f"[overlap-bert] plan {o['plan']['segments']} owning {o['plan']['owned']} "
+        f"parameters, buckets by segment {o['plan']['buckets']}, leaves spanning segments "
+        f"{o['plan']['leaves_spanning_segments']}; losses {[round(v, 6) for v in o['losses']]} "
+        f"against the plain step's: max rel {loss_rel:.3e} (tol {TOL_OVERLAP_LOSS:.0e}), "
+        f"weights {w_rel:.3e} of max (tol {TOL_OVERLAP_W:.0e}); captured replays against "
+        f"eager: losses {cmp['loss_rel']:.3e}, weights {cmp['weight_rel']:.3e} (bitwise "
+        f"wanted), {cmp['captures']} capture; step p50 / p90 plain {p['step_ms']['p50']:.3f} "
+        f"/ {p['step_ms']['p90']:.3f} ms, overlapped {o['step_ms']['p50']:.3f} / "
+        f"{o['step_ms']['p90']:.3f} ms; busy {p['busy_ms']:.3f} / {o['busy_ms']:.3f} ms, idle "
+        f"{p['idle_share']:.2%} / {o['idle_share']:.2%}; trace of an eager overlapped step: "
+        f"{trace} {'ok' if good else 'FAIL'}")
+    if not good:
+        raise AssertionError("the overlapped step disagrees with the plain one or its "
+                             "buckets do not interleave with the backward")
+    out.update(loss_rel=loss_rel, weight_rel=w_rel, captured_vs_eager=cmp, trace=trace,
+               launches={k: OVERLAP_CHECKED * v for k, v in per_step.items() if v})
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+OVERLAP_RANK_CONFIGS = {"overlap": (False, None), "overlap_bf16": (False, "bfloat16"),
+                        "overlap_int8": (False, "int8"), "overlap_zero": (True, None),
+                        "overlap_zero_bf16": (True, "bfloat16"),
+                        "overlap_zero_int8": (True, "int8")}
+OVERLAP_RANK_CFG = dict(vocab_size=8192, num_layers=2, units=128, hidden_size=512,
+                        num_heads=2, max_length=1024)
+COMP_THRESHOLD = 2.0 ** -10  # a power of two: sums of the quantized values are exact
+COMP_LR = 0.5
+TOL_COMP_LOSS = 1e-6         # the ranks' losses against the one-process emulation's, relative
+TOL_COMP_W = 1e-6            # the ranks' weights against the emulation's on the card, of max
+
+
+def rank_overlap(workdir, cfg, steps, device, lr):
+    """One of 4 ranks of phase_overlap_ranks: each OVERLAP_RANK_CONFIGS
+    configuration (``overlap_grads=True``, 2 segments) for ``steps`` Adam
+    steps, then the 2-bit compressed step (no overlap, plain SGD); rank 0
+    writes the weights after each."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import gather_params, load_jax_params
+    from mxnet_tpu_torch.models import BertModel
+    ctx = _dist_util.rank_context(device)
+    if ctx.device_type == "gpu":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    weights = dict(np.load(os.path.join(workdir, "weights.npz")))
+    data = np.load(os.path.join(workdir, "data.npz"))
+    mesh = mx.parallel.make_mesh({"dp": 4}, devices=[ctx])
+    x = mx.nd.array(data["x"], ctx=ctx, dtype="int32")
+    y = mx.nd.array(data["y"], ctx=ctx, dtype="int32")
+    counters = dict(_fused_counters(), **_flash_counters())
+    out = {"rank": mesh.rank}
+    configs = dict(OVERLAP_RANK_CONFIGS, compressed=None)
+    for name, conf in configs.items():
+        net = BertModel(**cfg)
+        net.initialize(ctx=ctx)
+        load_jax_params(net, weights)
+        if conf is None:
+            trainer = mx.parallel.DataParallelTrainer(
+                net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                {"learning_rate": COMP_LR}, mesh=mesh,
+                compression={"type": "2bit", "threshold": COMP_THRESHOLD})
+        else:
+            trainer = mx.parallel.DataParallelTrainer(
+                net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": lr},
+                mesh=mesh, overlap_grads=True, overlap_segments=2, zero_update=conf[0],
+                comm_dtype=conf[1])
+        _zero_counters(counters)
+        losses = [float(trainer.step(x, y)) for _ in range(steps)]
+        if mesh.rank == 0:
+            np.savez(os.path.join(workdir, f"{name}.npz"), **gather_params(net))
+        out[name] = {"losses": losses,
+                     "launches": {k: c.launches for k, c in counters.items() if c.launches},
+                     "segments": len(trainer._overlap_plan) if trainer._overlap else 0,
+                     "buckets": len(trainer._zero_plan or trainer._overlap_buckets
+                                    or trainer._buckets)}
+        del trainer, net
+        if ctx.device_type == "gpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _compressed_emulation(torch, mx, cfg, weights, x, y, ndp, steps, ctx):
+    """The 2-bit compressed dp ``ndp`` step in one process: each of ``ndp``
+    shards of the batch takes its own gradient of its mean loss, adds its own
+    residual and quantizes to {-t, 0, +t}; the quantized gradients are summed
+    and divided by ``ndp`` and applied by the fused step's SGD update (K4 on
+    the card). Returns the losses (the shards' mean) and the weights."""
+    from mxnet_tpu_torch.convert import gather_params, load_jax_params
+    from mxnet_tpu_torch.models import BertModel
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.parallel.data_parallel import functional_optimizer
+    net = BertModel(**cfg)
+    net.initialize(ctx=ctx)
+    load_jax_params(net, weights)
+    dev = ctx.torch_device
+    plist = [p for p in net.collect_params().values() if p._param is not None]
+    opt = mx.optimizer.create("sgd", learning_rate=COMP_LR)
+    init, update, hyper = functional_optimizer(opt)
+    states = [init(p._param.detach()) for p in plist]
+    h = torch.tensor([hyper(1, np.float32(COMP_LR), 0.0)], dtype=torch.float32, device=dev)
+    resid = [[torch.zeros_like(p._param) for p in plist] for _ in range(ndp)]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    xt = torch.as_tensor(x, device=dev)
+    yt = torch.as_tensor(y, device=dev)
+    rows = xt.shape[0] // ndp
+    thr = float(COMP_THRESHOLD)
+    losses = []
+    for _ in range(steps):
+        qsum = [torch.zeros_like(p._param) for p in plist]
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for s in range(ndp):
+            with torch.enable_grad(), mx.autograd.record(train_mode=True):
+                pred = net(NDArray(xt[s * rows:(s + 1) * rows], ctx))
+                local = loss_fn(pred, NDArray(yt[s * rows:(s + 1) * rows], ctx))._data.mean()
+                grads = torch.autograd.grad(local, [p._param for p in plist],
+                                            allow_unused=True)
+            with torch.no_grad():
+                total += local.detach().float() * (1.0 / ndp)
+                for g, r, q in zip(grads, resid[s], qsum):
+                    acc = (g if g is not None else torch.zeros_like(r)).float() + r
+                    qq = torch.where(acc >= thr, thr, torch.where(acc <= -thr, -thr, 0.0))
+                    r.copy_(acc - qq)
+                    q.add_(qq)
+        with torch.no_grad():
+            gs = [q.div_(ndp) for q in qsum]
+            update([p._param for p in plist], gs, states, h[0])
+        losses.append(float(total))
+    return losses, gather_params(net)
+
+
+def phase_overlap_ranks(torch, device="gpu", cfg=None, steps=3, timeout=900):
+    """4 ranks sharing the card over gloo (a correctness run) on a narrow BERT
+    (OVERLAP_RANK_CFG, T=1024, global batch 8): the overlapped step
+    (2 segments) x {replicated, ZeRO} x {f32, bf16, int8 wire}, Adam lr
+    1e-4, ``steps`` steps, against one rank on the whole batch (f32 wire:
+    losses TOL_DIST_LOSS, weights TOL_DIST_W; bf16/int8: TOL_ZERO_COMPRESSED
+    and TOL_ZERO_COMPRESSED_W, as phase_zero_bert_ranks); K5 1 and K1-K3 2 a
+    step on every rank; then the 2-bit compressed step (plain SGD, no
+    overlap) against one process fed the same four shards with the same
+    residual rule (``_compressed_emulation``) on the card (losses
+    TOL_COMP_LOSS, weights TOL_COMP_W; bitwise expected) and on the CPU
+    (weights within steps x lr x t / 4 of a flipped quantization, and few
+    of them)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import gather_params, load_jax_params, seeded_params
+    from mxnet_tpu_torch.models import BertModel
+    from mxnet_tpu_torch.parallel.mesh import Mesh
+    cfg = cfg or dict(OVERLAP_RANK_CFG)
+    lr, n, T = 1e-4, 4, cfg["max_length"]
+    work = os.path.join(ROOT, "build", "overlap_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    net = BertModel(**cfg)
+    net.initialize(ctx=mx.cpu())
+    weights = seeded_params(net, seed=17)
+    np.savez(os.path.join(work, "weights.npz"), **weights)
+    del net
+    rs = np.random.RandomState(18)
+    xs = rs.randint(0, cfg["vocab_size"], size=(2 * n, T)).astype(np.int32)
+    ys = rs.randint(0, cfg["vocab_size"], size=(2 * n, T)).astype(np.int32)
+    np.savez(os.path.join(work, "data.npz"), x=xs, y=ys)
+    t0 = time.perf_counter()
+    ranks = _dist_util.launch_local(
+        "chip_smoke:rank_overlap", n, {"workdir": work, "cfg": cfg, "steps": steps,
+                                       "device": device, "lr": lr},
+        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+    seconds = time.perf_counter() - t0
+    got = {name: dict(np.load(os.path.join(work, f"{name}.npz")))
+           for name in list(OVERLAP_RANK_CONFIGS) + ["compressed"]}
+    ctx = mx.gpu(0) if device == "gpu" else mx.cpu()
+    one = BertModel(**cfg)
+    one.initialize(ctx=ctx)
+    load_jax_params(one, weights)
+    tr = mx.parallel.DataParallelTrainer(one, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+                                         {"learning_rate": lr},
+                                         mesh=Mesh([ctx], ("dp",), (1,)))
+    xo = mx.nd.array(xs, ctx=ctx, dtype="int32")
+    yo = mx.nd.array(ys, ctx=ctx, dtype="int32")
+    one_losses = [float(tr.step(xo, yo)) for _ in range(steps)]
+    one_w = gather_params(one)
+    del tr, one
+    out = {"seconds": seconds, "cfg": cfg, "one_rank_losses": one_losses, "configs": {}}
+    ok = True
+    nl = cfg["num_layers"]
+    for name, (zero, comm) in OVERLAP_RANK_CONFIGS.items():
+        loss_tol = TOL_ZERO_COMPRESSED.get(comm, TOL_DIST_LOSS)
+        loss_rel = max(abs(a - b) / abs(b) for r in ranks
+                       for a, b in zip(r[name]["losses"], one_losses))
+        w_abs = max(float(np.abs(got[name][k] - w).max()) for k, w in one_w.items())
+        w_mean = float(sum(np.abs(got[name][k] - w).sum() for k, w in one_w.items())
+                       / sum(w.size for w in one_w.values())) / (lr * steps)
+        if comm:
+            good = w_mean <= TOL_ZERO_COMPRESSED_W[comm]
+            w_check = (f"weights mean|d| {w_mean:.2e} lr x steps (tol "
+                       f"{TOL_ZERO_COMPRESSED_W[comm]:.0e}), max|d| {w_abs:.2e}")
+        else:
+            good = w_abs <= TOL_DIST_W
+            w_check = f"weights max|d| {w_abs:.2e} (tol {TOL_DIST_W:.0e})"
+        launches = [r[name]["launches"] for r in ranks]
+        if device == "gpu":
+            good = good and all(lc.get("fused_adam_update") == steps and all(
+                lc.get(k) == nl * steps for k in _flash_counters()) for lc in launches)
+        good = good and loss_rel <= loss_tol and all(r[name]["segments"] == 2 for r in ranks)
+        ok = ok and good
+        out["configs"][name] = {"loss_rel": loss_rel, "weight_abs": w_abs,
+                                "weight_mean_lr_steps": w_mean, "launches": launches[0],
+                                "buckets": ranks[0][name]["buckets"],
+                                "losses": ranks[0][name]["losses"]}
+        log(f"[overlap-ranks] {name}: losses {[round(v, 6) for v in ranks[0][name]['losses']]} "
+            f"against one rank's {[round(v, 6) for v in one_losses]}: max rel {loss_rel:.2e} "
+            f"(tol {loss_tol:.0e}), {w_check}; {ranks[0][name]['buckets']} buckets; launches "
+            f"{launches[0]} {'ok' if good else 'FAIL'}")
+    emu_losses, emu_w = _compressed_emulation(torch, mx, cfg, weights, xs, ys, n, steps, ctx)
+    cpu_losses, cpu_w = (_compressed_emulation(torch, mx, cfg, weights, xs, ys, n, steps,
+                                               mx.cpu()) if device == "gpu"
+                         else (emu_losses, emu_w))
+    comp = got["compressed"]
+    c_loss = max(abs(a - b) / abs(b) for r in ranks
+                 for a, b in zip(r["compressed"]["losses"], emu_losses))
+    c_w = max(float(np.abs(comp[k] - w).max() / max(np.abs(w).max(), 1e-30))
+              for k, w in emu_w.items())
+    quantum = steps * COMP_LR * COMP_THRESHOLD / n
+    cpu_abs = max(float(np.abs(comp[k] - w).max()) for k, w in cpu_w.items())
+    cpu_far = sum(int((np.abs(comp[k] - w) > 1e-6 * max(np.abs(w).max(), 1e-30)).sum())
+                  for k, w in cpu_w.items())
+    cpu_n = sum(w.size for w in cpu_w.values())
+    cpu_loss = max(abs(a - b) / abs(b) for a, b in zip(emu_losses, cpu_losses))
+    moved = sum(int((comp[k] != w).sum()) for k, w in weights.items())
+    good = (c_loss <= TOL_COMP_LOSS and c_w <= TOL_COMP_W and cpu_abs <= quantum + 1e-6
+            and cpu_far <= 1e-3 * cpu_n and cpu_loss <= TOL_TRAIN_LOSS and moved > 0)
+    ok = ok and good
+    out["compressed"] = {"loss_rel": c_loss, "weight_rel": c_w, "cpu_weight_abs": cpu_abs,
+                         "cpu_elements_beyond_1e-6": cpu_far, "elements": cpu_n,
+                         "cpu_loss_rel": cpu_loss, "elements_moved": moved,
+                         "losses": ranks[0]["compressed"]["losses"],
+                         "launches": ranks[0]["compressed"]["launches"]}
+    log(f"[overlap-ranks] compressed (2-bit, t = 2^-10, SGD lr {COMP_LR}): losses "
+        f"{[round(v, 6) for v in ranks[0]['compressed']['losses']]} against one process fed "
+        f"the 4 shards {[round(v, 6) for v in emu_losses]}: max rel {c_loss:.2e} (tol "
+        f"{TOL_COMP_LOSS:.0e}), weights {c_w:.2e} of max (tol {TOL_COMP_W:.0e}); against the "
+        f"CPU's emulation: losses {cpu_loss:.2e} (tol {TOL_TRAIN_LOSS:.0e}), weights max|d| "
+        f"{cpu_abs:.2e} (tol {quantum:.2e}, one flipped quantum a step), {cpu_far} of {cpu_n} "
+        f"elements beyond 1e-6 of max; {moved} elements moved; launches "
+        f"{ranks[0]['compressed']['launches']} {'ok' if good else 'FAIL'}")
+    log(f"[overlap-ranks] 4 ranks in {seconds:.1f} s (a correctness run: ranks sharing the "
+        f"card over gloo)")
+    shutil.rmtree(work, ignore_errors=True)
+    if not ok:
+        raise AssertionError("the overlapped or compressed ranks disagree with one rank")
+    out["launches"] = {k: sum(r[c]["launches"].get(k, 0) for r in ranks
+                              for c in list(OVERLAP_RANK_CONFIGS) + ["compressed"])
+                       for k in {**_fused_counters(), **_flash_counters()}}
+    return out
+
+
+COORD_CFG = dict(vocab_size=30522, num_layers=2, units=768, hidden_size=3072, num_heads=12,
+                 max_length=1024)
+COORD_STEPS = 6              # the uninterrupted run's steps
+COORD_KILL_AT = 3            # the victim dies at this step boundary (odd: no save there)
+COORD_EVERY = 2
+COORD_LEASE_MIN = 6.0        # seconds; at least 4 measured steps (a step and its save)
+
+
+def coord_child(workdir, rank, world, root, device="gpu"):
+    """One host of phase_coord_kill: a rank of a gloo dp ``world`` mesh on the
+    card, a Coordinator under ``root`` whose lease is sized from this host's
+    first two steps, ``elastic.run`` with a coordinated SnapshotManager saving
+    every COORD_EVERY steps; at step COORD_KILL_AT every host waits at a gate,
+    heartbeating, which the parent opens after SIGKILLing the victim and
+    waiting out its lease.
+    Writes ``report-<rank>.json``."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util, elastic
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = dict(np.load(os.path.join(workdir, "weights.npz")))
+    data = np.load(os.path.join(workdir, "data.npz"))
+    with open(os.path.join(workdir, "cfg.json")) as f:
+        cfg = json.load(f)
+    _dist_util.init_process_group(device=device, rank=rank, world_size=world,
+                                  init_method=f"file://{os.path.join(workdir, 'rdzv')}")
+    ctx = _dist_util.rank_context(device)
+    mesh = mx.parallel.make_mesh({"dp": world}, devices=[ctx])
+    coord = elastic.Coordinator(root, rank, lease_timeout=COORD_LEASE_MIN,
+                                straggler_timeout=120.0, heartbeat_interval=0.0)
+    coord.join()
+    deadline = time.monotonic() + 120
+    while len(coord.view().live) < world:
+        if time.monotonic() > deadline:
+            raise AssertionError("the coordinator's rendezvous timed out")
+        time.sleep(0.05)
+    x = mx.nd.array(data["x"], ctx=ctx, dtype="int32")
+    y = mx.nd.array(data["y"], ctx=ctx, dtype="int32")
+    mgr, trainer, start, outcome = elastic.resume_or_init(
+        root, lambda: _bert_dp(mx, params, ctx, mesh, cfg=cfg)[1],
+        save_interval_steps=COORD_EVERY, coordinator=coord)
+    del params
+    counters = _elastic_counters()
+    _zero_counters(counters)
+    losses, stamps = {}, [time.perf_counter()]
+
+    def on_step(t, loss):
+        losses[str(t)] = float(loss)
+        stamps.append(time.perf_counter())
+        if t == 2:
+            # the lease from the measured steps (each with its save's hold)
+            coord.lease_timeout = max(COORD_LEASE_MIN, 4 * max(np.diff(stamps)))
+        if t == COORD_KILL_AT:
+            with open(os.path.join(workdir, f"gate-{rank}"), "w") as f:
+                f.write(str(coord.lease_timeout))
+            while not os.path.exists(os.path.join(workdir, "go")):
+                # alive while held: a host at the gate keeps its lease
+                coord.heartbeat(t, force=True)
+                time.sleep(0.1)
+
+    res = elastic.run(trainer, [(x, y)] * 100, num_steps=COORD_STEPS, manager=mgr,
+                      on_step=on_step, coordinator=coord)
+    report = {"rank": rank, "start": start, "outcome": outcome, "step": res["step"],
+              "preempted": res["preempted"], "stop": res["stop"], "losses": losses,
+              "lease": coord.lease_timeout, "step_s": list(np.diff(stamps)),
+              "generation": coord.generation, "straggler_aborts": coord.straggler_aborts,
+              "launches": {k: c.launches for k, c in counters.items()}}
+    with open(os.path.join(workdir, f"report-{rank}.json"), "w") as f:
+        json.dump(report, f)
+    coord.leave()
+    sys.stdout.flush()
+    os._exit(0)      # the group has a dead member: no collective teardown
+
+
+def phase_coord_kill(torch, cfg=None, world=3, device="gpu"):
+    """The coordinated kill on the card: ``world`` spawned processes, each a
+    rank of a gloo dp mesh with a 2-layer BERT at base width (T=1024, one
+    sequence a rank, Adam lr 1e-4), run ``elastic.run(coordinator=...)`` with
+    a ``SnapshotManager(coordinator=...)`` saving every COORD_EVERY steps. At
+    step boundary COORD_KILL_AT (every host held at a gate) the parent
+    SIGKILLs a non-leader and waits out the lease; the survivors see the dead
+    lease, post ``peer_dead``, agree on one final step S and commit it
+    together (members = the survivors). A fresh world-1 run resumes from S
+    and its losses for S+1..COORD_STEPS follow a world-1 run of all
+    COORD_STEPS steps at TOL_RESUME; the ranks' losses up to S follow it at
+    TOL_DIST_LOSS (a dp 3 mean against one)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import elastic
+    from mxnet_tpu_torch.convert import seeded_params
+    from mxnet_tpu_torch.elastic import manifest
+    from mxnet_tpu_torch.models import BertModel
+    cfg = cfg or dict(COORD_CFG)
+    work = os.path.join(ROOT, "build", "coord_kill")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    root = os.path.join(work, "snap")
+    net = BertModel(**cfg)
+    net.initialize(ctx=mx.cpu())
+    params = seeded_params(net, seed=19)
+    del net
+    np.savez(os.path.join(work, "weights.npz"), **params)
+    rs = np.random.RandomState(20)
+    T = cfg["max_length"]
+    xs = rs.randint(0, cfg["vocab_size"], size=(world, T)).astype(np.int32)
+    ys = rs.randint(0, cfg["vocab_size"], size=(world, T)).astype(np.int32)
+    np.savez(os.path.join(work, "data.npz"), x=xs, y=ys)
+    with open(os.path.join(work, "cfg.json"), "w") as f:
+        json.dump(cfg, f)
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // world)),
+               LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(world))
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(world):
+        code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke as cs; "
+                f"cs.coord_child({work!r}, {r}, {world}, {root!r}, {device!r})")
+        out = open(os.path.join(work, f"rank{r}.log"), "w")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=out,
+                                      stderr=subprocess.STDOUT, cwd=ROOT,
+                                      env=dict(env, LOCAL_RANK=str(r))))
+    victim = world - 1
+    try:
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        while not all(os.path.exists(os.path.join(work, f"gate-{r}")) for r in range(world)):
+            for r, p in enumerate(procs):
+                if p.poll() is not None:
+                    _child_fail(work, f"rank{r}", f"rank {r} exited ({p.returncode}) before "
+                                                  f"the gate")
+            if time.monotonic() > deadline:
+                _child_fail(work, "rank0", "the hosts did not reach the gate in time")
+            time.sleep(0.05)
+        lease = max(float(open(os.path.join(work, f"gate-{r}")).read()) for r in range(world))
+        gate_s = time.perf_counter() - t0
+        procs[victim].send_signal(signal.SIGKILL)
+        procs[victim].wait()
+        time.sleep(lease + 1.0)
+        with open(os.path.join(work, "go"), "w") as f:
+            f.write("go")
+        for r, p in enumerate(procs[:victim]):
+            try:
+                rc = p.wait(timeout=CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                _child_fail(work, f"rank{r}", f"survivor {r} still running after "
+                                              f"{CHILD_TIMEOUT_S} s")
+            if rc != 0:
+                _child_fail(work, f"rank{r}", f"survivor {r} exited {rc}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    reports = [json.load(open(os.path.join(work, f"report-{r}.json"))) for r in range(victim)]
+    s = reports[0]["step"]
+    steps = manifest.all_complete_steps(root)
+    man = manifest.load(root, s) if s in steps else {"meta": {}}
+    ok = (all(rep["preempted"] and rep["step"] == s and rep["stop"]["reason"] == "peer_dead"
+              for rep in reports) and s == COORD_KILL_AT
+          and man["meta"].get("members") == list(range(victim)))
+    log(f"[coord-kill] {world} hosts, gate after {gate_s:.1f} s, lease {lease:.1f} s (from the "
+        f"measured steps {[round(v, 3) for v in reports[0]['step_s']]}); rank {victim} "
+        f"SIGKILLed at step {COORD_KILL_AT}; survivors stop {reports[0]['stop']}, final step "
+        f"S = {[rep['step'] for rep in reports]}, snapshots {steps}, manifest at S members "
+        f"{man['meta'].get('members')} generation {man['meta'].get('generation')} fence "
+        f"{man.get('fence')}; {ranks_s:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the survivors did not commit one manifest at the agreed step")
+    # the uninterrupted world-1 run and the world-1 resume from S
+    ctx = mx.gpu(0) if device == "gpu" else mx.cpu()
+    from mxnet_tpu_torch.parallel.mesh import Mesh
+    mesh1 = Mesh([ctx], ("dp",), (1,))
+    x = mx.nd.array(xs, ctx=ctx, dtype="int32")
+    y = mx.nd.array(ys, ctx=ctx, dtype="int32")
+    _, ref = _bert_dp(mx, params, ctx, mesh1, cfg=cfg)
+    ref_losses = [float(ref.step(x, y)) for _ in range(COORD_STEPS)]
+    del ref
+    counters = _elastic_counters()
+    _zero_counters(counters)
+    coord = elastic.Coordinator(root, 0, lease_timeout=30.0)
+    coord.join()
+    mgr, tr, start, outcome = elastic.resume_or_init(
+        root, lambda: _bert_dp(mx, None, ctx, mesh1, cfg=cfg)[1], coordinator=coord)
+    resumed = [float(tr.step(x, y)) for _ in range(COORD_STEPS - start)]
+    coord.leave()
+    launches = {k: c.launches for k, c in counters.items()}
+    del tr
+    if device == "gpu":
+        torch.cuda.empty_cache()
+    rank_rel = max(abs(rep["losses"][str(t)] - ref_losses[t - 1]) / abs(ref_losses[t - 1])
+                   for rep in reports for t in range(1, s + 1))
+    res_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, ref_losses[s:]))
+    nl = cfg["num_layers"]
+    want = {"fused_adam_update": COORD_STEPS - s,
+            **{k: nl * (COORD_STEPS - s) for k in _flash_counters()}}
+    ranks_launches = [rep["launches"] for rep in reports]
+    ok = (start, outcome) == (s, "resharded") and res_rel <= TOL_RESUME and \
+        rank_rel <= TOL_DIST_LOSS
+    if device == "gpu":
+        ok = ok and launches == want and all(
+            lc["fused_adam_update"] == s and all(lc[k] == nl * s for k in _flash_counters())
+            for lc in ranks_launches)
+    log(f"[coord-kill] world-1 resume: resume_or_init -> ({start}, {outcome!r}); steps "
+        f"{s + 1}-{COORD_STEPS} losses {[round(v, 6) for v in resumed]} against the "
+        f"uninterrupted world-1 run's {[round(v, 6) for v in ref_losses[s:]]}: max rel "
+        f"{res_rel:.2e} (tol {TOL_RESUME:.0e}); the ranks' steps 1-{s} against it: max rel "
+        f"{rank_rel:.2e} (tol {TOL_DIST_LOSS:.0e}); launches {launches}, the ranks' "
+        f"{ranks_launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the world-1 resume from the coordinated snapshot disagrees")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"S": s, "lease_s": lease, "gate_s": gate_s, "ranks_s": ranks_s,
+            "snapshots": steps, "members": man["meta"].get("members"),
+            "generation": man["meta"].get("generation"), "fence": man.get("fence"),
+            "reports": reports, "resumed_losses": resumed, "reference_losses": ref_losses,
+            "resume_rel": res_rel, "rank_rel": rank_rel,
+            "launches": {k: launches.get(k, 0) + sum(lc.get(k, 0) for lc in ranks_launches)
+                         for k in _elastic_counters()}}
+
+
+ASYNC_STEPS = 3
+ASYNC_LR = 0.05
+
+
+def rank_dist_async(workdir, cfg, steps, device):
+    """One of 2 workers of phase_dist_async: a 2-layer BERT at base width on
+    the card under ``gluon.Trainer(kvstore="dist_async")`` (SGD on the
+    servers, update on the store), ``steps`` steps on its half of the batch.
+    The gradients it pushes for keys whose home is the other worker go to
+    ``pushed-<rank>-<step>.npz``; after a barrier each worker replays its home
+    keys' pushes in the order its server applied them through a fresh SGD
+    updater on the host, from the keys' initial values, and holds the replay
+    against the server's value and against a pull, bitwise."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import BertModel
+    ctx = _dist_util.rank_context(device)
+    if ctx.device_type == "gpu":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    weights = dict(np.load(os.path.join(workdir, "weights.npz")))
+    data = np.load(os.path.join(workdir, "data.npz"))
+    kv = mx.kv.create("dist_async")
+    r, n = kv.rank, kv.num_workers
+    pushed = {}
+    push = kv.push
+
+    def recording_push(key, value, priority=0):
+        if kv._home(key) != r:
+            pushed[str(key)] = value.asnumpy().copy()
+        else:
+            own.setdefault(key, []).append(value.asnumpy().copy())
+        return push(key, value, priority)
+
+    own = {}
+    kv.push = recording_push
+    net = BertModel(**cfg)
+    net.initialize(ctx=ctx)
+    load_jax_params(net, weights)
+    params = list(net.collect_params().values())
+    initial = [p.data().asnumpy().copy() for p in params]
+    trainer = mx.gluon.Trainer(params, "sgd", {"learning_rate": ASYNC_LR}, kvstore=kv)
+    rows = data["x"].shape[0] // n
+    x = mx.nd.array(data["x"][r * rows:(r + 1) * rows], ctx=ctx, dtype="int32")
+    y = mx.nd.array(data["y"][r * rows:(r + 1) * rows], ctx=ctx, dtype="int32")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    counters = _flash_counters()
+    _zero_counters(counters)
+    losses, secs = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(rows)
+        losses.append(float(loss.mean().asnumpy()))
+        secs.append(time.perf_counter() - t0)
+        np.savez(os.path.join(workdir, f"pushed-{r}-{step}.npz"), **pushed)
+        pushed.clear()
+    launches = {k: c.launches for k, c in counters.items()}
+    st = _dist_util.store()
+    st.set(f"chip_smoke_client/{r}", kv._ps_client._id)
+    rank_of = {st.get(f"chip_smoke_client/{q}").decode(): q for q in range(n)}
+    kv.barrier()             # every push was acknowledged, so applied at its home
+    server = kv._ps_server
+    mine = [k for k in range(len(params)) if kv._home(k) == r]
+    files = {(q, s): np.load(os.path.join(workdir, f"pushed-{q}-{s}.npz"))
+             for q in range(n) if q != r for s in range(steps)}
+    opt = mx.optimizer.create("sgd", learning_rate=ASYNC_LR, rescale_grad=1.0 / rows)
+    upd = mx.optimizer.get_updater(opt)
+    counts, bad_server, bad_pull = {}, [], []
+    for k in mine:
+        counts[str(k)] = server.push_counts.get(k, 0)
+        taken = {q: 0 for q in range(n)}
+        w = mx.nd.array(initial[k], ctx=mx.cpu())
+        for cid in server.applied.get(k, []):
+            q = rank_of[cid]
+            g = own[k][taken[q]] if q == r else files[(q, taken[q])][str(k)]
+            taken[q] += 1
+            upd(k, mx.nd.array(g, ctx=mx.cpu()), w)
+        if not np.array_equal(w.asnumpy(), server._store[k]):
+            bad_server.append(k)
+        pulled = mx.nd.zeros(w.shape, ctx=ctx)
+        kv.pull(k, out=pulled)
+        if not np.array_equal(w.asnumpy(), pulled.asnumpy()):
+            bad_pull.append(k)
+    kv.barrier()
+    kv.close()
+    return {"rank": r, "losses": losses, "step_s": secs, "home_keys": len(mine),
+            "keys": len(params), "push_counts": counts, "replay_differs_server": bad_server,
+            "replay_differs_pull": bad_pull, "launches": launches}
+
+
+def phase_dist_async(torch, device="gpu", cfg=None, steps=ASYNC_STEPS, timeout=600):
+    """``dist_async`` on the card: 2 workers (gloo, sharing the card) under
+    ``gluon.Trainer(kvstore="dist_async")`` with a 2-layer BERT at base width,
+    T=1024, one sequence each, SGD lr ASYNC_LR on the parameter servers,
+    ``steps`` steps: each key's pushes applied at its home exactly once
+    (steps x workers), the losses finite, and the home's value equal
+    (bitwise) to a host replay of the pushes in the order it applied them;
+    K1-K3 2 a step on each worker."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist_util
+    from mxnet_tpu_torch.convert import seeded_params
+    from mxnet_tpu_torch.models import BertModel
+    cfg = cfg or dict(COORD_CFG)
+    work = os.path.join(ROOT, "build", "dist_async")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    net = BertModel(**cfg)
+    net.initialize(ctx=mx.cpu())
+    np.savez(os.path.join(work, "weights.npz"), **seeded_params(net, seed=21))
+    del net
+    rs = np.random.RandomState(22)
+    T = cfg["max_length"]
+    np.savez(os.path.join(work, "data.npz"),
+             x=rs.randint(0, cfg["vocab_size"], size=(2, T)).astype(np.int32),
+             y=rs.randint(0, cfg["vocab_size"], size=(2, T)).astype(np.int32))
+    t0 = time.perf_counter()
+    ranks = _dist_util.launch_local(
+        "chip_smoke:rank_dist_async", 2, {"workdir": work, "cfg": cfg, "steps": steps,
+                                          "device": device},
+        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+    seconds = time.perf_counter() - t0
+    nl = cfg["num_layers"]
+    counts = {k: v for rk in ranks for k, v in rk["push_counts"].items()}
+    ok = (len(counts) == ranks[0]["keys"]
+          and all(v == steps * 2 for v in counts.values())
+          and all(np.isfinite(rk["losses"]).all() for rk in ranks)
+          and not any(rk["replay_differs_server"] or rk["replay_differs_pull"] for rk in ranks))
+    if device == "gpu":
+        ok = ok and all(rk["launches"][k] == nl * steps for rk in ranks
+                        for k in _flash_counters())
+    log(f"[dist-async] 2 workers over {ranks[0]['keys']} keys ({[rk['home_keys'] for rk in ranks]} "
+        f"at each home): pushes applied a key {sorted(set(counts.values()))} (want "
+        f"{steps * 2}); losses {[[round(v, 6) for v in rk['losses']] for rk in ranks]}; "
+        f"steps {[[round(v, 2) for v in rk['step_s']] for rk in ranks]} s; host replay "
+        f"against the servers and the pulls: keys differing "
+        f"{[rk['replay_differs_server'] + rk['replay_differs_pull'] for rk in ranks]}; "
+        f"launches {[rk['launches'] for rk in ranks]}; {seconds:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    shutil.rmtree(work, ignore_errors=True)
+    if not ok:
+        raise AssertionError("dist_async did not apply every push exactly once")
+    return {"seconds": seconds, "ranks": ranks, "launches": {
+        k: sum(rk["launches"][k] for rk in ranks) for k in _flash_counters()}}
+
+
 @contextlib.contextmanager
 def _world1_nccl(torch):
     """A world-1 process group on the card, over the backend rule's choice
@@ -6323,7 +7129,14 @@ def main() -> int:
     graph_serve = phase_graph_serve(torch, bert_params, resnet_params, moe_weights)
     graph_train = phase_graph_train(torch, bert_params, bert_batch, resnet_params, lc_weights,
                                     moe_weights)
-    del bert_params, moe_weights
+    del moe_weights
+    with _world1_nccl(torch):
+        overlap_bert = phase_overlap_bert(torch, bert_params, bert_batch)
+    del bert_params
+    torch.cuda.empty_cache()
+    overlap_ranks = phase_overlap_ranks(torch)
+    coord_kill = phase_coord_kill(torch)
+    dist_async = phase_dist_async(torch)
     f32 = kernel["timings"]["float32"]
     b32 = kernel_bwd["timings"]["float32"]
     src = "mxnet_tpu_torch/csrc/"
@@ -6356,7 +7169,12 @@ def main() -> int:
                 "pp_sched_ranks": pp_sched_ranks["launches"].get(name, 0),
                 **{label: phase["launches"].get(name, 0) for label, phase in
                    (("elastic_bert", elastic_bert), ("elastic_kill", elastic_kill),
-                    ("elastic_lc", elastic_lc), ("elastic_zero", elastic_zero))},
+                    ("elastic_lc", elastic_lc), ("elastic_zero", elastic_zero),
+                    ("overlap_bert", overlap_bert), ("overlap_ranks", overlap_ranks),
+                    ("coord_kill", coord_kill), ("dist_async", dist_async))},
+                # the 2-bit compressed ranks' plain SGD: K4's sgd_update rule
+                **({"overlap_ranks_sgd_update": overlap_ranks["launches"].get(
+                    "fused_sgd_update", 0)} if name == "fused_sgd_mom_update" else {}),
                 **{f"graph_{path}_{mode}": r["modes"][mode]["launches"].get(name, 0)
                    for path, r in graph_train.items() if "modes" in r for mode in r["modes"]},
                 "zero_ranks": sum(lc.get(name, 0) for c in zero_ranks["configs"].values()
@@ -6550,6 +7368,8 @@ def main() -> int:
                    "pp_interleaved": pp_interleaved, "pp_lc": pp_lc, "pp_moe": pp_moe,
                    "pp_sched_ranks": pp_sched_ranks,
                    "graph_serve": graph_serve, "graph_train": graph_train,
+                   "overlap_bert": overlap_bert, "overlap_ranks": overlap_ranks,
+                   "coord_kill": coord_kill, "dist_async": dist_async,
                    "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0, "phase_seconds": PHASE_SECONDS,
                    "process_seconds": time.perf_counter() - T_START},

@@ -43,10 +43,15 @@ mixture of experts (``parallel.moe``: capacity gating, the expert-parallel
 FFN over an ``ep`` axis with its bf16/int8 all-to-all wire), the MoE
 transformer (``models.MoETransformerLM``) and its recipe
 (``recipes.get_recipe("moe")``: ``MoETrainer`` over a ``{dp, ep}`` mesh, the
-experts sharded over ep, restorable across ep degrees).
-Still to come (ROADMAP.md): the 1F1B pipeline and its snapshot kind, the overlapped gradient reduction (``parallel/overlap.py``),
-``dist_async`` and kvstore compression, the multi-host elastic coordinator
-and its drills, and ``checkpoint.py``.
+experts sharded over ep, restorable across ep degrees); the pipeline
+(``parallel.PipelineTrainer``: 1F1B, GPipe, interleaved stages, tp and ZeRO
+in the stages, and its snapshot kind); the backward-overlapped gradient
+reduction (``DataParallelTrainer(overlap_grads=True)``, ``parallel.overlap``)
+and 2-bit gradient compression (``compression=``, and the dist stores'
+``set_gradient_compression``); ``dist_async``'s parameter server
+(``kvstore/ps.py``); the multi-host elastic coordinator and its drills
+(``elastic.Coordinator``, ``elastic.drill``); and ``checkpoint`` (step-indexed
+checkpoints in the elastic format). What is still to come is in ROADMAP.md.
 
 Quick start::
 
@@ -91,9 +96,10 @@ from . import parallel
 from . import recipes
 from . import faults
 from . import elastic
+from . import checkpoint
 from .ndarray import NDArray
 
 __all__ = ["base", "MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "ops", "ndarray", "nd", "autograd", "random",
            "initializer", "lr_scheduler", "optimizer", "gluon", "kvstore", "kv", "rtc", "contrib",
-           "parallel", "recipes", "faults", "elastic", "NDArray"]
+           "parallel", "recipes", "faults", "elastic", "checkpoint", "NDArray"]

@@ -14,6 +14,10 @@ from ``MXNET_TPU_RANK`` (or ``DMLC_WORKER_ID``), the world size from
   backend, and a failure of that backend raises; it never tries the other.
 - A rank's device is explicit: ``gpu(local_rank % device_count)``, or the
   CPU when the caller asks for it (``rank_context``).
+- ``init_process_group`` builds the rendezvous's key-value store itself (a
+  ``FileStore`` or a ``TCPStore``, public classes) and keeps it: ``store()``
+  gives it to the parameter server's address rendezvous
+  (``kvstore/ps.py``).
 - ``launch_local`` is the counterpart of ``tools/launch.py --launcher
   local``: it starts ``n`` ranks of a function named ``"module:function"``
   as processes of this interpreter with ``file://`` rendezvous, joins them
@@ -161,16 +165,51 @@ def init_process_group(device: str = "gpu", backend: Optional[str] = None,
     kwargs = {}
     if backend == "nccl":
         kwargs["device_id"] = ctx.torch_device
-    dist.init_process_group(backend=backend, init_method=init_method, rank=rank,
-                            world_size=world_size,
-                            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S),
-                            **kwargs)
+    timeout = datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
+    global _STORE
+    _STORE = _make_store(init_method, rank, world_size, timeout)
+    if _STORE is None:
+        kwargs["init_method"] = init_method
+    else:
+        kwargs["store"] = _STORE
+    dist.init_process_group(backend=backend, rank=rank, world_size=world_size,
+                            timeout=timeout, **kwargs)
     return backend, ctx
 
 
+# the key-value store of the process group init_process_group set up
+_STORE: Optional[dist.Store] = None
+
+
+def _make_store(init_method: str, rank: int, world_size: int, timeout):
+    """The rendezvous's store, built here so that it stays reachable
+    (``store()``): a ``FileStore`` for ``file://``, a ``TCPStore`` served by
+    rank 0 for ``tcp://host:port``; None for another URL (the process group
+    then makes its own)."""
+    if init_method.startswith("file://"):
+        st = dist.FileStore(init_method[len("file://"):], world_size)
+    elif init_method.startswith("tcp://"):
+        host, _, port = init_method[len("tcp://"):].rstrip("/").rpartition(":")
+        st = dist.TCPStore(host, int(port), world_size, rank == 0, timeout)
+    else:
+        return None
+    st.set_timeout(timeout)
+    return st
+
+
+def store() -> Optional[dist.Store]:
+    """The key-value store every rank of the job reaches (the rendezvous of
+    ``init_process_group``), or None when the process group was set up
+    another way: the counterpart of the reference's ``coordinator_kv()``
+    (the jax.distributed client's key-value store)."""
+    return _STORE if dist.is_initialized() else None
+
+
 def destroy_process_group() -> None:
+    global _STORE
     if dist.is_initialized():
         dist.destroy_process_group()
+    _STORE = None
 
 
 # -- buckets -----------------------------------------------------------------
@@ -362,5 +401,5 @@ def _worker_main(argv: Sequence[str]) -> int:
 
 
 __all__ = ["choose_backend", "rank_context", "init_process_group",
-           "destroy_process_group", "launch_local", "plan_buckets", "exchange", "ring_shift",
+           "destroy_process_group", "store", "launch_local", "plan_buckets", "exchange", "ring_shift",
            "p2p_stats", "comm_stats", "count_comm", "env_rank", "env_world_size", "env_local_rank", "env_init_method"]

@@ -27,9 +27,9 @@ after; all IO runs under ``faults.io_retry``; ``commit`` serializes
 concurrent committers through a lease file with a fencing token, so exactly
 one writer finalizes a step, a fenced-out writer raises ``MXNetError`` and a
 crashed committer's stale lease is taken over with an incremented token.
-The reference's multi-host parts (``commit(ranks=...)``, the reader's
-generation and fence checks, the coordinator's reuse of the lease under
-other names) wait for ``elastic/coordinator.py`` (ROADMAP A2).
+For the multi-host commit of ``elastic/coordinator.py``, ``commit(ranks=...)``
+merges exactly the given ranks' shards, and the lease helpers take a
+``lease_name`` (the coordinator's ``generation.lock``).
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ import shutil
 import threading
 import time
 import uuid
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as _np
 
@@ -167,13 +167,13 @@ def write_shard(sdir: str, process_index: int, entries) -> int:
 
 # -- commit lease: exactly one concurrent committer finalizes a step --------
 
-def _lease_path(sdir: str) -> str:
-    return os.path.join(sdir, LEASE)
+def _lease_path(sdir: str, lease_name: str = LEASE) -> str:
+    return os.path.join(sdir, lease_name)
 
 
-def _read_lease(sdir: str) -> Dict[str, Any]:
+def _read_lease(sdir: str, lease_name: str = LEASE) -> Dict[str, Any]:
     try:
-        with open(_lease_path(sdir)) as f:
+        with open(_lease_path(sdir, lease_name)) as f:
             return json.load(f)
     except (OSError, ValueError):
         return {}
@@ -185,14 +185,17 @@ def _write_lease_to(path: str, owner: str, token: int):
         _fsync_file(f)
 
 
-def _acquire_lease(sdir: str, owner: str, stale_after: float) -> int:
+def _acquire_lease(sdir: str, owner: str, stale_after: float,
+                   lease_name: str = LEASE) -> int:
     """Take the step directory's commit lease; returns this holder's fencing
     token. Exactly one of N concurrent committers wins the ``O_EXCL``
     create; the others raise ``MXNetError``. A lease older than
     ``stale_after`` seconds (its holder died) is taken over with an
     incremented token, and ``commit`` checks owner and token again just
-    before the manifest's rename, so the stale holder never finalizes."""
-    path = _lease_path(sdir)
+    before the manifest's rename, so the stale holder never finalizes.
+    ``lease_name`` lets other control-plane state take the same fenced lock
+    (``elastic/coordinator.py``'s ``generation.lock``)."""
+    path = _lease_path(sdir, lease_name)
     try:
         fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
     except FileExistsError:
@@ -202,7 +205,7 @@ def _acquire_lease(sdir: str, owner: str, stale_after: float) -> int:
             json.dump({"owner": owner, "token": 1, "ts": time.time()}, f)
             _fsync_file(f)
         return 1
-    holder = _read_lease(sdir)
+    holder = _read_lease(sdir, lease_name)
     age = time.time() - float(holder.get("ts", 0.0))
     if age <= stale_after and holder:
         raise MXNetError(f"snapshot commit lease for {sdir} is held by "
@@ -214,7 +217,7 @@ def _acquire_lease(sdir: str, owner: str, stale_after: float) -> int:
     _write_lease_to(tmp, owner, token)
     os.replace(tmp, path)
     # concurrent takeovers race on the replace; the last write wins
-    if _read_lease(sdir).get("owner") != owner:
+    if _read_lease(sdir, lease_name).get("owner") != owner:
         raise MXNetError(f"lost the stale-lease takeover race for {sdir}")
     return token
 
@@ -227,34 +230,46 @@ def _verify_lease(sdir: str, owner: str, token: int):
                          f"a newer committer took over; this manifest must not land")
 
 
-def _release_lease(sdir: str, owner: str):
-    if _read_lease(sdir).get("owner") == owner:
+def _release_lease(sdir: str, owner: str, lease_name: str = LEASE):
+    if _read_lease(sdir, lease_name).get("owner") == owner:
         try:
-            os.unlink(_lease_path(sdir))
+            os.unlink(_lease_path(sdir, lease_name))
         except OSError:
             pass
 
 
 def commit(sdir: str, step: int, meta: Dict[str, Any], expected_processes: int = 1,
-           timeout: float = 120.0, lease_timeout: float = 30.0) -> Dict[str, Any]:
+           timeout: float = 120.0, lease_timeout: float = 30.0,
+           ranks: Optional[Sequence[int]] = None) -> Dict[str, Any]:
     """Merge the per-process chunk indexes and atomically write
     ``manifest.json``: the snapshot exists once this returns.
 
     Process 0 calls it after writing its own shard and polls (up to
-    ``timeout`` seconds) for the other processes' index files. Concurrent
-    committers are serialized by the lease: the winner's token goes into the
-    manifest (``fence``), a loser raises ``MXNetError`` without touching the
-    manifest, and a lease older than ``lease_timeout`` seconds is taken
-    over."""
+    ``timeout`` seconds) for the other processes' index files. With
+    ``ranks`` (the coordinator's two-phase commit, which knows the
+    membership) exactly those ranks' indexes are waited for and merged: a
+    stale shard of a host fenced out at an older generation is neither.
+    Concurrent committers are serialized by the lease: the winner's token
+    goes into the manifest (``fence``), a loser raises ``MXNetError``
+    without touching the manifest, and a lease older than ``lease_timeout``
+    seconds is taken over."""
+    required = None if ranks is None else sorted(f"shard-{int(r):05d}.json" for r in ranks)
     deadline = time.monotonic() + timeout
     while True:
-        shard_jsons = sorted(n for n in os.listdir(sdir)
-                             if n.startswith("shard-") and n.endswith(".json"))
-        if len(shard_jsons) >= expected_processes:
-            break
+        present = {n for n in os.listdir(sdir)
+                   if n.startswith("shard-") and n.endswith(".json")}
+        if required is not None:
+            shard_jsons = [n for n in required if n in present]
+            if len(shard_jsons) == len(required):
+                break
+        else:
+            shard_jsons = sorted(present)
+            if len(shard_jsons) >= expected_processes:
+                break
         if time.monotonic() >= deadline:
-            raise MXNetError(f"snapshot commit timed out: {len(shard_jsons)}/"
-                             f"{expected_processes} shard indexes present in {sdir}")
+            want = expected_processes if required is None else len(required)
+            raise MXNetError(f"snapshot commit timed out: {len(shard_jsons)}/{want} shard "
+                             f"indexes present in {sdir}")
         time.sleep(0.05)
     owner = f"{os.getpid()}.{threading.get_ident()}.{uuid.uuid4().hex[:8]}"
     token = _acquire_lease(sdir, owner, lease_timeout)

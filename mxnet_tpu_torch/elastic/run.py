@@ -20,9 +20,20 @@ in flight, drains the device, writes a final synchronous snapshot and returns
 trajectory. Losses stay ``PendingScalar``s: nothing in the loop syncs.
 
 On a ``torch.distributed`` mesh every rank calls both; the ranks agree on the
-step to resume from (rank 0's latest, broadcast). ``coordinator=`` raises
-(ROADMAP A2, ``elastic/coordinator.py``); the reference's resume counter and
-restart-downtime record wait for the telemetry slice (ROADMAP A7).
+step to resume from (rank 0's latest, broadcast). With a ``coordinator``
+(``elastic/coordinator.py``; reference :60-329) ``resume_or_init`` also
+validates the manifest against the group's epoch (a fence token, a
+generation not from the future, the ready markers consistent) and calls a
+restore onto another live set "resharded" where the trainer has no mesh;
+``run`` joins the coordinated stop: every step boundary refreshes the
+heartbeat and polls for a stop intent (this host's own preemption posts
+one, a peer's expired lease a ``peer_dead`` one); once a stop is posted
+every live host acks its step, the stop resolves to S, the largest ack,
+hosts behind S run up to it, and every survivor writes its final snapshot
+at S, the drain under the coordinator's hang watchdog and the final save
+retried under a refreshed view when a straggler abort or a peer's death
+breaks the commit. The reference's resume counter and restart-downtime
+record wait for the telemetry slice (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -34,7 +45,7 @@ from typing import Any, Callable, Dict, Optional
 from ..base import MXNetError
 from . import manifest as _manifest
 from . import state as _state
-from .snapshot import _COORD, SnapshotManager
+from .snapshot import SnapshotManager
 
 __all__ = ["capture_trainer", "save_trainer", "resume_or_init", "PreemptionGuard", "run"]
 
@@ -74,15 +85,15 @@ def resume_or_init(directory: str, make_trainer: Callable[[], Any], feed=None,
 
     Returns ``(manager, trainer, start_step, outcome)``, outcome ``"fresh"``,
     ``"resumed"`` or ``"resharded"``."""
-    if coordinator is not None:
-        raise MXNetError(f"resume_or_init(coordinator=...): {_COORD}")
     mgr = SnapshotManager(directory, max_to_keep=max_to_keep,
-                          save_interval_steps=save_interval_steps)
+                          save_interval_steps=save_interval_steps, coordinator=coordinator)
     step = _agreed_latest(mgr)
     trainer = make_trainer()
     if step is None:
         return mgr, trainer, 0, "fresh"
     man = _manifest.load(mgr.directory, step)
+    if coordinator is not None:
+        coordinator.validate_manifest(man, step)
     meta = man["meta"]
     with _manifest.SnapshotReader(mgr.directory, step, manifest=man) as rd:
         _state.install(trainer, meta, rd, rd.names)
@@ -94,6 +105,11 @@ def resume_or_init(directory: str, make_trainer: Callable[[], Any], feed=None,
         mesh_now = {str(a): int(s) for a, s in trainer.mesh.shape.items()}
         if mesh_now != meta.get("mesh") or \
                 trainer._program.fingerprint != meta.get("program"):
+            outcome = "resharded"
+    elif coordinator is not None and meta.get("members"):
+        # a coordinated snapshot records the live set it was partitioned
+        # over: another live set is a re-layout even without a mesh
+        if sorted(meta["members"]) != coordinator.view(bump=False).live:
             outcome = "resharded"
     return mgr, trainer, int(meta["step"]), outcome
 
@@ -160,17 +176,20 @@ def run(trainer, feed, num_steps: int, directory: Optional[str] = None,
     and returns ``{"preempted": True}``. A failed interval snapshot warns and
     training goes on (resume falls back to the previous one); the final one
     raises. Returns ``{"step", "losses", "preempted", "stop"}``, the losses as
-    ``PendingScalar``s."""
-    if coordinator is not None:
-        raise MXNetError(f"elastic.run(coordinator=...): {_COORD}")
+    ``PendingScalar``s; with a ``coordinator`` see the module docstring."""
     if manager is None:
         if directory is None:
             raise MXNetError("elastic.run needs directory= or manager=")
-        manager = SnapshotManager(directory, save_interval_steps=save_every)
-    elif save_every is not None:
-        manager.save_interval_steps = int(save_every)
+        manager = SnapshotManager(directory, save_interval_steps=save_every,
+                                  coordinator=coordinator)
+    else:
+        if save_every is not None:
+            manager.save_interval_steps = int(save_every)
+        if coordinator is not None and manager.coordinator is None:
+            manager.coordinator = coordinator
     losses = []
     preempted = False
+    stop_info = None
     own_guard = guard is None
     g = PreemptionGuard() if own_guard else guard
     if own_guard:
@@ -180,7 +199,14 @@ def run(trainer, feed, num_steps: int, directory: Optional[str] = None,
         while trainer._t < num_steps:
             if g.triggered:
                 preempted = True
+                if coordinator is not None and stop_info is None:
+                    stop_info = coordinator.post_stop(trainer._t, reason="preempted")
                 break
+            if coordinator is not None:
+                stop_info = coordinator.step_poll(trainer._t)
+                if stop_info is not None:
+                    preempted = True
+                    break
             try:
                 batch = next(it)
             except StopIteration:
@@ -201,12 +227,50 @@ def run(trainer, feed, num_steps: int, directory: Optional[str] = None,
                                   RuntimeWarning)
             if on_step is not None:
                 on_step(trainer._t, losses[-1])
-        trainer.drain()
+        if coordinator is not None and preempted:
+            # the quiesce: every live host acks its step, the stop resolves to
+            # S, the largest ack, and a host behind S catches up to it
+            target = min(coordinator.resolve_stop(trainer._t), num_steps)
+            while trainer._t < target:
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    if not hasattr(feed, "reset"):
+                        break
+                    feed.reset()
+                    it = iter(feed)
+                    continue
+                x, y = _xy(batch)
+                losses.append(trainer.step(x, y))
+        if coordinator is not None:
+            with coordinator.watchdog("drain"):
+                trainer.drain()
+        else:
+            trainer.drain()
         if trainer._t != manager._last_saved:
-            save_trainer(manager, trainer, feed, wait=True)
+            _final_save(manager, trainer, feed, coordinator)
         else:
             manager.wait_until_finished()
     finally:
         if own_guard:
             g.__exit__(None, None, None)
-    return {"step": trainer._t, "losses": losses, "preempted": preempted, "stop": None}
+    return {"step": trainer._t, "losses": losses, "preempted": preempted, "stop": stop_info}
+
+
+def _final_save(manager, trainer, feed, coordinator, attempts: int = 3):
+    """The final snapshot, strict. Coordinated, a straggler abort or a peer
+    dying mid-commit fails the barrier for every survivor: each retries under
+    the refreshed view (new generation, ownership, markers), ``attempts``
+    times at most."""
+    if coordinator is None:
+        save_trainer(manager, trainer, feed, wait=True)
+        return
+    for attempt in range(int(attempts)):
+        try:
+            save_trainer(manager, trainer, feed, wait=True)
+            return
+        except MXNetError:
+            if attempt == int(attempts) - 1:
+                raise
+            coordinator.heartbeat(trainer._t, force=True)
+            coordinator.view()

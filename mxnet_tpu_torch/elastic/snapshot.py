@@ -36,8 +36,15 @@ write), ``return_s`` (the time it then held the caller), ``copy_bytes``,
 devices), ``host_alloc_s``, ``write_s`` and ``nbytes``;
 ``save_seconds`` and ``bytes_written`` are the reference's. The reference's
 telemetry (``mx_checkpoint_save_seconds``) and tracing spans wait for the
-telemetry slice (ROADMAP A7); ``coordinator=`` raises (ROADMAP A2,
-``elastic/coordinator.py``).
+telemetry slice (ROADMAP A7).
+
+With a ``coordinator`` (``elastic/coordinator.py``; reference :150-260) the
+manager is one participant of the two-phase cross-host commit: this host's
+index is the coordinator's rank; it writes only the chunks it owns (a
+replicated leaf: rank 0's, or under ``partition_ownership`` the leaves
+``coord.owns`` gives it) and its ready marker, and whoever the group view
+makes leader writes the generation-stamped manifest once every live
+member's marker landed (``commit_snapshot``); the leader prunes.
 """
 from __future__ import annotations
 
@@ -54,9 +61,6 @@ from . import manifest as _manifest
 from .state import Chunk
 
 __all__ = ["SnapshotManager"]
-
-_COORD = ("the multi-host coordinator (elastic/coordinator.py: heartbeats and the "
-          "two-phase cross-host commit) is not ported yet (ROADMAP A2)")
 
 env.declare("MXNET_TPU_SNAPSHOT_EVERY", 0, int,
             "Default SnapshotManager save interval in steps (0 = only explicit or "
@@ -129,8 +133,7 @@ class SnapshotManager:
 
     def __init__(self, directory: str, max_to_keep: int = 3,
                  save_interval_steps: Optional[int] = None, coordinator=None):
-        if coordinator is not None:
-            raise MXNetError(f"SnapshotManager(coordinator=...): {_COORD}")
+        self.coordinator = coordinator
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = int(max_to_keep)
@@ -181,10 +184,14 @@ class SnapshotManager:
         copied."""
         host: Dict[str, Any] = {}
         on_device: Dict[torch.device, list] = {}
+        coord = self.coordinator
+        partition = coord is not None and coord.partition_ownership
         for name, v in leaves.items():
             chunk = v if isinstance(v, Chunk) else None
             data = chunk.data if chunk is not None else v
             if chunk is not None and not chunk.owner:
+                continue
+            if chunk is None and partition and not coord.owns(name):
                 continue
             if isinstance(data, torch.Tensor) and data.device.type == "cuda":
                 on_device.setdefault(data.device, []).append((name, v))
@@ -242,7 +249,9 @@ class SnapshotManager:
             nbytes, sdir, proc, nproc = self._write_entries(step, host)
             stats["write_s"] = time.perf_counter() - t_w
             stats["nbytes"] = nbytes
-            if proc == 0:
+            if self.coordinator is not None:
+                self._commit_coordinated(sdir, step, meta, nbytes)
+            elif proc == 0:
                 _manifest.commit(sdir, step, meta, expected_processes=nproc)
                 _manifest.prune(self.directory, self.max_to_keep)
             self.save_seconds = time.perf_counter() - t0
@@ -250,15 +259,29 @@ class SnapshotManager:
         except BaseException as e:  # surfaced at the next save() or wait
             self._error = e
 
+    def _commit_coordinated(self, sdir, step, meta, nbytes):
+        """The two-phase commit: this host's ready marker, then the
+        leader-written manifest; the leader prunes (``prune`` skips a
+        directory a live peer is still writing)."""
+        coord = self.coordinator
+        coord.write_marker(sdir, step, nbytes)
+        coord.commit_snapshot(sdir, step, meta)
+        if coord.view(bump=False).leader == coord.rank:
+            _manifest.prune(self.directory, self.max_to_keep)
+
     def _write_entries(self, step, host):
         sdir = _manifest.step_path(self.directory, step)
         os.makedirs(sdir, exist_ok=True)
         proc, nproc = _process()
+        coord = self.coordinator
+        if coord is not None:
+            proc = coord.rank        # the control plane names this host
+        partition = coord is not None and coord.partition_ownership
         entries = []
         for name, v in host.items():
             if isinstance(v, Chunk):
                 entries.append((name, v.index, v.data, v.shape, v.data.dtype))
-            elif proc == 0:
+            elif partition or proc == 0:
                 arr = _np.asarray(v)
                 entries.append((name, [(0, d) for d in arr.shape], arr, arr.shape,
                                 arr.dtype))

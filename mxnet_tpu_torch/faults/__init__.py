@@ -2,8 +2,9 @@
 
 Counterpart of ``mxnet_tpu/faults/__init__.py``. Named injection points are
 threaded through the elastic snapshot IO (``elastic/manifest.py``:
-``elastic.write_shard``, ``elastic.commit``, ``elastic.read``; ``points()``
-is the catalog) and fire ``FaultInjected`` on the attempts their schedules
+``elastic.write_shard``, ``elastic.commit``, ``elastic.read``) and the
+multi-host coordinator's (``elastic/coordinator.py``: ``elastic.heartbeat``,
+``elastic.barrier``, ``elastic.marker``); ``points()`` is the catalog, and fire ``FaultInjected`` on the attempts their schedules
 name (``faults/schedule.py``), so every recovery path runs in exact,
 replayable tests.
 
@@ -87,6 +88,12 @@ for _name, _doc in (
     ("elastic.commit", "manifest merge + atomic rename (elastic/manifest.py commit)"),
     ("elastic.read", "snapshot manifest/chunk reads "
                      "(elastic/manifest.py load + SnapshotReader)"),
+    ("elastic.heartbeat", "coordinator membership heartbeat write "
+                          "(elastic/coordinator.py heartbeat)"),
+    ("elastic.barrier", "coordinator generation/stop barrier IO "
+                        "(elastic/coordinator.py generation epoch, stop intent + acks)"),
+    ("elastic.marker", "per-host ready-marker write in the two-phase cross-host commit "
+                       "(elastic/coordinator.py write_marker)"),
 ):
     declare_point(_name, _doc)
 

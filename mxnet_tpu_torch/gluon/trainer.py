@@ -24,10 +24,11 @@ reference. Then:
   pushes each gradient, which changes nothing the trainer reads); and the
   optimizer runs here.
 
-A name that waits for a later slice (``dist_async``, gradient compression)
-raises at construction; parameters on more than one device raise at the
-first step. ``save_states``/``load_states`` wait for a later slice and
-raise.
+``compression_params`` go to the store's ``set_gradient_compression`` when
+it is made (a dist store; the in-process stores raise), as in the reference
+(:71). An unknown store name raises at construction; parameters on more
+than one device raise at the first step. ``save_states``/``load_states``
+wait for a later slice and raise.
 """
 from __future__ import annotations
 
@@ -48,9 +49,7 @@ class Trainer:
             params = list(params.values())
         if not isinstance(params, (list, tuple)):
             raise MXNetError("params must be a ParameterDict/dict/list of Parameter")
-        if compression_params:
-            raise MXNetError(f"kvstore gradient compression {compression_params}: "
-                             f"not ported yet (ROADMAP A2)")
+        self._compression_params = compression_params
         if isinstance(kvstore, str):
             kvs_mod.kvstore.check_type(kvstore)
         self._params: List[Parameter] = []
@@ -93,12 +92,14 @@ class Trainer:
         if len(devices) > 1:
             raise MXNetError(f"parameters on {len(devices)} devices "
                              f"({sorted(map(str, devices))}): one device per "
-                             f"process (ROADMAP A2)")
+                             f"process, a rank a device")
         arg = self._kvstore_arg
         kv = kvs_mod.create(arg) if isinstance(arg, str) else arg
         self._kvstore = kv
         on_kv = False
         if kv is not None:
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
             on_kv = self._update_on_kvstore
             if on_kv is None:
                 on_kv = kv.type.startswith("dist")

@@ -23,14 +23,29 @@ with one ``all_reduce`` in float32, per key (``_cross``, :691) or per flat
 bucket of a list (``_cross_bucket``, :675). ``init`` broadcasts rank 0's
 value, as the reference's server keeps the first worker's.
 
-What waits for later slices raises ``MXNetError`` naming its ROADMAP item:
-``dist_async`` (the parameter server of ``kvstore/ps.py``), gradient
-compression (:282-322), and values of one key on several devices within a
-process.
+``dist_async`` (and ``dist_async_device``, ``dist_device_async``; reference
+:380-640, ``create`` :727) is a real parameter server (``kvstore/ps.py``):
+on a job of several workers every process runs a server thread for the keys
+whose home it is (``_home``: crc32 of the key, modulo the workers); ``init``
+seeds the home with rank 0's value and every rank waits until it is there;
+``push`` sends the (reduced, compressed) value to the key's home, which
+applies its updater on arrival with no barrier; ``pull`` fetches the home's
+current value. ``set_optimizer``/``set_updater`` must run on every rank (each
+hosts a server that needs the updater): each posts that it did to the job's
+store and waits, up to 120 s, for every other rank's post. With one worker
+it is the in-process store.
+
+``set_gradient_compression({"type": "2bit", "threshold": t})`` (:282-322) on
+a dist store quantizes each pushed value, plus the key's residual, to {-t,
+0, +t} before the sum over workers, and keeps the quantization error as the
+residual (error feedback); the in-process stores raise, as the reference's
+``kvstore_local.h`` does. Values of one key on several devices within a
+process raise (one device per process).
 """
 from __future__ import annotations
 
-import pickle
+import datetime
+import zlib
 from typing import Callable, Dict, List, Optional, Union
 
 import torch
@@ -40,12 +55,8 @@ from ..ndarray import NDArray
 from .. import optimizer as opt_mod
 from .. import _dist_util
 
-_ASYNC = ("dist_async: the asynchronous parameter server (kvstore/ps.py) is not "
-          "ported yet (ROADMAP A2)")
-_COMPRESSION = ("gradient compression (2-bit, kvstore.py:282-322) is not ported "
-                "yet (ROADMAP A2)")
 _MULTI_DEVICE = ("values of one key on several devices in one process are not "
-                 "ported (ROADMAP A2: one device per process)")
+                 "supported: one device per process, a rank a device")
 
 
 def _tensor(v) -> torch.Tensor:
@@ -61,6 +72,11 @@ class KVStore:
         self._store: Dict[Union[int, str], NDArray] = {}
         self._updater: Optional[Callable] = None
         self._opt_updater: Optional[opt_mod.Updater] = None
+        self._compression: dict = {}
+        self._comp_residual: Dict = {}
+
+    def _supports_compression(self) -> bool:
+        return False
 
     # -- identity ----------------------------------------------------------
     @property
@@ -140,7 +156,9 @@ class KVStore:
         keys, values = self._normalize(key, value)
         for k, v in zip(keys, values):
             vlist = v if isinstance(v, (list, tuple)) else [v]
-            self._apply(k, self._cross(self._reduce(vlist)))
+            # device reduce, then the 2-bit quantization, then the sum over
+            # workers: the compressed value is what crosses the wire
+            self._apply(k, self._cross(self._compress(k, self._reduce(vlist))))
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         keys, outs = self._normalize(key, out)
@@ -156,12 +174,12 @@ class KVStore:
         and summed over the workers with one collective each (:165)."""
         keys, values = self._normalize(key, value)
         outs = self._normalize(key, out)[1] if out is not None else [None] * len(keys)
-        if self._updater is None and len(keys) > 1:
+        if self._updater is None and not self._compression and len(keys) > 1:
             self._pushpull_bucketed(keys, values, outs)
             return
         for k, v, o in zip(keys, values, outs):
             vlist = v if isinstance(v, (list, tuple)) else [v]
-            merged = self._cross(self._reduce(vlist))
+            merged = self._cross(self._compress(k, self._reduce(vlist)))
             src = self._apply(k, merged)._data if k in self._store else merged
             if o is not None:
                 self._write(o, src)
@@ -201,7 +219,32 @@ class KVStore:
         return self._updater
 
     def set_gradient_compression(self, compression_params):
-        raise MXNetError(_COMPRESSION)
+        """2-bit gradient compression with error feedback (reference
+        ``gradient_compression.cc:60`` ``SetTwoBitCompression``): dist stores
+        only (module docstring); ``{"type": "none"}`` turns it off."""
+        if not self._supports_compression():
+            raise MXNetError(f"gradient compression is only supported on dist kvstore "
+                             f"types (got {type(self).__name__}); use "
+                             f"kv.create('dist_sync') or DataParallelTrainer(..., "
+                             f"compression=...) for the fused step")
+        params = dict(compression_params)
+        ctype = params.get("type", "2bit")
+        if ctype not in ("2bit", "none"):
+            raise MXNetError(f"unsupported gradient compression {ctype!r}")
+        self._compression = params if ctype != "none" else {}
+        self._comp_residual = {}
+
+    def _compress(self, key, merged: torch.Tensor) -> torch.Tensor:
+        """``merged`` plus the key's residual, quantized to {-t, 0, +t}; the
+        quantization error becomes the key's residual."""
+        if not self._compression:
+            return merged
+        thr = float(self._compression.get("threshold", 0.5))
+        res = self._comp_residual.get(key)
+        g = merged + res if res is not None else merged
+        q = torch.where(g >= thr, thr, torch.where(g <= -thr, -thr, 0.0)).to(g.dtype)
+        self._comp_residual[key] = g - q
+        return q.to(merged.dtype)
 
     # -- sync / lifecycle ------------------------------------------------------
     def barrier(self):
@@ -247,18 +290,31 @@ class KVStoreNCCL(KVStore):
 
 class KVStoreDist(KVStore):
     """``dist_sync``: the sum over the workers of a ``torch.distributed``
-    job, one ``all_reduce`` in float32 per key or per bucket."""
+    job, one ``all_reduce`` in float32 per key or per bucket; ``dist_async``
+    (``sync=False``): the parameter server of ``kvstore/ps.py``."""
 
-    def __init__(self):
+    def __init__(self, sync: bool = True):
         super().__init__()
         import torch.distributed as dist
         if not dist.is_initialized():
             _dist_util.init_process_group()
         self._dist = dist
+        self._sync = bool(sync)
+        self._ps_server = self._ps_client = None
+        self._updater_gen = 0
+        self._updater_pub = set()
+        if not self._sync and self.num_workers > 1:
+            from . import ps as _ps
+            self._ps_server = _ps.PSServer(lambda: self._updater)
+            _ps.publish_address(self.rank, self._ps_server.port)
+            self._ps_client = _ps.PSClient(_ps.resolve_address)
+
+    def _supports_compression(self) -> bool:
+        return True
 
     @property
     def type(self):
-        return "dist_sync"
+        return "dist_sync" if self._sync else "dist_async"
 
     @property
     def rank(self):
@@ -268,25 +324,117 @@ class KVStoreDist(KVStore):
     def num_workers(self):
         return self._dist.get_world_size()
 
-    def init(self, key, value):
-        """Rank 0's value wins and is broadcast to every worker."""
-        super().init(key, value)
-        for k in self._normalize(key, value)[0]:
-            self._dist.broadcast(self._store[k]._data, src=0)
+    def _home(self, key) -> int:
+        """The rank whose server holds ``key`` (reference ``EncodeDefaultKey``)."""
+        return zlib.crc32(str(key).encode()) % self.num_workers
 
+    def init(self, key, value):
+        """Rank 0's value wins and is broadcast to every worker; under
+        ``dist_async`` it also seeds the key's home, and every rank waits
+        until the home has it."""
+        super().init(key, value)
+        keys = self._normalize(key, value)[0]
+        for k in keys:
+            self._dist.broadcast(self._store[k]._data, src=0)
+        if self._ps_client is None:
+            return
+        from .ps import _pack
+        for k in keys:
+            if self.rank == 0:
+                resp = self._ps_client.request(self._home(k),
+                                               ("init", k, _pack(self._store[k]._data)))
+                if resp[0] != "ok":
+                    raise MXNetError(f"dist_async init of key {k} failed at its home "
+                                     f"server: {resp}")
+            self._ps_client.wait_ready(self._home(k), k)
+
+    # -- the parameter server's paths ------------------------------------------------
+    def push(self, key, value, priority=0):
+        if self._ps_client is None:
+            return super().push(key, value, priority)
+        from .ps import _pack
+        keys, values = self._normalize(key, value)
+        for k, v in zip(keys, values):
+            if k not in self._store:
+                raise MXNetError(f"key {k} not initialized")
+            vlist = v if isinstance(v, (list, tuple)) else [v]
+            merged = self._compress(k, self._reduce(vlist))
+            resp = self._ps_client.request(self._home(k), ("push", k, _pack(merged),
+                                                           "default"))
+            if resp[0] != "ok":
+                raise MXNetError(f"dist_async push of key {k} failed: {resp}")
+
+    def pull(self, key, out=None, priority=0, ignore_sparse=True):
+        if self._ps_client is None:
+            return super().pull(key, out, priority, ignore_sparse)
+        keys, outs = self._normalize(key, out)
+        for k, o in zip(keys, outs):
+            cur = self._ps_client.pull_blocking(self._home(k), k)
+            self._write(o, torch.from_numpy(cur))
+
+    def pushpull(self, key, value, out=None, priority=0):
+        if self._ps_client is None:
+            return super().pushpull(key, value, out, priority)
+        self.push(key, value, priority)
+        if out is not None:
+            self.pull(key, out, priority)
+
+    # -- the server-side optimizer -------------------------------------------------
+    def set_optimizer(self, optimizer: "opt_mod.Optimizer"):
+        super().set_optimizer(optimizer)
+        self._updater_installed_barrier()
+
+    def set_updater(self, updater: Callable):
+        super().set_updater(updater)
+        self._updater_installed_barrier()
+
+    def _updater_installed_barrier(self):
+        """Under ``dist_async`` no rank may push before every home server has
+        its updater (reference :589-634): each rank posts call number ``gen``
+        to the job's store and waits for every rank's post; a rank that never
+        calls fails the others after 120 s, naming it."""
+        if self._ps_client is None:
+            return
+        from .ps import coordinator_kv
+        st = coordinator_kv()
+        gen = self._updater_gen + 1
+        if gen not in self._updater_pub:
+            st.set(f"mxtpu_ps_updater/{gen}/{self.rank}", "1")
+            self._updater_pub.add(gen)
+        for r in range(self.num_workers):
+            try:
+                st.wait([f"mxtpu_ps_updater/{gen}/{r}"], datetime.timedelta(seconds=120))
+            except Exception as e:  # noqa: BLE001 - the store's timeout error
+                raise MXNetError(f"dist_async set_optimizer/set_updater must run on EVERY "
+                                 f"rank (each process hosts a server needing its updater); "
+                                 f"rank {r} did not install call #{gen} within 120s") from e
+        self._updater_gen = gen
+
+    # -- the synchronous sum -------------------------------------------------------
     def _all_reduce_f32(self, t: torch.Tensor) -> torch.Tensor:
         acc = t.float().contiguous().clone()
         self._dist.all_reduce(acc)
         return acc
 
     def _cross(self, merged):
+        if not self._sync:
+            return merged
         return self._all_reduce_f32(merged).to(merged.dtype)
 
     def _cross_bucket(self, flat):
+        if not self._sync:
+            return flat
         return self._all_reduce_f32(flat)
 
     def barrier(self):
         self._dist.barrier()
+
+    def close(self):
+        """Stop this rank's parameter server and drop its connections."""
+        if self._ps_client is not None:
+            self._ps_client.close()
+        if self._ps_server is not None:
+            self._ps_server.close()
 
 
 _KVSTORE_TYPES = {
@@ -301,25 +449,25 @@ _KVSTORE_TYPES = {
     "dist_device_sync": KVStoreDist,
     "dist_sync_device": KVStoreDist,
 }
-_DEFERRED = {"dist_async": _ASYNC, "dist_async_device": _ASYNC,
-             "dist_device_async": _ASYNC}
+_ASYNC_TYPES = ("dist_async", "dist_async_device", "dist_device_async")
 
 
 def check_type(name) -> str:
-    """The lower-cased store name; raises for an unknown or deferred one."""
+    """The lower-cased store name; raises for an unknown one."""
     if not isinstance(name, str):
         raise MXNetError("kvstore name must be a string")
     key = name.lower()
-    if key in _DEFERRED:
-        raise MXNetError(f"kvstore {name!r}: {_DEFERRED[key]}")
-    if key not in _KVSTORE_TYPES:
+    if key not in _KVSTORE_TYPES and key not in _ASYNC_TYPES:
         raise MXNetError(f"unknown kvstore type {name!r}")
     return key
 
 
 def create(name="local") -> KVStore:
     """reference src/kvstore/kvstore.cc:40 factory."""
-    return _KVSTORE_TYPES[check_type(name)]()
+    key = check_type(name)
+    if key in _ASYNC_TYPES:
+        return KVStoreDist(sync=False)
+    return _KVSTORE_TYPES[key]()
 
 
 __all__ = ["KVStore", "KVStoreLocal", "KVStoreDevice", "KVStoreNCCL", "KVStoreDist",

@@ -122,6 +122,22 @@ class NDArray:
     def __rtruediv__(self, o): return self._binary(o, "broadcast_div", "_rdiv_scalar", reverse=True)
     def __neg__(self): return invoke("negative", [self], {})
 
+    # in place (reference ``__iadd__``... with ``_set_data``): the result is
+    # written into this array's tensor, outside the tape
+    def _assign(self, out):
+        if out is NotImplemented:
+            return out
+        with torch.no_grad():
+            if out._data.shape == self._data.shape and out._data.dtype == self._data.dtype:
+                self._data.copy_(out._data)
+            else:
+                self._data = out._data
+        return self
+
+    def __iadd__(self, o): return self._assign(self.__add__(o))
+    def __isub__(self, o): return self._assign(self.__sub__(o))
+    def __imul__(self, o): return self._assign(self.__mul__(o))
+
     # -- op-backed methods ---------------------------------------------------
     def reshape(self, *shape, **kwargs):
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):

@@ -9,8 +9,9 @@ with expert parallelism (``moe``), and the pipeline over a pp axis with
 optional dp and tp axes (``pipeline``: ``PipelineTrainer``, the 1F1B
 ``schedule_1f1b`` and its interleaved chunks, GPipe's ``pipeline_apply``
 and ``gpipe_schedule``, ``pipeline_spec``; tensor parallelism in the stages,
-weight-sharded or partitioned, and ZeRO over dp). The overlapped reduction
-(``overlap.py``, ROADMAP A2) waits for a later slice."""
+weight-sharded or partitioned, and ZeRO over dp), and the backward-overlapped
+gradient reduction (``overlap``: the segment plan and the bucket reduce of
+``DataParallelTrainer(overlap_grads=True)``)."""
 from .mesh import (Mesh, PartitionSpec, P, make_mesh, local_mesh, current_mesh,
                    set_default_mesh, require_axis, axis_size, axis_index, activate,
                    active_mesh, sequence_axis)
@@ -26,6 +27,7 @@ from . import moe
 from .moe import (moe_ffn, expert_parallel_moe, topk_gating, load_balancing_loss,
                   load_balance_loss, dropped_tokens, wire_all_to_all,
                   all_to_all_wire_bytes, moe_capacity, expert_axis, collect_metrics)
+from . import overlap
 from . import pipeline
 from .pipeline import (PipelineTrainer, pipeline_spec, pipeline_apply, gpipe_schedule,
                        schedule_1f1b)
@@ -42,4 +44,4 @@ __all__ = ["Mesh", "PartitionSpec", "P", "make_mesh", "local_mesh", "current_mes
            "load_balancing_loss", "load_balance_loss", "dropped_tokens", "wire_all_to_all",
            "all_to_all_wire_bytes", "moe_capacity", "expert_axis", "collect_metrics",
            "pipeline", "PipelineTrainer", "pipeline_spec", "pipeline_apply", "gpipe_schedule",
-           "schedule_1f1b"]
+           "schedule_1f1b", "overlap"]

@@ -150,14 +150,45 @@ experts out of the buckets and sums their gradients over dp only.
 ``_dp_degree`` are what ``elastic.state.capture`` records besides the
 tensors (reference :351, :540). A mesh of one device takes the one-device
 step unchanged, ``zero_update`` included (its shard is the whole bucket, the
-same arithmetic). ``compression``, ``overlap_grads`` and
-``overlap_segments`` raise ``MXNetError`` naming ``parallel/overlap.py``
-(ROADMAP A2); ``MXNET_TPU_OVERLAP_GRADS`` is not read.
+same arithmetic).
+
+With ``overlap_grads=True`` (default ``MXNET_TPU_OVERLAP_GRADS``) the step is
+the reference's ``_build_step_overlap`` (:1096) made explicit
+(``parallel/overlap.py``; its rules, ``_validate_overlap`` :574: pure data
+parallelism, no compression; an explicit ``True`` on a net with no chain
+raises, the environment's default falls back to the plain step with a
+warning):
+
+- the net's chain (``overlap.chain_blocks``) is cut into
+  ``overlap_segments`` segments (default ``MXNET_TPU_OVERLAP_SEGMENTS``,
+  ``overlap.plan_segments``), and the gradient buckets (ZeRO's, or the
+  replicated step's, both from ``zero.plan_buckets`` with the plan's
+  ``boundaries``) never span two segments;
+- the forward runs segment by segment, the backward is one
+  ``torch.autograd.grad`` a segment, newest first; as soon as a segment's
+  call returns, its owned gradients are copied into their buckets and the
+  buckets' collectives (the all-reduce, or under ZeRO the reduce-scatter, on
+  the ``comm_dtype`` wire) are issued on a side stream forked from the
+  current one, which the current stream joins before the update. So they run
+  while the older segments' backward runs, inside a captured graph too;
+- the update is the plain step's: one K4/K5 launch per weight decay, then
+  ZeRO's all-gather.
+
+With ``compression={"type": "2bit", "threshold": t}`` (reference :447-500,
+``_build_step_compressed`` :879; pure data parallelism, neither ZeRO nor
+overlap) each rank takes the gradients of its own batch's mean loss, adds
+its residual of each trainable parameter (``_comp_resid``, float32, kept
+from step to step), quantizes the sum to {-t, 0, +t} (t where it is >= t,
+-t where <= -t, else 0), keeps sum - quantized as the new residual, and the
+quantized gradients are averaged over the batch axis (the all-reduce of the
+buckets, then a division by the axis size) before the update. Under float16
+an overflowing step changes no residual.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -170,16 +201,13 @@ from .. import autograd
 from .. import engine
 from .. import optimizer as opt_mod
 from .. import _dist_util
+from . import overlap as _overlap
 from . import zero as _zero
 from ..gluon.loss import Loss as GluonLoss
 from ..ops.cuda import fused_optimizer as _fo
 from .mesh import P, activate, current_mesh, require_axis
 from .step_program import StepProgram, config_fingerprint, structural_fingerprint
 from .tensor_parallel import shard_tensor, spec_axes
-
-_A2 = ("not ported yet (ROADMAP A2: the overlapped reduction of parallel/overlap.py "
-       "and the reference's 2-bit gradient compression)")
-
 
 def _f32(x) -> np.float32:
     return np.float32(x)
@@ -307,15 +335,21 @@ class DataParallelTrainer:
                  batch_axis_name: str = "dp", dtype=None, data_spec=None,
                  compression=None, zero_update=None, bucket_bytes=None,
                  comm_dtype=None, overlap_grads=None, overlap_segments=None):
-        for name, value in (("compression", compression), ("overlap_grads", overlap_grads),
-                            ("overlap_segments", overlap_segments)):
-            if value is not None and value is not False:
-                raise MXNetError(f"DataParallelTrainer({name}={value!r}): {_A2}")
         self._zero = bool(zero_update if zero_update is not None
                           else env.get("MXNET_TPU_ZERO"))
+        overlap_env = overlap_grads is None
+        self._overlap = bool(env.get("MXNET_TPU_OVERLAP_GRADS") if overlap_env
+                             else overlap_grads)
+        self._overlap_segments = int(overlap_segments if overlap_segments is not None
+                                     else env.get("MXNET_TPU_OVERLAP_SEGMENTS"))
+        self._overlap_plan: Optional[_overlap.SegmentPlan] = None
+        self._overlap_buckets = ()
+        self._seg_buckets: Dict[int, List[int]] = {}
+        self._comm_stream = None
         if comm_dtype is None:
             comm_dtype = env.get("MXNET_TPU_COMM_DTYPE") or None
-        self._comm_dtype = _zero.canonical_comm_dtype(comm_dtype) if self._zero else None
+        self._comm_dtype = _zero.canonical_comm_dtype(comm_dtype) \
+            if (self._zero or self._overlap) else None
         self.net = net
         self.compute_dtype: Optional[torch.dtype] = None
         if dtype is not None and torch_dtype(dtype) != torch.float32:
@@ -364,7 +398,8 @@ class DataParallelTrainer:
                     require_axis(self.mesh, a, f"the sharding of {p.name}")
                     if a in self._reduce_axes and not self._may_shard_over_data(p):
                         raise MXNetError(f"{p.name} is sharded over the data axis {a!r} "
-                                         f"({p.sharding}): {_A2}")
+                                         f"({p.sharding}): a data axis splits the batch, "
+                                         f"not parameters")
             if self.mesh.distributed and spec_axes(p.sharding):
                 if p._mesh is None:
                     p._place(self.mesh)       # reference _place_param (:645)
@@ -383,13 +418,34 @@ class DataParallelTrainer:
         self._segments: Dict[float, List[tuple]] = {}
         self._bucket_bytes = int(bucket_bytes if bucket_bytes is not None
                                  else env.get("MXNET_TPU_BUCKET_BYTES"))
+        if self._overlap:
+            self._plan_overlap(compression, overlap_env)
         if self._zero:
+            if compression:
+                raise MXNetError("zero_update is incompatible with 2-bit gradient "
+                                 "compression; use comm_dtype='bfloat16'/'int8' for "
+                                 "compressed collectives instead")
             self._validate_zero()
+        self._compression = self._validate_compression(compression)
         wds = [self.optimizer._get_wd(i) for i in range(len(self._plist))]
         zero = self._zero and self.mesh.distributed
         in_bucket = self._init_zero_state(wds) if zero else frozenset()
+        bucketed = in_bucket
+        if self._overlap and self.mesh.distributed and not zero:
+            bucketed = self._init_overlap_buckets()
         if self.mesh.distributed:
-            self._make_buckets([i for i in range(len(self._plist)) if i not in in_bucket])
+            self._make_buckets([i for i in range(len(self._plist)) if i not in bucketed])
+        if self._overlap:
+            seg_of = self._overlap_plan.segment_of_slot
+            for bi, b in enumerate(self._zero_plan or self._overlap_buckets):
+                owners = {seg_of[i] for i in b.indices}
+                if len(owners) != 1:      # the plan's boundaries exclude it
+                    raise MXNetError(f"bucket {bi} spans segments {sorted(owners)}")
+                self._seg_buckets.setdefault(owners.pop(), []).append(bi)
+        self._comp_resid = [torch.zeros_like(p._param, dtype=torch.float32)
+                            if t and p._param.is_floating_point() else None
+                            for p, t in zip(self._plist, self._trainable)] \
+            if self._compression else []
         self._opt_state = [self._init_fn(p._param.detach()) if t and i not in in_bucket
                            else () for i, (p, t) in enumerate(zip(self._plist,
                                                                   self._trainable))]
@@ -419,9 +475,12 @@ class DataParallelTrainer:
                 data_spec=tuple(str(a) for a in self.data_spec),
                 param_specs=tuple(str(p.sharding) for p in self._plist),
                 trainable=tuple(self._trainable), compute_dtype=str(self.compute_dtype),
-                scaled=self._scaler is not None, zero=self._zero,
-                bucket_bytes=self._bucket_bytes if self._zero else None,
-                comm_dtype=self._comm_dtype)))
+                scaled=self._scaler is not None,
+                compression=tuple(sorted(self._compression.items()))
+                if self._compression else None, zero=self._zero,
+                bucket_bytes=self._bucket_bytes if (self._zero or self._overlap) else None,
+                comm_dtype=self._comm_dtype,
+                overlap=self._overlap_plan.fingerprint if self._overlap else None)))
 
     def _eager_reason(self) -> Optional[str]:
         """Why the step runs its body eagerly every time, or None to capture
@@ -436,14 +495,80 @@ class DataParallelTrainer:
         return None
 
     # -- the sharded update (parallel/zero.py) ------------------------------------
-    def _validate_zero(self):
-        """zero_update preconditions (reference :544): replicated parameters
-        and the data split over the batch axis only."""
+    def _pure_dp(self, what: str):
+        """Raise unless parameters are replicated and the data is split over
+        the batch axis only (what ``what`` requires)."""
         bad = [p.name for p in self._plist if spec_axes(p.sharding)]
         if bad or tuple(self.data_spec) != (self.batch_axis,):
-            raise MXNetError(f"zero_update requires pure data parallelism (replicated "
+            raise MXNetError(f"{what} requires pure data parallelism (replicated "
                              f"parameters, data sharded over the batch axis only); "
                              f"offending params={bad[:3]} data_spec={self.data_spec}")
+
+    def _validate_zero(self):
+        """zero_update preconditions (reference :544, less its compression
+        check, which the constructor makes): pure data parallelism."""
+        self._pure_dp("zero_update")
+
+    def _validate_overlap(self, compression):
+        """overlap_grads preconditions (reference :574)."""
+        if compression:
+            raise MXNetError("overlap_grads is incompatible with 2-bit gradient compression; "
+                             "use comm_dtype='bfloat16'/'int8' for a compressed overlapped "
+                             "wire instead")
+        self._pure_dp("overlap_grads")
+
+    def _validate_compression(self, compression) -> Optional[dict]:
+        """The compression settings (reference :447-500), or None."""
+        if not compression:
+            return None
+        comp = dict(compression)
+        ctype = comp.get("type", "2bit")
+        if ctype != "2bit":
+            raise MXNetError(f"unsupported gradient compression {ctype!r}")
+        self._pure_dp("gradient compression")
+        return comp
+
+    def _plan_overlap(self, compression, from_env: bool):
+        """Segment the backward (reference :391-418); an overlap the
+        environment asked for falls back to the plain step with a warning."""
+        try:
+            self._validate_overlap(compression)
+            self._overlap_plan = _overlap.plan_segments(self.net, self._plist,
+                                                        self._overlap_segments)
+            owning = sum(1 for s in self._overlap_plan.segments if s.owned)
+            if owning < 2:
+                raise MXNetError(f"overlap_grads needs >= 2 backward segments that own "
+                                 f"parameters, got {owning}; nothing to overlap")
+        except MXNetError as e:
+            if not from_env:
+                raise
+            warnings.warn(f"MXNET_TPU_OVERLAP_GRADS: falling back to the plain fused step "
+                          f"({e})", UserWarning, stacklevel=3)
+            self._overlap = False
+            self._overlap_plan = None
+            if not self._zero:
+                self._comm_dtype = None
+
+    def _init_overlap_buckets(self) -> frozenset:
+        """The replicated step's gradient buckets under overlap (reference
+        :436-445): ``zero.plan_buckets`` with the segments' boundaries, each
+        parameter's gradient buffer a view into its bucket; returns the
+        parameters in a bucket."""
+        ndp = self.mesh.axis_size(self.batch_axis)
+        self._overlap_buckets = _zero.plan_buckets(self._zero_entries(), ndp,
+                                                   self._bucket_bytes,
+                                                   boundaries=self._overlap_plan.boundaries)
+        for b in self._overlap_buckets:
+            dtype = self._plist[b.indices[0]]._param.dtype
+            flat = torch.zeros(b.padded_size, dtype=dtype, device=self.device.torch_device)
+            for i, g in _zero.unflatten_bucket(b, flat):
+                p = self._plist[i]
+                p._grad = g
+                autograd._mark(p._param, p._grad, p.grad_req)
+            self._buckets.append(flat)
+            self._bucket_axes.append(self._reduce_axes)
+        engine.note_storage_change()      # the gradient buffers are bucket views now
+        return frozenset(i for b in self._overlap_buckets for i in b.indices)
 
     def _init_zero_state(self, wds) -> frozenset:
         """Plan the buckets (reference :598), make each bucketed parameter's
@@ -454,7 +579,9 @@ class DataParallelTrainer:
         ndp = self.mesh.axis_size(self.batch_axis)
         pos = self.mesh.axis_index(self.batch_axis)
         dev = self.device.torch_device
-        self._zero_plan = _zero.plan_buckets(self._zero_entries(), ndp, self._bucket_bytes)
+        self._zero_plan = _zero.plan_buckets(
+            self._zero_entries(), ndp, self._bucket_bytes,
+            boundaries=self._overlap_plan.boundaries if self._overlap else None)
         for b in self._zero_plan:
             dtype = self._plist[b.indices[0]]._param.dtype
             gflat = torch.zeros(b.padded_size, dtype=dtype, device=dev)
@@ -627,27 +754,173 @@ class DataParallelTrainer:
                 for p in self._plist:
                     p._compute = None
             pred = out[0] if isinstance(out, (tuple, list)) else out
-            lossv = self._loss_mean(pred, y)
-            if self.mesh.distributed:
-                lossv = lossv * self._share()
-            head = lossv * scale if scale is not None else lossv
+            local = self._loss_mean(pred, y)
+            lossv = local * self._share() if self.mesh.distributed else local
+            # the compressed step quantizes the gradients of the rank's own mean
+            head = local if self._compression else lossv
+            head = head * scale if scale is not None else head
             train = [p for p, t in zip(self._plist, self._trainable) if t]
             grads = torch.autograd.grad(head, [p._param for p in train],
                                         allow_unused=True)
         with torch.no_grad():
-            got = [(p._grad, g) for p, g in zip(train, grads) if g is not None]
-            if got:
-                torch._foreach_copy_([b for b, _ in got], [g for _, g in got])
-            for p, g in zip(train, grads):
-                if g is None:          # not reached by the loss: a zero gradient
-                    p._grad.zero_()
-            lossv = lossv.detach()
-            if self.mesh.distributed and self._reduce_axes:
+            self._set_grads(train, grads)
+            if self.mesh.distributed and self._reduce_axes and not self._compression:
                 for flat, axes in zip(self._buckets, self._bucket_axes):
                     dist.all_reduce(flat, group=self.mesh.group(axes))
-                lossv = lossv.float().clone()
-                dist.all_reduce(lossv, group=self.mesh.group(self._reduce_axes))
+            return self._global_loss(lossv)
+
+    @staticmethod
+    def _set_grads(params, grads):
+        """Copy ``grads`` into the parameters' gradient buffers; a parameter
+        the loss did not reach gets a zero gradient."""
+        got = [(p._grad, g) for p, g in zip(params, grads) if g is not None]
+        if got:
+            torch._foreach_copy_([b for b, _ in got], [g for _, g in got])
+        for p, g in zip(params, grads):
+            if g is None:
+                p._grad.zero_()
+
+    def _global_loss(self, lossv: torch.Tensor) -> torch.Tensor:
+        """The rank's share of the loss summed over the data axes: the global
+        mean (the loss itself in one process)."""
+        lossv = lossv.detach()
+        if self.mesh.distributed and self._reduce_axes:
+            lossv = lossv.float().clone()
+            dist.all_reduce(lossv, group=self.mesh.group(self._reduce_axes))
         return lossv
+
+    # -- the overlapped backward (parallel/overlap.py) -------------------------------
+    def _forward_backward_overlap(self, x, y, scale) -> torch.Tensor:
+        """``_forward_backward`` segment by segment (module docstring): the
+        forward through each segment's blocks on a detached input, then one
+        ``torch.autograd.grad`` a segment, newest first, each followed by its
+        buckets' collectives."""
+        cdt = self.compute_dtype
+        segs = self._overlap_plan.segments
+        ins, outs = [], []
+        with torch.enable_grad(), autograd.record(train_mode=True), self._forward_scope():
+            if cdt is not None and x.is_floating_point():
+                x = x.to(cdt)
+            h = NDArray(x, self.device)
+            for seg in segs:
+                hin = None
+                if seg.index > 0:
+                    t = (h[0] if isinstance(h, (tuple, list)) else h)._data
+                    hin = t.detach().requires_grad_(t.is_floating_point())
+                    h = NDArray(hin, self.device)
+                uses = [self._plist[i] for i in seg.uses]
+                if cdt is not None:
+                    for p in uses:
+                        if p._param.is_floating_point():
+                            p._compute = p._param.to(cdt)
+                try:
+                    for blk in seg.blocks:
+                        h = blk(h)
+                finally:
+                    for p in uses:
+                        p._compute = None
+                ins.append(hin)
+                outs.append(h)
+            pred = h[0] if isinstance(h, (tuple, list)) else h
+            lossv = self._loss_mean(pred, y)
+            if self.mesh.distributed:
+                lossv = lossv * self._share()
+            head = lossv * scale if scale is not None else lossv
+            acc: Dict[int, torch.Tensor] = {}
+            side = self._side_stream()
+            held: List[torch.Tensor] = []    # gradients the side stream reads
+            cot = None
+            for seg in reversed(segs):
+                train = [i for i in seg.uses if self._trainable[i]]
+                inputs = [self._plist[i]._param for i in train]
+                hin = ins[seg.index]
+                if hin is not None and hin.requires_grad:
+                    inputs.append(hin)
+                if seg.index == len(segs) - 1:
+                    res = torch.autograd.grad(head, inputs, allow_unused=True)
+                elif cot is not None:
+                    out = outs[seg.index]
+                    out = (out[0] if isinstance(out, (tuple, list)) else out)._data
+                    res = torch.autograd.grad(out, inputs, grad_outputs=cot,
+                                              allow_unused=True)
+                else:               # nothing after this segment reached its output
+                    res = [None] * len(inputs)
+                if len(inputs) > len(train):
+                    cot, res = res[-1], res[:-1]
+                else:
+                    cot = None
+                for i, g in zip(train, res):
+                    if g is not None:
+                        acc[i] = g if i not in acc else acc[i] + g
+                with torch.no_grad():
+                    self._finish_segment(seg, acc, side, held)
+        with torch.no_grad():
+            if side is not None:
+                torch.cuda.current_stream(self.device.torch_device).wait_stream(side)
+            held.clear()
+            return self._global_loss(lossv)
+
+    def _side_stream(self):
+        """The stream the buckets' collectives run on: a side stream on the
+        card on a mesh of ranks, None (the current stream) otherwise."""
+        if not self.mesh.distributed or self.device.device_type != "gpu":
+            return None
+        if self._comm_stream is None:
+            self._comm_stream = torch.cuda.Stream(self.device.torch_device)
+        return self._comm_stream
+
+    def _finish_segment(self, seg, acc, side, held):
+        """Write the gradients ``seg`` owns into their buffers and issue its
+        buckets' collectives (on ``side``, forked from the current stream)."""
+        owned = [i for i in seg.owned if self._trainable[i]]
+        for i in owned:
+            if i not in acc:
+                self._plist[i]._grad.zero_()
+        got = [(self._plist[i]._grad, acc.pop(i)) for i in owned if i in acc]
+        if side is None:
+            if got:
+                torch._foreach_copy_([b for b, _ in got], [g for _, g in got])
+            self._reduce_segment(seg.index)
+            return
+        side.wait_stream(torch.cuda.current_stream(self.device.torch_device))
+        held.extend(g for _, g in got)
+        with torch.cuda.stream(side):
+            if got:
+                torch._foreach_copy_([b for b, _ in got], [g for _, g in got])
+            self._reduce_segment(seg.index)
+
+    def _reduce_segment(self, s: int):
+        """The collectives of segment ``s``'s buckets: ZeRO's reduce-scatter
+        into the gradient shard, or the all-reduce of the replicated step."""
+        if not self.mesh.distributed:
+            return
+        ndp = self.mesh.axis_size(self.batch_axis)
+        for bi in self._seg_buckets.get(s, ()):
+            if self._zero_buckets:
+                zb = self._zero_buckets[bi]
+                zb["gshard"].copy_(_zero.reduce_scatter_bucket(
+                    zb["gflat"], self.batch_axis, ndp, self._comm_dtype, self.mesh))
+            else:
+                _overlap.allreduce_bucket(self._buckets[bi], self.batch_axis, ndp,
+                                          self._comm_dtype, self.mesh)
+
+    def _compress_reduce(self):
+        """2-bit quantization with error feedback of every trainable floating
+        gradient, then their mean over the batch axis (module docstring)."""
+        thr = float(self._compression.get("threshold", 0.5))
+        for p, r in zip(self._plist, self._comp_resid):
+            if r is None:
+                continue
+            g = p._grad
+            acc = g.float() + r
+            q = torch.where(acc >= thr, thr, torch.where(acc <= -thr, -thr, 0.0))
+            r.copy_(acc - q)
+            g.copy_(q)
+        if self.mesh.distributed and self._reduce_axes:
+            n = self.mesh.axis_size(self.batch_axis)
+            for flat, axes in zip(self._buckets, self._bucket_axes):
+                dist.all_reduce(flat, group=self.mesh.group(axes))
+                flat.div_(n)
 
     def _forward_scope(self):
         """The context the forward runs in: the mesh made active with the
@@ -671,7 +944,7 @@ class DataParallelTrainer:
 
     def _update(self):
         with torch.no_grad():
-            if self._zero_buckets:
+            if self._zero_buckets and not self._overlap:
                 self._reduce_zero()
             for k, wd in enumerate(self._wd_order):
                 idx, segments = self._groups.get(wd, []), self._segments.get(wd, [])
@@ -685,10 +958,16 @@ class DataParallelTrainer:
     def _body(self, x, y, scale) -> tuple:
         """The step's device work: forward, backward, the gradient buckets'
         reduction and the update (skipped after a float16 overflow)."""
-        lossv = self._forward_backward(x, y, scale)
+        if self._overlap:
+            lossv = self._forward_backward_overlap(x, y, scale)
+        else:
+            lossv = self._forward_backward(x, y, scale)
         finite = True
         if scale is not None:
             finite = self._unscale_finite(scale)
+        if self._compression and finite:
+            with torch.no_grad():
+                self._compress_reduce()
         if finite:
             self._update()
         return lossv, finite

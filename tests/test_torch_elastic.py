@@ -34,8 +34,8 @@ of ``tests/test_elastic.py``:
 - retention and incomplete snapshots, partial chunks, an unsupported
   format, a background write failure surfacing at the next ``save``, an
   architecture and an optimizer mismatch, a weight-decay lane that differs,
-  a ``rng`` leaf of the other package, the ``pp`` kind and ``coordinator=``
-  refused;
+  a ``rng`` leaf of the other package, the ``pp`` kind refused, and with
+  ``coordinator=`` a manifest without a commit fence refused;
 - ``PreemptionGuard``; a subprocess killed with SIGKILL while it trains,
   whose resume continues the uninterrupted losses, and one sent SIGTERM,
   which ends in a final snapshot;
@@ -576,15 +576,25 @@ def test_foreign_rng_leaf_refused_and_port_rng_restored(tmp_path, ref):
 
 
 def test_pipeline_kind_and_coordinator_refused(tmp_path):
+    """A ``pp`` snapshot does not install into a dp trainer; with a
+    coordinator the entry points take it, and a coordinated resume refuses a
+    manifest without a commit fence (one a pre-coordinator writer made)."""
     with pytest.raises(MXNetError, match="pipeline"):
         es.install(_bert_trainer(), {"kind": "pp"}, {}.__getitem__, set())
-    for call in (lambda: elastic.SnapshotManager(str(tmp_path), coordinator=object()),
-                 lambda: elastic.resume_or_init(str(tmp_path), lambda: None,
-                                                coordinator=object()),
-                 lambda: elastic.run(None, [], 1, directory=str(tmp_path),
-                                     coordinator=object())):
-        with pytest.raises(MXNetError, match="coordinator"):
-            call()
+    from mxnet_tpu_torch.elastic.coordinator import Coordinator
+    coord = Coordinator(str(tmp_path), 0, lease_timeout=30.0)
+    coord.join()
+    assert elastic.SnapshotManager(str(tmp_path), coordinator=coord).coordinator is coord
+    sdir = _manifest.step_path(str(tmp_path), 1)
+    _manifest.write_shard(sdir, 0, [("w", [(0, 2)], np.zeros(2, np.float32), (2,),
+                                    np.float32)])
+    man = _manifest.commit(sdir, 1, {"step": 1})
+    man["fence"] = None
+    with open(os.path.join(sdir, _manifest.MANIFEST), "w") as f:
+        json.dump(man, f)
+    with pytest.raises(MXNetError, match="coordinator"):
+        elastic.resume_or_init(str(tmp_path), lambda: None, coordinator=coord)
+    coord.leave()
 
 
 def test_duck_typed_hooks(tmp_path):

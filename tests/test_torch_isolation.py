@@ -81,7 +81,10 @@ def test_fresh_interpreter_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.elastic, mxnet_tpu_torch.elastic.manifest, "
             "mxnet_tpu_torch.parallel.step_program, mxnet_tpu_torch.parallel.moe, "
             "mxnet_tpu_torch.models.moe_transformer, mxnet_tpu_torch.recipes.moe, "
-            "mxnet_tpu_torch.parallel.pipeline, mxnet_tpu_torch.elastic.state\n"
+            "mxnet_tpu_torch.parallel.pipeline, mxnet_tpu_torch.elastic.state, "
+            "mxnet_tpu_torch.parallel.overlap, mxnet_tpu_torch.kvstore.ps, "
+            "mxnet_tpu_torch.elastic.coordinator, mxnet_tpu_torch.elastic.drill, "
+            "mxnet_tpu_torch.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")

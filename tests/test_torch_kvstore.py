@@ -4,7 +4,8 @@
   packages in this process and compared: init/push/pull by store type, the
   sum of a pushed list, an updater on the store, pushpull (one key, and a
   list of keys reduced by buckets), several and string keys, the optimizer
-  states' round trip; and every store refusing gradient compression.
+  states' round trip; and the in-process stores refusing gradient
+  compression (the dist stores' is ``tests/test_torch_compression.py``).
 - ``dist_sync`` over two ranks of ``torch.distributed`` (gloo on the CPU,
   spawned by ``_dist_util.launch_local``, one spawn for the module, a 120 s
   join timeout; the ranks import only the port and this module): push/pull
@@ -172,23 +173,44 @@ def test_gradient_compression_refused(kv_type):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("dist_async", "kvstore/ps.py"), ("dist_async_device", "kvstore/ps.py"),
-    ("dist_device_async", "kvstore/ps.py"), ("nonsense", "unknown kvstore")])
-def test_deferred_and_unknown_types_raise(name, match):
-    with pytest.raises(mt.MXNetError, match=match):
-        mt.kv.create(name)
+    # the dist_async ids predate the port of kvstore/ps.py
+    pytest.param("dist_async", None, id="dist_async-kvstore/ps.py"),
+    pytest.param("dist_async_device", None, id="dist_async_device-kvstore/ps.py"),
+    pytest.param("dist_device_async", None, id="dist_device_async-kvstore/ps.py"),
+    ("nonsense", "unknown kvstore")])
+def test_deferred_and_unknown_types_raise(name, match, tmp_path):
+    """An unknown name raises, in ``create`` and in ``gluon.Trainer``; the
+    ``dist_async`` names make the parameter server's store (with one worker,
+    on a world-1 gloo group, the in-process store) and a Trainer takes them."""
     net = mt.gluon.nn.Dense(2, in_units=3)
     net.initialize(ctx=mt.cpu())
-    with pytest.raises(mt.MXNetError, match=match):
-        mt.gluon.Trainer(net.collect_params(), "sgd", kvstore=name)
+    if match is not None:
+        with pytest.raises(mt.MXNetError, match=match):
+            mt.kv.create(name)
+        with pytest.raises(mt.MXNetError, match=match):
+            mt.gluon.Trainer(net.collect_params(), "sgd", kvstore=name)
+        return
+    _dist_util.init_process_group(device="cpu", backend="gloo", rank=0, world_size=1,
+                                  init_method=f"file://{tmp_path / 'rdzv'}")
+    try:
+        kv = mt.kv.create(name)
+        assert kv.type == "dist_async" and kv.num_workers == 1
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd", kvstore=name)
+        trainer.allreduce_grads()
+        assert trainer._kvstore.type == "dist_async"
+    finally:
+        _dist_util.destroy_process_group()
 
 
 def test_trainer_refuses_compression_and_devices():
+    """Compression goes to the store when it is made: the in-process
+    ``device`` store refuses it (the reference's rule)."""
     net = mt.gluon.nn.Dense(2, in_units=3)
     net.initialize(ctx=mt.cpu())
-    with pytest.raises(mt.MXNetError, match="ROADMAP A2"):
-        mt.gluon.Trainer(net.collect_params(), "sgd",
-                         compression_params={"type": "2bit"})
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               compression_params={"type": "2bit"})
+    with pytest.raises(mt.MXNetError, match="only supported on dist"):
+        trainer.allreduce_grads()
     kv = mt.kv.create("local")
     kv.init("k", _ones(mt, mt.cpu(), (2,)))
     elsewhere = mt.nd.NDArray(torch.ones(2, device="meta"), mt.cpu())   # another device
