@@ -329,6 +329,35 @@ The rest of A2 (``parallel/overlap.py``, 2-bit compression, ``dist_async``,
    "dist_async")`` (the same model, SGD on the servers), 3 steps: every push
    applied once at its home, the homes' values a host replay of the pushes.
 
+The hybridized Gluon training loop (``gluon/block.py``'s training pair,
+``gluon.data``, ``metric``, ``io``, ``models.lenet``), after them:
+
+33. ``phase_gluon_pair``: BERT-base T=1024 batch 8 (SoftmaxCrossEntropyLoss,
+   Trainer adam lr 1e-4) and ResNet-50 v1 batch 32 at 224² (SGD momentum
+   0.9, zero-γ residual branches), f32 with TF32 off, through
+   ``autograd.record()``/``backward()``/``Trainer.step`` with the net and the
+   loss unhybridized, then hybridized (a forward and a backward graph a
+   signature: step 1 eager, step 2 captured and replayed, replays after):
+   GLUON_PAIR_CMP steps compared (losses and every gradient each step, the
+   weights and running statistics after them; ResNet-50 under deterministic
+   algorithms), K1-K3 12 a BERT step each (replays counted), one slot a
+   signature and no eager reason in ``_cached_graphs``; each mode's p50/p90
+   over GLUON_PAIR_TIMED steps, the launches the host issued a step, busy
+   time and idle share from padded traces, the pairs' pool bytes and capture
+   seconds.
+34. ``phase_mnist``: ``examples/train_mnist.py``'s loop: the synthetic MNIST
+   of ``gluon.data.vision.MNIST`` (an empty root) with
+   ``transform_first(ToTensor())``, ``DataLoader(batch 64, shuffle, 2
+   workers, pin_memory)``, LeNet hybridized, SGD momentum 0.9 lr 0.05,
+   ``metric.Accuracy``, 2 epochs; the first MNIST_CMP steps held against the
+   same steps unhybridized; images a second, accuracy, the loss falling, the
+   idle share of a step; then one epoch of ``io.MNISTIter`` through
+   ``io.PrefetchingIter`` (pinned staging).
+
+``_profile`` (the earlier phases' single-step traces) opens each session
+with PROFILE_PAD spin kernels and counts only the device records after
+them, as ``_api_launches`` does.
+
 It prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the rest of the repository beside it, it
 exits non-zero and prints no result. Its full results, with each phase's
@@ -1029,20 +1058,33 @@ def _kernel_group(name):
 
 def _profile(torch, label, fn):
     """``fn()`` once under torch.profiler: device time by kernel group and
-    the device's busy share of the wall time."""
+    the device's busy share of the wall time. The session opens with
+    PROFILE_PAD spin kernels that are left out, as ``_trace_once``'s do: on
+    the H100 host a session loses its first device records (``_api_launches``
+    says how many), so only the kernels after the padding's last one count."""
     from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [(e.key, e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    events = [e for e in prof.events() if e.device_type == cuda]
+    pads = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    per = {}
+    for e in events:
+        if pads and "spin_kernel" not in e.name and e.time_range.start >= max(pads) \
+                and e.time_range.end > e.time_range.start:
+            us, n = per.get(e.name, (0.0, 0))
+            per[e.name] = (us + e.time_range.end - e.time_range.start, n + 1)
+    kernels = [(k, us, n) for k, (us, n) in per.items()]
     if not kernels:
-        log("[profile] no device events recorded: device time not measured")
-        return {"wall_us": wall_us, "device_us": None}
+        log(f"[profile] no device events recorded after the padding ({len(pads)} of "
+            f"{PROFILE_PAD} spin kernels kept): device time not measured")
+        return {"wall_us": wall_us, "device_us": None, "pads_kept": len(pads)}
     device_us = sum(k[1] for k in kernels)
     groups, counts = {}, {}
     for name, us, n in kernels:
@@ -1050,7 +1092,8 @@ def _profile(torch, label, fn):
         groups[g] = groups.get(g, 0.0) + us
         counts[g] = counts.get(g, 0) + n
     log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{device_us / 1e3:.2f} ms ({100 * device_us / wall_us:.1f}%)")
+        f"{device_us / 1e3:.2f} ms ({100 * device_us / wall_us:.1f}%), {len(pads)} of "
+        f"{PROFILE_PAD} spin kernels kept")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"[profile]   {g}: {us / 1e3:.2f} ms in {counts[g]} launches "
             f"({100 * us / device_us:.1f}% of device time)")
@@ -1059,6 +1102,7 @@ def _profile(torch, label, fn):
         log(f"[profile]   {us / 1e3:8.3f} ms x{n:<4d} {name[:90]}")
     return {"wall_us": wall_us, "device_us": device_us, "groups_us": groups,
             "group_launches": counts, "idle_share": 1.0 - device_us / wall_us,
+            "pads_kept": len(pads),
             "flash_kernels": sorted({k for k, _, _ in kernels if "flash_" in k}),
             "top": [{"kernel": k, "us": us, "count": n} for k, us, n in top]}
 
@@ -7036,6 +7080,372 @@ def phase_dist_async(torch, device="gpu", cfg=None, steps=ASYNC_STEPS, timeout=6
         k: sum(rk["launches"][k] for rk in ranks) for k in _flash_counters()}}
 
 
+GLUON_PAIR_CMP = 3           # Gluon steps compared: eager (warm), capture + replay, a replay
+GLUON_PAIR_TIMED = 8         # timed steps after two more: p50 and p90
+GLUON_PAIR_SEED = 61
+MNIST_CMP = 5                # train_mnist steps held captured against eager
+MNIST_EPOCHS = 2
+MNIST_BATCH = 64
+
+
+def _gluon_grads(net):
+    return {k: p._grad.clone() for k, p in net._collect_params_with_prefix().items()
+            if p._grad is not None}
+
+
+def _pair_graphs(*blocks):
+    """The training-pair entries of ``blocks`` (hybridized): each signature's
+    shapes, its last call's eager reason and its slots, and the pools and
+    capture seconds of every slot's two graphs."""
+    rows, pool, seconds = [], 0, 0.0
+    for blk in blocks:
+        for sig, e in blk._cached_graphs.items():
+            slots = e.pair.slots if e.pair is not None else []
+            rows.append({"block": type(blk).__name__, "inputs": [list(s[0]) for s in sig[0]],
+                         "train": sig[1], "needs_grad": list(sig[2] or ()),
+                         "eager": e.eager, "slots": len(slots)})
+            for s in slots:
+                pool += s.fwd.pool_bytes + s.bwd.pool_bytes
+                seconds += s.fwd.capture_seconds + s.bwd.capture_seconds
+    return rows, pool, seconds
+
+
+def _gluon_build(mx, make, hybrid):
+    mx.random.seed(GLUON_PAIR_SEED)
+    net, loss_fn, trainer = make()
+    if hybrid:
+        net.hybridize()
+        loss_fn.hybridize()
+    return net, loss_fn, trainer
+
+
+def _pair_span_ms(torch, net):
+    """The net's forward and backward graphs replayed back to back between
+    CUDA events (mean of GRAPH_BUSY_REPLAYS): the pair's device time."""
+    (entry,) = net._cached_graphs.values()
+    slot = entry.pair.slots[0]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_BUSY_REPLAYS):
+        slot.fwd.graph.replay()
+        slot.bwd.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / GRAPH_BUSY_REPLAYS
+
+
+def _gluon_mode(torch, mx, label, make, x, y, hybrid, per_step, atomic):
+    """One Gluon training loop (``make()`` -> net, loss, trainer from the
+    path's weights), hybridized (net and loss) or not: GLUON_PAIR_CMP steps
+    kept for the comparison (loss and every gradient each step, the weights
+    after them) with the flash counters over them, under deterministic
+    algorithms where ``atomic`` (then the timed loop is a fresh one, so that
+    its graphs are captured with the default algorithms, which the eager
+    mode times); then GLUON_PAIR_TIMED timed steps after two, one step
+    timed on the host in its parts (forward and backward issued, the
+    update issued, the wait), one traced step (busy, host launches) and,
+    hybridized, the pair's device span."""
+    from mxnet_tpu_torch import engine
+    counters = _flash_counters()
+    net, loss_fn, trainer = _gluon_build(mx, make, hybrid)
+    _zero_counters(counters)
+    engine.reset_stats()
+    steps = []
+    with _deterministic(torch, atomic):
+        for _ in range(GLUON_PAIR_CMP):
+            loss = _train_step(mx, net, loss_fn, trainer, x, y)
+            steps.append((loss._data.detach().clone(), _gluon_grads(net)))
+    weights = _weights_of(net)
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {k: v * GLUON_PAIR_CMP for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"gluon-pair {label} hybrid={hybrid}: launches {launches} over "
+                             f"{GLUON_PAIR_CMP} steps, want {want}")
+    cmp_stats = engine.cache_stats()
+    if hybrid:
+        graphs = _pair_graphs(net, loss_fn)[0]
+        bad = [g for g in graphs if g["eager"] is not None or not g["slots"]]
+        if bad or cmp_stats["captures"] != 4:
+            raise AssertionError(f"gluon-pair {label}: entries {graphs}, captures "
+                                 f"{cmp_stats['captures']} (want one slot each of the net's "
+                                 f"and the loss's pair)")
+    if atomic:
+        del net, loss_fn, trainer
+        torch.cuda.empty_cache()
+        net, loss_fn, trainer = _gluon_build(mx, make, hybrid)
+        for _ in range(GLUON_PAIR_CMP):
+            _train_step(mx, net, loss_fn, trainer, x, y)
+    _zero_counters(counters)
+    ms = []
+    for i in range(2 + GLUON_PAIR_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _train_step(mx, net, loss_fn, trainer, x, y)
+        torch.cuda.synchronize()
+        if i >= 2:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(float(loss.mean().asscalar())):
+            raise AssertionError(f"gluon-pair {label}: loss not finite")
+    n = 2 + GLUON_PAIR_TIMED
+    timed_launches = {k: c.launches for k, c in counters.items()}
+    if timed_launches != {k: v * n for k, v in per_step.items()}:
+        raise AssertionError(f"gluon-pair {label} hybrid={hybrid}: launches {timed_launches} "
+                             f"over {n} steps, want {per_step} a step")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mx.autograd.record():
+        L = loss_fn(net(x), y)
+    L.backward()
+    t1 = time.perf_counter()
+    trainer.step(x.shape[0])
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    host = {"fwd_bwd_issued_ms": (t1 - t0) * 1e3, "update_issued_ms": (t2 - t1) * 1e3,
+            "wait_ms": (t3 - t2) * 1e3}
+    api = _api_launches(torch, lambda: _train_step(mx, net, loss_fn, trainer, x, y))
+    r = {"step_ms": _pct(ms), "launches": launches, "timed_launches": timed_launches,
+         "engine_compared": cmp_stats, "engine": engine.cache_stats(), "host_split": host,
+         "host_launches": api["host_launches"], "api": api["api"],
+         "busy_ms": api["device_busy_ms"], "device_ops": api["device_ops"],
+         "sessions": api["sessions"]}
+    if r["busy_ms"] is None:
+        raise AssertionError(f"gluon-pair {label}: the profiler recorded no device operation")
+    r["idle_share"] = 1.0 - r["busy_ms"] / r["step_ms"]["p50"]
+    if hybrid:
+        r["graphs"], r["pool_bytes"], r["capture_s"] = _pair_graphs(net, loss_fn)
+        r["pair_span_ms"] = _pair_span_ms(torch, net)
+    del net, loss_fn, trainer
+    torch.cuda.empty_cache()
+    return r, steps, weights
+
+
+def _gluon_compare(torch, label, eager, graph):
+    """Largest relative differences, captured against eager: the losses and
+    every gradient of each compared step, the weights after them (running
+    statistics included)."""
+    (es, ew), (gs, gw) = eager, graph
+    loss = max(_rel_diff(torch, g[0], e[0]) for e, g in zip(es, gs))
+    grad = max(_rel_diff(torch, g[1][k], e[1][k]) for e, g in zip(es, gs) for k in e[1])
+    weight = _weights_diff(torch, gw, ew)
+    stats = [k for k in ew if "running_" in k]
+    running = max((_rel_diff(torch, gw[k], ew[k]) for k in stats), default=0.0)
+    out = {"loss_rel": loss, "grad_rel": grad, "weight_rel": weight, "running_rel": running,
+           "running_stats": len(stats), "bitwise": not (loss or grad or weight)}
+    if loss > TOL_TRAIN_LOSS or grad > TOL_TRAIN_GRAD or weight > TOL_TRAIN_W:
+        raise AssertionError(f"gluon-pair {label}: captured against eager {out} (tolerances "
+                             f"{TOL_TRAIN_LOSS}, {TOL_TRAIN_GRAD}, {TOL_TRAIN_W})")
+    return out
+
+
+def phase_gluon_pair(torch, bert_params, bert_batch, resnet_params):
+    """The hybridized Gluon training loop on the card: BERT-base T=1024
+    batch 8 (``_bert_trainer``: SoftmaxCrossEntropyLoss, Trainer adam lr
+    1e-4) and ResNet-50 v1 batch 32 at 224² (``_sgd_trainer``: SGD momentum
+    0.9), f32 with TF32 off, the net and the loss unhybridized against
+    hybridized (the training pair: a forward and a backward graph a
+    signature)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import bert_base
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.gpu(0)
+
+    def bert():
+        net = bert_base(max_length=1024)
+        net.initialize(ctx=ctx)
+        load_jax_params(net, bert_params)
+        return (net,) + _bert_trainer(mx, net, 1e-4)
+
+    def resnet():
+        net, _ = _resnet50(mx, ctx, _zero_last_gamma(resnet_params))
+        return (net,) + _sgd_trainer(mx, net)
+
+    rs = np.random.RandomState(8)
+    paths = {
+        "bert": (bert, mx.nd.array(bert_batch[0], ctx=ctx, dtype="int32"),
+                 mx.nd.array(bert_batch[1], ctx=ctx, dtype="int32"),
+                 {k: 12 for k in _flash_counters()}, False, 8 * 1024),
+        "resnet": (resnet, mx.nd.array(rs.uniform(-1, 1, (32, 3, 224, 224)).astype(np.float32),
+                                       ctx=ctx),
+                   mx.nd.array(rs.randint(0, 1000, (32,)).astype(np.int32), ctx=ctx,
+                               dtype="int32"),
+                   {k: 0 for k in _flash_counters()}, True, 32),
+    }
+    out, launches = {}, {}
+    for label, (make, x, y, per_step, atomic, items) in paths.items():
+        e, e_steps, e_w = _gluon_mode(torch, mx, label, make, x, y, False, per_step, atomic)
+        c, c_steps, c_w = _gluon_mode(torch, mx, label, make, x, y, True, per_step, atomic)
+        cmp = _gluon_compare(torch, label, (e_steps, e_w), (c_steps, c_w))
+        del e_steps, e_w, c_steps, c_w
+        torch.cuda.empty_cache()
+        for k in _flash_counters():
+            launches[k] = launches.get(k, 0) + e["launches"][k] + c["launches"][k]
+        out[label] = {"eager": e, "captured": c, "compare": cmp,
+                      "items_per_step": items,
+                      "deterministic_algorithms": atomic}
+        log(f"[gluon-pair] {label}: step eager p50 {e['step_ms']['p50']:.3f} / p90 "
+            f"{e['step_ms']['p90']:.3f} ms, captured p50 {c['step_ms']['p50']:.3f} / p90 "
+            f"{c['step_ms']['p90']:.3f} ms; host split (issue fwd+bwd, issue update, wait) "
+            f"{e['host_split']} / {c['host_split']}; the pair's device span by CUDA events "
+            f"{c['pair_span_ms']:.3f} ms; busy {e['busy_ms']:.3f} / {c['busy_ms']:.3f} ms, idle "
+            f"{e['idle_share']:.2%} / {c['idle_share']:.2%}; host launches a step "
+            f"{e['host_launches']} -> {c['host_launches']} ({c['api']}); pool "
+            f"{c['pool_bytes'] / 2**30:.3f} GiB, capture {c['capture_s']:.3f} s; entries "
+            f"{c['graphs']}; engine {c['engine']}; launches {c['launches']}; captured "
+            f"against eager over {GLUON_PAIR_CMP} steps"
+            f"{' (deterministic algorithms)' if atomic else ''}: loss {cmp['loss_rel']:.3e}, "
+            f"gradients {cmp['grad_rel']:.3e}, weights {cmp['weight_rel']:.3e}, running stats "
+            f"{cmp['running_rel']:.3e} ({cmp['running_stats']} tensors): "
+            f"{'bitwise' if cmp['bitwise'] else 'NOT bitwise'}")
+    out["launches"] = launches
+    return out
+
+
+def _lenet_pair(mx, ctx, x0):
+    """LeNet on ``ctx`` with seeded weights (its shapes from one forward),
+    with the weights as numpy for a second instance."""
+    from mxnet_tpu_torch.convert import load_jax_params, seeded_params
+    from mxnet_tpu_torch.models import lenet
+    net = lenet()
+    net.initialize(ctx=ctx)
+    net(x0)
+    weights = seeded_params(net, seed=5)
+    load_jax_params(net, weights)
+    return net, weights
+
+
+def _mnist_loop(torch, mx, net, batches, steps=None, metric=None):
+    """``examples/train_mnist.py``'s loop over ``batches`` ((x, y) on the
+    card): hybridized loss, Trainer sgd lr 0.05 momentum 0.9. The losses of
+    each step (device scalars), the seconds of each iteration (the data's
+    wait included) and the images."""
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    loss_fn.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.05, "momentum": 0.9})
+    losses, secs, images = [], [], 0
+    t0 = time.perf_counter()
+    for x, y in batches:
+        with mx.autograd.record():
+            out = net(x)
+            L = loss_fn(out, y)
+        L.backward()
+        trainer.step(x.shape[0])
+        if metric is not None:
+            metric.update(y, out)
+        losses.append(L.mean()._data.detach())
+        images += x.shape[0]
+        t1 = time.perf_counter()
+        secs.append(t1 - t0)
+        t0 = t1
+        if steps is not None and len(losses) == steps:
+            break
+    torch.cuda.synchronize()
+    return [float(v) for v in losses], secs, images, (loss_fn, trainer)
+
+
+def phase_mnist(torch):
+    """``examples/train_mnist.py`` on the card: the synthetic MNIST of
+    ``gluon.data.vision.MNIST`` (an empty root), ``transform_first(ToTensor())``,
+    ``DataLoader(batch 64, shuffle, 2 workers, pin_memory)``, LeNet hybridized,
+    SGD momentum 0.9, ``metric.Accuracy``, MNIST_EPOCHS epochs; the first
+    MNIST_CMP steps held against the same steps unhybridized; then an epoch of
+    ``io.MNISTIter`` through ``io.PrefetchingIter`` (pinned staging)."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+    from mxnet_tpu_torch.models import lenet
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.gpu(0)
+    with tempfile.TemporaryDirectory() as root:
+        data = mx.gluon.data.vision.MNIST(root=root, train=True)
+        images_total = len(data)
+        data = data.transform_first(T.ToTensor())
+
+        def loader():
+            return mx.gluon.data.DataLoader(data, batch_size=MNIST_BATCH, shuffle=True,
+                                            num_workers=2, pin_memory=True)
+        x0 = mx.nd.zeros((1, 1, 28, 28), ctx=ctx)
+        runs = {}
+        with _deterministic(torch, True):
+            for hybrid in (False, True):
+                net, weights = _lenet_pair(mx, ctx, x0)
+                if hybrid:
+                    net.hybridize()
+                np.random.seed(MNIST_CMP)
+                losses, _, _, _ = _mnist_loop(torch, mx, net, loader(), steps=MNIST_CMP)
+                runs[hybrid] = (losses, _weights_of(net))
+        (le, we), (lc, wc) = runs[False], runs[True]
+        cmp = {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(lc, le)),
+               "weight_rel": _weights_diff(torch, wc, we)}
+        cmp["bitwise"] = not (cmp["loss_rel"] or cmp["weight_rel"])
+        if cmp["loss_rel"] > TOL_TRAIN_LOSS or cmp["weight_rel"] > TOL_TRAIN_W:
+            raise AssertionError(f"mnist: {MNIST_CMP} captured steps against eager {cmp}")
+        # the example's run: MNIST_EPOCHS epochs, hybridized
+        net = lenet()
+        net.initialize(ctx=ctx)
+        net(x0)
+        load_jax_params(net, weights)
+        net.hybridize()
+        acc = mx.metric.Accuracy()
+        epochs = []
+        for epoch in range(MNIST_EPOCHS):
+            acc.reset()
+            t0 = time.perf_counter()
+            losses, secs, n, (loss_fn, trainer) = _mnist_loop(torch, mx, net, loader(),
+                                                              metric=acc)
+            wall = time.perf_counter() - t0
+            epochs.append({"loss_first": losses[0], "loss_last": losses[-1],
+                           "loss_mean": float(np.mean(losses)), "accuracy": acc.get()[1],
+                           "images": n, "seconds": wall, "images_per_s": n / wall,
+                           "step_ms": _pct([s * 1e3 for s in secs[1:]])})
+    rs = np.random.RandomState(9)
+    xb = mx.nd.array(rs.uniform(0, 1, (MNIST_BATCH, 1, 28, 28)).astype(np.float32), ctx=ctx)
+    yb = mx.nd.array(rs.randint(0, 10, MNIST_BATCH).astype(np.int32), ctx=ctx,
+                     dtype="int32")                 # the loop's signature: int32 labels
+    api = _api_launches(torch, lambda: _train_step(mx, net, loss_fn, trainer, xb, yb))
+    step_p50 = epochs[-1]["step_ms"]["p50"]
+    idle = 1.0 - api["device_busy_ms"] / step_p50 if api["device_busy_ms"] else None
+    # one epoch of io.MNISTIter (its synthetic set) through PrefetchingIter
+    it = mx.io.PrefetchingIter(mx.io.MNISTIter(image=os.path.join(ROOT, "build", "absent"),
+                                               label=os.path.join(ROOT, "build", "absent"),
+                                               batch_size=MNIST_BATCH, shuffle=True,
+                                               ctx=mx.cpu()), ctx=ctx)
+    iter_acc = mx.metric.Accuracy()
+    t0 = time.perf_counter()
+    it_losses, _, it_n, _ = _mnist_loop(torch, mx, net, ((b.data[0], b.label[0]) for b in it),
+                                        metric=iter_acc)
+    it_wall = time.perf_counter() - t0
+    res = {"compare": cmp, "epochs": epochs, "dataset_images": images_total,
+           "graphs": _pair_graphs(net)[0], "busy_ms": api["device_busy_ms"],
+           "host_launches": api["host_launches"], "idle_share": idle,
+           "sessions": api["sessions"],
+           "mnist_iter": {"images": it_n, "seconds": it_wall, "images_per_s": it_n / it_wall,
+                          "loss_first": it_losses[0], "loss_last": it_losses[-1],
+                          "accuracy": iter_acc.get()[1]}}
+    for i, ep in enumerate(epochs):
+        log(f"[mnist] epoch {i}: {ep['images']} images in {ep['seconds']:.2f} s "
+            f"({ep['images_per_s']:.0f} img/s, step p50 {ep['step_ms']['p50']:.3f} ms), loss "
+            f"{ep['loss_first']:.4f} -> {ep['loss_last']:.4f} (mean {ep['loss_mean']:.4f}), "
+            f"accuracy {ep['accuracy']:.4f}")
+    log(f"[mnist] {MNIST_CMP} captured steps against eager (deterministic algorithms): loss "
+        f"{cmp['loss_rel']:.3e}, weights {cmp['weight_rel']:.3e}; a step: busy "
+        f"{api['device_busy_ms']:.3f} ms of the loop's p50 {step_p50:.3f} ms: idle "
+        f"{idle:.2%}, host launches {api['host_launches']}; entries {res['graphs']}; "
+        f"MNISTIter + PrefetchingIter: {it_n} images in {it_wall:.2f} s "
+        f"({it_n / it_wall:.0f} img/s), loss {it_losses[0]:.4f} -> {it_losses[-1]:.4f}, "
+        f"accuracy {iter_acc.get()[1]:.4f}")
+    if not epochs[-1]["loss_mean"] < epochs[0]["loss_mean"]:
+        raise AssertionError(f"mnist: the loss did not fall: {epochs}")
+    if any(g["eager"] is not None for g in res["graphs"]):
+        raise AssertionError(f"mnist: a signature still runs eagerly: {res['graphs']}")
+    return res
+
+
 @contextlib.contextmanager
 def _world1_nccl(torch):
     """A world-1 process group on the card, over the backend rule's choice
@@ -7130,6 +7540,8 @@ def main() -> int:
     graph_train = phase_graph_train(torch, bert_params, bert_batch, resnet_params, lc_weights,
                                     moe_weights)
     del moe_weights
+    gluon_pair = phase_gluon_pair(torch, bert_params, bert_batch, resnet_params)
+    mnist = phase_mnist(torch)
     with _world1_nccl(torch):
         overlap_bert = phase_overlap_bert(torch, bert_params, bert_batch)
     del bert_params
@@ -7177,6 +7589,9 @@ def main() -> int:
                     "fused_sgd_update", 0)} if name == "fused_sgd_mom_update" else {}),
                 **{f"graph_{path}_{mode}": r["modes"][mode]["launches"].get(name, 0)
                    for path, r in graph_train.items() if "modes" in r for mode in r["modes"]},
+                # the hybridized Gluon loop: BERT-base eager and captured (the pair)
+                **{f"gluon_pair_bert_{mode}": gluon_pair["bert"][mode]["launches"].get(name, 0)
+                   for mode in ("eager", "captured")},
                 "zero_ranks": sum(lc.get(name, 0) for c in zero_ranks["configs"].values()
                                   for lc in c["launches"])}
 
@@ -7370,6 +7785,7 @@ def main() -> int:
                    "graph_serve": graph_serve, "graph_train": graph_train,
                    "overlap_bert": overlap_bert, "overlap_ranks": overlap_ranks,
                    "coord_kill": coord_kill, "dist_async": dist_async,
+                   "gluon_pair": gluon_pair, "mnist": mnist,
                    "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0, "phase_seconds": PHASE_SECONDS,
                    "process_seconds": time.perf_counter() - T_START},

@@ -50,8 +50,15 @@ reduction (``DataParallelTrainer(overlap_grads=True)``, ``parallel.overlap``)
 and 2-bit gradient compression (``compression=``, and the dist stores'
 ``set_gradient_compression``); ``dist_async``'s parameter server
 (``kvstore/ps.py``); the multi-host elastic coordinator and its drills
-(``elastic.Coordinator``, ``elastic.drill``); and ``checkpoint`` (step-indexed
-checkpoints in the elastic format). What is still to come is in ROADMAP.md.
+(``elastic.Coordinator``, ``elastic.drill``); ``checkpoint`` (step-indexed
+checkpoints in the elastic format); and the Gluon training loop of
+``examples/train_mnist.py``: a hybridized block's training pair (forward
+and backward) as CUDA graphs under ``autograd.record()``,
+``models.lenet``/``models.mlp``, the thirteen ``gluon.loss`` losses,
+``gluon.data`` (``DataLoader`` with thread workers and pinned memory, the
+vision datasets and transforms), ``metric`` and ``io`` (``NDArrayIter``,
+``MNISTIter``, ``CSVIter``, ``PrefetchingIter``). What is still to come is
+in ROADMAP.md.
 
 Quick start::
 
@@ -97,9 +104,12 @@ from . import recipes
 from . import faults
 from . import elastic
 from . import checkpoint
+from . import metric
+from . import io
 from .ndarray import NDArray
 
 __all__ = ["base", "MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "ops", "ndarray", "nd", "autograd", "random",
            "initializer", "lr_scheduler", "optimizer", "gluon", "kvstore", "kv", "rtc", "contrib",
-           "parallel", "recipes", "faults", "elastic", "checkpoint", "NDArray"]
+           "parallel", "recipes", "faults", "elastic", "checkpoint", "metric", "io",
+           "NDArray"]

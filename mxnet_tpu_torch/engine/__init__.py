@@ -37,7 +37,9 @@ workspaces, autograd's streams are set up by that run), inserts it under
 ``key`` and returns the ``GraphEntry``: ``replay()``, the static
 ``outputs`` of ``fn`` (overwritten by every replay), and the deltas of the
 launch counters. The graphs of one ``owner`` share one memory pool: they
-replay on one stream, one at a time.
+replay on one stream, one at a time, and none keeps data from one replay to
+the next. Graphs that do (a hybridized block's training pair: the forward
+leaves its activations for the backward) pass a ``pool`` of their own.
 
 When a graph is stale: it reads its tensors by address, so an entry keeps
 ``ptrs(owner)`` (the addresses of the tensors its owner may give new
@@ -295,18 +297,21 @@ class GraphEntry:
         return self.valid
 
     def replay(self):
-        self.graph.replay()
+        try:
+            self.graph.replay()
+        except RuntimeError as e:
+            raise MXNetError(f"CUDA graph replay failed: {e}") from e
         _apply(self.deltas)
         _bump("replays")
         return self.outputs
 
 
-def capture(fn, key: Tuple, device, owner, ptrs=None) -> GraphEntry:
+def capture(fn, key: Tuple, device, owner, ptrs=None, pool=None) -> GraphEntry:
     """Capture ``fn()`` on ``device``'s side stream into a new graph in
-    ``owner``'s memory pool and insert it under ``key``; ``ptrs(owner)``:
-    the addresses that make it stale when they move. Raises ``MXNetError`` with
-    the CUDA error if the capture fails. Run ``fn`` once on
-    ``side_stream(device)`` first."""
+    ``owner``'s memory pool (or in ``pool``, a ``graph_pool_handle()``) and
+    insert it under ``key``; ``ptrs(owner)``: the addresses that make it
+    stale when they move. Raises ``MXNetError`` with the CUDA error if the
+    capture fails. Run ``fn`` once on ``side_stream(device)`` first."""
     from .. import random as _random
     device = _device(device)
     graph = torch.cuda.CUDAGraph()
@@ -317,9 +322,10 @@ def capture(fn, key: Tuple, device, owner, ptrs=None) -> GraphEntry:
                          f"draw from the port's generators")
     graph.register_generator_state(gen)
     with _LOCK:
-        pool = _POOLS.get(owner)
         if pool is None:
-            pool = _POOLS[owner] = torch.cuda.graph_pool_handle()
+            pool = _POOLS.get(owner)
+            if pool is None:
+                pool = _POOLS[owner] = torch.cuda.graph_pool_handle()
     before = _snapshot()
     keep: List[Any] = []
     prev, _ACTIVE.keep = getattr(_ACTIVE, "keep", None), keep

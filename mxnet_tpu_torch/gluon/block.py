@@ -18,35 +18,68 @@ Counterpart of ``mxnet_tpu/gluon/block.py``. ``Block`` is a
 ``hybridize(active, static_alloc, static_shape)`` is the reference's
 CachedOp boundary (:351-375, :420-520) with CUDA graphs for compiled
 programs. A hybridized block keeps ``_cached_graphs``, keyed by the
-reference's ``_signature``: the inputs' (shape, dtype) and the train flag.
-On a CUDA input, in predict mode (not recording, not training) and outside
-a capture, the first call of a signature runs the forward eagerly on the
-engine's side stream (deferred shapes, kernel builds, cuBLAS handles) and
-returns its result, then captures the forward with its inputs in static
-buffers (``engine.capture``, one graph memory pool a block); each later call
-copies the inputs in, replays the graph and returns fresh outputs (clones:
-a later replay never overwrites what a caller holds). The entry of every
-other signature records why it runs the eager forward:
+reference's ``_signature`` (the inputs' (shape, dtype) and the train flag)
+with, under ``autograd.record()``, which inputs need a gradient and whether
+``MXNET_TPU_REMAT_BWD`` is on. On a CUDA input and outside a capture:
 
-- ``"record"`` under ``autograd.record()`` and ``"train"`` in training
-  mode: the reference's training pair (``fwd_res``/``bwd``) as a graph
-  pair is ROADMAP A1b's next item;
+- a forward outside ``record()`` (predict or training mode): the first call
+  of a signature runs the forward eagerly on the engine's side stream
+  (deferred shapes, kernel builds, cuBLAS handles) and returns its result,
+  then captures the forward with its inputs in static buffers
+  (``engine.capture``, one graph memory pool a block); each later call
+  copies the inputs in, replays the graph and returns fresh outputs (clones:
+  a later replay never overwrites what a caller holds). In training mode
+  BatchNorm's batch statistics and its running-stat update
+  (``defer_aux_update``) and Dropout's draws run inside the graph;
+- under ``record()``, the reference's training pair ``fwd_res``/``bwd``
+  (:499-713) as a pair of graphs: the first calls run eagerly on the side
+  stream until a backward has run through one of them (the entry's reason is
+  ``"backward"``: the backward's kernels, handles and workspaces are set up
+  by that run, as the forward's are by the first call). The next call
+  captures a forward graph (the forward recorded by autograd, its
+  activations in a pool of the pair's own) and a backward graph
+  (``torch.autograd.grad`` of the outputs against the inputs that need a
+  gradient and the parameters that take one), then replays the forward;
+  each call after that copies the inputs in and replays the forward, and
+  its outputs join the tape through one ``torch.autograd.Function``, whose
+  backward copies the head gradients in and replays the backward graph.
+  The tape then lands the parameters' gradients by each one's ``grad_req``
+  (``write``, ``add``) and an input's (``attach_grad``) in its buffer.
+  A replay overwrites the activations the previous one left: while the
+  Function of a replay may still run its backward (its saved state is not
+  released: no backward yet, or one with ``retain_graph=True``), the next
+  call takes another slot, a pair of graphs in a pool of its own, captured
+  at its first use; ``_MAX_IN_FLIGHT`` slots a signature, a call beyond them
+  runs eagerly (reason ``"in_flight"``). With ``MXNET_TPU_REMAT_BWD=1``
+  (read at each call, as the reference reads it) the forward graph runs the
+  forward under non-reentrant ``torch.utils.checkpoint`` and keeps no
+  activations, and the backward graph runs the forward again (no running
+  statistics written the second time; the device generator is set back to
+  where the forward replay started, so Dropout draws the same masks).
+
+The entry of a signature that runs the eager forward records why (the
+last call's reason, ``eager``):
+
 - ``"cpu"`` for inputs on the CPU, where the kernels' plain versions run;
 - ``"mesh"`` for parameters placed on a mesh of ranks, or under an active
-  mesh of ranks.
+  mesh of ranks;
+- ``"backward"``, ``"in_flight"`` (above), and ``"compute"``: a trainer's
+  compute copy (``Parameter._compute``, made anew each step) stands in for
+  a parameter.
 
 Inside another capture (``engine.capturing()``), and inside a hybridized
 parent's call, a block folds into the enclosing graph and adds no entry,
-as the reference's folds into an enclosing trace (:428). A capture that
-fails raises ``MXNetError`` with the CUDA error. ``hybridize()``,
-``clear_cache()`` and ``cast()`` drop the entries, as the reference's do;
-so does a call that finds a parameter's storage replaced since the capture
-(``Parameter.cast``, ``_place``: the engine's ``storage_epoch`` and the
-addresses), while ``set_data`` and ``initialize(force_reinit=True)`` write
-in place and keep the graphs. Each call of a signature looks its graph up
-in ``engine``'s cache under ``("gluon", id(block), structural fingerprint,
-signature)`` (a hit or a miss in ``engine.cache_stats()``): one capture per
-instance and signature.
+as the reference's folds into an enclosing trace (:428). A capture or a
+replay that fails raises ``MXNetError`` with the CUDA error; nothing is
+retried eagerly. ``hybridize()``, ``clear_cache()`` and ``cast()`` drop the
+entries, as the reference's do; so does a call that finds a parameter's
+storage replaced since the capture (``Parameter.cast``, ``_place``: the
+engine's ``storage_epoch`` and the addresses), while ``set_data`` and
+``initialize(force_reinit=True)`` write in place and keep the graphs. Each
+call of a signature looks its graph up in ``engine``'s cache under
+``("gluon", id(block), structural fingerprint, signature)`` (with the
+slot's index and ``"fwd"``/``"bwd"`` for a pair; a hit or a miss in
+``engine.cache_stats()``): one capture per instance and signature.
 
 Deferred shape inference (reference :377-447): a layer whose parameter
 still waits for its shape resolves it at its first forward, eagerly and
@@ -71,8 +104,10 @@ the reference's weights as numpy arrays).
 """
 from __future__ import annotations
 
+import os
 import re
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Any, Dict, Optional
 
@@ -86,9 +121,19 @@ from .. import ndarray as nd
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 
+class _AuxFrozen(threading.local):
+    depth = 0
+
+
+_AUX_FROZEN = _AuxFrozen()
+
+
 def defer_aux_update(param: Parameter, new_value: torch.Tensor) -> None:
-    """Write ``new_value`` into ``param``'s tensor in place, outside autograd."""
+    """Write ``new_value`` into ``param``'s tensor in place, outside autograd
+    (not in the rematerialized backward's second run of a forward)."""
     param._check_initialized()
+    if _AUX_FROZEN.depth:
+        return
     with torch.no_grad():
         param._param.copy_(new_value)
 
@@ -254,6 +299,18 @@ class _Folding(threading.local):
 _FOLDING = _Folding()
 
 
+class _FreezeAux:
+    """Inside it ``defer_aux_update`` writes nothing: the rematerialized
+    backward's second run of a forward."""
+
+    def __enter__(self):
+        _AUX_FROZEN.depth += 1
+
+    def __exit__(self, *exc):
+        _AUX_FROZEN.depth -= 1
+        return False
+
+
 class _Fold:
     """Inside it, hybridized blocks run their eager forward and add no entry:
     they fold into the call that is being run or captured."""
@@ -294,19 +351,119 @@ def _rebuild_out(flat, structure):
 
 
 class _CachedGraph:
-    """One signature's entry: the captured graph (``graph``, an
+    """One signature's entry: the captured forward graph (``graph``, an
     ``engine.GraphEntry``, held here so that the engine's weak cache keeps
-    it) with its static input buffers and the output's structure, or
-    ``graph`` None and ``eager`` the reason the signature runs the eager
-    forward."""
+    it) with its static input buffers and the output's structure; or, under
+    ``record()``, the training pair's state (``pair``, a ``_Pair``); and
+    ``eager``, the reason the last call ran the eager forward (None when it
+    replayed)."""
 
-    __slots__ = ("graph", "inputs", "structure", "eager")
+    __slots__ = ("graph", "inputs", "structure", "eager", "pair")
 
-    def __init__(self, graph=None, inputs=(), structure=None, eager=None):
+    def __init__(self, graph=None, inputs=(), structure=None, eager=None, pair=None):
         self.graph = graph
         self.inputs = inputs
         self.structure = structure
         self.eager = eager
+        self.pair = pair
+
+
+_MAX_IN_FLIGHT = 4
+_REMAT_ENV = "MXNET_TPU_REMAT_BWD"
+
+
+def _remat_on() -> bool:
+    return os.environ.get(_REMAT_ENV, "") not in ("", "0")
+
+
+class _Slot:
+    """One pair of graphs of a signature, in a memory pool of its own:
+    ``fwd`` (the static tensor ``inputs`` -> outputs, activations kept in the
+    pool) and ``bwd`` (head gradients in ``gouts`` -> the gradients of the
+    inputs at ``wrt_inputs`` and of the parameters that take one; None
+    where the forward does not reach one). ``used_inputs`` and ``used``
+    (indices into those parameters, whose tensors are ``leaves``) name the
+    gradients that are not None: only those join the tape. ``ctx`` refers
+    weakly to the autograd node of the last forward replay, which holds the
+    slot while its saved state lives (``busy``). Indices count tensor
+    inputs only."""
+
+    __slots__ = ("index", "fwd", "bwd", "inputs", "wrt_inputs", "used_inputs", "out_diff",
+                 "gouts", "leaves", "used", "remat", "gen", "gen_state", "token", "ctx")
+
+    def __init__(self, index):
+        self.index = index
+        self.ctx = None
+        self.gen_state = None
+
+    def busy(self) -> bool:
+        node = self.ctx() if self.ctx is not None else None
+        if node is None:
+            return False
+        try:
+            node.saved_tensors
+        except RuntimeError:          # released: its backward ran without retain_graph
+            return False
+        return True
+
+
+class _Pair:
+    """The training pair's state of one signature: ``warm`` once a backward
+    ran through an eager call, the structure of the outputs, the parameters
+    (with the ``requires_grad`` flags the slots were captured with) and the
+    slots."""
+
+    __slots__ = ("warm", "structure", "params", "reqs", "slots", "__weakref__")
+
+    def __init__(self):
+        self.warm = False
+        self.structure = None
+        self.params = None
+        self.reqs = None
+        self.slots = []
+
+
+class _PairCall(torch.autograd.Function):
+    """A replay of a slot's forward graph on the tape: ``apply(slot, *inputs,
+    *leaves)``; the backward replays the slot's backward graph."""
+
+    @staticmethod
+    def forward(ctx, slot, *tensors):
+        for buf, t in zip(slot.inputs, tensors):
+            buf.copy_(t)
+        if slot.remat:
+            slot.gen_state = slot.gen.get_state()
+        outs = [o.clone() for o in slot.fwd.replay()]
+        ctx.slot = slot
+        ctx.save_for_backward(slot.token)
+        slot.ctx = weakref.ref(ctx)
+        ctx.mark_non_differentiable(*[o for o, d in zip(outs, slot.out_diff) if not d])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.saved_tensors         # raises after a backward that released them, as eager does
+        slot = ctx.slot
+        for buf, g in zip(slot.gouts, [g for g, d in zip(grads, slot.out_diff) if d]):
+            if g is None:
+                buf.zero_()
+            else:
+                buf.copy_(g)
+        if slot.remat:                # the recompute draws the forward replay's masks
+            now = slot.gen.get_state()
+            slot.gen.set_state(slot.gen_state)
+            try:
+                got = slot.bwd.replay()
+            finally:
+                slot.gen.set_state(now)
+        else:
+            got = slot.bwd.replay()
+        got = [g.clone() if g is not None else None for g in got]
+        n = len(slot.wrt_inputs)
+        out = [None] * (1 + len(slot.inputs))
+        for i, g in zip(slot.wrt_inputs, got[:n]):
+            out[1 + i] = g
+        return tuple(out + [got[n + k] for k in slot.used])
 
 
 class HybridBlock(Block):
@@ -369,9 +526,15 @@ class HybridBlock(Block):
 
     # -- the CachedOp path ------------------------------------------------------
     def _signature(self, raws):
-        """The reference's: each input's (shape, dtype), and the train flag."""
-        return (tuple((tuple(r.shape), str(r.dtype)) if isinstance(r, torch.Tensor)
-                      else ("const", repr(r)) for r in raws), autograd.is_training())
+        """The reference's (each input's (shape, dtype), and the train flag),
+        and under ``record()`` which inputs need a gradient and whether the
+        backward rematerializes."""
+        ins = tuple((tuple(r.shape), str(r.dtype)) if isinstance(r, torch.Tensor)
+                    else ("const", repr(r)) for r in raws)
+        if not autograd.is_recording():
+            return ins, autograd.is_training(), None, False
+        needs = tuple(isinstance(r, torch.Tensor) and r.requires_grad for r in raws)
+        return ins, autograd.is_training(), needs, _remat_on()
 
     def _fingerprint(self) -> str:
         if self._fingerprint_memo is None:
@@ -385,10 +548,6 @@ class HybridBlock(Block):
         tensors = [r for r in raws if isinstance(r, torch.Tensor)]
         if not tensors or any(t.device.type != "cuda" for t in tensors):
             return "cpu"
-        if autograd.is_recording():
-            return "record"
-        if autograd.is_training():
-            return "train"
         if placed:
             from ..parallel.mesh import active_mesh
             mesh = active_mesh()
@@ -404,6 +563,8 @@ class HybridBlock(Block):
     def _call_cached(self, *args):
         raws = [a._data if isinstance(a, NDArray) else a for a in args]
         sig = self._signature(raws)
+        if sig[2] is not None:
+            return self._call_recorded(sig, args, raws)
         reason = self._eager_reason(raws, placed=False)
         if reason is None:
             if engine.lookup(("gluon", id(self), self._fingerprint(), sig)) is not None:
@@ -440,3 +601,148 @@ class HybridBlock(Block):
                                owner=self, ptrs=HybridBlock._param_ptrs)
         self._cached_graphs[sig] = _CachedGraph(graph, static, structure)
         return out
+
+    # -- the training pair ---------------------------------------------------------
+    def _call_recorded(self, sig, args, raws):
+        """A call under ``record()`` (see the module docstring)."""
+        entry = self._cached_graphs.get(sig)
+        if entry is None:
+            entry = self._cached_graphs[sig] = _CachedGraph()
+        reason = self._eager_reason(raws, placed=entry.pair is None)
+        if reason is None:
+            if entry.pair is None:
+                entry.pair = _Pair()
+            pair = entry.pair
+            if not pair.warm:
+                reason = "backward"
+            elif any(p._compute is not None
+                     for p in pair.params or self.collect_params().values()):
+                reason = "compute"
+            else:
+                slot = self._pair_slot(sig, pair, raws)
+                if slot is None:
+                    reason = "in_flight"
+        entry.eager = reason
+        if reason == "backward":
+            return self._warm_call(entry.pair, args, raws)
+        if reason is not None:
+            with _Fold():
+                return self._forward_unhybridized(*args)
+        tensors = [t if k in slot.used_inputs else t.detach() for k, t in
+                   enumerate(r for r in raws if isinstance(r, torch.Tensor))]
+        with torch.enable_grad():
+            outs = _PairCall.apply(slot, *tensors, *slot.leaves)
+        return _rebuild_out(list(outs), pair.structure)
+
+    def _warm_call(self, pair, args, raws):
+        """An eager call on the side stream before the signature's first
+        backward; a hook on an output marks the pair warm when a backward
+        reaches it."""
+        device = next(r.device for r in raws if isinstance(r, torch.Tensor))
+        with _Fold(), engine.side_stream(device):
+            out = self._forward_unhybridized(*args)
+        flat, pair.structure = _flatten_out(out)
+        head = next((t for t in flat if t.requires_grad), None)
+        if head is None:
+            pair.warm = True          # nothing to differentiate: a backward graph of nothing
+        else:
+            ref = weakref.ref(pair)
+
+            def warmed(grad):
+                p = ref()
+                if p is not None:
+                    p.warm = True
+            head.register_hook(warmed)
+        self._fingerprint_memo = None           # deferred shapes are known now
+        return out
+
+    def _pair_slot(self, sig, pair, raws):
+        """A slot whose activations nobody needs, its graphs current (captured
+        anew if they went stale or the parameters' gradient flags changed),
+        or a new one; None when ``_MAX_IN_FLIGHT`` slots are busy."""
+        reqs = tuple(p._param.requires_grad for p in pair.params) \
+            if pair.params is not None else None
+        if reqs != pair.reqs:
+            for slot in pair.slots:
+                slot.fwd.valid = slot.bwd.valid = False
+            pair.slots = []
+        for slot in pair.slots:
+            if slot.busy():
+                continue
+            if engine.lookup(self._slot_key(sig, slot.index, "fwd")) is not None \
+                    and slot.bwd.live():
+                return slot
+            return self._capture_slot(sig, pair, raws, slot.index)
+        if len(pair.slots) >= _MAX_IN_FLIGHT:
+            return None
+        engine.lookup(self._slot_key(sig, len(pair.slots), "fwd"))      # a miss
+        return self._capture_slot(sig, pair, raws, len(pair.slots))
+
+    def _slot_key(self, sig, index, kind):
+        return ("gluon", id(self), self._fingerprint(), sig, index, kind)
+
+    def _capture_slot(self, sig, pair, raws, index):
+        """Capture slot ``index`` of ``sig``: the forward recorded by autograd
+        on static inputs, then the backward of its outputs, into one pool."""
+        from .. import random as _random
+        device = next(r.device for r in raws if isinstance(r, torch.Tensor))
+        training, needs, remat = sig[1], sig[2], sig[3]
+        pair.params = [p for p in self.collect_params().values() if p._param is not None]
+        pair.reqs = tuple(p._param.requires_grad for p in pair.params)
+        slot = _Slot(index)
+        slot.remat = remat
+        slot.gen = _random.generator(device)
+        slot.token = torch.empty(0, device=device)
+        static = [r.detach().clone().requires_grad_(n) if isinstance(r, torch.Tensor) else r
+                  for r, n in zip(raws, needs)]
+        slot.inputs = [t for t in static if isinstance(t, torch.Tensor)]
+        slot.wrt_inputs = [k for k, t in enumerate(slot.inputs) if t.requires_grad]
+        leaves = [p._param for p in pair.params if p._param.requires_grad]
+        wrapped = [NDArray(t) if isinstance(t, torch.Tensor) else t for t in static]
+        block = self
+
+        def forward(*_ins):
+            with autograd._RecordingScope(True, training), _Fold():
+                return tuple(_flatten_out(block._forward_unhybridized(*wrapped))[0])
+
+        def body(*ins):           # under checkpoint: its second run is the recompute
+            if not first[0]:
+                first[0] = True
+                return forward(*ins)
+            with autograd._RecordingScope(True, training), _Fold(), _FreezeAux():
+                return tuple(_flatten_out(block._forward_unhybridized(*wrapped))[0])
+        first = [False]
+
+        def run_fwd():
+            with torch.enable_grad():
+                if remat:
+                    from torch.utils.checkpoint import checkpoint
+                    return list(checkpoint(body, *slot.inputs, use_reentrant=False,
+                                           preserve_rng_state=False))
+                return list(forward())
+        pool = torch.cuda.graph_pool_handle()
+        slot.fwd = engine.capture(run_fwd, self._slot_key(sig, index, "fwd"), device,
+                                  owner=self, ptrs=HybridBlock._param_ptrs, pool=pool)
+        outs = slot.fwd.outputs
+        slot.out_diff = [o.requires_grad for o in outs]
+        heads = [o for o, d in zip(outs, slot.out_diff) if d]
+        slot.gouts = [torch.zeros_like(o) for o in heads]
+        wrt = [slot.inputs[k] for k in slot.wrt_inputs] + leaves
+
+        def run_bwd():
+            if not heads or not wrt:
+                return [None] * len(wrt)
+            with torch.enable_grad():
+                return list(torch.autograd.grad(heads, wrt, slot.gouts, allow_unused=True))
+        slot.bwd = engine.capture(run_bwd, self._slot_key(sig, index, "bwd"), device,
+                                  owner=self, ptrs=HybridBlock._param_ptrs, pool=pool)
+        got = slot.bwd.outputs
+        n = len(slot.wrt_inputs)
+        slot.used_inputs = {k for k, g in zip(slot.wrt_inputs, got[:n]) if g is not None}
+        slot.used = [k for k, g in enumerate(got[n:]) if g is not None]
+        slot.leaves = [leaves[k] for k in slot.used]
+        if index < len(pair.slots):
+            pair.slots[index] = slot
+        else:
+            pair.slots.append(slot)
+        return slot

@@ -13,7 +13,10 @@ its own gradient buffer, read back by ``.grad`` (:141); ``backward``
 (:234) fills the buffers of the variables the array reaches
 (``autograd.backward``), and ``detach`` cuts the array from the graph.
 ``dtype`` is a ``torch.dtype``; ``asnumpy()`` returns a float32 array for
-bfloat16 data, which numpy cannot hold.
+bfloat16 data, which numpy cannot hold. The comparisons (``==``, ``<``...)
+give 0/1 arrays in the input's dtype, as the reference's do (:269-280), so
+an NDArray hashes by identity; ``bool()`` of one element reads it, of more
+raises, and ``len()`` is the first dimension.
 
 Left for later slices: indexing, in-place operators and ``__setitem__``,
 sparse storage, the rest of the op-backed methods,
@@ -121,6 +124,36 @@ class NDArray:
     def __truediv__(self, o): return self._binary(o, "broadcast_div", "_div_scalar")
     def __rtruediv__(self, o): return self._binary(o, "broadcast_div", "_rdiv_scalar", reverse=True)
     def __neg__(self): return invoke("negative", [self], {})
+
+    def __eq__(self, o):
+        if o is None:
+            return False
+        return self._binary(o, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, o):
+        if o is None:
+            return True
+        return self._binary(o, "broadcast_not_equal", "_not_equal_scalar")
+
+    def __gt__(self, o): return self._binary(o, "broadcast_greater", "_greater_scalar")
+    def __ge__(self, o): return self._binary(o, "broadcast_greater_equal", "_greater_equal_scalar")
+    def __lt__(self, o): return self._binary(o, "broadcast_lesser", "_lesser_scalar")
+    def __le__(self, o): return self._binary(o, "broadcast_lesser_equal", "_lesser_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
+
+    def __bool__(self):
+        if self.size == 0:
+            return False
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise MXNetError("ambiguous truth value of multi-element NDArray")
+
+    def __len__(self):
+        if self.ndim == 0:
+            raise TypeError("len() of 0-d array")
+        return self.shape[0]
 
     # in place (reference ``__iadd__``... with ``_set_data``): the result is
     # written into this array's tensor, outside the tape

@@ -2,10 +2,13 @@
 
 Counterpart of ``mxnet_tpu/ops/elemwise.py``. Ported: the arithmetic that
 BERT inference and the NDArray operators use (the four broadcast binary ops
-and their scalar forms, ``negative``), ``Cast``, and ``gelu`` in its exact
+and their scalar forms, ``negative``), ``Cast``, ``gelu`` in its exact
 erf form (the reference's default ``approximate=False``,
-``elemwise.py:137-139``). The other unary, comparison and activation
-families wait for the slices whose models use them.
+``elemwise.py:137-139``), and what the Gluon losses use: ``square``,
+``abs``, ``relu``, ``log``, ``exp``, ``zeros_like`` (:25-60) and the
+comparisons, broadcast (:177-187, the result in the inputs' promoted
+dtype) and scalar (:241-252, in the tensor's dtype). The other unary and
+activation families wait for the slices whose models use them.
 """
 from __future__ import annotations
 
@@ -53,3 +56,31 @@ def cast(x, *, dtype):
 @register("gelu")
 def gelu(x, *, approximate=False):
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+_UNARY = {"square": torch.square, "abs": torch.abs, "relu": torch.relu, "log": torch.log,
+          "exp": torch.exp}
+for _name, _f in _UNARY.items():
+    register(_name)(_f)
+
+register("zeros_like")(torch.zeros_like)
+
+_BINARY_CMP = {
+    "broadcast_equal": torch.eq, "broadcast_not_equal": torch.ne,
+    "broadcast_greater": torch.gt, "broadcast_greater_equal": torch.ge,
+    "broadcast_lesser": torch.lt, "broadcast_lesser_equal": torch.le,
+}
+for _name, _f in _BINARY_CMP.items():
+    def _cmp(x, y, _f=_f):
+        return _f(x, y).to(torch.promote_types(x.dtype, y.dtype))
+    register(_name, differentiable=False)(_cmp)
+
+_SCALAR_CMP = {
+    "_equal_scalar": torch.eq, "_not_equal_scalar": torch.ne,
+    "_greater_scalar": torch.gt, "_greater_equal_scalar": torch.ge,
+    "_lesser_scalar": torch.lt, "_lesser_equal_scalar": torch.le,
+}
+for _name, _f in _SCALAR_CMP.items():
+    def _scmp(x, *, scalar, _f=_f):
+        return _f(x, scalar).to(x.dtype)
+    register(_name, differentiable=False)(_scmp)

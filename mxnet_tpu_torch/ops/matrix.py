@@ -135,3 +135,13 @@ def _arange(*, start=0, stop=None, step=1.0, repeat=1, dtype=None,
     if repeat != 1:
         out = out.repeat_interleave(repeat)
     return out
+
+
+@register("where")
+def where(cond, x, y):
+    return torch.where(cond.bool(), x, y)
+
+
+@register("swapaxes", aliases=("SwapAxis",))
+def swapaxes(x, *, dim1=0, dim2=0):
+    return torch.swapaxes(x, dim1, dim2)

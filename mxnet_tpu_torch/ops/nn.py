@@ -3,9 +3,11 @@
 Counterpart of ``mxnet_tpu/ops/nn.py``. Ported: ``FullyConnected`` (:39),
 ``Convolution`` (:83, 1-D/2-D/3-D, grouped), ``Pooling`` (:146),
 ``BatchNorm`` (:250), ``LayerNorm`` (:277), ``Activation`` (:340),
-``softmax`` (:359), ``log_softmax`` (:380), ``Dropout`` (:470) and
-``Embedding`` (:490). ``Deconvolution``, ``UpSampling``, the other norms,
-RNN and CTC wait for the slices whose models use them.
+``softmax`` (:359), ``log_softmax`` (:380), ``Dropout`` (:470),
+``Embedding`` (:490) and ``CTCLoss`` (:638, by ``F.ctc_loss``: the
+reference computes it outside any Pallas kernel). ``Deconvolution``,
+``UpSampling``, the other norms and RNN wait for the slices whose models
+use them.
 
 Convolution, pooling and BatchNorm are the library's (cuDNN on the card),
 as the reference leaves them to XLA. Where the two disagree the reference's
@@ -263,3 +265,27 @@ def embedding(data, weight, *, input_dim=None, output_dim=None, dtype=None,
     if data.dtype not in (torch.int32, torch.int64):
         data = data.to(torch.int64)
     return F.embedding(data, weight)
+
+
+@register("CTCLoss", aliases=("ctc_loss",))
+def ctc_loss(data, label, data_lengths=None, label_lengths=None, *,
+             use_data_lengths=False, use_label_lengths=False, blank_label="first"):
+    """The negative log-likelihood of each sequence's label under CTC:
+    ``data`` (T, B, C) activations (softmax taken here), ``label`` (B, L)
+    padded with -1 (``blank_label="last"``: blank is C - 1) or 0 ("first":
+    blank is 0). Without ``label_lengths`` a label's length is its count of
+    entries other than the padding, as the reference infers it."""
+    T, B, C = data.shape
+    blank = 0 if blank_label == "first" else C - 1
+    lab = label.long()
+    if use_label_lengths and label_lengths is not None:
+        lab_len = label_lengths.long()
+    else:
+        lab_len = (lab != (0 if blank == 0 else -1)).sum(dim=1)
+    if use_data_lengths and data_lengths is not None:
+        seq_len = data_lengths.long()
+    else:
+        seq_len = torch.full((B,), T, dtype=torch.long, device=data.device)
+    logp = F.log_softmax(data.float(), dim=-1)
+    return F.ctc_loss(logp, lab.clamp_min(0), seq_len, lab_len, blank=blank,
+                      reduction="none", zero_infinity=False)

@@ -4,8 +4,9 @@ Counterpart of ``mxnet_tpu/ops/reduce.py:14-48``: ``sum`` (alias
 ``sum_axis``) and ``mean`` with MXNet's ``axis``/``keepdims``/``exclude``.
 As in the reference, with ``MXNET_SAFE_ACCUMULATION`` on (the default),
 bfloat16 and float16 inputs accumulate in float32 and the result is cast
-back to the input's dtype. ``prod``, ``max``, ``min``, ``norm``, ``arg*``
-and the other reductions wait for the slices that use them.
+back to the input's dtype; so does ``norm`` (:56, ``ord`` 1, 2 or p).
+``prod``, ``max``, ``min``, ``arg*`` and the other reductions wait for the
+slices that use them.
 """
 from __future__ import annotations
 
@@ -53,3 +54,22 @@ def _mean(x, dim=None, keepdim=False):
 
 _mean.__name__ = "mean"
 register("mean")(_reduce(_mean))
+
+
+@register("norm")
+def norm(x, *, ord=2, axis=None, keepdims=False):
+    ax = _norm_axis(axis, x.ndim)
+    low = x.dtype in (torch.bfloat16, torch.float16) and env.get("MXNET_SAFE_ACCUMULATION")
+    xx = x.float() if low else x
+
+    def total(t):
+        return torch.sum(t) if ax is None else torch.sum(t, dim=ax, keepdim=keepdims)
+    if ord == 1:
+        out = total(torch.abs(xx))
+    elif ord == 2:
+        out = torch.sqrt(total(torch.square(xx)))
+    else:
+        out = torch.pow(total(torch.pow(torch.abs(xx), ord)), 1.0 / ord)
+    if ax is None and keepdims:
+        out = out.reshape((1,) * x.ndim)
+    return out.to(x.dtype) if low else out

@@ -20,8 +20,12 @@ registered it (``engine.capture``) goes on drawing from it, and a replay
 after ``seed(n)`` draws what an eager step would.
 
 Like the reference, ``seed`` also seeds Python's ``random`` and numpy's
-global generator. The per-thread host RNG of the data pipeline waits for
-the slice that ports ``gluon/data``.
+global generator (the samplers' and ``NDArrayIter``'s shuffles draw from
+it), and the host generators of the data pipeline: ``host_rng()`` is a
+``numpy.random.RandomState`` of the calling thread (a ``DataLoader``
+worker's, for the random transforms), made at its first use after a
+``seed`` from that seed and the thread's order of arrival (reference
+:64-80); before any ``seed`` it is unseeded.
 """
 from __future__ import annotations
 
@@ -39,6 +43,22 @@ from .context import Context
 _lock = threading.Lock()
 _seed = 0
 _generators: Dict[torch.device, torch.Generator] = {}
+_host_state = {"seed": None, "epoch": 0, "next_idx": 0}
+_host_tls = threading.local()
+
+
+def host_rng() -> "_np.random.RandomState":
+    """The calling thread's host generator (see the module docstring)."""
+    st = _host_state
+    if getattr(_host_tls, "epoch", None) != st["epoch"]:
+        with _lock:
+            idx = st["next_idx"]
+            st["next_idx"] += 1
+        base = st["seed"]
+        _host_tls.rng = _np.random.RandomState() if base is None else \
+            _np.random.RandomState((int(base) + 0x9E3779B9 * (idx + 1)) % (2 ** 32))
+        _host_tls.epoch = st["epoch"]
+    return _host_tls.rng
 
 
 def seed(seed_state: int, ctx="all"):
@@ -49,6 +69,7 @@ def seed(seed_state: int, ctx="all"):
         _seed = int(seed_state)
         for gen in _generators.values():
             gen.manual_seed(_seed)
+        _host_state.update(seed=_seed, epoch=_host_state["epoch"] + 1, next_idx=0)
     _pyrandom.seed(int(seed_state))
     _np.random.seed(int(seed_state) % (2 ** 32))
 

@@ -84,7 +84,9 @@ def test_fresh_interpreter_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.parallel.pipeline, mxnet_tpu_torch.elastic.state, "
             "mxnet_tpu_torch.parallel.overlap, mxnet_tpu_torch.kvstore.ps, "
             "mxnet_tpu_torch.elastic.coordinator, mxnet_tpu_torch.elastic.drill, "
-            "mxnet_tpu_torch.checkpoint\n"
+            "mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.metric, mxnet_tpu_torch.io, "
+            "mxnet_tpu_torch.gluon.data, mxnet_tpu_torch.gluon.data.vision.transforms, "
+            "mxnet_tpu_torch.models.lenet, mxnet_tpu_torch.models.mlp\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -135,6 +135,36 @@ CASES = [
      {"kernel": (2, 2), "stride": (2, 2), "pool_type": "avg"}),
     ("batchnorm", "BatchNorm", [_X4, _f(3), _f(3), _f(3), _f(3) ** 2 + 0.5],
      {"fix_gamma": False}),
+    ("square", "square", [_f(3, 4)], {}),
+    ("abs", "abs", [_f(3, 4)], {}),
+    ("relu", "relu", [_f(3, 4)], {}),
+    ("log", "log", [np.abs(_f(3, 4)) + 0.1], {}),
+    ("exp", "exp", [_f(3, 4)], {}),
+    ("zeros_like", "zeros_like", [_f(2, 3)], {}),
+    ("zeros_like-int", "zeros_like", [np.arange(4, dtype=np.int32)], {}),
+    ("where", "where", [(_f(3, 4) > 0).astype(np.float32), _f(3, 4), _f(3, 4)], {}),
+    ("where-broadcast", "where", [np.array([1, 0, 1], np.float32), _f(3), _f(1)], {}),
+    ("swapaxes", "swapaxes", [_X4], {"dim1": 0, "dim2": 2}),
+    ("norm-all", "norm", [_X4], {}),
+    ("norm-axis", "norm", [_X4], {"axis": -1}),
+    ("norm-l1-keepdims", "norm", [_X4], {"ord": 1, "axis": (1, 2), "keepdims": True}),
+    ("norm-p3", "norm", [_f(3, 5)], {"ord": 3, "axis": 1}),
+    ("ctc-last", "CTCLoss", [_f(6, 2, 5), np.array([[0, 1, -1], [2, 2, 3]], np.float32)],
+     {"blank_label": "last"}),
+    ("ctc-first-lengths", "CTCLoss",
+     [_f(7, 2, 4), np.array([[1, 2, 0], [3, 0, 0]], np.int32), np.array([7, 5], np.int32),
+      np.array([2, 1], np.int32)],
+     {"use_data_lengths": True, "use_label_lengths": True}),
+    *[(f"cmp-{n}", n, [_f(3, 4), _f(4)], {}) for n in
+      ("broadcast_equal", "broadcast_not_equal", "broadcast_greater",
+       "broadcast_greater_equal", "broadcast_lesser", "broadcast_lesser_equal")],
+    ("cmp-equal-ints", "broadcast_equal", [np.array([1, 2, 3], np.int32),
+                                           np.array([1, 0, 3], np.int32)], {}),
+    *[(f"cmp-{n}", n, [np.round(_f(3, 4))], {"scalar": 0.0}) for n in
+      ("_equal_scalar", "_not_equal_scalar", "_greater_scalar", "_greater_equal_scalar",
+       "_lesser_scalar", "_lesser_equal_scalar")],
+    ("cmp-scalar-int", "_lesser_equal_scalar", [np.arange(6, dtype=np.int32)],
+     {"scalar": 2.5}),
 ]
 # Dropout outside training, or at p=0, is the identity. The reference op
 # takes an RNG key as a second input; the port draws from its generator.
@@ -205,6 +235,9 @@ NDARRAY_EXPRS = {
     "transpose-rev": lambda x, y: x.transpose(),
     "expand_dims": lambda x, y: x.expand_dims(1),
     "astype": lambda x, y: (x * 10).astype("int32"),
+    "eq": lambda x, y: x == x, "ne-scalar": lambda x, y: x != 0.5,
+    "gt": lambda x, y: x > y - 4.0, "ge-scalar": lambda x, y: x >= 0.0,
+    "lt-scalar": lambda x, y: x < 0.25, "le": lambda x, y: x <= y - 4.0,
 }
 
 
