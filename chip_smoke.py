@@ -353,6 +353,26 @@ The hybridized Gluon training loop (``gluon/block.py``'s training pair,
    same steps unhybridized; images a second, accuracy, the loss falling, the
    idle share of a step; then one epoch of ``io.MNISTIter`` through
    ``io.PrefetchingIter`` (pinned staging).
+35. ``phase_f16_step`` (after phase 28): ``DataParallelTrainer(dtype=
+   "float16")``, its loss scale, count and overflow flag on the device and
+   K4/K5 gated by the flag, captured against eager from the default scale
+   2^16 (the first step overflows and is skipped): BERT-base T=1024 batch 8
+   Adam (K1-K3 in float16, 12 a step each, and K5) and ResNet-50 batch 32
+   SGD momentum (K4), bitwise over the compared steps (losses, weights,
+   optimizer state, scale and count), then both modes timed as in phase 28.
+   Phase 3 holds K1-K3 in float16 at BERT-base's shape against their plain
+   versions and times them beside SDPA; phase 7 holds and times K4/K5's
+   gated form (the flag 0 bitwise the ungated form, the flag 1 writing
+   nothing).
+36. ``phase_pp_graph`` (in phase 24's world-1 NCCL block):
+   ``PipelineTrainer.step`` captured against eager, as phase 28 compares
+   (losses, weights and Adam state bitwise, p50/p90, busy, idle, host
+   launches of both modes, ``last_stats`` equal): 1F1B, GPipe with remat,
+   interleaved v 2 and the partitioned ZeRO step at tp 1, BERT-base T=1024
+   batch 8 in M = 4; the long-context and MoE splits in their phases. Every
+   other pipeline phase runs the captured step too. Phase 11's ranks also
+   run a masked ``SelfAttention`` (causal T x T) under their sp 2 shard,
+   held against one process at TOL_SP_MASK.
 
 ``_profile`` (the earlier phases' single-step traces) opens each session
 with PROFILE_PAD spin kernels and counts only the device records after
@@ -561,12 +581,14 @@ def _bound_ms(BH, T, Tk, D, dtype_name, elem):
 # against the Tk=1024 gathered keys.
 SP_CASES = [("sp-shard", 4, 6, 512, 1024, 64, "float32", False),
             ("sp-shard", 4, 6, 512, 1024, 64, "bfloat16", False)]
-# (timings key, dtype, B, H, T, Tk, D): the one-device step's shape, the sp
+# (timings key, dtype, B, H, T, Tk, D): the one-device step's shape (f32,
+# bf16, and f16: the captured float16 step's, phase_f16_step), the sp
 # shard's, the pipeline microbatch's, a tp 2 rank's share of it (6 heads), and
 # the widest head the kernels take (D = 256 at BH 24, T 1024: two passes of 128
 # output columns)
 TIMED_SHAPES = [("float32", "float32", 8, 12, 1024, 1024, 64),
                 ("bfloat16", "bfloat16", 8, 12, 1024, 1024, 64),
+                ("float16", "float16", 8, 12, 1024, 1024, 64),
                 ("sp_float32", "float32", 4, 6, 512, 1024, 64),
                 ("pp_float32", "float32", 2, 12, 1024, 1024, 64),
                 ("pp_bfloat16", "bfloat16", 2, 12, 1024, 1024, 64),
@@ -595,6 +617,7 @@ def phase_kernel(torch):
              ("bert-base", 8, 12, 1024, 1024, 64, "float32", True),
              ("bert-base", 8, 12, 1024, 1024, 64, "bfloat16", False),
              ("bert-base", 8, 12, 1024, 1024, 64, "bfloat16", True),
+             ("bert-base", 8, 12, 1024, 1024, 64, "float16", False),
              ("ragged", 2, 4, 1000, 1000, 64, "float32", False),
              ("ragged", 2, 4, 1000, 1000, 64, "float32", True),
              ("cross", 2, 2, 96, 224, 32, "float32", False),
@@ -809,6 +832,7 @@ def phase_kernel_bwd(torch):
              ("bert-base", 8, 12, 1024, 1024, 64, "float32", True),
              ("bert-base", 8, 12, 1024, 1024, 64, "bfloat16", False),
              ("bert-base", 8, 12, 1024, 1024, 64, "bfloat16", True),
+             ("bert-base", 8, 12, 1024, 1024, 64, "float16", False),
              ("ragged", 2, 4, 1000, 1000, 64, "float32", False),
              ("ragged", 2, 4, 1000, 1000, 64, "float32", True),
              ("cross", 2, 2, 96, 224, 32, "float32", False),
@@ -1497,9 +1521,64 @@ def _fused_hyper_form(torch, fo, name, w, st, g0):
     if not equal or per_replay != 1:
         raise AssertionError(f"{name}: the device-scalar form differs from the by-value one "
                              f"or launched {per_replay} times a replay")
+    gated = _fused_gated(torch, fo, name, w, st, g0, hyper, hcall)
+    counter.launches = before
     return {"hyper_ms": hyper_ms, "value_ms": value_ms, "hyper_graph_ms": hyper_graph_ms,
             "value_graph_ms": value_graph_ms, "hyper_equal_value": equal,
-            "launches_per_replay": per_replay}
+            "launches_per_replay": per_replay, **gated}
+
+
+def _fused_gated(torch, fo, name, w, st, g0, hyper, hcall):
+    """The gated form (``skip``, the float16 step's overflow flag in device
+    memory): with the flag 0 bitwise the ungated form, with it 1 every
+    weight and state bitwise unchanged, and against the plain version's
+    gate; the flag 0 timed in place and by graph replay beside the ungated
+    form's graph, and the flag 1 (the skipped launch) by graph replay."""
+    fn = getattr(fo, name + "_hyper")
+    plain = getattr(fo, name + "_hyper_plain")
+    dev = w[0].device
+    flags = {v: torch.full((1,), v, dtype=torch.float32, device=dev) for v in (0.0, 1.0)}
+
+    def gcall(ws, sts, flag):
+        return fn(ws, g0, *sts, hyper, out=(ws, *sts), skip=flags[flag])
+    ok = True
+    for flag in (0.0, 1.0):
+        wa, sa = [t.clone() for t in w], [[t.clone() for t in s_] for s_ in st]
+        wb, sb = [t.clone() for t in w], [[t.clone() for t in s_] for s_ in st]
+        gcall(wa, sa, flag)
+        if flag == 0.0:
+            hcall(wb, sb)
+        torch.cuda.synchronize()
+        ok &= all(torch.equal(a, b) for a, b in zip(wa + sum(sa, []), wb + sum(sb, [])))
+        del wa, sa, wb, sb
+    # the plain version's gate on the first 8 tensors: the same values
+    # (TOL_FUSED) with the flag 0, the inputs bitwise with it 1
+    small = [t.clone() for t in w[:8]], [[t.clone() for t in s_[:8]] for s_ in st]
+    for flag in (0.0, 1.0):
+        wk, sk = [t.clone() for t in small[0]], [[t.clone() for t in s_] for s_ in small[1]]
+        wp, sp_ = [t.clone() for t in small[0]], [[t.clone() for t in s_] for s_ in small[1]]
+        got = fn(wk, g0[:8], *sk, hyper, out=(wk, *sk), skip=flags[flag])
+        want = plain(wp, g0[:8], *sp_, hyper, out=(wp, *sp_), skip=flags[flag])
+        if flag == 0.0:
+            ok &= _fused_errors(torch, got, want)[0] <= TOL_FUSED
+        else:
+            ok &= all(torch.equal(a, b) for a, b in zip(
+                wk + sum(sk, []) + wp + sum(sp_, []), 2 * (small[0] + sum(small[1], []))))
+        del wk, sk, wp, sp_
+    gated_ms = _time_ms(torch, lambda: gcall(w, st, 0.0), 10)
+    gated_graph_ms = _graph_ms(torch, lambda: gcall(w, st, 0.0))
+    ungated_graph_ms = _graph_ms(torch, lambda: hcall(w, st))
+    skipped_graph_ms = _graph_ms(torch, lambda: gcall(w, st, 1.0))
+    log(f"[fused] {name} gated by the overflow flag: flag 0 bitwise the ungated form, flag 1 "
+        f"writes nothing, both bitwise the plain gate on a slice "
+        f"{'ok' if ok else 'FAIL'}; in place {gated_ms:.4f} ms, graph replay "
+        f"{gated_graph_ms:.4f} against the ungated {ungated_graph_ms:.4f} ms; a skipped "
+        f"launch {skipped_graph_ms:.4f} ms")
+    if not ok:
+        raise AssertionError(f"{name}: the gated form disagrees")
+    return {"gated_ms": gated_ms, "gated_graph_ms": gated_graph_ms,
+            "ungated_graph_ms": ungated_graph_ms, "skipped_graph_ms": skipped_graph_ms,
+            "gate_ok": ok}
 
 
 # --- K6 (mx.rtc), K7 (blocked matmul probe), ResNet-50 ----------------------
@@ -2244,7 +2323,7 @@ TOL_DIST_NCCL = 1e-6   # world-1 losses against phase_dp_bert's, relative
 TOL_DIST_LOSS = 1e-5   # the ranks' losses against the one-rank fused step's, relative
 TOL_DIST_GRAD = 1e-3   # gathered gradients after step 1, of each tensor's max
 TOL_DIST_W = 2e-5      # gathered weights after the last step (tests' TOL_W)
-DIST_RANK_LAYERS = 6   # phase_dist_bert_ranks: BERT-base width, depth cut to 6 of 12 layers
+DIST_RANK_LAYERS = 4   # phase_dist_bert_ranks: BERT-base width, depth cut to 4 of 12 layers
 
 
 def _mesh_axes(n):
@@ -2349,6 +2428,55 @@ def phase_dist_bert_nccl(torch, params, batch, dp_bert):
     return out
 
 
+SP_MASK_B = 2          # the masked attention under the sequence shard: 2 sequences of T
+SP_MASK_SEED = 53
+TOL_SP_MASK = 1e-5     # of each tensor's max: outputs and gradients, sp ranks against one
+
+
+def _masked_attention(torch, mx, ctx, cfg, mesh=None):
+    """A ``SelfAttention`` at ``cfg``'s width with a causal (T, T) mask
+    (seeded weights, input and output cotangent) on ``ctx``: its output and
+    the gradients of sum(out * dy) for the input and each weight, as numpy.
+    Under ``mesh`` this rank computes its sp shard's query rows against the
+    gathered keys (the plain path, the mask cut to its rows), and the rows
+    are gathered and the weight gradients summed over sp."""
+    import contextlib
+    import torch.distributed as dist
+    from mxnet_tpu_torch.convert import load_jax_params, seeded_params
+    from mxnet_tpu_torch.models.bert import SelfAttention
+    from mxnet_tpu_torch.parallel.mesh import activate
+    T, C = cfg["max_length"], cfg["units"]
+    rs = np.random.RandomState(SP_MASK_SEED)
+    x = rs.standard_normal((SP_MASK_B, T, C)).astype(np.float32)
+    dy = rs.standard_normal((SP_MASK_B, T, C)).astype(np.float32)
+    mask = np.tril(np.ones((T, T), np.float32))
+    attn = SelfAttention(C, cfg["num_heads"])
+    attn.initialize(ctx=ctx)
+    load_jax_params(attn, seeded_params(attn, SP_MASK_SEED))
+    scope, rows = contextlib.nullcontext(), slice(None)
+    if mesh is not None:
+        n, r = mesh.axis_size("sp"), mesh.axis_index("sp")
+        rows, scope = slice(r * T // n, (r + 1) * T // n), activate(mesh, "sp")
+    xa = mx.nd.array(x[:, rows], ctx=ctx)
+    xa.attach_grad()
+    with scope, mx.autograd.record():
+        out = attn(xa, mx.nd.array(mask, ctx=ctx))
+        head = (out * mx.nd.array(dy[:, rows], ctx=ctx)).sum()
+    head.backward()
+    res = {"out": out._data.detach().cpu(), "dx": xa.grad._data.cpu(),
+           **{f"g.{k}": p.grad()._data.cpu()
+              for k, p in attn._collect_params_with_prefix().items()}}
+    if mesh is not None and mesh.axis_size("sp") > 1:
+        group = mesh.group("sp")
+        for k in ("out", "dx"):
+            parts = [torch.empty_like(res[k]) for _ in range(mesh.axis_size("sp"))]
+            dist.all_gather(parts, res[k].contiguous(), group=group)
+            res[k] = torch.cat(parts, dim=1)
+        for k in [k for k in res if k.startswith("g.")]:
+            dist.all_reduce(res[k], group=group)
+    return {k: v.numpy() for k, v in res.items()}
+
+
 def rank_dist_bert(workdir, cfg, axes, steps, device, lr, elastic_dir=None):
     """One rank of phase_dist_bert_ranks: the dryrun's step (Megatron specs,
     ``data_spec=P("dp", "sp")``, Adam) ``steps`` times on ``axes``, counting
@@ -2422,6 +2550,12 @@ def rank_dist_bert(workdir, cfg, axes, steps, device, lr, elastic_dir=None):
         np.savez(os.path.join(workdir, "params.npz"), **params)
     out["peak_bytes"] = torch.cuda.max_memory_allocated() if gpu else None
     out["device"] = str(ctx)
+    # the masked attention under this layout's sequence shard
+    t_mask = time.perf_counter()
+    masked = _masked_attention(torch, mx, ctx, cfg, mesh)
+    if mesh.rank == 0:
+        np.savez(os.path.join(workdir, "sp_mask.npz"), **masked)
+    out["sp_mask_s"] = time.perf_counter() - t_mask
     if elastic_dir is not None:
         del trainer, net, params
         if gpu:
@@ -2544,7 +2678,21 @@ def phase_dist_bert_ranks(torch, params, batch, device="gpu", cfg=None, n=8, ste
                                          f"{shapes}, expected {shape} x {n_layers}")
     grads = dict(np.load(os.path.join(work, "grads.npz")))
     got_w = dict(np.load(os.path.join(work, "params.npz")))
+    masked = dict(np.load(os.path.join(work, "sp_mask.npz")))
     shutil.rmtree(work, ignore_errors=True)       # 4 x 533 MB of arrays at BERT-base
+    # the masked attention: the sp ranks' against one process's on the card
+    one = _masked_attention(torch, mx, ctx, cfg)
+    mask_rel = {k: float(np.abs(masked[k] - v).max()) / max(float(np.abs(v).max()), 1e-30)
+                for k, v in one.items()}
+    mask_ok = set(masked) == set(one) and max(mask_rel.values()) <= TOL_SP_MASK
+    log(f"[dist-ranks] masked SelfAttention (causal {T}x{T} mask) under the sp {axes['sp']} "
+        f"shard against one process: output, input and weight gradients max "
+        f"{max(mask_rel.values()):.2e} of each tensor's max (tol {TOL_SP_MASK:.0e}) "
+        f"{'ok' if mask_ok else 'FAIL'}; {max(r['sp_mask_s'] for r in ranks):.1f} s on the "
+        f"ranks")
+    if not mask_ok:
+        raise AssertionError(f"the masked attention under the sequence shard disagrees: "
+                             f"{mask_rel}")
     worst_grad = max(float(np.abs(grads[k] - g).max()) / max(float(np.abs(g).max()), 1e-30)
                      for k, g in ref_grads.items())
     worst_w = max(float(np.abs(got_w[k] - w).max()) for k, w in ref_weights.items())
@@ -2560,6 +2708,7 @@ def phase_dist_bert_ranks(torch, params, batch, device="gpu", cfg=None, n=8, ste
     return {"axes": axes, "backend": backend, "cfg": cfg, "shape": shape, "seconds": seconds,
             "ref_losses": ref_losses, "loss_rel": worst_loss, "grad_rel": worst_grad,
             "weight_abs": worst_w, "ranks": ranks, "elastic": elastic_out,
+            "sp_mask_rel": mask_rel,
             "launches": {k: sum(sum(st["launches"].get(k, 0) for st in r["steps"])
                                 + r["elastic"]["launches"].get(k, 0)
                                 for r in ranks) for k in per_step},
@@ -3297,7 +3446,7 @@ def phase_zero_bert_ranks(torch, device="gpu", cfg=None, steps=2, timeout=900):
 
 TOL_RESUME = 1e-6       # the resumed losses, relative (the reference's, __graft_entry__.py:155)
 ELASTIC_STEPS, ELASTIC_EVERY = 8, 3
-ELASTIC_LAYERS = 6      # the elastic phases' BERT: base width, depth cut to 6 of 12 layers
+ELASTIC_LAYERS = 3      # the elastic phases' BERT: base width, depth cut to 3 of 12 layers
 ELASTIC_CFG = dict(vocab_size=30522, num_layers=ELASTIC_LAYERS, units=768, hidden_size=3072,
                    num_heads=12, max_length=1024)
 KILL_EVERY = 2          # phase_elastic_kill: the child saves every 2 steps, killed at 6
@@ -4842,7 +4991,7 @@ def phase_pp_dryrun(torch, device="gpu", timeout=600):
 # --- tensor parallelism and ZeRO inside the pipeline stages ---------------------------
 
 PP_TP_STEPS = 5                    # held against phase_pp_train's first 5 losses
-PP_TP_TIMED = 10                   # timed steps after them: p50 and p90
+PP_TP_TIMED = 5                    # timed steps after them: p50 and p90
 PP_TP_LAYERS, PP_TP_B, PP_TP_M, PP_TP_RANK_STEPS = 2, 4, 2, 2
 PP_TP_VOCAB4 = 30520               # the tp 4 reshard's vocab: 30522 does not split 4 ways
 TOL_PP_TP_WIRE = {"bfloat16": (5e-4, 1e-3)}   # losses rel, weights abs (the tests' bars)
@@ -5175,7 +5324,7 @@ def phase_pp_tp_ranks(torch, device="gpu", cfg=None, timeout=900):
 # --- the pipeline's other schedules and models: GPipe, interleaved stages, LC and MoE ---
 
 PP_GPIPE_CHECKED = 3               # steps held against phase_pp_train's; its step-3 weights
-PP_SCHED_TIMED = 8                 # timed steps after them: p50 and p90
+PP_SCHED_TIMED = 3                 # timed steps after them: p50 and p90
 PP_MEM_MICRO = 2                   # the memory sweep's microbatch (sequences) at M 4 and 8
 PP_VIRTUAL = (2, 3)                # phase_pp_interleaved's virtual stages (12 layers: 6, 4)
 PP_LC_M = 4                        # LongContextLM's pipeline: batch LC_B in 4 microbatches
@@ -5451,6 +5600,14 @@ def phase_pp_lc(torch, weights, lc_train):
         del tr, net
         torch.cuda.empty_cache()
     out["launches"] = {k: sum(r["launches"][k] for r in out.values()) for k in per_step}
+    # the Gluon split captured against eager (phase_pp_graph's comparison)
+    mesh = mx.parallel.make_mesh({"pp": 1, "dp": 1}, devices=[mx.gpu(0)])
+    zero = {k: 0 for k in {**_fused_counters(), **_flash_counters()}}
+    out["graph"] = _pp_graph(
+        torch, mx, "pipeline long-context split",
+        lambda: _lc_pipeline(mx, weights, mx.gpu(0), mesh, PP_LC_M, LC_T)[1], x, y,
+        dict(zero, **per_step), atomic=True)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5521,7 +5678,22 @@ def phase_pp_moe(torch, weights):
         f"{MOE_CFG['num_layers']} layers; peak {peak / 2**30:.3f} GiB above the phase's start")
     res.update(steps=steps, per_step=per_step, dropped=dropped, assignments=assignments,
                peak_bytes=peak, ready_s=time.perf_counter() - t0)
-    del tr, net, x, y
+    del tr
+    torch.cuda.empty_cache()
+    # captured against eager (phase_pp_graph's comparison), on the same net
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.recipes import moe as rmoe
+
+    def make():
+        load_jax_params(net, weights)
+        return mx.parallel.PipelineTrainer(
+            net, rmoe.token_cross_entropy, optimizer="adam",
+            optimizer_params={"learning_rate": MOE_LR}, mesh=mesh, num_microbatch=PP_MOE_M,
+            dp_axis="dp")
+    zero = {k: 0 for k in {**_fused_counters(), **_flash_counters()}}
+    res["graph"] = _pp_graph(torch, mx, "pipeline moe split", make, x, y,
+                             dict(zero, **per_step), atomic=True)
+    del net, x, y
     torch.cuda.empty_cache()
     # the 2-layer copy, GPU against CPU
     cfg = dict(MOE_CFG, num_layers=MOE_RANK_LAYERS)
@@ -5758,7 +5930,7 @@ def phase_pp_sched_ranks(torch, device="gpu", cfg=None, timeout=900):
 
 # --- CUDA graphs: the compiled step and the CachedOp (mxnet_tpu_torch.engine) -----
 
-GRAPH_TIMED = 8             # timed requests or steps a mode: p50 and p90 exist
+GRAPH_TIMED = 5             # timed requests or steps a mode: p50 and p90
 GRAPH_CMP_STEPS = 3         # captured steps against eager: warm-up, capture, a replay
 GRAPH_SCHED_STEPS = 3       # under a FactorScheduler that changes lr every step
 GRAPH_SCHED = (1, 0.9)      # FactorScheduler(step, factor)
@@ -5773,7 +5945,7 @@ def _pct(ms):
 
 
 PROFILE_PAD = 1024           # spin kernels of 100 cycles that open a profiler session
-PROFILE_SESSIONS = 3
+PROFILE_SESSIONS = 1         # a round whose sessions keep no record runs again
 PROFILE_ROUNDS = 4           # rounds of PROFILE_SESSIONS before a trace is given up
 MEASURED = "chip_smoke.measured"
 
@@ -5964,11 +6136,25 @@ def _as_mode(trainer, captured):
     return trainer
 
 
+def _opt_states(trainer):
+    """Every optimizer-state tensor of a ``DataParallelTrainer`` (with its
+    ZeRO shards) or a ``PipelineTrainer`` (its update groups), cloned."""
+    if hasattr(trainer, "_opt_state"):
+        tensors = [s for st in trainer._opt_state for s in st] + \
+            [s for zb in trainer._zero_buckets for s in zb["state"]]
+    else:
+        tensors = [s for _, _, ss in trainer._groups.values() for st in ss for s in st]
+    return [t.detach().clone() for t in tensors]
+
+
 def _train_compare(torch, make, x, y, steps, sched, atomic):
     """``steps`` steps of an eager and a captured trainer from the same
     weights (``sched``: under a FactorScheduler that changes lr every step):
-    the largest relative differences of the losses and the weights, and the
-    captures of the captured run."""
+    the largest relative differences of the losses, the weights and the
+    optimizer state, the float16 loss scale and count after every step
+    (``scales``, equal in both modes wanted) and the steps whose overflow
+    halved it (``skipped``), a pipeline trainer's ``last_stats`` after the
+    last step (equal wanted), and the captures of the captured run."""
     from mxnet_tpu_torch import engine
     from mxnet_tpu_torch.lr_scheduler import FactorScheduler
     runs = {}
@@ -5980,17 +6166,30 @@ def _train_compare(torch, make, x, y, steps, sched, atomic):
                 sch.base_lr = trainer.optimizer.lr
                 trainer.optimizer.lr_scheduler = sch
             engine.reset_stats()
-            losses = [float(trainer.step(x, y)) for _ in range(steps)]
+            scaler = getattr(trainer, "_scaler", None)
+            losses, scales = [], []
+            for _ in range(steps):
+                losses.append(float(trainer.step(x, y)))
+                if scaler is not None:
+                    scales.append((scaler.loss_scale, scaler._unskipped))
             runs[captured] = (losses, _weights_of(trainer.net), engine.cache_stats()["captures"],
-                              float(trainer.optimizer.learning_rate))
+                              float(trainer.optimizer.learning_rate), _opt_states(trainer),
+                              scales, getattr(trainer, "last_stats", None))
             del trainer
-    (le, we, _, _), (lc, wc, captures, lr) = runs[False], runs[True]
+    (le, we, _, _, se, sc_e, st_e), (lc, wc, captures, lr, sc, sc_c, st_c) = \
+        runs[False], runs[True]
+    start = [2.0 ** 16] + [s for s, _ in sc_c[:-1]]
     return {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(lc, le)),
             "weight_rel": _weights_diff(torch, wc, we), "captures": captures,
+            "state_rel": max([_rel_diff(torch, a, b) for a, b in zip(sc, se)] or [0.0])
+            if len(sc) == len(se) else float("inf"),
+            "scales": sc_c, "scales_equal": sc_c == sc_e,
+            "last_stats": st_c, "last_stats_equal": st_c == st_e,
+            "skipped": sum(s < s_prev for (s, _), s_prev in zip(sc_c, start)),
             "final_lr": lr, "losses": lc}
 
 
-def _train_modes(torch, mx, label, make, x, y, per_step, atomic=False):
+def _train_modes(torch, mx, label, make, x, y, per_step, atomic=False, sched=True):
     """One training path eagerly and captured (``make()`` -> a trainer on
     the path's net, its weights reset to the path's seeded ones; the eager
     mode is the same trainer with ``_as_mode``): GRAPH_CMP_STEPS steps
@@ -6011,12 +6210,15 @@ def _train_modes(torch, mx, label, make, x, y, per_step, atomic=False):
     GRAPH_BUSY_REPLAYS back-to-back replays by CUDA events
     (``graph_span_ms``, which counts gaps inside the graph as busy). Before
     that, GRAPH_SCHED_STEPS steps under a FactorScheduler that changes lr
-    every step, captured against eager, bitwise, with one capture."""
+    every step, captured against eager, bitwise, with one capture (not
+    with ``sched`` False: the paths whose lr reaches K4/K5 the same way
+    through ``write_hyper`` as a path that runs it skip it for time)."""
     from mxnet_tpu_torch import engine
     counters = {**_fused_counters(), **_flash_counters()}
     n = 2 + GRAPH_TIMED
-    cmp = {"steps": _train_compare(torch, make, x, y, GRAPH_CMP_STEPS, False, atomic),
-           "scheduled": _train_compare(torch, make, x, y, GRAPH_SCHED_STEPS, True, atomic)}
+    cmp = {"steps": _train_compare(torch, make, x, y, GRAPH_CMP_STEPS, False, atomic)}
+    if sched:
+        cmp["scheduled"] = _train_compare(torch, make, x, y, GRAPH_SCHED_STEPS, True, atomic)
     res = {}
     for mode in ("eager", "captured"):
         torch.cuda.empty_cache()
@@ -6038,11 +6240,13 @@ def _train_modes(torch, mx, label, make, x, y, per_step, atomic=False):
             if not np.isfinite(float(pending)):
                 raise AssertionError(f"graph-train {label} {mode}: loss not finite")
         launches = {k: c.launches for k, c in counters.items() if c.launches}
+        by_dtype = {k: dict(c.launches_by_dtype) for k, c in counters.items()
+                    if getattr(c, "launches_by_dtype", None)}
         stats = engine.cache_stats()
         peak = torch.cuda.max_memory_allocated()
         api = _api_launches(torch, lambda: trainer.step(x, y))
         r = {"step_ms": _pct(ms), "launches": launches, "per_step": per_step,
-             "engine": stats, "peak_bytes": peak, "host_launches": api["host_launches"],
+             "launches_by_dtype": by_dtype, "engine": stats, "peak_bytes": peak, "host_launches": api["host_launches"],
              "api": api["api"], "device_ops": api["device_ops"],
              "busy_ms": api["device_busy_ms"], "device_span_ms": api["device_span_ms"],
              "sessions": api["sessions"]}
@@ -6087,11 +6291,13 @@ def _train_modes(torch, mx, label, make, x, y, per_step, atomic=False):
         f"{c['pool_bytes'] / 2**20:.1f} MiB; launches {c['launches']} over {n} steps; "
         f"captured against eager{' (deterministic algorithms)' if atomic else ''}: "
         f"{GRAPH_CMP_STEPS} steps {cmp['steps']['loss_rel']:.3e} / "
-        f"{cmp['steps']['weight_rel']:.3e}, {GRAPH_SCHED_STEPS} scheduled steps "
-        f"{cmp['scheduled']['loss_rel']:.3e} / {cmp['scheduled']['weight_rel']:.3e} (losses / "
-        f"weights, bitwise wanted), lr {cmp['scheduled']['final_lr']:.3e} at the end, "
-        f"{cmp['scheduled']['captures']} capture")
-    bad = [k for k, d in cmp.items() if d["loss_rel"] or d["weight_rel"] or d["captures"] != 1]
+        f"{cmp['steps']['weight_rel']:.3e} / {cmp['steps']['state_rel']:.3e}"
+        + (f", {GRAPH_SCHED_STEPS} scheduled steps {cmp['scheduled']['loss_rel']:.3e} / "
+           f"{cmp['scheduled']['weight_rel']:.3e} / {cmp['scheduled']['state_rel']:.3e}, lr "
+           f"{cmp['scheduled']['final_lr']:.3e} at the end" if sched else "")
+        + " (losses / weights / optimizer state, bitwise wanted), one capture each")
+    bad = [k for k, d in cmp.items() if d["loss_rel"] or d["weight_rel"] or d["state_rel"]
+           or not d["scales_equal"] or not d["last_stats_equal"] or d["captures"] != 1]
     if bad:
         raise AssertionError(f"graph-train {label}: captured disagrees with eager in {bad}: "
                              f"{cmp}")
@@ -6161,8 +6367,10 @@ def phase_graph_train(torch, bert_params, bert_batch, resnet_params, lc_weights,
                 net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": 1e-4},
                 mesh=mx.parallel.make_mesh({"dp": 1}, devices=[ctx]),
                 dtype=None if dtype == "float32" else dtype)
+        # the scheduled comparison on the f32 path (and the f16 ones, phase_f16_step):
+        # every path's lr reaches K4/K5 through the same _hyper rows (cut for time)
         out[f"bert_{dtype}"] = _train_modes(torch, mx, f"bert-base {dtype}", make, x, y,
-                                            bert_step)
+                                            bert_step, sched=dtype == "float32")
     out["snapshot"] = _graph_snapshot(torch, mx, net, bert_params, x, y)
     del net
     rs = np.random.RandomState(41)
@@ -6180,7 +6388,7 @@ def phase_graph_train(torch, bert_params, bert_batch, resnet_params, lc_weights,
                 dtype=None if dtype == "float32" else dtype,
                 mesh=mx.parallel.make_mesh({"dp": 1}, devices=[ctx]))
         out[f"resnet_{dtype}"] = _train_modes(torch, mx, f"resnet-50 {dtype}", make, rx, ry,
-                                              sgd_step, atomic=True)
+                                              sgd_step, atomic=True, sched=False)
     del rnet
     out["dropout"] = _graph_dropout(torch, mx)
     torch.cuda.empty_cache()
@@ -6195,7 +6403,7 @@ def phase_graph_train(torch, bert_params, bert_batch, resnet_params, lc_weights,
                 net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": 1e-4},
                 mesh=mesh, data_spec=mx.parallel.P("dp", "sp"))
         out["nccl_bert"] = _train_modes(torch, mx, "bert-base nccl world 1", make, x, y,
-                                        bert_step)
+                                        bert_step, sched=False)
         del net
         torch.cuda.empty_cache()
         lc_mesh = mx.parallel.make_mesh({"dp": 1, "sp": 1}, devices=[ctx])
@@ -6211,7 +6419,7 @@ def phase_graph_train(torch, bert_params, bert_batch, resnet_params, lc_weights,
             return get_recipe("long_context").build_trainer(lnet, lc_mesh,
                                                             learning_rate=LC_LR)
         out["long_context"] = _train_modes(torch, mx, f"long-context T={LC_T}", make, lx, ly,
-                                           lc_step, atomic=True)
+                                           lc_step, atomic=True, sched=False)
         del lnet
         torch.cuda.empty_cache()
         moe_mesh = mx.parallel.make_mesh({"dp": 1, "ep": 1}, devices=[ctx])
@@ -6224,7 +6432,7 @@ def phase_graph_train(torch, bert_params, bert_batch, resnet_params, lc_weights,
             load_jax_params(mnet, moe_weights)
             return get_recipe("moe").build_trainer(mnet, moe_mesh, learning_rate=MOE_LR)
         out["moe"] = _train_modes(torch, mx, "moe switch-base-8", make, mx_, my_, moe_step,
-                                  atomic=True)
+                                  atomic=True, sched=False)
         del mnet
         torch.cuda.empty_cache()
     return out
@@ -6317,11 +6525,147 @@ def _graph_dropout(torch, mx):
     return {"captured": runs[True][0], "eager": runs[False][0], "weight_rel": w_diff}
 
 
+
+
+# --- the float16 step captured (its flag and scale on the device) ---------------
+
+def _f16_path(torch, mx, label, make, x, y, per_step, atomic, flash_per_step):
+    """One float16 path eager and captured (``_train_modes``), from the
+    default scale 2^16: the compared steps, losses, weights, optimizer state,
+    loss scale and count bitwise, must include a skipped overflow step; the
+    flash kernels must run in float16 only, ``flash_per_step`` a step."""
+    res = _train_modes(torch, mx, label, make, x, y, per_step, atomic)
+    cmp = res["compare"]["steps"]
+    n = 2 + GRAPH_TIMED
+    by_dtype = res["modes"]["captured"]["launches_by_dtype"]
+    want = {k: {"float16": flash_per_step * n} for k in _flash_counters()} \
+        if flash_per_step else {}
+    ok = cmp["skipped"] >= 1 and cmp["scales_equal"] and by_dtype == want
+    log(f"[f16-step] {label}: {GRAPH_CMP_STEPS} compared steps, (scale, count) after each "
+        f"{cmp['scales']}, {cmp['skipped']} skipped (overflow at the scale before); flash "
+        f"launches by dtype over {n} captured steps {by_dtype} (want {want}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"f16-step {label}: no skipped step among the compared, the "
+                             f"scales differ, or flash launches {by_dtype} != {want}")
+    res["f16"] = {"scales": cmp["scales"], "skipped": cmp["skipped"],
+                  "flash_launches_by_dtype": by_dtype}
+    return res
+
+
+def phase_f16_step(torch, bert_params, bert_batch, resnet_params):
+    """``DataParallelTrainer(dtype="float16")`` captured on the card against
+    the same step eager, from the default loss scale 2^16 (so the first step
+    overflows and is skipped): BERT-base T=1024 batch 8 Adam 1e-4 (K1-K3's
+    float16 paths, 12 a step each, and K5) and ResNet-50 v1 batch 32 SGD
+    momentum 0.9 (K4; under deterministic algorithms for the compared
+    steps), TF32 off. Bitwise over GRAPH_CMP_STEPS steps and the scheduled
+    ones: losses, weights, optimizer state, loss scale and count; then both
+    modes timed (``_train_modes``)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import bert_base
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.gpu(0)
+    n_layers = 12
+    zero = {k: 0 for k in {**_fused_counters(), **_flash_counters()}}
+    bert_step = dict(zero, fused_adam_update=1, **{k: n_layers for k in _flash_counters()})
+    x, y = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in bert_batch)
+    net = bert_base(max_length=1024)
+    net.initialize(ctx=ctx)
+
+    def make():
+        load_jax_params(net, bert_params)
+        return mx.parallel.DataParallelTrainer(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": 1e-4},
+            mesh=mx.parallel.make_mesh({"dp": 1}, devices=[ctx]), dtype="float16")
+    out = {"bert": _f16_path(torch, mx, "bert-base float16", make, x, y, bert_step, False,
+                             n_layers)}
+    del net
+    torch.cuda.empty_cache()
+    rs = np.random.RandomState(41)
+    rx = mx.nd.array(rs.uniform(-1, 1, (32, 3, 224, 224)).astype(np.float32), ctx=ctx)
+    ry = mx.nd.array(rs.randint(0, 1000, (32,)).astype(np.int32), ctx=ctx, dtype="int32")
+    params0 = _zero_last_gamma(resnet_params)
+    rnet, _ = _resnet50(mx, ctx, params0)
+
+    def make():
+        load_jax_params(rnet, params0)
+        return mx.parallel.DataParallelTrainer(
+            rnet, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}, dtype="float16",
+            mesh=mx.parallel.make_mesh({"dp": 1}, devices=[ctx]))
+    out["resnet"] = _f16_path(torch, mx, "resnet-50 float16", make, rx, ry,
+                              dict(zero, fused_sgd_mom_update=1), True, 0)
+    del rnet
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- PipelineTrainer's step captured --------------------------------------------
+
+def _pp_graph(torch, mx, label, make, x, y, per_step, atomic=False):
+    """One pipeline path eager and captured (``_train_modes``: bitwise
+    losses, weights and Adam state over the compared steps, ``last_stats``
+    equal, p50/p90, busy, idle, host launches of both modes)."""
+    res = _train_modes(torch, mx, label, make, x, y, per_step, atomic, sched=False)
+    stats = res["compare"]["steps"]["last_stats"]
+    log(f"[pp-graph] {label}: last_stats of the replayed step {stats}, the eager step's "
+        f"the same")
+    res["last_stats"] = stats
+    return res
+
+
+def phase_pp_graph(torch, params, batch):
+    """``PipelineTrainer.step`` captured against eager on a world-1 NCCL mesh
+    (the caller holds the group): BERT-base at T=1024, batch 8 in M = 4,
+    Adam 1e-4, f32 with TF32 off, through 1F1B, GPipe with remat,
+    interleaved v 2 and the partitioned ZeRO step at tp 1 (no dropout, so no
+    eager reason). The long-context and MoE splits run the same comparison
+    in phase_pp_lc and phase_pp_moe."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_jax_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.gpu(0)
+    x, y = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in batch)
+    net = _bert_base_net(mx, params, ctx)
+    n = 12 * PP_M
+    mesh = mx.parallel.make_mesh({"pp": 1, "dp": 1}, devices=[ctx])
+    tp_mesh = mx.parallel.make_mesh({"pp": 1, "tp": 1, "dp": 1}, devices=[ctx])
+    zero = {k: 0 for k in {**_fused_counters(), **_flash_counters()}}
+    cases = {"1f1b": (lambda: _pp_trainer(mx, net, mesh, PP_M, dp_axis="dp"),
+                      _flash_per_step(n)),
+             "gpipe_remat": (lambda: _pp_trainer(mx, net, mesh, PP_M, dp_axis="dp",
+                                                 schedule="gpipe", remat=True),
+                             _flash_per_step(n, fwd=2)),
+             "interleaved_v2": (lambda: _pp_trainer(mx, net, mesh, PP_M, dp_axis="dp",
+                                                    virtual_stages=2), _flash_per_step(n)),
+             "partitioned_zero_tp1": (lambda: _pp_tp_trainer(mx, net, tp_mesh, PP_M,
+                                                             dp_axis="dp", zero_update=True),
+                                      _flash_per_step(n))}
+    out = {}
+    for name, (build, per_step) in cases.items():
+        def make(build=build):
+            load_jax_params(net, params)
+            tr = build()
+            if tr._eager_reason() is not None:
+                raise AssertionError(f"pp-graph {name}: eager reason {tr._eager_reason()}")
+            return tr
+        out[name] = _pp_graph(torch, mx, f"pipeline {name}", make, x, y,
+                              dict(zero, **per_step))
+        torch.cuda.empty_cache()
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
 # --- the rest of A2: overlapped buckets, 2-bit compression, the coordinator, dist_async ---
 
 OVERLAP_SEGMENTS = 4
 OVERLAP_CHECKED = 5          # steps held against the plain step: warm-up, capture, 3 replays
-OVERLAP_TIMED = 10           # timed steps after them: p50 and p90
+OVERLAP_TIMED = 5            # timed steps after them: p50 and p90
 TOL_OVERLAP_LOSS = 1e-6      # overlapped losses against the plain step's, relative
 TOL_OVERLAP_W = 1e-6         # weights after OVERLAP_CHECKED steps, of each tensor's max
 
@@ -6931,7 +7275,7 @@ def phase_coord_kill(torch, cfg=None, world=3, device="gpu"):
                          for k in _elastic_counters()}}
 
 
-ASYNC_STEPS = 3
+ASYNC_STEPS = 2
 ASYNC_LR = 0.05
 
 
@@ -7081,7 +7425,7 @@ def phase_dist_async(torch, device="gpu", cfg=None, steps=ASYNC_STEPS, timeout=6
 
 
 GLUON_PAIR_CMP = 3           # Gluon steps compared: eager (warm), capture + replay, a replay
-GLUON_PAIR_TIMED = 8         # timed steps after two more: p50 and p90
+GLUON_PAIR_TIMED = 5         # timed steps after two more: p50 and p90
 GLUON_PAIR_SEED = 61
 MNIST_CMP = 5                # train_mnist steps held captured against eager
 MNIST_EPOCHS = 2
@@ -7510,6 +7854,7 @@ def main() -> int:
         pp_tp_train = phase_pp_tp_train(torch, bert_params, bert_batch, pp_train)
         pp_gpipe = phase_pp_gpipe(torch, bert_params, bert_batch, pp_train, pp_w3)
         pp_interleaved = phase_pp_interleaved(torch, bert_params, bert_batch, pp_train)
+        pp_graph = phase_pp_graph(torch, bert_params, bert_batch)
     pp_ranks = phase_pp_ranks(torch, bert_params, bert_batch, pp_train, pp_w3)
     del pp_w3
     pp_dryrun = phase_pp_dryrun(torch)
@@ -7540,6 +7885,7 @@ def main() -> int:
     graph_train = phase_graph_train(torch, bert_params, bert_batch, resnet_params, lc_weights,
                                     moe_weights)
     del moe_weights
+    f16_step = phase_f16_step(torch, bert_params, bert_batch, resnet_params)
     gluon_pair = phase_gluon_pair(torch, bert_params, bert_batch, resnet_params)
     mnist = phase_mnist(torch)
     with _world1_nccl(torch):
@@ -7592,6 +7938,13 @@ def main() -> int:
                 # the hybridized Gluon loop: BERT-base eager and captured (the pair)
                 **{f"gluon_pair_bert_{mode}": gluon_pair["bert"][mode]["launches"].get(name, 0)
                    for mode in ("eager", "captured")},
+                # the float16 step and the pipeline's step, eager and captured
+                **{f"f16_{path}_{mode}": r["modes"][mode]["launches"].get(name, 0)
+                   for path, r in f16_step.items() for mode in r["modes"]},
+                **{f"pp_graph_{path}_{mode}": r["modes"][mode]["launches"].get(name, 0)
+                   for path, r in list(pp_graph.items()) + [("lc", pp_lc["graph"]),
+                                                            ("moe", pp_moe["graph"])]
+                   for mode in r["modes"]},
                 "zero_ranks": sum(lc.get(name, 0) for c in zero_ranks["configs"].values()
                                   for lc in c["launches"])}
 
@@ -7644,6 +7997,12 @@ def main() -> int:
           "library_graph_ms": f32["library_graph_ms"], "tflops": f32["tflops"],
           "bfloat16": {k: bf16[k] for k in ("ms", "graph_ms", "plain_ms", "library_ms",
                                             "library_graph_ms", "bound_ms", "tflops")},
+          "float16": {k: kernel["timings"]["float16"][k]
+                      for k in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
+                                "bound_ms", "bound_by", "tflops")},
+          "float16_launches_by_path": {path: r["f16"]["flash_launches_by_dtype"][
+              "flash_attention_fwd"] for path, r in f16_step.items()
+              if r["f16"]["flash_launches_by_dtype"]},
           "hmma": {n: r["HMMA"] for n, r in kernel["resources"].items()},
           "sp_shard": {k: sp_f[k] for k in ("B", "H", "T", "Tk", "ms", "graph_ms",
                                             "plain_ms", "library_ms", "bound_ms",
@@ -7672,7 +8031,13 @@ def main() -> int:
                      if n.startswith(f"flash_bwd_{kind}_kernel<")},
             "long_context": lc_entry(kind), "pipeline_microbatch": timed_rows(kind, "pp"),
             "pipeline_tp_rank": timed_rows(kind, "tp"),
-            "head_dim_256": timed_rows(kind, "d256")})
+            "head_dim_256": timed_rows(kind, "d256"),
+            "float16": dict({k: kernel_bwd["timings"]["float16"][k]
+                             for k in ("plain_ms", "library_ms", "port_bwd_ms")},
+                            **kernel_bwd["timings"]["float16"][kind]),
+            "float16_launches_by_path": {path: r["f16"]["flash_launches_by_dtype"][
+                f"flash_attention_bwd_{kind}"] for path, r in f16_step.items()
+                if r["f16"]["flash_launches_by_dtype"]}})
           for kind, line in (("dq", 181), ("dkv", 229))],
         *[(name, "fused_optimizer.cu", f"fused_optimizer.py:{line}",
            sum(dp_launches(rule).values()),
@@ -7692,6 +8057,9 @@ def main() -> int:
                                    ("hyper_ms", "value_ms", "hyper_graph_ms",
                                     "value_graph_ms", "hyper_equal_value",
                                     "launches_per_replay")},
+            "gated_form": {k: fused[rule][k] for k in
+                           ("gated_ms", "gated_graph_ms", "ungated_graph_ms",
+                            "skipped_graph_ms", "gate_ok")},
             **({"dp_resnet_check": {dt: dp_resnet[dt]["update_check"] for dt in dp_resnet}}
                if dp_checks else {}),
             **({"pipeline": {"per_step": pp_train["per_step"]["fused_adam_update"],
@@ -7785,7 +8153,8 @@ def main() -> int:
                    "graph_serve": graph_serve, "graph_train": graph_train,
                    "overlap_bert": overlap_bert, "overlap_ranks": overlap_ranks,
                    "coord_kill": coord_kill, "dist_async": dist_async,
-                   "gluon_pair": gluon_pair, "mnist": mnist,
+                   "gluon_pair": gluon_pair, "mnist": mnist, "f16_step": f16_step,
+                   "pp_graph": pp_graph,
                    "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0, "phase_seconds": PHASE_SECONDS,
                    "process_seconds": time.perf_counter() - T_START},

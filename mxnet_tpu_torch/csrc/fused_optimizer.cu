@@ -44,6 +44,14 @@
 // output may alias its input (in-place update): each element is read and
 // then written by the same thread.
 //
+// The gate. The device forms also take `skip`, a pointer to one float in
+// device memory (or null): a block that reads it nonzero returns before it
+// loads or stores anything, so every weight and state keeps its value. The
+// float16 step writes its overflow flag there on the card (the reference
+// gates its update by `jnp.where(finite, new, old)`,
+// mxnet_tpu/parallel/data_parallel.py:860-864): the flag never goes to the
+// host, and a captured step replays the gate with the flag of each replay.
+//
 // Bound at BERT-base (133,349,946 f32 parameters in 157 tensors): the update
 // is elementwise, about 10 (SGD) or 20 (Adam) f32 operations per parameter,
 // so it is bound by bytes. Adam reads w, g, m, v and writes w, m, v: 28 B a
@@ -146,8 +154,9 @@ __device__ __forceinline__ void update(const Hyper& h, float& w, float g, float&
 template <typename TW, typename TS, int kRule>
 __global__ void __launch_bounds__(kThreads)
 multi_tensor_update(const long long* __restrict__ table, int n_tensors, Hyper h,
-                    const float* __restrict__ hyper) {
+                    const float* __restrict__ hyper, const float* __restrict__ skip) {
   constexpr bool kHasM = kRule != kSgd, kHasV = kRule == kAdam;
+  if (skip != nullptr && __ldg(skip) != 0.f) return;  // the gate: nothing written
   constexpr int kHyper = sizeof(Hyper) / sizeof(float);
   if (hyper != nullptr) {  // the device form: the block reads the 10 floats once
     __shared__ float sh[kHyper];
@@ -208,22 +217,23 @@ multi_tensor_update(const long long* __restrict__ table, int n_tensors, Hyper h,
 
 template <typename TW, typename TS, int kRule>
 cudaError_t launch(const long long* table, int n_tensors, long long n_chunks,
-                   const Hyper& h, const float* hyper, cudaStream_t stream) {
+                   const Hyper& h, const float* hyper, const float* skip,
+                   cudaStream_t stream) {
   multi_tensor_update<TW, TS, kRule><<<(unsigned)n_chunks, kThreads, 0, stream>>>(
-      table, n_tensors, h, hyper);
+      table, n_tensors, h, hyper, skip);
   return cudaGetLastError();
 }
 
 template <int kRule, typename TW>
 cudaError_t by_state(const long long* table, int n_tensors, long long n_chunks, int sdtype,
-                     const Hyper& h, const float* hy, cudaStream_t s) {
+                     const Hyper& h, const float* hy, const float* sk, cudaStream_t s) {
   if constexpr (kRule == kSgd) {  // no state: sdtype is not read
-    return launch<TW, float, kRule>(table, n_tensors, n_chunks, h, hy, s);
+    return launch<TW, float, kRule>(table, n_tensors, n_chunks, h, hy, sk, s);
   } else {
     switch (sdtype) {
-      case 0: return launch<TW, float, kRule>(table, n_tensors, n_chunks, h, hy, s);
-      case 1: return launch<TW, __nv_bfloat16, kRule>(table, n_tensors, n_chunks, h, hy, s);
-      case 2: return launch<TW, __half, kRule>(table, n_tensors, n_chunks, h, hy, s);
+      case 0: return launch<TW, float, kRule>(table, n_tensors, n_chunks, h, hy, sk, s);
+      case 1: return launch<TW, __nv_bfloat16, kRule>(table, n_tensors, n_chunks, h, hy, sk, s);
+      case 2: return launch<TW, __half, kRule>(table, n_tensors, n_chunks, h, hy, sk, s);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -231,12 +241,13 @@ cudaError_t by_state(const long long* table, int n_tensors, long long n_chunks, 
 
 template <int kRule>
 cudaError_t dispatch(const long long* table, int n_tensors, long long n_chunks, int wdtype,
-                     int sdtype, const Hyper& h, const float* hy, cudaStream_t s) {
+                     int sdtype, const Hyper& h, const float* hy, const float* sk,
+                     cudaStream_t s) {
   if (n_tensors <= 0 || n_chunks <= 0 || n_chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
   switch (wdtype) {
-    case 0: return by_state<kRule, float>(table, n_tensors, n_chunks, sdtype, h, hy, s);
-    case 1: return by_state<kRule, __nv_bfloat16>(table, n_tensors, n_chunks, sdtype, h, hy, s);
-    case 2: return by_state<kRule, __half>(table, n_tensors, n_chunks, sdtype, h, hy, s);
+    case 0: return by_state<kRule, float>(table, n_tensors, n_chunks, sdtype, h, hy, sk, s);
+    case 1: return by_state<kRule, __nv_bfloat16>(table, n_tensors, n_chunks, sdtype, h, hy, sk, s);
+    case 2: return by_state<kRule, __half>(table, n_tensors, n_chunks, sdtype, h, hy, sk, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -251,11 +262,14 @@ cudaError_t dispatch(const long long* table, int n_tensors, long long n_chunks, 
 // 2 sgd_update's (no state). Returns a cudaError_t.
 namespace {
 cudaError_t sgd_rule(const long long* table, int n_tensors, long long n_chunks, int wdtype,
-                     int sdtype, int rule, const Hyper& h, const float* hy, cudaStream_t s) {
+                     int sdtype, int rule, const Hyper& h, const float* hy, const float* sk,
+                     cudaStream_t s) {
   switch (rule) {
-    case kSgdPallas: return dispatch<kSgdPallas>(table, n_tensors, n_chunks, wdtype, sdtype, h, hy, s);
-    case kSgdMom: return dispatch<kSgdMom>(table, n_tensors, n_chunks, wdtype, sdtype, h, hy, s);
-    case kSgd: return dispatch<kSgd>(table, n_tensors, n_chunks, wdtype, sdtype, h, hy, s);
+    case kSgdPallas:
+      return dispatch<kSgdPallas>(table, n_tensors, n_chunks, wdtype, sdtype, h, hy, sk, s);
+    case kSgdMom:
+      return dispatch<kSgdMom>(table, n_tensors, n_chunks, wdtype, sdtype, h, hy, sk, s);
+    case kSgd: return dispatch<kSgd>(table, n_tensors, n_chunks, wdtype, sdtype, h, hy, sk, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -265,7 +279,7 @@ extern "C" int mxt_fused_sgd(const long long* table, int n_tensors, long long n_
                              int wdtype, int sdtype, int rule, float lr, float momentum,
                              float wd, float rescale, float clip, void* stream) {
   const Hyper h{lr, momentum, wd, 0.f, 0.f, 0.f, 1.f, 1.f, rescale, clip};
-  return sgd_rule(table, n_tensors, n_chunks, wdtype, sdtype, rule, h, nullptr,
+  return sgd_rule(table, n_tensors, n_chunks, wdtype, sdtype, rule, h, nullptr, nullptr,
                   static_cast<cudaStream_t>(stream));
 }
 
@@ -276,25 +290,27 @@ extern "C" int mxt_fused_adam(const long long* table, int n_tensors, long long n
                               float eps, float wd, float c1, float c2, float rescale,
                               float clip, void* stream) {
   const Hyper h{lr, 0.f, wd, beta1, beta2, eps, c1, c2, rescale, clip};
-  return dispatch<kAdam>(table, n_tensors, n_chunks, wdtype, sdtype, h, nullptr,
+  return dispatch<kAdam>(table, n_tensors, n_chunks, wdtype, sdtype, h, nullptr, nullptr,
                          static_cast<cudaStream_t>(stream));
 }
 
 // The device forms: `hyper` points to the 10 floats of `struct Hyper` (lr,
 // momentum, wd, b1, b2, eps, c1, c2, rescale, clip) in device memory, read by
-// the kernel when it runs, not when it is launched.
+// the kernel when it runs, not when it is launched; `skip` (or null) to the
+// gate's float: nonzero, the launch writes nothing.
 extern "C" int mxt_fused_sgd_hyper(const long long* table, int n_tensors, long long n_chunks,
                                    int wdtype, int sdtype, int rule, const float* hyper,
-                                   void* stream) {
+                                   const float* skip, void* stream) {
   if (hyper == nullptr) return cudaErrorInvalidValue;
-  return sgd_rule(table, n_tensors, n_chunks, wdtype, sdtype, rule, Hyper{}, hyper,
+  return sgd_rule(table, n_tensors, n_chunks, wdtype, sdtype, rule, Hyper{}, hyper, skip,
                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mxt_fused_adam_hyper(const long long* table, int n_tensors, long long n_chunks,
-                                    int wdtype, int sdtype, const float* hyper, void* stream) {
+                                    int wdtype, int sdtype, const float* hyper,
+                                    const float* skip, void* stream) {
   if (hyper == nullptr) return cudaErrorInvalidValue;
-  return dispatch<kAdam>(table, n_tensors, n_chunks, wdtype, sdtype, Hyper{}, hyper,
+  return dispatch<kAdam>(table, n_tensors, n_chunks, wdtype, sdtype, Hyper{}, hyper, skip,
                          static_cast<cudaStream_t>(stream));
 }
 

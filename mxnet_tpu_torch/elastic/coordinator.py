@@ -17,8 +17,8 @@ either package's hosts read the other's:
                                every observed change of membership (join,
                                leave, lease expiry) bumps ``generation`` under
                                the ``generation.lock`` lease
-    stop.json                  the coordinated stop's intent (O_EXCL create:
-                               the first poster wins)
+    stop.json                  the coordinated stop's intent (written whole,
+                               published by a link: the first poster wins)
     stop-ack-<rank>.json       the quiesce acks; the final step S is the
                                largest ack of the live members
 
@@ -447,26 +447,62 @@ class Coordinator:
     def post_stop(self, step: int, reason: str = "preempted") -> Dict[str, Any]:
         """Post the stop intent (the first poster wins; a later post returns
         the existing one). Its ``id`` is generation-scoped, and the acks name
-        it."""
+        it.
+
+        The intent is written whole to a file of this thread's own and then
+        published by ``os.link``, which never replaces an existing file: a
+        reader of ``stop.json`` sees either no file or a complete one. (A
+        file created empty and written after, the reference's way, let a
+        second poster read it empty in between and overwrite it with its own
+        id, so the survivors acked two intents and none resolved.) A stale
+        intent of a finished incarnation is moved aside under a name of this
+        thread's own; moved by mistake, a fresh one is linked back. An empty
+        or partial file (a reference host writes it after creating it) is
+        read again for a second before it counts as stale."""
         path = os.path.join(self._cdir, STOP)
         payload = {"step": int(step), "rank": self.rank, "generation": self.generation,
                    "reason": str(reason), "id": f"g{self.generation}.r{self.rank}",
                    "ts": self._clock()}
+        mine = f"{path}.{os.getpid()}.{threading.get_ident()}"
 
         def _post():
-            try:
-                fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
-            except FileExistsError:
-                cur = _read_json(path)
-                if cur and not self._stop_stale(cur):
-                    return cur
-                _write_json_atomic(path, payload)     # a finished incarnation's
-                return payload
-            with os.fdopen(fd, "w") as f:
+            tmp = mine + ".post"
+            with open(tmp, "w") as f:
                 json.dump(payload, f)
                 f.flush()
                 os.fsync(f.fileno())
-            return payload
+            try:
+                while True:
+                    try:
+                        os.link(tmp, path)
+                        return payload
+                    except FileExistsError:
+                        pass
+                    cur = _read_json(path)
+                    until = time.monotonic() + max(1.0, self.poll_interval)
+                    while not cur and os.path.exists(path) and time.monotonic() < until:
+                        time.sleep(0.005)   # being written
+                        cur = _read_json(path)
+                    if cur and not self._stop_stale(cur):
+                        return cur
+                    aside = mine + ".stale"
+                    try:
+                        os.rename(path, aside)
+                    except FileNotFoundError:
+                        continue
+                    moved = _read_json(aside)
+                    if moved and not self._stop_stale(moved):
+                        try:                # a peer's fresh intent: put it back
+                            os.link(aside, path)
+                            return moved
+                        except FileExistsError:
+                            pass
+                        finally:
+                            os.unlink(aside)
+                    else:
+                        os.unlink(aside)
+            finally:
+                os.unlink(tmp)
 
         out = _faults.io_retry("elastic.barrier", _post)
         self._stop_seen = out

@@ -34,7 +34,10 @@ GSPMD step with ``shard_params_megatron`` and ``data_spec=P("dp", "sp")``):
 - when the step shards the sequence (``parallel.sequence_axis()``, an axis
   of size > 1), each rank holds T/sp tokens: positions start at its first
   token, and attention is ``ops.attention.sequence_parallel_attention``
-  (the flash kernels on the local query rows against the gathered keys).
+  (the flash kernels on the local query rows against the gathered keys);
+  with a mask, the plain path on the local query rows against the gathered
+  keys and values, the mask cut to those rows (the reference's global
+  view, ``mxnet_tpu/models/bert.py:110-123``).
 """
 from __future__ import annotations
 
@@ -67,6 +70,36 @@ def _position_ids(token_ids):
     shard = _sequence_shard()
     start = 0 if shard is None else shard[0].axis_index(shard[1]) * T
     return nd.arange(start, start + T, dtype="int32", ctx=token_ids.ctx)
+
+
+def _plain_attention(F, q, k, v, d, H, mask):
+    """softmax(q kᵀ / sqrt(d) + (1 - mask) * -1e9) v on (B, H, T, d) inputs,
+    the keys possibly longer than the queries (reference :117-125)."""
+    q2 = F.reshape(q, shape=(-3, 0, 0))         # (B*H, Tq, d)
+    k2 = F.reshape(k, shape=(-3, 0, 0))         # (B*H, Tk, d)
+    v2 = F.reshape(v, shape=(-3, 0, 0))
+    scores = F.batch_dot(q2, k2, transpose_b=True) / math.sqrt(d)
+    if mask is not None:
+        scores = scores + (1.0 - mask) * -1e9
+    att = F.softmax(scores, axis=-1)
+    out = F.batch_dot(att, v2)
+    return F.reshape(out, shape=(-4, -1, H, 0, 0))  # (B, H, Tq, d)
+
+
+def _query_rows(F, mask, mesh, axis, t_local):
+    """``mask`` (broadcast against the (B*H, T, T) scores) cut to this rank's
+    ``t_local`` query rows where it has a query axis of the whole sequence;
+    a query axis of 1 broadcasts, and the key axis stays whole."""
+    n = mesh.axis_size(axis)
+    if len(mask.shape) < 2 or mask.shape[-2] == 1:
+        return mask
+    if mask.shape[-2] != t_local * n:
+        raise MXNetError(f"a mask under a sequence shard of {n} ranks needs a query axis "
+                         f"of 1 or of the whole sequence ({t_local * n}), got "
+                         f"{tuple(mask.shape)}")
+    r = mesh.axis_index(axis)
+    return F.slice_axis(mask, axis=len(mask.shape) - 2, begin=r * t_local,
+                        end=(r + 1) * t_local)
 
 
 class SelfAttention(HybridBlock):
@@ -132,24 +165,24 @@ class SelfAttention(HybridBlock):
                 for proj in (self.q_proj, self.k_proj, self.v_proj))
         min_t = env.get("MXNET_FLASH_ATTENTION_MIN_SEQ")
         shard = _sequence_shard()
-        if shard is not None:
-            if mask is not None:
-                raise MXNetError("a mask under a sequence shard is not ported")
+        if shard is not None and mask is None:
             from ..ops.attention import sequence_parallel_attention
             out = NDArray(sequence_parallel_attention(q._data, k._data, v._data,
                                                       shard[1], shard[0]), q.ctx)
+        elif shard is not None:
+            # the reference keeps a global view and adds the mask on the plain
+            # path: this rank's query rows against the gathered keys and
+            # values, the mask cut to those rows (the gradient of the gathered
+            # K and V reduce-scattered back by gather_from_sp)
+            from ..parallel.megatron import gather_from_sp
+            mesh, axis = shard
+            k, v = (NDArray(gather_from_sp(t._data, axis, 2, mesh), t.ctx) for t in (k, v))
+            out = _plain_attention(F, q, k, v, d, H,
+                                   _query_rows(F, mask, mesh, axis, q.shape[2]))
         elif self._use_blockwise and mask is None and x.shape[1] >= min_t:
             out = F._contrib_flash_attention(q, k, v, causal=False)
         else:
-            q2 = F.reshape(q, shape=(-3, 0, 0))         # (B*H, T, d)
-            k2 = F.reshape(k, shape=(-3, 0, 0))
-            v2 = F.reshape(v, shape=(-3, 0, 0))
-            scores = F.batch_dot(q2, k2, transpose_b=True) / math.sqrt(d)
-            if mask is not None:
-                scores = scores + (1.0 - mask) * -1e9
-            att = F.softmax(scores, axis=-1)
-            out = F.batch_dot(att, v2)
-            out = F.reshape(out, shape=(-4, -1, H, 0, 0))  # (B, H, T, d)
+            out = _plain_attention(F, q, k, v, d, H, mask)
         out = F.reshape(F.transpose(out, axes=(0, 2, 1, 3)),
                         shape=(0, 0, -3))               # (B, T, C)
         out = self.proj(out)

@@ -56,6 +56,15 @@ made from their floats, so each rule has one launching path, whose
 by-value kernel entry points (``mxt_fused_sgd``, ``mxt_fused_adam``) serve
 ``fused_sgd_apply`` and ``fused_adam_apply``.
 
+The gate: the three ``*_hyper`` forms take ``skip``, None or a float32
+tensor of one element on the weights' device (the float16 step's overflow
+flag). Where it is nonzero the update writes nothing: every weight and
+state keeps its value, bitwise. On the card the kernel reads it when it
+runs (a block that sees it set returns first), so neither the launch nor a
+replay of a captured one reads it on the host; on the CPU the plain
+versions select the old values by ``torch.where`` on the same tensor,
+without reading it either.
+
 A pointer table is never built while a CUDA graph is being captured: the
 copy of the table to the device would be captured with a host buffer that
 does not outlive the call. A miss then raises ``MXNetError``; the
@@ -110,9 +119,8 @@ def _library() -> ctypes.CDLL:
         lib.mxt_fused_adam.argtypes = head + [ctypes.c_float] * 9 + [ctypes.c_void_p]
         lib.mxt_fused_sgd.restype = ctypes.c_int
         lib.mxt_fused_adam.restype = ctypes.c_int
-        lib.mxt_fused_sgd_hyper.argtypes = head + [ctypes.c_int, ctypes.c_void_p,
-                                                   ctypes.c_void_p]
-        lib.mxt_fused_adam_hyper.argtypes = head + [ctypes.c_void_p, ctypes.c_void_p]
+        lib.mxt_fused_sgd_hyper.argtypes = head + [ctypes.c_int] + [ctypes.c_void_p] * 3
+        lib.mxt_fused_adam_hyper.argtypes = head + [ctypes.c_void_p] * 3
         lib.mxt_fused_sgd_hyper.restype = ctypes.c_int
         lib.mxt_fused_adam_hyper.restype = ctypes.c_int
         if lib.mxt_fused_hyper_floats() != len(HYPER_FIELDS):
@@ -252,26 +260,42 @@ def _read_hyper(hyper) -> dict:
     return dict(zip(HYPER_FIELDS, hyper.reshape(-1).tolist()))
 
 
-def fused_sgd_update_hyper_plain(weights, grads, hyper, out=None):
-    """``fused_sgd_update_plain`` with the scalars read from ``hyper``."""
+def _gated(old_lists, results, skip, out):
+    """``results`` (new lists) where ``skip`` is zero, else the old values
+    (``old_lists``), then written to ``out`` as ``_write_out`` does; the
+    flag stays a tensor."""
+    if skip is None:
+        return _write_out(results, out)
+    keep = skip.reshape(()) != 0
+    gated = tuple([torch.where(keep, o, n) for o, n in zip(olds, news)]
+                  for olds, news in zip(old_lists, results))
+    return _write_out(gated, out)
+
+
+def fused_sgd_update_hyper_plain(weights, grads, hyper, out=None, skip=None):
+    """``fused_sgd_update_plain`` with the scalars read from ``hyper``,
+    gated by ``skip``."""
     h = _read_hyper(hyper)
-    return fused_sgd_update_plain(weights, grads, h["lr"], h["wd"], h["rescale_grad"],
-                                  h["clip_gradient"], out)
+    return _gated((weights,), fused_sgd_update_plain(
+        weights, grads, h["lr"], h["wd"], h["rescale_grad"], h["clip_gradient"]), skip, out)
 
 
-def fused_sgd_mom_update_hyper_plain(weights, grads, moms, hyper, out=None):
-    """``fused_sgd_mom_update_plain`` with the scalars read from ``hyper``."""
+def fused_sgd_mom_update_hyper_plain(weights, grads, moms, hyper, out=None, skip=None):
+    """``fused_sgd_mom_update_plain`` with the scalars read from ``hyper``,
+    gated by ``skip``."""
     h = _read_hyper(hyper)
-    return fused_sgd_mom_update_plain(weights, grads, moms, h["lr"], h["momentum"], h["wd"],
-                                      h["rescale_grad"], h["clip_gradient"], out)
+    return _gated((weights, moms), fused_sgd_mom_update_plain(
+        weights, grads, moms, h["lr"], h["momentum"], h["wd"], h["rescale_grad"],
+        h["clip_gradient"]), skip, out)
 
 
-def fused_adam_update_hyper_plain(weights, grads, ms, vs, hyper, out=None):
-    """``fused_adam_update_plain`` with the scalars read from ``hyper``."""
+def fused_adam_update_hyper_plain(weights, grads, ms, vs, hyper, out=None, skip=None):
+    """``fused_adam_update_plain`` with the scalars read from ``hyper``,
+    gated by ``skip``."""
     h = _read_hyper(hyper)
-    return fused_adam_update_plain(weights, grads, ms, vs, h["lr"], h["beta1"], h["beta2"],
-                                   h["epsilon"], h["wd"], h["rescale_grad"],
-                                   h["clip_gradient"], out)
+    return _gated((weights, ms, vs), fused_adam_update_plain(
+        weights, grads, ms, vs, h["lr"], h["beta1"], h["beta2"], h["epsilon"], h["wd"],
+        h["rescale_grad"], h["clip_gradient"]), skip, out)
 
 
 # ---------------------------------------------------------------------------
@@ -367,7 +391,16 @@ def _hyper_ptr(who, hyper, device) -> int:
     return hyper.data_ptr()
 
 
-def _sgd(who, rule, weights, grads, moms, scalars, out, hyper=None):
+def _skip_ptr(who, skip, device) -> Optional[int]:
+    if skip is None:
+        return None
+    if skip.dtype != torch.float32 or skip.numel() != 1 or skip.device != device:
+        raise MXNetError(f"{who}: skip must be a float32 tensor of one element on "
+                         f"{device}, got {skip.dtype} {tuple(skip.shape)} on {skip.device}")
+    return skip.data_ptr()
+
+
+def _sgd(who, rule, weights, grads, moms, scalars, out, hyper=None, skip=None):
     """One launch of an SGD ``rule`` over CUDA tensors (``moms`` None for
     the stateless rule), with ``scalars`` by value or, given ``hyper``, read
     from it -> (the new lists, whether it launched)."""
@@ -392,11 +425,11 @@ def _sgd(who, rule, weights, grads, moms, scalars, out, hyper=None):
                     tuple(float(_f32(v)) for v in scalars), device)
         else:
             _launch(who, "mxt_fused_sgd_hyper", table, n_rows, n_chunks, codes,
-                    (_hyper_ptr(who, hyper, device),), device)
+                    (_hyper_ptr(who, hyper, device), _skip_ptr(who, skip, device)), device)
     return res, n_rows > 0
 
 
-def _adam(who, weights, grads, ms, vs, scalars, out, hyper=None):
+def _adam(who, weights, grads, ms, vs, scalars, out, hyper=None, skip=None):
     """One Adam launch over CUDA tensors with ``scalars`` = (lr, b1, b2, eps,
     wd, c1, c2, rescale, clip) by value or, given ``hyper``, read from it ->
     (the new lists, whether it launched)."""
@@ -419,7 +452,7 @@ def _adam(who, weights, grads, ms, vs, scalars, out, hyper=None):
                     tuple(float(_f32(v)) for v in scalars), device)
         else:
             _launch(who, "mxt_fused_adam_hyper", table, n_rows, n_chunks, codes,
-                    (_hyper_ptr(who, hyper, device),), device)
+                    (_hyper_ptr(who, hyper, device), _skip_ptr(who, skip, device)), device)
     return res, n_rows > 0
 
 
@@ -492,43 +525,45 @@ def fused_adam_update(weights: List, grads: List, ms: List, vs: List, lr: float,
         rescale_grad=rescale_grad, clip_gradient=clip_gradient), out)
 
 
-def fused_sgd_update_hyper(weights: List, grads: List, hyper: torch.Tensor, out=None):
-    """``fused_sgd_update`` with its scalars in ``hyper`` (see the module
-    docstring) -> ``(new_weights,)``."""
+def fused_sgd_update_hyper(weights: List, grads: List, hyper: torch.Tensor, out=None,
+                           skip=None):
+    """``fused_sgd_update`` with its scalars in ``hyper`` and the gate
+    ``skip`` (see the module docstring) -> ``(new_weights,)``."""
     if not weights:
         return ([],)
     if weights[0].device.type == "cpu":
-        return fused_sgd_update_hyper_plain(weights, grads, hyper, out)
+        return fused_sgd_update_hyper_plain(weights, grads, hyper, out, skip)
     res, launched = _sgd("fused_sgd_update_hyper", _RULE_SGD, weights, grads, None, None,
-                         out, hyper)
+                         out, hyper, skip)
     fused_sgd_update.launches += launched
     return res
 
 
 def fused_sgd_mom_update_hyper(weights: List, grads: List, moms: List, hyper: torch.Tensor,
-                               out=None):
-    """``fused_sgd_mom_update`` with its scalars in ``hyper`` ->
-    ``(new_weights, new_moms)``."""
+                               out=None, skip=None):
+    """``fused_sgd_mom_update`` with its scalars in ``hyper`` and the gate
+    ``skip`` -> ``(new_weights, new_moms)``."""
     if not weights:
         return [], []
     if weights[0].device.type == "cpu":
-        return fused_sgd_mom_update_hyper_plain(weights, grads, moms, hyper, out)
+        return fused_sgd_mom_update_hyper_plain(weights, grads, moms, hyper, out, skip)
     res, launched = _sgd("fused_sgd_mom_update_hyper", _RULE_SGD_MOM, weights, grads, moms,
-                         None, out, hyper)
+                         None, out, hyper, skip)
     fused_sgd_mom_update.launches += launched
     return res
 
 
 def fused_adam_update_hyper(weights: List, grads: List, ms: List, vs: List,
-                            hyper: torch.Tensor, out=None):
+                            hyper: torch.Tensor, out=None, skip=None):
     """``fused_adam_update`` with its scalars in ``hyper`` (c1 = c2 = 1: fold
-    the bias correction into lr) -> ``(new_weights, new_ms, new_vs)``."""
+    the bias correction into lr) and the gate ``skip`` -> ``(new_weights,
+    new_ms, new_vs)``."""
     if not weights:
         return [], [], []
     if weights[0].device.type == "cpu":
-        return fused_adam_update_hyper_plain(weights, grads, ms, vs, hyper, out)
+        return fused_adam_update_hyper_plain(weights, grads, ms, vs, hyper, out, skip)
     res, launched = _adam("fused_adam_update_hyper", weights, grads, ms, vs, None, out,
-                          hyper)
+                          hyper, skip)
     fused_adam_update.launches += launched
     return res
 

@@ -25,8 +25,11 @@ state, NCCL's communicator); step 2 captures the body over static buffers
 (x, y, ``_hyper`` and the loss slot) and replays it; every later step
 replays it. The host's work a step is then: copy x and y into the static
 buffers, write ``_hyper`` for this step's lr and t (through a pinned
-buffer, asynchronously), replay, clone the loss slot into the
-``PendingScalar``. One capture per signature and trainer (the key holds
+buffer, asynchronously; under float16 also ``_amp_gate``), replay, clone
+the loss slot into the ``PendingScalar``. The float16 step is captured
+like the others: its loss scale, its count of finite steps and its overflow
+flag live in device memory, and the graph scales, checks, gates the update
+and runs the scaler's policy (below) with no host read. One capture per signature and trainer (the key holds
 ``id(trainer)``, ``engine.cache_stats()`` counts them); a new lr or t
 captures nothing. A parameter or gradient buffer given new storage since
 the capture (the engine's ``storage_epoch``, then the addresses) drops the
@@ -34,14 +37,14 @@ graph, and the next step warms up again; the elastic restore writes in
 place and keeps it. The kernels' launch counters count each replay
 (``engine``). What runs the body eagerly every step (``_graph_reason``):
 
-- ``"cpu"``: a CPU device, where the kernels' plain versions run;
-- ``"float16"``: the loss-scaled step reads its overflow flag on the host
-  (``_unscale_finite``); its flag on the device is ROADMAP A1b's;
+- ``"cpu"``: a CPU device, where the kernels' plain versions run (the same
+  device ops as the graph, the float16 ones included);
 - ``"gloo"``: a mesh of ranks whose groups are not all NCCL (gloo cannot
   be captured).
 
 At world size 1 over NCCL the all-reduces (the replicated step's buckets,
-ZeRO's sum over the data axes other than the batch axis, the loss) are
+ZeRO's sum over the data axes other than the batch axis, the loss, the
+float16 overflow flag) are
 captured into the graph as NCCL calls; ZeRO's reduce-scatter and all-gather
 and the ring's sends are not issued at a degree of 1.
 ``_program`` does not record whether the step is captured: a snapshot of a
@@ -69,10 +72,18 @@ A step (reference :832-877):
 - takes the mean of the loss (a Gluon ``Loss`` or a callable on the
   prediction's and the label's tensors), and its gradients with respect to
   every trainable parameter into the parameters' gradient buffers;
-- under float16 (eager, see above), multiplies the gradients by
-  1/loss_scale and checks them for inf and NaN; reading that flag is the
-  step's one host sync. An overflow skips the whole update, and
-  ``LossScaler.update_from_step`` halves the scale (:1514-1518);
+- under float16 (reference :830-876), multiplies the loss by the scale (a
+  float64 tensor of ``LossScaler.bind``, taken as float32), the gradients
+  by its reciprocal, and sets the overflow flag ``_found`` where any is not
+  finite (``torch._amp_foreach_non_finite_check_and_unscale_``; on a mesh
+  of ranks the MAX over every rank). K4/K5 read the flag as their gate
+  (``skip``): an overflowing step writes no weight, no optimizer state and,
+  under 2-bit compression, no residual. Then ``LossScaler.update_on_device``
+  halves the scale on an overflow (not below 1) or doubles it after
+  ``scale_window`` finite steps (:1514-1518). ``step`` runs the policy
+  every step; ``run_steps`` keeps the scale for the call and runs it at its
+  last step on the OR of the call's flags (``_found_acc``). Nothing of it
+  is read on the host: ``LossScaler.loss_scale`` syncs only when read;
 - updates every trainable parameter and its state in place with one launch
   (one per distinct weight decay, each reading its row of ``_hyper``; one
   in the models of this repository), through the cached pointer table: the
@@ -80,7 +91,7 @@ A step (reference :832-877):
   step.
 
 ``step`` returns a ``PendingScalar`` of the loss, which syncs only when read,
-so float32 and bfloat16 steps, captured or not, run without a host sync. The
+so steps of every dtype, captured or not, run without a host sync. The
 parameters are the ``Parameter``s' own tensors, so ``sync()`` only waits for
 the device.
 
@@ -108,7 +119,7 @@ step is the reference's GSPMD step made explicit:
   declaration order, one ``all_reduce`` per bucket;
 - the update stays one launch of K4/K5 per weight decay over the rank's own
   parameters and shards; under float16 the overflow flag is agreed over
-  every rank;
+  every rank (an all-reduce with MAX, on the device);
 - ``state_dict()`` gathers the shards into full tensors.
 
 With ``zero_update=True`` (default ``MXNET_TPU_ZERO``) the step is the
@@ -219,9 +230,10 @@ def functional_optimizer(opt: "opt_mod.Optimizer"):
     update (``fused_optimizer.HYPER_FIELDS``; Adam's bias correction folded
     into lr as ``_k_adam`` does); ``update(weights, grads, states, hyper)``
     applies the rule to the lists in place, reading the scalars from
-    ``hyper``, a float32 tensor of those 10 on the weights' device: one
-    launch of K4/K5's device form on the card, the plain version on the
-    CPU."""
+    ``hyper``, a float32 tensor of those 10 on the weights' device, and
+    writing nothing where ``skip`` (a float32 tensor of one element, or
+    None) is nonzero: one launch of K4/K5's device form on the card, the
+    plain version on the CPU."""
     clip = opt.clip_gradient if opt.clip_gradient is not None else -1.0
 
     if isinstance(opt, opt_mod.Adam):
@@ -237,9 +249,9 @@ def functional_optimizer(opt: "opt_mod.Optimizer"):
                                     epsilon=opt.epsilon, wd=wd,
                                     rescale_grad=opt.rescale_grad, clip_gradient=clip)
 
-        def update(ws, gs, states, h):
+        def update(ws, gs, states, h, skip=None):
             ms, vs = [s[0] for s in states], [s[1] for s in states]
-            _fo.fused_adam_update_hyper(ws, gs, ms, vs, h, out=(ws, ms, vs))
+            _fo.fused_adam_update_hyper(ws, gs, ms, vs, h, out=(ws, ms, vs), skip=skip)
         return init, update, hyper
 
     if isinstance(opt, opt_mod.SGD):
@@ -251,16 +263,16 @@ def functional_optimizer(opt: "opt_mod.Optimizer"):
             def init(w):
                 return ()
 
-            def update(ws, gs, states, h):
-                _fo.fused_sgd_update_hyper(ws, gs, h, out=(ws,))
+            def update(ws, gs, states, h, skip=None):
+                _fo.fused_sgd_update_hyper(ws, gs, h, out=(ws,), skip=skip)
             return init, update, hyper
 
         def init(w):
             return (torch.zeros_like(w),)
 
-        def update(ws, gs, states, h):
+        def update(ws, gs, states, h, skip=None):
             moms = [s[0] for s in states]
-            _fo.fused_sgd_mom_update_hyper(ws, gs, moms, h, out=(ws, moms))
+            _fo.fused_sgd_mom_update_hyper(ws, gs, moms, h, out=(ws, moms), skip=skip)
         return init, update, hyper
 
     raise MXNetError(f"no functional adapter for optimizer {type(opt).__name__}: "
@@ -284,13 +296,14 @@ def write_hyper(dst: torch.Tensor, rows) -> None:
 class _StepGraph:
     """One signature's captured step (``graph`` None until step 2, held
     here so that the engine's weak cache keeps it) with its static
-    inputs."""
+    inputs (and, for ``PipelineTrainer``, the captured step's
+    ``last_stats``)."""
 
-    __slots__ = ("graph", "x", "y")
+    __slots__ = ("graph", "x", "y", "stats")
 
     def __init__(self):
         self.graph = None
-        self.x = self.y = None
+        self.x = self.y = self.stats = None
 
 
 class PendingScalar:
@@ -457,6 +470,14 @@ class DataParallelTrainer:
         self._wd_order = list(dict.fromkeys([*self._groups, *self._segments]))
         self._hyper = torch.zeros((max(1, len(self._wd_order)), len(_fo.HYPER_FIELDS)),
                                   dtype=torch.float32, device=self.device.torch_device)
+        if self._scaler is not None:
+            # float16: the scale and the count on the device (LossScaler.bind),
+            # this step's overflow flag (the gate K4/K5 read), the flags' OR
+            # since the policy last ran, and whether this step runs the policy
+            dev = self.device.torch_device
+            self._scaler.bind(dev)
+            self._found, self._found_acc, self._amp_gate = (
+                torch.zeros(1, dtype=torch.float32, device=dev) for _ in range(3))
         self._graphs: Dict[tuple, _StepGraph] = {}
         # why the body runs eagerly every step, None to capture it; the tests
         # set it to a string to run the same trainer eagerly as a yardstick
@@ -487,8 +508,6 @@ class DataParallelTrainer:
         it (see the module docstring)."""
         if self.device.device_type != "gpu":
             return "cpu"
-        if self._scaler is not None:
-            return "float16"
         if self.mesh.distributed and any(dist.get_backend(g) != "nccl"
                                          for g in self.mesh._groups.values()):
             return "gloo"
@@ -904,17 +923,20 @@ class DataParallelTrainer:
                 _overlap.allreduce_bucket(self._buckets[bi], self.batch_axis, ndp,
                                           self._comm_dtype, self.mesh)
 
-    def _compress_reduce(self):
+    def _compress_reduce(self, skip=None):
         """2-bit quantization with error feedback of every trainable floating
-        gradient, then their mean over the batch axis (module docstring)."""
+        gradient, then their mean over the batch axis (module docstring).
+        Where ``skip`` (the float16 overflow flag) is set, every residual
+        keeps its value (reference :945-950)."""
         thr = float(self._compression.get("threshold", 0.5))
+        keep = skip.reshape(()) != 0 if skip is not None else None
         for p, r in zip(self._plist, self._comp_resid):
             if r is None:
                 continue
             g = p._grad
             acc = g.float() + r
             q = torch.where(acc >= thr, thr, torch.where(acc <= -thr, -thr, 0.0))
-            r.copy_(acc - q)
+            r.copy_(acc - q if keep is None else torch.where(keep, r, acc - q))
             g.copy_(q)
         if self.mesh.distributed and self._reduce_axes:
             n = self.mesh.axis_size(self.batch_axis)
@@ -928,21 +950,21 @@ class DataParallelTrainer:
         return activate(self.mesh, self._seq_axis) if self.mesh.distributed \
             else contextlib.nullcontext()
 
-    def _unscale_finite(self, scale) -> bool:
-        """Gradients times 1/scale in place; True if all are finite on every
-        rank (syncs)."""
+    def _unscale_check(self, scale: torch.Tensor) -> torch.Tensor:
+        """Gradients times 1/scale in place, and ``_found`` set to 1 where
+        any is not finite on any rank (the all-reduce's MAX); device work
+        only, nothing read on the host. Returns ``_found``."""
         grads = [p._grad for p, t in zip(self._plist, self._trainable)
                  if t and p._grad.is_floating_point()]
-        found = torch.zeros((), dtype=torch.float32, device=self.device.torch_device)
-        inv = torch.full((), 1.0 / scale, dtype=torch.float32,
-                         device=self.device.torch_device)
-        torch._amp_foreach_non_finite_check_and_unscale_(grads, found, inv)
+        self._found.zero_()
+        torch._amp_foreach_non_finite_check_and_unscale_(grads, self._found,
+                                                         torch.reciprocal(scale))
         if self.mesh.distributed:
-            dist.all_reduce(found, op=dist.ReduceOp.MAX,
+            dist.all_reduce(self._found, op=dist.ReduceOp.MAX,
                             group=self.mesh.group(self.mesh.axis_names))
-        return not bool(found.item())
+        return self._found
 
-    def _update(self):
+    def _update(self, skip=None):
         with torch.no_grad():
             if self._zero_buckets and not self._overlap:
                 self._reduce_zero()
@@ -951,35 +973,45 @@ class DataParallelTrainer:
                 self._update_fn([self._plist[i]._param for i in idx] + [w for w, _, _ in segments],
                                 [self._plist[i]._grad for i in idx] + [g for _, g, _ in segments],
                                 [self._opt_state[i] for i in idx] + [s for _, _, s in segments],
-                                self._hyper[k])
+                                self._hyper[k], skip)
             if self._zero_buckets:
                 self._gather_zero()
 
-    def _body(self, x, y, scale) -> tuple:
+    def _body(self, x, y) -> torch.Tensor:
         """The step's device work: forward, backward, the gradient buckets'
-        reduction and the update (skipped after a float16 overflow)."""
+        reduction and the update. Under float16 the loss is scaled by the
+        device's scale, the update (and the compression's residuals) gated
+        by the overflow flag, and the scaler's policy run where ``_amp_gate``
+        says, all on the device. Returns the loss."""
+        scale = self._scaler.scale_tensor() if self._scaler is not None else None
         if self._overlap:
             lossv = self._forward_backward_overlap(x, y, scale)
         else:
             lossv = self._forward_backward(x, y, scale)
-        finite = True
-        if scale is not None:
-            finite = self._unscale_finite(scale)
-        if self._compression and finite:
-            with torch.no_grad():
-                self._compress_reduce()
-        if finite:
-            self._update()
-        return lossv, finite
+        with torch.no_grad():
+            skip = self._unscale_check(scale) if scale is not None else None
+            if self._compression:
+                self._compress_reduce(skip)
+            self._update(skip)
+            if scale is not None:
+                acc = self._found_acc
+                acc.copy_(torch.maximum(acc, skip))
+                self._scaler.update_on_device(acc, self._amp_gate)
+                acc.copy_(torch.where(self._amp_gate != 0, torch.zeros_like(acc), acc))
+        return lossv
 
-    def _one_step(self, x, y, scale) -> tuple:
+    def _one_step(self, x, y, policy: bool = True) -> torch.Tensor:
+        """Write the step's scalars (and under float16 whether it runs the
+        scaler's policy), then run the body: replayed where captured."""
         self._t += 1
         self.optimizer.num_update = self._t
         lr = _f32(self.optimizer.learning_rate)
         write_hyper(self._hyper, [self._hyper_fn(self._t, lr, wd) for wd in self._wd_order])
+        if self._scaler is not None:
+            write_hyper(self._amp_gate, [1.0 if policy else 0.0])
         if self._graph_reason is None:
-            return self._graph_step(x, y), True
-        return self._body(x, y, scale)
+            return self._graph_step(x, y)
+        return self._body(x, y)
 
     # -- the captured step -------------------------------------------------------
     def _operand_ptrs(self):
@@ -997,11 +1029,11 @@ class DataParallelTrainer:
             if entry is None or entry.graph is not None:     # new, or its graph went stale
                 self._graphs[sig] = _StepGraph()
                 with engine.side_stream(self.device.torch_device):
-                    lossv, _ = self._body(x, y, None)
+                    lossv = self._body(x, y)
                 return lossv
             entry.x, entry.y = x.clone(), y.clone()
             graph = entry.graph = engine.capture(
-                lambda: (self._body(entry.x, entry.y, None)[0],), key, self.device.torch_device,
+                lambda: (self._body(entry.x, entry.y),), key, self.device.torch_device,
                 owner=self, ptrs=DataParallelTrainer._operand_ptrs)
         entry.x.copy_(x)
         entry.y.copy_(y)
@@ -1015,12 +1047,8 @@ class DataParallelTrainer:
     def step(self, x, y, batch_size=None) -> PendingScalar:
         """One fused training step on the batch ``x``, ``y``."""
         self.optimizer.rescale_grad = 1.0
-        scale = self._scaler.loss_scale if self._scaler is not None else None
-        lossv, finite = self._one_step(self._local(self._raw(x)),
-                                       self._local(self._raw(y)), scale)
-        if self._scaler is not None:
-            self._scaler.update_from_step(finite)
-        return PendingScalar(lossv)
+        return PendingScalar(self._one_step(self._local(self._raw(x)),
+                                            self._local(self._raw(y))))
 
     def run_steps(self, x, y, n, stacked=False) -> NDArray:
         """``n`` steps, one after another (the reference scans them in one
@@ -1035,15 +1063,8 @@ class DataParallelTrainer:
             raise MXNetError(f"run_steps(stacked=True): leading dim must be n={n}, "
                              f"got {xr.shape[0]}/{yr.shape[0]}")
         self.optimizer.rescale_grad = 1.0
-        scale = self._scaler.loss_scale if self._scaler is not None else None
-        losses, all_finite = [], True
-        for i in range(n):
-            lossv, finite = self._one_step(xr[i] if stacked else xr,
-                                           yr[i] if stacked else yr, scale)
-            losses.append(lossv)
-            all_finite = all_finite and finite
-        if self._scaler is not None:
-            self._scaler.update_from_step(all_finite)
+        losses = [self._one_step(xr[i] if stacked else xr, yr[i] if stacked else yr,
+                                 policy=i == n - 1) for i in range(n)]
         return NDArray(torch.stack(losses), self.device)
 
     def drain(self):

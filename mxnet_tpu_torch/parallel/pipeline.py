@@ -79,8 +79,7 @@ its own stage of the same tick loop eagerly:
   launch of the fused update (K5 for Adam, K4 for SGD, through
   ``functional_optimizer`` and its pointer table) for each weight decay,
   reading its scalars from the trainer's ``_hyper`` rows as the fused step
-  does. The step runs eagerly on the card too: its tick loop of
-  point-to-point rounds is not captured (ROADMAP A1b).
+  does.
   Weight-decay indices follow the reference's convention (:551-556): embed
   leaves first, then the cell leaves (one index for a leaf of every layer),
   then the head, so a ``wd_mult`` set by index selects the same parameter in
@@ -124,6 +123,33 @@ The compositions (reference :271-294):
   and all-gathered back. Weight-sharded tp and ZeRO do not compose
   (:651-656).
 
+**The compiled step** (the reference jits the whole step, embed ->
+schedule -> head -> loss -> backward -> update, :296, :1092-1116): on the
+card ``step`` is captured as one CUDA graph (``engine.capture``), with
+``DataParallelTrainer``'s lifecycle. Step 1 of a batch signature runs the
+body eagerly on the engine's side stream (the warm-up: kernels, pointer
+tables, the embed's shape probe); step 2 captures the body over static
+microbatch stacks and replays it; later steps copy the stacks in, write
+``_hyper`` and replay. The graph is the schedule's whole tick loop on this
+rank (its point-to-point rounds, each schedule and split, tp and ZeRO)
+with the reductions and the update. A replay runs no Python of the step:
+``last_stats`` (ticks, in flight, sends, ``comm``) is the captured step's on
+every replay, its collectives are added to ``comm_stats``, and the engine
+adds its launches and ``p2p_stats`` sends. Dropout in Gluon mode draws from
+the port's device generator, which the graph registers, so a replay draws
+what the eager step would. What runs it eagerly every step
+(``_graph_reason``, from ``_eager_reason``):
+
+- ``"cpu"``: a CPU device;
+- ``"gloo"``: a mesh whose groups are not all NCCL (its ranks share one
+  card; gloo cannot be captured);
+- ``"keyed_dropout"``: partitioned tp with a dropout rate above 0: its
+  masks come from a ``torch.Generator`` seeded on the host from a key that
+  holds the step (``megatron._dropout``), which a graph would replay;
+- ``"remat_dropout"``: GPipe with ``remat`` over stages that hold a
+  Dropout above 0: the recompute resets the generator to where the first
+  run began, which a capture cannot read.
+
 ``last_stats`` adds ``comm``: the collectives the step issued, ``{"op@axis":
 {"calls", "bytes"}}`` (from ``_dist_util.comm_stats``: the payload is the
 tensor a rank passes in, its shard for an all-gather); ``comm_estimate``
@@ -144,6 +170,7 @@ the reference, ``remat`` serves GPipe only.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -160,8 +187,8 @@ from .. import _dist_util
 from ..ops.cuda import fused_optimizer as _fo
 from . import megatron as _mg
 from . import zero as _zero
-from .data_parallel import (DataParallelTrainer, PendingScalar, functional_optimizer,
-                            write_hyper)
+from .data_parallel import (DataParallelTrainer, PendingScalar, _StepGraph,
+                            functional_optimizer, write_hyper)
 from .mesh import P, current_mesh, require_axis
 from .tensor_parallel import gather_tp, shard_tensor, slice_tp, tp_shard_dim
 from .step_program import StepProgram, config_fingerprint, structural_fingerprint
@@ -206,21 +233,28 @@ def _remat(fn: Callable) -> Callable:
 
     def run(params, h, tick):
         mode = (autograd.is_recording(), autograd.is_training())
-        gen = _rng.generator(h.device)
+        # a CUDA graph's capture cannot read the generator's state; the
+        # trainer captures remat only where its stages draw no dropout
+        # (PipelineTrainer._eager_reason, "remat_dropout")
+        gen = None if engine.capturing() else _rng.generator(h.device)
         start: list = []
 
         def body(a):
             if not start:
-                start.append(gen.get_state())
+                start.append(gen.get_state() if gen is not None else None)
                 return fn(params, a, tick)
-            now = gen.get_state()
-            gen.set_state(start[0])
+            now = gen.get_state() if gen is not None else None
+            if gen is not None:
+                gen.set_state(start[0])
             try:
                 with autograd._RecordingScope(*mode):
                     return fn(params, a, tick)
             finally:
-                gen.set_state(now)
-        return checkpoint(body, h, use_reentrant=False)
+                if gen is not None:
+                    gen.set_state(now)
+        # the port draws from its own generators: torch's default one is not
+        # saved (nor could it be during a capture)
+        return checkpoint(body, h, use_reentrant=False, preserve_rng_state=False)
     return run
 
 
@@ -459,6 +493,20 @@ def schedule_1f1b(embed_fn: Callable, stage_fn: Callable, head_loss_fn: Callable
         dev = act_meta[2] if act_meta is not None else None
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
     return loss_sum, stats
+
+
+def _dropouts(block):
+    """The Dropout layers under ``block``."""
+    from ..gluon.nn import Dropout
+    return [m for m in block.modules() if isinstance(m, Dropout)]
+
+
+def _add_comm(comm: dict, sign: int) -> None:
+    """Add (``sign`` 1) or take back (-1) a step's ``last_stats["comm"]``
+    in ``_dist_util.comm_stats``."""
+    for name, c in comm.items():
+        op, axis = name.split("@", 1)
+        _dist_util.count_comm(op, axis, sign * c["bytes"], calls=sign * c["calls"])
 
 
 def _aux_blocks(block) -> List[str]:
@@ -752,6 +800,10 @@ class PipelineTrainer:
         self._t = 0
         self._act_meta: Dict[tuple, tuple] = {}
         self.last_stats: Optional[dict] = None
+        self._graphs: Dict[tuple, _StepGraph] = {}
+        # why the step runs eagerly every time, None to capture it; the tests
+        # and chip_smoke set it to a string to run the same trainer eagerly
+        self._graph_reason = self._eager_reason()
         self._program = StepProgram(f"pp.step[{type(net).__name__}]", (
             "pp_step", structural_fingerprint(net), config_fingerprint(
                 optimizer=type(self.optimizer).__name__,
@@ -771,6 +823,29 @@ class PipelineTrainer:
                 compute_dtype=str(self.compute_dtype), zero=self._zero,
                 bucket_bytes=self._bucket_bytes if self._zero else None,
                 comm_dtype=self._comm_dtype)))
+
+    def _eager_reason(self) -> Optional[str]:
+        """Why the step runs eagerly every time, or None to capture it (the
+        module docstring, "The compiled step"): ``"cpu"``, ``"gloo"``,
+        ``"keyed_dropout"`` or ``"remat_dropout"``."""
+        if self.device.device_type != "gpu":
+            return "cpu"
+        if self.mesh.distributed and any(dist.get_backend(g) != "nccl"
+                                         for g in self.mesh._groups.values()):
+            return "gloo"
+        if self._partitioned and (self._eplan.dropout or self._cplan.attn_dropout
+                                  or self._cplan.ffn_dropout):
+            return "keyed_dropout"
+        if self.schedule == "gpipe" and self.remat and not self._partitioned and any(
+                m._rate > 0 for b in [self._embed, *self._cells, self._head]
+                for m in _dropouts(b)):
+            return "remat_dropout"
+        return None
+
+    @property
+    def captured(self) -> bool:
+        """Whether this trainer's steps run as captured CUDA graphs."""
+        return self._graph_reason is None
 
     # -- construction helpers --------------------------------------------------
     def _validate_partitioned_loss(self):
@@ -1123,22 +1198,11 @@ class PipelineTrainer:
                         src.append(view[j] if zb["stacked"] else view)
                 torch._foreach_copy_(dst, src)
 
-    def step(self, x, y) -> PendingScalar:
-        """One training step of the schedule on the global batch ``x``, ``y``."""
-        xr, yr = self._raw(x), self._raw(y)
-        M, B = self.num_microbatch, xr.shape[0]
-        self.optimizer.rescale_grad = 1.0
-        if B % (M * self.n_dp) != 0:
-            raise MXNetError(f"batch {B} must divide by num_microbatch*dp = {M}*{self.n_dp}")
-        if self._partitioned and self.sequence_parallel and self.n_tp > 1 and \
-                xr.dim() >= 2 and xr.shape[1] % self.n_tp != 0:
-            raise MXNetError(f"sequence_parallel shards the sequence axis over tp: seq_len "
-                             f"{xr.shape[1]} must divide by n_tp={self.n_tp}")
-        xs, ys = self._stack(xr), self._stack(yr)
-        self._t += 1
-        self.optimizer.num_update = self._t
-        lr = np.float32(self.optimizer.learning_rate)
-        write_hyper(self._hyper, [self._hyper_fn(self._t, lr, wd) for wd in self._groups])
+    def _body(self, xs, ys) -> torch.Tensor:
+        """The step's device work on the stacked microbatches: the schedule,
+        the gradients' reductions and the update; ``last_stats`` gets the
+        step's counts, its ``comm`` the collectives it issued. Returns the
+        loss."""
         before = {k: list(v) for k, v in _dist_util.comm_stats.items()}
         lossv = self._forward_backward(xs, ys)
         with torch.no_grad():
@@ -1158,7 +1222,65 @@ class PipelineTrainer:
             if calls > c0:
                 comm["@".join(key)] = {"calls": calls - c0, "bytes": nbytes - b0}
         self.last_stats["comm"] = comm
-        return PendingScalar(lossv)
+        return lossv
+
+    def _operand_ptrs(self):
+        """The addresses a captured step reads: every leaf's tensors and
+        gradient, and the Parameters the blocks compute with."""
+        return (tuple((lf.x.data_ptr(), lf.w.data_ptr(),
+                       lf.grad.data_ptr() if lf.grad is not None else 0)
+                      for lf in self._all_leaves()),
+                tuple(p._param.data_ptr() for p in self._used))
+
+    def _graph_step(self, xs, ys) -> torch.Tensor:
+        """The step on the card: warm up at a signature's first step (which
+        also runs the embed's shape probe), capture at its second, replay
+        from then on. A replay runs no Python of the step, so it sets
+        ``last_stats`` (the tick loop's counts and ``comm``) to the captured
+        step's and adds that step's collectives to ``comm_stats``, as the
+        engine adds its launches to the kernels' counters and its sends to
+        ``p2p_stats``."""
+        sig = (tuple(xs.shape), xs.dtype, tuple(ys.shape), ys.dtype)
+        key = ("pp_step", id(self), self._program.fingerprint, sig)
+        entry = self._graphs.get(sig)
+        graph = engine.lookup(key) if entry is not None else None
+        if graph is None:
+            if entry is None or entry.graph is not None:     # new, or its graph went stale
+                self._graphs[sig] = _StepGraph()
+                with engine.side_stream(self.device.torch_device):
+                    return self._body(xs, ys)
+            entry.x, entry.y = xs.clone(), ys.clone()
+            graph = entry.graph = engine.capture(
+                lambda: (self._body(entry.x, entry.y),), key, self.device.torch_device,
+                owner=self, ptrs=PipelineTrainer._operand_ptrs)
+            entry.stats = copy.deepcopy(self.last_stats)
+            _add_comm(entry.stats["comm"], -1)     # the capture ran nothing
+        entry.x.copy_(xs)
+        entry.y.copy_(ys)
+        lossv = graph.replay()[0].clone()
+        self.last_stats = copy.deepcopy(entry.stats)
+        _add_comm(entry.stats["comm"], 1)
+        return lossv
+
+    def step(self, x, y) -> PendingScalar:
+        """One training step of the schedule on the global batch ``x``, ``y``."""
+        xr, yr = self._raw(x), self._raw(y)
+        M, B = self.num_microbatch, xr.shape[0]
+        self.optimizer.rescale_grad = 1.0
+        if B % (M * self.n_dp) != 0:
+            raise MXNetError(f"batch {B} must divide by num_microbatch*dp = {M}*{self.n_dp}")
+        if self._partitioned and self.sequence_parallel and self.n_tp > 1 and \
+                xr.dim() >= 2 and xr.shape[1] % self.n_tp != 0:
+            raise MXNetError(f"sequence_parallel shards the sequence axis over tp: seq_len "
+                             f"{xr.shape[1]} must divide by n_tp={self.n_tp}")
+        xs, ys = self._stack(xr), self._stack(yr)
+        self._t += 1
+        self.optimizer.num_update = self._t
+        lr = np.float32(self.optimizer.learning_rate)
+        write_hyper(self._hyper, [self._hyper_fn(self._t, lr, wd) for wd in self._groups])
+        if self._graph_reason is None:
+            return PendingScalar(self._graph_step(xs, ys))
+        return PendingScalar(self._body(xs, ys))
 
     def comm_estimate(self, x_shape) -> Dict[str, Tuple[int, int]]:
         """The reference's per-step estimates of this trainer's tensor-parallel

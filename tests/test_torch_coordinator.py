@@ -267,6 +267,66 @@ def test_coordinated_stop_resolves_to_the_largest_ack(tmp_path):
     assert out == {"a": 7, "b": 7}
 
 
+@pytest.mark.parametrize("posters", [2, 3])
+def test_post_stop_race_leaves_one_intent(tmp_path, posters):
+    """Survivors that post ``peer_dead`` at once all end with the first
+    poster's intent: 200 rounds of ``posters`` threads released together,
+    each round a single id among what every poster returned and what
+    ``stop.json`` holds. (An intent created empty and written after could be
+    read empty by a second poster, which then overwrote it with its own id.)"""
+    import threading
+    root = str(tmp_path)
+    cos = [Coordinator(root, r, lease_timeout=30.0, straggler_timeout=10.0)
+           for r in range(posters)]
+    for c in cos:
+        c.join()
+    for c in cos:
+        c.view()                 # every host at the last join's generation
+    path = os.path.join(root, coord_mod.COORD_DIR, coord_mod.STOP)
+    for rnd in range(200):
+        gate = threading.Barrier(posters)
+        got = {}
+
+        def post(c):
+            gate.wait()
+            got[c.rank] = c.post_stop(rnd, reason="peer_dead")["id"]
+        threads = [threading.Thread(target=post, args=(c,)) for c in cos]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30)
+        on_disk = coord_mod._read_json(path)["id"]
+        assert set(got.values()) == {on_disk}, (rnd, got, on_disk)
+        assert sorted(os.listdir(os.path.dirname(path))) == sorted(
+            n for n in os.listdir(os.path.dirname(path)) if not n.endswith((".post", ".stale")))
+        for c in cos:
+            c._stop_seen = None
+        os.unlink(path)
+
+
+def test_post_stop_waits_out_a_file_being_written(tmp_path):
+    """A stop file that exists but is still empty (a reference host creates
+    it, then writes it) is read again, never overwritten while it fills."""
+    import threading
+    root = str(tmp_path)
+    a = Coordinator(root, 0, lease_timeout=30.0, straggler_timeout=10.0)
+    a.join()
+    path = os.path.join(root, coord_mod.COORD_DIR, coord_mod.STOP)
+    open(path, "w").close()
+    intent = {"step": 4, "rank": 1, "generation": a.generation, "reason": "peer_dead",
+              "id": f"g{a.generation}.r1", "ts": time.time()}
+
+    def fill():
+        time.sleep(0.2)
+        with open(path, "w") as f:
+            coord_mod.json.dump(intent, f)
+    t = threading.Thread(target=fill)
+    t.start()
+    assert a.post_stop(6, reason="peer_dead")["id"] == intent["id"]
+    t.join(10)
+    assert coord_mod._read_json(path)["id"] == intent["id"]
+
+
 def test_elastic_entry_points_take_a_coordinator(tmp_path):
     """``SnapshotManager`` / ``resume_or_init`` / ``run`` with one host's
     coordinator: a coordinated snapshot and a resume validated by it."""
