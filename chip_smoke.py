@@ -120,13 +120,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    and K3 twice a step, all causal, and K5 once (the sharded update at dp
    1); the loss must fall. ``phase_lc_check``: one step of the same model at
    T = 2048, batch 2, on the card against the CPU.
-14. ``phase_lc_ranks``: the trainer at dp2 x sp2 as 4 ranks sharing the card
+14. ``_lc_ranks_steps``: the trainer at dp2 x sp2 as 4 ranks sharing the card
    over gloo (ring attention over sp, the sharded update over dp), T = 8192,
    global batch 4, 2 steps, against the one-rank step; each rank's K1-K3
    launches by mask and shape follow its hop schedule (rank sp=s: one causal
    hop and s full hops a layer) and K5 runs once a step over its shard's
    segments; the ring's point-to-point bytes beside the reference's estimate.
-15. ``phase_zero_bert_ranks``: ``DataParallelTrainer(zero_update=True)`` on 2
+15. ``_zero_bert_ranks_steps``: ``DataParallelTrainer(zero_update=True)`` on 2
    ranks at dp2 over gloo, 2 layers of BERT-base width, T = 1024, batch 4,
    Adam, 2 steps, native, bf16 and int8 on the wire, against
    ``zero_update=False``; each rank's optimizer state about half.
@@ -161,7 +161,7 @@ every counter set to 0 just before it and read just after:
    resumed into a rebuilt trainer, ``(2, "resumed")``, step 3 at rtol 1e-6;
    phase 14 again with ``dryrun_multichip``'s long-context model
    (``LC_DRYRUN_CFG``: units 32, 2 heads, so D = 16).
-20. ``phase_elastic_zero_reshard``: phase 15's model with ``zero_update``, a
+20. ``_elastic_zero_steps``: phase 15's model with ``zero_update``, a
    dp2 snapshot after step 2 resumed at world 1 and a dp1 snapshot resumed
    on dp2: ``"resharded"``, every Adam lane bitwise the re-canonicalised
    saved lane, step 3 against the saving degree's at TOL_ZERO_LOSS /
@@ -182,7 +182,7 @@ The MoE half of ``dryrun_multichip`` (``parallel.moe``,
    layers, batch 1, GPU against CPU, the routing compared first.
 22. ``phase_moe_serve``: the forward outside a trainer (``moe_ffn``) at batch
    1 and 8, K1 12 launches each, the batch-1 logits against the CPU's.
-23. ``phase_moe_ranks``: 4 ranks sharing the card over gloo: the dryrun's
+23. ``_moe_ranks_steps``: 4 ranks sharing the card over gloo: the dryrun's
    ``expert_parallel_moe`` (E 4, D 16, H 32, 32 tokens) against ``moe_ffn``
    on each token shard; the recipe at Switch-Base-8 widths and 2 layers,
    T=1024, global batch 4, 3 steps on dp2 x ep2 against dp4 x ep1 (routing,
@@ -202,14 +202,14 @@ phase 11:
    step ms, tokens/s, idle share, launches, peak memory; then 3 bf16 steps
    on the bf16 kernels. ``phase_pp_check``: one step of 2 such layers,
    batch 2, M = 2, GPU against CPU at the training checks' tolerances.
-25. ``phase_pp_ranks``: 2 ranks sharing the card over gloo: (a) ``{pp: 2}``,
+25. ``_pp_ranks_steps``: 2 ranks sharing the card over gloo: (a) ``{pp: 2}``,
    M = 4, 3 steps against phase 24's (losses 1e-5, step-3 weights after
    ``sync()`` 2e-5), K1-K3 24 launches and K5 one a rank-step, the embed and
    head bitwise equal on the ranks; (b) M = 8 on batch 16: each stage's peak
    memory at M = 4 and 8 (stage 0's within the extra tokens plus 10%),
    beside GPipe's M microbatches of activations; (c) the step-2 snapshot
    resumed on ``{pp: 1, dp: 2}``: "resharded", step 3 equal.
-26. ``phase_pp_dryrun``: the dryrun's own pipeline step on 4 ranks, ``{pp:
+26. ``_pp_dryrun_steps``: the dryrun's own pipeline step on 4 ranks, ``{pp:
    2, dp: 2}``, ``bert_tiny(vocab_size=512)``, T 32, batch 8, M = 2, 3 steps
    against the one-rank DataParallelTrainer (losses 1e-5, weights 2e-5).
 
@@ -224,7 +224,7 @@ Tensor parallelism and ZeRO inside the pipeline's stages (``tp_mode=
    1024, 1024, 64) and K5 one a weight decay; 10 timed steps (p50, p90,
    tokens/s), a traced step (host launches, device busy, idle share), peak
    memory, the counted collectives beside the reference's estimates.
-26b. ``phase_pp_tp_ranks``: 4 gloo ranks sharing the card, 2 layers of
+26b. ``_pp_tp_ranks_steps``: 4 gloo ranks sharing the card, 2 layers of
    BERT-base width, T=1024, batch 4, M = 2, 3 steps, against the tp-1
    partitioned run in this process: ``{tp: 2}`` partitioned (K1-K3 on 6 heads
    a rank) and weight-sharded, losses 1e-5 and weights 2e-5; sp against none
@@ -263,7 +263,7 @@ The pipeline's other schedules and models (GPipe, ``remat``, the interleaved
    dropped assignments, 8 timed steps, a traced one, peak memory; a 2-layer
    copy, one step of batch 2 in M = 2, GPU against CPU (routing flips
    counted, then the training checks' tolerances).
-23b. ``phase_pp_sched_ranks``: 4 gloo ranks sharing the card (correctness
+23b. ``_pp_sched_ranks_steps``: 4 gloo ranks sharing the card (correctness
    and memory), 2 steps of batch 4 in M = 2 against the same model's 1F1B at
    pp 1 in this process, losses 1e-5 and weights 2e-5: GPipe at ``{pp: 2}``
    and ``{pp: 2, dp: 2}`` (2 layers of BERT-base width), the interleaved pp
@@ -316,7 +316,7 @@ The rest of A2 (``parallel/overlap.py``, 2-bit compression, ``dist_async``,
    bitwise eager, p50/p90 and idle share of both steps, and a padded trace of
    an eager overlapped step in which the buckets' kernels on the side stream
    start before the backward's last kernel.
-30. ``phase_overlap_ranks``: 4 gloo ranks, a narrow BERT (T 1024): the
+30. ``_overlap_ranks_steps``: 4 gloo ranks, a narrow BERT (T 1024): the
    overlapped step x {replicated, ZeRO} x {f32, bf16, int8 wire} against
    one rank, and the 2-bit compressed step against one process fed the same
    four shards with the same residual rule, on the card and on the CPU.
@@ -325,7 +325,7 @@ The rest of A2 (``parallel/overlap.py``, 2-bit compression, ``dist_async``,
    a non-leader SIGKILLed at a step boundary, the survivors' ``peer_dead``
    stop, one agreed step S committed by both; a world-1 resume from S against
    an uninterrupted world-1 run.
-32. ``phase_dist_async``: 2 workers under ``gluon.Trainer(kvstore=
+32. ``_dist_async_steps``: 2 workers under ``gluon.Trainer(kvstore=
    "dist_async")`` (the same model, SGD on the servers), 3 steps: every push
    applied once at its home, the homes' values a host replay of the pushes.
 
@@ -374,11 +374,40 @@ The hybridized Gluon training loop (``gluon/block.py``'s training pair,
    run a masked ``SelfAttention`` (causal T x T) under their sp 2 shard,
    held against one process at TOL_SP_MASK.
 
+A5's optimizers (``optimizer/``, ``ops/optimizer_ops.py``, the fused
+step's ``functional_optimizer``; the new rules are tensor ops, no kernel):
+
+37. ``phase_opt_fused`` (after phase 7): the eight fused rules (AdamW, LAMB,
+   Adam, LARS, NAG, RMSProp, AdaGrad, SGD momentum) on BERT-base's
+   parameters and last gradients against the class path (``Updater``) on
+   the card, 2 steps (OPT_CLASS_TOL), then each update by graph replay
+   against its bytes bound.
+38. ``phase_opt_pp`` (in phase 24's block): the pipeline's LAMB and LARS
+   lanes, 1F1B at pp 1, captured against eager bitwise.
+39. ``phase_opt_bert``, ``phase_opt_resnet`` (after phase 35): BERT-base
+   with LAMB (timed, and under a scheduler), LAMB in float16 (a skipped
+   step; timed) and AdamW; ResNet-50 with LARS (timed), NAG, RMSProp,
+   AdaGrad and LBSGD (K4); each captured against eager, bitwise; and the
+   LARS update over ResNet-50's parameters by graph replay.
+40. ``phase_opt_gluon``: every class but SGLD through ``gluon.Trainer`` on 2
+   layers of BERT-base width, 2 steps on the card against the same class's
+   updates on the CPU from the card's gradients (OPT_GLUON_TOL); SGLD by its
+   moments on the card.
+
+The rank phases of one world size run in one launch
+(``phase_rank_launches``): phases 26, 26b, 14 (and its D = 16 run), 23, 23b
+and 30 as 4 ranks, after phase 13's block; phases 25, 15, 20's first dp2
+and 32 as 2 ranks, after them (phase 20's world of one runs in this
+process, its second dp2 run in a launch of its own; 32's parameter servers
+last). Each phase's checks are as
+before. Phase 17's third child runs alongside the other two.
+
 ``_profile`` (the earlier phases' single-step traces) opens each session
 with PROFILE_PAD spin kernels and counts only the device records after
 them, as ``_api_launches`` does.
 
-It prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
+It prints each phase's seconds (``{"phase_seconds": ...}``), the kernels'
+JSON line and, last, ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the rest of the repository beside it, it
 exits non-zero and prints no result. Its full results, with each phase's
 seconds (``phase_seconds``), also go to ``chiprun_out/chip_smoke.json``.
@@ -597,7 +626,7 @@ TIMED_SHAPES = [("float32", "float32", 8, 12, 1024, 1024, 64),
                 ("d256_float32", "float32", 2, 12, 1024, 1024, 256),
                 ("d256_bfloat16", "bfloat16", 2, 12, 1024, 1024, 256)]
 # The pipeline's microbatch of 2 sequences in phase_pp_train (BERT-base, T=1024),
-# in f32 and then in bf16; a tp 2 rank's 6 heads of it (phase_pp_tp_ranks)
+# in f32 and then in bf16; a tp 2 rank's 6 heads of it (_pp_tp_ranks_steps)
 PP_CASES = [("pp-microbatch", 2, 12, 1024, 1024, 64, dt, False)
             for dt in ("float32", "bfloat16")] + \
     [("tp-rank", 2, 6, 1024, 1024, 64, dt, False) for dt in ("float32", "bfloat16")]
@@ -2768,7 +2797,7 @@ LC_SHAPES = [("path", 8, 32768, 32768, 32, True),
              ("d16-hop-full", 4, 4096, 4096, 16, False)]
 # dryrun_multichip's long-context model (__graft_entry__.py:243-257): units 32
 # over 2 heads, so K1-K3 run at D = 16 (the d16 rows above are its 4-rank hops
-# at phase_lc_ranks' T and batch); and the head dims the kernels are held at
+# at _lc_ranks_steps' T and batch); and the head dims the kernels are held at
 # beyond the path's: 16 (instantiated) and 80 (zero-padded to 128), f32 and
 # bf16, causal, at (BH, T, T)
 LC_DRYRUN_CFG = dict(num_layers=1, units=32, hidden_size=64, num_heads=2)
@@ -2777,7 +2806,7 @@ PLAIN_BWD_MAX_S = 20.0             # above it the path shape's check takes T=819
 
 
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
-# phase_zero_bert_ranks: the sharded step against the replicated one on the
+# _zero_bert_ranks_steps: the sharded step against the replicated one on the
 # same ranks. Native wire: the same sum of two ranks and the same elementwise
 # Adam. bf16/int8 wire: the gradients after step 1 within the wire's quantum
 # (_wire_ratio <= 1); the losses within the reference's bounds
@@ -3095,7 +3124,7 @@ def phase_lc_check(torch, weights):
 
 
 def rank_lc(workdir, axes, steps, T, device, lr, cfg=LC_CFG):
-    """One rank of phase_lc_ranks: LongContextTrainer on ``axes`` ``steps``
+    """One rank of _lc_ranks_steps: LongContextTrainer on ``axes`` ``steps``
     times, counting every kernel launch by step, shape and mask and the ring's
     point-to-point bytes; rank 0 writes the reduced gradients after the first
     step and the weights after the last."""
@@ -3161,8 +3190,8 @@ def rank_lc(workdir, axes, steps, T, device, lr, cfg=LC_CFG):
     return out
 
 
-def phase_lc_ranks(torch, weights, device="gpu", axes=None, T=LC_RANKS_T, B=LC_RANKS_B,
-                   steps=2, timeout=900, cfg=LC_CFG, label="lc-ranks"):
+def _lc_ranks_steps(torch, weights, device="gpu", axes=None, T=LC_RANKS_T, B=LC_RANKS_B,
+                    steps=2, timeout=900, cfg=LC_CFG, label="lc-ranks"):
     """LongContextTrainer on dp2 x sp2 as 4 ranks sharing the card over gloo
     (a correctness run; the ring's sends go through host memory), the
     recipe's widths, T=8192, global batch 4, Adam, f32, ``steps`` steps, against the
@@ -3203,10 +3232,10 @@ def phase_lc_ranks(torch, weights, device="gpu", axes=None, T=LC_RANKS_T, B=LC_R
     ref_weights = {k: p.data().asnumpy() for k, p in net._collect_params_with_prefix().items()}
     del trainer, net
     t_launch = time.perf_counter()
-    ranks = _dist_util.launch_local(
-        "chip_smoke:rank_lc", n, {"workdir": work, "axes": axes, "steps": steps, "T": T,
+    ranks = yield (
+        "rank_lc", n, {"workdir": work, "axes": axes, "steps": steps, "T": T,
                                   "device": device, "lr": LC_LR, "cfg": cfg},
-        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+        device, timeout, os.path.join(work, "launch"))
     seconds = time.perf_counter() - t_launch
     worst_loss = 0.0
     for r in ranks:
@@ -3296,7 +3325,7 @@ def _wire_ratio(comm, n, rep, got, chunks):
 
 
 def rank_zero_bert(workdir, cfg, steps, device, lr):
-    """One rank of phase_zero_bert_ranks at dp2: each configuration of
+    """One rank of _zero_bert_ranks_steps at dp2: each configuration of
     ZERO_CONFIGS for ``steps`` Adam steps from the same weights; rank 0
     writes the weights after the last step of each."""
     import torch
@@ -3346,7 +3375,7 @@ def rank_zero_bert(workdir, cfg, steps, device, lr):
     return out
 
 
-def phase_zero_bert_ranks(torch, device="gpu", cfg=None, steps=2, timeout=900):
+def _zero_bert_ranks_steps(torch, device="gpu", cfg=None, steps=2, timeout=900):
     """DataParallelTrainer(zero_update=True) on 2 ranks at dp2 sharing the card
     over gloo (a correctness run): 2 layers of BERT-base width, T=1024, global
     batch 4, Adam lr 1e-4, 3 steps, with native, bf16 and int8 wire dtypes,
@@ -3380,10 +3409,10 @@ def phase_zero_bert_ranks(torch, device="gpu", cfg=None, steps=2, timeout=900):
     log(f"[zero-ranks] 2 ranks at dp2 on {device} over {backend}; BertModel {cfg}, batch "
         f"4 x {T}, {steps} Adam steps, configurations {list(ZERO_CONFIGS)}")
     t0 = time.perf_counter()
-    ranks = _dist_util.launch_local(
-        "chip_smoke:rank_zero_bert", 2, {"workdir": work, "cfg": cfg, "steps": steps,
+    ranks = yield (
+        "rank_zero_bert", 2, {"workdir": work, "cfg": cfg, "steps": steps,
                                          "device": device, "lr": lr},
-        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+        device, timeout, os.path.join(work, "launch"))
     seconds = time.perf_counter() - t0
     params = {name: dict(np.load(os.path.join(work, f"{name}.npz"))) for name in ZERO_CONFIGS}
     grads = {name: dict(np.load(os.path.join(work, f"{name}_grads.npz")))
@@ -3758,10 +3787,14 @@ def phase_elastic_kill(torch, params, batch, ref_losses):
     through ``resume_or_init``: ``(4, "resumed")`` with the torn step-6
     directory invisible, then steps 5-8 (a snapshot at 5 and at 8, after
     which retention prunes the torn directory), their losses equal to the
-    uninterrupted run's at TOL_RESUME; a third child, in a fresh directory, is
-    sent SIGTERM after its second step: ``PreemptionGuard`` lets the step
-    finish, the run writes a final snapshot and returns preempted. The
-    children reuse the kernels built in ``build/``."""
+    uninterrupted run's at TOL_RESUME; a third child, in a fresh directory
+    and alongside the other two, is sent SIGTERM after its second step:
+    ``PreemptionGuard`` lets the step finish, the run writes a final snapshot
+    and returns preempted. The children reuse the kernels built in
+    ``build/``. The third child shares the card and the host with the other
+    two, so child 2's seconds (``resume_child_s``) and child 3's (from its
+    start, the phase's t0: ``term_child_s``) are taken alongside another
+    training process, not alone."""
     from mxnet_tpu_torch.elastic import manifest
     tokens, labels = batch
     work = os.path.join(ROOT, "build", "elastic_kill")
@@ -3770,7 +3803,19 @@ def phase_elastic_kill(torch, params, batch, ref_losses):
     np.savez(os.path.join(work, "weights.npz"), **params)
     np.savez(os.path.join(work, "data.npz"), x=tokens, y=labels)
     snap = os.path.join(work, "snap")
+    snap3 = os.path.join(work, "snap_term")
     t0 = time.perf_counter()
+    term_proc = _child(work, "term", snap3, 100, 0)
+    term = {"signalled": False}
+
+    def term_after_two():
+        """SIGTERM to the third child once its second step is done."""
+        if not term["signalled"] and len(_read_losses(work, "term")) >= 2:
+            term_proc.send_signal(signal.SIGTERM)
+            term["signalled"] = True
+        if not term["signalled"] and term_proc.poll() is not None:
+            _child_fail(work, "term", f"the child exited ({term_proc.returncode}) before "
+                                      f"SIGTERM")
     proc = _child(work, "kill", snap, ELASTIC_STEPS, KILL_EVERY)
     torn = manifest.step_path(snap, 3 * KILL_EVERY)
     deadline = time.monotonic() + CHILD_TIMEOUT_S
@@ -3780,6 +3825,7 @@ def phase_elastic_kill(torch, params, batch, ref_losses):
         if time.monotonic() > deadline:
             proc.kill()
             _child_fail(work, "kill", "no step-6 write within the time limit")
+        term_after_two()
         time.sleep(0.005)
     proc.send_signal(signal.SIGKILL)
     proc.wait()
@@ -3793,7 +3839,12 @@ def phase_elastic_kill(torch, params, batch, ref_losses):
     if latest != 2 * KILL_EVERY or os.path.exists(os.path.join(torn, manifest.MANIFEST)):
         raise AssertionError(f"after the kill the latest complete snapshot is {latest}")
     t1 = time.perf_counter()
-    res = _wait_child(_child(work, "resume", snap, ELASTIC_STEPS, 5), work, "resume")
+    proc = _child(work, "resume", snap, ELASTIC_STEPS, 5)
+    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    while proc.poll() is None and time.monotonic() < deadline:
+        term_after_two()
+        time.sleep(0.005)
+    res = _wait_child(proc, work, "resume")
     resume_s = time.perf_counter() - t1
     got = [r["loss"] for r in _read_losses(work, "resume")]
     rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref_losses[res["start"]:]))
@@ -3811,20 +3862,15 @@ def phase_elastic_kill(torch, params, batch, ref_losses):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the run resumed after SIGKILL disagrees with the uninterrupted one")
-    snap3 = os.path.join(work, "snap_term")
-    t2 = time.perf_counter()
-    proc = _child(work, "term", snap3, 100, 0)
     deadline = time.monotonic() + CHILD_TIMEOUT_S
-    while len(_read_losses(work, "term")) < 2:
-        if proc.poll() is not None:
-            _child_fail(work, "term", f"the child exited ({proc.returncode}) before SIGTERM")
+    while not term["signalled"]:
         if time.monotonic() > deadline:
-            proc.kill()
+            term_proc.kill()
             _child_fail(work, "term", "no second step within the time limit")
+        term_after_two()
         time.sleep(0.005)
-    proc.send_signal(signal.SIGTERM)
-    term = _wait_child(proc, work, "term")
-    term_s = time.perf_counter() - t2
+    term = _wait_child(term_proc, work, "term")
+    term_s = time.perf_counter() - t0
     final = manifest.all_complete_steps(snap3)
     ok = term["preempted"] and term["outcome"] == "fresh" and final == [term["step"]] and \
         term["step"] >= 2
@@ -3884,7 +3930,7 @@ def _check_ownership(directory, step, axes):
 
 
 def rank_elastic_zero(workdir, cfg, device, lr, modes):
-    """One rank of phase_elastic_zero_reshard, running each of ``modes`` in
+    """One rank of _elastic_zero_steps, running each of ``modes`` in
     turn on this world's dp (``zero_update=True``, one shard a rank).
     ``save``: 2 steps from the saved weights, a snapshot to ``dp<n>``, step 3.
     ``resume``: boot from the other degree's snapshot through
@@ -3964,8 +4010,8 @@ def rank_elastic_zero(workdir, cfg, device, lr, modes):
     return results
 
 
-def phase_elastic_zero_reshard(torch, device="gpu", cfg=None, timeout=900):
-    """The ZeRO state across data degrees, with phase_zero_bert_ranks' model
+def _elastic_zero_steps(torch, device="gpu", cfg=None, timeout=900):
+    """The ZeRO state across data degrees, with _zero_bert_ranks_steps' model
     (2 layers of BERT-base width, T=1024, global batch 4, Adam lr 1e-4,
     ``zero_update=True``): a snapshot after step 2 on dp2 (2 ranks sharing the
     card over gloo) resumed at world 1 (NCCL): ``"resharded"``, every Adam lane
@@ -3973,7 +4019,6 @@ def phase_elastic_zero_reshard(torch, device="gpu", cfg=None, timeout=900):
     against the 2-rank run's step 3 at TOL_ZERO_LOSS / TOL_ZERO_W; then the
     reverse, a dp1 snapshot resumed on dp2."""
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch import _dist_util
     from mxnet_tpu_torch.convert import seeded_params
     from mxnet_tpu_torch.models import BertModel
     cfg = cfg or dict(vocab_size=30522, num_layers=2, units=768, hidden_size=3072,
@@ -3994,11 +4039,15 @@ def phase_elastic_zero_reshard(torch, device="gpu", cfg=None, timeout=900):
     t0 = time.perf_counter()
     runs = {}
     for modes, n in ((("save",), 2), (("resume", "save"), 1), (("resume",), 2)):
-        out = _dist_util.launch_local(
-            "chip_smoke:rank_elastic_zero", n, {"workdir": work, "cfg": cfg, "device": device,
-                                                "lr": lr, "modes": modes},
-            device=device, timeout=timeout, pythonpath=[ROOT],
-            workdir=os.path.join(work, f"launch_{'_'.join(modes)}_dp{n}"))
+        if n == 1 and device == "gpu":
+            # the world of one runs here, in a world-1 NCCL group, sparing a
+            # process start
+            with _world1_nccl(torch):
+                out = [rank_elastic_zero(work, cfg, device, lr, modes)]
+        else:
+            out = yield ("rank_elastic_zero", n, {"workdir": work, "cfg": cfg, "device": device,
+                                                  "lr": lr, "modes": modes},
+                         device, timeout, os.path.join(work, f"launch_{'_'.join(modes)}_dp{n}"))
         for mode in modes:
             runs[f"{mode}_dp{n}"] = [r[mode] for r in out]
     seconds = time.perf_counter() - t0
@@ -4029,7 +4078,8 @@ def phase_elastic_zero_reshard(torch, device="gpu", cfg=None, timeout=900):
             f"{s[0]['losses'][2]:.6f} (max rel {loss_rel:.2e}, tol {TOL_ZERO_LOSS:.0e}), "
             f"weights max|d| {w_abs:.2e} (tol {TOL_ZERO_W:.0e}); launches "
             f"{r[0]['launches']} {'ok' if good else 'FAIL'}")
-    log(f"[elastic-zero] 3 launches in {seconds:.1f} s (dp2 ranks sharing the card over gloo)")
+    log(f"[elastic-zero] 2 launches and the world of one in this process in {seconds:.1f} s "
+        f"(dp2 ranks sharing the card over gloo)")
     if not ok:
         raise AssertionError("the ZeRO resume across data degrees disagrees")
     out["launches"] = {k: sum(a["launches"].get(k, 0) for rr in runs.values() for a in rr)
@@ -4371,7 +4421,7 @@ def _moe_run(mx, torch, weights, ctx, cfg, axes, x, y, steps, snapshot=None):
 
 
 def rank_moe(workdir, device, steps, cfg):
-    """One of 4 ranks of phase_moe_ranks: (a) the dryrun's expert_parallel_moe
+    """One of 4 ranks of _moe_ranks_steps: (a) the dryrun's expert_parallel_moe
     on {ep: 4}; (b) the recipe on {dp: 2, ep: 2} (a snapshot after step 2)
     and on {dp: 4, ep: 1}; (c) {dp: 1, ep: 4} resumed from the snapshot."""
     import torch
@@ -4433,7 +4483,7 @@ def rank_moe(workdir, device, steps, cfg):
     return out
 
 
-def phase_moe_ranks(torch, device="gpu", steps=3, timeout=900, cfg=None):
+def _moe_ranks_steps(torch, device="gpu", steps=3, timeout=900, cfg=None):
     """The MoE half of dryrun_multichip on 4 ranks sharing the card over gloo
     (a correctness run: gloo stages every collective through the host):
     (a) expert_parallel_moe at the dryrun's shapes (E 4, D 16, H 32, 32
@@ -4469,10 +4519,10 @@ def phase_moe_ranks(torch, device="gpu", steps=3, timeout=900, cfg=None):
         f"{MOE_DRYRUN}; MoETrainer at {cfg}, batch {MOE_RANKS_B} x T {MOE_T}, {steps} steps "
         f"on dp2 x ep2 and dp4 x ep1, the dp2 x ep2 snapshot resumed on dp1 x ep4")
     t0 = time.perf_counter()
-    ranks = _dist_util.launch_local(
-        "chip_smoke:rank_moe", n, {"workdir": work, "device": device, "steps": steps,
+    ranks = yield (
+        "rank_moe", n, {"workdir": work, "device": device, "steps": steps,
                                    "cfg": cfg},
-        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+        device, timeout, os.path.join(work, "launch"))
     seconds = time.perf_counter() - t0
     w = {k: dict(np.load(os.path.join(work, f"{k}.npz"))) for k in ("dp2ep2", "dp4ep1")}
     shutil.rmtree(work, ignore_errors=True)
@@ -4572,7 +4622,7 @@ def phase_pp_train(torch, params, batch, dp_bert):
     its first 3 losses equal DataParallelTrainer's batch-8 step's
     (``phase_dp_bert``, same weights and batch) to TOL_PP_LOSS, and the loss
     falls. Then 3 steps in bfloat16 (the bf16 kernels, 48 a step). Returns
-    the results and the weights after step 3 (for ``phase_pp_ranks``)."""
+    the results and the weights after step 3 (for ``_pp_ranks_steps``)."""
     import torch.distributed as dist
     import mxnet_tpu_torch as mx
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4712,7 +4762,7 @@ def _digest(arrays):
 
 
 def rank_pp(workdir, device, steps, cfg=None):
-    """One of 2 ranks of phase_pp_ranks: (a) {pp: 2} at M = 4, ``steps``
+    """One of 2 ranks of _pp_ranks_steps: (a) {pp: 2} at M = 4, ``steps``
     steps (a snapshot after step 2), peak memory of the last; the embed's and
     head's digest after the last step, the weights after ``sync()``; (b) M = 8
     on batch 16 (microbatches still of 2), peak of its second step; (c)
@@ -4794,8 +4844,8 @@ def rank_pp(workdir, device, steps, cfg=None):
     return out
 
 
-def phase_pp_ranks(torch, params, batch, pp_train, pp_w3, device="gpu", steps=3,
-                   timeout=900, cfg=None):
+def _pp_ranks_steps(torch, params, batch, pp_train, pp_w3, device="gpu", steps=3,
+                    timeout=900, cfg=None):
     """The pipeline at pp = 2 as 2 ranks sharing the card over gloo (a
     correctness run: gloo stages the point-to-point messages and the
     collectives through the host), BERT-base at T=1024 (or ``cfg``):
@@ -4828,10 +4878,10 @@ def phase_pp_ranks(torch, params, batch, pp_train, pp_w3, device="gpu", steps=3,
         f"{PP_B}, then M={2 * PP_M} batch {2 * PP_B}, then the step-2 snapshot resumed on "
         f"{{pp: 1, dp: 2}}")
     t0 = time.perf_counter()
-    ranks = _dist_util.launch_local(
-        "chip_smoke:rank_pp", n, {"workdir": work, "device": device, "steps": steps,
+    ranks = yield (
+        "rank_pp", n, {"workdir": work, "device": device, "steps": steps,
                                   "cfg": cfg},
-        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+        device, timeout, os.path.join(work, "launch"))
     seconds = time.perf_counter() - t0
     got_w = dict(np.load(os.path.join(work, "pp2.npz")))
     shutil.rmtree(work, ignore_errors=True)
@@ -4906,7 +4956,7 @@ def _dryrun_batch(seed):
 
 
 def rank_pp_dryrun(workdir, device):
-    """One of 4 ranks of phase_pp_dryrun: the dryrun's pipeline step on
+    """One of 4 ranks of _pp_dryrun_steps: the dryrun's pipeline step on
     {pp: 2, dp: 2}, PP_DRYRUN's steps; rank 0 writes the weights after
     ``sync()``."""
     import torch
@@ -4937,7 +4987,7 @@ def rank_pp_dryrun(workdir, device):
             "launches": {k: c.launches for k, c in counters.items()}}
 
 
-def phase_pp_dryrun(torch, device="gpu", timeout=600):
+def _pp_dryrun_steps(torch, device="gpu", timeout=600):
     """``dryrun_multichip``'s pipeline step (``__graft_entry__.py:162-179``) on
     4 ranks sharing the card over gloo: {pp: 2, dp: 2}, ``bert_tiny(vocab_size
     =512)``, T 32, batch 8, M = 2, Adam lr 1e-4, 3 steps against the one-rank
@@ -4963,9 +5013,9 @@ def phase_pp_dryrun(torch, device="gpu", timeout=600):
     ref_w = _host_weights(net)
     del dpt, net
     t0 = time.perf_counter()
-    ranks = _dist_util.launch_local(
-        "chip_smoke:rank_pp_dryrun", n, {"workdir": work, "device": device},
-        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+    ranks = yield (
+        "rank_pp_dryrun", n, {"workdir": work, "device": device},
+        device, timeout, os.path.join(work, "launch"))
     seconds = time.perf_counter() - t0
     got_w = dict(np.load(os.path.join(work, "pp.npz")))
     shutil.rmtree(work, ignore_errors=True)
@@ -5117,7 +5167,7 @@ def phase_pp_tp_train(torch, params, batch, pp_train):
 
 
 def rank_pp_tp(workdir, device, steps, cfg, cfg4):
-    """One of 4 ranks of phase_pp_tp_ranks (see there): each configuration's
+    """One of 4 ranks of _pp_tp_ranks_steps (see there): each configuration's
     losses, counted collectives, kernel launches by shape, held bytes and peak
     memory; rank 0 writes each one's weights after ``sync()``."""
     import torch
@@ -5190,7 +5240,7 @@ def rank_pp_tp(workdir, device, steps, cfg, cfg4):
     return out
 
 
-def phase_pp_tp_ranks(torch, device="gpu", cfg=None, timeout=900):
+def _pp_tp_ranks_steps(torch, device="gpu", cfg=None, timeout=900):
     """Tensor parallelism and ZeRO in the stages as 4 gloo ranks sharing the
     card (correctness and memory, not time): BERT-base widths with
     PP_TP_LAYERS layers (or ``cfg``), T=1024, batch PP_TP_B in M = PP_TP_M,
@@ -5251,10 +5301,10 @@ def phase_pp_tp_ranks(torch, device="gpu", cfg=None, timeout=900):
     if gpu:
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = _dist_util.launch_local(
-        "chip_smoke:rank_pp_tp", n, {"workdir": work, "device": device,
+    ranks = yield (
+        "rank_pp_tp", n, {"workdir": work, "device": device,
                                      "steps": PP_TP_RANK_STEPS, "cfg": cfg, "cfg4": cfg4},
-        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+        device, timeout, os.path.join(work, "launch"))
     seconds = time.perf_counter() - t0
     got = {k: dict(np.load(os.path.join(work, f"{k}.npz")))
            for k in ("part", "sharded", "drop", "drop_sp", "zero", "zero_bf16")}
@@ -5734,7 +5784,7 @@ def phase_pp_moe(torch, weights):
 
 
 def rank_pp_sched(workdir, device, steps, cfg, cfg4, lc_cfg, lc_T, moe_cfg):
-    """One of 4 ranks of phase_pp_sched_ranks (see there): each case's
+    """One of 4 ranks of _pp_sched_ranks_steps (see there): each case's
     losses and launches, stage 0's peaks; rank 0 writes each case's weights
     after ``sync()``."""
     import torch
@@ -5810,7 +5860,7 @@ def rank_pp_sched(workdir, device, steps, cfg, cfg4, lc_cfg, lc_T, moe_cfg):
     return out
 
 
-def phase_pp_sched_ranks(torch, device="gpu", cfg=None, timeout=900):
+def _pp_sched_ranks_steps(torch, device="gpu", cfg=None, timeout=900):
     """The new schedules and splits as 4 gloo ranks sharing the card
     (correctness and memory, not time), PP_SCHED_RANK_STEPS steps of batch
     PP_SCHED_RANK_B in M = PP_SCHED_RANK_M, each against the same model's
@@ -5882,12 +5932,12 @@ def phase_pp_sched_ranks(torch, device="gpu", cfg=None, timeout=900):
             "moe": reference("moe", lambda: _moe_pipeline(mx, weights["moe"], ctx, one,
                                                           PP_SCHED_RANK_M, moe_cfg), "moe")}
     t0 = time.perf_counter()
-    ranks = _dist_util.launch_local(
-        "chip_smoke:rank_pp_sched", n, {"workdir": work, "device": device,
+    ranks = yield (
+        "rank_pp_sched", n, {"workdir": work, "device": device,
                                         "steps": PP_SCHED_RANK_STEPS, "cfg": cfg, "cfg4": cfg4,
                                         "lc_cfg": lc_cfg, "lc_T": PP_LC_RANK_T,
                                         "moe_cfg": moe_cfg},
-        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+        device, timeout, os.path.join(work, "launch"))
     seconds = time.perf_counter() - t0
     cases = {"gpipe_pp2": "bert2", "gpipe_pp2_dp2": "bert2", "v2_pp2": "bert4",
              "lc_tp2": "lc", "moe_tp2": "moe"}
@@ -6832,7 +6882,7 @@ TOL_COMP_W = 1e-6            # the ranks' weights against the emulation's on the
 
 
 def rank_overlap(workdir, cfg, steps, device, lr):
-    """One of 4 ranks of phase_overlap_ranks: each OVERLAP_RANK_CONFIGS
+    """One of 4 ranks of _overlap_ranks_steps: each OVERLAP_RANK_CONFIGS
     configuration (``overlap_grads=True``, 2 segments) for ``steps`` Adam
     steps, then the 2-bit compressed step (no overlap, plain SGD); rank 0
     writes the weights after each."""
@@ -6930,13 +6980,13 @@ def _compressed_emulation(torch, mx, cfg, weights, x, y, ndp, steps, ctx):
     return losses, gather_params(net)
 
 
-def phase_overlap_ranks(torch, device="gpu", cfg=None, steps=3, timeout=900):
+def _overlap_ranks_steps(torch, device="gpu", cfg=None, steps=3, timeout=900):
     """4 ranks sharing the card over gloo (a correctness run) on a narrow BERT
     (OVERLAP_RANK_CFG, T=1024, global batch 8): the overlapped step
     (2 segments) x {replicated, ZeRO} x {f32, bf16, int8 wire}, Adam lr
     1e-4, ``steps`` steps, against one rank on the whole batch (f32 wire:
     losses TOL_DIST_LOSS, weights TOL_DIST_W; bf16/int8: TOL_ZERO_COMPRESSED
-    and TOL_ZERO_COMPRESSED_W, as phase_zero_bert_ranks); K5 1 and K1-K3 2 a
+    and TOL_ZERO_COMPRESSED_W, as _zero_bert_ranks_steps); K5 1 and K1-K3 2 a
     step on every rank; then the 2-bit compressed step (plain SGD, no
     overlap) against one process fed the same four shards with the same
     residual rule (``_compressed_emulation``) on the card (losses
@@ -6963,10 +7013,10 @@ def phase_overlap_ranks(torch, device="gpu", cfg=None, steps=3, timeout=900):
     ys = rs.randint(0, cfg["vocab_size"], size=(2 * n, T)).astype(np.int32)
     np.savez(os.path.join(work, "data.npz"), x=xs, y=ys)
     t0 = time.perf_counter()
-    ranks = _dist_util.launch_local(
-        "chip_smoke:rank_overlap", n, {"workdir": work, "cfg": cfg, "steps": steps,
+    ranks = yield (
+        "rank_overlap", n, {"workdir": work, "cfg": cfg, "steps": steps,
                                        "device": device, "lr": lr},
-        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+        device, timeout, os.path.join(work, "launch"))
     seconds = time.perf_counter() - t0
     got = {name: dict(np.load(os.path.join(work, f"{name}.npz")))
            for name in list(OVERLAP_RANK_CONFIGS) + ["compressed"]}
@@ -7280,7 +7330,7 @@ ASYNC_LR = 0.05
 
 
 def rank_dist_async(workdir, cfg, steps, device):
-    """One of 2 workers of phase_dist_async: a 2-layer BERT at base width on
+    """One of 2 workers of _dist_async_steps: a 2-layer BERT at base width on
     the card under ``gluon.Trainer(kvstore="dist_async")`` (SGD on the
     servers, update on the store), ``steps`` steps on its half of the batch.
     The gradients it pushes for keys whose home is the other worker go to
@@ -7369,7 +7419,7 @@ def rank_dist_async(workdir, cfg, steps, device):
             "replay_differs_pull": bad_pull, "launches": launches}
 
 
-def phase_dist_async(torch, device="gpu", cfg=None, steps=ASYNC_STEPS, timeout=600):
+def _dist_async_steps(torch, device="gpu", cfg=None, steps=ASYNC_STEPS, timeout=600):
     """``dist_async`` on the card: 2 workers (gloo, sharing the card) under
     ``gluon.Trainer(kvstore="dist_async")`` with a 2-layer BERT at base width,
     T=1024, one sequence each, SGD lr ASYNC_LR on the parameter servers,
@@ -7378,7 +7428,6 @@ def phase_dist_async(torch, device="gpu", cfg=None, steps=ASYNC_STEPS, timeout=6
     (bitwise) to a host replay of the pushes in the order it applied them;
     K1-K3 2 a step on each worker."""
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch import _dist_util
     from mxnet_tpu_torch.convert import seeded_params
     from mxnet_tpu_torch.models import BertModel
     cfg = cfg or dict(COORD_CFG)
@@ -7395,10 +7444,9 @@ def phase_dist_async(torch, device="gpu", cfg=None, steps=ASYNC_STEPS, timeout=6
              x=rs.randint(0, cfg["vocab_size"], size=(2, T)).astype(np.int32),
              y=rs.randint(0, cfg["vocab_size"], size=(2, T)).astype(np.int32))
     t0 = time.perf_counter()
-    ranks = _dist_util.launch_local(
-        "chip_smoke:rank_dist_async", 2, {"workdir": work, "cfg": cfg, "steps": steps,
+    ranks = yield ("rank_dist_async", 2, {"workdir": work, "cfg": cfg, "steps": steps,
                                           "device": device},
-        device=device, timeout=timeout, pythonpath=[ROOT], workdir=os.path.join(work, "launch"))
+                   device, timeout, os.path.join(work, "launch"))
     seconds = time.perf_counter() - t0
     nl = cfg["num_layers"]
     counts = {k: v for rk in ranks for k, v in rk["push_counts"].items()}
@@ -7790,6 +7838,464 @@ def phase_mnist(torch):
     return res
 
 
+# --- rank phases: one launch each, or one launch for several -------------------
+
+def _launch(request):
+    """One launch of a rank phase's ``(rank function, n, kwargs, device,
+    timeout, workdir)`` -> the ranks' results."""
+    from mxnet_tpu_torch import _dist_util
+    fn, n, kwargs, device, timeout, workdir = request
+    return _dist_util.launch_local(f"chip_smoke:{fn}", n, kwargs, device=device,
+                                   timeout=timeout, pythonpath=[ROOT], workdir=workdir)
+
+
+def _finish(steps, ranks):
+    """Send a rank phase's ranks' results into its steps, give any further
+    launch it yields a launch of its own, and return what the phase
+    returns."""
+    while True:
+        try:
+            request = steps.send(ranks)
+        except StopIteration as done:
+            return done.value
+        ranks = _launch(request)
+
+
+def rank_jobs(jobs):
+    """One rank of a merged launch: each ``(rank function, kwargs)`` of
+    ``jobs`` in turn, in the same process group, with a barrier and the
+    card's cache emptied between them -> each one's result and seconds."""
+    import torch
+    import torch.distributed as dist
+    results, seconds = [], []
+    for fn, kwargs in jobs:
+        t = time.perf_counter()
+        results.append(globals()[fn](**kwargs))
+        dist.barrier()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        seconds.append(time.perf_counter() - t)
+    return {"results": results, "seconds": seconds}
+
+
+def phase_rank_launches(torch, steps):
+    """Rank phases of one world size and device with ONE launch: each
+    phase's steps prepare its inputs (``steps``: the ``_*_steps`` generators,
+    in order), one launch of the ranks runs every phase's first rank function
+    in turn (``rank_jobs``), and each phase then checks its ranks' results,
+    as with a launch of its own (a phase that yields a second launch gets it
+    alone). A launch's process starts (each rank imports torch and the port
+    and joins gloo) are paid once. Each phase's own ``seconds`` then spans
+    the merged launch."""
+    from mxnet_tpu_torch import _dist_util
+    reqs = [next(st) for st in steps]
+    if len({(r[1], r[3]) for r in reqs}) != 1:
+        raise AssertionError(f"merged rank phases differ in world size or device: "
+                             f"{[(r[0], r[1], r[3]) for r in reqs]}")
+    _, n, _, device, _, _ = reqs[0]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = _dist_util.launch_local(
+        "chip_smoke:rank_jobs", n, {"jobs": [[r[0], r[2]] for r in reqs]}, device=device,
+        timeout=sum(r[4] for r in reqs), pythonpath=[ROOT],
+        workdir=os.path.join(ROOT, "build", "rank_launches"))
+    seconds = time.perf_counter() - t0
+    job_s = {f"{i}:{r[0]}": max(o["seconds"][i] for o in out) for i, r in enumerate(reqs)}
+    log(f"[rank-launches] {len(reqs)} rank phases in one launch of {n} ranks on {device}: "
+        f"{seconds:.1f} s; each phase's rank function, slowest rank: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in job_s.items()))
+    results = [_finish(st, [o["results"][i] for o in out]) for i, st in enumerate(steps)]
+    return results, {"seconds": seconds, "job_seconds": job_s, "n": n}
+
+
+# --- A5's optimizers: the fused step's rules, the 19 classes --------------------
+
+# a fused rule against its class path after 2 steps, of each tensor's max,
+# weights and states 1e-6: on the card at BERT-base the largest were 2.2e-7
+# (AdamW's weights) and 1.9e-7 (Adam's states), the rest bitwise or below
+# 1e-7. They differ where the fused row's c1 = 1 - beta1**t and c2 take
+# float32 powers (the reference's fused step's) and the classes the
+# double's (the reference's classes'), or where K4/K5 order their
+# operations otherwise
+OPT_CLASS_TOL = {"weights": 1e-6, "states": 1e-6}
+OPT_GLUON_TOL = 1e-5         # a class on the card against the CPU, of each tensor's max
+OPT_GLUON_CFG = dict(vocab_size=30522, num_layers=2, units=768, hidden_size=3072,
+                     num_heads=12, max_length=1024)
+OPT_GLUON_T, OPT_GLUON_B, OPT_GLUON_STEPS = 128, 2, 2
+OPT_GLUON_LR = 1e-4
+# the eight fused rules, BERT-base's hyper-parameters, and the bytes a
+# parameter their plain passes must move (each input read once, each output
+# written once, float32): the norms' pass reads w and g (LARS) or w and r
+# (LAMB) once more
+OPT_RULES = {
+    "adamw": ({"learning_rate": 1e-4, "wd": 0.01}, 28),
+    "lamb": ({"learning_rate": 1e-3, "wd": 0.01}, 40),
+    "adam": ({"learning_rate": 1e-4, "wd": 0.01}, 28),
+    "lars": ({"learning_rate": 0.1, "momentum": 0.9, "eta": 0.001, "wd": 5e-5}, 28),
+    "nag": ({"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}, 20),
+    "rmsprop": ({"learning_rate": 1e-4, "wd": 1e-4}, 20),
+    "adagrad": ({"learning_rate": 1e-3, "wd": 1e-4}, 20),
+    "sgd": ({"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}, 20),
+}
+OPT_RESNET_X = (32, 3, 224, 224)
+# ResNet-50's cells: (optimizer, params, K4 launches a step)
+OPT_RESNET = {
+    "lars": ({"learning_rate": 0.1, "momentum": 0.9, "eta": 0.001, "wd": 5e-5}, 0),
+    "nag": ({"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}, 0),
+    "rmsprop": ({"learning_rate": 1e-4, "wd": 1e-4}, 0),
+    "adagrad": ({"learning_rate": 1e-3, "wd": 1e-4}, 0),
+    "lbsgd": ({"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}, 1),
+}
+
+
+def _opt_tensors_rel(torch, got, want):
+    return max((_rel_diff(torch, a, b) for a, b in zip(got, want)), default=0.0)
+
+
+def _fused_update_ms(torch, update, ws, gs, states, h):
+    """Device time of one fused update over the lists, by CUDA-graph replay
+    (on copies: the graph writes them)."""
+    ws = [w.clone() for w in ws]
+    states = [tuple(s.clone() for s in st) for st in states]
+    return _graph_ms(torch, lambda: update(ws, gs, states, h), iters=10)
+
+
+def _opt_compared(torch, label, make, x, y, per_step, atomic=False):
+    """A path's captured step against eager over GRAPH_CMP_STEPS steps,
+    without the timed runs (``_train_compare``): losses, weights, optimizer
+    state (and a pipeline's ``last_stats``) bitwise, one capture, the loss
+    falling, and the kernels' launches over both runs 2 GRAPH_CMP_STEPS
+    ``per_step``."""
+    counters = {**_fused_counters(), **_flash_counters()}
+    _zero_counters(counters)
+    cmp = _train_compare(torch, make, x, y, GRAPH_CMP_STEPS, False, atomic)
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    want = {k: 2 * GRAPH_CMP_STEPS * v for k, v in per_step.items() if v}
+    ok = not (cmp["loss_rel"] or cmp["weight_rel"] or cmp["state_rel"]) \
+        and cmp["last_stats_equal"] and cmp["captures"] == 1 and launches == want \
+        and cmp["losses"][-1] < cmp["losses"][0]
+    log(f"[opt-compare] {label}: {GRAPH_CMP_STEPS} steps captured against eager"
+        f"{' (deterministic algorithms)' if atomic else ''}, losses {cmp['losses']}, "
+        f"differences {cmp['loss_rel']:.3e} / {cmp['weight_rel']:.3e} / "
+        f"{cmp['state_rel']:.3e} (losses / weights / state, bitwise wanted), last_stats "
+        f"equal {cmp['last_stats_equal']}, launches over both runs {launches} (want {want}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: captured disagrees with eager or the launches "
+                             f"differ: {cmp}")
+    return dict(cmp, launches=launches)
+
+
+def phase_opt_fused(torch, weights, grads):
+    """The fused step's eight rules (``functional_optimizer``: AdamW, LAMB,
+    Adam, LARS, NAG, RMSProp, AdaGrad, SGD momentum) on BERT-base's
+    133,349,946 parameters and one set of its gradients, each against the
+    class path (``Updater``, a parameter at a time) on the card: two steps
+    (t 1 and 2) from zero state, every weight and state within OPT_CLASS_TOL
+    of each tensor's max (bitwise noted where it is); then the fused update
+    alone by CUDA-graph replay against its bytes bound (OPT_RULES' bytes a
+    parameter over 3.35 TB/s)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.parallel.data_parallel import functional_optimizer
+    ctx = mx.gpu(0)
+    n = sum(w.numel() for w in weights)
+    g0 = [g.detach().clone() for g in grads]
+    out = {}
+    for name, (params, bpp) in OPT_RULES.items():
+        opt = mx.optimizer.create(name, **params)
+        init, update, hyper = functional_optimizer(opt)
+        ws = [w.detach().clone() for w in weights]
+        states = [init(w) for w in ws]
+        wd = opt._get_wd(0)
+        rows = [torch.tensor(hyper(t, params["learning_rate"], wd), dtype=torch.float32,
+                             device=ws[0].device) for t in (1, 2)]
+        for h in rows:
+            update(ws, g0, states, h)
+        cls = mx.optimizer.create(name, **params)
+        upd = mx.optimizer.get_updater(cls)
+        cw = [NDArray(w.detach().clone(), ctx) for w in weights]
+        for _ in range(2):
+            for i, (w, g) in enumerate(zip(cw, g0)):
+                upd(i, NDArray(g, ctx), w)
+        torch.cuda.synchronize()
+        cstates = [tuple(s._data for s in (st if isinstance(st, tuple) else (st,)))
+                   for st in (upd.states[i] for i in range(len(cw)))]
+        w_rel = _opt_tensors_rel(torch, ws, [w._data for w in cw])
+        s_rel = _opt_tensors_rel(torch, [s for st in states for s in st],
+                                 [s for st in cstates for s in st])
+        bitwise = w_rel == 0.0 and s_rel == 0.0
+        del cw, cstates, upd
+        ms = _fused_update_ms(torch, update, ws, g0, states, rows[1])
+        bound = n * bpp / PEAK_BYTES_PER_S * 1e3
+        out[name] = {"weight_rel": w_rel, "state_rel": s_rel, "bitwise": bitwise,
+                     "graph_ms": ms, "bound_ms": bound, "bytes_per_param": bpp,
+                     "fields": list(hyper.fields)}
+        log(f"[opt-fused] {name}: fused against the class path after 2 steps, weights "
+            f"{w_rel:.3e}, states {s_rel:.3e} of max (tol {OPT_CLASS_TOL['weights']:.0e} / "
+            f"{OPT_CLASS_TOL['states']:.0e}"
+            f"{', bitwise' if bitwise else ''}); the update by graph {ms:.4f} ms against "
+            f"{bound:.4f} ms ({bpp} B a parameter)")
+        del ws, states
+        torch.cuda.empty_cache()
+        if not (w_rel <= OPT_CLASS_TOL["weights"] and s_rel <= OPT_CLASS_TOL["states"]):
+            raise AssertionError(f"opt-fused {name}: the fused rule disagrees with the class "
+                                 f"path ({w_rel:.3e} / {s_rel:.3e})")
+    return {"parameters": n, "rules": out}
+
+
+def phase_opt_bert(torch, bert_params, bert_batch):
+    """BERT-base T=1024 batch 8 through ``DataParallelTrainer`` with the new
+    rules, f32 with TF32 off, captured against eager, bitwise: LAMB lr 1e-3
+    wd 0.01 (``_train_modes``: the compared steps, GRAPH_SCHED_STEPS under a
+    FactorScheduler that changes lr every step, then both modes timed),
+    LAMB in float16 from the default scale 2^16 (a skipped step among the
+    compared; timed too) and AdamW lr 1e-4 wd 0.01 (compared only,
+    ``_opt_compared``); K1-K3 12 times a step each, K4/K5 not at all."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import bert_base
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.gpu(0)
+    zero = {k: 0 for k in {**_fused_counters(), **_flash_counters()}}
+    per_step = dict(zero, **{k: 12 for k in _flash_counters()})
+    x, y = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in bert_batch)
+    net = bert_base(max_length=1024)
+    net.initialize(ctx=ctx)
+
+    def maker(name, params, dtype=None):
+        def make():
+            load_jax_params(net, bert_params)
+            return _dp_trainer(mx, net, ctx, name, params, dtype=dtype)
+        return make
+    lamb = {"learning_rate": 1e-3, "wd": 0.01}
+    out = {"lamb": _train_modes(torch, mx, "bert-base lamb", maker("lamb", lamb), x, y,
+                                per_step),
+           "adamw": _opt_compared(torch, "bert-base adamw",
+                                  maker("adamw", {"learning_rate": 1e-4, "wd": 0.01}), x, y,
+                                  per_step),
+           "lamb_float16": _f16_path(torch, mx, "bert-base lamb float16",
+                                     maker("lamb", lamb, "float16"), x, y, per_step, False, 12)}
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_opt_resnet(torch, resnet_params):
+    """ResNet-50 v1 batch 32 through ``DataParallelTrainer``, f32 with TF32
+    off, captured against eager, bitwise (deterministic algorithms for the
+    compared steps): LARS (lr 0.1, momentum 0.9, eta 0.001, wd 5e-5;
+    ``_train_modes``, timed too), NAG, RMSProp, AdaGrad and LBSGD (SGD's
+    rule: K4 once a step; compared only, ``_opt_compared``); then the
+    LARS update alone over ResNet-50's parameters by CUDA-graph replay
+    against its 28 B a parameter."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.parallel.data_parallel import functional_optimizer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.gpu(0)
+    rs = np.random.RandomState(43)
+    x = mx.nd.array(rs.uniform(-1, 1, OPT_RESNET_X).astype(np.float32), ctx=ctx)
+    y = mx.nd.array(rs.randint(0, 1000, OPT_RESNET_X[:1]).astype(np.int32), ctx=ctx,
+                    dtype="int32")
+    params0 = _zero_last_gamma(resnet_params)
+    net, _ = _resnet50(mx, ctx, params0)
+    zero = {k: 0 for k in {**_fused_counters(), **_flash_counters()}}
+    out = {}
+    for name, (params, k4) in OPT_RESNET.items():
+        def make(name=name, params=params):
+            load_jax_params(net, params0)
+            return _dp_trainer(mx, net, ctx, name, params)
+        per_step = dict(zero, fused_sgd_mom_update=k4)
+        out[name] = _train_modes(torch, mx, f"resnet-50 {name}", make, x, y, per_step,
+                                 atomic=True, sched=False) if name == "lars" else \
+            _opt_compared(torch, f"resnet-50 {name}", make, x, y, per_step, atomic=True)
+    ws = [p._param.detach() for p in net.collect_params().values() if p.grad_req != "null"]
+    n = sum(w.numel() for w in ws)
+    opt = mx.optimizer.create("lars", **OPT_RESNET["lars"][0])
+    init, update, hyper = functional_optimizer(opt)
+    gen = torch.Generator(device=ws[0].device)
+    gen.manual_seed(44)
+    gs = [torch.randn(w.shape, generator=gen, device=w.device) * 1e-2 for w in ws]
+    h = torch.tensor(hyper(1, 0.1, 5e-5), dtype=torch.float32, device=ws[0].device)
+    ms = _fused_update_ms(torch, update, ws, gs, [init(w) for w in ws], h)
+    bound = n * 28 / PEAK_BYTES_PER_S * 1e3
+    out["lars_update"] = {"parameters": n, "tensors": len(ws), "graph_ms": ms,
+                          "bound_ms": bound}
+    log(f"[opt-resnet] the LARS update over ResNet-50's {n} parameters ({len(ws)} tensors) "
+        f"by graph {ms:.4f} ms against {bound:.4f} ms (28 B a parameter)")
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_opt_pp(torch, params, batch):
+    """``PipelineTrainer`` 1F1B, BERT-base T=1024 batch 8 in M = 4 at pp 1
+    (the caller holds a world-1 NCCL group), f32 with TF32 off, with LAMB (lr
+    1e-3, wd 0.01) and LARS (lr 0.1, momentum 0.9, eta 0.001, wd 5e-5): the
+    captured step against eager over GRAPH_CMP_STEPS steps, losses, weights,
+    optimizer state and ``last_stats`` bitwise (``_opt_compared``); K1-K3 48
+    times a step, K4/K5 not at all."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_jax_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.gpu(0)
+    x, y = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in batch)
+    net = _bert_base_net(mx, params, ctx)
+    mesh = mx.parallel.make_mesh({"pp": 1, "dp": 1}, devices=[ctx])
+    zero = {k: 0 for k in {**_fused_counters(), **_flash_counters()}}
+    per_step = dict(zero, **{k: 12 * PP_M for k in _flash_counters()})
+    out = {}
+    for name, opt_params in (("lamb", {"learning_rate": 1e-3, "wd": 0.01}),
+                             ("lars", OPT_RESNET["lars"][0])):
+        def make(name=name, opt_params=opt_params):
+            load_jax_params(net, params)
+            tr = mx.parallel.PipelineTrainer(
+                net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), optimizer=name,
+                optimizer_params=opt_params, mesh=mesh, dp_axis="dp", num_microbatch=PP_M)
+            if tr._eager_reason() is not None:
+                raise AssertionError(f"opt-pp {name}: eager reason {tr._eager_reason()}")
+            return tr
+        out[name] = _opt_compared(torch, f"pipeline 1f1b pp 1 {name}", make, x, y, per_step)
+        torch.cuda.empty_cache()
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def _opt_gluon_kw(name):
+    """The arguments of ``name`` in phase_opt_gluon: lr OPT_GLUON_LR (none for
+    AdaDelta), wd 0.01, momentum 0.9 where the class takes one."""
+    kw = {"wd": 0.01} if name == "adadelta" else {"learning_rate": OPT_GLUON_LR, "wd": 0.01}
+    if name in ("sgd", "ccsgd", "nag", "lbsgd", "lars", "signum"):
+        kw["momentum"] = 0.9
+    return kw
+
+
+def _opt_gluon_first(mx, net, params, x, y):
+    """Step 1's loss and gradients from the seeded weights (every class's
+    first step has the same): the gradients as tensors of the device."""
+    from mxnet_tpu_torch.convert import load_jax_params
+    load_jax_params(net, params)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    keys = net._collect_params_with_prefix()
+    return (float(np.mean(loss.asnumpy())),
+            {k: p._grad.detach().clone() for k, p in keys.items() if p._grad is not None})
+
+
+def _opt_gluon_run(mx, net, params, name, first, x, y):
+    """OPT_GLUON_STEPS steps of ``gluon.Trainer`` with optimizer ``name`` from
+    ``params``, step 1 from ``first`` (its loss and gradients) -> (losses,
+    each step's gradients, the weights), numpy."""
+    from mxnet_tpu_torch.convert import load_jax_params
+    load_jax_params(net, params)
+    trainer = mx.gluon.Trainer(net.collect_params(), name, _opt_gluon_kw(name))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    keys = net._collect_params_with_prefix()
+    for k, g in first[1].items():
+        keys[k]._grad.copy_(g)
+    trainer.step(x.shape[0])
+    losses = [first[0]]
+    grads = [{k: g.cpu().numpy() for k, g in first[1].items()}]
+    for _ in range(OPT_GLUON_STEPS - 1):
+        losses.append(float(np.mean(_train_step(mx, net, loss_fn, trainer, x, y).asnumpy())))
+        grads.append({k: p.grad().asnumpy() for k, p in keys.items()})
+    return losses, grads, {k: p.data().asnumpy() for k, p in keys.items()}
+
+
+def _opt_gluon_cpu(mx, torch, plist, keys, params, name, grads, batch):
+    """The class ``name`` on the CPU through its ``Updater``, from
+    ``params``: each step's gradients (``grads``, the card's, by key) applied
+    a parameter at a time in the order of ``plist`` (the card's Trainer's,
+    whose lr and wd multipliers it reads), with the Trainer's
+    ``rescale_grad`` (1 / batch) -> the weights by key."""
+    from mxnet_tpu_torch.ndarray import NDArray
+    opt = mx.optimizer.create(name, param_dict=dict(enumerate(plist)), **_opt_gluon_kw(name))
+    opt.rescale_grad = 1.0 / batch
+    upd = mx.optimizer.get_updater(opt)
+    ws = [NDArray(torch.from_numpy(np.array(params[keys[id(p)]])), mx.cpu()) for p in plist]
+    for step in grads:
+        for i, (p, w) in enumerate(zip(plist, ws)):
+            upd(i, NDArray(torch.from_numpy(step[keys[id(p)]]), mx.cpu()), w)
+    return {keys[id(p)]: w._data for p, w in zip(plist, ws)}
+
+
+def phase_opt_gluon(torch, bert_params):
+    """Every registered optimizer class but SGLD through ``gluon.Trainer`` on
+    a 2-layer model of BERT-base width (T=128, batch 2, ``_opt_gluon_kw``)
+    for OPT_GLUON_STEPS steps on the card (the first step from one forward
+    and backward of the seeded weights, which every class shares), against
+    the same class on the CPU through its ``Updater`` from the same weights
+    and the card's gradients of each step: every weight within
+    OPT_GLUON_TOL of its tensor's max, and moved from the seeded ones. (The
+    model's forward and backward on the card against the CPU's are
+    phase_train_check's; here both devices take the same gradients, so no
+    element is exempt.) SGLD on the card by its moments: g = 0 on 2^20
+    elements, the step's mean within 4 sigma of 0 and its variance within
+    2% of lr."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import BertModel
+    from mxnet_tpu_torch.optimizer.optimizer import _OPT_REGISTRY
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = _first_layers(bert_params, OPT_GLUON_CFG["num_layers"])
+    rs = np.random.RandomState(47)
+    x, y = (mx.nd.array(rs.randint(0, OPT_GLUON_CFG["vocab_size"],
+                                   size=(OPT_GLUON_B, OPT_GLUON_T)).astype(np.int32),
+                        ctx=mx.gpu(0), dtype="int32") for _ in range(2))
+    net = BertModel(**OPT_GLUON_CFG)
+    net.initialize(ctx=mx.gpu(0))
+    first = _opt_gluon_first(mx, net, params, x, y)
+    plist = list(net.collect_params().values())
+    keys = {id(p): k for k, p in net._collect_params_with_prefix().items()}
+    out, bad = {}, []
+    for name in sorted(_OPT_REGISTRY):
+        if name == "sgld":
+            continue
+        t0 = time.perf_counter()
+        losses, grads, got = _opt_gluon_run(mx, net, params, name, first, x, y)
+        t1 = time.perf_counter()
+        want = _opt_gluon_cpu(mx, torch, plist, keys, params, name, grads, OPT_GLUON_B)
+        t2 = time.perf_counter()
+        w_rel = max(float(np.abs(got[k] - w.numpy()).max())
+                    / max(float(w.abs().max()), 1e-30) for k, w in want.items())
+        moved = max(float(np.abs(got[k] - params[k]).max()) for k in want)
+        ok = w_rel <= OPT_GLUON_TOL and moved > 0 and all(np.isfinite(losses))
+        out[name] = {"losses": losses, "weight_rel": w_rel, "weight_moved": moved,
+                     "kw": _opt_gluon_kw(name), "ok": ok,
+                     "seconds": {"gpu": t1 - t0, "cpu": t2 - t1}}
+        log(f"[opt-gluon] {name}: {OPT_GLUON_STEPS} steps on the card, losses {losses}; the "
+            f"CPU's updates from the same gradients: weights {w_rel:.2e} of max (tol "
+            f"{OPT_GLUON_TOL:.0e}), moved up to {moved:.2e} {'ok' if ok else 'FAIL'} "
+            f"({t1 - t0:.1f} s on the card, {t2 - t1:.1f} s on the CPU)")
+        if not ok:
+            bad.append(name)
+    del net
+    n, lr = 2 ** 20, 0.04
+    mx.random.seed(48)
+    sgld = mx.optimizer.create("sgld", learning_rate=lr)
+    w = mx.nd.zeros((n,), ctx=mx.gpu(0))
+    sgld.update(0, w, mx.nd.zeros((n,), ctx=mx.gpu(0)), None)
+    step = w.asnumpy().astype(np.float64)
+    mean_sigmas = abs(step.mean()) / np.sqrt(lr / n)
+    var_rel = abs(step.var() / lr - 1)
+    out["sgld"] = {"mean_sigmas": mean_sigmas, "var_rel": var_rel,
+                   "ok": mean_sigmas <= 4 and var_rel <= 0.02}
+    log(f"[opt-gluon] sgld on the card, g = 0 on 2^20 elements: the step's mean "
+        f"{mean_sigmas:.2f} sigma from 0 (tol 4), its variance off lr by {var_rel:.2%} "
+        f"(tol 2%) {'ok' if out['sgld']['ok'] else 'FAIL'}")
+    if not out["sgld"]["ok"]:
+        bad.append("sgld")
+    if bad:
+        raise AssertionError(f"opt-gluon: the card disagrees with the CPU for {bad}")
+    return out
+
+
 @contextlib.contextmanager
 def _world1_nccl(torch):
     """A world-1 process group on the card, over the backend rule's choice
@@ -7831,6 +8337,7 @@ def main() -> int:
     train, weights, grads, bert_params, bert_batch = phase_train(torch)
     train_check = phase_train_check(torch)
     fused = phase_fused(torch, weights, grads)
+    opt_fused = phase_opt_fused(torch, weights, grads)
     del weights, grads
     torch.cuda.empty_cache()
     rtc = phase_rtc(torch)
@@ -7855,10 +8362,7 @@ def main() -> int:
         pp_gpipe = phase_pp_gpipe(torch, bert_params, bert_batch, pp_train, pp_w3)
         pp_interleaved = phase_pp_interleaved(torch, bert_params, bert_batch, pp_train)
         pp_graph = phase_pp_graph(torch, bert_params, bert_batch)
-    pp_ranks = phase_pp_ranks(torch, bert_params, bert_batch, pp_train, pp_w3)
-    del pp_w3
-    pp_dryrun = phase_pp_dryrun(torch)
-    pp_tp_ranks = phase_pp_tp_ranks(torch)
+        opt_pp = phase_opt_pp(torch, bert_params, bert_batch)
     torch.cuda.empty_cache()
     lc_kernels = phase_lc_kernels(torch)
     lc_weights = _lc_weights()
@@ -7868,38 +8372,51 @@ def main() -> int:
         lc_check = phase_lc_check(torch, lc_weights)
         elastic_lc = phase_elastic_lc(torch, lc_weights)
     torch.cuda.empty_cache()
-    lc_ranks = phase_lc_ranks(torch, lc_weights)
-    lc_ranks_d16 = phase_lc_ranks(torch, _lc_weights(LC_DRYRUN_CFG), cfg=LC_DRYRUN_CFG,
-                                  label="lc-ranks-d16")
-    zero_ranks = phase_zero_bert_ranks(torch)
-    elastic_zero = phase_elastic_zero_reshard(torch)
+    # the 4-rank gloo phases, each with its own checks, in one launch
+    (pp_dryrun, pp_tp_ranks, lc_ranks, lc_ranks_d16, moe_ranks, pp_sched_ranks,
+     overlap_ranks), rank_launches = phase_rank_launches(torch, [
+        _pp_dryrun_steps(torch), _pp_tp_ranks_steps(torch), _lc_ranks_steps(torch, lc_weights),
+        _lc_ranks_steps(torch, _lc_weights(LC_DRYRUN_CFG), cfg=LC_DRYRUN_CFG,
+                        label="lc-ranks-d16"),
+        _moe_ranks_steps(torch), _pp_sched_ranks_steps(torch), _overlap_ranks_steps(torch)])
+    # the 2-rank gloo phases in one launch (the ZeRO reshard's second dp2 run,
+    # which needs its dp1 run in between, in a launch of its own; dist_async's
+    # parameter servers last)
+    (pp_ranks, zero_ranks, elastic_zero, dist_async), rank_launches_2 = phase_rank_launches(
+        torch, [_pp_ranks_steps(torch, bert_params, bert_batch, pp_train, pp_w3),
+                _zero_bert_ranks_steps(torch), _elastic_zero_steps(torch),
+                _dist_async_steps(torch)])
+    del pp_w3
     moe_weights = _moe_weights(MOE_CFG, seed=30)
     with _world1_nccl(torch):
         moe_train = phase_moe_train(torch, moe_weights)
         moe_check = phase_moe_check(torch)
         pp_moe = phase_pp_moe(torch, moe_weights)
     moe_serve = phase_moe_serve(torch, moe_weights)
-    moe_ranks = phase_moe_ranks(torch)
-    pp_sched_ranks = phase_pp_sched_ranks(torch)
     graph_serve = phase_graph_serve(torch, bert_params, resnet_params, moe_weights)
     graph_train = phase_graph_train(torch, bert_params, bert_batch, resnet_params, lc_weights,
                                     moe_weights)
     del moe_weights
     f16_step = phase_f16_step(torch, bert_params, bert_batch, resnet_params)
+    opt_bert = phase_opt_bert(torch, bert_params, bert_batch)
+    opt_resnet = phase_opt_resnet(torch, resnet_params)
+    opt_gluon = phase_opt_gluon(torch, bert_params)
     gluon_pair = phase_gluon_pair(torch, bert_params, bert_batch, resnet_params)
     mnist = phase_mnist(torch)
     with _world1_nccl(torch):
         overlap_bert = phase_overlap_bert(torch, bert_params, bert_batch)
     del bert_params
     torch.cuda.empty_cache()
-    overlap_ranks = phase_overlap_ranks(torch)
     coord_kill = phase_coord_kill(torch)
-    dist_async = phase_dist_async(torch)
     f32 = kernel["timings"]["float32"]
     b32 = kernel_bwd["timings"]["float32"]
     src = "mxnet_tpu_torch/csrc/"
     ref = "mxnet_tpu/ops/pallas/"
     dist_by_dtype = {dt: dist_nccl[dt] for dt in ("float32", "bfloat16")}
+
+    opt_cells = [*(("bert_" + k, v) for k, v in opt_bert.items()),
+                 *(("resnet_" + k, v) for k, v in opt_resnet.items() if k != "lars_update"),
+                 *(("pp_" + k, v) for k, v in opt_pp.items())]
 
     def dp_launches(name):
         """Launches of ``name`` on the fused-step paths, by path (the ranks'
@@ -7945,6 +8462,12 @@ def main() -> int:
                    for path, r in list(pp_graph.items()) + [("lc", pp_lc["graph"]),
                                                             ("moe", pp_moe["graph"])]
                    for mode in r["modes"]},
+                # A5's rules: the timed cells eager and captured, the compared
+                # ones over both modes' compared steps
+                **{f"opt_{path}_{mode}": r["modes"][mode]["launches"].get(name, 0)
+                   for path, r in opt_cells if "modes" in r for mode in r["modes"]},
+                **{f"opt_{path}": r["launches"].get(name, 0) for path, r in opt_cells
+                   if "modes" not in r},
                 "zero_ranks": sum(lc.get(name, 0) for c in zero_ranks["configs"].values()
                                   for lc in c["launches"])}
 
@@ -8155,12 +8678,17 @@ def main() -> int:
                    "coord_kill": coord_kill, "dist_async": dist_async,
                    "gluon_pair": gluon_pair, "mnist": mnist, "f16_step": f16_step,
                    "pp_graph": pp_graph,
+                   "rank_launches": {"4": rank_launches, "2": rank_launches_2},
+                   "opt_fused": opt_fused, "opt_bert": opt_bert,
+                   "opt_resnet": opt_resnet, "opt_pp": opt_pp, "opt_gluon": opt_gluon,
                    "kernels": line["kernels"],
                    "seconds": time.perf_counter() - t0, "phase_seconds": PHASE_SECONDS,
                    "process_seconds": time.perf_counter() - T_START},
                   f, indent=1, default=float)
     log(f"[done] {time.perf_counter() - t0:.1f} s, {time.perf_counter() - T_START:.1f} s "
         f"since the process started")
+    print(json.dumps({"phase_seconds": {k: round(v, 1) for k, v in PHASE_SECONDS.items()},
+                      "seconds": round(time.perf_counter() - t0, 1)}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": device["name"],

@@ -33,6 +33,9 @@ def _make_wrapper(op_name: str):
         if op.name == "Dropout":
             from .. import autograd
             kwargs.setdefault("training", autograd.is_training())
+        # an array given by keyword (``_adamw_update``'s rescale_grad) reaches
+        # the op as its tensor
+        kwargs = {k: v._data if isinstance(v, NDArray) else v for k, v in kwargs.items()}
         return invoke(op, inputs, kwargs)
 
     wrapper.__name__ = op_name

@@ -235,11 +235,12 @@ def invoke(op: Union[str, Op], inputs: Sequence[NDArray], params: Dict[str, Any]
     raw = [x._data for x in inputs]
     with torch.set_grad_enabled(op.differentiable and autograd.is_recording()):
         outs = op(*raw, **params)
-    if op.state_inputs:
+    pairs = op.state_inputs(raw, params) if callable(op.state_inputs) else op.state_inputs
+    if pairs:
         with torch.no_grad():
-            for i, o in op.state_inputs:
+            for i, o in pairs:
                 raw[i].copy_(outs[o])
-        dropped = {o for _, o in op.state_inputs}
+        dropped = {o for _, o in pairs}
         outs = tuple(t for j, t in enumerate(outs) if j not in dropped)
         if len(outs) == 1:
             outs = outs[0]

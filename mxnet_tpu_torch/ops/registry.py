@@ -16,9 +16,11 @@ the kernels' launch counters do count replays.
 ``differentiable=False`` marks an op that ``invoke`` always runs under
 ``torch.no_grad()``, recording or not (the optimizer updates, reference
 ``ops/optimizer_ops.py:106``). ``state_inputs`` pairs ``(input index,
-output index)``: ``invoke`` copies those outputs into the input tensors in
-place and returns the rest, as the reference's nd wrappers write an
-optimizer op's updated states back (reference ``ndarray.py:531-543``).
+output index)``, or a function ``(inputs, params) -> pairs`` for an op
+whose layout follows its params (the ``multi_*`` updates): ``invoke``
+copies those outputs into the input tensors in place and returns the
+rest, as the reference's nd wrappers write an optimizer op's updated
+states back (reference ``ndarray.py:531-543``).
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ class Op:
         self.fn = fn
         self.aliases = aliases
         self.differentiable = differentiable
-        self.state_inputs = tuple(state_inputs)
+        self.state_inputs = state_inputs if callable(state_inputs) else tuple(state_inputs)
         self.doc = doc or (fn.__doc__ or "")
         self.calls = 0
 

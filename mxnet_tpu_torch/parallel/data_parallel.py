@@ -7,15 +7,19 @@ Counterpart of ``mxnet_tpu/parallel/data_parallel.py``: ``functional_optimizer``
 forward, backward and the update of every parameter into one jit, with lr,
 t and the loss scale as device arguments (:805, :832, :1479-1492). Here the
 step body (``_body``: forward, backward, the copy into the gradient
-buckets, their all-reduce, the update) is written once, and the update of
-every parameter is one launch of the fused multi-tensor kernel
-(``ops/cuda/fused_optimizer.py``, kernels K4 and K5 of
-``csrc/fused_optimizer.cu``) with the rules the reference's step applies:
-``sgd_update``, ``sgd_mom_update`` and ``adam_update`` with the bias
-correction folded into lr (``_k_sgd``, ``_k_sgd_mom``, ``_k_adam``). The
-update reads its scalars (lr, momentum, wd, ..., one row a weight decay)
-from the trainer's ``_hyper`` tensor on the device, which the host writes
-before each step, so a new learning rate costs no new program.
+buckets, their all-reduce, the update) is written once. The update of
+every parameter under SGD (and LBSGD, ccSGD) or Adam is one launch of the
+fused multi-tensor kernel (``ops/cuda/fused_optimizer.py``, kernels K4 and
+K5 of ``csrc/fused_optimizer.cu``) with the rules the reference's step
+applies: ``sgd_update``, ``sgd_mom_update`` and ``adam_update`` with the
+bias correction folded into lr (``_k_sgd``, ``_k_sgd_mom``, ``_k_adam``);
+under AdamW, LAMB, LARS, NAG, RMSProp (not centered) and AdaGrad it is the
+optimizer class's own ``_k_*`` rule in tensor ops, a tensor at a time (the
+reference's rules are plain jnp in its jit: no Pallas kernel). The update
+reads its scalars (lr, wd, the bias corrections, ..., one row a weight
+decay, the fields the rule declares) from the trainer's ``_hyper`` tensor
+on the device, which the host writes before each step, so a new learning
+rate costs no new program.
 
 The compiled step: on a CUDA device the body is captured as a CUDA graph
 (``engine.capture``). Step 1 of a signature (the shapes and dtypes of x and
@@ -84,11 +88,15 @@ A step (reference :832-877):
   every step; ``run_steps`` keeps the scale for the call and runs it at its
   last step on the OR of the call's flags (``_found_acc``). Nothing of it
   is read on the host: ``LossScaler.loss_scale`` syncs only when read;
-- updates every trainable parameter and its state in place with one launch
-  (one per distinct weight decay, each reading its row of ``_hyper``; one
-  in the models of this repository), through the cached pointer table: the
-  parameters, gradient buffers and states keep their storage from step to
-  step.
+- updates every trainable parameter and its state in place: under SGD and
+  Adam with one launch (one per distinct weight decay, each reading its row
+  of ``_hyper``; one in the models of this repository), through the cached
+  pointer table; under the other rules a tensor at a time, LAMB's and
+  LARS's norms each parameter's own (a sharded parameter's summed over the
+  ranks that hold its pieces). The parameters, gradient buffers and
+  states keep their storage from step to step. Under ``zero_update`` LAMB
+  and LARS raise with the reference's words: their norms would be taken
+  over bucket shards.
 
 ``step`` returns a ``PendingScalar`` of the loss, which syncs only when read,
 so steps of every dtype, captured or not, run without a host sync. The
@@ -224,37 +232,203 @@ def _f32(x) -> np.float32:
     return np.float32(x)
 
 
+def _f32_pow(base, t) -> np.float32:
+    """``1 - base**t`` in float32 (the reference's traced ``1 - beta**t``)."""
+    return np.float32(1) - _f32(base) ** _f32(t)
+
+
+def _row(fields, **values) -> List[float]:
+    """The float32-rounded values of ``fields``, in order."""
+    if set(values) != set(fields):
+        raise MXNetError(f"hyper row: fields {sorted(set(fields) ^ set(values))} differ")
+    return [float(_f32(values[k])) for k in fields]
+
+
+def _keep_old(skip):
+    """The float16 gate as a 0-d bool on the device (True: write nothing),
+    or None; the flag is never read on the host."""
+    return None if skip is None else skip.reshape(()) != 0
+
+
+def _put(keep, dst, new):
+    """Write each ``new`` into its ``dst`` in place, or leave ``dst`` as it
+    is where ``keep`` is set."""
+    for d, n in zip(dst, new):
+        d.copy_(n if keep is None else torch.where(keep, d, n))
+
+
+def _group_norm(norms):
+    """The float32 2-norm of a stack of tensors from theirs (one: itself)."""
+    if len(norms) == 1:
+        return norms[0]
+    return torch.sqrt(sum(n * n for n in norms))
+
+
+def _whole_norms(norms, group):
+    """The 2-norms of whole tensors from their pieces' on this rank, the
+    other pieces on the ranks of ``group`` (one all-reduce); as they are
+    where ``group`` is None."""
+    if group is None:
+        return norms
+    sq = torch.stack(norms).square()
+    dist.all_reduce(sq, group=group)
+    return sq.sqrt().unbind(0)
+
+
+def _scalars(h, fields, clip):
+    """The row ``h`` as 0-d views by field; the clip a float -1 (no clip
+    ops) where the optimizer's is off (``clip`` < 0)."""
+    s = dict(zip(fields, h.reshape(-1).unbind(0)))
+    if clip < 0:
+        s["clip_gradient"] = -1.0
+    return s
+
+
+def _elementwise(fields, rule, clip):
+    """The update of a rule applied tensor by tensor, its scalars after the
+    states the row's ``fields`` in order."""
+    def update(ws, gs, states, h, skip=None, stacks=None, groups=None):
+        s = _scalars(h, fields, clip)
+        args = [s[f] for f in fields]
+        keep = _keep_old(skip)
+        for w, g, st in zip(ws, gs, states):
+            _put(keep, (w, *st), rule(w, g, *st, *args))
+    return update
+
+
 def functional_optimizer(opt: "opt_mod.Optimizer"):
-    """``(init, update, hyper)`` for an ``SGD`` or ``Adam``: ``init(weight)``
-    -> the state tuple; ``hyper(t, lr, wd)`` -> the 10 scalars of step t's
-    update (``fused_optimizer.HYPER_FIELDS``; Adam's bias correction folded
-    into lr as ``_k_adam`` does); ``update(weights, grads, states, hyper)``
-    applies the rule to the lists in place, reading the scalars from
-    ``hyper``, a float32 tensor of those 10 on the weights' device, and
-    writing nothing where ``skip`` (a float32 tensor of one element, or
-    None) is nonzero: one launch of K4/K5's device form on the card, the
-    plain version on the CPU."""
+    """``(init, update, hyper)`` for an optimizer, in the reference's dispatch
+    order (:77-182): AdamW, LAMB, Adam, LARS, NAG, RMSProp (not centered),
+    AdaGrad, SGD (and its subclasses: LBSGD, ccSGD); any other raises, as in
+    the reference. ``init(weight)`` -> the state tuple (LAMB's float32);
+    ``hyper(t, lr, wd)`` -> step t's scalars, in the order of
+    ``hyper.fields``: Adam's and SGD's the 10 of
+    ``fused_optimizer.HYPER_FIELDS`` (Adam's bias correction folded into lr
+    as ``_k_adam`` does), the other rules their own, with c1 = 1 - beta1**t
+    and c2 = 1 - beta2**t in float32 (1 and 1 for LAMB without bias
+    correction); ``update(weights, grads, states, hyper, skip=None,
+    stacks=None, groups=None)`` applies the rule to the lists in place,
+    reading every scalar from ``hyper``, a float32 tensor of those fields on
+    the weights' device, and writing nothing where ``skip`` (a float32
+    tensor of one element, or None) is nonzero.
+
+    Adam and SGD are one launch of K4/K5's device form on the card (their
+    plain versions on the CPU); the other rules are the classes' own
+    ``_k_*`` rules in tensor ops, tensor by tensor, with 0-d views of the
+    row as their scalars, so a captured step replays each step's values.
+    LAMB's and LARS's norms are each tensor's own, or with ``stacks`` (lists
+    of positions) one norm over each stack's tensors together: the
+    pipeline's layers of a stage, which the reference stacks into one leaf.
+    ``groups`` (a process group or None by position) names the ranks that
+    hold the other pieces of a sharded tensor: its norms are summed over
+    them, so they are the whole tensor's, as under the reference's GSPMD
+    step (a stack's tensors share one group).
+    The clip is the optimizer's setting when it is made, as in the
+    reference (``clip`` is closed over there, :74); off, its ops are left
+    out."""
+    O = opt_mod.optimizer
     clip = opt.clip_gradient if opt.clip_gradient is not None else -1.0
 
-    if isinstance(opt, opt_mod.Adam):
+    def zeros(*dtype):
+        return lambda w: tuple(torch.zeros_like(w, dtype=d) for d in dtype or (None,))
+
+    def base(wd, lr, **kw):
+        return dict(lr=lr, wd=wd, rescale_grad=opt.rescale_grad, clip_gradient=clip, **kw)
+
+    if isinstance(opt, O.AdamW):
+        fields = ("lr", "eta", "wd", "rescale_grad", "clip_gradient", "beta1", "beta2",
+                  "epsilon", "c1", "c2")
+        init, update = zeros(None, None), _elementwise(fields, O._k_adamw, clip)
+
+        def hyper(t, lr, wd):
+            return _row(fields, **base(wd, lr, eta=opt.eta, beta1=opt.beta1,
+                                       beta2=opt.beta2, epsilon=opt.epsilon,
+                                       c1=_f32_pow(opt.beta1, t), c2=_f32_pow(opt.beta2, t)))
+    elif isinstance(opt, O.LAMB):
+        fields = ("lr", "wd", "rescale_grad", "clip_gradient", "beta1", "beta2", "epsilon",
+                  "c1", "c2", "lower_bound", "upper_bound")
+        init = zeros(torch.float32, torch.float32)
+
+        def update(ws, gs, states, h, skip=None, stacks=None, groups=None):
+            s = _scalars(h, fields, clip)
+            keep = _keep_old(skip)
+            for grp in stacks or ([i] for i in range(len(ws))):
+                dirs = [O._lamb_direction(ws[i], gs[i], *states[i], s["wd"],
+                                          s["rescale_grad"], s["clip_gradient"], s["beta1"],
+                                          s["beta2"], s["epsilon"], s["c1"], s["c2"])
+                        for i in grp]
+                wn, rn = _whole_norms((_group_norm([O._norm(ws[i]) for i in grp]),
+                                       _group_norm([O._norm(r) for r, _, _ in dirs])),
+                                      groups and groups[grp[0]])
+                for i, (r, m2, v2) in zip(grp, dirs):
+                    _put(keep, (ws[i], *states[i]), (
+                        O._lamb_apply(ws[i], r, wn, rn, s["lr"], s["lower_bound"],
+                                      s["upper_bound"]), m2, v2))
+
+        def hyper(t, lr, wd):
+            bc = opt.bias_correction
+            return _row(fields, **base(
+                wd, lr, beta1=opt.beta1, beta2=opt.beta2, epsilon=opt.epsilon,
+                c1=_f32_pow(opt.beta1, t) if bc else 1.0,
+                c2=_f32_pow(opt.beta2, t) if bc else 1.0,
+                lower_bound=opt.lower_bound or 0.0, upper_bound=opt.upper_bound or np.inf))
+    elif isinstance(opt, O.Adam):
         def init(w):
             return (torch.zeros_like(w), torch.zeros_like(w))
 
         def hyper(t, lr, wd):
             # _k_adam: lr_t = lr * sqrt(c2) / c1, all f32 (t an f32 step count)
-            c1 = np.float32(1) - _f32(opt.beta1) ** _f32(t)
-            c2 = np.float32(1) - _f32(opt.beta2) ** _f32(t)
-            lr_t = _f32(lr) * np.sqrt(c2) / c1
+            lr_t = _f32(lr) * np.sqrt(_f32_pow(opt.beta2, t)) / _f32_pow(opt.beta1, t)
             return _fo.hyper_values(lr=lr_t, beta1=opt.beta1, beta2=opt.beta2,
                                     epsilon=opt.epsilon, wd=wd,
                                     rescale_grad=opt.rescale_grad, clip_gradient=clip)
 
-        def update(ws, gs, states, h, skip=None):
+        def update(ws, gs, states, h, skip=None, stacks=None, groups=None):
             ms, vs = [s[0] for s in states], [s[1] for s in states]
             _fo.fused_adam_update_hyper(ws, gs, ms, vs, h, out=(ws, ms, vs), skip=skip)
-        return init, update, hyper
+        fields = _fo.HYPER_FIELDS
+    elif isinstance(opt, O.LARS):
+        fields = ("lr", "wd", "rescale_grad", "clip_gradient", "momentum", "eta", "epsilon")
+        init = zeros()
 
-    if isinstance(opt, opt_mod.SGD):
+        def update(ws, gs, states, h, skip=None, stacks=None, groups=None):
+            s = _scalars(h, fields, clip)
+            keep = _keep_old(skip)
+            for grp in stacks or ([i] for i in range(len(ws))):
+                firsts = [O._lars_norms(ws[i], gs[i], s["rescale_grad"], s["clip_gradient"])
+                          for i in grp]
+                wn, gn = _whole_norms((_group_norm([f[1] for f in firsts]),
+                                       _group_norm([f[2] for f in firsts])),
+                                      groups and groups[grp[0]])
+                for i, (g, _, _) in zip(grp, firsts):
+                    _put(keep, (ws[i], *states[i]), O._lars_apply(
+                        ws[i], g, states[i][0], wn, gn, s["lr"], s["wd"], s["momentum"],
+                        s["eta"], s["epsilon"]))
+
+        def hyper(t, lr, wd):
+            return _row(fields, **base(wd, lr, momentum=opt.momentum, eta=opt.eta,
+                                       epsilon=opt.epsilon))
+    elif isinstance(opt, O.NAG):
+        fields = ("lr", "wd", "rescale_grad", "clip_gradient", "momentum")
+        init, update = zeros(), _elementwise(fields, O._k_nag, clip)
+
+        def hyper(t, lr, wd):
+            return _row(fields, **base(wd, lr, momentum=opt.momentum))
+    elif isinstance(opt, O.RMSProp) and not opt.centered:
+        fields = ("lr", "wd", "rescale_grad", "clip_gradient", "rho", "epsilon")
+        init, update = zeros(), _elementwise(fields, O._k_rmsprop, clip)
+
+        def hyper(t, lr, wd):
+            return _row(fields, **base(wd, lr, rho=opt.gamma1, epsilon=opt.epsilon))
+    elif isinstance(opt, O.AdaGrad):
+        fields = ("lr", "wd", "rescale_grad", "clip_gradient", "epsilon")
+        init, update = zeros(), _elementwise(fields, O._k_adagrad, clip)
+
+        def hyper(t, lr, wd):
+            return _row(fields, **base(wd, lr, epsilon=opt.float_stable_eps))
+    elif isinstance(opt, O.SGD):
+        fields = _fo.HYPER_FIELDS
+
         def hyper(t, lr, wd):
             return _fo.hyper_values(lr=lr, momentum=opt.momentum, wd=wd,
                                     rescale_grad=opt.rescale_grad, clip_gradient=clip)
@@ -263,21 +437,37 @@ def functional_optimizer(opt: "opt_mod.Optimizer"):
             def init(w):
                 return ()
 
-            def update(ws, gs, states, h, skip=None):
+            def update(ws, gs, states, h, skip=None, stacks=None, groups=None):
                 _fo.fused_sgd_update_hyper(ws, gs, h, out=(ws,), skip=skip)
-            return init, update, hyper
+        else:
+            def init(w):
+                return (torch.zeros_like(w),)
 
-        def init(w):
-            return (torch.zeros_like(w),)
+            def update(ws, gs, states, h, skip=None, stacks=None, groups=None):
+                moms = [s[0] for s in states]
+                _fo.fused_sgd_mom_update_hyper(ws, gs, moms, h, out=(ws, moms), skip=skip)
+    else:
+        raise MXNetError(f"no functional adapter for optimizer {type(opt).__name__}; use "
+                         f"gluon.Trainer or add one")
+    hyper.fields = fields
+    return init, update, hyper
 
-        def update(ws, gs, states, h, skip=None):
-            moms = [s[0] for s in states]
-            _fo.fused_sgd_mom_update_hyper(ws, gs, moms, h, out=(ws, moms), skip=skip)
-        return init, update, hyper
 
-    raise MXNetError(f"no functional adapter for optimizer {type(opt).__name__}: "
-                     f"the fused step ports SGD and Adam; the other optimizers are "
-                     f"ROADMAP A5")
+def refuse_trust_ratio(opt, where: str):
+    """The reference's refusal of LAMB and LARS where their per-tensor norms
+    would be taken over pieces of tensors: ``where`` is ``"zero"`` (ZeRO's
+    bucket shards, reference :566-571) or ``"tp"`` (the pipeline's tp
+    shards, reference ``parallel/pipeline.py:473-476``)."""
+    O = opt_mod.optimizer
+    if not isinstance(opt, (O.LAMB, O.LARS)):
+        return
+    name = type(opt).__name__
+    if where == "zero":
+        raise MXNetError(f"zero_update does not support {name}: its per-tensor trust-ratio "
+                         f"norms do not decompose over flat bucket shards; use "
+                         f"sgd/adam/adamw/...")
+    raise MXNetError(f"tensor parallelism does not support {name}: per-tensor trust-ratio "
+                     f"norms are wrong on tp shards")
 
 
 def write_hyper(dst: torch.Tensor, rows) -> None:
@@ -419,6 +609,13 @@ class DataParallelTrainer:
                 elif p._mesh is not self.mesh:
                     raise MXNetError(f"{p.name} is placed on another mesh, {p._mesh}")
         self._trainable = [p.grad_req != "null" for p in self._plist]
+        # the ranks holding the other pieces of each sharded parameter, over
+        # which LAMB's and LARS's norms are summed (the reference's norms are
+        # the global tensor's)
+        self._norm_groups = [
+            self.mesh.group(tuple(a for _, axes in spec_axes(p.sharding) for a in axes))
+            if self.mesh.distributed and spec_axes(p.sharding) else None
+            for p in self._plist]
         self._t = 0
         self._buckets: List[torch.Tensor] = []     # flat gradient buckets (all-reduce)
         self._bucket_axes: List[tuple] = []        # the axes each bucket is summed over
@@ -439,6 +636,7 @@ class DataParallelTrainer:
                                  "compression; use comm_dtype='bfloat16'/'int8' for "
                                  "compressed collectives instead")
             self._validate_zero()
+            refuse_trust_ratio(self.optimizer, "zero")
         self._compression = self._validate_compression(compression)
         wds = [self.optimizer._get_wd(i) for i in range(len(self._plist))]
         zero = self._zero and self.mesh.distributed
@@ -468,7 +666,7 @@ class DataParallelTrainer:
         self._dp_degree = self.mesh.axis_size(self.batch_axis)
         # the update's scalars, a row for each weight decay, on the device
         self._wd_order = list(dict.fromkeys([*self._groups, *self._segments]))
-        self._hyper = torch.zeros((max(1, len(self._wd_order)), len(_fo.HYPER_FIELDS)),
+        self._hyper = torch.zeros((max(1, len(self._wd_order)), len(self._hyper_fn.fields)),
                                   dtype=torch.float32, device=self.device.torch_device)
         if self._scaler is not None:
             # float16: the scale and the count on the device (LossScaler.bind),
@@ -973,7 +1171,8 @@ class DataParallelTrainer:
                 self._update_fn([self._plist[i]._param for i in idx] + [w for w, _, _ in segments],
                                 [self._plist[i]._grad for i in idx] + [g for _, g, _ in segments],
                                 [self._opt_state[i] for i in idx] + [s for _, _, s in segments],
-                                self._hyper[k], skip)
+                                self._hyper[k], skip, groups=[self._norm_groups[i] for i in idx]
+                                + [None] * len(segments))
             if self._zero_buckets:
                 self._gather_zero()
 
@@ -1098,4 +1297,4 @@ class DataParallelTrainer:
         return {"params": params, "opt_state": states, "num_update": self._t}
 
 
-__all__ = ["DataParallelTrainer", "functional_optimizer", "PendingScalar"]
+__all__ = ["DataParallelTrainer", "functional_optimizer", "refuse_trust_ratio", "PendingScalar"]

@@ -75,11 +75,15 @@ its own stage of the same tick loop eagerly:
   pp and dp in one all-reduce of a flat buffer, the stage's own layers' over
   dp in another; the loss over pp and dp. A group of one rank is skipped.
 - **No stacked storage.** Every rank holds the model's Parameters; each
-  updates its own stage's layers and the replicated embed and head, with one
-  launch of the fused update (K5 for Adam, K4 for SGD, through
-  ``functional_optimizer`` and its pointer table) for each weight decay,
-  reading its scalars from the trainer's ``_hyper`` rows as the fused step
-  does.
+  updates its own stage's layers and the replicated embed and head, with
+  ``functional_optimizer``'s rule for each weight decay (one launch of K5
+  for Adam or K4 for SGD through its pointer table; the other rules a
+  tensor at a time), reading its scalars from the trainer's ``_hyper`` rows
+  as the fused step does. LAMB's and LARS's norms (the LAMB/LARS lanes) are
+  taken over the stage's copies of a cell parameter together
+  (``_stacks``), as over the reference's stacked leaf of the stage's
+  layers, and over each embed and head parameter alone; under ZeRO or a
+  ``tp_axis`` they raise with the reference's words (:473-476, :657-659).
   Weight-decay indices follow the reference's convention (:551-556): embed
   leaves first, then the cell leaves (one index for a leaf of every layer),
   then the head, so a ``wd_mult`` set by index selects the same parameter in
@@ -184,11 +188,10 @@ from .. import autograd
 from .. import engine
 from .. import optimizer as opt_mod
 from .. import _dist_util
-from ..ops.cuda import fused_optimizer as _fo
 from . import megatron as _mg
 from . import zero as _zero
 from .data_parallel import (DataParallelTrainer, PendingScalar, _StepGraph,
-                            functional_optimizer, write_hyper)
+                            functional_optimizer, refuse_trust_ratio, write_hyper)
 from .mesh import P, current_mesh, require_axis
 from .tensor_parallel import gather_tp, shard_tensor, slice_tp, tp_shard_dim
 from .step_program import StepProgram, config_fingerprint, structural_fingerprint
@@ -536,6 +539,14 @@ class _Leaf:
         self.tp_sum = False
 
 
+def _stacks(keys) -> List[List[int]]:
+    """The positions of an update list grouped by stack key (None: alone)."""
+    out: Dict[object, List[int]] = {}
+    for pos, key in enumerate(keys):
+        out.setdefault(("own", pos) if key is None else key, []).append(pos)
+    return list(out.values())
+
+
 class PipelineTrainer:
     """The pipeline trainer over a ``pp`` axis of a mesh of ranks, with
     optional ``dp`` and ``tp`` axes; see the module docstring. ``net``
@@ -681,6 +692,8 @@ class PipelineTrainer:
         self.optimizer = optimizer if isinstance(optimizer, opt_mod.Optimizer) \
             else opt_mod.create(optimizer, **(optimizer_params or {}))
         self._init_fn, self._update_fn, self._hyper_fn = functional_optimizer(self.optimizer)
+        if tp_axis is not None:
+            refuse_trust_ratio(self.optimizer, "tp")      # reference :473-476
         self.num_microbatch = int(num_microbatch if num_microbatch is not None
                                   else self.n_stages)
         if zero_update is None:
@@ -758,18 +771,24 @@ class PipelineTrainer:
         # gradients, states): whole leaves, or under ZeRO the pieces of this
         # rank's shard of each bucket
         self._groups: Dict[float, Tuple[list, list, list]] = {}
+        # each entry's stack: the stage's copies of one cell parameter share
+        # one (LAMB's and LARS's norm over them, the reference's stacked
+        # leaf); every other entry has its own
+        self._stack_keys: Dict[float, list] = {}
         self._zbuckets: Dict[str, list] = {"e": [], "s": [], "h": []}
         self._zplan_e = self._zplan_s = self._zplan_h = ()
         if self._zero:
             self._init_zero_state()
         else:
-            for lf, wd in [*zip(self._leaves_e, self._wd_e), *zip(self._leaves_h, self._wd_h),
-                           *((lf, self._wd_s[i]) for row in self._leaves_s
-                             for i, lf in enumerate(row))]:
+            for lf, wd, key in [*((lf, wd, None) for lf, wd in zip(self._leaves_e, self._wd_e)),
+                                *((lf, wd, None) for lf, wd in zip(self._leaves_h, self._wd_h)),
+                                *((lf, self._wd_s[i], i) for row in self._leaves_s
+                                  for i, lf in enumerate(row))]:
                 if lf.trainable:
                     lf.state = self._init_fn(lf.w.detach())
                     self._add(wd, lf.w, lf.gshard if lf.gshard is not None else lf.grad,
-                              lf.state)
+                              lf.state, key)
+        self._stacks = {wd: _stacks(keys) for wd, keys in self._stack_keys.items()}
         self._opt_e = [lf.state for lf in self._leaves_e]
 
         self._pp_group = self.mesh.group(pp_axis) if dist_mesh and self.n_stages > 1 else None
@@ -795,7 +814,7 @@ class PipelineTrainer:
                                              sp=self.sequence_parallel and self.n_tp > 1,
                                              mesh=self.mesh)
             self._release_partitioned()
-        self._hyper = torch.zeros((max(1, len(self._groups)), len(_fo.HYPER_FIELDS)),
+        self._hyper = torch.zeros((max(1, len(self._groups)), len(self._hyper_fn.fields)),
                                   dtype=torch.float32, device=self.device.torch_device)
         self._t = 0
         self._act_meta: Dict[tuple, tuple] = {}
@@ -879,6 +898,7 @@ class PipelineTrainer:
                              "PipelineTrainer (the gathered weights would defeat the sharded "
                              "state); tp_mode='partitioned' composes: its optimizer state "
                              "covers each rank's tp shards")
+        refuse_trust_ratio(self.optimizer, "zero")
 
     def _draw_seed(self) -> int:
         """A dropout seed for the partitioned programs, from the port's host
@@ -923,11 +943,12 @@ class PipelineTrainer:
     def _all_leaves(self):
         return self._leaves_e + self._leaves_h + [lf for row in self._leaves_s for lf in row]
 
-    def _add(self, wd, w, g, state):
+    def _add(self, wd, w, g, state, key=None):
         ws, gs, ss = self._groups.setdefault(float(wd), ([], [], []))
         ws.append(w)
         gs.append(g)
         ss.append(state)
+        self._stack_keys.setdefault(float(wd), []).append(key)
 
     def _flat_grads(self, leaves) -> Optional[torch.Tensor]:
         """One flat buffer whose views, 64 elements apart, become the gradient
@@ -1212,8 +1233,8 @@ class PipelineTrainer:
                         lf.gshard.copy_(slice_tp(lf.grad, lf.dim, self.tp_axis, self.mesh))
             if self._zero:
                 self._reduce_zero()
-            for k, (ws, gs, ss) in enumerate(self._groups.values()):
-                self._update_fn(ws, gs, ss, self._hyper[k])
+            for k, (wd, (ws, gs, ss)) in enumerate(self._groups.items()):
+                self._update_fn(ws, gs, ss, self._hyper[k], stacks=self._stacks.get(wd))
             if self._zero:
                 self._gather_zero()
         comm = {}

@@ -50,6 +50,7 @@ import torch
 import torch.distributed as dist
 
 from ..base import MXNetError
+from .. import optimizer as opt_mod
 from ..parallel import moe as _moe
 from ..parallel.data_parallel import DataParallelTrainer
 from ..parallel.mesh import P, activate, current_mesh, require_axis
@@ -118,11 +119,14 @@ class MoETrainer(DataParallelTrainer):
     # -- the parent's hooks ---------------------------------------------------------
     def _validate_zero(self):
         """Only the experts are sharded (over ep); the batch is split over
-        both axes (reference :129)."""
+        both axes; LAMB and LARS raise (reference :129-153)."""
         bad = [p.name for p in self._plist if not self._expert(p) and spec_axes(p.sharding)]
         if bad:
             raise MXNetError(f"MoETrainer shards only expert parameters (over "
                              f"{self._ep_axis!r}); found other sharded params {bad[:3]}")
+        if isinstance(self.optimizer, (opt_mod.LAMB, opt_mod.LARS)):
+            raise MXNetError(f"{type(self.optimizer).__name__} per-tensor trust ratios do not "
+                             f"decompose over flat bucket shards")
 
     def _may_shard_over_data(self, p) -> bool:
         return self._expert(p)

@@ -269,11 +269,6 @@ def _dense_net():
     return net
 
 
-class _Unported(mt.optimizer.Optimizer):
-    def update(self, index, weight, grad, state):
-        pass
-
-
 @pytest.mark.parametrize("case,match", [
     ("mesh", "torch.distributed"), ("zero_update", "pure data parallelism"),
     # the ids of these three predate the port of overlap.py and compression
@@ -282,7 +277,14 @@ class _Unported(mt.optimizer.Optimizer):
     pytest.param("overlap_grads", "no linear block chain", id="overlap_grads-ROADMAP A2"),
     ("comm_dtype", "unsupported comm dtype"),
     pytest.param("overlap_segments", "nothing to overlap", id="overlap_segments-ROADMAP A2"),
-    ("data_spec", "no 'sp' axis"), ("optimizer", "ROADMAP A5"),
+    ("data_spec", "no 'sp' axis"),
+    # the id predates the port of the other optimizers: the reference's own
+    # refusal of an optimizer with no fused rule is what remains
+    pytest.param("optimizer", "no functional adapter for optimizer FTML; use gluon.Trainer",
+                 id="optimizer-ROADMAP A5"),
+    ("rmsprop_centered", "no functional adapter for optimizer RMSProp"),
+    ("zero_lamb", "zero_update does not support LAMB: its per-tensor trust-ratio"),
+    ("zero_lars", "zero_update does not support LARS"),
     ("deferred", "deferred"), ("dtype", "float32/bfloat16/float16"),
     ("device", "mesh's device")])
 def test_refuses_what_is_not_ported(case, match):
@@ -291,8 +293,10 @@ def test_refuses_what_is_not_ported(case, match):
     block chain and an ``overlap_segments`` plan with one owning segment (as
     the reference does), ``zero_update`` beyond pure data parallelism (the
     sequence split too) and a comm dtype ``parallel/zero.py`` lacks, a data
-    axis the mesh lacks, an optimizer not ported, deferred shapes, a dtype, a
-    device."""
+    axis the mesh lacks, an optimizer with no fused rule (FTML, centered
+    RMSProp: the reference's words), LAMB and LARS under ``zero_update``
+    (their per-tensor norms; the reference's words), deferred shapes, a
+    dtype, a device."""
     loss = mt.gluon.loss.SoftmaxCrossEntropyLoss()
     kw = {"mesh": _cpu_mesh()}
     net = _dense_net()
@@ -322,7 +326,11 @@ def test_refuses_what_is_not_ported(case, match):
         net.initialize(ctx=mt.cpu())
     elif case == "device":
         kw["mesh"] = make_mesh({"dp": 1}, devices=[mt.gpu(0)])
-    optimizer = _Unported() if case == "optimizer" else "sgd"
+    elif case.startswith("zero_"):
+        kw["zero_update"] = True
+    optimizer = {"optimizer": mt.optimizer.create("ftml"),
+                 "rmsprop_centered": mt.optimizer.create("rmsprop", centered=True),
+                 "zero_lamb": "lamb", "zero_lars": "lars"}.get(case, "sgd")
     with pytest.raises(mt.MXNetError, match=match):
         DataParallelTrainer(net, loss, optimizer, mesh=kw.pop("mesh"), **kw)
 

@@ -16,6 +16,11 @@ conftest's virtual CPU devices, on the same layout of devices.
   against the reference's gradient of the same global-mean loss (its
   autograd on the whole batch) to ``TOL_GRAD`` of each tensor's max; the
   gathered weights after 3 steps to ``TOL_W``.
+- dp1 x tp2 (world 2) under LAMB and under LARS: the same three checks, and
+  each weight's change over the 3 steps against the reference's change to
+  ``TOL_DW`` of its max. The reference's trust-ratio norms are the whole
+  tensor's; norms over a rank's own shard change a sharded weight by
+  another ratio, which only the change shows.
 - The traps, each a case here that fails on a mutated copy of the port
   (CHANGES.md names the mutations): the row-parallel bias added once,
   positions offset under sp, the global loss mean, and the gradient
@@ -23,7 +28,10 @@ conftest's virtual CPU devices, on the same layout of devices.
 
 Tolerances (float32, only the order of summation differs): loss 1e-5
 relative and weights 2e-5 absolute, as ``tests/test_torch_data_parallel.py``;
-gradients 1e-4 of each tensor's max.
+gradients 1e-4 of each tensor's max; a weight's change 2e-3 of its max (the
+largest under LAMB 6.2e-4, from elements whose gradient is near LAMB's eps;
+with each rank's norms over its shard alone 4.0e-2 and more under LAMB,
+1.5e-1 under LARS).
 """
 import numpy as np
 import pytest
@@ -45,6 +53,7 @@ LR = 1e-3
 TOL_LOSS = 1e-5
 TOL_W = 2e-5
 TOL_GRAD = 1e-4
+TOL_DW = 2e-3
 MODULE = "test_torch_dist_data_parallel"
 TESTS_DIR = str(__import__("pathlib").Path(__file__).resolve().parent)
 
@@ -63,8 +72,9 @@ def _data(seed=5):
             rs.randint(0, VOCAB, size=(B, T)).astype(np.int32))
 
 
-def rank_bert_steps(workdir, axes, steps, lr):
-    """One rank: the dryrun's step ``steps`` times on ``axes``; rank 0
+def rank_bert_steps(workdir, axes, steps, optimizer, opt_params):
+    """One rank: the dryrun's step ``steps`` times on ``axes`` under
+    ``optimizer`` (a name) with ``opt_params``; rank 0
     writes the gathered gradients after the first step and the gathered
     weights after the last. Returns the losses and the modules loaded."""
     import sys
@@ -78,7 +88,7 @@ def rank_bert_steps(workdir, axes, steps, lr):
     if axes.get("tp", 1) > 1:
         shard_params_megatron(net, axis="tp")
     spec = P("dp", "sp") if "sp" in axes else P("dp")
-    tr = DataParallelTrainer(net, token_ce, "adam", {"learning_rate": lr}, mesh=mesh,
+    tr = DataParallelTrainer(net, token_ce, optimizer, opt_params, mesh=mesh,
                              data_spec=spec)
     x = mt.nd.array(data["x"], ctx=ctx, dtype="int32")
     y = mt.nd.array(data["y"], ctx=ctx, dtype="int32")
@@ -104,7 +114,12 @@ def rank_bert_steps(workdir, axes, steps, lr):
                               if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))}
 
 
-LAYOUTS = {"tp_sp": {"dp": 1, "tp": 2, "sp": 2}, "dp": {"dp": 2}}
+LAYOUTS = {"tp_sp": {"dp": 1, "tp": 2, "sp": 2}, "dp": {"dp": 2},
+           "tp_lamb": {"dp": 1, "tp": 2}, "tp_lars": {"dp": 1, "tp": 2}}
+# the optimizer of each layout, Adam where none is named; LARS's step is
+# lr * eta * |w| a tensor, so its lr is larger than Adam's
+OPTIMIZERS = {"tp_lamb": ("lamb", {"learning_rate": LR}),
+              "tp_lars": ("lars", {"learning_rate": 1.0, "momentum": 0.9})}
 
 
 @pytest.fixture(scope="module")
@@ -143,7 +158,8 @@ def runs(tmp_path_factory):
         loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(
             net(mx.nd.array(x, dtype="int32")), mx.nd.array(y, dtype="int32")).mean()
     loss.backward()
-    out = {"grads": {k: p.grad().asnumpy()
+    out = {"init": weights,
+           "grads": {k: p.grad().asnumpy()
                      for k, p in net._collect_params_with_prefix().items()}}
     devs = jax.devices("cpu")
     for name, axes in LAYOUTS.items():
@@ -151,7 +167,8 @@ def runs(tmp_path_factory):
         if axes.get("tp", 1) > 1:
             ref_shard(net, axis="tp")
         n = int(np.prod(list(axes.values())))
-        tr = RefDPT(net, loss_fn, optimizer="adam", optimizer_params={"learning_rate": LR},
+        opt, opt_params = OPTIMIZERS.get(name, ("adam", {"learning_rate": LR}))
+        tr = RefDPT(net, loss_fn, optimizer=opt, optimizer_params=opt_params,
                     mesh=ref_mesh(axes, devices=devs[:n]), batch_axis_name="dp",
                     data_spec=RP("dp", "sp") if "sp" in axes else RP("dp"))
         xr, yr = mx.nd.array(x, dtype="int32"), mx.nd.array(y, dtype="int32")
@@ -162,7 +179,8 @@ def runs(tmp_path_factory):
         np.savez(root / "data.npz", x=x, y=y)
         ranks = _dist_util.launch_local(
             f"{MODULE}:rank_bert_steps", n,
-            {"workdir": str(root), "axes": axes, "steps": STEPS, "lr": LR},
+            {"workdir": str(root), "axes": axes, "steps": STEPS, "optimizer": opt,
+             "opt_params": opt_params},
             device="cpu", timeout=120, pythonpath=[TESTS_DIR], workdir=str(root / "launch"))
         out[name] = {"ref_losses": np.array(losses),
                      "ref_params": {k: p.data().asnumpy()
@@ -200,6 +218,18 @@ def test_weights_match_reference(runs, layout):
     assert set(r["params"]) == set(r["ref_params"])
     for key, w in r["ref_params"].items():
         assert np.abs(r["params"][key] - w).max() <= TOL_W, key
+
+
+@pytest.mark.parametrize("layout", list(OPTIMIZERS))
+def test_trust_ratio_norms_span_the_shards(runs, layout):
+    """Each weight's change over the steps against the reference's: a
+    sharded weight whose LAMB/LARS norms were its rank's shard's alone
+    takes another trust ratio on each tp rank."""
+    r, init = runs[layout], runs["init"]
+    for key, w in r["ref_params"].items():
+        ref = w - init[key]
+        scale = max(float(np.abs(ref).max()), 1e-30)
+        assert np.abs(r["params"][key] - init[key] - ref).max() <= TOL_DW * scale, key
 
 
 def test_ranks_take_their_part_of_the_batch(runs):

@@ -27,6 +27,95 @@ def _f(*shape):
 
 _X4 = _f(2, 3, 4, 5)
 
+
+def _sq(*shape):
+    return _f(*shape) ** 2 + 0.1
+
+
+def _w32(w):
+    return [w, w.copy()]
+
+
+_W, _G = _f(3, 4), _f(3, 4)
+_SGD_KW = {"lr": 0.1, "wd": 0.01, "rescale_grad": 0.5, "clip_gradient": 0.3}
+_MULTI_KW = {"lrs": (0.1, 0.05), "wds": (0.01, 0.0), "num_weights": 2,
+             "rescale_grad": 0.5, "clip_gradient": 0.3}
+# the optimizer update ops (ops/optimizer_ops.py), float32; their clip at 0,
+# the bf16 mp_ forms and the nd write-back are in test_torch_optimizer_ops.py
+OPTIMIZER_CASES = [
+    ("mp_sgd_update", "mp_sgd_update", [_W, _G, _W.copy()], _SGD_KW),
+    ("mp_sgd_mom_update", "mp_sgd_mom_update", [_W, _G, _f(3, 4), _W.copy()],
+     dict(_SGD_KW, momentum=0.9)),
+    ("nag_mom_update", "nag_mom_update", [_W, _G, _f(3, 4)], dict(_SGD_KW, momentum=0.9)),
+    ("mp_nag_mom_update", "mp_nag_mom_update", [_W, _G, _f(3, 4), _W.copy()],
+     dict(_SGD_KW, momentum=0.9)),
+    ("signsgd_update", "signsgd_update", [_W, _G], _SGD_KW),
+    ("signum_update", "signum_update", [_W, _G, _f(3, 4)],
+     dict(_SGD_KW, momentum=0.9, wd_lh=0.02)),
+    ("adamw_update", "_adamw_update", [_W, _G, _f(3, 4), _sq(3, 4), np.array(0.5, np.float32)],
+     {"lr": 0.01, "eta": 0.5, "wd": 0.1, "clip_gradient": 0.2}),
+    ("mp_adamw_update", "_mp_adamw_update",
+     [_W, _G, _f(3, 4), _sq(3, 4), _W.copy(), np.array(2.0, np.float32)],
+     {"lr": 0.01, "eta": 1.0, "wd": 0.1}),
+    ("ftrl_update", "ftrl_update", [_W, _G, _f(3, 4), _sq(3, 4)],
+     {"lr": 0.1, "lamda1": 0.05, "beta": 1.0, "wd": 0.01, "rescale_grad": 0.5}),
+    ("ftml_update", "ftml_update", [_W, _G, _sq(3, 4), _sq(3, 4), _f(3, 4)],
+     {"lr": 0.1, "t": 3, "wd": 0.01, "clip_grad": 0.4}),
+    ("rmsprop_update", "rmsprop_update", [_W, _G, _sq(3, 4)],
+     {"lr": 0.01, "rho": 0.9, "wd": 0.01, "clip_gradient": 0.3, "clip_weights": 1.0}),
+    ("rmspropalex_update", "rmspropalex_update",
+     [_W, _G, _sq(3, 4) + 1.0, _f(3, 4) * 0.1, _f(3, 4)],
+     {"lr": 0.01, "rho": 0.9, "momentum": 0.8, "wd": 0.01}),
+    ("sparse_adagrad_update", "_sparse_adagrad_update",
+     [_W, _G * np.array([[1], [0], [1]], np.float32), _sq(3, 4)],
+     {"lr": 0.1, "wd": 0.01, "rescale_grad": 0.5}),
+    ("group_adagrad_update", "_contrib_group_adagrad_update", [_W, _G, _sq(3)],
+     {"lr": 0.1, "clip_gradient": 0.5}),
+    ("lamb_update_phase1", "lamb_update_phase1", [_W, _G, _f(3, 4), _sq(3, 4)],
+     {"t": 3, "wd": 0.01, "rescale_grad": 0.5, "clip_gradient": 0.3}),
+    ("lamb_update_phase1-nobias", "lamb_update_phase1", [_W, _G, _f(3, 4), _sq(3, 4)],
+     {"t": 3, "bias_correction": False}),
+    ("lamb_update_phase2", "lamb_update_phase2",
+     [_W, _G, np.array(1.5, np.float32), np.array(2.0, np.float32)],
+     {"lr": 0.1, "lower_bound": 2.0, "upper_bound": 10.0}),
+    ("mp_lamb_update_phase1", "mp_lamb_update_phase1",
+     [_W, _G, _f(3, 4), _sq(3, 4), _W.copy()], {"t": 2, "wd": 0.01}),
+    ("mp_lamb_update_phase2", "mp_lamb_update_phase2",
+     [_W, _G, np.array(1.5, np.float32), np.array(0.0, np.float32), _W.copy()], {"lr": 0.1}),
+    ("multi_sum_sq", "multi_sum_sq", [_W, _f(5)], {"num_arrays": 2}),
+    ("multi_lars", "multi_lars",
+     [np.float32([0.1, 0.2, 0.3]), np.float32([4.0, 0.0, 9.0]), np.float32([1.0, 1.0, 0.0]),
+      np.float32([0.01, 0.0, 0.1])], {"eta": 0.001, "eps": 1e-8, "rescale_grad": 0.5}),
+    ("multi_sgd_update", "multi_sgd_update", [_W, _G, _f(5), _f(5)], _MULTI_KW),
+    ("multi_sgd_mom_update", "multi_sgd_mom_update",
+     [_W, _G, _f(3, 4), _f(5), _f(5), _f(5)], dict(_MULTI_KW, momentum=0.9)),
+    ("multi_mp_sgd_update", "multi_mp_sgd_update",
+     [_W, _G, _W.copy(), _G, _W, _G.copy()], _MULTI_KW),
+    ("multi_mp_sgd_mom_update", "multi_mp_sgd_mom_update",
+     [_W, _G, _f(3, 4), _W.copy(), _G, _W, _f(3, 4), _G.copy()],
+     dict(_MULTI_KW, momentum=0.9)),
+    ("preloaded_multi_sgd_update", "preloaded_multi_sgd_update",
+     [_W, _G, _f(5), _f(5), np.float32([0.1, 0.05]), np.float32([0.01, 0.0])],
+     {"num_weights": 2, "clip_gradient": 0.3}),
+    ("preloaded_multi_sgd_mom_update", "preloaded_multi_sgd_mom_update",
+     [_W, _G, _f(3, 4), _f(5), _f(5), _f(5), np.float32([0.1, 0.05]),
+      np.float32([0.01, 0.0])], {"num_weights": 2, "momentum": 0.9}),
+    ("preloaded_multi_mp_sgd_update", "preloaded_multi_mp_sgd_update",
+     [_W, _G, _W.copy(), _G, _W, _G.copy(), np.float32([0.1, 0.05]),
+      np.float32([0.01, 0.0])], {"num_weights": 2, "rescale_grad": 0.5}),
+    ("preloaded_multi_mp_sgd_mom_update", "preloaded_multi_mp_sgd_mom_update",
+     [_W, _G, _f(3, 4), _W.copy(), _G, _W, _f(3, 4), _G.copy(), np.float32([0.1, 0.05]),
+      np.float32([0.01, 0.0])], {"num_weights": 2, "momentum": 0.9}),
+    ("multi_adamw_update", "_multi_adamw_update",
+     [_W, _G, _f(3, 4), _sq(3, 4), _f(5), _f(5), _f(5), _sq(5), np.array(0.5, np.float32)],
+     {"lrs": (0.01, 0.02), "etas": (1.0, 0.5), "wds": (0.1, 0.0), "num_weights": 2,
+      "clip_gradient": 0.3}),
+    ("multi_mp_adamw_update", "_multi_mp_adamw_update",
+     [_W, _G, _f(3, 4), _sq(3, 4), _W.copy(), _G, _W, _f(3, 4), _sq(3, 4), _G.copy(),
+      np.array(1.0, np.float32)],
+     {"lrs": (0.01, 0.02), "etas": (1.0, 0.5), "wds": (0.1, 0.0), "num_weights": 2}),
+]
+
 # (id, op name, inputs, params)
 CASES = [
     ("add", "broadcast_add", [_f(3, 4), _f(4)], {}),
@@ -165,6 +254,7 @@ CASES = [
        "_lesser_scalar", "_lesser_equal_scalar")],
     ("cmp-scalar-int", "_lesser_equal_scalar", [np.arange(6, dtype=np.int32)],
      {"scalar": 2.5}),
+    *OPTIMIZER_CASES,
 ]
 # Dropout outside training, or at p=0, is the identity. The reference op
 # takes an RNG key as a second input; the port draws from its generator.

@@ -627,9 +627,13 @@ def test_config_rejections(weights):
     with pytest.raises(MXNetError, match="tp_axis"):
         PipelineTrainer(net, loss, mesh=Mesh([mt.cpu()], ("pp", "dp", "tp"), (2, 1, 2)),
                         dp_axis="dp", tp_axis="tp", zero_update=True)
-    with pytest.raises(MXNetError, match="unknown optimizer 'lamb'"):
+    # the reference's refusals of LAMB/LARS under ZeRO (:657-659) and tp (:473-476)
+    with pytest.raises(MXNetError, match="zero_update does not support LAMB: its per-tensor"):
         PipelineTrainer(net, loss, optimizer="lamb", mesh=Mesh([mt.cpu()], ("pp", "dp"), (2, 2)),
                         dp_axis="dp", zero_update=True)
+    with pytest.raises(MXNetError, match="tensor parallelism does not support LARS"):
+        PipelineTrainer(net, loss, optimizer="lars", mesh=mesh, tp_axis="tp",
+                        tp_mode="partitioned")
     with pytest.raises(MXNetError, match="unsupported comm dtype"):
         PipelineTrainer(net, loss, mesh=Mesh([mt.cpu()], ("pp", "dp"), (2, 2)), dp_axis="dp",
                         zero_update=True, comm_dtype="int4")

@@ -139,8 +139,9 @@ def test_trainer_refuses_what_is_not_ported():
         mt.gluon.Trainer(params, "sgd", kvstore="dist_asynchronous")
     with pytest.raises(mt.MXNetError, match="lr_scheduler"):
         mt.gluon.Trainer(params, "sgd", {"lr_scheduler": object()})
-    with pytest.raises(mt.MXNetError, match="unknown optimizer"):
-        mt.gluon.Trainer(params, "lamb")
+    with pytest.raises(mt.MXNetError, match="unknown optimizer 'lambda'"):
+        mt.gluon.Trainer(params, "lambda")
+    assert type(mt.gluon.Trainer(params, "lamb")._optimizer).__name__ == "LAMB"
     trainer = mt.gluon.Trainer(params, "sgd")
     with pytest.raises(mt.MXNetError, match="save_states"):
         trainer.save_states("unused")
