@@ -394,6 +394,27 @@ step's ``functional_optimizer``; the new rules are tensor ops, no kernel):
    updates on the CPU from the card's gradients (OPT_GLUON_TOL); SGLD by its
    moments on the card.
 
+41. ``phase_state_resume`` (after phase 33): phase 33's hybridized Gluon
+   BERT-base loop (T 1024, batch 8, f32, TF32 off, Adam lr 1e-4) runs 6
+   steps, checkpointed after step 3 by ``net.save_parameters`` and
+   ``trainer.save_states``; a second net and trainer, built fresh, load both
+   files and run steps 4-6, whose losses, weights and Adam states must
+   equal the first run's bitwise. K1-K3 must launch 12 times a step
+   (counters set to 0 just before the resumed steps). The files' bytes and
+   the seconds of each save and load are printed.
+42. ``phase_second_order``: a gradient penalty through
+   ``_contrib_flash_attention`` at (8, 12, 1024, 64) f32, plain and causal
+   (``grad(sum(o^2), q, create_graph=True)``, then ``sum(g^2).backward()``)
+   against the same by plain torch ops in f64 on the card, within
+   TOL_SECOND_ORDER of each tensor's max; per mask K1 once, K2 and K3
+   twice (the gradient and the chain through dO = 2 O) and the double
+   backward once. Then ``autograd.Function`` (second order), indexing and
+   writes (the in-place trap: a recorded graph keeps its values; the
+   captured ``DataParallelTrainer`` step after ``+=`` on a parameter equals
+   the eager one bitwise; a hybridized pair refuses ``create_graph``),
+   ``nd.linalg`` on the card against the CPU, and ``nd.random`` on the card
+   by its moments and its repeat under ``seed``.
+
 The rank phases of one world size run in one launch
 (``phase_rank_launches``): phases 26, 26b, 14 (and its D = 16 run), 23, 23b
 and 30 as 4 ranks, after phase 13's block; phases 25, 15, 20's first dp2
@@ -481,6 +502,17 @@ TOL_FUSED = 1e-5
 TOL_TRAIN_LOSS = 1e-5
 TOL_TRAIN_GRAD = 1e-3
 TOL_TRAIN_W = 1e-6
+
+
+# The f32 gradient penalty through K1-K3 (3xTF32) and the double backward
+# (f32 torch ops, TF32 off) against the same in f64 by plain torch ops,
+# relative to each tensor's largest |value|: f32 summation over 1024 keys
+# and 64 columns, twice differentiated.
+TOL_SECOND_ORDER = 1e-4
+# nd.linalg on the card against the CPU, f32, well-conditioned inputs:
+# cuSOLVER/cuBLAS against LAPACK, summation order only.
+TOL_LINALG_CARD = 1e-4
+RESUME_STEPS = 3                   # steps before and after the checkpoint
 
 
 def log(msg):
@@ -7695,6 +7727,349 @@ def phase_gluon_pair(torch, bert_params, bert_batch, resnet_params):
     return out
 
 
+def _adam_states(trainer):
+    """The Adam states of a ``gluon.Trainer``'s updater, cloned, by index."""
+    return {(k, j): t._data.detach().clone() for k, st in trainer._updater.states.items()
+            for j, t in enumerate(st)}
+
+
+def phase_state_resume(torch, bert_params, bert_batch):
+    """Phase 33's hybridized Gluon BERT-base loop checkpointed after step
+    RESUME_STEPS (``save_parameters``, ``save_states``) and resumed by a net
+    and trainer built fresh from both files: steps RESUME_STEPS + 1 ..
+    2 RESUME_STEPS must equal the first run's bitwise (losses, weights, Adam
+    states), with K1-K3 12 times a step."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import bert_base
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.gpu(0)
+    x = mx.nd.array(bert_batch[0], ctx=ctx, dtype="int32")
+    y = mx.nd.array(bert_batch[1], ctx=ctx, dtype="int32")
+    counters = _flash_counters()
+
+    def build(weights):
+        net = bert_base(max_length=1024)
+        net.initialize(ctx=ctx)
+        if weights is not None:
+            load_jax_params(net, weights)
+        loss_fn, trainer = _bert_trainer(mx, net, 1e-4)
+        net.hybridize()
+        loss_fn.hybridize()
+        return net, loss_fn, trainer
+
+    workdir = tempfile.mkdtemp(prefix="state_resume_")
+    try:
+        mx.random.seed(GLUON_PAIR_SEED)
+        net, loss_fn, trainer = build(bert_params)
+        first = [_train_step(mx, net, loss_fn, trainer, x, y)._data.detach().clone()
+                 for _ in range(RESUME_STEPS)]
+        torch.cuda.synchronize()
+        params_file = os.path.join(workdir, "bert.params")
+        states_file = os.path.join(workdir, "bert.states")
+        t = time.perf_counter()
+        net.save_parameters(params_file)
+        save_params_s = time.perf_counter() - t
+        t = time.perf_counter()
+        trainer.save_states(states_file)
+        save_states_s = time.perf_counter() - t
+        rng = mx.random.get_state_raw()
+        whole = [_train_step(mx, net, loss_fn, trainer, x, y)._data.detach().clone()
+                 for _ in range(RESUME_STEPS)]
+        want_w, want_s = _weights_of(net), _adam_states(trainer)
+        del net, loss_fn, trainer
+        torch.cuda.empty_cache()
+
+        net, loss_fn, trainer = build(None)      # the initializer's weights until the load
+        t = time.perf_counter()
+        net.load_parameters(params_file)
+        torch.cuda.synchronize()
+        load_params_s = time.perf_counter() - t
+        t = time.perf_counter()
+        trainer.load_states(states_file)
+        torch.cuda.synchronize()
+        load_states_s = time.perf_counter() - t
+        mx.random.set_state_raw(rng)
+        _zero_counters(counters)
+        resumed = [_train_step(mx, net, loss_fn, trainer, x, y)._data.detach().clone()
+                   for _ in range(RESUME_STEPS)]
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        got_w, got_s = _weights_of(net), _adam_states(trainer)
+        files = {"params_bytes": os.path.getsize(params_file),
+                 "states_bytes": os.path.getsize(states_file)}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    want_launches = {k: 12 * RESUME_STEPS for k in counters}
+    if launches != want_launches:
+        raise AssertionError(f"state-resume: K1-K3 launches {launches} over {RESUME_STEPS} "
+                             f"resumed steps, want {want_launches}")
+    loss_eq = all(torch.equal(a, b) for a, b in zip(resumed, whole))
+    w_eq = sorted(got_w) == sorted(want_w) and all(torch.equal(got_w[k], want_w[k])
+                                                     for k in want_w)
+    s_eq = sorted(got_s) == sorted(want_s) and all(torch.equal(got_s[k], want_s[k])
+                                                     for k in want_s)
+    if not np.isfinite([float(v.mean()) for v in first + whole]).all():
+        raise AssertionError("state-resume: a loss is not finite")
+    if not (loss_eq and w_eq and s_eq):
+        raise AssertionError(f"state-resume: resumed steps not bitwise: losses {loss_eq}, "
+                             f"weights {w_eq} ({_weights_diff(torch, got_w, want_w):.3e}), "
+                             f"Adam states {s_eq}")
+    entry = next(iter(net._cached_graphs.values()))
+    out = {"steps": RESUME_STEPS, "losses": [float(v.mean()) for v in whole],
+           "bitwise": True, "launches": launches, "launches_per_step": 12,
+           "save_parameters_s": save_params_s, "save_states_s": save_states_s,
+           "load_parameters_s": load_params_s, "load_states_s": load_states_s,
+           "adam_tensors": len(want_s), "weights": len(want_w),
+           "last_eager_reason": entry.eager, **files}
+    log(f"[state-resume] BERT-base T=1024 batch 8 hybridized, Adam: steps "
+        f"{RESUME_STEPS + 1}-{2 * RESUME_STEPS} resumed from the files equal the "
+        f"uninterrupted run bitwise (losses, {len(want_w)} weights, {len(want_s)} Adam "
+        f"tensors); .params {files['params_bytes']} bytes, states {files['states_bytes']} "
+        f"bytes; save_parameters {save_params_s:.3f} s, save_states {save_states_s:.3f} s, "
+        f"load_parameters {load_params_s:.3f} s, load_states {load_states_s:.3f} s; "
+        f"launches {launches}")
+    del net, loss_fn, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _penalty_plain(torch, q, k, v, causal):
+    """The gradient penalty by plain torch ops (f64 in): (o, g, dq, dk, dv)."""
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    s = torch.matmul(q, k.transpose(-1, -2)) / q.shape[-1] ** 0.5
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    o = torch.matmul(torch.softmax(s, dim=-1), v)
+    (g,) = torch.autograd.grad((o * o).sum(), q, create_graph=True)
+    (g * g).sum().backward()
+    return [t.detach() for t in (o, g, q.grad, k.grad, v.grad)]
+
+
+def _second_order_flash(torch, mx, ctx, arrays, causal):
+    """The gradient penalty through ``_contrib_flash_attention``: (o, g,
+    dq, dk, dv) and the launches and backward counts it made."""
+    from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    counters = _flash_counters()
+    q, k, v = (mx.nd.array(a, ctx=ctx) for a in arrays)
+    for a in (q, k, v):
+        a.attach_grad()
+    _zero_counters(counters)
+    calls = (fa.FlashAttentionFunction.backward_calls,
+             fa.FlashAttentionFunction.double_backward_calls)
+    with mx.autograd.record():
+        o = mx.nd._contrib_flash_attention(q, k, v, causal=causal)
+        g = mx.autograd.grad((o * o).sum(), q, create_graph=True)
+        z = (g * g).sum()
+    z.backward()
+    torch.cuda.synchronize()
+    counts = {name: c.launches for name, c in counters.items()}
+    counts["backward_calls"] = fa.FlashAttentionFunction.backward_calls - calls[0]
+    counts["double_backward_calls"] = fa.FlashAttentionFunction.double_backward_calls - calls[1]
+    return [t._data.detach() for t in (o, g, q.grad, k.grad, v.grad)], counts
+
+
+def _card_vs_cpu(torch, mx, fn, tol, label):
+    """``fn(ctx)`` -> list of numpy arrays on the card and on the CPU; the
+    largest relative difference, raising above ``tol``."""
+    got, want = fn(mx.gpu(0)), fn(mx.cpu())
+    err = max((float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)) if w.size else 0.0)
+              for g, w in zip(got, want))
+    if err > tol:
+        raise AssertionError(f"second-order {label}: card against CPU {err:.3e} > {tol}")
+    return err
+
+
+def phase_second_order(torch):
+    """A5's tape on the card: the gradient penalty through K1-K3 against
+    f64 plain torch ops, then ``autograd.Function``, indexing and writes,
+    ``nd.linalg`` and ``nd.random`` (see the module docstring, phase 42)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.base import MXNetError
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.gpu(0)
+    rs = np.random.RandomState(42)
+    arrays = [rs.randn(8, 12, 1024, 64).astype(np.float32) for _ in range(3)]
+    out = {"shape": [8, 12, 1024, 64], "flash": {}}
+    launches = {}
+    want_counts = {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 2,
+                   "flash_attention_bwd_dkv": 2, "backward_calls": 2,
+                   "double_backward_calls": 1}
+    for causal in (False, True):
+        t = time.perf_counter()
+        got, counts = _second_order_flash(torch, mx, ctx, arrays, causal)
+        port_s = time.perf_counter() - t
+        if counts != want_counts:
+            raise AssertionError(f"second-order causal={causal}: counts {counts}, want "
+                                 f"{want_counts}")
+        want = _penalty_plain(torch, *(torch.from_numpy(a).to("cuda", torch.float64)
+                                       for a in arrays), causal)
+        errs = {name: float((g.double() - w).abs().max() / w.abs().max())
+                for name, g, w in zip(("o", "g", "dq", "dk", "dv"), got, want)}
+        if max(errs.values()) > TOL_SECOND_ORDER:
+            raise AssertionError(f"second-order causal={causal}: against f64 {errs} > "
+                                 f"{TOL_SECOND_ORDER}")
+        for name in _flash_counters():
+            launches[name] = launches.get(name, 0) + counts[name]
+        out["flash"]["causal" if causal else "full"] = {"rel_err": errs, "counts": counts,
+                                                        "seconds": port_s}
+        del got, want
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+
+    def function_case(c):
+        class Sig(mx.autograd.Function):
+            def forward(self, x):
+                y = 1.0 / (1.0 + mx.nd.exp(-x))
+                self.save_for_backward(y)
+                return y
+
+            def backward(self, dy):
+                y, = self.saved_tensors
+                return dy * y * (1.0 - y)
+        x = mx.nd.array(np.linspace(-2, 2, 64, dtype=np.float32), ctx=c)
+        x.attach_grad()
+        with mx.autograd.record():
+            z = Sig()(x * x).sum()
+        g = mx.autograd.grad([z], [x], create_graph=True, retain_graph=True)[0]
+        with mx.autograd.record():
+            gs = g.sum()
+        return [g.asnumpy(), mx.autograd.grad([gs], [x])[0].asnumpy()]
+    out["function_rel"] = _card_vs_cpu(torch, mx, function_case, 1e-6, "Function")
+
+    def index_case(c):
+        src = np.arange(64 * 48, dtype=np.float32).reshape(64, 48)
+        a = mx.nd.array(src, ctx=c)
+        reads = [a[3], a[5:40:3, ::-2], a[..., 7], a[None, -1],
+                 a[mx.nd.array([0, 9, 63], ctx=c, dtype="int32")]]
+        a[2:10] = 1.5
+        a[:, 4] = mx.nd.array(np.arange(64, dtype=np.float32), ctx=c)
+        a[::-8] = 0.25
+        x = mx.nd.array(np.array([1.0, 2.0, 3.0], np.float32), ctx=c)
+        x.attach_grad()
+        with mx.autograd.record():
+            yv = (x * x * x).sum()
+            x += 100.0                         # the recorded graph keeps x = (1, 2, 3)
+            x[0] = -1.0
+        yv.backward()
+        return [r.asnumpy() for r in reads] + [a.asnumpy(), x.grad.asnumpy(), x.asnumpy()]
+    out["index_rel"] = _card_vs_cpu(torch, mx, index_case, 0.0, "indexing")
+
+    def linalg_case(c):
+        r = np.random.RandomState(3)
+        m = r.randn(4, 8, 8).astype(np.float32)
+        spd = (m @ m.transpose(0, 2, 1) + 8 * np.eye(8, dtype=np.float32)).astype(np.float32)
+        low = np.linalg.cholesky(spd).astype(np.float32)
+        b = r.randn(4, 8, 5).astype(np.float32)
+        A, L, B = (mx.nd.array(t, ctx=c) for t in (spd, low, b))
+        A.attach_grad()
+        with mx.autograd.record():
+            outs = [mx.nd.linalg.potrf(A), mx.nd.linalg.inverse(A), mx.nd.linalg.potri(L),
+                    mx.nd.linalg.trsm(L, B), mx.nd.linalg.gemm2(A, B, alpha=0.5),
+                    mx.nd.linalg.syrk(B), mx.nd.linalg.sumlogdiag(A), mx.nd.linalg.det(A),
+                    mx.nd.linalg.slogdet(A)[1], mx.nd.linalg.gelqf(B.transpose((0, 2, 1)))[0]]
+            total = sum(o.sum() for o in outs[:9])
+        total.backward()
+        lam = mx.nd.linalg.syevd(A)[1]
+        return [o.asnumpy() for o in outs] + [lam.asnumpy(), A.grad.asnumpy()]
+    out["linalg_rel"] = _card_vs_cpu(torch, mx, linalg_case, TOL_LINALG_CARD, "linalg")
+
+    mx.random.seed(17)
+    draws = {"uniform": mx.nd.random.uniform(-1, 3, shape=(1 << 20,), ctx=ctx),
+             "normal": mx.nd.random.normal(1.5, 2.0, shape=(1 << 20,), ctx=ctx),
+             "gamma": mx.nd.random.gamma(2.5, 1.5, shape=(1 << 20,), ctx=ctx),
+             "poisson": mx.nd.random.poisson(3.5, shape=(1 << 20,), ctx=ctx),
+             "sample_normal": mx.nd.random.normal(
+                 mx.nd.array([0.0, 5.0], ctx=ctx), mx.nd.array([1.0, 0.5], ctx=ctx),
+                 shape=1 << 19)}
+    moments = {"uniform": (1.0, 16 / 12), "normal": (1.5, 4.0), "gamma": (3.75, 5.625),
+               "poisson": (3.5, 3.5)}
+    rand = {}
+    for name, arr in draws.items():
+        x = arr.asnumpy().astype(np.float64)
+        rows = [(x, *moments[name])] if name in moments else \
+            [(x[0], 0.0, 1.0), (x[1], 5.0, 0.25)]
+        for xs, mean, var in rows:
+            if abs(xs.mean() - mean) > 5 * np.sqrt(var / xs.size) or \
+                    abs(xs.var() - var) > 0.02 * var:
+                raise AssertionError(f"second-order random {name}: mean {xs.mean()}, var "
+                                     f"{xs.var()}, want {mean}, {var}")
+        rand[name] = {"mean": float(x.mean()), "var": float(x.var())}
+    mx.random.seed(17)
+    again = mx.nd.random.uniform(-1, 3, shape=(1 << 20,), ctx=ctx)
+    if not torch.equal(again._data, draws["uniform"]._data):
+        raise AssertionError("second-order random: seed does not repeat the draw")
+    out["random"] = rand
+
+    from mxnet_tpu_torch.convert import load_jax_params, seeded_params
+    from mxnet_tpu_torch.parallel import DataParallelTrainer, make_mesh
+
+    def inplace_run(captured):
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.nn.Dense(64, in_units=32, activation="relu"),
+                mx.gluon.nn.Dense(10, in_units=64))
+        net.initialize(ctx=ctx)
+        load_jax_params(net, seeded_params(net, 3))
+        tr = DataParallelTrainer(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+                                 {"learning_rate": 1e-2}, mesh=make_mesh({"dp": 1},
+                                                                         devices=[ctx]))
+        if not captured:
+            tr._graph_reason = "eager yardstick"
+        r = np.random.RandomState(4)
+        xb = mx.nd.array(r.randn(16, 32).astype(np.float32), ctx=ctx)
+        yb = mx.nd.array(np.arange(16) % 10, ctx=ctx, dtype="int32")
+        losses = [float(tr.step(xb, yb)) for _ in range(3)]
+        p = net._collect_params_with_prefix()["0.weight"]
+        ptr = p._param.data_ptr()
+        w = p.data()
+        w += 0.5
+        if p._param.data_ptr() != ptr:
+            raise AssertionError("second-order: += moved the parameter's storage")
+        losses += [float(tr.step(xb, yb)) for _ in range(3)]
+        return losses, _weights_of(net), tr.captured
+    cap, eag = inplace_run(True), inplace_run(False)
+    if not cap[2] or cap[0] != eag[0] or _weights_diff(torch, cap[1], eag[1]) != 0:
+        raise AssertionError(f"second-order: the captured step after += is not the eager one: "
+                             f"captured {cap[2]}, losses {cap[0]} / {eag[0]}")
+    out["inplace_captured_bitwise"] = True
+
+    net = mx.gluon.nn.Dense(8, in_units=4)
+    net.initialize(ctx=ctx)
+    net.hybridize()
+    xi = mx.nd.array(np.ones((2, 4), np.float32), ctx=ctx)
+    xi.attach_grad()
+    for _ in range(2):
+        with mx.autograd.record():
+            yo = net(xi)
+        yo.backward()
+    with mx.autograd.record():
+        yo = net(xi)
+        head = (yo * yo).sum()
+    if next(iter(net._cached_graphs.values())).eager is not None:
+        raise AssertionError("second-order: the hybridized Dense did not replay its pair")
+    try:
+        mx.autograd.grad(head, xi, create_graph=True)
+    except MXNetError as e:
+        if "hybridized-block forwards" not in str(e):
+            raise
+        out["pair_refusal"] = str(e)
+    else:
+        raise AssertionError("second-order: the hybridized pair did not refuse create_graph")
+    torch.cuda.empty_cache()
+    log(f"[second-order] gradient penalty through K1-K3 at (8, 12, 1024, 64) f32 against "
+        f"f64 plain ops: full {out['flash']['full']['rel_err']}, causal "
+        f"{out['flash']['causal']['rel_err']} (tol {TOL_SECOND_ORDER}); counts a mask "
+        f"{want_counts}; Function {out['function_rel']:.3e}, indexing "
+        f"{out['index_rel']:.3e}, linalg {out['linalg_rel']:.3e} against the CPU; random "
+        f"{rand}; the captured step after += equals the eager one bitwise; the "
+        f"hybridized pair refuses create_graph")
+    return out
+
+
 def _lenet_pair(mx, ctx, x0):
     """LeNet on ``ctx`` with seeded weights (its shapes from one forward),
     with the weights as numpy for a second instance."""
@@ -8402,6 +8777,8 @@ def main() -> int:
     opt_resnet = phase_opt_resnet(torch, resnet_params)
     opt_gluon = phase_opt_gluon(torch, bert_params)
     gluon_pair = phase_gluon_pair(torch, bert_params, bert_batch, resnet_params)
+    state_resume = phase_state_resume(torch, bert_params, bert_batch)
+    second_order = phase_second_order(torch)
     mnist = phase_mnist(torch)
     with _world1_nccl(torch):
         overlap_bert = phase_overlap_bert(torch, bert_params, bert_batch)
@@ -8469,7 +8846,10 @@ def main() -> int:
                 **{f"opt_{path}": r["launches"].get(name, 0) for path, r in opt_cells
                    if "modes" not in r},
                 "zero_ranks": sum(lc.get(name, 0) for c in zero_ranks["configs"].values()
-                                  for lc in c["launches"])}
+                                  for lc in c["launches"]),
+                # A5's remainder: the resumed Gluon steps and the gradient penalty
+                "state_resume": state_resume["launches"].get(name, 0),
+                "second_order": second_order["launches"].get(name, 0)}
 
     def lc_entry(kind):
         """K1-K3 on the long-context path: the causal rows at each shape."""
@@ -8677,6 +9057,7 @@ def main() -> int:
                    "overlap_bert": overlap_bert, "overlap_ranks": overlap_ranks,
                    "coord_kill": coord_kill, "dist_async": dist_async,
                    "gluon_pair": gluon_pair, "mnist": mnist, "f16_step": f16_step,
+                   "state_resume": state_resume, "second_order": second_order,
                    "pp_graph": pp_graph,
                    "rank_launches": {"4": rank_launches, "2": rank_launches_2},
                    "opt_fused": opt_fused, "opt_bert": opt_bert,

@@ -57,8 +57,14 @@ and backward) as CUDA graphs under ``autograd.record()``,
 ``models.lenet``/``models.mlp``, the thirteen ``gluon.loss`` losses,
 ``gluon.data`` (``DataLoader`` with thread workers and pinned memory, the
 vision datasets and transforms), ``metric`` and ``io`` (``NDArrayIter``,
-``MNISTIter``, ``CSVIter``, ``PrefetchingIter``). What is still to come is
-in ROADMAP.md.
+``MNISTIter``, ``CSVIter``, ``PrefetchingIter``); the optimizers' 19
+classes and update ops; and the rest of the tape and the array: higher-order
+gradients (``autograd.grad(create_graph=True)``, through the flash kernels
+too) and ``autograd.Function``, NDArray indexing and in-place writes,
+``nd.random``, ``nd.linalg``, ``nd.save``/``nd.load`` and ``.params`` in the
+reference's file format, nested ``name_scope`` and
+``Trainer.save_states``/``load_states``. What is still to come is in
+ROADMAP.md.
 
 Quick start::
 

@@ -2,10 +2,10 @@
 
 Counterpart of ``mxnet_tpu/base.py:20-117``. Kept: ``MXNetError`` and the
 typed ``MXNET_*`` environment registry. The mshadow dtype-code tables
-(serialization codes) wait for the slice that ports ``serialization.py``;
-in their place sits ``torch_dtype``, which maps the MXNet dtype names the
-Gluon layers pass around (``"float32"``, ``"bfloat16"``, numpy dtypes) onto
-``torch.dtype``.
+have no counterpart: the file format (``serialization.py``) names dtypes,
+as the reference's does. In their place sits ``torch_dtype``, which maps
+the MXNet dtype names the Gluon layers pass around (``"float32"``,
+``"bfloat16"``, numpy dtypes) onto ``torch.dtype``.
 """
 from __future__ import annotations
 

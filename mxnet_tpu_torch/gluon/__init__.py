@@ -5,7 +5,9 @@ Ported so far: ``Block``, ``HybridBlock`` (its hybridized forward and
 training pair as CUDA graphs), ``Parameter``, ``ParameterDict``, the layers
 BERT, ResNet and LeNet use, the thirteen losses of ``loss``, ``data``
 (datasets, samplers, ``DataLoader``, the vision datasets and transforms),
-the model zoo's ResNet family and ``Trainer`` on one device. The other zoo
+the model zoo's ResNet family and ``Trainer`` on one device (with
+``save_states``/``load_states``), nested ``name_scope`` prefixes and the
+reference's ``.params`` files. The other zoo
 families, the recurrent and contrib layers wait for later slices.
 """
 from . import nn

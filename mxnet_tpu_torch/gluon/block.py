@@ -93,14 +93,18 @@ into a parameter that is state, not weight (BatchNorm's running stats): in
 place, under ``torch.no_grad()``, into the parameter's own tensor in its
 own dtype, also while a compute copy stands in for it.
 
-Left for later slices: symbolic tracing and ``export``, ``SymbolBlock``,
-``name_scope`` prefixes nested under a parent (each block takes a
-process-wide ``<class><n>_`` prefix), ``summary``.
+Naming: a block made inside a parent's ``with self.name_scope():`` takes
+the parent's prefix and counters (``_BlockScope``, reference :79-120);
+outside every scope the process-wide ``<class><n>_``. The structural names
+of ``_collect_params_with_prefix`` (which ``convert``, the tensor-parallel
+roles and the elastic manifests key by) do not depend on either.
 
-``save_parameters`` writes ``{structural name: tensor}`` with
-``torch.save``; files in the reference's MXNet ``.params`` format wait for
-the slice that ports ``serialization.py`` (``convert.load_jax_params`` takes
-the reference's weights as numpy arrays).
+``save_parameters``/``load_parameters`` read and write the reference's
+``.params`` file (``serialization.py``, keys ``arg:<structural name>``);
+a file of either package loads in the other.
+
+Left for later slices: symbolic tracing and ``export``, ``SymbolBlock``,
+``summary``.
 """
 from __future__ import annotations
 
@@ -150,6 +154,47 @@ class _NameManager:
         return f"{hint}{i}_"
 
 
+class _BlockScope:
+    """Nested naming (reference ``_BlockScope``, block.py:79-120): a block
+    made inside a parent's ``with self.name_scope():`` takes the parent's
+    prefix before its own and its counter from the parent's counters, so
+    ``Net(prefix='mynet_')`` yields ``mynet_dense0_weight``; outside every
+    scope a block takes the process-wide ``<class><n>_``."""
+
+    _tls = threading.local()
+
+    def __init__(self, block: "Block"):
+        self._block = weakref.ref(block)
+        self._counters: Dict[str, int] = {}
+
+    @classmethod
+    def _stack(cls):
+        st = getattr(cls._tls, "stack", None)
+        if st is None:
+            st = cls._tls.stack = []
+        return st
+
+    @classmethod
+    def create_prefix(cls, prefix: Optional[str], hint: str) -> str:
+        st = cls._stack()
+        if not st:
+            return prefix if prefix is not None else _NameManager.fresh(hint)
+        scope = st[-1]
+        if prefix is None:
+            i = scope._counters.get(hint, 0)
+            scope._counters[hint] = i + 1
+            prefix = f"{hint}{i}_"
+        return scope._block().prefix + prefix
+
+    def __enter__(self):
+        self._stack().append(self)
+        return self
+
+    def __exit__(self, *a):
+        self._stack().pop()
+        return False
+
+
 class HookHandle:
     """Detachable hook registration (reference gluon/utils.py HookHandle)."""
 
@@ -173,10 +218,10 @@ class Block(torch.nn.Module):
     def __init__(self, prefix: Optional[str] = None,
                  params: Optional[ParameterDict] = None):
         super().__init__()
-        self._prefix = prefix if prefix is not None \
-            else _NameManager.fresh(type(self).__name__.lower())
+        self._prefix = _BlockScope.create_prefix(prefix, type(self).__name__.lower())
         self._params = ParameterDict(self._prefix, shared=params)
         self._reg_params: "OrderedDict[str, Parameter]" = OrderedDict()
+        self._scope = _BlockScope(self)
 
     # -- naming / params -----------------------------------------------------
     @property
@@ -190,6 +235,9 @@ class Block(torch.nn.Module):
     @property
     def params(self) -> ParameterDict:
         return self._params
+
+    def name_scope(self):
+        return self._scope
 
     @property
     def _children(self):
@@ -266,14 +314,20 @@ class Block(torch.nn.Module):
             p.cast(dtype)
 
     # -- checkpointing ---------------------------------------------------------
-    def save_parameters(self, filename):
-        params = self._collect_params_with_prefix()
-        torch.save({k: p.data()._data.detach().cpu() for k, p in params.items()},
-                   filename)
+    def save_parameters(self, filename, deduplicate=False):
+        """The parameters under ``arg:<structural name>`` in the reference's
+        file format (``serialization.py``; reference block.py:239)."""
+        from ..serialization import save_ndarrays
+        save_ndarrays(filename, {"arg:" + k: p.data()
+                                 for k, p in self._collect_params_with_prefix().items()})
 
     def load_parameters(self, filename, ctx=None, allow_missing=False,
-                        ignore_extra=False):
-        loaded = torch.load(filename, map_location="cpu", weights_only=True)
+                        ignore_extra=False, cast_dtype=False, dtype_source="current"):
+        """Load a file of ``save_parameters`` (either package's), copied into
+        each parameter in its dtype and on its device (reference :246)."""
+        from ..serialization import load_tensors
+        loaded = load_tensors(filename)
+        loaded = {k.split(":", 1)[1] if ":" in k else k: v for k, v in loaded.items()}
         params = self._collect_params_with_prefix()
         for key, p in params.items():
             if key in loaded:
@@ -425,7 +479,9 @@ class _Pair:
 
 class _PairCall(torch.autograd.Function):
     """A replay of a slot's forward graph on the tape: ``apply(slot, *inputs,
-    *leaves)``; the backward replays the slot's backward graph."""
+    *leaves)``; the backward replays the slot's backward graph. Under
+    ``grad(create_graph=True)`` it raises the reference's ``MXNetError``
+    (hybridized-block forwards have no re-differentiable form)."""
 
     @staticmethod
     def forward(ctx, slot, *tensors):
@@ -442,6 +498,8 @@ class _PairCall(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        if torch.is_grad_enabled():         # create_graph: a replay has no derivative
+            raise MXNetError(autograd._NO_SECOND_ORDER)
         ctx.saved_tensors         # raises after a backward that released them, as eager does
         slot = ctx.slot
         for buf, g in zip(slot.gouts, [g for g, d in zip(grads, slot.out_diff) if d]):

@@ -26,7 +26,8 @@ initializer and context and returns; ``data()`` then raises
 shape from its input (``HybridBlock.infer_shape``) and calls
 ``_finish_deferred_init``. An incomplete shape without
 ``allow_deferred_init`` still raises at ``initialize()``.
-``ParameterDict.save/load`` and ``Constant`` wait for later slices.
+``ParameterDict.save``/``load`` write and read the reference's file
+format (``serialization.py``). ``Constant`` waits for a later slice.
 
 A compute copy (``_compute``) stands in for the value while it is set:
 ``data()`` returns it. ``parallel.DataParallelTrainer`` sets it to the
@@ -322,6 +323,35 @@ class ParameterDict:
     def zero_grad(self):
         for p in self._params.values():
             p.zero_grad()
+
+    def save(self, filename, strip_prefix=""):
+        """The parameters under ``arg:<name>`` (``strip_prefix`` taken off
+        the names that start with it) in the reference's file format
+        (reference parameter.py:308)."""
+        from ..serialization import save_ndarrays
+        d = {}
+        for name, p in self._params.items():
+            key = name[len(strip_prefix):] if name.startswith(strip_prefix) else name
+            d["arg:" + key] = p.data()
+        save_ndarrays(filename, d)
+
+    def load(self, filename, ctx=None, allow_missing=False, ignore_extra=False,
+             restore_prefix=""):
+        """Load a file of ``save`` (either package's), ``restore_prefix``
+        put before each name (reference :316)."""
+        from ..serialization import load_tensors
+        loaded = load_tensors(filename)
+        loaded = {restore_prefix + (k.split(":", 1)[1] if ":" in k else k): v
+                  for k, v in loaded.items()}
+        for name, p in self._params.items():
+            if name in loaded:
+                p.set_data(loaded[name])
+            elif not allow_missing:
+                raise MXNetError(f"parameter {name} missing from {filename}")
+        if not ignore_extra:
+            extra = set(loaded) - set(self._params)
+            if extra:
+                raise MXNetError(f"extra parameters in file: {sorted(extra)[:5]}")
 
     def __repr__(self):
         lines = [f"  {p}" for p in self._params.values()]

@@ -27,8 +27,13 @@ reference. Then:
 ``compression_params`` go to the store's ``set_gradient_compression`` when
 it is made (a dist store; the in-process stores raise), as in the reference
 (:71). An unknown store name raises at construction; parameters on more
-than one device raise at the first step. ``save_states``/``load_states``
-wait for a later slice and raise.
+than one device raise at the first step.
+
+``save_states``/``load_states`` (:230-247) write and read the updater's
+``get_states(dump_optimizer=True)`` bytes, the store's under
+``update_on_kvstore``; a file the reference wrote loads too. As in the
+reference, a loaded optimizer carries no ``param_dict`` (its
+``__getstate__`` drops the parameters) and nothing re-binds it.
 """
 from __future__ import annotations
 
@@ -165,7 +170,25 @@ class Trainer:
             p.zero_grad()
 
     def save_states(self, fname):
-        raise MXNetError("Trainer.save_states is not ported yet")
+        """The updater's states and optimizer (``get_states(dump_optimizer=
+        True)``) to ``fname``, through the store under ``update_on_kvstore``
+        (reference trainer.py:230)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is not None and self._update_on_kvstore_flag:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+        else:
+            with open(fname, "wb") as f:
+                f.write(self._updater.get_states(dump_optimizer=True))
 
     def load_states(self, fname):
-        raise MXNetError("Trainer.load_states is not ported yet")
+        """Install a file of ``save_states`` (either package's); without the
+        store the loaded optimizer becomes this trainer's (reference :239)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is not None and self._update_on_kvstore_flag:
+            self._kvstore.load_optimizer_states(fname)
+        else:
+            with open(fname, "rb") as f:
+                self._updater.set_states(f.read())
+            self._optimizer = self._updater.optimizer

@@ -239,10 +239,12 @@ class _RingAttention(torch.autograd.Function):
         return o
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, do):
         from .. import _dist_util
+        from ..autograd import _NO_SECOND_ORDER
         from .cuda.flash_attention import _aligned
+        if torch.is_grad_enabled():      # create_graph: the ring has no double backward
+            raise MXNetError(_NO_SECOND_ORDER)
         q3, k3, v3, o, lse = ctx.saved_tensors
         n, idx, group, causal, scale = ctx.ring
         do3 = _aligned(do)

@@ -28,7 +28,11 @@ counterpart of ``_flash``'s ``custom_vjp`` (:362-379): its forward runs
 ``flash_attention_fwd`` and saves q, k, v, O and the LSE; its backward makes
 dO contiguous and aligned, computes delta = rowsum(dO * O) with torch ops (the reference
 leaves it to XLA, :283) and launches the two backward kernels, or, for CPU
-tensors, runs the plain backward. ``flash_attention(q, k, v, causal, scale,
+tensors, runs the plain backward. Under ``create_graph`` (a backward with
+grad enabled) the same two kernels give the gradients through a second
+Function, ``_FlashAttentionGrads``, whose own backward (the double
+backward) is plain torch ops (its docstring says why); the first-order
+path launches and saves nothing more. ``flash_attention(q, k, v, causal, scale,
 block_q, block_k)`` is the public (B, H, T, D) entry point with the
 reference's signature (:382-412); its reshape to (BH, T, D) and the
 contiguous, aligned copies stay outside the Function, so torch differentiates
@@ -337,9 +341,11 @@ def _aligned(t):
 class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable flash attention on (BH, T, D) tensors (reference
     ``_flash`` custom_vjp :362-379). ``backward_calls`` counts backward
-    passes, on any device."""
+    passes, on any device; ``double_backward_calls`` counts the backwards of
+    those passes (``_FlashAttentionGrads``)."""
 
     backward_calls = 0
+    double_backward_calls = 0
 
     @staticmethod
     def forward(ctx, q3, k3, v3, causal, scale):
@@ -349,13 +355,72 @@ class FlashAttentionFunction(torch.autograd.Function):
         return o
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, do):
         FlashAttentionFunction.backward_calls += 1
         q3, k3, v3, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q3, k3, v3, o, lse, _aligned(do),
-                                         ctx.causal, ctx.scale)
+        if not torch.is_grad_enabled():
+            dq, dk, dv = flash_attention_bwd(q3, k3, v3, o, lse, _aligned(do),
+                                             ctx.causal, ctx.scale)
+        else:                     # create_graph: the gradients join the graph
+            dq, dk, dv = _FlashAttentionGrads.apply(q3, k3, v3, o, lse, do,
+                                                    ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
+
+
+def attention_grads_plain(q, k, v, do, causal: bool, scale: float):
+    """(dq, dk, dv) of attention on (BH, T, D) tensors in differentiable
+    torch ops, the scores in full: P = softmax(q k^T scale) (masked where
+    the key follows the query under ``causal``), O = P v, dv = P^T dO,
+    dS = P * (dO v^T - rowsum(dO * O)), dq = dS k scale, dk = dS^T q scale."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if causal:
+        T, Tk = q.shape[-2], k.shape[-2]
+        keep = torch.arange(T, device=q.device)[:, None] >= torch.arange(Tk, device=q.device)
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.matmul(p, v)
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta)
+    return (torch.matmul(ds, k) * scale, torch.matmul(ds.transpose(-1, -2), q) * scale,
+            torch.matmul(p.transpose(-1, -2), do))
+
+
+class _FlashAttentionGrads(torch.autograd.Function):
+    """The first-order gradients under ``create_graph``: the forward is the
+    backward kernels K2/K3 (``flash_attention_bwd``), as in the first-order
+    path; the backward (the double backward) is plain torch ops, the
+    derivative of ``attention_grads_plain`` at Q, K, V and dO, in float32
+    (float64 for float64 inputs). The reference has no kernel for it: JAX
+    differentiates its kernels' bodies, the Pallas calls included, so its
+    double backward is whatever XLA makes of that derivative. P is
+    recomputed from Q and K rather than read from the saved LSE, whose own
+    derivative the second order needs. A third order raises the reference's
+    ``MXNetError``."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, o, lse, do, causal, scale):
+        ctx.save_for_backward(q3, k3, v3, do)
+        ctx.causal, ctx.scale = causal, scale
+        return flash_attention_bwd(q3, k3, v3, o, lse, _aligned(do), causal, scale)
+
+    @staticmethod
+    def backward(ctx, gdq, gdk, gdv):
+        if torch.is_grad_enabled():           # a third order
+            from ...autograd import _NO_SECOND_ORDER
+            raise MXNetError(_NO_SECOND_ORDER)
+        FlashAttentionFunction.double_backward_calls += 1
+        q3, k3, v3, do = ctx.saved_tensors
+        f = torch.float64 if q3.dtype == torch.float64 else torch.float32
+        scale = ctx.scale if ctx.scale is not None else 1.0 / math.sqrt(q3.shape[-1])
+        with torch.enable_grad():
+            leaves = [t.detach().to(f).requires_grad_() for t in (q3, k3, v3, do)]
+            grads = attention_grads_plain(*leaves, ctx.causal, scale)
+            cots = [torch.zeros_like(g) if c is None else c.to(f) for g, c in
+                    zip(grads, (gdq, gdk, gdv))]
+            gq, gk, gv, gdo = torch.autograd.grad(grads, leaves, cots, allow_unused=True)
+        out = [None if g is None else g.to(t.dtype) for g, t in
+               zip((gq, gk, gv, gdo), (q3, k3, v3, do))]
+        return out[0], out[1], out[2], None, None, out[3], None, None
 
 
 def flash_attention(q, k, v, causal: bool = False, scale=None,

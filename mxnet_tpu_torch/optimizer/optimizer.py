@@ -52,13 +52,19 @@ keeps its identity and no second copy of the weights or states stays
 alive. This is the counterpart of the reference's buffer donation
 (``_UpdateKernel``, :229-273).
 
+States: ``Updater.get_states``/``set_states`` serve ``kvstore`` and
+``Trainer.save_states``/``load_states``; ``set_states`` also reads the
+reference's bytes (``_StatesUnpickler``), and a pickled ``Optimizer``
+carries no parameters (``__getstate__``, reference :71-79).
+
 Waiting for later slices: the lazy row-sparse updates (ROADMAP A9) and
-``aggregate_num``; ``Updater.get_states`` / ``set_states`` serve
-``kvstore`` today and ``Trainer.save_states`` later (ROADMAP A5).
+``aggregate_num``.
 """
 from __future__ import annotations
 
+import io
 import pickle
+import sys
 
 from typing import Any, Dict
 
@@ -121,6 +127,22 @@ class Optimizer:
         self._index_update_count: Dict[Any, int] = {}
         self.lr_mult: Dict[str, float] = {}
         self.wd_mult: Dict[str, float] = {}
+
+    # pickling (``Updater.get_states(dump_optimizer=True)``, reference
+    # :71-79): the live Parameters (and their device tensors) are dropped;
+    # unpickling starts from the class's defaults, so a state written by
+    # the reference (whose attributes may differ) leaves none missing
+    def __getstate__(self):
+        st = dict(self.__dict__)
+        st["param_dict"] = {}
+        return st
+
+    def __setstate__(self, st):
+        try:
+            self.__dict__.update(type(self)().__dict__)
+        except TypeError:                  # a class with required arguments
+            pass
+        self.__dict__.update(st)
 
     # -- bookkeeping --------------------------------------------------------
     def _update_count(self, index):
@@ -195,6 +217,30 @@ class Optimizer:
             self.update(index, weight, grad, state)
 
 
+class _StatesUnpickler(pickle.Unpickler):
+    """Unpickles a states blob without importing the reference package or
+    JAX: a class of ``mxnet_tpu.optimizer`` or ``mxnet_tpu.lr_scheduler``
+    becomes the port's class of that name; any other global of
+    ``mxnet_tpu`` or ``jax`` raises ``MXNetError`` naming it."""
+
+    def find_class(self, module, name):
+        root = module.split(".")[0]
+        if root == "mxnet_tpu":
+            if module.startswith("mxnet_tpu.optimizer") or module == "mxnet_tpu.lr_scheduler":
+                from .. import lr_scheduler
+                ours = sys.modules[__name__] if module.startswith("mxnet_tpu.optimizer") \
+                    else lr_scheduler
+                cls = getattr(ours, name, None)
+                if isinstance(cls, type):
+                    return cls
+            raise MXNetError(f"optimizer states refer to {module}.{name}, which the "
+                             f"port has no counterpart of (not imported)")
+        if root in ("jax", "jaxlib"):
+            raise MXNetError(f"optimizer states refer to {module}.{name} (JAX), "
+                             f"which the port does not import")
+        return super().find_class(module, name)
+
+
 class Updater:
     """Holds the per-index states and applies an optimizer (reference
     optimizer.py:160)."""
@@ -202,6 +248,7 @@ class Updater:
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
         self.states: Dict[Any, Any] = {}
+        self._unplaced = set()
 
     def __call__(self, index, grad, weight):
         if not isinstance(index, (list, tuple)):
@@ -209,12 +256,15 @@ class Updater:
         for i, g, w in zip(index, grad, weight):
             if i not in self.states:
                 self.states[i] = self.optimizer.create_state_multi_precision(i, w)
+            elif i in self._unplaced:
+                self.states[i] = _to_ctx(self.states[i], w.ctx)
+                self._unplaced.discard(i)
             self.optimizer.update_multi_precision(i, w, g, self.states[i])
 
     def get_states(self, dump_optimizer=False) -> bytes:
-        """The states (and, with ``dump_optimizer``, the optimizer) as bytes
-        (reference optimizer.py:184): each state tensor as a numpy array with
-        its device."""
+        """The states (and, with ``dump_optimizer``, the optimizer without
+        its parameters) as bytes (reference optimizer.py:184): each state
+        tensor as ``("nd", numpy array, dtype, device type, device id)``."""
         def conv(s):
             if isinstance(s, NDArray):
                 return ("nd", s.asnumpy(), str(s.dtype).rpartition(".")[2],
@@ -228,21 +278,43 @@ class Updater:
         return pickle.dumps(blob)
 
     def set_states(self, states_blob: bytes):
-        """Install states from ``get_states``' bytes. They are unpickled:
-        load only bytes this program wrote."""
-        from ..context import Context
+        """Install states from ``get_states``' bytes, the port's or the
+        reference's (whose entries ``("nd", array, dtype)`` name no device:
+        such a state goes to the device of this index's weight, from the
+        optimizer's ``param_dict`` or, failing that, at the index's next
+        update). The blob is unpickled (``_StatesUnpickler``): load only
+        bytes this program or the reference wrote. A dumped optimizer
+        replaces this updater's."""
+        from ..context import Context, cpu
         from ..ndarray import array
-        blob = pickle.loads(states_blob)
+        blob = _StatesUnpickler(io.BytesIO(states_blob)).load()
+        params = self.optimizer.param_dict
+        self._unplaced = set()
 
-        def unconv(s):
+        def unconv(s, k):
             if s[0] == "nd":
-                return array(s[1], ctx=Context(s[3], s[4]), dtype=s[2])
+                if len(s) > 3:
+                    ctx = Context(s[3], s[4])
+                elif k in params:
+                    ctx = params[k].list_ctx()[0]
+                else:
+                    ctx = cpu()
+                    self._unplaced.add(k)
+                return array(s[1], ctx=ctx, dtype=s[2])
             if s[0] == "tuple":
-                return tuple(unconv(x) for x in s[1])
+                return tuple(unconv(x, k) for x in s[1])
             return s[1]
-        self.states = {k: unconv(v) for k, v in blob["states"].items()}
+        self.states = {k: unconv(v, k) for k, v in blob["states"].items()}
         if "optimizer" in blob:
             self.optimizer = blob["optimizer"]
+
+
+def _to_ctx(state, ctx):
+    if isinstance(state, NDArray):
+        return state.as_in_context(ctx)
+    if isinstance(state, tuple):
+        return tuple(_to_ctx(x, ctx) for x in state)
+    return state
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/random.py:83-124``. The reference keeps one
 global threefry key; here ``seed(n)`` drives one explicit
 ``torch.Generator`` per device, made on first use and seeded with ``n``.
-Initializers and dropout draw from ``generator(ctx)``. Threefry and Philox
+Initializers, dropout, ``nd.random`` and the sampling ops draw from
+``generator(ctx)``. Threefry and Philox
 streams cannot be matched, so tests that compare the two packages draw
 their inputs and weights with numpy.
 

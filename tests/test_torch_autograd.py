@@ -195,10 +195,8 @@ def test_grad_of_unreached_variable_raises():
         y = (x * x).sum()
     with pytest.raises(MXNetError, match="does not receive gradient"):
         mt.autograd.grad(y, [w])
-    with pytest.raises(MXNetError, match="create_graph"):
-        mt.autograd.grad(y, [x], create_graph=True)
-    with pytest.raises(MXNetError):
-        mt.autograd.Function()
+    with pytest.raises(MXNetError, match="does not receive gradient"):
+        mt.autograd.grad(y, [w], create_graph=True)
 
 
 def test_mark_variables(ref):

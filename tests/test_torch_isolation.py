@@ -5,7 +5,9 @@
   module, plus a fresh interpreter that imports the whole port and finds
   neither loaded, plus two ranks spawned by ``_dist_util.launch_local`` that
   run a collective and find neither loaded, and two that run a ring
-  attention and a sharded-update reduce-scatter and find neither loaded).
+  attention and a sharded-update reduce-scatter and find neither loaded,
+  and a fresh interpreter that loads a trainer states file and a
+  ``.params`` file written by the reference and finds neither loaded).
 - With no CUDA device, the default context raises instead of running on the
   CPU; the kernel build raises without ``nvcc``; ``chip_smoke.py`` exits
   non-zero and prints no result without a card, and without the repository
@@ -86,11 +88,67 @@ def test_fresh_interpreter_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.elastic.coordinator, mxnet_tpu_torch.elastic.drill, "
             "mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.metric, mxnet_tpu_torch.io, "
             "mxnet_tpu_torch.gluon.data, mxnet_tpu_torch.gluon.data.vision.transforms, "
-            "mxnet_tpu_torch.models.lenet, mxnet_tpu_torch.models.mlp\n"
+            "mxnet_tpu_torch.models.lenet, mxnet_tpu_torch.models.mlp, "
+            "mxnet_tpu_torch.serialization, mxnet_tpu_torch.ndarray.random, "
+            "mxnet_tpu_torch.ndarray.linalg, mxnet_tpu_torch.ops.linalg, "
+            "mxnet_tpu_torch.ops.random_sample\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_LOAD_STATES = r"""
+import sys, numpy as np
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch.base import MXNetError
+net = mt.gluon.nn.Dense(3, in_units=4)
+net.initialize(ctx=mt.cpu())
+net.load_parameters(sys.argv[1] + "/ref.params")
+tr = mt.gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.5})
+tr.load_states(sys.argv[1] + "/ref.states")
+assert type(tr.optimizer).__name__ == "Adam", type(tr.optimizer)
+assert type(tr.optimizer.lr_scheduler).__name__ == "FactorScheduler"
+assert tr.optimizer.num_update == 2 and len(tr._updater.states) == 2
+x = mt.nd.array(np.ones((2, 4), np.float32), ctx=mt.cpu())
+with mt.autograd.record():
+    loss = net(x).sum()
+loss.backward()
+tr.step(2)
+blob = (b"(dp0\nVstates\np1\n(dp2\nI0\ncmxnet_tpu.ndarray.ndarray\nNDArray\n"
+        b"p3\nss.")
+try:
+    tr._updater.set_states(blob)
+except MXNetError as e:
+    assert "mxnet_tpu.ndarray.ndarray.NDArray" in str(e)
+else:
+    raise AssertionError("a foreign global was not refused")
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")]
+print(bad); sys.exit(1 if bad else 0)
+"""
+
+
+def test_reference_states_file_loads_without_jax_or_reference(tmp_path):
+    """A ``Trainer.save_states`` file and a ``.params`` file written by the
+    reference (Adam with a FactorScheduler, two steps) load into a port
+    trainer in a fresh interpreter that then has neither the reference nor
+    jax loaded; a blob naming another reference global is refused."""
+    import mxnet_tpu as mx
+    net = mx.gluon.nn.Dense(3, in_units=4)
+    net.initialize(ctx=mx.cpu())
+    tr = mx.gluon.Trainer(net.collect_params(), "adam", {
+        "learning_rate": 0.01, "lr_scheduler": mx.lr_scheduler.FactorScheduler(step=1)})
+    x = mx.nd.array(np.ones((2, 4), np.float32), ctx=mx.cpu())
+    for _ in range(2):
+        with mx.autograd.record():
+            loss = net(x).sum()
+        loss.backward()
+        tr.step(2)
+    net.save_parameters(str(tmp_path / "ref.params"))
+    tr.save_states(str(tmp_path / "ref.states"))
+    proc = subprocess.run([sys.executable, "-c", _LOAD_STATES, str(tmp_path)], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

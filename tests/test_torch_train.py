@@ -143,5 +143,8 @@ def test_trainer_refuses_what_is_not_ported():
         mt.gluon.Trainer(params, "lambda")
     assert type(mt.gluon.Trainer(params, "lamb")._optimizer).__name__ == "LAMB"
     trainer = mt.gluon.Trainer(params, "sgd")
-    with pytest.raises(mt.MXNetError, match="save_states"):
-        trainer.save_states("unused")
+    # states are ported; a states blob naming a reference class the port
+    # has no counterpart of is refused, never imported
+    blob = b"(dp0\nVstates\np1\n(dp2\nI0\ncmxnet_tpu.ndarray\nNDArray\np3\nss."
+    with pytest.raises(mt.MXNetError, match="mxnet_tpu.ndarray.NDArray"):
+        trainer._updater.set_states(blob)
