@@ -414,6 +414,18 @@ step's ``functional_optimizer``; the new rules are tensor ops, no kernel):
    the eager one bitwise; a hybridized pair refuses ``create_graph``),
    ``nd.linalg`` on the card against the CPU, and ``nd.random`` on the card
    by its moments and its repeat under ``seed``.
+43. ``phase_feed_telemetry`` (after phase 13's block): the long-context
+   path (``LongContextTrainer`` at T=32768, batch 4, captured on a world-1
+   NCCL mesh) fed by ``recipes.long_context.make_feed`` against the same
+   steps fed ``TokenWindows``' batches by hand, FEED_STEPS steps each with
+   telemetry on: losses and weights bitwise, causal K1-K3 twice and K5 once
+   a step, the in-flight window at most 2 steps, the feed's queue depth and
+   stall, p50/p90 and idle share; BERT-base f32 captured with telemetry on
+   against off: bitwise, 1 host launch a step, the step-time ratio, the
+   step's FLOPs (``mx_flops_total``) against 6 N tokens plus K1-K3's
+   formulas, ``mx_mfu`` against 989e12, ``scrape()`` parsed as Prometheus
+   text; ``telemetry.trace_steps(2)`` writing a Chrome trace that holds 2
+   steps' K1 launches after its padding.
 
 The rank phases of one world size run in one launch
 (``phase_rank_launches``): phases 26, 26b, 14 (and its D = 16 run), 23, 23b
@@ -438,6 +450,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -4048,8 +4061,10 @@ def _elastic_zero_steps(torch, device="gpu", cfg=None, timeout=900):
     ``zero_update=True``): a snapshot after step 2 on dp2 (2 ranks sharing the
     card over gloo) resumed at world 1 (NCCL): ``"resharded"``, every Adam lane
     bitwise ``_revector`` of the saved lanes, and step 3's loss and weights
-    against the 2-rank run's step 3 at TOL_ZERO_LOSS / TOL_ZERO_W; then the
-    reverse, a dp1 snapshot resumed on dp2."""
+    against the 2-rank run's step 3 at TOL_ZERO_LOSS / TOL_ZERO_W; and the
+    reverse, a dp1 snapshot resumed on dp2. The world of one saves first (in
+    this process), so that one dp2 launch both saves and resumes; the world
+    of one then resumes the dp2 snapshot."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.convert import seeded_params
     from mxnet_tpu_torch.models import BertModel
@@ -4070,7 +4085,7 @@ def _elastic_zero_steps(torch, device="gpu", cfg=None, timeout=900):
              y=rs.randint(0, cfg["vocab_size"], size=(4, T)).astype(np.int32))
     t0 = time.perf_counter()
     runs = {}
-    for modes, n in ((("save",), 2), (("resume", "save"), 1), (("resume",), 2)):
+    for modes, n in ((("save",), 1), (("save", "resume"), 2), (("resume",), 1)):
         if n == 1 and device == "gpu":
             # the world of one runs here, in a world-1 NCCL group, sparing a
             # process start
@@ -4110,8 +4125,8 @@ def _elastic_zero_steps(torch, device="gpu", cfg=None, timeout=900):
             f"{s[0]['losses'][2]:.6f} (max rel {loss_rel:.2e}, tol {TOL_ZERO_LOSS:.0e}), "
             f"weights max|d| {w_abs:.2e} (tol {TOL_ZERO_W:.0e}); launches "
             f"{r[0]['launches']} {'ok' if good else 'FAIL'}")
-    log(f"[elastic-zero] 2 launches and the world of one in this process in {seconds:.1f} s "
-        f"(dp2 ranks sharing the card over gloo)")
+    log(f"[elastic-zero] one launch and the world of one twice in this process in "
+        f"{seconds:.1f} s (dp2 ranks sharing the card over gloo)")
     if not ok:
         raise AssertionError("the ZeRO resume across data degrees disagrees")
     out["launches"] = {k: sum(a["launches"].get(k, 0) for rr in runs.values() for a in rr)
@@ -4612,7 +4627,7 @@ PP_STEPS = 6                       # a warm-up and 5 timed
 PP_BF16_STEPS = 3
 PP_CHECK_LAYERS, PP_CHECK_B, PP_CHECK_M = 2, 2, 2
 TOL_PP_LOSS = 1e-5                 # against DataParallelTrainer's batch-8 step, relative
-TOL_PP_W = 2e-5                    # step-3 weights of 2 ranks against one (tests' TOL_W)
+TOL_PP_W = 2e-5                    # weights after the last compared step (tests' TOL_W)
 PP_MEM_MARGIN = 0.10               # stage 0's peak at M = 8 over M = 4's, beyond the tokens
 # dryrun_multichip's pipeline (__graft_entry__.py:162-179): bert_tiny, T 32,
 # Bp = 2 * 2 * dp, M = 2, Adam 1e-4, on {pp: 2, dp: 2}
@@ -8236,6 +8251,349 @@ def _finish(steps, ranks):
         ranks = _launch(request)
 
 
+# --- A7: the async feed, the telemetry registry and its hooks -----------------
+
+FEED_STEPS = 10              # long-context steps fed by make_feed and by hand
+FEED_EXTRA = 4               # windows left for the traced steps (_api_launches' rounds)
+TELEM_CMP_STEPS = 3          # BERT-base steps compared, telemetry on against off
+TELEM_TIMED = 5              # timed steps a mode after 2: p50 and p90
+TELEM_TRACED = 2             # trace_steps(n)'s steps
+TELEM_OVERHEAD_BUDGET = 0.02  # the reference's budget for the enabled path (recorded)
+FLOPS_TOL = 0.01             # the step's count against 6 N tokens + K1-K3's formulas
+# the hybridized training pair's FLOPs under gluon.Trainer: BERT-base width,
+# depth cut to 2 layers (the count is per layer), bert_batch's shape
+GLUON_FLOPS_CFG = dict(vocab_size=30522, num_layers=2, units=768, hidden_size=3072,
+                       num_heads=12, max_length=1024)
+GLUON_FLOPS_STEPS = 4        # the warm call's step, the capture's, 2 replays
+PROM_LINE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z0-9_]+="[^"]*"'
+                       r'(,[a-zA-Z0-9_+]+="[^"]*")*\})? [-+]?[0-9.eE+-]+(inf|nan)?$')
+
+
+def _feed_lc_mode(torch, mx, weights, tokens, mode):
+    """FEED_STEPS LongContextTrainer steps on TokenWindows(tokens, LC_B,
+    LC_T), fed by ``make_feed`` (``mode`` "feed") or by hand ("hand":
+    each window copied to the card by ``nd.array``), captured, telemetry
+    on, under deterministic algorithms (the embedding's gradient adds with
+    atomics otherwise): the losses, the weights after the steps, the
+    launches, the step times (each ended by a sync), and one padded trace of
+    a further step."""
+    from mxnet_tpu_torch.recipes import long_context as lc
+    ctx = mx.gpu(0)
+    counters = _lc_counters()
+    mesh = mx.parallel.make_mesh({"dp": 1, "sp": 1}, devices=[ctx])
+    net, trainer = _lc_trainer(mx, weights, ctx, mesh, LC_T)
+    windows = lc.TokenWindows(tokens, LC_B, LC_T)
+    feed = lc.make_feed(windows, trainer) if mode == "feed" else None
+    src = feed if feed is not None else iter(windows)
+
+    def batch():
+        x, y = next(src)
+        if feed is None:
+            x, y = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in (x, y))
+        return x, y
+    _zero_counters(counters)
+    losses, ms = [], []
+    for _ in range(FEED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.step(*batch()))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    trainer.drain()
+    out = {"losses": [float(v) for v in losses], "weights": _weights_of(net),
+           "launches": {k: c.launches for k, c in counters.items()},
+           "masks": {k: dict(c.launches_by_mask) for k, c in _flash_counters().items()},
+           "step_ms": _pct(ms[2:]), "max_inflight": trainer._window.max_inflight,
+           "captured": trainer.captured}
+    api = _api_launches(torch, lambda: trainer.step(*batch()))
+    out.update(busy_ms=api["device_busy_ms"], host_launches=api["host_launches"],
+               sessions=api["sessions"])
+    out["idle_share"] = 1.0 - out["busy_ms"] / out["step_ms"]["p50"] \
+        if out["busy_ms"] is not None else None
+    if feed is not None:
+        out["feed"] = {"stall_seconds": feed.stall_seconds,
+                       "delivered": feed.batches_delivered}
+        feed.close()
+    del trainer, net
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bert_flops_formula(cfg, B, T):
+    """The BERT-base step's FLOPs as the port counts them: 6 x tokens x the
+    dense layers' weights (qkv, proj, ffn1, ffn2 a layer, the MLM dense and
+    decoder), and K1-K3's formulas a layer (engine.attention_flops)."""
+    from mxnet_tpu_torch import engine
+    U, Hd, L = cfg["units"], cfg["hidden_size"], cfg["num_layers"]
+    dense = L * (4 * U * U + 2 * U * Hd) + U * U + cfg["vocab_size"] * U
+    BH, D = B * cfg["num_heads"], U // cfg["num_heads"]
+    attn = sum(engine.attention_flops(k, BH, T, T, D, False) for k in ("fwd", "dq", "dkv"))
+    return 6.0 * B * T * dense + L * attn
+
+
+def _gluon_pair_flops(torch, mx, bert_batch):
+    """GLUON_FLOPS_STEPS gluon.Trainer steps of a hybridized BERT-base-width
+    block (GLUON_FLOPS_CFG, Adam 1e-4) with telemetry on: each step's
+    ``flops_executed`` and ``flops_estimated`` deltas, whether the pair
+    replayed, and ``mx_flops_total{source="trainer"}``."""
+    from mxnet_tpu_torch import engine, telemetry
+    from mxnet_tpu_torch.models import BertModel
+    ctx = mx.gpu(0)
+    net = BertModel(**GLUON_FLOPS_CFG)
+    net.initialize(ctx=ctx)
+    net.hybridize()
+    x, y = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in bert_batch)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", {"learning_rate": 1e-4})
+    steps = []
+    for _ in range(GLUON_FLOPS_STEPS):
+        before = engine.cache_stats()
+        with mx.autograd.record():
+            out = net(x)
+            loss = loss_fn(out[0] if isinstance(out, (tuple, list)) else out, y).mean()
+        loss.backward()
+        trainer.step(x.shape[0])
+        after = engine.cache_stats()
+        steps.append({k: after[k] - before[k] for k in ("flops_executed", "flops_estimated")})
+    trainer.drain()
+    replayed = any(e.pair is not None and e.pair.slots and e.eager is None
+                   for e in net._cached_graphs.values())
+    total = telemetry.get_metric("mx_flops_total").get("trainer")
+    del trainer, net, out, loss
+    torch.cuda.empty_cache()
+    return {"steps": steps, "replayed": replayed, "mx_flops_total": total}
+
+
+def _k1_in_trace(path, name="flash_fwd_kernel"):
+    """K1's device records in a Chrome trace after its last spin kernel."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    pads = [e["ts"] + e.get("dur", 0) for e in dev if "spin_kernel" in e["name"]]
+    after = max(pads) if pads else float("-inf")
+    return sum(1 for e in dev if name in e["name"] and e["ts"] >= after), len(pads)
+
+
+def phase_feed_telemetry(torch, lc_weights, bert_params, bert_batch):
+    """A7 on the card. (a) The long-context path (LongContextTrainer at
+    T=32768, batch 4, world-1 NCCL, captured) fed by
+    ``recipes.long_context.make_feed`` against the same trainer fed
+    TokenWindows' batches by hand, FEED_STEPS steps each with telemetry on:
+    losses and weights bitwise, causal K1-K3 twice and K5 once a step in
+    both, the window never holding more than 2 steps; the feed's queue depth
+    and stall, each mode's p50/p90 and idle share from one padded trace.
+    (b) BERT-base f32 (T=1024, batch 8, Adam 1e-4, captured) with telemetry
+    on against off: TELEM_CMP_STEPS steps' losses, weights and Adam state
+    bitwise, 1 host launch a step in both, p50/p90 of TELEM_TIMED steps and
+    their ratio (the reference's budget for the enabled path, under 2%, is
+    recorded, not gated), ``mx_flops_total`` a step against the formula
+    within FLOPS_TOL and ``mx_mfu`` against the H100's 989e12, ``scrape()``
+    parsing as Prometheus text; a trainer captured with telemetry off books
+    its count once telemetry is on. (c) ``trace_steps(TELEM_TRACED)`` on the
+    enabled trainer writes a Chrome trace holding TELEM_TRACED steps' K1
+    launches (12 a step) after its padding. (d) The hybridized training pair
+    under gluon.Trainer (``_gluon_pair_flops``): each step after the warm
+    call's books the formula within FLOPS_TOL, none of it estimated; the warm
+    call's step books its backward at the reference's 2x estimate."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.models import bert_base
+    torch.backends.cuda.matmul.allow_tf32 = False
+    label = "feed-telemetry"
+    out = {}
+    # (a) the long-context path, fed two ways
+    rs = np.random.RandomState(61)
+    tokens = rs.randint(0, LC_VOCAB, size=LC_B * LC_T * (FEED_STEPS + FEED_EXTRA) + 1) \
+        .astype(np.int32)
+    telemetry.reset()
+    telemetry.enable()
+    lc_runs = {}
+    try:
+        with _world1_nccl(torch), _deterministic(torch, True):
+            for mode in ("feed", "hand"):
+                lc_runs[mode] = _feed_lc_mode(torch, mx, lc_weights, tokens, mode)
+        depth = telemetry.get_metric("mx_feed_queue_depth").get("long_context")
+        stall = telemetry.get_metric("mx_feed_stall_seconds_total")
+        stall = stall.get("long_context") if stall is not None else 0.0
+        inflight = telemetry.get_metric("mx_inflight_steps").get("dp")
+    finally:
+        telemetry.disable()
+    f, h = lc_runs["feed"], lc_runs["hand"]
+    n = LC_CFG["num_layers"]
+    want = {"flash_attention_fwd": n * FEED_STEPS, "flash_attention_bwd_dq": n * FEED_STEPS,
+            "flash_attention_bwd_dkv": n * FEED_STEPS, "fused_adam_update": FEED_STEPS}
+    loss_eq = f["losses"] == h["losses"]
+    w_rel = _weights_diff(torch, f["weights"], h["weights"])
+    causal = all(not m.get("full") for r in (f, h) for m in r["masks"].values())
+    ok_a = (loss_eq and w_rel == 0.0 and f["launches"] == h["launches"] == want and causal
+            and max(f["max_inflight"], h["max_inflight"]) <= 2 and f["captured"]
+            and h["captured"])
+    log(f"[{label}] long context T {LC_T} batch {LC_B}, {FEED_STEPS} captured steps fed by "
+        f"make_feed against by hand: losses bitwise {loss_eq} ({f['losses'][0]:.6f} -> "
+        f"{f['losses'][-1]:.6f}), weights max rel {w_rel:.2e} (bitwise wanted); launches "
+        f"{f['launches']} / {h['launches']} (want {want}, causal {causal}); window at most "
+        f"{f['max_inflight']} / {h['max_inflight']} steps (limit 2), mx_inflight_steps now "
+        f"{inflight:.0f}; mx_feed_queue_depth {depth:.0f}, mx_feed_stall_seconds_total "
+        f"{stall:.4f} ({f['feed']['delivered']} batches); step p50 / p90 with the feed "
+        f"{f['step_ms']['p50']:.2f} / {f['step_ms']['p90']:.2f} ms, by hand "
+        f"{h['step_ms']['p50']:.2f} / {h['step_ms']['p90']:.2f} ms; traced step busy "
+        f"{f['busy_ms']:.2f} / {h['busy_ms']:.2f} ms, idle {f['idle_share']:.2%} / "
+        f"{h['idle_share']:.2%}, host launches {f['host_launches']} / {h['host_launches']} "
+        f"{'ok' if ok_a else 'FAIL'}")
+    out["long_context"] = {
+        mode: {k: v for k, v in r.items() if k != "weights"} for mode, r in lc_runs.items()}
+    out["long_context"].update(losses_bitwise=loss_eq, weight_rel=w_rel, want=want,
+                               feed_queue_depth=depth, feed_stall_seconds=stall,
+                               inflight_now=inflight)
+    del lc_runs, f, h
+    torch.cuda.empty_cache()
+    if not ok_a:
+        raise AssertionError(f"{label}: the fed long-context path disagrees: {out}")
+    # (b) BERT-base f32, captured, telemetry on against off
+    ctx = mx.gpu(0)
+    cfg = dict(vocab_size=30522, num_layers=12, units=768, hidden_size=3072, num_heads=12)
+    B, T = bert_batch[0].shape
+    x, y = (mx.nd.array(a, ctx=ctx, dtype="int32") for a in bert_batch)
+    net = bert_base(max_length=1024)
+    net.initialize(ctx=ctx)
+    counters = {**_fused_counters(), **_flash_counters()}
+    modes, trace = {}, None
+    for mode in ("off", "on"):
+        telemetry.reset()
+        if mode == "on":
+            telemetry.enable()
+        try:
+            load_jax_params(net, bert_params)
+            trainer = mx.parallel.DataParallelTrainer(
+                net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam", {"learning_rate": 1e-4},
+                mesh=mx.parallel.make_mesh({"dp": 1}, devices=[ctx]))
+            _zero_counters(counters)
+            losses = [float(trainer.step(x, y)) for _ in range(TELEM_CMP_STEPS)]
+            r = {"losses": losses, "weights": _weights_of(net),
+                 "states": _opt_states(trainer), "captured": trainer.captured}
+            ms = []
+            for i in range(2 + TELEM_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.step(x, y)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            r["step_ms"] = _pct(ms)
+            if mode == "on":
+                # read after the timed steps: mx_mfu is the last interval's
+                steps = telemetry.get_metric("mx_train_steps_total").get("data_parallel")
+                flops = telemetry.get_metric("mx_flops_total").get("data_parallel")
+                r.update(flops_per_step=flops / steps, recorded_steps=steps,
+                         mfu=telemetry.get_metric("mx_mfu").get("data_parallel"),
+                         step_seconds_mean=telemetry.get_metric(
+                             "mx_train_step_seconds").get("data_parallel") / steps,
+                         peak_flops=telemetry.peak_flops(),
+                         counted=list(trainer._flops.values()))
+            api = _api_launches(torch, lambda: trainer.step(x, y))
+            r.update(host_launches=api["host_launches"], busy_ms=api["device_busy_ms"],
+                     launches={k: c.launches for k, c in counters.items() if c.launches})
+            if mode == "off":
+                # telemetry turned on after the capture: the replay books the
+                # count taken at the warm-up (record_step's first call for a
+                # source anchors its clock, the second books a step)
+                telemetry.enable()
+                for _ in range(2):
+                    trainer.step(x, y)
+                trainer.drain()
+                r["late_flops"] = telemetry.get_metric("mx_flops_total").get("data_parallel")
+                telemetry.disable()
+            if mode == "on":
+                text = telemetry.scrape()
+                bad = [ln for ln in text.strip().splitlines()
+                       if not ln.startswith("#") and not PROM_LINE.match(ln)]
+                r["families"] = sorted({ln.split()[2] for ln in text.splitlines()
+                                        if ln.startswith("# TYPE ")})
+                r["unparsed_lines"] = bad
+                # (c) trace_steps over TELEM_TRACED steps: K1 12 a step after the padding
+                for attempt in range(3):
+                    d = telemetry.trace_steps(
+                        TELEM_TRACED, logdir=os.path.join(ROOT, "chiprun_out", "trace_steps"))
+                    for _ in range(TELEM_TRACED):
+                        trainer.step(x, y)
+                    k1, pads = _k1_in_trace(os.path.join(d, "trace.json"))
+                    trace = {"dir": d, "k1": k1, "pads_kept": pads, "attempts": attempt + 1,
+                             "active_after": telemetry.trace_active()}
+                    if k1 == 12 * TELEM_TRACED:
+                        break
+            modes[mode] = r
+            del trainer
+        finally:
+            telemetry.disable()
+    del net
+    torch.cuda.empty_cache()
+    # (d) the hybridized pair's count under gluon.Trainer
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        pair = _gluon_pair_flops(torch, mx, bert_batch)
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    off, on = modes["off"], modes["on"]
+    formula = _bert_flops_formula(cfg, B, T)
+    flops_rel = abs(on["flops_per_step"] / formula - 1.0)
+    late_rel = abs((off["late_flops"] or 0.0) / formula - 1.0)
+    pair_formula = _bert_flops_formula(GLUON_FLOPS_CFG, B, T)
+    pair_rel = max(abs(st["flops_executed"] / pair_formula - 1.0) for st in pair["steps"][1:])
+    first = pair["steps"][0]
+    ok_d = (pair["replayed"] and pair_rel <= FLOPS_TOL
+            and all(st["flops_estimated"] == 0.0 for st in pair["steps"][1:])
+            and 0.0 < first["flops_estimated"] < first["flops_executed"])
+    log(f"[{label}] hybridized pair under gluon.Trainer, {GLUON_FLOPS_CFG['num_layers']} "
+        f"layers of BERT-base width, telemetry on: booked a step "
+        f"{[st['flops_executed'] for st in pair['steps']]} (formula {pair_formula:.4e} after "
+        f"the warm call's step, off by {pair_rel:.2e}, tol {FLOPS_TOL:.0e}), estimated "
+        f"{[st['flops_estimated'] for st in pair['steps']]} (the warm call's backward only), "
+        f"replayed {pair['replayed']}, mx_flops_total {pair['mx_flops_total']} "
+        f"{'ok' if ok_d else 'FAIL'}")
+    ratio = on["step_ms"]["p50"] / off["step_ms"]["p50"]
+    state_rel = max(_rel_diff(torch, a, b) for a, b in zip(on["states"], off["states"]))
+    bitwise = (on["losses"] == off["losses"]
+               and _weights_diff(torch, on["weights"], off["weights"]) == 0.0
+               and state_rel == 0.0)
+    ok_b = (bitwise and on["host_launches"] == off["host_launches"] == 1
+            and on["captured"] and off["captured"] and on["launches"] == off["launches"]
+            and flops_rel <= FLOPS_TOL and late_rel <= FLOPS_TOL and not on["unparsed_lines"]
+            and on["peak_flops"] == 989e12 and 0.0 < on["mfu"] < 1.0)
+    ok_c = trace is not None and trace["k1"] == 12 * TELEM_TRACED \
+        and trace["active_after"] is None
+    log(f"[{label}] bert-base f32 captured, telemetry on against off: {TELEM_CMP_STEPS} steps "
+        f"bitwise {bitwise} (losses {on['losses']}); host launches a step {on['host_launches']} "
+        f"/ {off['host_launches']}; step p50 / p90 on {on['step_ms']['p50']:.3f} / "
+        f"{on['step_ms']['p90']:.3f} ms, off {off['step_ms']['p50']:.3f} / "
+        f"{off['step_ms']['p90']:.3f} ms, ratio {ratio:.4f} (the reference's budget "
+        f"{1 + TELEM_OVERHEAD_BUDGET:.2f}, recorded); mx_flops_total a step "
+        f"{on['flops_per_step']:.4e} (formula {formula:.4e}, off by {flops_rel:.2e}, tol "
+        f"{FLOPS_TOL:.0e}; enabled after the capture {off['late_flops']}, off by "
+        f"{late_rel:.2e}), mx_mfu {on['mfu']:.4f} against {on['peak_flops']:.3e} FLOP/s "
+        f"(mx_train_step_seconds' mean {on['step_seconds_mean'] * 1e3:.3f} ms); "
+        f"scrape(): {len(on['families'])} families {on['families']}, unparsed lines "
+        f"{len(on['unparsed_lines'])} {'ok' if ok_b else 'FAIL'}")
+    log(f"[{label}] trace_steps({TELEM_TRACED}): {trace} (want K1 {12 * TELEM_TRACED}) "
+        f"{'ok' if ok_c else 'FAIL'}")
+    out["bert"] = {mode: {k: v for k, v in r.items() if k not in ("weights", "states")}
+                   for mode, r in modes.items()}
+    out["bert"].update(bitwise=bitwise, state_rel=state_rel, overhead_ratio=ratio,
+                       flops_formula=formula, flops_rel=flops_rel, late_flops_rel=late_rel,
+                       budget=TELEM_OVERHEAD_BUDGET)
+    out["gluon_pair"] = dict(pair, formula=pair_formula, flops_rel=pair_rel)
+    out["trace_steps"] = trace
+    out["launches"] = {k: sum(r["launches"].get(k, 0) for r in (
+        out["long_context"]["feed"], out["long_context"]["hand"], out["bert"]["on"],
+        out["bert"]["off"])) for k in counters}
+    if not (ok_b and ok_c and ok_d):
+        raise AssertionError(f"{label}: telemetry changed the step or misreports it: "
+                             f"{ {k: v for k, v in out.items() if k != 'long_context'} }")
+    return out
+
+
 def rank_jobs(jobs):
     """One rank of a merged launch: each ``(rank function, kwargs)`` of
     ``jobs`` in turn, in the same process group, with a barrier and the
@@ -8747,6 +9105,7 @@ def main() -> int:
         lc_check = phase_lc_check(torch, lc_weights)
         elastic_lc = phase_elastic_lc(torch, lc_weights)
     torch.cuda.empty_cache()
+    feed_telemetry = phase_feed_telemetry(torch, lc_weights, bert_params, bert_batch)
     # the 4-rank gloo phases, each with its own checks, in one launch
     (pp_dryrun, pp_tp_ranks, lc_ranks, lc_ranks_d16, moe_ranks, pp_sched_ranks,
      overlap_ranks), rank_launches = phase_rank_launches(torch, [
@@ -8754,9 +9113,9 @@ def main() -> int:
         _lc_ranks_steps(torch, _lc_weights(LC_DRYRUN_CFG), cfg=LC_DRYRUN_CFG,
                         label="lc-ranks-d16"),
         _moe_ranks_steps(torch), _pp_sched_ranks_steps(torch), _overlap_ranks_steps(torch)])
-    # the 2-rank gloo phases in one launch (the ZeRO reshard's second dp2 run,
-    # which needs its dp1 run in between, in a launch of its own; dist_async's
-    # parameter servers last)
+    # the 2-rank gloo phases in one launch (the ZeRO reshard's world of one
+    # runs in this process before and after it; dist_async's parameter
+    # servers last)
     (pp_ranks, zero_ranks, elastic_zero, dist_async), rank_launches_2 = phase_rank_launches(
         torch, [_pp_ranks_steps(torch, bert_params, bert_batch, pp_train, pp_w3),
                 _zero_bert_ranks_steps(torch), _elastic_zero_steps(torch),
@@ -8849,7 +9208,13 @@ def main() -> int:
                                   for lc in c["launches"]),
                 # A5's remainder: the resumed Gluon steps and the gradient penalty
                 "state_resume": state_resume["launches"].get(name, 0),
-                "second_order": second_order["launches"].get(name, 0)}
+                "second_order": second_order["launches"].get(name, 0),
+                # A7: the long-context path fed by make_feed and by hand, the
+                # BERT-base step with telemetry on and off (and its traced steps)
+                **{f"feed_lc_{mode}": feed_telemetry["long_context"][mode]["launches"].get(
+                    name, 0) for mode in ("feed", "hand")},
+                **{f"telemetry_bert_{mode}": feed_telemetry["bert"][mode]["launches"].get(
+                    name, 0) for mode in ("on", "off")}}
 
     def lc_entry(kind):
         """K1-K3 on the long-context path: the causal rows at each shape."""
@@ -9058,6 +9423,7 @@ def main() -> int:
                    "coord_kill": coord_kill, "dist_async": dist_async,
                    "gluon_pair": gluon_pair, "mnist": mnist, "f16_step": f16_step,
                    "state_resume": state_resume, "second_order": second_order,
+                   "feed_telemetry": feed_telemetry,
                    "pp_graph": pp_graph,
                    "rank_launches": {"4": rank_launches, "2": rank_launches_2},
                    "opt_fused": opt_fused, "opt_bert": opt_bert,

@@ -91,6 +91,8 @@ Quick start::
 """
 from . import base
 from .base import MXNetError
+from . import telemetry
+from . import engine
 from .context import Context, cpu, gpu, num_gpus, current_context
 from . import ops
 from . import ndarray
@@ -114,7 +116,7 @@ from . import metric
 from . import io
 from .ndarray import NDArray
 
-__all__ = ["base", "MXNetError", "Context", "cpu", "gpu", "num_gpus",
+__all__ = ["base", "MXNetError", "telemetry", "engine", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "ops", "ndarray", "nd", "autograd", "random",
            "initializer", "lr_scheduler", "optimizer", "gluon", "kvstore", "kv", "rtc", "contrib",
            "parallel", "recipes", "faults", "elastic", "checkpoint", "metric", "io",

@@ -36,11 +36,15 @@ hole: the step directory stays without a manifest, invisible to restore.
 
 All the coordinator's IO runs under ``faults.io_retry`` with three
 injection points (``elastic.heartbeat``, ``elastic.barrier``,
-``elastic.marker``). The reference's telemetry and tracing of these paths
-(``mx_snapshot_failures_total{source="straggler"}``, the commit barrier's
-span, ``mx_hosts_live``, the goodput ledger, the flight recorder) wait for
-ROADMAP A7; the coordinator counts its straggler aborts in
-``straggler_aborts``.
+``elastic.marker``). With telemetry on (reference :183-768): ``view``
+books ``mx_hosts_live`` and the generation, a commit's wait
+``mx_commit_barrier_seconds``, a straggler abort
+``mx_snapshot_failures_total{source="straggler"}`` (and
+``straggler_aborts``, which counts them always), a watchdog firing
+``mx_hang_watchdog_fires_total``; with tracing armed, the stop, its
+resolution, the straggler abort and the watchdog are recorder events, the
+commit barrier a span, and a firing watchdog dumps the flight recorder. The
+reference's goodput ledger waits for its slice.
 """
 from __future__ import annotations
 
@@ -55,6 +59,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 from ..base import MXNetError, env
 from .. import faults as _faults
+from .. import telemetry as _telem
+from ..telemetry import tracing as _tracing
 from . import manifest as _manifest
 
 __all__ = ["Coordinator", "GroupView", "StragglerTimeout", "HangWatchdog", "statusz_view"]
@@ -158,6 +164,14 @@ class HangWatchdog:
 
     def _fire(self):
         self.fired = True
+        if _telem._ENABLED:
+            _telem.record_hang_watchdog(self.what)
+        if _tracing._ENABLED:
+            _tracing.event("mx.hang_watchdog", what=self.what, timeout=self.timeout)
+            try:
+                _tracing.dump_flight_recorder(reason=f"hang:{self.what}")
+            except Exception:       # the dump must never mask the diagnosis
+                pass
         print(f"mx_hang_watchdog: {self.what!r} exceeded its {self.timeout:.1f}s "
               f"wall-clock deadline; exiting rather than hanging the fleet",
               file=sys.stderr, flush=True)
@@ -424,7 +438,10 @@ class Coordinator:
         if self._joined and self.rank in live:
             self.generation = generation
         self._live_seen.update(live)
-        return GroupView(generation, members, live, dead)
+        v = GroupView(generation, members, live, dead)
+        if _telem._ENABLED:
+            _telem.record_hosts_live(len(v.live), generation)
+        return v
 
     def is_leader(self) -> bool:
         return self.view(bump=False).leader == self.rank
@@ -506,6 +523,10 @@ class Coordinator:
 
         out = _faults.io_retry("elastic.barrier", _post)
         self._stop_seen = out
+        if _tracing._ENABLED:
+            _tracing.event("mx.coord.stop", step=int(out.get("step", step)),
+                           rank=int(out.get("rank", self.rank)),
+                           reason=str(out.get("reason", reason)))
         return out
 
     def stop_posted(self) -> Optional[Dict[str, Any]]:
@@ -558,7 +579,10 @@ class Coordinator:
                 if rec and rec.get("stop_id") == stop_id:
                     acks[r] = int(rec.get("step", 0))
             if v.live and all(r in acks for r in v.live):
-                return max(list(acks.values()) + [int(stop.get("step", 0))])
+                s = max(list(acks.values()) + [int(stop.get("step", 0))])
+                if _tracing._ENABLED:
+                    _tracing.event("mx.coord.stop_resolved", step=s, generation=v.generation)
+                return s
             if time.monotonic() >= deadline:
                 missing = [r for r in v.live if r not in acks]
                 raise MXNetError(f"coordinated stop did not resolve: live members "
@@ -629,6 +653,13 @@ class Coordinator:
             if os.path.exists(os.path.join(sdir, _manifest.MANIFEST)):
                 man = _manifest.load(self.root, int(step))
                 self.validate_manifest(man, int(step))
+                seconds = time.perf_counter() - t0
+                if _telem._ENABLED:
+                    _telem.record_commit_barrier(seconds)
+                if _tracing._ENABLED:
+                    _tracing.record_span("mx.coord.commit_barrier", t0, time.perf_counter(),
+                                         step=int(step),
+                                         generation=man["meta"].get("generation"))
                 return man
             markers = self._markers(sdir)
             mine = markers.get(self.rank)
@@ -676,6 +707,12 @@ class Coordinator:
         """A clean abort: counted, and no manifest (the directory stays
         invisible to restore; retention sweeps it once its markers age)."""
         self.straggler_aborts += 1
+        if _telem._ENABLED:
+            _telem.counter("mx_snapshot_failures_total",
+                           "Interval snapshots skipped after exhausting IO retries",
+                           ("source",)).labels("straggler").inc()
+        if _tracing._ENABLED:
+            _tracing.event("mx.coord.straggler_abort", step=int(step), why=why)
         raise StragglerTimeout(f"cross-host snapshot commit aborted at step {step}: {why} "
                                f"(straggler deadline {self.straggler_timeout:.1f}s; dir "
                                f"{sdir} stays manifest-less)")

@@ -27,8 +27,11 @@ The toy trainer keeps everything float64 and in place, so a snapshot round
 trip is bit-exact and the trajectories are compared with no tolerance.
 
 ``control_plane_worker`` is the launcher's smoke mode: rendezvous through the
-coordinator until every rank is live, heartbeat, leave. The reference's
-goodput ledger and telemetry of the drill wait for ROADMAP A7.
+coordinator until every rank is live, heartbeat, leave. With
+``telemetry=True`` a host enables the registry and reports its straggler
+aborts from ``mx_snapshot_failures_total{source="straggler"}`` and its last
+``mx_hosts_live`` (reference :182, :242); the reference's goodput ledger of
+the drill waits for its slice.
 """
 from __future__ import annotations
 
@@ -153,6 +156,9 @@ def _host_main(cfg: Dict[str, Any]):
     JSON report."""
     rank = int(cfg["rank"])
     root = cfg["root"]
+    if cfg.get("telemetry"):
+        from .. import telemetry as _telem
+        _telem.enable()
     coord = Coordinator(root, rank, lease_timeout=float(cfg.get("lease_timeout", 1.0)),
                         straggler_timeout=float(cfg.get("straggler_timeout", 8.0)),
                         heartbeat_interval=0.0, partition_ownership=True,
@@ -192,6 +198,12 @@ def _host_main(cfg: Dict[str, Any]):
               "final_step": int(res["step"]), "preempted": bool(res["preempted"]),
               "stop": res["stop"], "losses": losses, "generation": int(coord.generation),
               "fence": int(coord.fence), "straggler_aborts": coord.straggler_aborts}
+    if cfg.get("telemetry"):
+        from .. import telemetry as _telem
+        m = _telem.get_metric("mx_snapshot_failures_total")
+        report["straggler_aborts"] = float(m.get("straggler")) if m else 0.0
+        m = _telem.get_metric("mx_hosts_live")
+        report["hosts_live"] = float(m.get("elastic")) if m else None
     path = os.path.join(cfg["report_dir"], f"report-{rank:05d}.json")
     with open(path + ".tmp", "w") as f:
         json.dump(report, f)

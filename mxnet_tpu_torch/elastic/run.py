@@ -12,8 +12,8 @@ snapshot (a committed manifest), installs it into the trainer that
 and calls the boot "resumed" (same mesh and ``StepProgram`` fingerprint) or
 "resharded" (another mesh or configuration: the ZeRO lanes re-packed), or
 "fresh" without a snapshot. A feed with ``state_dict``/``load_state_dict``
-is rewound to its saved cursor (``engine/async_feed.DeviceFeed`` itself waits
-for ROADMAP A7). ``run`` drives the steps with an interval snapshot policy
+is rewound to its saved cursor (``engine.async_feed.DeviceFeed`` has them).
+``run`` drives the steps with an interval snapshot policy
 and a SIGTERM/SIGINT ``PreemptionGuard``: on a signal it finishes the step
 in flight, drains the device, writes a final synchronous snapshot and returns
 ``{"preempted": True}``, and the relaunched job continues the same
@@ -32,8 +32,12 @@ every live host acks its step, the stop resolves to S, the largest ack,
 hosts behind S run up to it, and every survivor writes its final snapshot
 at S, the drain under the coordinator's hang watchdog and the final save
 retried under a refreshed view when a straggler abort or a peer's death
-breaks the commit. The reference's resume counter and restart-downtime
-record wait for the telemetry slice (ROADMAP A7).
+breaks the commit. With telemetry on, the boot books ``mx_resume_total
+{outcome}`` and a skipped interval snapshot ``mx_snapshot_failures_total
+{source="elastic"}``; with tracing armed, a preemption is a recorder event
+and both it and a step's exception dump the flight recorder (reference
+:113-114, :226-271). The reference's restart-downtime record waits for the
+goodput ledger.
 """
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ import warnings
 from typing import Any, Callable, Dict, Optional
 
 from ..base import MXNetError
+from .. import telemetry as _telem
+from ..telemetry import tracing as _tracing
 from . import manifest as _manifest
 from . import state as _state
 from .snapshot import SnapshotManager
@@ -90,6 +96,7 @@ def resume_or_init(directory: str, make_trainer: Callable[[], Any], feed=None,
     step = _agreed_latest(mgr)
     trainer = make_trainer()
     if step is None:
+        _record_resume("fresh")
         return mgr, trainer, 0, "fresh"
     man = _manifest.load(mgr.directory, step)
     if coordinator is not None:
@@ -111,7 +118,13 @@ def resume_or_init(directory: str, make_trainer: Callable[[], Any], feed=None,
         # over: another live set is a re-layout even without a mesh
         if sorted(meta["members"]) != coordinator.view(bump=False).live:
             outcome = "resharded"
+    _record_resume(outcome)
     return mgr, trainer, int(meta["step"]), outcome
+
+
+def _record_resume(outcome: str):
+    if _telem._ENABLED:
+        _telem.record_resume(outcome, source="elastic")
 
 
 class PreemptionGuard:
@@ -201,6 +214,10 @@ def run(trainer, feed, num_steps: int, directory: Optional[str] = None,
                 preempted = True
                 if coordinator is not None and stop_info is None:
                     stop_info = coordinator.post_stop(trainer._t, reason="preempted")
+                if _tracing._ENABLED:
+                    # the flight recorder's dump at the preemption boundary
+                    _tracing.event("mx.preemption", step=trainer._t)
+                    _tracing.dump_flight_recorder(reason="preemption")
                 break
             if coordinator is not None:
                 stop_info = coordinator.step_poll(trainer._t)
@@ -216,7 +233,13 @@ def run(trainer, feed, num_steps: int, directory: Optional[str] = None,
                 it = iter(feed)
                 continue
             x, y = _xy(batch)
-            losses.append(trainer.step(x, y))
+            try:
+                losses.append(trainer.step(x, y))
+            except BaseException:
+                # dump the recorder before the error unwinds past the loop
+                if _tracing._ENABLED:
+                    _tracing.dump_flight_recorder(reason="step_exception")
+                raise
             if manager.should_save(trainer._t):
                 try:
                     save_trainer(manager, trainer, feed)
@@ -225,6 +248,10 @@ def run(trainer, feed, num_steps: int, directory: Optional[str] = None,
                                   f"failed and was skipped ({e}); training continues, "
                                   f"resume falls back to the previous snapshot",
                                   RuntimeWarning)
+                    if _telem._ENABLED:
+                        _telem.counter("mx_snapshot_failures_total",
+                                       "Interval snapshots skipped after exhausting "
+                                       "IO retries", ("source",)).labels("elastic").inc()
             if on_step is not None:
                 on_step(trainer._t, losses[-1])
         if coordinator is not None and preempted:

@@ -34,9 +34,11 @@ write), ``return_s`` (the time it then held the caller), ``copy_bytes``,
 ``device_extra_bytes`` (device memory the copy holds while in flight),
 ``d2d_ms`` and ``d2h_ms`` (CUDA events around each copy, summed over
 devices), ``host_alloc_s``, ``write_s`` and ``nbytes``;
-``save_seconds`` and ``bytes_written`` are the reference's. The reference's
-telemetry (``mx_checkpoint_save_seconds``) and tracing spans wait for the
-telemetry slice (ROADMAP A7).
+``save_seconds`` and ``bytes_written`` are the reference's. With telemetry
+on, a commit books ``record_checkpoint_save`` (reference :209, :233: the
+seconds from ``save`` to the commit and the bytes written); with tracing
+armed, the writer's ``mx.elastic.snapshot_write`` and ``mx.elastic.commit``
+spans parent to the caller's trace, carried across the thread (:111-146).
 
 With a ``coordinator`` (``elastic/coordinator.py``; reference :150-260) the
 manager is one participant of the two-phase cross-host commit: this host's
@@ -57,6 +59,8 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError, env
+from .. import telemetry as _telem
+from ..telemetry import tracing as _tracing
 from . import manifest as _manifest
 from .state import Chunk
 
@@ -167,8 +171,11 @@ class SnapshotManager:
         meta.setdefault("step", step)
         host, devices, stats = self._copy_leaves(snapshot["leaves"])
         self._last_saved = step
+        # the writer's spans parent to the caller's trace
+        ctx = (_tracing.current() or _tracing.new_root("snapshot")) \
+            if _tracing._ENABLED else None
         self._writer = threading.Thread(target=self._write,
-                                        args=(step, host, devices, meta, t0, stats),
+                                        args=(step, host, devices, meta, t0, stats, ctx),
                                         daemon=True, name=f"mx-snapshot-{step}")
         self._writer.start()
         stats["return_s"] = time.perf_counter() - t0
@@ -227,7 +234,7 @@ class SnapshotManager:
                                                      pin_memory=True)
         return buf[:nbytes]
 
-    def _write(self, step, host, devices, meta, t0, stats):
+    def _write(self, step, host, devices, meta, t0, stats, ctx=None):
         try:
             t_alloc = time.perf_counter()
             bufs = [self._host_buffer(dc.device, dc.nbytes) for dc in devices]
@@ -246,9 +253,16 @@ class SnapshotManager:
             stats.update(d2d_ms=d2d, d2h_ms=d2h)
             del devices
             t_w = time.perf_counter()
-            nbytes, sdir, proc, nproc = self._write_entries(step, host)
+            if ctx is not None and _tracing._ENABLED:
+                with _tracing.attach(ctx), \
+                        _tracing.span("mx.elastic.snapshot_write", step=step):
+                    nbytes, sdir, proc, nproc = self._write_entries(step, host)
+            else:
+                nbytes, sdir, proc, nproc = self._write_entries(step, host)
             stats["write_s"] = time.perf_counter() - t_w
             stats["nbytes"] = nbytes
+            t_c0 = time.perf_counter()
+            committed = self.coordinator is not None or proc == 0
             if self.coordinator is not None:
                 self._commit_coordinated(sdir, step, meta, nbytes)
             elif proc == 0:
@@ -256,6 +270,13 @@ class SnapshotManager:
                 _manifest.prune(self.directory, self.max_to_keep)
             self.save_seconds = time.perf_counter() - t0
             self.bytes_written += int(nbytes)
+            if committed:
+                if _tracing._ENABLED:
+                    _tracing.record_span("mx.elastic.commit", t_c0, t0 + self.save_seconds,
+                                         parent=ctx, step=step, bytes=int(nbytes))
+                if _telem._ENABLED:
+                    _telem.record_checkpoint_save(self.save_seconds, nbytes,
+                                                  source="elastic")
         except BaseException as e:  # surfaced at the next save() or wait
             self._error = e
 

@@ -27,7 +27,21 @@ kernel launches. The names and meanings kept:
   graph, as the reference's folds into an enclosing trace.
 
 The reference's persistent compilation cache, buffer donation and
-``estimate_cost`` are XLA's and have no counterpart here.
+``estimate_cost`` are XLA's and have no counterpart here. In place of XLA's
+cost model a signature's FLOPs are counted once, over its eager warm-up
+step or the capture of its graph (``count_flops``:
+``torch.utils.flop_counter.FlopCounterMode`` over torch's ops, plus what the
+hand kernels' wrappers add by their formulas through ``add_flops``, since
+the mode sees nothing inside a kernel launched through ctypes; ``count_once``
+keeps a trainer's count by signature, ``count_backward`` measures a
+backward), and ``record_execution(kind, flops, steps)`` adds them at
+each replay or step: ``cache_stats()``'s ``flops_executed`` is telemetry's
+MFU numerator (``flops_estimated`` its share booked by a heuristic), and
+``step_executions``, ``fwd_executions`` and ``bwd_executions`` count what
+ran.
+
+The async feed (``engine.async_feed``: ``DeviceFeed``, ``DispatchWindow``,
+``PendingScalar``) is imported at its first use, as in the reference.
 
 ``capture(fn, key, device, owner, ptrs)`` captures ``fn()`` into a graph
 on the device's side stream (``side_stream``), after the caller ran it
@@ -82,12 +96,32 @@ from ..base import MXNetError
 __all__ = ["lookup", "insert", "clear_compilation_cache", "cache_size", "cache_stats",
            "reset_stats", "compile_timer", "capturing", "capture", "side_stream",
            "GraphEntry", "register_counter", "keep_alive", "storage_epoch",
-           "note_storage_change"]
+           "note_storage_change", "record_execution", "count_flops", "count_once",
+           "count_backward", "add_flops", "attention_flops", "async_feed", "DeviceFeed",
+           "DispatchWindow", "PendingScalar"]
+
+
+def __getattr__(name):
+    # the feed is imported at its first use (PEP 562, the reference's idiom)
+    if name == "async_feed":
+        import importlib
+        mod = importlib.import_module(".async_feed", __name__)
+        globals()[name] = mod
+        return mod
+    if name in ("DeviceFeed", "DispatchWindow", "PendingScalar"):
+        from . import async_feed as _af
+        val = getattr(_af, name)
+        globals()[name] = val
+        return val
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 _LOCK = threading.RLock()
 _CACHE: "weakref.WeakValueDictionary[Tuple, GraphEntry]" = weakref.WeakValueDictionary()
 _STATS: Dict[str, Any] = {"captures": 0, "replays": 0, "hits": 0, "misses": 0,
-                          "capture_seconds": 0.0, "pool_bytes": 0}
+                          "capture_seconds": 0.0, "pool_bytes": 0,
+                          "step_executions": 0, "fwd_executions": 0,
+                          "bwd_executions": 0, "flops_executed": 0.0,
+                          "flops_estimated": 0.0}
 _COUNTERS: List[Tuple[Any, str]] = []
 _STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 _POOLS: "weakref.WeakKeyDictionary[Any, Any]" = weakref.WeakKeyDictionary()
@@ -154,6 +188,114 @@ def reset_stats() -> None:
 def _bump(key, n=1) -> None:
     with _LOCK:
         _STATS[key] += n
+
+
+def record_execution(kind: str, flops: float = 0.0, steps: int = 1,
+                     estimated: bool = False) -> None:
+    """Account ``steps`` executions of a step (``kind`` "step"), a forward
+    ("fwd") or a backward (any other) and the ``flops`` they did (reference
+    ``engine.record_execution``): host arithmetic only. ``estimated`` flags
+    a heuristic count (a backward booked at twice its forward), which
+    ``flops_estimated`` also adds."""
+    with _LOCK:
+        key = {"step": "step_executions", "fwd": "fwd_executions"}.get(kind, "bwd_executions")
+        _STATS[key] += steps
+        if flops:
+            _STATS["flops_executed"] += flops
+            if estimated:
+                _STATS["flops_estimated"] += flops
+
+
+# the open count_flops() accumulators: global, not per thread, since a CUDA
+# backward runs the kernels' wrappers on autograd's device thread
+_FLOP_STACK: List["FlopCount"] = []
+
+
+class FlopCount:
+    """What ``count_flops`` counted: ``total`` (set when the block ends),
+    ``kernels`` (the hand kernels' share, by their formulas)."""
+
+    __slots__ = ("total", "kernels")
+
+    def __init__(self):
+        self.total = 0.0
+        self.kernels = 0.0
+
+
+@contextmanager
+def count_flops():
+    """Count the FLOPs of the work issued in the block:
+    ``FlopCounterMode`` over torch's ops plus ``add_flops`` from the hand
+    kernels' wrappers. Yields a ``FlopCount`` whose ``total`` is set at the
+    end. The mode runs the ops unchanged."""
+    from torch.utils.flop_counter import FlopCounterMode
+    fc = FlopCount()
+    mode = FlopCounterMode(display=False)
+    with _LOCK:
+        _FLOP_STACK.append(fc)
+    try:
+        with mode:
+            yield fc
+    finally:
+        with _LOCK:
+            _FLOP_STACK.remove(fc)
+        fc.total = float(mode.get_total_flops()) + fc.kernels
+
+
+def count_once(counts: Dict, sig, fn, *args):
+    """``fn(*args)``, its FLOPs counted into ``counts[sig]`` at the
+    signature's first call (``count_flops``); a later call runs ``fn``
+    alone. A trainer calls it at each signature's eager warm-up, whatever
+    telemetry's flag, since a replay runs no Python to count."""
+    if sig in counts:
+        return fn(*args)
+    with count_flops() as fc:
+        out = fn(*args)
+    counts[sig] = fc.total
+    return out
+
+
+def count_backward(outputs, inputs) -> float:
+    """The FLOPs of the backward from ``outputs`` to ``inputs`` (those that
+    need a gradient): one ``torch.autograd.grad`` under ``count_flops``, with
+    unit cotangents, the graph kept and the gradients dropped; the kernels'
+    launch counters are set back after it, as it is a measurement and not a
+    step."""
+    heads = [o for o in outputs if o.requires_grad]
+    wrt = [t for t in inputs if t.requires_grad]
+    if not heads or not wrt:
+        return 0.0
+    before = _snapshot()
+    try:
+        with count_flops() as fc:
+            torch.autograd.grad(heads, wrt, [torch.ones_like(o) for o in heads],
+                                allow_unused=True, retain_graph=True)
+    finally:
+        _restore(before)
+    return fc.total
+
+
+def add_flops(n: float) -> None:
+    """A hand kernel's FLOPs, by its formula, into the open counts."""
+    if _FLOP_STACK:
+        with _LOCK:
+            for fc in _FLOP_STACK:
+                fc.kernels += n
+
+
+def attention_flops(kind: str, bh: int, tq: int, tk: int, d: int, causal: bool) -> float:
+    """FLOPs of K1 (``"fwd"``: QK^T and PV, 4 a pair and head dim), K2
+    (``"dq"``: S, dP and dQ, 6) or K3 (``"dkv"``: S, dP, dV and dK, 8) over
+    the (query, key) pairs the kernel keeps: every pair, or under ``causal``
+    the key at or before the query (T(T+1)/2 pairs at T = Tk). The
+    formula PERF.md's bounds use."""
+    per = {"fwd": 4, "dq": 6, "dkv": 8}[kind]
+    if causal:
+        m = min(tq, tk)
+        pairs = m * (m + 1) // 2 + max(tq - tk, 0) * tk
+    else:
+        pairs = tq * tk
+    return float(per) * bh * pairs * d
 
 
 @contextmanager

@@ -18,9 +18,11 @@ replayable tests.
 ``io_retry`` is the bounded exponential-backoff retry with full jitter for
 transient IO (``OSError`` and injected faults) that the elastic writer and
 reader run under; a non-transient ``MXNetError`` (a lost commit fence, a
-validation error) is never retried. The reference's tracing spans and its
-``mx_faults_injected_total``/``mx_io_retries_total`` counters wait for the
-telemetry slice (ROADMAP A7).
+validation error) is never retried. With telemetry on, a fired fault books
+``mx_faults_injected_total{point}`` and a retry ``mx_io_retries_total{point}``;
+with tracing armed, each is a flight-recorder event (``mx.fault``,
+``mx.io_retry``) and each attempt a span ``mx.io.<point>`` (reference
+:144-276).
 """
 from __future__ import annotations
 
@@ -88,6 +90,8 @@ for _name, _doc in (
     ("elastic.commit", "manifest merge + atomic rename (elastic/manifest.py commit)"),
     ("elastic.read", "snapshot manifest/chunk reads "
                      "(elastic/manifest.py load + SnapshotReader)"),
+    ("feed.produce", "DeviceFeed producer next() on the wrapped source "
+                     "(engine/async_feed.py)"),
     ("elastic.heartbeat", "coordinator membership heartbeat write "
                           "(elastic/coordinator.py heartbeat)"),
     ("elastic.barrier", "coordinator generation/stop barrier IO "
@@ -115,6 +119,13 @@ def check(point: str):
         if fire:
             _FIRED[point] = _FIRED.get(point, 0) + 1
     if fire:
+        from .. import telemetry as _telem
+        if _telem._ENABLED:
+            _telem.record_fault_injected(point)
+        from ..telemetry import tracing as _tracing
+        if _tracing._ENABLED:
+            # every injected fault is a flight-recorder event
+            _tracing.event("mx.fault", point=point, attempt=n)
         raise FaultInjected(point, n)
 
 
@@ -197,21 +208,39 @@ def io_retry(point: str, fn, *args, retries: Optional[int] = None,
     budget = int(env.get("MXNET_TPU_IO_RETRIES")) if retries is None else int(retries)
     base = float(env.get("MXNET_TPU_IO_BACKOFF")) if backoff is None else float(backoff)
     cap = float(env.get("MXNET_TPU_IO_BACKOFF_MAX"))
+    from ..telemetry import tracing as _tracing
     attempt = 0
     while True:
+        t0 = time.perf_counter() if _tracing._ENABLED else 0.0
         try:
             if _ACTIVE:
                 check(point)
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+            if _tracing._ENABLED:
+                _tracing.record_span("mx.io." + point, t0, time.perf_counter(),
+                                     attempt=attempt, status="ok")
+            return out
         except FaultInjected:
+            if _tracing._ENABLED:
+                _tracing.record_span("mx.io." + point, t0, time.perf_counter(),
+                                     attempt=attempt, status="fault")
             if attempt >= budget:
                 raise
         except MXNetError:
             raise               # permanent by design (fence, validation)
-        except OSError:
+        except OSError as e:
+            if _tracing._ENABLED:
+                _tracing.record_span("mx.io." + point, t0, time.perf_counter(),
+                                     attempt=attempt, status="error",
+                                     error=type(e).__name__)
             if attempt >= budget:
                 raise
         attempt += 1
+        from .. import telemetry as _telem
+        if _telem._ENABLED:
+            _telem.record_io_retry(point)
+        if _tracing._ENABLED:
+            _tracing.event("mx.io_retry", point=point, attempt=attempt)
         delay = min(cap, base * (2 ** (attempt - 1)))
         if delay > 0:
             time.sleep(random.uniform(0, delay))

@@ -57,6 +57,21 @@ with, under ``autograd.record()``, which inputs need a gradient and whether
   statistics written the second time; the device generator is set back to
   where the forward replay started, so Dropout draws the same masks).
 
+A signature's FLOPs are counted once (``engine.count_flops``), as the
+reference takes the cost of its compiled forward and vjp once (:527-587).
+Where a graph is captured they are counted whatever telemetry's flag, since
+a replay runs no Python: the forward over its eager first call, a training
+pair's backward over the capture of its backward graph (the recompute of a
+rematerialized one included). An eager call counts them with telemetry on:
+the forward over the signature's first call, under ``record()`` the
+backward by ``engine.count_backward`` over that call's graph. Each replay or
+eager call adds them to the engine's ``flops_executed``
+(``engine.record_execution``): the forward at the call, the backward when
+the backward reaches the outputs. The warm call's backward, which runs
+before its count exists, is booked at twice its forward and flagged
+``estimated``, the reference's fallback. Inside a trainer's step
+(``parallel``) blocks fold into the step, which counts and books the whole.
+
 The entry of a signature that runs the eager forward records why (the
 last call's reason, ``eager``):
 
@@ -108,6 +123,7 @@ Left for later slices: symbolic tracing and ``export``, ``SymbolBlock``,
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import threading
@@ -119,6 +135,7 @@ import torch
 
 from .. import autograd
 from .. import engine
+from .. import telemetry as _telem
 from ..base import MXNetError
 from ..ndarray import NDArray
 from .. import ndarray as nd
@@ -412,14 +429,17 @@ class _CachedGraph:
     ``eager``, the reason the last call ran the eager forward (None when it
     replayed)."""
 
-    __slots__ = ("graph", "inputs", "structure", "eager", "pair")
+    __slots__ = ("graph", "inputs", "structure", "eager", "pair", "flops", "bwd_flops")
 
-    def __init__(self, graph=None, inputs=(), structure=None, eager=None, pair=None):
+    def __init__(self, graph=None, inputs=(), structure=None, eager=None, pair=None,
+                 flops=None):
         self.graph = graph
         self.inputs = inputs
         self.structure = structure
         self.eager = eager
         self.pair = pair
+        self.flops = flops            # the forward's and the backward's, None until
+        self.bwd_flops = None         # counted
 
 
 _MAX_IN_FLIGHT = 4
@@ -443,12 +463,14 @@ class _Slot:
     inputs only."""
 
     __slots__ = ("index", "fwd", "bwd", "inputs", "wrt_inputs", "used_inputs", "out_diff",
-                 "gouts", "leaves", "used", "remat", "gen", "gen_state", "token", "ctx")
+                 "gouts", "leaves", "used", "remat", "gen", "gen_state", "token", "ctx",
+                 "flops", "bwd_flops")
 
     def __init__(self, index):
         self.index = index
         self.ctx = None
         self.gen_state = None
+        self.flops = self.bwd_flops = 0.0     # counted at the warm call and the capture
 
     def busy(self) -> bool:
         node = self.ctx() if self.ctx is not None else None
@@ -467,7 +489,7 @@ class _Pair:
     (with the ``requires_grad`` flags the slots were captured with) and the
     slots."""
 
-    __slots__ = ("warm", "structure", "params", "reqs", "slots", "__weakref__")
+    __slots__ = ("warm", "structure", "params", "reqs", "slots", "flops", "__weakref__")
 
     def __init__(self):
         self.warm = False
@@ -475,6 +497,7 @@ class _Pair:
         self.params = None
         self.reqs = None
         self.slots = []
+        self.flops = None             # the forward's, counted at the warm call
 
 
 class _PairCall(torch.autograd.Function):
@@ -490,6 +513,7 @@ class _PairCall(torch.autograd.Function):
         if slot.remat:
             slot.gen_state = slot.gen.get_state()
         outs = [o.clone() for o in slot.fwd.replay()]
+        engine.record_execution("fwd", slot.flops)
         ctx.slot = slot
         ctx.save_for_backward(slot.token)
         slot.ctx = weakref.ref(ctx)
@@ -516,6 +540,7 @@ class _PairCall(torch.autograd.Function):
                 slot.gen.set_state(now)
         else:
             got = slot.bwd.replay()
+        engine.record_execution("bwd", slot.bwd_flops)
         got = [g.clone() if g is not None else None for g in got]
         n = len(slot.wrt_inputs)
         out = [None] * (1 + len(slot.inputs))
@@ -631,12 +656,12 @@ class HybridBlock(Block):
                     if isinstance(r, torch.Tensor):
                         buf.copy_(r)
                 outs = entry.graph.replay()
+                engine.record_execution("fwd", entry.flops)
                 return _rebuild_out([o.clone() for o in outs], entry.structure)
             reason = self._eager_reason(raws, placed=True)
         if reason is not None:
-            self._cached_graphs.setdefault(sig, _CachedGraph(eager=reason))
-            with _Fold():
-                return self._forward_unhybridized(*args)
+            entry = self._cached_graphs.setdefault(sig, _CachedGraph(eager=reason))
+            return self._eager(entry, args, raws)
         return self._capture(sig, args, raws)
 
     def _capture(self, sig, args, raws):
@@ -644,7 +669,7 @@ class HybridBlock(Block):
         stale): the eager forward on the side stream (returned), then the
         capture of the forward on static inputs."""
         device = next(r.device for r in raws if isinstance(r, torch.Tensor))
-        with _Fold(), engine.side_stream(device):
+        with _Fold(), engine.side_stream(device), engine.count_flops() as fc:
             out = self._forward_unhybridized(*args)
         _, structure = _flatten_out(out)
         static = [r.clone() if isinstance(r, torch.Tensor) else r for r in raws]
@@ -657,7 +682,7 @@ class HybridBlock(Block):
             return _flatten_out(o)[0]
         graph = engine.capture(run, ("gluon", id(self), self._fingerprint(), sig), device,
                                owner=self, ptrs=HybridBlock._param_ptrs)
-        self._cached_graphs[sig] = _CachedGraph(graph, static, structure)
+        self._cached_graphs[sig] = _CachedGraph(graph, static, structure, flops=fc.total)
         return out
 
     # -- the training pair ---------------------------------------------------------
@@ -684,8 +709,7 @@ class HybridBlock(Block):
         if reason == "backward":
             return self._warm_call(entry.pair, args, raws)
         if reason is not None:
-            with _Fold():
-                return self._forward_unhybridized(*args)
+            return self._eager(entry, args, raws, recorded=True)
         tensors = [t if k in slot.used_inputs else t.detach() for k, t in
                    enumerate(r for r in raws if isinstance(r, torch.Tensor))]
         with torch.enable_grad():
@@ -694,11 +718,14 @@ class HybridBlock(Block):
 
     def _warm_call(self, pair, args, raws):
         """An eager call on the side stream before the signature's first
-        backward; a hook on an output marks the pair warm when a backward
-        reaches it."""
+        backward, its forward's FLOPs counted; a hook on an output marks the
+        pair warm when a backward reaches it (and books that backward at the
+        reference's estimate: its count comes with the capture)."""
         device = next(r.device for r in raws if isinstance(r, torch.Tensor))
-        with _Fold(), engine.side_stream(device):
+        with _Fold(), engine.side_stream(device), engine.count_flops() as fc:
             out = self._forward_unhybridized(*args)
+        pair.flops = fwd = fc.total
+        engine.record_execution("fwd", fwd)
         flat, pair.structure = _flatten_out(out)
         head = next((t for t in flat if t.requires_grad), None)
         if head is None:
@@ -710,8 +737,35 @@ class HybridBlock(Block):
                 p = ref()
                 if p is not None:
                     p.warm = True
+                engine.record_execution("bwd", 2.0 * fwd, estimated=True)
             head.register_hook(warmed)
         self._fingerprint_memo = None           # deferred shapes are known now
+        return out
+
+    def _eager(self, entry, args, raws, recorded=False):
+        """The eager forward; with telemetry on its FLOPs booked: the
+        forward's counted at the signature's first such call, under
+        ``record()`` the backward's too (``engine.count_backward``), each
+        added at every call, the backward's by a hook on an output when the
+        backward reaches it."""
+        if not _telem._ENABLED:
+            with _Fold():
+                return self._forward_unhybridized(*args)
+        with _Fold(), (engine.count_flops() if entry.flops is None
+                       else contextlib.nullcontext()) as fc:
+            out = self._forward_unhybridized(*args)
+        if fc is not None:
+            entry.flops = fc.total
+        engine.record_execution("fwd", entry.flops)
+        flat = _flatten_out(out)[0] if recorded else []
+        head = next((t for t in flat if t.requires_grad), None)
+        if head is not None:
+            if entry.bwd_flops is None:
+                entry.bwd_flops = engine.count_backward(
+                    flat, [r for r in raws if isinstance(r, torch.Tensor)]
+                    + [p._param for p in self.collect_params().values() if p._param is not None])
+            bwd = entry.bwd_flops
+            head.register_hook(lambda g: engine.record_execution("bwd", bwd))
         return out
 
     def _pair_slot(self, sig, pair, raws):
@@ -748,6 +802,7 @@ class HybridBlock(Block):
         pair.params = [p for p in self.collect_params().values() if p._param is not None]
         pair.reqs = tuple(p._param.requires_grad for p in pair.params)
         slot = _Slot(index)
+        slot.flops = pair.flops
         slot.remat = remat
         slot.gen = _random.generator(device)
         slot.token = torch.empty(0, device=device)
@@ -792,8 +847,10 @@ class HybridBlock(Block):
                 return [None] * len(wrt)
             with torch.enable_grad():
                 return list(torch.autograd.grad(heads, wrt, slot.gouts, allow_unused=True))
-        slot.bwd = engine.capture(run_bwd, self._slot_key(sig, index, "bwd"), device,
-                                  owner=self, ptrs=HybridBlock._param_ptrs, pool=pool)
+        with engine.count_flops() as fc:        # what each replay of it does
+            slot.bwd = engine.capture(run_bwd, self._slot_key(sig, index, "bwd"), device,
+                                      owner=self, ptrs=HybridBlock._param_ptrs, pool=pool)
+        slot.bwd_flops = fc.total
         got = slot.bwd.outputs
         n = len(slot.wrt_inputs)
         slot.used_inputs = {k for k, g in zip(slot.wrt_inputs, got[:n]) if g is not None}

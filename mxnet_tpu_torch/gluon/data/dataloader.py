@@ -91,6 +91,20 @@ class DataLoader:
     def __len__(self):
         return len(self._batch_sampler)
 
+    def device_feed(self, device=None, mesh=None, data_spec=None, depth=None,
+                    trainer=None):
+        """This loader in an ``engine.async_feed.DeviceFeed`` (reference
+        :66-77): the feed's producer runs the sampling and stacking on the
+        host and copies each batch to ``device`` ahead of the step.
+        ``trainer=`` is the reference's shortcut for ``DeviceFeed.for_trainer``
+        (its ``docs/input_pipeline.md``): a ``DataParallelTrainer``'s device
+        and this rank's part of the batch."""
+        from ...engine.async_feed import DeviceFeed
+        src = _HostBatches(self)
+        if trainer is not None:
+            return DeviceFeed.for_trainer(src, trainer, depth=depth)
+        return DeviceFeed(src, device=device, mesh=mesh, data_spec=data_spec, depth=depth)
+
     def _make(self, idx, ctx):
         """One batch, stacked on ``ctx`` (pinned on the host with pin_memory)."""
         samples = [self._dataset[j] for j in idx]
@@ -156,3 +170,18 @@ class DataLoader:
                 ahead.release()
             for t in threads:
                 t.join(timeout=self._timeout)
+
+
+class _HostBatches:
+    """A loader's batches stacked on the host, for a ``DeviceFeed`` to copy."""
+
+    def __init__(self, loader: DataLoader):
+        self._loader = loader
+        self.batch_size = getattr(loader._batch_sampler, "_batch_size", 0)
+
+    def __len__(self):
+        return len(self._loader)
+
+    def __iter__(self):
+        ld = self._loader
+        return ld._inline(cpu()) if ld._num_workers == 0 else ld._threaded(cpu())

@@ -29,6 +29,15 @@ it is made (a dist store; the in-process stores raise), as in the reference
 (:71). An unknown store name raises at construction; parameters on more
 than one device raise at the first step.
 
+Each ``step`` admits its last updated weight into a ``DispatchWindow``
+(reference :51, :128): the updates are issued without a host sync, and the
+window blocks on the step ``MXNET_TPU_INFLIGHT_STEPS`` before it; ``drain()``
+waits for every admitted step. With telemetry on, ``step`` records
+``record_step(batch_size, source="trainer")`` (:132-143): the interval since
+the last step covers the whole loop (forward, backward, update) and the
+engine's ``flops_executed`` delta over it (a hybridized block's replays)
+gives the MFU.
+
 ``save_states``/``load_states`` (:230-247) write and read the updater's
 ``get_states(dump_optimizer=True)`` bytes, the store's under
 ``update_on_kvstore``; a file the reference wrote loads too. As in the
@@ -40,7 +49,10 @@ from __future__ import annotations
 from typing import List
 
 from ..base import MXNetError, env
+from .. import engine as _engine
 from .. import optimizer as opt_mod
+from .. import telemetry as _telem
+from ..engine import async_feed as _feed
 from .. import kvstore as kvs_mod
 from .. import _dist_util
 from .parameter import Parameter, ParameterDict
@@ -79,6 +91,7 @@ class Trainer:
         self._kvstore = None
         self._update_on_kvstore = update_on_kvstore
         self._kv_initialized = False
+        self._window = _feed.DispatchWindow(name="trainer")
 
     @property
     def learning_rate(self):
@@ -124,6 +137,20 @@ class Trainer:
         self._optimizer.rescale_grad = self._scale / batch_size
         self._allreduce_grads()
         self._update()
+        # the last updated weight: issued last, so its completion implies
+        # every earlier update of this step completed
+        h = next((p.data()._data for p in reversed(self._params) if p.grad_req != "null"),
+                 None)
+        if h is not None:
+            self._window.admit(h)
+        if _telem._ENABLED:
+            _engine.record_execution("step", 0.0)
+            _telem.record_step(batch_size, source="trainer",
+                               lr=float(self._optimizer.learning_rate))
+
+    def drain(self):
+        """Wait until every admitted step's updates finished (a boundary)."""
+        self._window.drain()
 
     def allreduce_grads(self):
         """Reduce the gradients in place through the store (none: identity)."""

@@ -41,6 +41,10 @@ a dist store quantizes each pushed value, plus the key's residual, to {-t,
 residual (error feedback); the in-process stores raise, as the reference's
 ``kvstore_local.h`` does. Values of one key on several devices within a
 process raise (one device per process).
+
+With telemetry on, ``push``, ``pull``, ``pushpull`` and ``broadcast`` book
+their payload bytes, calls and seconds (``telemetry.instrument_comm``,
+reference :103-554) under those op labels and the store's type.
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ import torch
 from ..base import MXNetError, env
 from ..ndarray import NDArray
 from .. import optimizer as opt_mod
+from .. import telemetry as _telem
 from .. import _dist_util
 
 _MULTI_DEVICE = ("values of one key on several devices in one process are not "
@@ -152,6 +157,7 @@ class KVStore:
             with torch.no_grad():
                 _tensor(t).copy_(src)
 
+    @_telem.instrument_comm("push")
     def push(self, key, value, priority=0):
         keys, values = self._normalize(key, value)
         for k, v in zip(keys, values):
@@ -160,6 +166,7 @@ class KVStore:
             # workers: the compressed value is what crosses the wire
             self._apply(k, self._cross(self._compress(k, self._reduce(vlist))))
 
+    @_telem.instrument_comm("pull")
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         keys, outs = self._normalize(key, out)
         for k, o in zip(keys, outs):
@@ -167,6 +174,7 @@ class KVStore:
                 raise MXNetError(f"key {k} not initialized")
             self._write(o, self._store[k]._data)
 
+    @_telem.instrument_comm("pushpull")
     def pushpull(self, key, value, out=None, priority=0):
         """Push, then pull into ``out`` (reference ``MXKVStorePushPullEx``).
         A list of keys with no updater is reduced by buckets: the values are
@@ -202,6 +210,7 @@ class KVStore:
                 if outs[i] is not None:
                     self._write(outs[i], src)
 
+    @_telem.instrument_comm("broadcast")
     def broadcast(self, key, value, out, priority=0):
         self.init(key, value)
         self.pull(key, out, priority)
@@ -349,6 +358,7 @@ class KVStoreDist(KVStore):
             self._ps_client.wait_ready(self._home(k), k)
 
     # -- the parameter server's paths ------------------------------------------------
+    @_telem.instrument_comm("push")
     def push(self, key, value, priority=0):
         if self._ps_client is None:
             return super().push(key, value, priority)
@@ -364,6 +374,7 @@ class KVStoreDist(KVStore):
             if resp[0] != "ok":
                 raise MXNetError(f"dist_async push of key {k} failed: {resp}")
 
+    @_telem.instrument_comm("pull")
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         if self._ps_client is None:
             return super().pull(key, out, priority, ignore_sparse)
@@ -372,6 +383,7 @@ class KVStoreDist(KVStore):
             cur = self._ps_client.pull_blocking(self._home(k), k)
             self._write(o, torch.from_numpy(cur))
 
+    @_telem.instrument_comm("pushpull")
     def pushpull(self, key, value, out=None, priority=0):
         if self._ps_client is None:
             return super().pushpull(key, value, out, priority)

@@ -295,7 +295,9 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         group, n, split, concat = ctx.a2a
-        return _all_to_all(g, group, n, concat, split), None, None, None, None
+        # the opposite exchange through the Function, so that a second
+        # derivative (create_graph) records it
+        return _AllToAll.apply(g, group, n, concat, split), None, None, None, None
 
 
 def _all_to_all(x, group, n, split, concat):

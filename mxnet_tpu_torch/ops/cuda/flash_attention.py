@@ -19,6 +19,9 @@ tensors, raises if the launch fails, and counts its launches in
 the shape ``"BHxTqxTkxD"`` in ``<wrapper>.launches_by_shape`` and by the
 mask (``"causal"``, ``"full"``) in ``<wrapper>.launches_by_mask``; a CUDA
 graph that captured launches adds them again at each replay (``engine``).
+A launch also adds its FLOPs by the kernel's formula to any open
+``engine.count_flops()`` (``engine.attention_flops``: ``FlopCounterMode``
+sees nothing inside a kernel launched through ctypes).
 ``flash_attention_fwd`` and ``flash_attention_bwd`` take their plain versions
 (``flash_attention_fwd_plain``, ``flash_attention_bwd_plain``) for CPU
 tensors; there is no other branch.
@@ -193,6 +196,8 @@ def _count(wrapper, q3, k3, causal) -> None:
     wrapper.launches_by_dtype[name] = wrapper.launches_by_dtype.get(name, 0) + 1
     shape = f"{q3.shape[0]}x{q3.shape[1]}x{k3.shape[1]}x{q3.shape[2]}"
     wrapper.launches_by_shape[shape] = wrapper.launches_by_shape.get(shape, 0) + 1
+    engine.add_flops(engine.attention_flops(wrapper.flop_kind, q3.shape[0], q3.shape[1],
+                                            k3.shape[1], q3.shape[2], causal))
 
 
 def flash_attention_fwd(q3, k3, v3, causal: bool = False,
@@ -231,6 +236,7 @@ def flash_attention_fwd(q3, k3, v3, causal: bool = False,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.flop_kind = "fwd"
 flash_attention_fwd.launches_by_dtype = {}
 flash_attention_fwd.launches_by_shape = {}
 flash_attention_fwd.launches_by_mask = {}
@@ -305,6 +311,8 @@ def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, causal: bool = False,
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dq.flop_kind = "dq"
+flash_attention_bwd_dkv.flop_kind = "dkv"
 flash_attention_bwd_dq.launches_by_dtype = {}
 flash_attention_bwd_dkv.launches_by_dtype = {}
 flash_attention_bwd_dq.launches_by_shape = {}

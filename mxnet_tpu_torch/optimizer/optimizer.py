@@ -50,7 +50,10 @@ Memory: updates write the new weight and states into the existing tensors
 in place, under ``torch.no_grad()``, so a ``Parameter``'s ``nn.Parameter``
 keeps its identity and no second copy of the weights or states stays
 alive. This is the counterpart of the reference's buffer donation
-(``_UpdateKernel``, :229-273).
+(``_UpdateKernel``, :229-273); with telemetry on, ``Updater`` books the
+bytes each update writes in place (the weight and its states) into
+``mx_donation_saved_bytes_total``, the reference's counter of donated
+bytes (:255-262).
 
 States: ``Updater.get_states``/``set_states`` serve ``kvstore`` and
 ``Trainer.save_states``/``load_states``; ``set_states`` also reads the
@@ -72,6 +75,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from .. import telemetry as _telem
 from ..ndarray import NDArray
 from ..ops import optimizer_ops as _oo
 
@@ -260,6 +264,10 @@ class Updater:
                 self.states[i] = _to_ctx(self.states[i], w.ctx)
                 self._unplaced.discard(i)
             self.optimizer.update_multi_precision(i, w, g, self.states[i])
+            if _telem._ENABLED:
+                _telem.counter("mx_donation_saved_bytes_total",
+                               "Buffer bytes aliased in place by donated updates").inc(
+                    _telem.payload_bytes([w, self.states[i]]))
 
     def get_states(self, dump_optimizer=False) -> bytes:
         """The states (and, with ``dump_optimizer``, the optimizer without

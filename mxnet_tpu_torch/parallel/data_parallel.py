@@ -98,8 +98,23 @@ A step (reference :832-877):
   and LARS raise with the reference's words: their norms would be taken
   over bucket shards.
 
-``step`` returns a ``PendingScalar`` of the loss, which syncs only when read,
-so steps of every dtype, captured or not, run without a host sync. The
+``step`` returns a ``PendingScalar`` of the loss (``engine.async_feed``'s),
+which syncs only when read, so steps of every dtype, captured or not, run
+without a host sync. Each ``step`` (each ``run_steps`` call) is admitted into
+an ``engine.async_feed.DispatchWindow`` (reference :350, :1441-1527): an event
+recorded after it, and a wait on the step ``MXNET_TPU_INFLIGHT_STEPS`` (2)
+before it, so the host runs at most that far ahead; ``drain()`` is the
+boundary sync. With telemetry on, a step then books (``_record_telemetry``,
+reference :694-795) the comm bytes of its collectives (the reference's
+estimates: the gradient all-reduce, ZeRO's reduce-scatter and all-gather, the
+overlapped ones labelled so), the optimizer state a rank holds, the
+signature's FLOPs (counted once by ``engine.count_once``: over a captured
+signature's eager warm-up whatever telemetry's flag, since a replay runs no
+Python, or over an eager signature's first step with telemetry on) into
+``engine.record_execution``, and
+``record_step``; the step runs under ``telemetry.annotate("mx.dp.step")`` and,
+with tracing armed, records the ``mx.dp.step`` span. A batch from a
+``DeviceFeed`` built ``for_trainer`` is already this rank's part. The
 parameters are the ``Parameter``s' own tensors, so ``sync()`` only waits for
 the device.
 
@@ -207,6 +222,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import time
 import warnings
 from typing import Dict, List, Optional
 
@@ -219,14 +235,19 @@ from ..ndarray import NDArray
 from .. import autograd
 from .. import engine
 from .. import optimizer as opt_mod
+from .. import telemetry as _telem
+from ..engine import async_feed as _feed
+from ..engine.async_feed import PendingScalar
+from ..telemetry import tracing as _tracing
 from .. import _dist_util
 from . import overlap as _overlap
 from . import zero as _zero
+from ..gluon.block import _Fold
 from ..gluon.loss import Loss as GluonLoss
 from ..ops.cuda import fused_optimizer as _fo
 from .mesh import P, activate, current_mesh, require_axis
 from .step_program import StepProgram, config_fingerprint, structural_fingerprint
-from .tensor_parallel import shard_tensor, spec_axes
+from .tensor_parallel import local_part, spec_axes
 
 def _f32(x) -> np.float32:
     return np.float32(x)
@@ -496,38 +517,6 @@ class _StepGraph:
         self.x = self.y = self.stats = None
 
 
-class PendingScalar:
-    """A loss on the device that syncs only when read (reference
-    ``engine/async_feed.py`` ``PendingScalar``): ``float()``, ``item()``
-    and ``asnumpy()`` wait for it; holding it or ``repr()`` does not."""
-
-    __slots__ = ("_raw",)
-
-    def __init__(self, raw: torch.Tensor):
-        self._raw = raw
-
-    @property
-    def raw(self) -> torch.Tensor:
-        """The loss tensor on the device (no sync)."""
-        return self._raw
-
-    def __float__(self):
-        return float(self._raw.float().item())
-
-    def item(self):
-        return self.__float__()
-
-    def asnumpy(self):
-        return self._raw.detach().float().cpu().numpy()
-
-    def __array__(self, dtype=None, copy=None):
-        out = self.asnumpy()
-        return out.astype(dtype) if dtype is not None else out
-
-    def __repr__(self):
-        return f"PendingScalar({self._raw.dtype}, {self._raw.device})"
-
-
 class DataParallelTrainer:
     """The fused training step on one device; see the module docstring.
     ``net`` is an initialized ``HybridBlock`` (run one forward first if its
@@ -677,6 +666,12 @@ class DataParallelTrainer:
             self._found, self._found_acc, self._amp_gate = (
                 torch.zeros(1, dtype=torch.float32, device=dev) for _ in range(3))
         self._graphs: Dict[tuple, _StepGraph] = {}
+        # the bounded in-flight window (reference :350) and each signature's
+        # FLOPs, counted once (engine.count_once): at a captured step's
+        # warm-up, or at an eager step's first with telemetry on
+        self._window = _feed.DispatchWindow(name="dp")
+        self._flops: Dict[tuple, float] = {}
+        self._ar_bytes = self._rs_bytes = self._ag_bytes = None
         # why the body runs eagerly every step, None to capture it; the tests
         # set it to a string to run the same trainer eagerly as a yardstick
         self._graph_reason = self._eager_reason()
@@ -926,20 +921,21 @@ class DataParallelTrainer:
 
     # -- the step --------------------------------------------------------------
     def _raw(self, a) -> torch.Tensor:
-        t = a._data if isinstance(a, NDArray) else torch.as_tensor(np.asarray(a))
+        if isinstance(a, NDArray):
+            t = a._data
+        elif isinstance(a, torch.Tensor):
+            t = a
+        else:
+            t = torch.as_tensor(np.asarray(a))
         return t.to(self.device.torch_device)
 
     def _local(self, t: torch.Tensor, stacked: bool = False) -> torch.Tensor:
         """This rank's part of a global batch tensor under ``data_spec``
-        (dims shift by one for a stacked run)."""
-        if not self.mesh.distributed:
+        (dims shift by one for a stacked run); a ``DeviceFeed``'s leaf for
+        this mesh is that part already."""
+        if not self.mesh.distributed or _feed.is_local(t):
             return t
-        for d, axes in self._data_axes:
-            d += int(stacked)
-            if d >= t.dim():
-                continue
-            t = shard_tensor(t, P(*([None] * d), axes), self.mesh)
-        return t
+        return local_part(t, self._data_axes, self.mesh, stacked)
 
     def _share(self) -> float:
         """This rank's share of the global batch's elements."""
@@ -1183,10 +1179,11 @@ class DataParallelTrainer:
         by the overflow flag, and the scaler's policy run where ``_amp_gate``
         says, all on the device. Returns the loss."""
         scale = self._scaler.scale_tensor() if self._scaler is not None else None
-        if self._overlap:
-            lossv = self._forward_backward_overlap(x, y, scale)
-        else:
-            lossv = self._forward_backward(x, y, scale)
+        with _Fold():     # hybridized blocks fold into the step, which counts their FLOPs
+            if self._overlap:
+                lossv = self._forward_backward_overlap(x, y, scale)
+            else:
+                lossv = self._forward_backward(x, y, scale)
         with torch.no_grad():
             skip = self._unscale_check(scale) if scale is not None else None
             if self._compression:
@@ -1210,7 +1207,13 @@ class DataParallelTrainer:
             write_hyper(self._amp_gate, [1.0 if policy else 0.0])
         if self._graph_reason is None:
             return self._graph_step(x, y)
+        if _telem._ENABLED:         # an eager step: counted at its first with telemetry on
+            return engine.count_once(self._flops, self._signature(x, y), self._body, x, y)
         return self._body(x, y)
+
+    @staticmethod
+    def _signature(x, y) -> tuple:
+        return (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype)
 
     # -- the captured step -------------------------------------------------------
     def _operand_ptrs(self):
@@ -1220,7 +1223,7 @@ class DataParallelTrainer:
     def _graph_step(self, x, y) -> torch.Tensor:
         """The step on the card: warm up at a signature's first step, capture
         at its second, replay from then on (module docstring)."""
-        sig = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype)
+        sig = self._signature(x, y)
         key = ("dp_step", id(self), self._program.fingerprint, sig)
         entry = self._graphs.get(sig)
         graph = engine.lookup(key) if entry is not None else None
@@ -1228,8 +1231,7 @@ class DataParallelTrainer:
             if entry is None or entry.graph is not None:     # new, or its graph went stale
                 self._graphs[sig] = _StepGraph()
                 with engine.side_stream(self.device.torch_device):
-                    lossv = self._body(x, y)
-                return lossv
+                    return engine.count_once(self._flops, sig, self._body, x, y)
             entry.x, entry.y = x.clone(), y.clone()
             graph = entry.graph = engine.capture(
                 lambda: (self._body(entry.x, entry.y),), key, self.device.torch_device,
@@ -1244,10 +1246,29 @@ class DataParallelTrainer:
         return self._graph_reason is None
 
     def step(self, x, y, batch_size=None) -> PendingScalar:
-        """One fused training step on the batch ``x``, ``y``."""
+        """One fused training step on the batch ``x``, ``y``; the step is
+        admitted into the in-flight window (which blocks on the step two
+        before it, never on this one) before telemetry records it, so the
+        step time runs at completion pace and no sync is added."""
         self.optimizer.rescale_grad = 1.0
-        return PendingScalar(self._one_step(self._local(self._raw(x)),
-                                            self._local(self._raw(y))))
+        x, y = self._local(self._raw(x)), self._local(self._raw(y))
+        t_sp = time.perf_counter() if _tracing._ENABLED else 0.0
+        with _telem.annotate("mx.dp.step"):
+            lossv = self._one_step(x, y)
+        if _tracing._ENABLED:
+            _tracing.record_span("mx.dp.step", t_sp, time.perf_counter(),
+                                 step=self._t, source="data_parallel")
+        self._window.admit(lossv)
+        if _telem._ENABLED:
+            self._record_telemetry(self._signature(x, y), batch_size or self._examples(x), 1)
+        return PendingScalar(lossv)
+
+    def _examples(self, x, stacked: bool = False) -> int:
+        """The global batch's examples, from this rank's part of it."""
+        n = x.shape[1] if stacked else x.shape[0]
+        if self.mesh.distributed and self._data_axes and self._data_axes[0][0] == 0:
+            n *= math.prod(self.mesh.axis_size(a) for a in self._data_axes[0][1])
+        return n
 
     def run_steps(self, x, y, n, stacked=False) -> NDArray:
         """``n`` steps, one after another (the reference scans them in one
@@ -1262,14 +1283,95 @@ class DataParallelTrainer:
             raise MXNetError(f"run_steps(stacked=True): leading dim must be n={n}, "
                              f"got {xr.shape[0]}/{yr.shape[0]}")
         self.optimizer.rescale_grad = 1.0
-        losses = [self._one_step(xr[i] if stacked else xr, yr[i] if stacked else yr,
-                                 policy=i == n - 1) for i in range(n)]
-        return NDArray(torch.stack(losses), self.device)
+        t_sp = time.perf_counter() if _tracing._ENABLED else 0.0
+        with _telem.annotate("mx.dp.run_steps"):
+            losses = torch.stack([self._one_step(xr[i] if stacked else xr,
+                                                 yr[i] if stacked else yr,
+                                                 policy=i == n - 1) for i in range(n)])
+        if _tracing._ENABLED:
+            _tracing.record_span("mx.dp.run_steps", t_sp, time.perf_counter(), steps=n,
+                                 step=self._t, source="data_parallel")
+        # one run_steps call is one entry of the window, as in the reference
+        self._window.admit(losses)
+        if _telem._ENABLED:
+            sig = self._signature(xr[0], yr[0]) if stacked else self._signature(xr, yr)
+            self._record_telemetry(sig, self._examples(xr, stacked) * n, n)
+        return NDArray(losses, self.device)
 
     def drain(self):
-        """Wait until every step that was issued has finished on the device."""
+        """Wait until every step that was issued has finished on the device:
+        the window's boundary sync, then the device's."""
+        self._window.drain()
         if self.device.device_type == "gpu":
             torch.cuda.synchronize(self.device.torch_device)
+
+    # -- telemetry (reference :694-795) -------------------------------------------
+    def _grad_allreduce_bytes(self) -> int:
+        """Ring estimate of the step's gradient all-reduce over dp: 2 (n - 1)
+        / n of the trainable parameters' bytes."""
+        if self._ar_bytes is None:
+            n = self._dp_degree
+            total = sum(p._param.numel() * p._param.element_size()
+                        for p, t in zip(self._plist, self._trainable) if t)
+            self._ar_bytes = (total * 2 * (n - 1)) // n if n > 1 else 0
+        return self._ar_bytes
+
+    def _zero_wire_bytes(self):
+        if self._rs_bytes is None:
+            if self._zero_plan:
+                self._rs_bytes = _zero.reduce_scatter_wire_bytes(
+                    self._zero_plan, self._dp_degree, self._comm_dtype)
+                self._ag_bytes = _zero.all_gather_wire_bytes(self._zero_plan, self._dp_degree)
+            else:
+                self._rs_bytes = _overlap.allreduce_wire_bytes(
+                    self._overlap_buckets, self._dp_degree, self._comm_dtype)
+                self._ag_bytes = 0
+        return self._rs_bytes, self._ag_bytes
+
+    def _record_zero_telemetry(self, steps):
+        """ZeRO's reduce-scatter of the gradient buckets and all-gather of
+        the updated shards (ring estimates over the bucket plan)."""
+        rs, ag = self._zero_wire_bytes()
+        nb = len(self._zero_plan)
+        _telem.record_comm("reduce_scatter", rs * steps, store="mesh",
+                           calls=steps * nb, axis="dp")
+        _telem.record_comm("all_gather", ag * steps, store="mesh",
+                           calls=steps * nb, axis="dp")
+
+    def _record_overlap_telemetry(self, steps):
+        """The overlapped step's collectives issued inside the backward carry
+        overlap "1"; ZeRO's all-gather runs after it and does not."""
+        rs, ag = self._zero_wire_bytes()
+        if self._zero_plan:
+            nb = len(self._zero_plan)
+            _telem.record_comm("reduce_scatter", rs * steps, store="mesh",
+                               calls=steps * nb, overlapped=True, axis="dp")
+            _telem.record_comm("all_gather", ag * steps, store="mesh",
+                               calls=steps * nb, axis="dp")
+        else:
+            nb = len(self._overlap_buckets)
+            _telem.record_comm("allreduce", rs * steps, store="mesh",
+                               calls=steps * nb, overlapped=True, axis="dp")
+
+    def _record_telemetry(self, sig, examples, steps):
+        """Comm bytes, optimizer-state bytes, the signature's FLOPs into the
+        engine's count, and the step (after the window's admission: no sync)."""
+        flops = self._flops.get(sig, 0.0) * steps
+        if self._dp_degree > 1:
+            if self._overlap:
+                self._record_overlap_telemetry(steps)
+            elif self._zero:
+                self._record_zero_telemetry(steps)
+            else:
+                _telem.record_comm("allreduce", self._grad_allreduce_bytes() * steps,
+                                   store="mesh", calls=steps, axis="dp")
+        _telem.record_optimizer_state(self._opt_state_replica_bytes(),
+                                      source="data_parallel")
+        engine.record_execution("step", flops, steps=steps)
+        _telem.record_step(examples, source="data_parallel", steps=steps,
+                           flops_per_step=(flops / steps if flops else None),
+                           lr=float(self.optimizer.learning_rate),
+                           dispatch_wait_seconds=self._window.wait_seconds)
 
     def sync(self):
         """The parameters are the ``Parameter``s' own tensors: wait for them."""

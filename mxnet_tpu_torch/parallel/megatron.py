@@ -17,6 +17,12 @@ collectives inside ``shard_map`` as ``jax.custom_vjp`` pairs; here each is a
   partial_grad   identity             cotangent / axis size
   ============== ==================== ====================
 
+Under ``create_graph`` each backward is recorded, so a second derivative
+runs the transpose of that backward's collective, as JAX differentiates the
+reference's backward rules (``tests/test_torch_second_order_comm.py``
+holds it against the reference on 2 CPU devices): ``copy_to_tp``'s sum
+again, ``gather_from_sp``'s and ``scatter_to_sp``'s duals.
+
 Two gradient conventions. ``DataParallelTrainer``'s tensor parallelism keeps
 FULL gradients on every rank: every rank of a tp group computes the
 replicated parts of a layer on the same tokens and ``copy_to_tp``'s backward
@@ -129,6 +135,26 @@ def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.T
     return out.movedim(0, dim)
 
 
+# Under create_graph each boundary collective's backward is recorded, so a
+# second derivative runs the transpose of that backward's collective, as JAX
+# differentiates the reference's custom_vjp backward rules: psum's transpose
+# is psum (``_AllReduce``), psum_scatter's all_gather and the reverse (the
+# dual Function); reduce_from_tp's identity backward stays the identity.
+# Without create_graph each runs as the plain collective.
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over ``axis``, whose derivative is the sum again."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllReduce.apply(g, ctx.mesh, ctx.axis), None, None
+
+
 class _CopyToTP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
@@ -137,7 +163,7 @@ class _CopyToTP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.mesh, ctx.axis), None, None
+        return _AllReduce.apply(g, ctx.mesh, ctx.axis), None, None
 
 
 class _ReduceFromTP(torch.autograd.Function):
@@ -158,7 +184,7 @@ class _GatherFromSP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+        return _ScatterToSP.apply(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
 
 
 class _ScatterToSP(torch.autograd.Function):
@@ -169,7 +195,7 @@ class _ScatterToSP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+        return _GatherFromSP.apply(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
 
 
 class _PartialGrad(torch.autograd.Function):

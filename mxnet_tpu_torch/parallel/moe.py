@@ -224,7 +224,9 @@ class _WireAllToAll(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _wire_exchange(g, *ctx.wire), None, None, None
+        # the exchange is its own transpose: through the Function, so that a
+        # second derivative (create_graph) records it and exchanges again
+        return _WireAllToAll.apply(g, *ctx.wire), None, None, None
 
 
 def wire_all_to_all(x: torch.Tensor, axis_name: str, comm_dtype: Optional[str] = None,

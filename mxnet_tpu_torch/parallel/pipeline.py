@@ -17,6 +17,13 @@ float32 or bfloat16 (float32 master weights), frozen lanes
                          num_microbatch=4)
     loss = tr.step(x, y)        # a PendingScalar of the global batch's mean
 
+``step`` is admitted into a ``DispatchWindow`` (reference :575, :1135-1143)
+and, with telemetry on, books the reference's per-step comm estimates
+(``comm_estimate``; at pp above 1 the embed's and head's gradient sum over
+pp), the optimizer state a rank holds, the signature's FLOPs and
+``record_step(source="pipeline")`` (:1243-1294; its goodput bubble waits for
+the goodput ledger).
+
 The reference runs the schedule as one ``lax.scan`` inside ``shard_map``.
 Here every rank of a ``torch.distributed`` mesh (``parallel/mesh.py``) runs
 its own stage of the same tick loop eagerly:
@@ -48,7 +55,11 @@ its own stage of the same tick loop eagerly:
   its input is kept and the backward runs it again, with the port's
   autograd mode and dropout generator state of the first run; with
   ``remat=False`` every microbatch keeps its whole graph until the
-  backward, GPipe's O(M) activation memory. The trainer's GPipe step runs
+  backward, GPipe's O(M) activation memory. A second derivative through
+  the Function (``create_graph``) raises the reference's
+  ``autograd._NO_SECOND_ORDER``: the reversed ticks' point-to-point
+  exchanges are not autograd ops, so nothing could record it (the
+  reference's ``pipeline_apply``, plain JAX, differentiates twice). The trainer's GPipe step runs
   the embed on stage 0's M microbatches, ``pipeline_apply`` over the
   stages, then the head and loss of each microbatch on the last stage (the
   reference computes the head on every stage and masks it, :933-957).
@@ -187,7 +198,10 @@ from ..ndarray import NDArray
 from .. import autograd
 from .. import engine
 from .. import optimizer as opt_mod
+from .. import telemetry as _telem
 from .. import _dist_util
+from ..engine import async_feed as _feed
+from ..gluon.block import _Fold
 from . import megatron as _mg
 from . import zero as _zero
 from .data_parallel import (DataParallelTrainer, PendingScalar, _StepGraph,
@@ -341,6 +355,13 @@ class _GPipe(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
+        if torch.is_grad_enabled():
+            # create_graph: the reversed ticks' point-to-point exchanges are
+            # not autograd ops, so no second derivative could be recorded
+            # through them (the reference's pipeline_apply differentiates
+            # twice); refuse rather than return a wrong one
+            from ..autograd import _NO_SECOND_ORDER
+            raise MXNetError(_NO_SECOND_ORDER)
         dx, grads = ctx.run.backward(dout)
         ctx.run = None
         return (None, dx, *grads)
@@ -820,6 +841,12 @@ class PipelineTrainer:
         self._act_meta: Dict[tuple, tuple] = {}
         self.last_stats: Optional[dict] = None
         self._graphs: Dict[tuple, _StepGraph] = {}
+        # the in-flight window (reference :575), each signature's FLOPs
+        # (engine.count_once: at a captured step's warm-up, or at an eager
+        # step's first with telemetry on) and comm estimates
+        self._window = _feed.DispatchWindow(name="pp")
+        self._flops: Dict[tuple, float] = {}
+        self._comm_est: Dict[tuple, dict] = {}
         # why the step runs eagerly every time, None to capture it; the tests
         # and chip_smoke set it to a string to run the same trainer eagerly
         self._graph_reason = self._eager_reason()
@@ -1225,7 +1252,8 @@ class PipelineTrainer:
         step's counts, its ``comm`` the collectives it issued. Returns the
         loss."""
         before = {k: list(v) for k, v in _dist_util.comm_stats.items()}
-        lossv = self._forward_backward(xs, ys)
+        with _Fold():     # hybridized blocks fold into the step, which counts their FLOPs
+            lossv = self._forward_backward(xs, ys)
         with torch.no_grad():
             if self._sharded:
                 for lf in self._all_leaves():
@@ -1269,7 +1297,7 @@ class PipelineTrainer:
             if entry is None or entry.graph is not None:     # new, or its graph went stale
                 self._graphs[sig] = _StepGraph()
                 with engine.side_stream(self.device.torch_device):
-                    return self._body(xs, ys)
+                    return engine.count_once(self._flops, sig, self._body, xs, ys)
             entry.x, entry.y = xs.clone(), ys.clone()
             graph = entry.graph = engine.capture(
                 lambda: (self._body(entry.x, entry.y),), key, self.device.torch_device,
@@ -1299,9 +1327,45 @@ class PipelineTrainer:
         self.optimizer.num_update = self._t
         lr = np.float32(self.optimizer.learning_rate)
         write_hyper(self._hyper, [self._hyper_fn(self._t, lr, wd) for wd in self._groups])
-        if self._graph_reason is None:
-            return PendingScalar(self._graph_step(xs, ys))
-        return PendingScalar(self._body(xs, ys))
+        sig = (tuple(xs.shape), xs.dtype, tuple(ys.shape), ys.dtype)
+        with _telem.annotate("mx.pp.step"):
+            if self._graph_reason is None:
+                lossv = self._graph_step(xs, ys)
+            elif _telem._ENABLED:   # an eager step: counted at its first with telemetry on
+                lossv = engine.count_once(self._flops, sig, self._body, xs, ys)
+            else:
+                lossv = self._body(xs, ys)
+        # telemetry after the window's admission: completion-paced, no sync
+        self._window.admit(lossv)
+        if _telem._ENABLED:
+            self._record_telemetry(sig, tuple(xr.shape), B)
+        return PendingScalar(lossv)
+
+    def _record_telemetry(self, sig, x_shape, examples):
+        """The reference's per-step comm estimates (``comm_estimate``; at pp
+        above 1 also the embed's and head's gradient sum over pp), the
+        optimizer state a rank holds, the signature's FLOPs and the step
+        (reference :1243-1294, less the goodput bubble)."""
+        est = self._comm_est.get(sig)
+        if est is None:
+            est = self._comm_est[sig] = self.comm_estimate(x_shape)
+        axes = {"ppermute": "pp", "tp_act_psum": "tp", "tp_act_all_gather": "sp",
+                "tp_act_psum_scatter": "sp", "tp_weight_all_gather": "tp",
+                "reduce_scatter": "dp", "all_gather": "dp"}
+        for op, (calls, nbytes) in est.items():
+            _telem.record_comm(op, nbytes, store="mesh", calls=calls, axis=axes[op])
+        if self.n_stages > 1:
+            rep = sum(math.prod(lf.param.shape) * lf.x.element_size()
+                      for lf in self._leaves_e + self._leaves_h)
+            _telem.record_comm("pipeline_grad_psum", rep, store="mesh", axis="pp")
+        _telem.record_optimizer_state(
+            _zero.per_replica_state_bytes([ss for _, (_, _, ss) in self._groups.items()]),
+            source="pipeline")
+        flops = self._flops.get(sig, 0.0)
+        engine.record_execution("step", flops)
+        _telem.record_step(examples, source="pipeline", flops_per_step=flops or None,
+                           lr=float(self.optimizer.learning_rate),
+                           dispatch_wait_seconds=self._window.wait_seconds)
 
     def comm_estimate(self, x_shape) -> Dict[str, Tuple[int, int]]:
         """The reference's per-step estimates of this trainer's tensor-parallel
@@ -1353,7 +1417,9 @@ class PipelineTrainer:
         return out
 
     def drain(self):
-        """Wait until every step that was issued has finished on the device."""
+        """Wait until every step that was issued has finished on the device:
+        the window's boundary sync, then the device's."""
+        self._window.drain()
         if self.device.device_type == "gpu":
             torch.cuda.synchronize(self.device.torch_device)
 

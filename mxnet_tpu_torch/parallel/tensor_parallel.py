@@ -25,6 +25,9 @@ sharded dimension over the tp group, outside autograd, and this rank's slice
 of a gradient that every rank of the group holds whole. ``shard_rules`` and
 ``apply_rules`` (:82-166) attach specs from a table of logical roles
 (``DEFAULT_RULES``), refusing an unknown role or an axis the mesh lacks.
+With telemetry on, both annotators set ``mx_tp_sharded_params`` and add the
+annotated parameters' bytes to ``mx_tp_sharded_bytes_total`` (reference
+:160-197).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from typing import Dict, Optional
 
 import torch
 
+from .. import telemetry as _telem
 from ..base import MXNetError
 from .mesh import Mesh, PartitionSpec as P, active_mesh
 
@@ -160,7 +164,7 @@ def apply_rules(block, rules: Optional[Dict[str, Optional[str]]] = None,
                                  f"that does not exist (mesh axes: {mesh.axis_names}); add "
                                  f"the axis to make_mesh or set the rule to None")
     compiled = [(re.compile(pat), roles) for pat, roles in _ROLE_PATTERNS]
-    n = 0
+    n = nbytes = 0
     for name, p in block._collect_params_with_prefix().items():
         for pat, roles in compiled:
             if pat.match(name):
@@ -168,8 +172,18 @@ def apply_rules(block, rules: Optional[Dict[str, Optional[str]]] = None,
                 if any(s is not None for s in spec):
                     p.sharding = spec
                     n += 1
+                    nbytes += _telem.payload_bytes(p._param)
                 break
+    _record_sharded(n, nbytes)
     return n
+
+
+def _record_sharded(n: int, nbytes: int) -> None:
+    if _telem._ENABLED:
+        _telem.gauge("mx_tp_sharded_params",
+                     "Parameters carrying TP PartitionSpecs").set(n)
+        _telem.counter("mx_tp_sharded_bytes_total",
+                       "Bytes of parameters annotated for TP sharding").inc(nbytes)
 
 
 def shard_params_megatron(block, rules: Optional[Dict[str, P]] = None,
@@ -185,13 +199,15 @@ def shard_params_megatron(block, rules: Optional[Dict[str, P]] = None,
         r".*word_embed.*weight$": P(axis, None),
     }
     compiled = [(re.compile(k), v) for k, v in (rules or default_rules).items()]
-    n = 0
+    n = nbytes = 0
     for name, p in block._collect_params_with_prefix().items():
         for pat, spec in compiled:
             if pat.match(name):
                 p.sharding = spec
                 n += 1
+                nbytes += _telem.payload_bytes(p._param)
                 break
+    _record_sharded(n, nbytes)
     return n
 
 
@@ -217,6 +233,18 @@ def shard_tensor(t: torch.Tensor, spec: Optional[P], mesh: Mesh) -> torch.Tensor
                              f"over {axes}")
         step = t.shape[d] // n
         t = t.narrow(d, idx * step, step)
+    return t
+
+
+def local_part(t: torch.Tensor, data_axes, mesh: Mesh, stacked: bool = False) -> torch.Tensor:
+    """This rank's part of a global batch tensor whose dims ``data_axes``
+    (``spec_axes`` of a data spec) split over ``mesh``, each dim one later
+    for a stacked run; a dim past ``t``'s last is left whole. The one cut
+    of a batch that both the trainers and ``DeviceFeed`` make."""
+    for d, axes in data_axes:
+        d += int(stacked)
+        if d < t.dim():
+            t = shard_tensor(t, P(*([None] * d), axes), mesh)
     return t
 
 

@@ -34,8 +34,12 @@ offset), the cells and the final LN + decoder (``_LCHeadStage``) on the
 model's own child blocks; under ``tp_mode="partitioned"`` the cells run
 ``parallel.megatron``'s causal branch.
 
-Not ported: ``make_feed`` raises (``engine/async_feed.DeviceFeed``, ROADMAP
-A7); ``_record_telemetry`` for the telemetry layer.
+``make_feed(source, trainer)`` (:261-263) wraps ``TokenWindows`` (or any
+source of (x, y) batches) in ``engine.async_feed.DeviceFeed.for_trainer``:
+the batches are staged and copied on a side stream ahead of the step, each
+rank's part of ``P(dp, sp)`` cut on the host. With telemetry on,
+``_record_telemetry`` adds the ring's ``ppermute`` bytes (the reference's
+estimate, :402-407) to the fused step's.
 
 The kernels take head dims up to 256 (16, 32, 64, 128 and 256 instantiated,
 others zero-padded by their wrappers): ``dryrun_multichip``'s shape, units
@@ -51,6 +55,8 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError, env
+from .. import telemetry as _telem
+from ..engine import async_feed as _feed
 from ..ndarray import NDArray
 from ..gluon.block import HybridBlock
 from ..gluon import nn
@@ -265,11 +271,9 @@ class TokenWindows:
 
 
 def make_feed(source, trainer, depth=None):
-    """Not ported: the reference lands batches pre-sharded through
-    ``engine/async_feed.DeviceFeed``; pass ``TokenWindows``' batches to
-    ``trainer.step``."""
-    raise MXNetError("make_feed: engine/async_feed.DeviceFeed is not ported yet "
-                     "(ROADMAP A7); pass TokenWindows' (x, y) batches to trainer.step")
+    """Batches land on the trainer's device as this rank's part of its
+    ``P(dp, sp)`` input spec, copied ahead of the step."""
+    return _feed.DeviceFeed.for_trainer(source, trainer, depth=depth, name="long_context")
 
 
 def token_cross_entropy(logits, labels):
@@ -315,6 +319,15 @@ class LongContextTrainer(DataParallelTrainer):
         stack.enter_context(activate(self.mesh, self._sp_axis))
         stack.enter_context(sequence_axis(self._sp_axis))
         return stack
+
+    def _record_telemetry(self, sig, examples, steps):
+        if self._sp_degree > 1:
+            ndp = self.mesh.axis_size(self.batch_axis)
+            nbytes, calls = self._ring_step_bytes(
+                (sig[0][0] * ndp, sig[0][1] * self._sp_degree))
+            _telem.record_comm("ppermute", nbytes * steps, store="mesh",
+                               calls=calls * steps, axis="sp")
+        super()._record_telemetry(sig, examples, steps)
 
     def _ring_step_bytes(self, x_shape):
         """The reference's estimate of a step's ppermute wire bytes a rank:

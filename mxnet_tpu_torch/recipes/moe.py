@@ -23,8 +23,10 @@ Counterpart of ``mxnet_tpu/recipes/moe.py``. ``MoETrainer`` (:75) is a
 
 The dropped-token count stays a device tensor on the trainer and is read at
 ``drain()`` (this rank's, ``dropped_tokens``) or summed over the mesh by
-``global_dropped_tokens()`` (a collective every rank calls): the port has
-no telemetry layer yet (ROADMAP A7). ``last_assignments`` holds the last
+``global_dropped_tokens()`` (a collective every rank calls); with telemetry
+on, each drain books that delta into ``mx_moe_dropped_tokens_total``
+(reference :313-331), and a step books its all-to-all wire bytes
+(``_a2a_step_bytes``, :359). ``last_assignments`` holds the last
 step's routing on this rank (each cell's expert per token and choice, -1
 where dropped). On the card the step is captured as a CUDA graph where
 ``DataParallelTrainer`` captures it (NCCL groups): the dropped count is
@@ -51,6 +53,7 @@ import torch.distributed as dist
 
 from ..base import MXNetError
 from .. import optimizer as opt_mod
+from .. import telemetry as _telem
 from ..parallel import moe as _moe
 from ..parallel.data_parallel import DataParallelTrainer
 from ..parallel.mesh import P, activate, current_mesh, require_axis
@@ -162,8 +165,11 @@ class MoETrainer(DataParallelTrainer):
         """Wait for the issued steps; add this rank's dropped assignments
         since the last drain to ``dropped_tokens``."""
         super().drain()
-        self.dropped_tokens += int(self._dropped.item())
+        n = int(self._dropped.item())
+        self.dropped_tokens += n
         self._dropped.zero_()
+        if _telem._ENABLED:
+            _telem.record_moe_dropped(n, source="moe")
 
     def global_dropped_tokens(self) -> int:
         """``dropped_tokens`` summed over the mesh (after a drain on every
@@ -202,6 +208,14 @@ class MoETrainer(DataParallelTrainer):
                 comm_dtype=self._comm_dtype)
             calls += 4
         return total, calls
+
+    def _record_telemetry(self, sig, examples, steps):
+        if self._ep_degree > 1:
+            n = self.mesh.axis_size(self.batch_axis) * self._ep_degree
+            nbytes, calls = self._a2a_step_bytes((sig[0][0] * n,) + tuple(sig[0][1:]))
+            _telem.record_comm("all_to_all", nbytes * steps, store="mesh",
+                               calls=calls * steps, axis="ep")
+        super()._record_telemetry(sig, examples, steps)
 
 
 # -- the recipe triple ------------------------------------------------------------------

@@ -7,7 +7,9 @@
   run a collective and find neither loaded, and two that run a ring
   attention and a sharded-update reduce-scatter and find neither loaded,
   and a fresh interpreter that loads a trainer states file and a
-  ``.params`` file written by the reference and finds neither loaded).
+  ``.params`` file written by the reference and finds neither loaded; the
+  telemetry registry, the tracing plane and the async feed are among the
+  modules the fresh interpreter imports).
 - With no CUDA device, the default context raises instead of running on the
   CPU; the kernel build raises without ``nvcc``; ``chip_smoke.py`` exits
   non-zero and prints no result without a card, and without the repository
@@ -91,7 +93,8 @@ def test_fresh_interpreter_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.models.lenet, mxnet_tpu_torch.models.mlp, "
             "mxnet_tpu_torch.serialization, mxnet_tpu_torch.ndarray.random, "
             "mxnet_tpu_torch.ndarray.linalg, mxnet_tpu_torch.ops.linalg, "
-            "mxnet_tpu_torch.ops.random_sample\n"
+            "mxnet_tpu_torch.ops.random_sample, mxnet_tpu_torch.telemetry, "
+            "mxnet_tpu_torch.telemetry.tracing, mxnet_tpu_torch.engine.async_feed\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")

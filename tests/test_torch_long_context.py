@@ -15,8 +15,9 @@
   gradient of the same loss, and the port's dp1 x sp4 against its dp4 x sp1
   (the reference's ``tests/test_recipes.py:396`` claim: sequence sharding is
   a layout, not a model change).
-- ``TokenWindows``; ``make_feed`` raises naming ROADMAP; the registry
-  lists both recipes; the ranks load neither jax nor the reference.
+- ``TokenWindows``; ``make_feed`` gives a ``DeviceFeed`` of its batches
+  (``tests/test_torch_async_feed.py`` holds it against the reference); the
+  registry lists both recipes; the ranks load neither jax nor the reference.
 
 Tolerances (float32; only the order of summation differs, plus the ring's
 merge of per-hop (O, LSE) against the reference's running (num, den, max)):
@@ -294,8 +295,13 @@ def test_token_windows_and_refusals(monkeypatch):
     np.testing.assert_array_equal(y0.ravel(), x0.ravel() + 1)
     with pytest.raises(mt.MXNetError, match="too short"):
         lc.TokenWindows(np.arange(5), batch_size=4, seq_len=8)
-    with pytest.raises(mt.MXNetError, match="ROADMAP A7"):
-        lc.make_feed(src, None)
+    net = lc.make_model(VOCAB, seq_len=8, ctx=mt.cpu(), **CFG)
+    tr = lc.make_trainer(net, make_mesh({"dp": 1, "sp": 1}, devices=[mt.cpu()]))
+    feed = lc.make_feed(src, tr)
+    fx, fy = next(feed)
+    feed.close()
+    np.testing.assert_array_equal(fx.numpy(), x0)
+    np.testing.assert_array_equal(fy.numpy(), y0)
     assert get_recipe("moe").name == "moe"
     assert list_recipes() == ["moe", "long_context"]
     assert get_recipe("long_context").build_trainer is lc.make_trainer
